@@ -1,0 +1,317 @@
+"""Kernel backend ``cuda:hopper`` — the counterpart of ``tpu:pallas``.
+
+Counterpart of gt4py_tpu/cartesian/backend/pallas_backend.py. The stencil
+is rendered to CUDA C++ by cuda_codegen.py (one of two hand-written kernel
+skeletons, ``plane`` or ``column``), compiled on first use with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, cached on disk by
+content hash under ``.gt_cache/torch/cuda/``, and bound with ``ctypes`` —
+the build model of gt4py_tpu/cartesian/backend/c_backend.py:52-108.
+
+Dispatch:
+- CUDA tensors: launch the generated kernels, one launch per vertical loop
+  on the current stream, or raise :class:`CudaUnsupported` naming the
+  construct. Unlike pallas_backend.py:64-121 there is no silent fallback.
+- CPU tensors: run the plain version (torch_backend.run_plain) and record
+  ``kernel_strategy = "plain"``.
+
+Each skeleton has one :class:`KernelWrapper` (``PLANE``, ``COLUMN``) whose
+``launches`` counts the launches of its kernels, so a run can show that its
+main path went through them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from gt4py_tpu_torch.cartesian.backend.base import Backend, register
+from gt4py_tpu_torch.cartesian.backend.cuda_codegen import (
+    NOTHING_LAUNCHED,
+    CudaUnsupported,
+    KernelModule,
+    generate,
+)
+from gt4py_tpu_torch.cartesian.backend.torch_backend import call_device, run_plain
+from gt4py_tpu_torch.cartesian.definitions import AccessKind
+from gt4py_tpu_torch.core.ndarray_utils import numpy_dtype, torch_dtype
+
+#: ``--fmad=false`` keeps a*b+c as a rounded product and a rounded sum, as
+#: the eager plain version computes it (the role of -ffp-contract=off in
+#: c_backend.py:67-69); no fast-math.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LL = ctypes.c_longlong
+_LIB_CACHE: dict[str, ctypes.CDLL] = {}
+_LIB_LOCK = threading.Lock()
+
+
+class CudaBuildError(RuntimeError):
+    pass
+
+
+class KernelWrapper:
+    """One hand-written kernel skeleton. ``launches`` counts its kernel
+    launches; it grows only where a kernel is launched."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+    def launch(self, fn, args) -> None:
+        rc = fn(*args)
+        if rc == NOTHING_LAUNCHED:
+            return
+        if rc != 0:
+            raise RuntimeError(
+                f"{self.name} kernel launch failed: CUDA error {rc}"
+            )
+        self.launches += 1
+
+
+PLANE = KernelWrapper("plane")
+COLUMN = KernelWrapper("column")
+WRAPPERS = {"plane": PLANE, "column": COLUMN}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
+def build_command(source_path: str, library_path: str) -> list[str]:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", library_path, source_path]
+
+
+def _cache_dir() -> str:
+    from gt4py_tpu_torch.cartesian.caching import GT_CACHE_ROOT
+
+    path = os.path.join(GT_CACHE_ROOT, "cuda")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """Compile (once per source hash, on disk) and load."""
+    key = hashlib.sha1(source.encode()).hexdigest()[:20]
+    with _LIB_LOCK:
+        lib = _LIB_CACHE.get(key)
+        if lib is not None:
+            return lib
+        cache = _cache_dir()
+        so_path = os.path.join(cache, f"gt_{key}.so")
+        if not os.path.isfile(so_path):
+            cu_path = os.path.join(cache, f"gt_{key}.cu")
+            tmp = so_path + f".tmp{os.getpid()}"
+            with open(cu_path, "w") as f:
+                f.write(source)
+            try:
+                proc = subprocess.run(
+                    build_command(cu_path, tmp),
+                    capture_output=True,
+                    timeout=600,
+                    check=False,
+                )
+            except (OSError, subprocess.TimeoutExpired) as exc:
+                raise CudaBuildError(f"nvcc unavailable: {exc}") from exc
+            if proc.returncode != 0:
+                raise CudaBuildError(
+                    f"nvcc failed for {cu_path}:\n{proc.stderr.decode(errors='replace')}"
+                )
+            os.replace(tmp, so_path)
+        lib = ctypes.CDLL(so_path)
+        _LIB_CACHE[key] = lib
+        return lib
+
+
+def _bind(lib: ctypes.CDLL, name: str):
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(_LL),
+        ctypes.POINTER(_LL),
+        ctypes.POINTER(_LL),
+        ctypes.POINTER(ctypes.c_double),
+        ctypes.POINTER(_LL),
+        _LL,
+        _LL,
+        _LL,
+        ctypes.c_void_p,  # cudaStream_t: a pointer, never a 32-bit int
+        ctypes.c_int,  # noalias
+    ]
+    return fn
+
+
+def overlapping(arrays: dict[str, torch.Tensor]) -> list[tuple[str, str]]:
+    """Pairs of field roles whose tensors' byte ranges overlap."""
+
+    def span(t):
+        extent = sum((n - 1) * st for n, st in zip(t.shape, t.stride())) + 1
+        return t.data_ptr(), t.data_ptr() + extent * t.element_size()
+
+    spans = sorted(
+        (span(t), name) for name, t in arrays.items() if t.numel() > 0
+    )
+    pairs = []
+    for a, ((lo_a, hi_a), name_a) in enumerate(spans):
+        for (lo_b, _), name_b in spans[a + 1:]:
+            if lo_b >= hi_a:
+                break
+            pairs.append((name_a, name_b))
+    return pairs
+
+
+def alias_hazard(module: KernelModule, pairs: list[tuple[str, str]]) -> Optional[str]:
+    """Why the kernels cannot serve these aliased roles, or None. Aliasing
+    is safe where every thread reads a shared buffer only at points it
+    writes itself (the in-place update idiom ``stage(u_in=u, u_out=u)``)."""
+    for a, b in pairs:
+        for w, r in ((a, b), (b, a)):
+            if w in module.written and r in module.nonlocal_reads:
+                return (
+                    f"fields '{w}' and '{r}' share memory; '{w}' is written while "
+                    f"'{r}' is read at points other threads write (pass separate buffers)"
+                )
+    return None
+
+
+@register
+class CudaHopperBackend(Backend):
+    name = "cuda:hopper"
+    storage_info = {"alignment": 128, "device": "cuda"}
+
+    def __init__(self, analyzed, options):
+        super().__init__(analyzed, options)
+        self.module: Optional[KernelModule] = None
+        #: why the kernels cannot serve this stencil (None: they can)
+        self.unsupported: Optional[str] = None
+        try:
+            self.module = generate(analyzed)
+        except CudaUnsupported as exc:
+            self.unsupported = str(exc)
+        self._fns: Optional[list] = None
+        self.written = [
+            name
+            for name, info in analyzed.field_infos.items()
+            if info.access & AccessKind.WRITE
+        ]
+
+    @property
+    def strategy(self) -> Optional[str]:
+        """The kernel skeleton serving this stencil on a card."""
+        return self.module.strategy if self.module is not None else None
+
+    def run(self, arrays, scalars, domain, origins) -> dict[str, Any]:
+        device = call_device(arrays)
+        if device.type == "cpu":
+            self.last_strategy = "plain"
+            return run_plain(self.analyzed, arrays, scalars, domain, origins)
+        if device.type != "cuda":
+            raise ValueError(f"cuda:hopper runs on CUDA or CPU tensors, not {device}")
+        if self.module is None:
+            raise CudaUnsupported(
+                f"stencil '{self.analyzed.name}' on cuda:hopper: {self.unsupported}"
+            )
+        self.prepare(arrays, scalars, domain, origins)()
+        self.last_strategy = self.module.strategy
+        return {n: arrays[n] for n in self.written if n in arrays}
+
+    def _functions(self) -> list:
+        if self._fns is None:
+            lib = load_library(self.module.source)
+            self._fns = [_bind(lib, name) for name in self.module.launchers]
+        return self._fns
+
+    def prepare(self, arrays, scalars, domain, origins):
+        """Pack the launch arguments of one stencil application on CUDA
+        tensors (allocating its zero-filled temporaries) and return a
+        callable that launches its kernels, one per vertical loop, on the
+        current stream. ``run`` calls it once; calling it again repeats the
+        launches on the same buffers, which is how a timing loop measures
+        the kernels without the packing."""
+        device = call_device(arrays)
+        mod = self.module
+        ni, nj, nk = (int(d) for d in domain)
+        nslots = max(len(mod.slots), 1)
+        ptrs = (ctypes.c_void_p * nslots)()
+        shapes = (_LL * max(mod.n_shape_slots, 1))()
+        strides = (_LL * max(mod.n_shape_slots, 1))()
+        orig = (_LL * (3 * nslots))()
+        keepalive = []
+        for m in mod.slots:
+            if m.is_temp:
+                e = m.extent
+                # (K, I, J) with J contiguous, zero-filled like the plain
+                # version's temporaries
+                buf = torch.zeros(
+                    (nk + e.k[1] - e.k[0], ni + e.i[1] - e.i[0], nj + e.j[1] - e.j[0]),
+                    dtype=torch_dtype(m.dtype),
+                    device=device,
+                )
+                keepalive.append(buf)
+                t = buf.permute(1, 2, 0)
+                o = (-e.i[0], -e.j[0], -e.k[0])
+            else:
+                t = arrays.get(m.name)
+                if t is None:
+                    continue  # AccessKind.NONE: never dereferenced
+                if numpy_dtype(t.dtype) != m.dtype:
+                    raise TypeError(
+                        f"Field '{m.name}': expected dtype {m.dtype}, got {t.dtype}"
+                    )
+                if t.device != device or t.ndim != m.ndim:
+                    raise ValueError(
+                        f"Field '{m.name}': expected a {m.ndim}-d tensor on {device}"
+                    )
+                o = origins.get(m.name, (0, 0, 0))
+            ptrs[m.index] = t.data_ptr()
+            item = t.element_size()
+            for d in range(t.ndim):
+                shapes[m.shape_off + d] = t.shape[d]
+                strides[m.shape_off + d] = t.stride(d) * item
+            for ax in range(3):
+                orig[m.index * 3 + ax] = int(o[ax])
+        n_f = sum(1 for s in mod.scalars if s[1] == "f")
+        fsc = (ctypes.c_double * max(n_f, 1))()
+        isc = (_LL * max(len(mod.scalars) - n_f, 1))()
+        for name, kind, slot, _ in mod.scalars:
+            value = scalars.get(name)
+            if value is None:
+                continue
+            if kind == "f":
+                fsc[slot] = float(value)
+            else:
+                isc[slot] = int(np.asarray(value))
+        pairs = overlapping(arrays)
+        hazard = alias_hazard(mod, pairs)
+        if hazard is not None:
+            raise CudaUnsupported(f"stencil '{self.analyzed.name}': {hazard}")
+        noalias = int(not pairs)
+        wrapper = WRAPPERS[mod.strategy]
+        fns = self._functions()
+
+        def launch() -> None:
+            with torch.cuda.device(device):
+                stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+                for fn in fns:
+                    wrapper.launch(
+                        fn, (ptrs, shapes, strides, orig, fsc, isc, ni, nj, nk, stream, noalias)
+                    )
+
+        launch.keepalive = (keepalive, arrays)
+        return launch

@@ -1,0 +1,52 @@
+"""Environment-driven configuration flags.
+
+Copied from gt4py_tpu/config.py; imports renamed. Only the build and cache
+settings that the port reads are kept; the debug and JIT flags of the
+JAX package belong to ``next/``, which is not ported yet. Values are read
+once at import; tests may monkeypatch module attributes directly.
+
+Environment variables honored (reference names kept where meaningful):
+
+- ``GT_CACHE_ROOT``           cache root directory (default ``./.gt_cache``);
+                              the port keeps its caches under ``<root>/torch``
+- ``GT_CACHE_DIR_NAME``       subdirectory name for per-project caches
+- ``GT4PY_BUILD_CACHE_LIFETIME``  ``session`` | ``persistent``
+- ``GT4PY_COLLECT_METRICS_LEVEL`` (instrumentation/metrics.py)
+- ``GT4PY_DUMP_METRICS_AT_EXIT``
+"""
+
+from __future__ import annotations
+
+import enum
+import os
+import tempfile
+
+
+class BuildCacheLifetime(enum.Enum):
+    """Reference: next/config.py:110 (SESSION deletes at exit, PERSISTENT keeps)."""
+
+    SESSION = "session"
+    PERSISTENT = "persistent"
+
+
+#: Root of all persistent caches (reference GT_CACHE_ROOT, cartesian/config.py:83).
+#: The port's own subdirectory, so it never shares fingerprints with gt4py_tpu.
+CACHE_ROOT: str = os.path.join(
+    os.environ.get("GT_CACHE_ROOT", os.path.join(os.getcwd(), ".gt_cache")), "torch"
+)
+
+#: Per-project cache directory name (reference GT_CACHE_DIR_NAME).
+CACHE_DIR_NAME: str = os.environ.get("GT_CACHE_DIR_NAME", "gt4py_tpu_torch")
+
+_lifetime_raw = os.environ.get("GT4PY_BUILD_CACHE_LIFETIME", "persistent").lower()
+BUILD_CACHE_LIFETIME: BuildCacheLifetime = BuildCacheLifetime(_lifetime_raw)
+
+
+def cache_dir() -> str:
+    """Resolved cache directory honoring the lifetime setting."""
+    if BUILD_CACHE_LIFETIME is BuildCacheLifetime.SESSION:
+        d = os.path.join(tempfile.gettempdir(), f"gt4py_tpu_torch_session_{os.getuid()}")
+    else:
+        d = os.path.join(CACHE_ROOT, CACHE_DIR_NAME)
+    os.makedirs(d, exist_ok=True)
+    return d

@@ -1,0 +1,6 @@
+from gt4py_tpu_torch.core.definitions import (  # noqa: F401
+    DeviceType,
+    DType,
+    LITERAL_FLOAT_PRECISION,
+    LITERAL_INT_PRECISION,
+)

@@ -1,0 +1,357 @@
+"""The port's cartesian path against the JAX package, on the CPU.
+
+Every stencil runs through the port's ``torch`` backend and its
+``cuda:hopper`` backend (CPU tensors: the plain version) on inputs made
+with ``np.random.default_rng(seed)``, and every field — written ones
+included, halo points included — is compared with:
+
+1. the JAX package's ``numpy`` backend in float64, exactly (rtol 1e-12);
+2. its ``tpu:pallas`` backend in interpret mode in float32 (as
+   tests/cartesian_tests/test_pallas_backend.py runs it), at rtol 1e-5 and
+   atol 1e-6: both sides compute in float32, but XLA may fuse a product and
+   a sum into one rounding and orders nothing else differently, so the
+   results differ by a few ulp, growing along the 8-level recurrences.
+
+Data crosses between the packages only as NumPy arrays.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gt4py_tpu import storage as ref_storage
+from gt4py_tpu.cartesian import gtscript
+from gt4py_tpu.cartesian.gtscript import BACKWARD, FORWARD, PARALLEL, computation, interval
+from gt4py_tpu_torch import storage
+from gt4py_tpu_torch.cartesian import gtscript as port_gtscript
+
+from . import torch_stencil_defs as defs
+from .cartesian_tests import stencil_defs as ref_defs
+
+PORT_BACKENDS = ["torch", "cuda:hopper"]
+HALO = 2
+F32_RTOL, F32_ATOL = 1e-5, 1e-6
+
+
+def _shape(entry):
+    return (12 + 2 * HALO, 11 + 2 * HALO, max(6, entry["min_k"]))
+
+
+def _inputs(names, shape, seed=0, dtype=np.float64):
+    rng = np.random.default_rng(seed)
+    return {n: rng.random(shape).astype(dtype) for n in names}
+
+
+def _field_names(stencil):
+    return [n for n, info in stencil.field_info.items() if info is not None]
+
+
+def _run_reference(name, entry, host, shape):
+    st = gtscript.stencil(
+        backend="numpy", definition=getattr(ref_defs, name), externals=entry["externals"]
+    )
+    arrays = {n: v.copy() for n, v in host.items()}
+    st(**arrays, **entry["scalars"], origin=(HALO, HALO, 0),
+       domain=(shape[0] - 2 * HALO, shape[1] - 2 * HALO, shape[2]))
+    return arrays
+
+
+def _as_kind(value, kind, backend):
+    if kind == "numpy":
+        return value.copy()
+    if kind == "tensor":
+        return torch.from_numpy(value.copy())
+    return storage.from_array(value, backend=backend, device="cpu")
+
+
+def _to_numpy(value):
+    return np.asarray(value) if not isinstance(value, torch.Tensor) else value.numpy()
+
+
+@pytest.mark.parametrize("kind", ["storage", "numpy", "tensor"])
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+@pytest.mark.parametrize("name", sorted(defs.REGISTRY))
+def test_matches_numpy_backend_exactly(name, backend, kind):
+    entry = defs.REGISTRY[name]
+    shape = _shape(entry)
+    st = port_gtscript.stencil(
+        backend=backend, definition=entry["definition"], externals=entry["externals"]
+    )
+    host = _inputs(_field_names(st), shape, seed=3)
+    expected = _run_reference(name, entry, host, shape)
+    args = {n: _as_kind(v, kind, backend) for n, v in host.items()}
+    info = {}
+    st(**args, **entry["scalars"], origin=(HALO, HALO, 0),
+       domain=(shape[0] - 2 * HALO, shape[1] - 2 * HALO, shape[2]), exec_info=info)
+    assert info["kernel_strategy"] == "plain"
+    for n in host:
+        np.testing.assert_allclose(_to_numpy(args[n]), expected[n], rtol=1e-12, atol=0, err_msg=n)
+
+
+# --- float32 against the Pallas kernels in interpret mode ----------------------
+#
+# JAX-side float32 definitions of hdiff and tridiag (stencil_defs.py has
+# float64 ones, plus the generic vadv used here as is).
+
+
+def _ref_hdiff_generic(
+    in_field: "gtscript.Field['dt']",
+    out_field: "gtscript.Field['dt']",
+    coeff: "gtscript.Field['dt']",
+):
+    with computation(PARALLEL), interval(...):
+        lap_field = 4.0 * in_field[0, 0, 0] - (
+            in_field[1, 0, 0] + in_field[-1, 0, 0] + in_field[0, 1, 0] + in_field[0, -1, 0]
+        )
+        res = lap_field[1, 0, 0] - lap_field[0, 0, 0]
+        flx_field = 0.0 if (res * (in_field[1, 0, 0] - in_field[0, 0, 0])) > 0 else res
+        res = lap_field[0, 1, 0] - lap_field[0, 0, 0]
+        fly_field = 0.0 if (res * (in_field[0, 1, 0] - in_field[0, 0, 0])) > 0 else res
+        out_field = in_field[0, 0, 0] - coeff[0, 0, 0] * (
+            flx_field[0, 0, 0] - flx_field[-1, 0, 0] + fly_field[0, 0, 0] - fly_field[0, -1, 0]
+        )
+
+
+def _ref_tridiag_generic(
+    inf: "gtscript.Field['dt']",
+    diag: "gtscript.Field['dt']",
+    sup: "gtscript.Field['dt']",
+    rhs: "gtscript.Field['dt']",
+    out: "gtscript.Field['dt']",
+):
+    with computation(FORWARD):
+        with interval(0, 1):
+            sup = sup / diag
+            rhs = rhs / diag
+        with interval(1, None):
+            sup = sup / (diag - sup[0, 0, -1] * inf)
+            rhs = (rhs - inf * rhs[0, 0, -1]) / (diag - sup[0, 0, -1] * inf)
+    with computation(BACKWARD):
+        with interval(-1, None):
+            out = rhs
+        with interval(0, -1):
+            out = rhs - sup * out[0, 0, 1]
+
+
+F32_CASES = {
+    "hdiff": {
+        "port": defs.horizontal_diffusion_generic,
+        "ref": _ref_hdiff_generic,
+        "externals": {},
+        "scalars": {},
+        "shape": (20, 19, 4),
+        "origin": (2, 2, 0),
+        "domain": (16, 15, 4),
+    },
+    "vadv": {
+        "port": defs.vertical_advection_dycore_generic,
+        "ref": ref_defs.vertical_advection_dycore_generic,
+        "externals": defs.VADV_EXTERNALS,
+        "scalars": {"dtr_stage": np.float32(0.15)},
+        "shape": (7, 6, 8),
+        "origin": (0, 0, 0),
+        "domain": (6, 6, 8),
+    },
+    "tridiag": {
+        "port": defs.tridiagonal_solver_generic,
+        "ref": _ref_tridiag_generic,
+        "externals": {},
+        "scalars": {},
+        "shape": (8, 9, 8),
+        "origin": (0, 0, 0),
+        "domain": (8, 9, 8),
+    },
+}
+
+_F32_OPTS = dict(
+    dtypes={"dt": np.float32, "vadv_dt": np.float32},
+    literal_float_precision=32,
+    literal_int_precision=32,
+)
+
+
+def _f32_host(case, names):
+    host = _inputs(names, case["shape"], seed=5, dtype=np.float32)
+    if "diag" in host:  # diagonally dominant system
+        host["diag"] = host["diag"] + np.float32(4.0)
+        host["inf"], host["sup"] = -host["inf"], -host["sup"]
+    if "wcon" in host:  # pivots away from zero
+        host["wcon"] = host["wcon"] * np.float32(0.1)
+    return host
+
+
+@pytest.fixture(scope="module")
+def pallas_results():
+    """The JAX package's tpu:pallas backend, interpret mode, float32."""
+    out = {}
+    for key, case in F32_CASES.items():
+        st = gtscript.stencil(
+            backend="tpu:pallas", definition=case["ref"], externals=case["externals"],
+            rebuild=True, **_F32_OPTS,
+        )
+        host = _f32_host(case, _field_names(st))
+        arrays = {n: v.copy() for n, v in host.items()}
+        st(**arrays, **case["scalars"], origin=case["origin"], domain=case["domain"])
+        out[key] = (host, arrays)
+    return out
+
+
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+@pytest.mark.parametrize("key", sorted(F32_CASES))
+def test_matches_pallas_interpret_float32(key, backend, pallas_results):
+    case = F32_CASES[key]
+    host, expected = pallas_results[key]
+    st = port_gtscript.stencil(
+        backend=backend, definition=case["port"], externals=case["externals"], **_F32_OPTS
+    )
+    fields = {n: storage.from_array(v, backend=backend, device="cpu") for n, v in host.items()}
+    st(**fields, **case["scalars"], origin=case["origin"], domain=case["domain"])
+    for n in host:
+        got = np.asarray(fields[n])
+        assert got.dtype == np.float32
+        np.testing.assert_allclose(got, expected[n], rtol=F32_RTOL, atol=F32_ATOL, err_msg=n)
+
+
+# --- chain ------------------------------------------------------------------------
+
+CHAIN_CASES = {
+    "horizontal_diffusion": {"in_field": "out_field", "out_field": "in_field"},
+    "tridiagonal_solver": {"rhs": "out", "out": "rhs"},
+    "vertical_advection_dycore": {},
+}
+
+
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+@pytest.mark.parametrize("name", sorted(CHAIN_CASES))
+def test_chain_matches_three_reference_calls(name, backend):
+    entry = defs.REGISTRY[name]
+    swap = CHAIN_CASES[name]
+    shape = _shape(entry)
+    domain = (shape[0] - 2 * HALO, shape[1] - 2 * HALO, shape[2])
+    st = port_gtscript.stencil(
+        backend=backend, definition=entry["definition"], externals=entry["externals"]
+    )
+    host = _inputs(_field_names(st), shape, seed=9)
+    if "diag" in host:
+        host["diag"] = host["diag"] + 4.0
+
+    ref = gtscript.stencil(
+        backend="numpy", definition=getattr(ref_defs, name), externals=entry["externals"]
+    )
+    roles = {n: v.copy() for n, v in host.items()}
+    for _ in range(3):
+        ref(**roles, **entry["scalars"], origin=(HALO, HALO, 0), domain=domain)
+        roles = {r: roles[swap.get(r, r)] for r in roles}
+
+    fields = {
+        n: storage.from_array(v, backend=backend, device="cpu", aligned_index=(HALO, HALO, 0))
+        for n, v in host.items()
+    }
+    info = {}
+    st.chain(3, **fields, **entry["scalars"], swap=swap, domain=domain, exec_info=info)
+    assert info["kernel_strategy"] == "plain"
+    for n in host:
+        np.testing.assert_allclose(np.asarray(fields[n]), roles[n], rtol=1e-12, atol=0, err_msg=n)
+
+
+def test_chain_zero_steps_changes_nothing():
+    entry = defs.REGISTRY["horizontal_diffusion"]
+    st = port_gtscript.stencil(backend="torch", definition=entry["definition"])
+    host = _inputs(["in_field", "out_field", "coeff"], (12, 12, 3), seed=1)
+    fields = {n: storage.from_array(v, aligned_index=(2, 2, 0)) for n, v in host.items()}
+    st.chain(0, **fields, swap={"in_field": "out_field", "out_field": "in_field"})
+    for n in host:
+        np.testing.assert_array_equal(np.asarray(fields[n]), host[n])
+
+
+def test_chain_rejects_non_permutation():
+    st = port_gtscript.stencil(backend="torch", definition=defs.copy_stencil)
+    a = storage.zeros((4, 4, 2))
+    b = storage.zeros((4, 4, 2))
+    with pytest.raises(ValueError, match="permutation"):
+        st.chain(2, a, b, swap={"field_a": "field_b"})
+
+
+# --- storage ------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+def test_storage_layout_is_k_leading(backend):
+    s = storage.zeros((5, 6, 7), np.float32, backend=backend, device="cpu")
+    assert s.shape == (5, 6, 7)
+    # (K, I, J) buffer with J contiguous, seen as (I, J, K)
+    assert s.array.stride() == (6, 1, 30)
+    assert s.dtype == np.float32
+
+
+@pytest.mark.parametrize("fn", ["empty", "zeros", "ones"])
+def test_storage_constructors(fn):
+    s = getattr(storage, fn)((3, 4, 2), np.float64, aligned_index=(1, 1, 0))
+    assert s.shape == (3, 4, 2)
+    assert s.__gt_origin__ == (1, 1, 0)
+    assert s.device.type == "cpu"
+    if fn == "ones":
+        assert np.all(np.asarray(s) == 1.0)
+    elif fn == "zeros":
+        assert np.all(np.asarray(s) == 0.0)
+
+
+def test_storage_full_and_data_dims():
+    s = storage.full((3, 4, 2, 3), 2.5, dimensions=("I", "J", "K", "0"))
+    assert s.shape == (3, 4, 2, 3)
+    assert s.__gt_dims__ == ("I", "J", "K", "0")
+    assert s.array.stride()[3] == 1  # data dimension innermost
+    assert np.all(np.asarray(s) == 2.5)
+
+
+def test_storage_validates_arguments():
+    with pytest.raises(ValueError, match="Unknown backend"):
+        storage.zeros((2, 2, 2), backend="tpu:pallas")
+    with pytest.raises(ValueError, match="aligned_index"):
+        storage.zeros((2, 2, 2), aligned_index=(1, 1))
+
+
+def test_from_array_of_reference_storage_keeps_origin_and_dims():
+    """from_array turns the JAX package's state into the port's."""
+    rng = np.random.default_rng(4)
+    ref = ref_storage.from_array(
+        rng.random((6, 5, 4)), backend="numpy", aligned_index=(1, 2, 0),
+        dimensions=("I", "J", "K"),
+    )
+    s = storage.from_array(ref, backend="cuda:hopper", device="cpu")
+    assert s.__gt_origin__ == (1, 2, 0)
+    assert s.__gt_dims__ == ("I", "J", "K")
+    np.testing.assert_array_equal(np.asarray(s), np.asarray(ref))
+
+
+def test_cuda_storage_needs_a_card():
+    """cuda:hopper storages default to the card; with none there is no CPU
+    fallback."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises((AssertionError, RuntimeError)):
+        storage.zeros((4, 4, 4), backend="cuda:hopper")
+
+
+def test_storage_copy_and_setitem():
+    s = storage.from_array(np.arange(24.0).reshape(2, 3, 4))
+    c = s.copy()
+    s[0, 0, 0] = -1.0
+    assert float(np.asarray(c)[0, 0, 0]) == 0.0
+    assert float(np.asarray(s)[0, 0, 0]) == -1.0
+    assert c.array.stride() == s.array.stride()
+
+
+def test_written_numpy_argument_updated_in_place():
+    st = port_gtscript.stencil(backend="cuda:hopper", definition=defs.copy_stencil)
+    a = np.random.default_rng(2).random((4, 5, 3))
+    b = np.zeros_like(a)
+    st(a, b)
+    np.testing.assert_array_equal(a, b)
+
+
+def test_read_only_numpy_argument_rejected_for_dtype():
+    st = port_gtscript.stencil(backend="torch", definition=defs.copy_stencil)
+    a = np.zeros((4, 4, 2), np.float32)
+    with pytest.raises(TypeError, match="dtype"):
+        st(a, a.copy())

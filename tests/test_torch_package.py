@@ -1,0 +1,143 @@
+"""Package rules of the PyTorch/CUDA port (gt4py_tpu_torch).
+
+- No module of the port imports JAX, jaxlib, ml_dtypes or gt4py_tpu: the
+  card's machine has none of them, and importing any gt4py_tpu module
+  imports JAX (gt4py_tpu/__init__.py).
+- Importing the port's public entry points leaves JAX unloaded.
+- The port keeps the JAX package's layer contract
+  (tests/package_tests/test_layering.py) within itself.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+import gt4py_tpu_torch
+
+PKG_ROOT = os.path.dirname(gt4py_tpu_torch.__file__)
+REPO_ROOT = os.path.dirname(PKG_ROOT)
+
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "gt4py_tpu")
+
+ALLOWED = {
+    "eve": set(),
+    "core": {"eve", "config", "cartesian"},
+    "config": set(),
+    "storage": {"core", "eve", "config"},
+    "instrumentation": {"config"},
+    "cartesian": {"core", "eve", "storage", "config", "instrumentation"},
+}
+
+
+def _modules():
+    for dirpath, _, files in os.walk(PKG_ROOT):
+        for fname in sorted(files):
+            if fname.endswith(".py"):
+                yield os.path.join(dirpath, fname)
+
+
+def _imports_of(path: str):
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def _top(module: str) -> str:
+    return module.split(".")[0]
+
+
+@pytest.mark.parametrize(
+    "path", sorted(_modules()), ids=lambda p: os.path.relpath(p, PKG_ROOT)
+)
+def test_no_forbidden_import(path):
+    bad = [m for m in _imports_of(path) if _top(m) in FORBIDDEN]
+    assert not bad, f"{os.path.relpath(path, REPO_ROOT)} imports {bad}"
+
+
+def test_chip_smoke_imports_no_jax():
+    path = os.path.join(REPO_ROOT, "chip_smoke.py")
+    bad = [m for m in _imports_of(path) if _top(m) in FORBIDDEN]
+    assert not bad
+
+
+def test_stencil_defs_helper_imports_no_jax():
+    path = os.path.join(REPO_ROOT, "tests", "torch_stencil_defs.py")
+    bad = [m for m in _imports_of(path) if _top(m) in FORBIDDEN]
+    assert not bad
+
+
+def test_import_leaves_jax_unloaded():
+    code = (
+        "import sys\n"
+        "import gt4py_tpu_torch.cartesian.gtscript, gt4py_tpu_torch.storage\n"
+        "import gt4py_tpu_torch.cartesian.backend\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'ml_dtypes', 'gt4py_tpu')]\n"
+        "print(','.join(sorted(bad)))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=REPO_ROOT,
+        capture_output=True,
+        text=True,
+        timeout=120,
+        check=True,
+    )
+    assert out.stdout.strip() == ""
+
+
+def test_layer_contract():
+    violations = []
+    for path in _modules():
+        rel = os.path.relpath(path, PKG_ROOT)
+        own = rel.split(os.sep)[0].removesuffix(".py")
+        if own not in ALLOWED:
+            continue
+        for mod in _imports_of(path):
+            parts = mod.split(".")
+            if parts[0] != "gt4py_tpu_torch" or len(parts) < 2:
+                continue
+            dep = parts[1]
+            if dep != own and dep not in ALLOWED[own]:
+                violations.append(f"{rel}: {own} -> {dep} ({mod})")
+    assert not violations, "layer contract violations:\n" + "\n".join(violations)
+
+
+def test_copied_modules_name_their_origin():
+    """Every module copied from gt4py_tpu names its origin in its docstring."""
+    missing = []
+    for path in _modules():
+        rel = os.path.relpath(path, PKG_ROOT)
+        origin = os.path.join(REPO_ROOT, "gt4py_tpu", rel)
+        if not os.path.isfile(origin) or rel.endswith("__init__.py"):
+            continue
+        with open(path) as f:
+            doc = ast.get_docstring(ast.parse(f.read())) or ""
+        if "gt4py_tpu/" not in doc:
+            missing.append(rel)
+    assert not missing, f"no origin in the docstring of {missing}"
+
+
+def test_own_registries():
+    """The port's backends live in its own registries, not gt4py_tpu's."""
+    from gt4py_tpu_torch.cartesian import backend
+    from gt4py_tpu_torch.storage import layout
+
+    assert sorted(backend.REGISTRY) == ["cuda:hopper", "torch"]
+    assert sorted(layout.REGISTRY) == ["cuda:hopper", "torch"]
+
+
+def test_reference_registry_untouched():
+    import gt4py_tpu_torch.cartesian.backend  # noqa: F401
+    from gt4py_tpu.cartesian import backend as ref_backend
+
+    assert "torch" not in ref_backend.REGISTRY
+    assert "cuda:hopper" not in ref_backend.REGISTRY

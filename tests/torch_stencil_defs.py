@@ -1,0 +1,533 @@
+"""Stencil definitions and NumPy oracles for the port's tests and chip_smoke.py.
+
+Copied from tests/cartesian_tests/stencil_defs.py (hdiff, vadv and tridiag at
+:111-310, plus registry stencils of the two kernel classes), with the
+annotations resolved against ``gt4py_tpu_torch``'s gtscript. This module
+imports no JAX, so it also serves on a machine without it. The ``*_generic``
+variants take their dtype from the ``dtypes={"dt": ...}`` build option, for
+float32 runs; the generic hdiff is bench.py's ``hdiff32`` (float literals, so
+that with ``literal_float_precision=32`` it computes in float32 throughout).
+"""
+
+import numpy as np
+
+from gt4py_tpu_torch.cartesian import gtscript
+from gt4py_tpu_torch.cartesian.gtscript import (
+    BACKWARD,
+    FORWARD,
+    PARALLEL,
+    I,
+    J,
+    K,
+    ceil,
+    computation,
+    cos,
+    exp,
+    floor,
+    horizontal,
+    interval,
+    log,
+    region,
+    sin,
+    sqrt,
+)
+
+Field3D = gtscript.Field[np.float64]
+
+
+def copy_stencil(field_a: Field3D, field_b: Field3D):
+    with computation(PARALLEL), interval(...):
+        field_b = field_a[0, 0, 0]
+
+
+def horizontal_diffusion(in_field: Field3D, out_field: Field3D, coeff: Field3D):
+    with computation(PARALLEL), interval(...):
+        lap_field = 4.0 * in_field[0, 0, 0] - (
+            in_field[1, 0, 0] + in_field[-1, 0, 0] + in_field[0, 1, 0] + in_field[0, -1, 0]
+        )
+        res = lap_field[1, 0, 0] - lap_field[0, 0, 0]
+        flx_field = 0 if (res * (in_field[1, 0, 0] - in_field[0, 0, 0])) > 0 else res
+        res = lap_field[0, 1, 0] - lap_field[0, 0, 0]
+        fly_field = 0 if (res * (in_field[0, 1, 0] - in_field[0, 0, 0])) > 0 else res
+        out_field = in_field[0, 0, 0] - coeff[0, 0, 0] * (
+            flx_field[0, 0, 0] - flx_field[-1, 0, 0] + fly_field[0, 0, 0] - fly_field[0, -1, 0]
+        )
+
+
+def validate_horizontal_diffusion(in_field, coeff):
+    """NumPy oracle for hdiff over the interior [2:-2, 2:-2]."""
+    lap = 4.0 * in_field[1:-1, 1:-1] - (
+        in_field[2:, 1:-1] + in_field[:-2, 1:-1] + in_field[1:-1, 2:] + in_field[1:-1, :-2]
+    )
+    res1 = lap[1:, 1:-1] - lap[:-1, 1:-1]
+    flx = np.where(res1 * (in_field[2:-1, 2:-2] - in_field[1:-2, 2:-2]) > 0, 0.0, res1)
+    res2 = lap[1:-1, 1:] - lap[1:-1, :-1]
+    fly = np.where(res2 * (in_field[2:-2, 2:-1] - in_field[2:-2, 1:-2]) > 0, 0.0, res2)
+    return in_field[2:-2, 2:-2] - coeff[2:-2, 2:-2] * (
+        flx[1:, :] - flx[:-1, :] + fly[:, 1:] - fly[:, :-1]
+    )
+
+
+def tridiagonal_solver(inf: Field3D, diag: Field3D, sup: Field3D, rhs: Field3D, out: Field3D):
+    with computation(FORWARD):
+        with interval(0, 1):
+            sup = sup / diag
+            rhs = rhs / diag
+        with interval(1, None):
+            sup = sup / (diag - sup[0, 0, -1] * inf)
+            rhs = (rhs - inf * rhs[0, 0, -1]) / (diag - sup[0, 0, -1] * inf)
+    with computation(BACKWARD):
+        with interval(-1, None):
+            out = rhs
+        with interval(0, -1):
+            out = rhs - sup * out[0, 0, 1]
+
+
+def validate_tridiagonal_solver(inf, diag, sup, rhs):
+    """Thomas algorithm column-by-column (oracle)."""
+    ni, nj, nk = inf.shape
+    out = np.zeros_like(rhs)
+    for i in range(ni):
+        for j in range(nj):
+            a, b, c, d = inf[i, j], diag[i, j].copy(), sup[i, j].copy(), rhs[i, j].copy()
+            c[0] = c[0] / b[0]
+            d[0] = d[0] / b[0]
+            for k in range(1, nk):
+                m = b[k] - c[k - 1] * a[k]
+                c[k] = c[k] / m
+                d[k] = (d[k] - a[k] * d[k - 1]) / m
+            out[i, j, nk - 1] = d[nk - 1]
+            for k in range(nk - 2, -1, -1):
+                out[i, j, k] = d[k] - c[k] * out[i, j, k + 1]
+    return out
+
+
+def vertical_advection_dycore(
+    utens_stage: Field3D,
+    u_stage: Field3D,
+    wcon: Field3D,
+    u_pos: Field3D,
+    utens: Field3D,
+    *,
+    dtr_stage: float,
+):
+    from __externals__ import BET_M, BET_P
+
+    with computation(FORWARD):
+        with interval(0, 1):
+            gcv = 0.25 * (wcon[1, 0, 1] + wcon[0, 0, 1])
+            cs = gcv * BET_M
+
+            ccol = gcv * BET_P
+            bcol = dtr_stage - ccol[0, 0, 0]
+
+            correction_term = -cs * (u_stage[0, 0, 1] - u_stage[0, 0, 0])
+            dcol = (
+                dtr_stage * u_pos[0, 0, 0] + utens[0, 0, 0] + utens_stage[0, 0, 0] + correction_term
+            )
+
+            divided = 1.0 / bcol[0, 0, 0]
+            ccol = ccol[0, 0, 0] * divided
+            dcol = dcol[0, 0, 0] * divided
+
+        with interval(1, -1):
+            gav = -0.25 * (wcon[1, 0, 0] + wcon[0, 0, 0])
+            gcv = 0.25 * (wcon[1, 0, 1] + wcon[0, 0, 1])
+
+            as_ = gav * BET_M
+            cs = gcv * BET_M
+
+            acol = gav * BET_P
+            ccol = gcv * BET_P
+            bcol = dtr_stage - acol[0, 0, 0] - ccol[0, 0, 0]
+
+            correction_term = -as_ * (u_stage[0, 0, -1] - u_stage[0, 0, 0]) - cs * (
+                u_stage[0, 0, 1] - u_stage[0, 0, 0]
+            )
+            dcol = (
+                dtr_stage * u_pos[0, 0, 0] + utens[0, 0, 0] + utens_stage[0, 0, 0] + correction_term
+            )
+
+            divided = 1.0 / (bcol[0, 0, 0] - ccol[0, 0, -1] * acol[0, 0, 0])
+            ccol = ccol[0, 0, 0] * divided
+            dcol = (dcol[0, 0, 0] - (dcol[0, 0, -1]) * acol[0, 0, 0]) * divided
+
+        with interval(-1, None):
+            gav = -0.25 * (wcon[1, 0, 0] + wcon[0, 0, 0])
+            as_ = gav * BET_M
+            acol = gav * BET_P
+            bcol = dtr_stage - acol[0, 0, 0]
+
+            correction_term = -as_ * (u_stage[0, 0, -1] - u_stage[0, 0, 0])
+            dcol = (
+                dtr_stage * u_pos[0, 0, 0] + utens[0, 0, 0] + utens_stage[0, 0, 0] + correction_term
+            )
+
+            divided = 1.0 / (bcol[0, 0, 0] - ccol[0, 0, -1] * acol[0, 0, 0])
+            dcol = (dcol[0, 0, 0] - (dcol[0, 0, -1]) * acol[0, 0, 0]) * divided
+
+    with computation(BACKWARD):
+        with interval(-1, None):
+            datacol = dcol[0, 0, 0]
+            utens_stage = dtr_stage * (datacol - u_pos[0, 0, 0])
+
+        with interval(0, -1):
+            datacol = dcol[0, 0, 0] - ccol[0, 0, 0] * datacol[0, 0, 1]
+            utens_stage = dtr_stage * (datacol - u_pos[0, 0, 0])
+
+
+VADV_EXTERNALS = {"BET_M": 0.5, "BET_P": 0.5}
+
+
+def validate_vertical_advection_dycore(utens_stage, u_stage, wcon, u_pos, utens, dtr_stage):
+    """NumPy column-wise oracle for the vadv Thomas solve (domain excludes
+    the last I row: wcon is read at [1, 0, *])."""
+    BET_M, BET_P = 0.5, 0.5
+    ni, nj, nk = u_stage.shape
+    ni_d = ni - 1
+    out = utens_stage.copy()
+    for i in range(ni_d):
+        for j in range(nj):
+            ccol = np.zeros(nk)
+            dcol = np.zeros(nk)
+            # k = 0
+            gcv = 0.25 * (wcon[i + 1, j, 1] + wcon[i, j, 1])
+            cs = gcv * BET_M
+            ccol[0] = gcv * BET_P
+            bcol = dtr_stage - ccol[0]
+            corr = -cs * (u_stage[i, j, 1] - u_stage[i, j, 0])
+            dcol[0] = (
+                dtr_stage * u_pos[i, j, 0] + utens[i, j, 0] + utens_stage[i, j, 0] + corr
+            )
+            divided = 1.0 / bcol
+            ccol[0] *= divided
+            dcol[0] *= divided
+            # interior
+            for k in range(1, nk - 1):
+                gav = -0.25 * (wcon[i + 1, j, k] + wcon[i, j, k])
+                gcv = 0.25 * (wcon[i + 1, j, k + 1] + wcon[i, j, k + 1])
+                as_ = gav * BET_M
+                cs = gcv * BET_M
+                acol = gav * BET_P
+                ccol[k] = gcv * BET_P
+                bcol = dtr_stage - acol - ccol[k]
+                corr = -as_ * (u_stage[i, j, k - 1] - u_stage[i, j, k]) - cs * (
+                    u_stage[i, j, k + 1] - u_stage[i, j, k]
+                )
+                dcol[k] = (
+                    dtr_stage * u_pos[i, j, k] + utens[i, j, k] + utens_stage[i, j, k] + corr
+                )
+                divided = 1.0 / (bcol - ccol[k - 1] * acol)
+                ccol[k] *= divided
+                dcol[k] = (dcol[k] - dcol[k - 1] * acol) * divided
+            # k = nk-1
+            k = nk - 1
+            gav = -0.25 * (wcon[i + 1, j, k] + wcon[i, j, k])
+            as_ = gav * BET_M
+            acol = gav * BET_P
+            bcol = dtr_stage - acol
+            corr = -as_ * (u_stage[i, j, k - 1] - u_stage[i, j, k])
+            dcol[k] = (
+                dtr_stage * u_pos[i, j, k] + utens[i, j, k] + utens_stage[i, j, k] + corr
+            )
+            divided = 1.0 / (bcol - ccol[k - 1] * acol)
+            dcol[k] = (dcol[k] - dcol[k - 1] * acol) * divided
+            # backward
+            datacol = dcol[nk - 1]
+            out[i, j, nk - 1] = dtr_stage * (datacol - u_pos[i, j, nk - 1])
+            for k in range(nk - 2, -1, -1):
+                datacol = dcol[k] - ccol[k] * datacol
+                out[i, j, k] = dtr_stage * (datacol - u_pos[i, j, k])
+    return out[:ni_d]
+
+
+def vertical_advection_dycore_generic(
+    utens_stage: "gtscript.Field['vadv_dt']",
+    u_stage: "gtscript.Field['vadv_dt']",
+    wcon: "gtscript.Field['vadv_dt']",
+    u_pos: "gtscript.Field['vadv_dt']",
+    utens: "gtscript.Field['vadv_dt']",
+    *,
+    dtr_stage: "vadv_dt",
+):
+    from __externals__ import BET_M, BET_P
+
+    with computation(FORWARD):
+        with interval(0, 1):
+            gcv = 0.25 * (wcon[1, 0, 1] + wcon[0, 0, 1])
+            cs = gcv * BET_M
+
+            ccol = gcv * BET_P
+            bcol = dtr_stage - ccol[0, 0, 0]
+
+            correction_term = -cs * (u_stage[0, 0, 1] - u_stage[0, 0, 0])
+            dcol = (
+                dtr_stage * u_pos[0, 0, 0] + utens[0, 0, 0] + utens_stage[0, 0, 0] + correction_term
+            )
+
+            divided = 1.0 / bcol[0, 0, 0]
+            ccol = ccol[0, 0, 0] * divided
+            dcol = dcol[0, 0, 0] * divided
+
+        with interval(1, -1):
+            gav = -0.25 * (wcon[1, 0, 0] + wcon[0, 0, 0])
+            gcv = 0.25 * (wcon[1, 0, 1] + wcon[0, 0, 1])
+
+            as_ = gav * BET_M
+            cs = gcv * BET_M
+
+            acol = gav * BET_P
+            ccol = gcv * BET_P
+            bcol = dtr_stage - acol[0, 0, 0] - ccol[0, 0, 0]
+
+            correction_term = -as_ * (u_stage[0, 0, -1] - u_stage[0, 0, 0]) - cs * (
+                u_stage[0, 0, 1] - u_stage[0, 0, 0]
+            )
+            dcol = (
+                dtr_stage * u_pos[0, 0, 0] + utens[0, 0, 0] + utens_stage[0, 0, 0] + correction_term
+            )
+
+            divided = 1.0 / (bcol[0, 0, 0] - ccol[0, 0, -1] * acol[0, 0, 0])
+            ccol = ccol[0, 0, 0] * divided
+            dcol = (dcol[0, 0, 0] - (dcol[0, 0, -1]) * acol[0, 0, 0]) * divided
+
+        with interval(-1, None):
+            gav = -0.25 * (wcon[1, 0, 0] + wcon[0, 0, 0])
+            as_ = gav * BET_M
+            acol = gav * BET_P
+            bcol = dtr_stage - acol[0, 0, 0]
+
+            correction_term = -as_ * (u_stage[0, 0, -1] - u_stage[0, 0, 0])
+            dcol = (
+                dtr_stage * u_pos[0, 0, 0] + utens[0, 0, 0] + utens_stage[0, 0, 0] + correction_term
+            )
+
+            divided = 1.0 / (bcol[0, 0, 0] - ccol[0, 0, -1] * acol[0, 0, 0])
+            dcol = (dcol[0, 0, 0] - (dcol[0, 0, -1]) * acol[0, 0, 0]) * divided
+
+    with computation(BACKWARD):
+        with interval(-1, None):
+            datacol = dcol[0, 0, 0]
+            utens_stage = dtr_stage * (datacol - u_pos[0, 0, 0])
+
+        with interval(0, -1):
+            datacol = dcol[0, 0, 0] - ccol[0, 0, 0] * datacol[0, 0, 1]
+            utens_stage = dtr_stage * (datacol - u_pos[0, 0, 0])
+
+
+def lap_of_lap(inp: Field3D, out: Field3D):
+    with computation(PARALLEL), interval(...):
+        lap = inp[1, 0, 0] + inp[-1, 0, 0] + inp[0, 1, 0] + inp[0, -1, 0] - 4.0 * inp
+        out = lap[1, 0, 0] + lap[-1, 0, 0] + lap[0, 1, 0] + lap[0, -1, 0] - 4.0 * lap
+
+
+def native_function_zoo(a: Field3D, b: Field3D, out: Field3D):
+    with computation(PARALLEL), interval(...):
+        out = (
+            sin(a) + cos(b) + exp(-abs(a)) + log(1.0 + abs(b))
+            + min(a, b) + max(a, b) + floor(a) + ceil(b) + sqrt(abs(a) + 1.0)
+        )
+
+
+def ternary_and_masks(a: Field3D, b: Field3D, out: Field3D):
+    with computation(PARALLEL), interval(...):
+        tmp = a if a > b else b
+        if tmp > 0.5:
+            out = tmp * 2.0
+        else:
+            out = tmp - b
+
+
+def region_interaction(inp: Field3D, out: Field3D):
+    with computation(PARALLEL), interval(...):
+        out = inp
+        with horizontal(region[I[0]:I[2], :]):
+            out = inp * 10.0
+        with horizontal(region[:, J[-1]]):
+            out = 0.0
+        with horizontal(region[I[-1], J[0]]):
+            out = -1.0
+
+
+def param_multibranch(src: Field3D, dst: Field3D, c: float):
+    """Scalar-parameter if/elif/else (reference multibranch_param_conditional)."""
+    with computation(PARALLEL), interval(...):
+        if c > 0.0:
+            dst = src + src[1, 0, 0]
+        elif c < -1.0:
+            dst = src - src[1, 0, 0]
+        else:
+            dst = src
+
+
+def iteration_index_parallel(inp: Field3D, out: Field3D):
+    """Current-K iterator access in PARALLEL context, in values and in
+    branch conditions (reference gtc/gtir.py:68 IteratorAccess)."""
+    with computation(PARALLEL), interval(...):
+        if K >= 1:
+            out = inp + K
+        else:
+            out = inp - K
+
+
+def forward_cumsum(inp: Field3D, out: Field3D):
+    with computation(FORWARD):
+        with interval(0, 1):
+            out = inp
+        with interval(1, None):
+            out = out[0, 0, -1] + inp
+
+
+def backward_cumsum(inp: Field3D, out: Field3D):
+    with computation(BACKWARD):
+        with interval(-1, None):
+            out = inp
+        with interval(0, -1):
+            out = out[0, 0, 1] + inp
+
+
+def multi_section_forward(inp: Field3D, out: Field3D):
+    with computation(FORWARD):
+        with interval(0, 2):
+            out = inp * 2.0
+        with interval(2, -2):
+            out = out[0, 0, -1] + inp
+        with interval(-2, None):
+            out = out[0, 0, -1] * 0.5
+
+
+def heat_step(t: Field3D, out: Field3D, dt: float):
+    """Explicit heat equation step with a vertical implicit-ish smoothing
+    pass (PARALLEL laplacian + FORWARD/BACKWARD relaxations)."""
+    with computation(PARALLEL), interval(...):
+        lap = (
+            t[1, 0, 0] + t[-1, 0, 0] + t[0, 1, 0] + t[0, -1, 0] - 4.0 * t
+        )
+        out = t + dt * lap
+    with computation(FORWARD), interval(1, None):
+        out = 0.75 * out + 0.25 * out[0, 0, -1]
+    with computation(BACKWARD), interval(0, -1):
+        out = 0.75 * out + 0.25 * out[0, 0, 1]
+
+
+def staggeredish_interval_chain(inp: Field3D, out: Field3D):
+    """Multi-computation chain alternating PARALLEL and BACKWARD with
+    K-boundary intervals (dycore wind-solver shape)."""
+    with computation(PARALLEL), interval(...):
+        out = 0.5 * inp
+    with computation(BACKWARD):
+        with interval(-1, None):
+            out = out + inp
+        with interval(0, -1):
+            out = out + 0.25 * out[0, 0, 1]
+
+
+def iteration_index_sequential(inp: Field3D, out: Field3D):
+    """K-dependent coefficient inside a FORWARD carry chain (the
+    level-weighted cumulative-sum pattern of K-dependent physics)."""
+    with computation(FORWARD):
+        with interval(0, 1):
+            out = inp * (K + 1)
+        with interval(1, None):
+            out = out[0, 0, -1] + inp * (K + 1)
+
+
+def dycore_smagorinsky_like(u: Field3D, v: Field3D, out_u: Field3D, cs: float):
+    """PARALLEL shear computation + FORWARD column damping (multi-loop
+    dycore shape: horizontal stage feeding a sequential stage)."""
+    with computation(PARALLEL), interval(...):
+        shear = (u[0, 1, 0] - u[0, -1, 0]) * 0.5 + (v[1, 0, 0] - v[-1, 0, 0]) * 0.5
+        tension = (u[1, 0, 0] - u[-1, 0, 0]) * 0.5 - (v[0, 1, 0] - v[0, -1, 0]) * 0.5
+        smag = cs * sqrt(shear * shear + tension * tension)
+    with computation(FORWARD):
+        with interval(0, 1):
+            out_u = u + smag
+        with interval(1, None):
+            out_u = u + smag + 0.1 * out_u[0, 0, -1]
+
+
+def shift_all_directions(inp: Field3D, out: Field3D):
+    with computation(PARALLEL), interval(1, -1):
+        out = (
+            inp[1, 0, 0] + inp[-1, 0, 0] + inp[0, 1, 0] + inp[0, -1, 0]
+            + inp[0, 0, 1] + inp[0, 0, -1]
+        )
+
+
+def horizontal_diffusion_generic(
+    in_field: "gtscript.Field['dt']",
+    out_field: "gtscript.Field['dt']",
+    coeff: "gtscript.Field['dt']",
+):
+    with computation(PARALLEL), interval(...):
+        lap_field = 4.0 * in_field[0, 0, 0] - (
+            in_field[1, 0, 0] + in_field[-1, 0, 0] + in_field[0, 1, 0] + in_field[0, -1, 0]
+        )
+        res = lap_field[1, 0, 0] - lap_field[0, 0, 0]
+        flx_field = 0.0 if (res * (in_field[1, 0, 0] - in_field[0, 0, 0])) > 0 else res
+        res = lap_field[0, 1, 0] - lap_field[0, 0, 0]
+        fly_field = 0.0 if (res * (in_field[0, 1, 0] - in_field[0, 0, 0])) > 0 else res
+        out_field = in_field[0, 0, 0] - coeff[0, 0, 0] * (
+            flx_field[0, 0, 0] - flx_field[-1, 0, 0] + fly_field[0, 0, 0] - fly_field[0, -1, 0]
+        )
+
+
+def tridiagonal_solver_generic(
+    inf: "gtscript.Field['dt']",
+    diag: "gtscript.Field['dt']",
+    sup: "gtscript.Field['dt']",
+    rhs: "gtscript.Field['dt']",
+    out: "gtscript.Field['dt']",
+):
+    with computation(FORWARD):
+        with interval(0, 1):
+            sup = sup / diag
+            rhs = rhs / diag
+        with interval(1, None):
+            sup = sup / (diag - sup[0, 0, -1] * inf)
+            rhs = (rhs - inf * rhs[0, 0, -1]) / (diag - sup[0, 0, -1] * inf)
+    with computation(BACKWARD):
+        with interval(-1, None):
+            out = rhs
+        with interval(0, -1):
+            out = rhs - sup * out[0, 0, 1]
+
+
+def _entry(definition, strategy, *, externals=None, scalars=None, min_k=1):
+    return {
+        "definition": definition,
+        "strategy": strategy,
+        "externals": externals or {},
+        "scalars": scalars or {},
+        "min_k": min_k,
+    }
+
+
+#: name -> definition, the kernel skeleton that serves it on the card,
+#: build externals, scalar arguments and the smallest K it takes. The names
+#: are those of tests/cartesian_tests/stencil_defs.py.
+REGISTRY = {
+    "copy_stencil": _entry(copy_stencil, "plane"),
+    "horizontal_diffusion": _entry(horizontal_diffusion, "plane"),
+    "lap_of_lap": _entry(lap_of_lap, "plane"),
+    "native_function_zoo": _entry(native_function_zoo, "plane"),
+    "ternary_and_masks": _entry(ternary_and_masks, "plane"),
+    "region_interaction": _entry(region_interaction, "plane"),
+    "param_multibranch": _entry(param_multibranch, "plane", scalars={"c": 0.5}),
+    "iteration_index_parallel": _entry(iteration_index_parallel, "plane", min_k=2),
+    "tridiagonal_solver": _entry(tridiagonal_solver, "column", min_k=2),
+    "vertical_advection_dycore": _entry(
+        vertical_advection_dycore, "column", externals=VADV_EXTERNALS,
+        scalars={"dtr_stage": 0.15}, min_k=3,
+    ),
+    "forward_cumsum": _entry(forward_cumsum, "column"),
+    "backward_cumsum": _entry(backward_cumsum, "column"),
+    "multi_section_forward": _entry(multi_section_forward, "column", min_k=6),
+    "heat_step": _entry(heat_step, "column", scalars={"dt": 0.1}, min_k=2),
+    "staggeredish_interval_chain": _entry(staggeredish_interval_chain, "column", min_k=2),
+    "iteration_index_sequential": _entry(iteration_index_sequential, "column", min_k=2),
+    "dycore_smagorinsky_like": _entry(
+        dycore_smagorinsky_like, "column", scalars={"cs": 0.18}, min_k=2
+    ),
+    "shift_all_directions": _entry(shift_all_directions, "column", min_k=3),
+}
