@@ -1,14 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of gt4py_tpu_torch on one CUDA card (an H100).
 
-Drives the port's main path — ``gtscript.stencil`` → frontend → passes →
+Drives the port's main paths — ``gtscript.stencil`` → frontend → passes →
 ``cuda:hopper`` → generated CUDA kernels, on ``storage`` fields — through
-the public API at the size weather and climate dycores run it: hdiff, vadv
-and tridiag on a 256×256×80 domain with a halo of 2, in float32 and float64.
+the public API at the size weather and climate dycores run it, on a
+256×256×80 domain with a halo of 2, in float32 and float64: hdiff (the
+``plane`` kernel), vadv and tridiag (``column``), hdiff_sponge, hdiff as
+three computations with an IJ coefficient and a K sponge profile
+(``fused_plane``), and smoothed_column_sum, a FORWARD sweep coupling
+neighbouring columns at every level (``tiled``).
 
-1. Builds every kernel of the path from the sources in this checkout.
-2. Resets the launch counts, runs each stencil once and as ``chain(10)``
-   (the main path), reads the counts: each kernel must have launched.
+1. Builds every kernel of those paths and of the registry phase from the
+   sources in this checkout, one ``nvcc`` per source, all at once.
+2. For each path: sets the launch counts to 0, runs the stencil once and as
+   ``chain(10)``, reads the counts: its kernel must have launched. Every one
+   of the four kernels must have launched on some path.
 3. Holds every result against the plain version (the ``torch`` backend on the
    same card, same inputs) and, on a small input, against the NumPy oracle.
 4. Times plain, kernel, kernel, plain with CUDA events over chained steps;
@@ -16,6 +22,9 @@ and tridiag on a 256×256×80 domain with a halo of 2, in float32 and float64.
    queued behind a spin kernel (no host cost inside); holds each kernel's
    compulsory bytes per second against a device-to-device copy measured in
    the same run.
+5. Registry phase: every stencil of tests/torch_stencil_defs.py runs on
+   ``cuda:hopper`` at 32×32×max(8, min_k) in its own dtypes, through the
+   kernel pinned for it, against the plain version on the card.
 
 Prints the card's name and power limit, one JSON line with the kernels, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -43,16 +52,16 @@ RTOL = {"float32": 1e-5, "float64": 1e-12}
 #: (rtol, atol): float32 carries the rounding of 80-level recurrences
 ORACLE_TOL = {"float32": (1e-4, 1e-5), "float64": (1e-10, 1e-12)}
 
-KERNELS = {
-    "plane": {
-        "source": "gt4py_tpu_torch/cartesian/backend/cuda_codegen.py",
-        "replaces": "gt4py_tpu/cartesian/backend/pallas_split.py:424",
-    },
-    "column": {
-        "source": "gt4py_tpu_torch/cartesian/backend/cuda_codegen.py",
-        "replaces": "gt4py_tpu/cartesian/backend/pallas_seq.py:1130",
-    },
+#: registry phase: domain and halo
+REG_N, REG_HALO = 32, 3
+#: kernel -> the TPU pallas_call it replaces
+REPLACES = {
+    "plane": "gt4py_tpu/cartesian/backend/pallas_split.py:424",
+    "fused_plane": "gt4py_tpu/cartesian/backend/pallas_codegen.py:1992",
+    "column": "gt4py_tpu/cartesian/backend/pallas_seq.py:1130",
+    "tiled": "gt4py_tpu/cartesian/backend/pallas_codegen.py:818",
 }
+SOURCE = "gt4py_tpu_torch/cartesian/backend/cuda_codegen.py"
 
 
 def main() -> int:
@@ -90,12 +99,6 @@ def main() -> int:
     def inputs(case, dtype, shape, seed):
         return {n: v.astype(dtype) for n, v in make_host(case, shape, seed, np).items()}
 
-    def to_card(host, origin):
-        return {
-            n: storage.from_array(v, backend="cuda:hopper", aligned_index=origin)
-            for n, v in host.items()
-        }
-
     cases = [
         {
             "name": "hdiff", "kernel": "plane",
@@ -116,14 +119,25 @@ def main() -> int:
             "fields": ("inf", "diag", "sup", "rhs", "out"), "scalars": {},
             "swap": {"rhs": "out", "out": "rhs"},
         },
+        {
+            "name": "hdiff_sponge", "kernel": "fused_plane",
+            "definition": defs.hdiff_sponge, "externals": {},
+            "fields": ("in_field", "out_field", "coeff", "damp"), "scalars": {},
+            "dims": {"coeff": "IJ", "damp": "K"},
+            "swap": {"in_field": "out_field", "out_field": "in_field"},
+        },
+        {
+            "name": "smoothed_column_sum", "kernel": "tiled",
+            "definition": defs.smoothed_column_sum, "externals": {},
+            "fields": ("inp", "out"), "scalars": {}, "swap": {},
+        },
     ]
     shape = (NI + 2 * HALO, NJ + 2 * HALO, NK)
     origin = (HALO, HALO, 0)
     domain = (NI, NJ, NK)
 
-    # -- 1. build every kernel of the path ------------------------------------
+    # -- 1. build every kernel of the paths and the registry ------------------
     runs = []
-    t0 = time.perf_counter()
     for dtype in ("float32", "float64"):
         for case in cases:
             kern = build(case["definition"], "cuda:hopper", dtype, case["externals"])
@@ -133,22 +147,27 @@ def main() -> int:
                     f"{case['name']} {dtype}: served by {kern._backend.strategy}, "
                     f"expected {case['kernel']}"
                 )
-            kern._backend._functions()  # nvcc build + load
             scalars = {n: np.dtype(dtype).type(v) for n, v in case["scalars"].items()}
             runs.append({"case": case, "dtype": dtype, "kern": kern, "plain": plain,
                          "scalars": scalars})
-    print(f"built {len(runs)} stencils in {time.perf_counter() - t0:.1f} s")
+    registry = registry_stencils(defs, gtscript)
+    t0 = time.perf_counter()
+    stencils = [r["kern"] for r in runs] + [r["kern"] for r in registry]
+    cuda_backend.build_libraries(st._backend.module.source for st in stencils)
+    for st in stencils:
+        st._backend._functions()  # load
+    print(f"built and loaded {len(stencils)} stencils in {time.perf_counter() - t0:.1f} s")
 
-    # -- 2. the main path, counted ----------------------------------------------
+    # -- 2. the main paths, each counted -------------------------------------------
     for run in runs:
         run["host"] = inputs(run["case"], run["dtype"], shape, seed=7)
-        run["main"] = to_card(run["host"], origin)
+        run["main"] = card_fields(run["host"], origin, run["case"], storage)
     torch.cuda.synchronize()
-    for wrapper in cuda_backend.WRAPPERS.values():
-        wrapper.launches = 0
+    served = set()
     for run in runs:
         case, fields = run["case"], run["main"]
-        before = {k: w.launches for k, w in cuda_backend.WRAPPERS.items()}
+        for wrapper in cuda_backend.WRAPPERS.values():
+            wrapper.launches = 0
         info: dict = {}
         run["kern"](**fields, **run["scalars"], domain=domain, exec_info=info)
         if info["kernel_strategy"] != case["kernel"]:
@@ -156,18 +175,21 @@ def main() -> int:
         run["kern"].chain(
             CHAIN_STEPS, **fields, **run["scalars"], swap=case["swap"], domain=domain
         )
-        run["launches"] = cuda_backend.WRAPPERS[case["kernel"]].launches - before[case["kernel"]]
-    torch.cuda.synchronize()
-    counts = {k: w.launches for k, w in cuda_backend.WRAPPERS.items()}
-    print(f"launches during the main path: {counts}")
-    for name, n in counts.items():
-        if n == 0:
-            raise AssertionError(f"the {name} kernel was not launched on the main path")
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in cuda_backend.WRAPPERS.items()}
+        run["launches"] = counts[case["kernel"]]
+        print(f"launches on the {case['name']} {run['dtype']} path: {counts}")
+        if run["launches"] == 0:
+            raise AssertionError(f"{case['name']}: the {case['kernel']} kernel was not launched")
+        served |= {k for k, n in counts.items() if n}
+    missing = set(cuda_backend.WRAPPERS) - served
+    if missing:
+        raise AssertionError(f"kernels never launched on a main path: {sorted(missing)}")
 
     # -- 3. correctness ------------------------------------------------------------
     for run in runs:
         case, dtype = run["case"], run["dtype"]
-        ref = to_card(run["host"], origin)
+        ref = card_fields(run["host"], origin, case, storage)
         run["plain"](**ref, **run["scalars"], domain=domain)
         run["plain"].chain(
             CHAIN_STEPS, **ref, **run["scalars"], swap=case["swap"], domain=domain
@@ -193,18 +215,18 @@ def main() -> int:
     rows = []
     for run in runs:
         case = run["case"]
-        fields = to_card(run["host"], origin)
+        fields = card_fields(run["host"], origin, case, storage)
         p1 = time_steps(run["plain"], fields, run, 3)
         k1 = time_steps(run["kern"], fields, run, 20)
         k2 = time_steps(run["kern"], fields, run, 20)
         p2 = time_steps(run["plain"], fields, run, 3)
-        dev = device_ms(run, to_card(run["host"], origin), 20)
+        dev = device_ms(run, card_fields(run["host"], origin, case, storage), 20)
         run["ms"], run["plain_ms"] = (k1 + k2) / 2, (p1 + p2) / 2
         run["device_ms"] = dev
         run["gbs"] = compulsory_bytes(run["kern"], np.dtype(run["dtype"]).itemsize) / dev / 1e6
         pts = NI * NJ * NK
         rows.append(
-            f"{case['name']:8s} {run['dtype']:8s} {case['kernel']:6s} "
+            f"{case['name']:19s} {run['dtype']:8s} {case['kernel']:11s} "
             f"plain {run['plain_ms'] * 1e3:10.1f} us/step ({p1 * 1e3:.1f}, {p2 * 1e3:.1f})  "
             f"kernel {run['ms'] * 1e3:8.1f} us/step ({k1 * 1e3:.1f}, {k2 * 1e3:.1f})  "
             f"device {dev * 1e3:8.1f} us/step  "
@@ -217,12 +239,22 @@ def main() -> int:
     for r in rows:
         print("  " + r)
 
+    # -- 5. the registry -----------------------------------------------------------
+    t0 = time.perf_counter()
+    for reg in registry:
+        run_registry_stencil(reg, defs, storage, cuda_backend, np, torch)
+    by_kernel = {}
+    for reg in registry:
+        by_kernel[reg["entry"]["strategy"]] = by_kernel.get(reg["entry"]["strategy"], 0) + 1
+    print(f"registry: {len(registry)} stencils at {REG_N}x{REG_N}, each through its pinned "
+          f"kernel ({by_kernel}) == plain, in {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         {
             "name": f"{run['case']['kernel']}/{run['case']['name']}/{run['dtype']}",
             "route": "cuda",
-            "source": KERNELS[run["case"]["kernel"]]["source"],
-            "replaces": KERNELS[run["case"]["kernel"]]["replaces"],
+            "source": SOURCE,
+            "replaces": REPLACES[run["case"]["kernel"]],
             "launches": run["launches"],
             "max_abs_err": run["max_abs_err"],
             "ms": run["device_ms"],
@@ -241,16 +273,34 @@ def main() -> int:
     return 0
 
 
+def field_shape(case, name, shape):
+    """A field's shape: the axes of the 3-D ``shape`` it has."""
+    dims = case.get("dims", {}).get(name, "IJK")
+    return tuple(n for n, ax in zip(shape, "IJK") if ax in dims)
+
+
+def card_fields(host, origin, case, storage):
+    """Storages on the card, lower-dimensional ones with their own axes."""
+    out = {}
+    for n, v in host.items():
+        dims = case.get("dims", {}).get(n, "IJK")
+        out[n] = storage.from_array(
+            v, backend="cuda:hopper", dimensions=tuple(dims),
+            aligned_index=tuple(o for o, ax in zip(origin, "IJK") if ax in dims),
+        )
+    return out
+
+
 def make_host(case, shape, seed, np):
     """Float64 host inputs of one case, made from ``seed``, scaled to the
     well-conditioned ranges the stencils see in a model."""
     rng = np.random.default_rng(seed)
-    host = {n: rng.random(shape) for n in case["fields"]}
+    host = {n: rng.random(field_shape(case, n, shape)) for n in case["fields"]}
     if case["name"] == "tridiag":  # diagonally dominant system
         host["inf"] = -host["inf"]
         host["sup"] = -host["sup"]
         host["diag"] = host["diag"] + 4.0
-    elif case["name"] == "hdiff":  # a stable diffusion coefficient
+    elif case["name"] in ("hdiff", "hdiff_sponge"):  # a stable diffusion coefficient
         host["coeff"] = 0.1 * host["coeff"]
     elif case["name"] == "vadv":  # vertical wind small beside 1/dt: pivots stay away from 0
         host["wcon"] = 0.1 * host["wcon"]
@@ -262,8 +312,10 @@ def check_oracle(run, defs, np, storage) -> None:
     import torch
 
     case, dtype = run["case"], run["dtype"]
-    if case["name"] == "hdiff":
+    if case["name"] in ("hdiff", "hdiff_sponge"):
         shape, origin, domain = (24, 21, 8), (2, 2, 0), (20, 17, 8)
+    elif case["name"] == "smoothed_column_sum":
+        shape, origin, domain = (14, 13, 16), (1, 1, 0), (12, 11, 16)
     elif case["name"] == "vadv":  # wcon is read at i + 1
         shape, origin, domain = (13, 12, NK), (0, 0, 0), (12, 12, NK)
     else:
@@ -272,15 +324,18 @@ def check_oracle(run, defs, np, storage) -> None:
         n: v.astype(dtype).astype(np.float64)
         for n, v in make_host(case, shape, 11, np).items()
     }
-    fields = {
-        n: storage.from_array(v.astype(dtype), backend="cuda:hopper", aligned_index=origin)
-        for n, v in host.items()
-    }
+    fields = card_fields({n: v.astype(dtype) for n, v in host.items()}, origin, case, storage)
     run["kern"](**fields, **run["scalars"], domain=domain)
     torch.cuda.synchronize()
     if case["name"] == "hdiff":
         got = np.asarray(fields["out_field"])[2:-2, 2:-2]
         want = defs.validate_horizontal_diffusion(host["in_field"], host["coeff"])
+    elif case["name"] == "hdiff_sponge":
+        got = np.asarray(fields["out_field"])[2:-2, 2:-2]
+        want = defs.validate_hdiff_sponge(host["in_field"], host["coeff"], host["damp"])
+    elif case["name"] == "smoothed_column_sum":
+        got = np.asarray(fields["out"])[1:-1, 1:-1]
+        want = defs.validate_smoothed_column_sum(host["inp"])
     elif case["name"] == "vadv":
         got = np.asarray(fields["utens_stage"])[: domain[0]]
         want = defs.validate_vertical_advection_dycore(
@@ -319,14 +374,68 @@ def time_steps(stencil, fields, run, n: int) -> float:
 def compulsory_bytes(stencil, itemsize: int) -> int:
     """Bytes one application must move at the least, computed from shapes:
     each API field read once if the stencil reads it and stored once if it
-    writes it, over the domain (halos and temporaries left out)."""
-    per_field = NI * NJ * NK * itemsize
+    writes it, over the domain along the axes it has (halos and temporaries
+    left out)."""
     total = 0
     for info in stencil.field_info.values():
         if info is not None:
             access = info.access.value  # READ = 1, WRITE = 2
-            total += per_field * (bool(access & 1) + bool(access & 2))
+            points = 1
+            for n, on in zip((NI, NJ, NK), info.domain_mask):
+                points *= n if on else 1
+            total += points * itemsize * (bool(access & 1) + bool(access & 2))
     return total
+
+
+def registry_stencils(defs, gtscript) -> list:
+    """Every registry stencil, built for the kernel and for the plain
+    version, in its own dtypes; fails where the served kernel is not the
+    one pinned for it."""
+    out = []
+    for name, entry in sorted(defs.REGISTRY.items()):
+        opts = dict(definition=entry["definition"], externals=entry["externals"],
+                    dtypes=entry["dtypes"])
+        kern = gtscript.stencil(backend="cuda:hopper", **opts)
+        if kern._backend.strategy != entry["strategy"]:
+            raise AssertionError(
+                f"registry {name}: served by {kern._backend.strategy} "
+                f"({kern._backend.unsupported}), pinned to {entry['strategy']}"
+            )
+        out.append({"name": name, "entry": entry, "kern": kern,
+                    "plain": gtscript.stencil(backend="torch", **opts)})
+    return out
+
+
+def run_registry_stencil(reg, defs, storage, cuda_backend, np, torch) -> None:
+    """One registry stencil at REG_N × REG_N through its kernel (counted)
+    and through the plain version, every field and point compared."""
+    entry = reg["entry"]
+    nk = max(8, entry["min_k"])
+    shape = (REG_N + 2 * REG_HALO, REG_N + 2 * REG_HALO, nk)
+    host = defs.make_inputs(reg["kern"].field_info, shape, np.random.default_rng(13))
+    out = {}
+    for tag in ("kern", "plain"):
+        fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+        for wrapper in cuda_backend.WRAPPERS.values():
+            wrapper.launches = 0
+        info: dict = {}
+        reg[tag](**fields, **entry["scalars"], origin=(REG_HALO, REG_HALO, 0),
+                 domain=(REG_N, REG_N, nk), exec_info=info)
+        torch.cuda.synchronize()
+        if tag == "kern" and (
+            info["kernel_strategy"] != entry["strategy"]
+            or cuda_backend.WRAPPERS[entry["strategy"]].launches == 0
+        ):
+            raise AssertionError(f"registry {reg['name']}: {entry['strategy']} not launched")
+        out[tag] = {n: np.asarray(v) for n, v in fields.items()}
+    for n, want in out["plain"].items():
+        got = out["kern"][n]
+        if np.issubdtype(want.dtype, np.floating):
+            same = np.allclose(got, want, rtol=RTOL[want.dtype.name], atol=0.0, equal_nan=True)
+        else:
+            same = np.array_equal(got, want)
+        if not same:
+            raise AssertionError(f"registry {reg['name']}: kernel disagrees with plain in {n}")
 
 
 def copy_bandwidth() -> float:

@@ -1,22 +1,29 @@
 """Kernel backend ``cuda:hopper`` — the counterpart of ``tpu:pallas``.
 
 Counterpart of gt4py_tpu/cartesian/backend/pallas_backend.py. The stencil
-is rendered to CUDA C++ by cuda_codegen.py (one of two hand-written kernel
-skeletons, ``plane`` or ``column``), compiled on first use with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface, cached on disk by
-content hash under ``.gt_cache/torch/cuda/``, and bound with ``ctypes`` —
-the build model of gt4py_tpu/cartesian/backend/c_backend.py:52-108.
+is rendered to CUDA C++ by cuda_codegen.py, into one of four hand-written
+kernel skeletons: ``plane`` (K1's class: all-PARALLEL 3-D stencils, one
+launch per vertical loop), ``fused_plane`` (the rest of K2's: one launch per
+stencil), ``column`` (K3's: sequential and K-offset loops, one thread per
+column) or ``tiled`` (K5's: sequential loops that read what they write at a
+horizontal offset, one block per tile). It is compiled on first use with
+``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
+cached on disk by content hash under ``.gt_cache/torch/cuda/``, and bound
+with ``ctypes`` — the build model of
+gt4py_tpu/cartesian/backend/c_backend.py:52-108.
 
 Dispatch:
-- CUDA tensors: launch the generated kernels, one launch per vertical loop
-  on the current stream, or raise :class:`CudaUnsupported` naming the
-  construct. Unlike pallas_backend.py:64-121 there is no silent fallback.
+- CUDA tensors: launch the generated kernels on the current stream, or
+  raise :class:`CudaUnsupported` naming the construct (a stencil no
+  skeleton serves, racy aliasing of arguments, a lower-dimensional field
+  written over a domain the kernel cannot serve). Unlike
+  pallas_backend.py:64-121 there is no silent fallback.
 - CPU tensors: run the plain version (torch_backend.run_plain) and record
   ``kernel_strategy = "plain"``.
 
-Each skeleton has one :class:`KernelWrapper` (``PLANE``, ``COLUMN``) whose
-``launches`` counts the launches of its kernels, so a run can show that its
-main path went through them.
+Each skeleton has one :class:`KernelWrapper` (``PLANE``, ``FUSED_PLANE``,
+``COLUMN``, ``TILED``) whose ``launches`` counts the launches of its
+kernels, so a run can show that its main path went through them.
 """
 
 from __future__ import annotations
@@ -81,8 +88,10 @@ class KernelWrapper:
 
 
 PLANE = KernelWrapper("plane")
+FUSED_PLANE = KernelWrapper("fused_plane")
 COLUMN = KernelWrapper("column")
-WRAPPERS = {"plane": PLANE, "column": COLUMN}
+TILED = KernelWrapper("tiled")
+WRAPPERS = {w.name: w for w in (PLANE, FUSED_PLANE, COLUMN, TILED)}
 
 
 def nvcc_path() -> str:
@@ -105,34 +114,59 @@ def _cache_dir() -> str:
     return path
 
 
+def _paths(source: str) -> tuple[str, str, str]:
+    """(cache key, library path, source path) of one generated source."""
+    key = hashlib.sha1(source.encode()).hexdigest()[:20]
+    cache = _cache_dir()
+    return key, os.path.join(cache, f"gt_{key}.so"), os.path.join(cache, f"gt_{key}.cu")
+
+
+def build_libraries(sources) -> None:
+    """Compile every source whose library is not on disk yet: one ``nvcc``
+    per source, all started together, so a cold start waits for the
+    slowest build rather than for their sum."""
+    started = []
+    try:
+        for source in dict.fromkeys(sources):
+            _, so_path, cu_path = _paths(source)
+            if os.path.isfile(so_path):
+                continue
+            tmp = so_path + f".tmp{os.getpid()}"
+            with open(cu_path, "w") as f:
+                f.write(source)
+            log = open(cu_path + ".log", "w+")
+            started.append(
+                (subprocess.Popen(build_command(cu_path, tmp), stdout=log, stderr=log),
+                 log, cu_path, tmp, so_path)
+            )
+    except OSError as exc:
+        raise CudaBuildError(f"nvcc unavailable: {exc}") from exc
+    finally:
+        failures = []
+        for proc, log, cu_path, tmp, so_path in started:
+            try:
+                rc = proc.wait(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = "timeout"
+            log.seek(0)
+            if rc == 0:
+                os.replace(tmp, so_path)
+            else:
+                failures.append(f"nvcc failed ({rc}) for {cu_path}:\n{log.read()}")
+            log.close()
+    if failures:
+        raise CudaBuildError("\n".join(failures))
+
+
 def load_library(source: str) -> ctypes.CDLL:
     """Compile (once per source hash, on disk) and load."""
-    key = hashlib.sha1(source.encode()).hexdigest()[:20]
+    key, so_path, _ = _paths(source)
     with _LIB_LOCK:
         lib = _LIB_CACHE.get(key)
         if lib is not None:
             return lib
-        cache = _cache_dir()
-        so_path = os.path.join(cache, f"gt_{key}.so")
-        if not os.path.isfile(so_path):
-            cu_path = os.path.join(cache, f"gt_{key}.cu")
-            tmp = so_path + f".tmp{os.getpid()}"
-            with open(cu_path, "w") as f:
-                f.write(source)
-            try:
-                proc = subprocess.run(
-                    build_command(cu_path, tmp),
-                    capture_output=True,
-                    timeout=600,
-                    check=False,
-                )
-            except (OSError, subprocess.TimeoutExpired) as exc:
-                raise CudaBuildError(f"nvcc unavailable: {exc}") from exc
-            if proc.returncode != 0:
-                raise CudaBuildError(
-                    f"nvcc failed for {cu_path}:\n{proc.stderr.decode(errors='replace')}"
-                )
-            os.replace(tmp, so_path)
+        build_libraries([source])
         lib = ctypes.CDLL(so_path)
         _LIB_CACHE[key] = lib
         return lib
@@ -247,6 +281,14 @@ class CudaHopperBackend(Backend):
         device = call_device(arrays)
         mod = self.module
         ni, nj, nk = (int(d) for d in domain)
+        sizes = dict(zip("IJK", (ni, nj, nk)))
+        for name, axes in mod.unit_axes.items():
+            if name in arrays and any(sizes[ax] != 1 for ax in axes):
+                raise CudaUnsupported(
+                    f"stencil '{self.analyzed.name}': field '{name}' has no "
+                    f"{'/'.join(axes)} axis; the {mod.strategy} kernel writes it only over "
+                    f"a domain of size 1 along it, not {domain}"
+                )
         nslots = max(len(mod.slots), 1)
         ptrs = (ctypes.c_void_p * nslots)()
         shapes = (_LL * max(mod.n_shape_slots, 1))()

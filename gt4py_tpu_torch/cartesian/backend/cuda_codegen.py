@@ -1,4 +1,4 @@
-"""GTIR → CUDA C++ for the two hand-written Hopper kernel skeletons.
+"""GTIR → CUDA C++ for the four hand-written Hopper kernel skeletons.
 
 Counterpart of gt4py_tpu/cartesian/backend/pallas_codegen.py
 (``_BlockEvaluator``, which renders GTIR into the Pallas kernels) plus the
@@ -7,12 +7,15 @@ here with a ``__device__`` prelude. As on the TPU, the kernels are generated
 per stencil: the hand-written part is a kernel skeleton, and the stencil's
 statements are rendered into its body as CUDA C++.
 
-Two skeletons, chosen by :func:`choose_strategy`:
+Four skeletons. :func:`generate` takes the first that serves the
+stencil, from its GTIR alone, in this order (the dispatch of
+``pallas_codegen.build_pallas_fn``, :400-512):
 
 ``plane`` — replaces K1, ``pallas_split.build_plane_split_fn``
 (gt4py_tpu/cartesian/backend/pallas_split.py:195, ``pallas_call`` at
-:424), and is the seed of K2 (``pallas_codegen.build_plane_fn``). It serves
-stencils whose vertical loops are all PARALLEL with no K-offset reads.
+:424). It serves stencils whose vertical loops are all PARALLEL with no
+K-offset reads, whose fields are all 3-D without data dimensions, and whose
+temporaries stay inside one loop.
     Mapping: one launch per vertical loop; grid (J tiles, I tiles, K), one
     block of 256 threads per (TI × TJ) tile of one K plane. K1 splits each
     field into a 128-lane main block and a J-halo strip only because of the
@@ -32,11 +35,39 @@ stencils whose vertical loops are all PARALLEL with no K-offset reads.
     recompute, two barriers per tile and 64-bit index arithmetic stand in
     its way, and a larger tile (16 × 64 over 8 × 32) was the measured gain.
 
+``fused_plane`` — replaces K2, ``pallas_codegen.build_plane_fn``
+(pallas_codegen.py:1829, kernel :1887, ``pallas_call`` :1992). It serves
+the rest of K2's class: all-PARALLEL stencils without K-offset reads whose
+temporaries cross loops, whose API fields are read at a horizontal offset
+after they are written, or which read lower-dimensional fields (IJ, K),
+data dimensions or GlobalTables; ``while`` and horizontal regions too.
+    Mapping: ONE launch per stencil; grid (J tiles, I tiles, K blocks of
+    ``FP_TK`` levels), 256 threads per TI × TJ tile. A block first stages
+    what does not vary along K into shared memory, once: every GlobalTable
+    and the tile of each read-only IJ field with its halo. It then walks
+    the levels of its K block; at each level it evaluates every statement
+    of every vertical loop in program order, each over its tile widened by
+    its extent, with ``__syncthreads()`` after each. Temporaries and the
+    API fields read at a horizontal offset after they are written live in
+    shared-memory planes over their footprint (the union of the points the
+    statements write and read), so the halo a loop hands to the next is
+    recomputed by the block and never leaves the SM. API fields are stored
+    to device memory only at the points the block owns: its tile, and for
+    the tiles at the domain's edge the halo beyond it that a statement's
+    extent reaches (the plain version writes there too). The TPU's one-hot
+    table lookup (pallas_codegen.py:62-69) was a Mosaic workaround; here a
+    table read is an indexed shared-memory load. The layout is dynamic
+    shared memory, with ``cudaFuncSetAttribute`` above 48 KB and
+    :class:`CudaUnsupported`, naming the bytes, above the H100's 227 KB.
+    Bound on the H100: bytes, as for ``plane``; the staged IJ fields and
+    tables are read once per block instead of once per level.
+
 ``column`` — replaces K3, ``pallas_seq._build_stage_call``
 (gt4py_tpu/cartesian/backend/pallas_seq.py:732, ``pallas_call`` at :1130,
-driven by ``build_staged_fn`` :243). It serves every other stencil the
-checks below admit: FORWARD/BACKWARD loops (vadv, tridiag) and PARALLEL
-loops beside them.
+driven by ``build_staged_fn`` :243). It serves the sequential and
+K-offset stencils whose loops read no value written in the same loop at a
+horizontal offset: FORWARD/BACKWARD loops (vadv, tridiag), PARALLEL loops
+beside them, ``while``, variable and absolute K.
     Mapping: one launch per vertical loop, in order, on the current stream.
     One thread per (i, j) column of the loop's statement extents walks the
     loop's sections in order, K ascending (FORWARD) or descending
@@ -53,14 +84,38 @@ loops beside them.
     The ``__restrict__`` variant (below) lets the compiler forward stored
     values instead of reloading them, the measured gain for vadv.
 
+``tiled`` — replaces K5, ``pallas_codegen._build_tiled_fn``
+(pallas_codegen.py:637, kernel :682, ``pallas_call`` :818). It serves
+what ``column`` declines: a value written in a vertical loop and read at a
+horizontal offset in the same loop, as in a sweep that couples
+neighbouring columns at every level.
+    Mapping: one launch per vertical loop; grid (J tiles, I tiles), 256
+    threads per TL_TI × TL_TJ tile. The block walks the loop's K range in its
+    order (PARALLEL ascending). At each level it evaluates each statement
+    over its tile widened by its extent, ``__syncthreads()`` after each.
+    The values the loop writes and reads at a horizontal offset live in a
+    small ring of shared-memory planes, one plane per level the loop reads
+    back (``acc[0, 0, -1]`` needs two); a read of a level the ring does not
+    hold — one the walk has not written — is a global load. A read of an
+    earlier level beyond the points its writers compute there
+    (``acc = inp + acc[1, 0, -1]`` reaches one column further at every
+    level) would need a neighbouring block's value, which no block waits
+    for: it raises :class:`CudaUnsupported`. Every value is
+    also stored to device memory at the points the block owns, so later
+    loops and reads at variable or absolute K (plain global loads, clamped
+    as the ``column`` kernel clamps them) see it. Temporaries have global
+    (K, I, J) buffers as in ``column``. Bound on the H100: the dependent K
+    chain, as for ``column``, plus the halo recompute; the grid has one
+    block per tile, so the tile is kept small to give every SM work.
+
 Numerics follow c_codegen.py: NumPy floor-mod, true division, NaN-
 propagating min/max, banker's round. The build uses ``--fmad=false``
 (cuda_backend.py), so products and sums round as in the eager plain
 version. Arguments may alias (``stencil(a, a)``), so the kernels take plain
 pointers; the column kernel has a second, ``__restrict__`` variant that the
 wrapper launches when it has checked that no two field buffers overlap.
-Constructs either skeleton cannot serve raise :class:`CudaUnsupported`
-with the reason; there is no silent fallback.
+Constructs no skeleton can serve raise :class:`CudaUnsupported` with the
+reason; there is no silent fallback.
 """
 
 from __future__ import annotations
@@ -82,8 +137,22 @@ TI, TJ = 16, 64
 PLANE_THREADS = 256
 #: column-kernel block: (32 along J) × (8 along I) columns
 COL_BJ, COL_BI = 32, 8
-#: static shared memory a plane block may use for temporaries
+#: static shared memory a plane block may use for temporaries; above it
+#: a kernel needs dynamic shared memory and ``cudaFuncSetAttribute``
 SHARED_BYTES_MAX = 48 * 1024
+#: dynamic shared memory a block may use on the H100 (232,448 bytes)
+SHARED_BYTES_LIMIT = 227 * 1024
+#: fused_plane: levels a block walks; its tile and block are the plane
+#: kernel's. Measured on the H100 for hdiff_sponge (PERF.md): 4 levels beat
+#: 1, 2 and 8; 16 × 64 beat 8 × 64, 8 × 32 and 16 × 32, and 512 threads
+FP_TK = 4
+#: tiled-kernel tile and block: one block per tile and no K blocks, so a
+#: small tile keeps every SM busy (256 blocks at 256 × 256); enough threads
+#: that one pass covers the widened tile of a statement with a halo of 1.
+#: Measured on the H100 for smoothed_column_sum (PERF.md): 8 × 32 with 512
+#: threads beat 8 × 32 with 256, 4 × 32, 2 × 32, 4 × 16, 16 × 16 and 4 × 64
+TL_TI, TL_TJ = 8, 32
+TILED_THREADS = 512
 #: what a launcher returns when its grid is empty and no kernel ran
 #: (``cudaError_t`` values are never negative)
 NOTHING_LAUNCHED = -1
@@ -188,6 +257,10 @@ GT_D float gt_fminf_np(float a, float b) {
 GT_D float gt_fmaxf_np(float a, float b) {
     return (isnan(a) || isnan(b)) ? (a + b) : (a > b ? a : b);
 }
+GT_D int gt_slot(long long k, int r) {
+    const long long s = k % r;
+    return (int)(s < 0 ? s + r : s);
+}
 GT_D int64_t gt_imin(int64_t a, int64_t b) { return a < b ? a : b; }
 GT_D int64_t gt_imax(int64_t a, int64_t b) { return a > b ? a : b; }
 """
@@ -234,60 +307,151 @@ class FieldMeta:
 class KernelModule:
     """Generated source plus what the launching wrapper needs."""
 
-    strategy: str  # "plane" | "column"
+    strategy: str  # "plane" | "fused_plane" | "column" | "tiled"
     source: str
     #: launch slots in order: API fields and tables, then global temporaries
     slots: list[FieldMeta]
     scalars: list[tuple[str, str, int, np.dtype]]  # (name, 'f'|'i', slot, dtype)
     n_shape_slots: int
-    #: extern "C" launcher names, one per vertical loop, in launch order
+    #: extern "C" launcher names in launch order: one per vertical loop, or
+    #: one per stencil (fused_plane)
     launchers: list[str]
     #: API fields the stencil writes
     written: frozenset[str] = frozenset()
     #: API fields some thread reads at a point another thread may write:
-    #: at a horizontal offset, from a widened plane statement, or at a K
-    #: offset in a PARALLEL loop of the column kernel. If one of these
-    #: shares memory with a written field, the kernels would race.
+    #: at a horizontal offset, from a widened statement, at a K offset in a
+    #: PARALLEL loop of the column or tiled kernel, or from a copy staged in
+    #: shared memory (fused_plane). If one of these shares memory with a
+    #: written field, the kernels would race.
     nonlocal_reads: frozenset[str] = frozenset()
+    #: written field -> domain axes ("I", "J", "K") it lacks that the
+    #: kernel can only serve at size 1: every block along such an axis
+    #: would store to the same element
+    unit_axes: dict[str, str] = dataclasses.field(default_factory=dict)
 
 
-def _nonlocal_reads(analyzed: AnalyzedStencil, strategy: str) -> frozenset[str]:
+def _is_k_shift(acc: gtir.FieldAccess) -> bool:
+    return acc.offset[2] != 0 or acc.koffset is not None or acc.abs_k is not None
+
+
+def _nonlocal_reads(
+    analyzed: AnalyzedStencil, strategy: str, staged: frozenset[str] = frozenset()
+) -> frozenset[str]:
     params = set(analyzed.field_infos)
-    out = set()
+    # one element of a lower-dimensional field or table is read at many
+    # points, so a written field sharing its memory races with some reader
+    lower = {
+        n for n, info in analyzed.field_infos.items() if info is not None and len(info.axes) < 3
+    }
+    out = set(staged)
+    widened = strategy in ("plane", "fused_plane", "tiled")
+    k_walk = strategy in ("column", "tiled")
     for vloop in analyzed.stencil.vertical_loops:
         parallel = vloop.loop_order == gtir.LoopOrder.PARALLEL
         for section in vloop.sections:
             for stmt in section.body:
                 ext = analyzed.stmt_extents[stmt]
-                wide = strategy == "plane" and (ext.i != (0, 0) or ext.j != (0, 0))
+                wide = widened and (ext.i != (0, 0) or ext.j != (0, 0))
                 for r in _iter_reads(stmt):
-                    k_shift = r.offset[2] != 0 or r.koffset is not None or r.abs_k is not None
                     if r.name in params and (
                         r.offset[0] != 0
                         or r.offset[1] != 0
                         or wide
-                        or (parallel and strategy == "column" and k_shift)
+                        or r.name in lower
+                        or (parallel and k_walk and _is_k_shift(r))
                     ):
                         out.add(r.name)
     return frozenset(out)
 
 
-def choose_strategy(analyzed: AnalyzedStencil) -> str:
-    """``plane`` for all-PARALLEL stencils without K-offset reads (K1's
-    class, ``pallas_split.split_eligible``), else ``column`` (K3's)."""
-    stencil = analyzed.stencil
-    if any(v.loop_order != gtir.LoopOrder.PARALLEL for v in stencil.vertical_loops):
-        return "column"
-    for _, _, stmt in stencil.walk_stmts():
-        for acc in _iter_reads(stmt):
-            if acc.offset[2] != 0 or acc.koffset is not None or acc.abs_k is not None:
-                return "column"
-    return "plane"
-
-
 def generate(analyzed: AnalyzedStencil) -> KernelModule:
-    strategy = choose_strategy(analyzed)
-    return _Generator(analyzed, strategy).generate()
+    """The kernels of the first skeleton that serves the stencil (its name
+    in ``.strategy``); raises :class:`CudaUnsupported` with every
+    skeleton's reason when none does."""
+    return _Generator(analyzed).generate()
+
+
+@dataclasses.dataclass
+class _Item:
+    """One top-level statement of a kernel's scope, in program order."""
+
+    pos: int
+    section: int  # index of its section, unique across the stencil
+    interval: gtir.Interval
+    stmt: gtir.Stmt
+    ext: Extent
+    reads: list
+    writes: list
+
+    @property
+    def wide(self) -> bool:
+        return self.ext.i != (0, 0) or self.ext.j != (0, 0)
+
+    def writes_name(self, name: str) -> bool:
+        return any(w.name == name for w in self.writes)
+
+
+@dataclasses.dataclass
+class _Buffer:
+    """A symbol held in shared memory by a fused_plane or tiled block:
+    ``shared`` (a temporary or a written API field read at other points),
+    ``staged`` (a read-only IJ field, loaded once) or ``table``. Planes
+    cover the tile widened by the footprint ``fp``; a ring holds ``ring``
+    planes; each point holds ``nd`` data-dimension elements."""
+
+    meta: FieldMeta
+    kind: str
+    fp: Extent
+    rows: int = 0
+    cols: int = 0
+    nd: int = 1
+    ring: int = 1
+    offset: int = 0  # bytes into the block's dynamic shared memory
+    #: sections (indices) at whose levels the plane is first filled from
+    #: its home (device memory, or zeros for a fused_plane temporary)
+    init: frozenset[int] = frozenset()
+    #: tiled: the sections that write the symbol, whose levels the ring holds
+    writers: frozenset[int] = frozenset()
+
+    @property
+    def plane(self) -> int:
+        return self.rows * self.cols
+
+    @property
+    def elements(self) -> int:
+        if self.kind == "table":
+            return int(np.prod(self.meta.data_dims)) if self.meta.data_dims else 1
+        return self.plane * self.nd * self.ring
+
+
+def _bound_le(a: gtir.AxisBound, b: gtir.AxisBound) -> bool:
+    """a <= b for every domain size."""
+    return a.level == b.level and a.offset <= b.offset
+
+
+def _interval_within(inner: gtir.Interval, outer: gtir.Interval) -> bool:
+    return _bound_le(outer.start, inner.start) and _bound_le(inner.end, outer.end)
+
+
+def _covers(ext: Extent, fp: Extent) -> bool:
+    return ext.i[0] <= fp.i[0] and ext.i[1] >= fp.i[1] and ext.j[0] <= fp.j[0] and (
+        ext.j[1] >= fp.j[1]
+    )
+
+
+def _full_write(it: _Item, name: str) -> bool:
+    """The statement writes every point of ``name``'s plane it spans,
+    unconditionally."""
+    s = it.stmt
+    return (
+        isinstance(s, gtir.Assign)
+        and s.target.name == name
+        and s.mask is None
+        and not s.horizontal_masks
+        and not s.target.data_index
+        and s.target.offset == (0, 0, 0)
+        and s.target.koffset is None
+    )
 
 
 def _loop_symbols(vloop: gtir.VerticalLoop):
@@ -301,10 +465,10 @@ def _loop_symbols(vloop: gtir.VerticalLoop):
 
 
 class _Generator:
-    def __init__(self, analyzed: AnalyzedStencil, strategy: str):
+    def __init__(self, analyzed: AnalyzedStencil):
         self.analyzed = analyzed
         self.stencil = analyzed.stencil
-        self.strategy = strategy
+        self.strategy = ""
         self.fields: dict[str, FieldMeta] = {}
         self.slots: list[FieldMeta] = []
         self.scalars: list[tuple[str, str, int, np.dtype]] = []
@@ -367,12 +531,96 @@ class _Generator:
             )
             _ctype(meta.dtype)
             self.fields[t.name] = meta
-            if strategy == "column":  # global (K, I, J) buffers
-                meta.index = len(self.slots)
-                meta.shape_off = shape_off
-                self.slots.append(meta)
-                shape_off += 3
+        #: fused_plane and tiled: name -> shared-memory buffer of the kernel
+        #: being emitted, and that kernel's buffers by plan
+        self.buffers: dict[str, _Buffer] = {}
+        self.fused_plan: Optional[list[_Buffer]] = None
+        self.tiled_plans: list[list[_Buffer]] = []
+        #: dynamic shared memory of the fused_plane kernel, of each tiled one
+        self.fused_bytes = 0
+        self.tiled_bytes: dict[int, int] = {}
+        #: tiled: the statement being emitted, its loop's sections, and the
+        #: symbols its section writes
+        self.item: Optional[_Item] = None
+        self.loop_sections: list[tuple[int, gtir.Interval]] = []
+        self.section_writes: set[str] = set()
+        self.strategy = self._choose()
+        if self.strategy in ("column", "tiled"):  # global (K, I, J) buffers
+            for meta in self.fields.values():
+                if meta.is_temp:
+                    meta.index = len(self.slots)
+                    meta.shape_off = shape_off
+                    self.slots.append(meta)
+                    shape_off += 3
         self.n_shape_slots = shape_off
+
+    # -- dispatch --------------------------------------------------------------
+
+    def _choose(self) -> str:
+        """The dispatch of pallas_codegen.build_pallas_fn (:400-512): K1's
+        class, K2's, K3's, then K5."""
+        loops = self.stencil.vertical_loops
+        reasons = []
+        plane_class = all(v.loop_order == gtir.LoopOrder.PARALLEL for v in loops) and not any(
+            _is_k_shift(acc)
+            for _, _, stmt in self.stencil.walk_stmts()
+            for acc in _iter_reads(stmt)
+        )
+        if plane_class:
+            try:
+                self._check_plane_class()
+                return "plane"
+            except CudaUnsupported as exc:
+                reasons.append(f"plane: {exc}")
+            try:
+                self.fused_plan = self._plan_fused()
+                return "fused_plane"
+            except CudaUnsupported as exc:
+                reasons.append(f"fused_plane: {exc}")
+        try:
+            for vloop in loops:
+                self._check_column(vloop)
+            return "column"
+        except CudaUnsupported as exc:
+            reasons.append(f"column: {exc}")
+        try:
+            self.tiled_plans = [self._plan_tiled(n) for n in range(len(loops))]
+            return "tiled"
+        except CudaUnsupported as exc:
+            reasons.append(f"tiled: {exc}")
+        raise CudaUnsupported("; ".join(reasons))
+
+    def _check_plane_class(self) -> None:
+        """K1's class beyond the loop orders: 3-D fields without data
+        dimensions, no tables, temporaries inside one loop, and what
+        :meth:`_check_plane` admits in every loop."""
+        for p in self.stencil.params:
+            if isinstance(p, gtir.GlobalTableDecl):
+                raise CudaUnsupported(f"GlobalTable '{p.name}'")
+            if isinstance(p, gtir.FieldDecl) and (
+                tuple(p.dimensions) != (True, True, True) or p.data_dims
+            ):
+                raise CudaUnsupported(
+                    f"field '{p.name}' is lower-dimensional or has data dimensions"
+                )
+        owner: dict[str, int] = {}
+        for n, vloop in enumerate(self.stencil.vertical_loops):
+            writes, reads = _loop_symbols(vloop)
+            for a in writes + reads:
+                if self.fields[a.name].is_temp and owner.setdefault(a.name, n) != n:
+                    raise CudaUnsupported(f"temporary '{a.name}' crosses vertical loops")
+            self._check_plane(vloop)
+            temps = {a.name: self.fields[a.name] for a in writes + reads}
+            shared_bytes = sum(
+                (TI + m.extent.i[1] - m.extent.i[0]) * (TJ + m.extent.j[1] - m.extent.j[0])
+                * m.dtype.itemsize
+                for m in temps.values()
+                if m.is_temp
+            )
+            if shared_bytes > SHARED_BYTES_MAX:
+                raise CudaUnsupported(
+                    f"temporaries need {shared_bytes} bytes of static shared memory per block"
+                )
 
     # -- emission helpers ----------------------------------------------------
 
@@ -428,13 +676,23 @@ class _Generator:
         ]
         self.lines = []
         launchers = []
+        if self.strategy == "fused_plane":
+            self._emit_fused_plane_kernel()
+            launchers.append("gt_launch_0")
         for n, vloop in enumerate(self.stencil.vertical_loops):
+            if self.strategy == "fused_plane":
+                break
             if self.strategy == "plane":
                 self._emit_plane_kernel(n, vloop)
-            else:
+            elif self.strategy == "column":
                 self._emit_column_kernel(n, vloop)
+            else:
+                self._emit_tiled_kernel(n, vloop)
             launchers.append(f"gt_launch_{n}")
             self.emit()
+        staged = frozenset(
+            b.meta.name for b in self.fused_plan or () if b.kind in ("staged", "table")
+        )
         # NOTE: name-free source: the library cache is keyed by its hash, so
         # identical definitions under different names share one build.
         return KernelModule(
@@ -445,8 +703,28 @@ class _Generator:
             n_shape_slots=self.n_shape_slots,
             launchers=launchers,
             written=frozenset(self.analyzed.written_fields()),
-            nonlocal_reads=_nonlocal_reads(self.analyzed, self.strategy),
+            nonlocal_reads=_nonlocal_reads(self.analyzed, self.strategy, staged),
+            unit_axes=self._unit_axes(),
         )
+
+    def _unit_axes(self) -> dict[str, str]:
+        """Lower-dimensional written fields: the domain axes they lack must
+        have size 1 (K too in fused_plane, K2's rule, pallas_codegen.py
+        :1450-1461; the K-walking kernels store a K-less field level by
+        level from one thread or block, as the plain version does)."""
+        out = {}
+        for name in self.analyzed.written_fields():
+            m = self.fields.get(name)
+            if m is None or m.is_temp:
+                continue
+            lacking = "".join(
+                ax
+                for ax, present in zip("IJK", m.axes)
+                if not present and (ax != "K" or self.strategy == "fused_plane")
+            )
+            if lacking:
+                out[name] = lacking
+        return out
 
     def _emit_locals(self, names: set[str], *, pointers: bool = True) -> None:
         """Kernel-local pointers (unless they are kernel parameters), byte
@@ -477,10 +755,13 @@ class _Generator:
             self.emit(f"const {ct} sc_{name} = ({ct}){src}; (void)sc_{name};")
 
     def _emit_launcher(
-        self, n: int, kernel: str, grid: str, block: str, noalias_call: str = ""
+        self, n: int, kernel: str, grid: str, block: str, noalias_call: str = "",
+        smem: int = 0,
     ) -> None:
         """``noalias`` (set by the wrapper when no two field buffers
-        overlap) selects ``noalias_call``, the ``__restrict__`` variant."""
+        overlap) selects ``noalias_call``, the ``__restrict__`` variant.
+        ``smem`` bytes of dynamic shared memory; above 48 KB the kernel is
+        first allowed them with ``cudaFuncSetAttribute``."""
         self.emit(
             f'extern "C" int gt_launch_{n}(void* const* fields, const long long* shapes,'
         )
@@ -495,12 +776,18 @@ class _Generator:
         self.emit(
             f"if (grid.x == 0 || grid.y == 0 || grid.z == 0) return {NOTHING_LAUNCHED};"
         )
+        if smem > SHARED_BYTES_MAX:
+            self.emit(
+                f"const cudaError_t gt_e = cudaFuncSetAttribute({kernel}, "
+                f"cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});"
+            )
+            self.emit("if (gt_e != cudaSuccess) return (int)gt_e;")
         if noalias_call:
             self.emit(f"if (noalias) {noalias_call};")
             self.emit(f"else {kernel}<<<grid, block, 0, (cudaStream_t)stream>>>(p);")
         else:
             self.emit("(void)noalias;")
-            self.emit(f"{kernel}<<<grid, block, 0, (cudaStream_t)stream>>>(p);")
+            self.emit(f"{kernel}<<<grid, block, {smem}, (cudaStream_t)stream>>>(p);")
         self.emit("return (int)cudaGetLastError();")
         self.indent -= 1
         self.emit("}")
@@ -564,21 +851,10 @@ class _Generator:
                         )
 
     def _emit_plane_kernel(self, n: int, vloop: gtir.VerticalLoop) -> None:
-        self._check_plane(vloop)
         writes, reads = _loop_symbols(vloop)
         names = {a.name for a in writes + reads}
         temps = [m for m in self.fields.values() if m.is_temp and m.name in names]
-        for m in temps:
-            for other in self.stencil.vertical_loops:
-                if other is vloop:
-                    continue
-                ow, orr = _loop_symbols(other)
-                if any(a.name == m.name for a in ow + orr):
-                    raise CudaUnsupported(
-                        f"temporary '{m.name}' crosses vertical loops"
-                    )
         self.shared = {}
-        shared_bytes = 0
         kernel = f"gt_plane_{n}"
         self.emit(f"__global__ void __launch_bounds__({PLANE_THREADS}) {kernel}(const GtParams p) {{")
         self.indent += 1
@@ -592,15 +868,10 @@ class _Generator:
             si = TI + e.i[1] - e.i[0]
             sj = TJ + e.j[1] - e.j[0]
             ct = _ctype(m.dtype)
-            shared_bytes += si * sj * m.dtype.itemsize
             self.shared[m.name] = sj
             self.emit(f"__shared__ {ct} {m.var}_s[{si * sj}];")
             with self._block(f"for (int q = tid; q < {si * sj}; q += {PLANE_THREADS})"):
                 self.emit(f"{m.var}_s[q] = ({ct})0;")
-        if shared_bytes > SHARED_BYTES_MAX:
-            raise CudaUnsupported(
-                f"temporaries need {shared_bytes} bytes of shared memory per block"
-            )
         if temps:
             self.emit("__syncthreads();")
         for section in vloop.sections:
@@ -696,7 +967,7 @@ class _Generator:
             f"(unsigned)(({ni_u} + {COL_BI - 1}) / {COL_BI}), 1u",
             f"{COL_BJ}, {COL_BI}",
             noalias_call=(
-                f"{kernel}_r<<<grid, block, 0, (cudaStream_t)stream>>>(p, {args})"
+                f"{kernel}_r<<<grid, block, 0, (cudaStream_t)stream>>>(p{', ' if args else ''}{args})"
             ),
         )
 
@@ -744,6 +1015,535 @@ class _Generator:
         else:
             with self._block(f"if ({cond})"):
                 self._emit_stmt(stmt)
+
+    # -- fused_plane and tiled: plans --------------------------------------------
+
+    def _items(self, loops) -> list[_Item]:
+        """The top-level statements of the given vertical loops, in program
+        order, with their section's stencil-wide index."""
+        items: list[_Item] = []
+        section_id = 0
+        for n, vloop in enumerate(self.stencil.vertical_loops):
+            for section in vloop.sections:
+                if n in loops:
+                    for stmt in section.body:
+                        items.append(
+                            _Item(
+                                pos=len(items),
+                                section=section_id,
+                                interval=section.interval,
+                                stmt=stmt,
+                                ext=self.analyzed.stmt_extents[stmt],
+                                reads=list(_iter_reads(stmt)),
+                                writes=list(iter_writes(stmt)),
+                            )
+                        )
+                section_id += 1
+        return items
+
+    def _check_accesses(self, items: list[_Item]) -> None:
+        for it in items:
+            for w in it.writes:
+                if w.offset[0] != 0 or w.offset[1] != 0:
+                    raise CudaUnsupported(f"horizontal offset write to '{w.name}'")
+            for a in it.writes + it.reads:
+                m = self._meta(a.name)
+                if m.data_dims and len(a.data_index) != len(m.data_dims):
+                    raise CudaUnsupported(f"partial data-dimension index of '{a.name}'")
+
+    @staticmethod
+    def _footprint(items: list[_Item], name: str) -> Extent:
+        """Points of a symbol's plane the statements write or read,
+        relative to the tile (the union of write extents and shifted read
+        extents)."""
+        fp: Optional[Extent] = None
+        for it in items:
+            exts = [it.ext for w in it.writes if w.name == name]
+            exts += [it.ext.shifted_ij(r.offset[0], r.offset[1]) for r in it.reads if r.name == name]
+            for e in exts:
+                fp = e if fp is None else fp.union(e)
+        assert fp is not None
+        return Extent(i=fp.i, j=fp.j)
+
+    @staticmethod
+    def _nonlocal_read(items: list[_Item], name: str) -> bool:
+        return any(
+            r.name == name and (r.offset[0] != 0 or r.offset[1] != 0 or it.wide)
+            for it in items
+            for r in it.reads
+        )
+
+    @staticmethod
+    def _first_access_covers(items: list[_Item], name: str, fp: Extent) -> bool:
+        """In these statements (one section), the symbol's first access at
+        the current level is an unconditional write of its whole plane."""
+        for it in items:
+            if any(r.name == name and not _is_k_shift(r) for r in it.reads):
+                return False
+            if it.writes_name(name):
+                return _full_write(it, name) and _covers(it.ext, fp)
+        return True
+
+    @staticmethod
+    def _check_load_hazard(items: list[_Item], name: str) -> None:
+        """A plane first loaded from device memory at a level holds, at halo
+        points, what a neighbouring block may already have stored there at
+        that level. That is the old value only if no point is read at this
+        level before it is written and a single statement writes it."""
+        writers = [it.pos for it in items if it.writes_name(name)]
+        if len(writers) > 1:
+            raise CudaUnsupported(
+                f"'{name}' is conditionally written by {len(writers)} statements and read "
+                "at other points; a block could see a neighbour's later value"
+            )
+        for it in items:
+            early = any(p >= it.pos for p in writers)
+            for r in it.reads:
+                if (
+                    early
+                    and r.name == name
+                    and not _is_k_shift(r)
+                    and (r.offset[0] != 0 or r.offset[1] != 0 or it.wide)
+                ):
+                    raise CudaUnsupported(
+                        f"'{name}' is read at other points before it is written at the "
+                        "same level; a neighbouring block may already have written them"
+                    )
+
+    def _shared_buffer(self, items: list[_Item], name: str, tile, ring: int = 1) -> _Buffer:
+        m = self.fields[name]
+        fp = self._footprint(items, name)
+        return _Buffer(
+            meta=m,
+            kind="shared",
+            fp=fp,
+            rows=tile[0] + fp.i[1] - fp.i[0],
+            cols=tile[1] + fp.j[1] - fp.j[0],
+            nd=int(np.prod(m.data_dims)) if m.data_dims else 1,
+            ring=ring,
+        )
+
+    @staticmethod
+    def _layout(buffers: list[_Buffer], kernel: str) -> int:
+        """Byte offsets of the buffers in dynamic shared memory (16-byte
+        aligned); the total, checked against the H100's limit."""
+        total = 0
+        for b in buffers:
+            b.offset = total
+            total += -(-b.elements * b.meta.dtype.itemsize // 16) * 16
+        if total > SHARED_BYTES_LIMIT:
+            raise CudaUnsupported(
+                f"{kernel} needs {total} bytes of shared memory per block "
+                f"(the H100 gives at most {SHARED_BYTES_LIMIT})"
+            )
+        return total
+
+    def _plan_fused(self) -> list[_Buffer]:
+        """K2's class: one block walks a K block of the whole stencil."""
+        items = self._items(range(len(self.stencil.vertical_loops)))
+        self._check_accesses(items)
+        for it in items:
+            for w in it.writes:
+                if w.offset[2] != 0 or w.koffset is not None:
+                    raise CudaUnsupported(f"K-offset write to '{w.name}' in a PARALLEL loop")
+        written = {w.name for it in items for w in it.writes}
+        touched = {a.name for it in items for a in it.reads + it.writes}
+        buffers = []
+        for m in self.fields.values():
+            name = m.name
+            if name not in touched:
+                continue
+            if not m.is_temp and not any(m.axes):
+                buffers.append(_Buffer(meta=m, kind="table", fp=Extent.zeros()))
+            elif m.is_temp or (name in written and self._nonlocal_read(items, name)):
+                b = self._shared_buffer(items, name, (TI, TJ))
+                mine = [it for it in items if any(a.name == name for a in it.reads + it.writes)]
+                first = [it for it in mine if it.section == mine[0].section]
+                needs_init = not (
+                    self._first_access_covers(first, name, b.fp)
+                    and all(_interval_within(it.interval, first[0].interval) for it in mine)
+                )
+                if needs_init:
+                    if not m.is_temp:  # temporaries start from zeros, not memory
+                        self._check_load_hazard(items, name)
+                    b.init = frozenset(it.section for it in mine)
+                buffers.append(b)
+            elif m.axes == (True, True, False) and name not in written:
+                fp = self._footprint(items, name)
+                buffers.append(
+                    _Buffer(
+                        meta=m,
+                        kind="staged",
+                        fp=fp,
+                        rows=TI + fp.i[1] - fp.i[0],
+                        cols=TJ + fp.j[1] - fp.j[0],
+                        nd=int(np.prod(m.data_dims)) if m.data_dims else 1,
+                    )
+                )
+        self.fused_bytes = self._layout(buffers, "fused_plane")
+        return buffers
+
+    def _plan_tiled(self, n: int) -> list[_Buffer]:
+        """K5's class for loop ``n``: a K walk of TL_TI × TL_TJ tiles."""
+        vloop = self.stencil.vertical_loops[n]
+        items = self._items([n])
+        self._check_accesses(items)
+        order = vloop.loop_order
+        written = {w.name for it in items for w in it.writes}
+        if order == gtir.LoopOrder.PARALLEL:
+            for it in items:
+                for r in it.reads:
+                    if r.name in written and _is_k_shift(r):
+                        raise CudaUnsupported(
+                            f"PARALLEL loop reads '{r.name}', which it writes, at a K offset"
+                        )
+        contiguous = all(
+            (a.interval.start == b.interval.end)
+            if order == gtir.LoopOrder.BACKWARD
+            else (a.interval.end == b.interval.start)
+            for a, b in zip(vloop.sections, vloop.sections[1:])
+        )
+        buffers = []
+        for m in self.fields.values():
+            name = m.name
+            if name not in written or not self._nonlocal_read(items, name):
+                continue
+            reach = 0
+            for it in items:
+                accesses = [(w, True) for w in it.writes] + [(r, False) for r in it.reads]
+                for a, is_write in accesses:
+                    if a.name != name:
+                        continue
+                    if a.koffset is not None or a.abs_k is not None or (
+                        is_write and a.offset[2] != 0
+                    ):
+                        raise CudaUnsupported(
+                            f"'{name}' is read at other points and accessed at a variable "
+                            "or absolute K, or written at a K offset"
+                        )
+                    dk = a.offset[2]
+                    if (order == gtir.LoopOrder.FORWARD and dk > 0) or (
+                        order == gtir.LoopOrder.BACKWARD and dk < 0
+                    ):
+                        raise CudaUnsupported(
+                            f"'{name}' is read at K offset {dk}, ahead of the walk"
+                        )
+                    reach = max(reach, abs(dk))
+            if reach and not contiguous:
+                raise CudaUnsupported(
+                    f"'{name}' is read at a K offset in a loop whose sections are not contiguous"
+                )
+            b = self._shared_buffer(items, name, (TL_TI, TL_TJ), ring=reach + 1)
+            writers = [it for it in items if it.writes_name(name)]
+            b.writers = frozenset(it.section for it in writers)
+            # a ring plane holds an earlier level only where this block
+            # computed it; elsewhere it holds that level as filled from device
+            # memory, which a neighbouring block may or may not have stored yet
+            for it in items:
+                for r in it.reads:
+                    if r.name != name or r.offset[2] == 0:
+                        continue
+                    need = it.ext.shifted_ij(r.offset[0], r.offset[1])
+                    if not all(_covers(w.ext, need) for w in writers):
+                        raise CudaUnsupported(
+                            f"'{name}' is read at offset {tuple(r.offset)} beyond the points "
+                            "its writers compute; a block cannot get a neighbouring "
+                            "block's value of an earlier level"
+                        )
+            init = set()
+            for sid in sorted({it.section for it in items}):
+                sec = [it for it in items if it.section == sid]
+                if any(it.writes_name(name) for it in sec) and not self._first_access_covers(
+                    sec, name, b.fp
+                ):
+                    self._check_load_hazard(sec, name)
+                    init.add(sid)
+            b.init = frozenset(init)
+            buffers.append(b)
+        self.tiled_bytes[n] = self._layout(buffers, "tiled")
+        return buffers
+
+    # -- fused_plane and tiled: emission -----------------------------------------
+
+    def _emit_ownership(self, ti: int, tj: int) -> None:
+        """The points whose device memory this block stores: its tile, and
+        at the domain's edge everything beyond it."""
+        far = "(1LL << 62)"
+        self.emit(f"const long long own_i0 = i0 == 0 ? -{far} : i0;")
+        self.emit(f"const long long own_i1 = i0 + {ti} >= ni ? {far} : i0 + {ti};")
+        self.emit(f"const long long own_j0 = j0 == 0 ? -{far} : j0;")
+        self.emit(f"const long long own_j1 = j0 + {tj} >= nj ? {far} : j0 + {tj};")
+        self.emit("(void)own_i0; (void)own_i1; (void)own_j0; (void)own_j1;")
+
+    def _emit_buffer_pointers(self, buffers: list[_Buffer]) -> None:
+        if buffers:
+            self.emit("extern __shared__ __align__(16) unsigned char gt_smem[];")
+        for b in buffers:
+            ct = _ctype(b.meta.dtype)
+            self.emit(f"{ct}* const {b.meta.var}_s = ({ct}*)(gt_smem + {b.offset});")
+
+    def _emit_unravel(self, m: FieldMeta, flat: str) -> None:
+        """``gt_a += `` the byte offset of data-dimension element ``flat``
+        (row-major over the data dimensions)."""
+        self.emit(f"long long gt_r = {flat};")
+        for d in reversed(range(len(m.data_dims))):
+            self.emit(f"gt_a += (gt_r % {m.data_dims[d]}) * {m.var}_d{d}; gt_r /= {m.data_dims[d]};")
+
+    def _emit_plane_fill(self, b: _Buffer, threads: int, *, level: bool, slot: str = "") -> None:
+        """Fill a buffer's plane from device memory over its footprint
+        (``level``: at level k), zeros where the tile overhangs the field."""
+        m, v, ct = b.meta, b.meta.var, _ctype(b.meta.dtype)
+        n = b.plane * b.nd
+        dest = f"{slot} * {n} + q" if slot else "q"
+        with self._block(f"for (int q = tid; q < {n}; q += {threads})"):
+            pt = f"q / {b.nd}" if b.nd > 1 else "q"
+            self.emit(f"const long long i = i0 + ({b.fp.i[0]}) + ({pt}) / {b.cols};")
+            self.emit(f"const long long j = j0 + ({b.fp.j[0]}) + ({pt}) % {b.cols};")
+            self.emit(f"{ct} gt_x = ({ct})0;")
+            with self._block(f"if (i < ni + ({b.fp.i[1]}) && j < nj + ({b.fp.j[1]}))"):
+                terms = [f"({v}_o{r} + {r}) * {v}_s{r}" for r, on in zip("ij", m.axes) if on]
+                if level and m.axes[2]:
+                    terms.append(f"({v}_ok + k) * {v}_sk")
+                self.emit(f"const char* gt_a = {' + '.join([v] + terms)};")
+                if b.nd > 1:
+                    self._emit_unravel(m, f"q % {b.nd}")
+                self.emit(f"gt_x = *(const {ct}*)gt_a;")
+            self.emit(f"{v}_s[{dest}] = gt_x;")
+
+    def _emit_table_stage(self, b: _Buffer, threads: int) -> None:
+        m, v, ct = b.meta, b.meta.var, _ctype(b.meta.dtype)
+        with self._block(f"for (int q = tid; q < {b.elements}; q += {threads})"):
+            self.emit(f"const char* gt_a = {v};")
+            self._emit_unravel(m, "q")
+            self.emit(f"{v}_s[q] = *(const {ct}*)gt_a;")
+
+    def _emit_item(self, it: _Item, tile, threads: int) -> None:
+        """One statement over the tile widened by its extent, then a
+        barrier."""
+        ext = it.ext
+        rows = tile[0] + ext.i[1] - ext.i[0]
+        cols = tile[1] + ext.j[1] - ext.j[0]
+        with self._block(f"for (int q = tid; q < {rows * cols}; q += {threads})"):
+            self.emit(f"const long long i = i0 + ({ext.i[0]}) + q / {cols};")
+            self.emit(f"const long long j = j0 + ({ext.j[0]}) + q % {cols};")
+            with self._block(f"if ({self._extent_cond(ext)})"):
+                self.point_base = {}
+                names = {a.name for a in it.reads + it.writes}
+                for name in sorted(names):
+                    m = self._meta(name)
+                    b = self.buffers.get(name)
+                    if b is not None and b.kind != "table":
+                        self.emit(
+                            f"const int {m.var}_x = (int)((i - i0 - ({b.fp.i[0]})) * {b.cols}"
+                            f" + (j - j0 - ({b.fp.j[0]})));"
+                        )
+                    if self.strategy == "fused_plane" and any(m.axes) and (
+                        b is None or (b.kind == "shared" and not m.is_temp)
+                    ):
+                        self._emit_field_base(m, with_k=True)
+                if it.wide:
+                    self.emit(
+                        "const bool gt_own = i >= own_i0 && i < own_i1 && "
+                        "j >= own_j0 && j < own_j1; (void)gt_own;"
+                    )
+                self.item = it
+                self._emit_stmt(it.stmt)
+                self.item = None
+        self.emit("__syncthreads();")
+
+    def _emit_fused_plane_kernel(self) -> None:
+        """One launch per stencil: stage the K-invariant data, then walk the
+        block's levels through every statement of every vertical loop."""
+        plan = self.fused_plan
+        loops = self.stencil.vertical_loops
+        items = self._items(range(len(loops)))
+        names = {a.name for it in items for a in it.reads + it.writes}
+        self.buffers = {b.meta.name: b for b in plan}
+        kernel = "gt_fused_plane_0"
+        self.emit(
+            f"__global__ void __launch_bounds__({PLANE_THREADS}) {kernel}(const GtParams p) {{"
+        )
+        self.indent += 1
+        self._emit_locals(names)
+        self.emit(f"const long long i0 = (long long)blockIdx.y * {TI};")
+        self.emit(f"const long long j0 = (long long)blockIdx.x * {TJ};")
+        self.emit(f"const long long kb0 = (long long)blockIdx.z * {FP_TK};")
+        self.emit(f"const long long kb1 = kb0 + {FP_TK} < nk ? kb0 + {FP_TK} : nk;")
+        self.emit("const int tid = threadIdx.x;")
+        self._emit_ownership(TI, TJ)
+        self._emit_buffer_pointers(plan)
+        staged = [b for b in plan if b.kind in ("staged", "table")]
+        for b in staged:
+            if b.kind == "table":
+                self._emit_table_stage(b, PLANE_THREADS)
+            else:
+                self._emit_plane_fill(b, PLANE_THREADS, level=False)
+        if staged:
+            self.emit("__syncthreads();")
+        with self._block("for (long long k = kb0; k < kb1; ++k)"):
+            inits = [b for b in plan if b.kind == "shared" and b.init]
+            for b in inits:
+                if b.meta.is_temp:
+                    ct = _ctype(b.meta.dtype)
+                    n = b.plane * b.nd
+                    with self._block(f"for (int q = tid; q < {n}; q += {PLANE_THREADS})"):
+                        self.emit(f"{b.meta.var}_s[q] = ({ct})0;")
+                else:
+                    self._emit_plane_fill(b, PLANE_THREADS, level=True)
+            if inits:
+                self.emit("__syncthreads();")
+            for sid in sorted({it.section for it in items}):
+                sec = [it for it in items if it.section == sid]
+                lo, hi = self._k_bound(sec[0].interval.start), self._k_bound(sec[0].interval.end)
+                with self._block(f"if (k >= {lo} && k < {hi})"):
+                    for it in sec:
+                        self._emit_item(it, (TI, TJ), PLANE_THREADS)
+        self.indent -= 1
+        self.emit("}")
+        self.emit()
+        self.buffers = {}
+        self._emit_launcher(
+            0,
+            kernel,
+            f"(unsigned)((nj + {TJ - 1}) / {TJ}), (unsigned)((ni + {TI - 1}) / {TI}), "
+            f"(unsigned)((nk + {FP_TK - 1}) / {FP_TK})",
+            f"{PLANE_THREADS}",
+            smem=self.fused_bytes,
+        )
+
+    def _emit_tiled_kernel(self, n: int, vloop: gtir.VerticalLoop) -> None:
+        """One launch per vertical loop: each block walks the loop's levels
+        in order over its tile."""
+        plan = self.tiled_plans[n]
+        items = self._items([n])
+        names = {a.name for it in items for a in it.reads + it.writes}
+        self.buffers = {b.meta.name: b for b in plan}
+        kernel = f"gt_tiled_{n}"
+        self.emit(
+            f"__global__ void __launch_bounds__({TILED_THREADS}) {kernel}(const GtParams p) {{"
+        )
+        self.indent += 1
+        self._emit_locals(names)
+        self.emit(f"const long long i0 = (long long)blockIdx.y * {TL_TI};")
+        self.emit(f"const long long j0 = (long long)blockIdx.x * {TL_TJ};")
+        self.emit("const int tid = threadIdx.x;")
+        self._emit_ownership(TL_TI, TL_TJ)
+        self._emit_buffer_pointers(plan)
+        sids = sorted({it.section for it in items})
+        self.loop_sections = [
+            (sid, next(it.interval for it in items if it.section == sid)) for sid in sids
+        ]
+        backward = vloop.loop_order == gtir.LoopOrder.BACKWARD
+        for sid, interval in self.loop_sections:
+            sec = [it for it in items if it.section == sid]
+            self.section_writes = {w.name for it in sec for w in it.writes}
+            lo, hi = self._k_bound(interval.start), self._k_bound(interval.end)
+            head = (
+                f"for (long long k = {hi} - 1; k >= {lo}; --k)"
+                if backward
+                else f"for (long long k = {lo}; k < {hi}; ++k)"
+            )
+            with self._block(head):
+                for b in plan:
+                    if b.meta.name in self.section_writes:
+                        cur = f"gt_slot(k, {b.ring})" if b.ring > 1 else "0"
+                        self.emit(f"const int {b.meta.var}_cur = {cur};")
+                inits = [b for b in plan if sid in b.init]
+                for b in inits:
+                    self._emit_plane_fill(
+                        b, TILED_THREADS, level=True, slot=f"{b.meta.var}_cur"
+                    )
+                if inits:
+                    self.emit("__syncthreads();")
+                for it in sec:
+                    self._emit_item(it, (TL_TI, TL_TJ), TILED_THREADS)
+        self.indent -= 1
+        self.emit("}")
+        self.emit()
+        self.buffers = {}
+        self.section_writes = set()
+        self._emit_launcher(
+            n,
+            kernel,
+            f"(unsigned)((nj + {TL_TJ - 1}) / {TL_TJ}), (unsigned)((ni + {TL_TI - 1}) / {TL_TI}), 1u",
+            f"{TILED_THREADS}",
+            smem=self.tiled_bytes[n],
+        )
+
+    def _flat_index(self, node: gtir.FieldAccess, m: FieldMeta) -> str:
+        """Row-major element index of a data-dimension access; per-point
+        indices are clamped to the dimension, as the plain version clips
+        them."""
+        terms, stride = [], 1
+        for d in reversed(range(len(m.data_dims))):
+            e = node.data_index[d]
+            if isinstance(e, gtir.Literal):
+                idx = f"{int(e.value)}LL"
+            else:
+                idx = f"gt_clampk((long long)({self._expr(e)}), {m.data_dims[d]})"
+            terms.append(f"{idx} * {stride}")
+            stride *= m.data_dims[d]
+        return "(" + " + ".join(reversed(terms)) + ")" if terms else "0"
+
+    def _buffer_access(self, node: gtir.FieldAccess) -> Optional[str]:
+        """A read or write of a symbol held in shared memory, or None where
+        a tiled block must read device memory instead: a level its ring does
+        not hold."""
+        b = self.buffers[node.name]
+        m, v = b.meta, b.meta.var
+        if b.kind == "table":
+            return f"{v}_s[{self._flat_index(node, m)}]"
+        di, dj, dk = node.offset
+        point = f"{v}_x + ({di * b.cols + dj})"
+
+        def at(slot: Optional[str]) -> str:
+            e = point if slot is None else f"{slot} * {b.plane} + {point}"
+            if b.nd > 1:
+                e = f"({e}) * {b.nd} + {self._flat_index(node, m)}"
+            return f"{v}_s[{e}]"
+
+        if b.kind == "staged" or self.strategy == "fused_plane":
+            return at(None)
+        if dk == 0:
+            return at(f"{v}_cur") if node.name in self.section_writes else None
+        level = f"(k + ({dk}))"
+        held = " || ".join(
+            f"({level} >= {self._k_bound(iv.start)} && {level} < {self._k_bound(iv.end)})"
+            for sid, iv in self.loop_sections
+            if sid in b.writers
+        )
+        return (
+            f"(({held or '0'}) ? {at(f'gt_slot({level}, {b.ring})')} "
+            f": {self._global_access(node)})"
+        )
+
+    def _emit_buffered_assign(self, stmt: gtir.Assign) -> None:
+        """fused_plane and tiled: store to the shared plane (all computed
+        points) and to device memory at the points the block owns."""
+        t = stmt.target
+        m = self._meta(t.name)
+        ct = _ctype(m.dtype)
+        b = self.buffers.get(t.name)
+        own = self.item is not None and self.item.wide
+        if t.koffset is not None:
+            kt = f"({m.var}_ok + k + ({t.offset[2]}) + (long long)({self._expr(t.koffset)}))"
+            cond = f"{kt} >= 0 && {kt} < {m.var}_nk" + (" && gt_own" if own else "")
+            if stmt.mask is not None:
+                cond = f"({self._expr(stmt.mask)}) && ({cond})"
+            store = f"{self._global_access(t, k_override=kt)} = {self._expr(stmt.value)};"
+            self.emit(f"if ({cond}) {{ {store} }}")
+            return
+        stores = []
+        if b is not None and b.kind == "shared":
+            stores.append(f"{self._buffer_access(t)} = gt_v;")
+        if not m.is_temp or self.strategy == "tiled":
+            g = f"{self._global_access(t)} = gt_v;"
+            stores.append(f"if (gt_own) {g}" if own else g)
+        body = f"{{ const {ct} gt_v = {self._expr(stmt.value)}; {' '.join(stores)} }}"
+        if stmt.mask is None:
+            self.emit(body)
+        else:
+            self.emit(f"if ({self._expr(stmt.mask)}) {body}")
 
     # -- per-point addresses ---------------------------------------------------
 
@@ -815,6 +1615,9 @@ class _Generator:
             raise CudaUnsupported(f"statement {type(stmt).__name__}")
 
     def _emit_assign(self, stmt: gtir.Assign) -> None:
+        if self.strategy in ("fused_plane", "tiled"):
+            self._emit_buffered_assign(stmt)
+            return
         t = stmt.target
         if t.koffset is not None:
             # Variable-K-offset write: out-of-range target levels are
@@ -844,6 +1647,14 @@ class _Generator:
         return m
 
     def _access(self, node: gtir.FieldAccess, *, k_override: str = "") -> str:
+        if node.name in self.buffers:
+            held = self._buffer_access(node)
+            if held is not None:
+                return held
+        return self._global_access(node, k_override=k_override)
+
+    def _global_access(self, node: gtir.FieldAccess, *, k_override: str = "") -> str:
+        """The symbol in device memory (plane temporaries: shared memory)."""
         m = self._meta(node.name)
         v = m.var
         ct = _ctype(m.dtype)
@@ -863,7 +1674,7 @@ class _Generator:
                 terms.append(f"({di}) * {v}_si")
             if m.axes[1] and dj:
                 terms.append(f"({dj}) * {v}_sj")
-        if m.axes[2] and self.strategy == "column":
+        if m.axes[2] and self.strategy in ("column", "tiled"):
             if k_override:
                 terms.append(f"{k_override} * {v}_sk")
             elif node.abs_k is not None:
@@ -879,7 +1690,10 @@ class _Generator:
         elif m.axes[2] and (dk or node.koffset is not None or node.abs_k is not None):
             raise CudaUnsupported(f"K-offset read of '{m.name}' in the plane kernel")
         for d, e in enumerate(node.data_index):
-            terms.append(f"((long long)({self._expr(e)})) * {v}_d{d}")
+            idx = f"(long long)({self._expr(e)})"
+            if not isinstance(e, gtir.Literal):  # clipped, as the plain version does
+                idx = f"gt_clampk({idx}, {m.data_dims[d]})"
+            terms.append(f"({idx}) * {v}_d{d}")
         const = "const " if m.name in self.read_only else ""
         return f"(*({const}{ct}*)({' + '.join([base] + terms)}))"
 
@@ -1030,6 +1844,5 @@ __all__ = [
     "KernelModule",
     "TI",
     "TJ",
-    "choose_strategy",
     "generate",
 ]

@@ -46,14 +46,71 @@ def _field_names(stencil):
     return [n for n, info in stencil.field_info.items() if info is not None]
 
 
+# --- JAX twins of the port's two full-width definitions ------------------------
+
+
+def _ref_hdiff_sponge(
+    in_field: "gtscript.Field['dt']",
+    out_field: "gtscript.Field['dt']",
+    coeff: "gtscript.Field[gtscript.IJ, 'dt']",
+    damp: "gtscript.Field[gtscript.K, 'dt']",
+):
+    """hdiff as three PARALLEL computations handing temporaries on (the
+    Laplacian, the limited fluxes, the update), with a diffusion coefficient
+    that varies only in the horizontal and a vertical sponge profile."""
+    with computation(PARALLEL), interval(...):
+        lap = 4.0 * in_field[0, 0, 0] - (
+            in_field[1, 0, 0] + in_field[-1, 0, 0] + in_field[0, 1, 0] + in_field[0, -1, 0]
+        )
+    with computation(PARALLEL), interval(...):
+        res = lap[1, 0, 0] - lap[0, 0, 0]
+        flx = 0.0 if (res * (in_field[1, 0, 0] - in_field[0, 0, 0])) > 0 else res
+        res = lap[0, 1, 0] - lap[0, 0, 0]
+        fly = 0.0 if (res * (in_field[0, 1, 0] - in_field[0, 0, 0])) > 0 else res
+    with computation(PARALLEL), interval(...):
+        out_field = in_field[0, 0, 0] - coeff[0, 0] * damp[0] * (
+            flx[0, 0, 0] - flx[-1, 0, 0] + fly[0, 0, 0] - fly[0, -1, 0]
+        )
+
+
+def _ref_smoothed_column_sum(inp: "gtscript.Field['dt']", out: "gtscript.Field['dt']"):
+    """A FORWARD sweep that couples neighbouring columns at every level: a
+    damped running sum ``acc`` and, in ``out``, the running sum of its
+    4-neighbour mean."""
+    with computation(FORWARD):
+        with interval(0, 1):
+            acc = inp
+            out = 0.25 * (acc[1, 0, 0] + acc[-1, 0, 0] + acc[0, 1, 0] + acc[0, -1, 0])
+        with interval(1, None):
+            acc = inp + 0.5 * acc[0, 0, -1]
+            out = out[0, 0, -1] + 0.25 * (
+                acc[1, 0, 0] + acc[-1, 0, 0] + acc[0, 1, 0] + acc[0, -1, 0]
+            )
+
+
+JAX_TWINS = {"hdiff_sponge": _ref_hdiff_sponge, "smoothed_column_sum": _ref_smoothed_column_sum}
+
+
+def _reference_definition(name):
+    return JAX_TWINS[name] if name in defs.PORT_ONLY else getattr(ref_defs, name)
+
+
 def _run_reference(name, entry, host, shape):
     st = gtscript.stencil(
-        backend="numpy", definition=getattr(ref_defs, name), externals=entry["externals"]
+        backend="numpy", definition=_reference_definition(name),
+        externals=entry["externals"], dtypes=entry.get("dtypes", {}),
     )
     arrays = {n: v.copy() for n, v in host.items()}
     st(**arrays, **entry["scalars"], origin=(HALO, HALO, 0),
        domain=(shape[0] - 2 * HALO, shape[1] - 2 * HALO, shape[2]))
     return arrays
+
+
+def test_registry_covers_the_jax_registry():
+    """Every stencil of the JAX package's registry has its port, pinned to
+    a Hopper kernel."""
+    assert set(ref_defs.REGISTRY) <= set(defs.REGISTRY)
+    assert set(defs.REGISTRY) - set(ref_defs.REGISTRY) == set(defs.PORT_ONLY)
 
 
 def _as_kind(value, kind, backend):
@@ -75,9 +132,10 @@ def test_matches_numpy_backend_exactly(name, backend, kind):
     entry = defs.REGISTRY[name]
     shape = _shape(entry)
     st = port_gtscript.stencil(
-        backend=backend, definition=entry["definition"], externals=entry["externals"]
+        backend=backend, definition=entry["definition"], externals=entry["externals"],
+        dtypes=entry["dtypes"],
     )
-    host = _inputs(_field_names(st), shape, seed=3)
+    host = defs.make_inputs(st.field_info, shape, np.random.default_rng(3))
     expected = _run_reference(name, entry, host, shape)
     args = {n: _as_kind(v, kind, backend) for n, v in host.items()}
     info = {}
@@ -85,7 +143,11 @@ def test_matches_numpy_backend_exactly(name, backend, kind):
        domain=(shape[0] - 2 * HALO, shape[1] - 2 * HALO, shape[2]), exec_info=info)
     assert info["kernel_strategy"] == "plain"
     for n in host:
-        np.testing.assert_allclose(_to_numpy(args[n]), expected[n], rtol=1e-12, atol=0, err_msg=n)
+        got = _to_numpy(args[n])
+        if np.issubdtype(host[n].dtype, np.floating):
+            np.testing.assert_allclose(got, expected[n], rtol=1e-12, atol=0, err_msg=n)
+        else:
+            np.testing.assert_array_equal(got, expected[n], err_msg=n)
 
 
 # --- float32 against the Pallas kernels in interpret mode ----------------------
@@ -161,6 +223,27 @@ F32_CASES = {
         "origin": (0, 0, 0),
         "domain": (8, 9, 8),
     },
+    # K2 (the JAX package's "plane" strategy) and K3 ("staged") as reference
+    "hdiff_sponge": {
+        "port": defs.hdiff_sponge,
+        "ref": _ref_hdiff_sponge,
+        "externals": {},
+        "scalars": {},
+        "shape": (20, 19, 8),
+        "origin": (2, 2, 0),
+        "domain": (16, 15, 8),
+        "pallas_strategy": "plane",
+    },
+    "smoothed_column_sum": {
+        "port": defs.smoothed_column_sum,
+        "ref": _ref_smoothed_column_sum,
+        "externals": {},
+        "scalars": {},
+        "shape": (20, 19, 8),
+        "origin": (2, 2, 0),
+        "domain": (16, 15, 8),
+        "pallas_strategy": "staged",
+    },
 }
 
 _F32_OPTS = dict(
@@ -170,8 +253,11 @@ _F32_OPTS = dict(
 )
 
 
-def _f32_host(case, names):
-    host = _inputs(names, case["shape"], seed=5, dtype=np.float32)
+def _f32_host(case, stencil):
+    if "pallas_strategy" in case:  # lower-dimensional fields
+        host = defs.make_inputs(stencil.field_info, case["shape"], np.random.default_rng(5))
+        return {n: v.astype(np.float32) for n, v in host.items()}
+    host = _inputs(_field_names(stencil), case["shape"], seed=5, dtype=np.float32)
     if "diag" in host:  # diagonally dominant system
         host["diag"] = host["diag"] + np.float32(4.0)
         host["inf"], host["sup"] = -host["inf"], -host["sup"]
@@ -189,18 +275,28 @@ def pallas_results():
             backend="tpu:pallas", definition=case["ref"], externals=case["externals"],
             rebuild=True, **_F32_OPTS,
         )
-        host = _f32_host(case, _field_names(st))
+        host = _f32_host(case, st)
         arrays = {n: v.copy() for n, v in host.items()}
-        st(**arrays, **case["scalars"], origin=case["origin"], domain=case["domain"])
-        out[key] = (host, arrays)
+        info = {}
+        st(**arrays, **case["scalars"], origin=case["origin"], domain=case["domain"],
+           exec_info=info)
+        out[key] = (host, arrays, info.get("pallas_strategy"))
     return out
+
+
+@pytest.mark.parametrize("key", ["hdiff_sponge", "smoothed_column_sum"])
+def test_jax_serves_full_width_definitions_with_pallas(key, pallas_results):
+    """The JAX package runs the two definitions through a Pallas kernel:
+    hdiff_sponge through K2 (``plane``), smoothed_column_sum through K3
+    (``staged``)."""
+    assert pallas_results[key][2] == F32_CASES[key]["pallas_strategy"]
 
 
 @pytest.mark.parametrize("backend", PORT_BACKENDS)
 @pytest.mark.parametrize("key", sorted(F32_CASES))
 def test_matches_pallas_interpret_float32(key, backend, pallas_results):
     case = F32_CASES[key]
-    host, expected = pallas_results[key]
+    host, expected, _ = pallas_results[key]
     st = port_gtscript.stencil(
         backend=backend, definition=case["port"], externals=case["externals"], **_F32_OPTS
     )

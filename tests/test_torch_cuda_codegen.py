@@ -1,13 +1,15 @@
 """The ``cuda:hopper`` code generator and its build and launch wrappers.
 
-On the CPU: generation succeeds and picks the ``plane`` or ``column``
-skeleton, unsupported constructs raise ``CudaUnsupported`` with their
-reason, and the build command and the launch ABI hold what the card needs.
-Tests marked ``cuda`` build and launch the kernels; they decide inside the
-test whether there is a card and skip without one.
+On the CPU: generation succeeds and picks the ``plane``, ``fused_plane``,
+``column`` or ``tiled`` skeleton, a construct no skeleton serves raises
+``CudaUnsupported`` with its reason, and the build command, the kernels'
+launch structure and the launch ABI hold what the card needs. Tests marked
+``cuda`` build and launch the kernels; they decide inside the test whether
+there is a card and skip without one.
 """
 
 import ctypes
+import re
 
 import numpy as np
 import pytest
@@ -17,31 +19,61 @@ from gt4py_tpu_torch import storage
 from gt4py_tpu_torch.cartesian import gtscript
 from gt4py_tpu_torch.cartesian.backend import cuda_backend, cuda_codegen
 from gt4py_tpu_torch.cartesian.backend.cuda_codegen import CudaUnsupported
-from gt4py_tpu_torch.cartesian.gtscript import FORWARD, PARALLEL, computation, interval
+from gt4py_tpu_torch.cartesian.gtscript import (
+    BACKWARD,
+    FORWARD,
+    PARALLEL,
+    I,
+    computation,
+    horizontal,
+    interval,
+    region,
+)
 
 from . import torch_stencil_defs as defs
 
 F64 = gtscript.Field[np.float64]
 F16 = gtscript.Field[np.float16]
+FK = gtscript.Field[gtscript.K, np.float64]
+FI64 = gtscript.Field[np.int64]
+T4 = gtscript.GlobalTable[(np.float64, (4,))]
 
 
 def _backend(definition, **options):
     return gtscript.stencil(backend="cuda:hopper", definition=definition, **options)._backend
 
 
+def _registry_backend(name, **options):
+    entry = defs.REGISTRY[name]
+    return _backend(
+        entry["definition"], externals=entry["externals"], dtypes=entry["dtypes"], **options
+    )
+
+
+def _kernel(source, name):
+    """The body of one generated kernel."""
+    return source.split(f"{name}(const GtParams p")[1].split('extern "C"')[0]
+
+
 @pytest.mark.parametrize("name", sorted(defs.REGISTRY))
 def test_strategy_for_registry_stencil(name):
+    """The pinned skeleton of every registry stencil (the role of
+    EXPECTED_STRATEGY in tests/tpu_tests/test_registry_hardware.py)."""
     entry = defs.REGISTRY[name]
-    backend = _backend(entry["definition"], externals=entry["externals"])
+    backend = _registry_backend(name)
     assert backend.unsupported is None
     assert backend.strategy == entry["strategy"]
     source = backend.module.source
     skeleton = f"gt_{entry['strategy']}_0"
     assert f"__global__ void __launch_bounds__" in source
     assert skeleton in source
-    assert len(backend.module.launchers) == len(
-        backend.analyzed.stencil.vertical_loops
-    )
+    loops = len(backend.analyzed.stencil.vertical_loops)
+    fused = entry["strategy"] == "fused_plane"
+    assert len(backend.module.launchers) == (1 if fused else loops)
+
+
+def test_registry_pins_every_skeleton():
+    assert {e["strategy"] for e in defs.REGISTRY.values()} == set(cuda_backend.WRAPPERS)
 
 
 @pytest.mark.parametrize(
@@ -89,13 +121,192 @@ def _temporary_across_loops(inp: F64, out: F64):
         out = tmp[1, 0, 0] + tmp[-1, 0, 0]
 
 
+def _race_then_backward(inp: F64, out: F64):
+    with computation(FORWARD), interval(...):
+        tmp = inp * 2.0
+        out = tmp[1, 0, 0] + tmp[0, -1, 0]
+    with computation(BACKWARD), interval(0, -1):
+        out = out + 0.5 * out[0, 0, 1]
+
+
+def _wide_temporary(inp: F64, out: F64):
+    with computation(PARALLEL), interval(...):
+        tmp = inp[1, 0, 0] + inp[-1, 0, 0] + inp[0, 1, 0] + inp[0, -1, 0]
+        out = tmp[40, 0, 0] + tmp[-40, 0, 0] + tmp[0, 40, 0] + tmp[0, -40, 0]
+
+
+def _too_wide_temporary(inp: F64, out: F64):
+    with computation(PARALLEL), interval(...):
+        tmp = inp[1, 0, 0] + inp[-1, 0, 0] + inp[0, 1, 0] + inp[0, -1, 0]
+        out = tmp[100, 0, 0] + tmp[-100, 0, 0] + tmp[0, 100, 0] + tmp[0, -100, 0]
+
+
+def _tiled_in_place(inp: F64, out: F64):
+    """A tiled sweep whose API fields are read only at their own point:
+    ``stencil(a, a)`` is safe."""
+    with computation(FORWARD):
+        with interval(0, 1):
+            acc = 1.0
+            out = inp + acc[1, 0, 0]
+        with interval(1, None):
+            acc = 0.5 * acc[0, 0, -1] + 1.0
+            out = inp + acc[1, 0, 0] - acc[-1, 0, 0]
+
+
+def _k_field_write(inp: F64, prof: FK):
+    with computation(PARALLEL), interval(...):
+        tmp = inp * 2.0
+        prof = tmp[1, 0, 0]
+
+
+def _masked_shared_write(inp: F64, out: F64, out2: F64):
+    with computation(PARALLEL), interval(...):
+        if inp > 0.5:
+            out = inp * 2.0
+        out2 = out[1, 0, 0] + out[0, -1, 0]
+
+
+def _temporary_across_intervals(inp: F64, out: F64):
+    with computation(PARALLEL), interval(0, 2):
+        tmp = inp[1, 0, 0] + inp[-1, 0, 0] + inp[0, 1, 0] + inp[0, -1, 0]
+    with computation(PARALLEL), interval(...):
+        out = tmp[1, 0, 0] + tmp[-1, 0, 0] + tmp[0, 1, 0] + tmp[0, -1, 0]
+
+
+def _table_while(idx: FI64, out: F64, table: T4):
+    with computation(PARALLEL), interval(...):
+        v = table[idx]
+        while v < 4.0:
+            v = v * 2.0 + 0.5
+        out = v + v
+
+
+def _backward_ring(inp: F64, out: F64):
+    with computation(BACKWARD):
+        with interval(-1, None):
+            acc = inp
+            out = acc[1, 0, 0] - acc[-1, 0, 0]
+        with interval(0, -1):
+            acc = inp + 0.5 * acc[0, 0, 1]
+            out = out[0, 0, 1] + acc[0, 1, 0] - acc[0, -1, 0]
+
+
+def _masked_sweep(inp: F64, out: F64):
+    with computation(FORWARD):
+        with interval(0, 1):
+            acc = inp
+        with interval(1, None):
+            if inp > 0.3:
+                acc = inp + 0.5 * acc[0, 0, -1]
+            out = acc[1, 0, 0] + acc[0, -1, 0]
+
+
+def _parallel_then_race(inp: F64, out: F64):
+    with computation(PARALLEL), interval(...):
+        tmp = inp * 2.0
+    with computation(FORWARD), interval(...):
+        acc = tmp[1, 0, 0] + tmp[-1, 0, 0]
+        out = acc[0, 1, 0] + acc[0, -1, 0]
+
+
+def _region_sweep(inp: F64, out: F64):
+    with computation(FORWARD), interval(...):
+        acc = inp
+        with horizontal(region[I[0], :]):
+            acc = 0.0
+        out = acc[1, 0, 0] + acc[-1, 0, 0]
+
+
+def _lagged_neighbour_sweep(inp: F64, out: F64):
+    """Each level reads the level below one column further on: a tile would
+    need its neighbour's value of the level before."""
+    with computation(FORWARD):
+        with interval(0, 1):
+            acc = inp
+            out = acc
+        with interval(1, None):
+            lag = acc[1, 0, -1]
+            acc = inp + 0.5 * lag
+            out = acc
+
+
+def _lag_read_before_write(inp: F64, out: F64):
+    """The level below is read at an offset before this level's write, so
+    the write's extent does not reach the read."""
+    with computation(FORWARD):
+        with interval(0, 1):
+            acc = inp
+        with interval(1, None):
+            out = acc[1, 0, -1] + acc[0, -1, -1]
+            acc = inp * 2.0
+
+
+#: constructs beyond the registry that take the two new kernels' less
+#: travelled paths: planes filled from device memory or zeros at every
+#: level, a BACKWARD ring, PARALLEL loops in the tiled kernel, regions,
+#: tables and while
+CONSTRUCTS = {
+    "_shifted_read_after_write": (_shifted_read_after_write, "fused_plane"),
+    "_temporary_across_loops": (_temporary_across_loops, "fused_plane"),
+    "_masked_shared_write": (_masked_shared_write, "fused_plane"),
+    "_temporary_across_intervals": (_temporary_across_intervals, "fused_plane"),
+    "_table_while": (_table_while, "fused_plane"),
+    "_sequential_horizontal_race": (_sequential_horizontal_race, "tiled"),
+    "_race_then_backward": (_race_then_backward, "tiled"),
+    "_backward_ring": (_backward_ring, "tiled"),
+    "_masked_sweep": (_masked_sweep, "tiled"),
+    "_parallel_then_race": (_parallel_then_race, "tiled"),
+    "_region_sweep": (_region_sweep, "tiled"),
+    "_tiled_in_place": (_tiled_in_place, "tiled"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONSTRUCTS))
+def test_construct_strategy(name):
+    definition, strategy = CONSTRUCTS[name]
+    backend = _backend(definition)
+    assert backend.unsupported is None
+    assert backend.strategy == strategy
+
+
+def test_planes_filled_at_every_level_where_needed():
+    fused = _kernel(_backend(_masked_shared_write).module.source, "gt_fused_plane_0")
+    walk = fused.split("for (long long k = kb0; k < kb1; ++k)")[1]
+    assert walk.index("f1_s[q] = gt_x;") < walk.index("gt_v")  # out: from memory
+    zeros = _kernel(_backend(_temporary_across_intervals).module.source, "gt_fused_plane_0")
+    assert "t0_s[q] = (double)0;" in zeros  # tmp: zeros where interval(0, 2) ends
+    covered = _kernel(_registry_backend("hdiff_sponge").module.source, "gt_fused_plane_0")
+    assert "_s[q] = (double)0;" not in covered  # every plane first written whole
+    sweep = _kernel(_backend(_masked_sweep).module.source, "gt_tiled_0")
+    # acc: filled from memory in the masked section only
+    assert len(re.findall(r"t0_s\[t0_cur \* \d+ \+ q\] = gt_x;", sweep)) == 1
+
+
+@pytest.mark.parametrize(
+    "definition, strategy",
+    [
+        (_shifted_read_after_write, "fused_plane"),
+        (_sequential_horizontal_race, "tiled"),
+        (_temporary_across_loops, "fused_plane"),
+    ],
+)
+def test_formerly_refused_constructs_get_a_kernel(definition, strategy):
+    """An API field read at an offset after it is written, a value that
+    columns of a sequential loop share, and a temporary handed from one
+    loop to the next: each now has its kernel."""
+    backend = _backend(definition)
+    assert backend.unsupported is None
+    assert backend.strategy == strategy
+    assert backend.module.strategy == strategy
+    assert f"gt_{strategy}_0" in backend.module.source
+
+
 @pytest.mark.parametrize(
     "definition, reason",
     [
-        (_shifted_read_after_write, "read at a horizontal offset after it is written"),
-        (_sequential_horizontal_race, "columns would race"),
         (_half_precision, "float16 has no kernel type"),
-        (_temporary_across_loops, "crosses vertical loops"),
+        (_lagged_neighbour_sweep, "beyond the points its writers compute"),
+        (_lag_read_before_write, "beyond the points its writers compute"),
     ],
 )
 def test_unsupported_constructs_name_their_reason(definition, reason):
@@ -107,15 +318,91 @@ def test_unsupported_constructs_name_their_reason(definition, reason):
 
 
 def test_unsupported_stencil_still_runs_plain_on_cpu():
-    st = gtscript.stencil(backend="cuda:hopper", definition=_temporary_across_loops)
-    rng = np.random.default_rng(0)
-    inp = rng.random((8, 8, 3))
+    st = gtscript.stencil(backend="cuda:hopper", definition=_half_precision)
+    assert st._backend.module is None
+    inp = np.random.default_rng(0).random((8, 8, 3)).astype(np.float16)
     out = np.zeros_like(inp)
     info = {}
     st(inp, out, origin=(2, 2, 0), domain=(4, 4, 3), exec_info=info)
     assert info["kernel_strategy"] == "plain"
-    want = 2.0 * (inp[3:7, 2:6] + inp[1:5, 2:6])
-    np.testing.assert_allclose(out[2:6, 2:6], want, rtol=1e-12)
+    np.testing.assert_array_equal(out[2:6, 2:6], inp[2:6, 2:6])
+
+
+def test_fused_plane_is_one_launch_per_stencil():
+    backend = _registry_backend("hdiff_sponge")
+    source = backend.module.source
+    assert len(backend.analyzed.stencil.vertical_loops) == 3
+    assert backend.module.launchers == ["gt_launch_0"]
+    assert source.count("<<<") == 1 and source.count("__global__") == 1
+    stage, walk = _kernel(source, "gt_fused_plane_0").split(
+        "for (long long k = kb0; k < kb1; ++k)"
+    )
+    # coeff (IJ) is staged in shared memory once, before the K walk; damp
+    # (K) and the fields are read in the walk; temporaries never leave the SM
+    assert "f2_s[q] = gt_x;" in stage and "f2_s[" in walk
+    assert "f3_b = f3 + (f3_ok + k) * f3_sk" in walk
+    assert "(*(double*)(f1_b)) = gt_v;" in walk  # out_field, at owned points
+    # barriers: one after staging, one after each of the four statements
+    assert stage.count("__syncthreads();") == 1
+    assert walk.count("__syncthreads();") == 4
+    assert "cudaFuncSetAttribute" not in source  # under 48 KB
+
+
+def test_fused_plane_stores_widened_writes_only_where_it_owns():
+    source = _backend(_shifted_read_after_write).module.source
+    walk = _kernel(source, "gt_fused_plane_0")
+    # out is written over i in [0, ni + 1) and read at i + 1: held in shared
+    # memory, stored at the block's own points
+    assert "const bool gt_own" in walk
+    assert "if (gt_own) (*(double*)(f1_b)) = gt_v;" in walk
+    assert "f1_s[f1_x + (64)]" in walk
+
+
+def test_dynamic_shared_memory_above_48_kb():
+    backend = _backend(_wide_temporary)
+    assert backend.strategy == "fused_plane"  # the plane kernel's static 48 KB is too small
+    source = backend.module.source
+    smem = int(source.split("gt_fused_plane_0<<<grid, block, ")[1].split(",")[0])
+    assert smem > cuda_codegen.SHARED_BYTES_MAX
+    assert (
+        f"cudaFuncSetAttribute(gt_fused_plane_0, cudaFuncAttributeMaxDynamicSharedMemorySize, "
+        f"{smem});" in source
+    )
+
+
+def test_shared_memory_beyond_the_card_names_the_bytes():
+    backend = _backend(_too_wide_temporary)
+    assert backend.module is None
+    assert "bytes of shared memory per block" in backend.unsupported
+    assert str(cuda_codegen.SHARED_BYTES_LIMIT) in backend.unsupported
+
+
+def test_tiled_is_one_launch_per_loop():
+    backend = _backend(_race_then_backward)
+    assert backend.strategy == "tiled"
+    source = backend.module.source
+    assert backend.module.launchers == ["gt_launch_0", "gt_launch_1"]
+    assert source.count("<<<") == 2
+    assert "for (long long k = (nk + (-1)) - 1; k >= (0); --k)" in _kernel(source, "gt_tiled_1")
+
+
+def test_tiled_ring_and_barriers():
+    source = _registry_backend("smoothed_column_sum").module.source
+    kernel = _kernel(source, "gt_tiled_0")
+    # acc is read one level back at other points: a ring of two planes
+    assert "const int t0_cur = gt_slot(k, 2);" in kernel
+    assert "t0_s[gt_slot((k + (-1)), 2) * 340 + t0_x + (0)]" in kernel
+    # out is read one level back at its own point: device memory, clamped
+    assert "gt_clampk(f1_ok + k + (-1), f1_nk)" in kernel
+    # one barrier after each statement of each of the two sections
+    assert kernel.count("__syncthreads();") == 4
+
+
+def test_lower_dimensional_writes_need_a_unit_axis():
+    module = _backend(_k_field_write).module
+    assert module.strategy == "fused_plane"
+    assert module.unit_axes == {"prof": "IJ"}
+    assert _registry_backend("temporary_stencil").module.unit_axes == {}
 
 
 def test_build_command_targets_hopper():
@@ -169,12 +456,16 @@ def test_overlapping_roles():
         ("lap_of_lap", True),  # offset reads of what other threads write
         ("horizontal_diffusion", True),
         ("shift_all_directions", True),  # PARALLEL K-offset reads in the column kernel
+        ("vector_axpy", False),  # fused_plane, point by point
+        ("hdiff_sponge", True),  # fused_plane: offset reads of in_field
+        ("table_lookup", True),  # fused_plane: the table is staged in shared memory
+        ("k_profile_scale", True),  # one level of prof is read at every (i, j)
+        ("smoothed_column_sum", True),  # tiled: inp read over the widened tile
     ],
 )
 def test_alias_hazard(name, hazard):
     """Every field role given the same buffer."""
-    entry = defs.REGISTRY[name]
-    module = _backend(entry["definition"], externals=entry["externals"]).module
+    module = _registry_backend(name).module
     buf = torch.zeros(6, 6, 6)
     pairs = cuda_backend.overlapping({m.name: buf for m in module.slots if not m.is_temp})
     assert pairs
@@ -226,12 +517,42 @@ def test_launcher_reports_an_empty_grid(name):
 
 
 def test_cpu_tensors_never_launch():
-    entry = defs.REGISTRY["tridiagonal_solver"]
-    st = gtscript.stencil(backend="cuda:hopper", definition=entry["definition"])
-    before = (cuda_backend.PLANE.launches, cuda_backend.COLUMN.launches)
+    st = gtscript.stencil(backend="cuda:hopper", definition=defs.REGISTRY["tridiagonal_solver"]["definition"])
+    before = {k: w.launches for k, w in cuda_backend.WRAPPERS.items()}
     fields = [storage.ones((4, 4, 5), backend="cuda:hopper", device="cpu") for _ in range(5)]
     st(*fields)
-    assert (cuda_backend.PLANE.launches, cuda_backend.COLUMN.launches) == before
+    sponge = gtscript.stencil(backend="cuda:hopper", definition=_temporary_across_loops)
+    sponge(*fields[:2], origin=(1, 1, 0), domain=(2, 2, 5))
+    assert {k: w.launches for k, w in cuda_backend.WRAPPERS.items()} == before
+
+
+def test_build_libraries_starts_every_build_at_once(tmp_path, monkeypatch):
+    """Four one-second builds finish in about one second, not four; a
+    library on disk is not built again."""
+    import time
+
+    monkeypatch.setattr(cuda_backend, "_cache_dir", lambda: str(tmp_path))
+    monkeypatch.setattr(
+        cuda_backend, "build_command", lambda cu, lib: ["sh", "-c", f"sleep 1; cp {cu} {lib}"]
+    )
+    sources = [f"/* {n} */\n" for n in range(4)]
+    t0 = time.perf_counter()
+    cuda_backend.build_libraries(sources + sources[:1])
+    assert time.perf_counter() - t0 < 3.0
+    assert len(list(tmp_path.glob("gt_*.so"))) == 4
+    t0 = time.perf_counter()
+    cuda_backend.build_libraries(sources)
+    assert time.perf_counter() - t0 < 0.5
+
+
+def test_build_failure_names_the_source(tmp_path, monkeypatch):
+    monkeypatch.setattr(cuda_backend, "_cache_dir", lambda: str(tmp_path))
+    monkeypatch.setattr(
+        cuda_backend, "build_command", lambda cu, lib: ["sh", "-c", "echo bad kernel >&2; exit 2"]
+    )
+    with pytest.raises(cuda_backend.CudaBuildError, match="bad kernel"):
+        cuda_backend.build_libraries(["/* broken */\n"])
+    assert not list(tmp_path.glob("gt_*.so"))
 
 
 def test_build_error_names_the_compiler(tmp_path, monkeypatch):
@@ -249,69 +570,124 @@ def _need_card():
         pytest.skip("needs a CUDA card and nvcc")
 
 
+def _assert_same(got, want, name):
+    if np.issubdtype(want.dtype, np.floating):
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=0, err_msg=name)
+    else:
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(defs.REGISTRY))
 def test_kernel_matches_plain_on_card(name):
+    """Every registry stencil through its pinned kernel, against the plain
+    version on the same card, every field and every point compared."""
     _need_card()
     entry = defs.REGISTRY[name]
-    kern = gtscript.stencil(
-        backend="cuda:hopper", definition=entry["definition"], externals=entry["externals"]
-    )
-    plain = gtscript.stencil(
-        backend="torch", definition=entry["definition"], externals=entry["externals"]
-    )
-    names = [n for n, i in kern.field_info.items() if i is not None]
+    opts = dict(externals=entry["externals"], dtypes=entry["dtypes"])
+    kern = gtscript.stencil(backend="cuda:hopper", definition=entry["definition"], **opts)
+    plain = gtscript.stencil(backend="torch", definition=entry["definition"], **opts)
     shape = (22, 21, max(9, entry["min_k"]))
-    rng = np.random.default_rng(1)
-    host = {n: rng.random(shape) for n in names}
+    host = defs.make_inputs(kern.field_info, shape, np.random.default_rng(1))
     out = {}
     for tag, st in (("kernel", kern), ("plain", plain)):
-        fields = {n: storage.from_array(v, backend="cuda:hopper", aligned_index=(3, 3, 0))
-                  for n, v in host.items()}
+        fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
         info = {}
-        st(**fields, **entry["scalars"], domain=(16, 15, shape[2]), exec_info=info)
+        st(**fields, **entry["scalars"], origin=(3, 3, 0), domain=(16, 15, shape[2]),
+           exec_info=info)
         torch.cuda.synchronize()
         expected = entry["strategy"] if tag == "kernel" else "plain"
         assert info["kernel_strategy"] == expected
         out[tag] = {n: np.asarray(v) for n, v in fields.items()}
-    for n in names:
-        np.testing.assert_allclose(out["kernel"][n], out["plain"][n], rtol=1e-12, atol=0)
+    for n in host:
+        _assert_same(out["kernel"][n], out["plain"][n], n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CONSTRUCTS))
+def test_construct_matches_plain_on_card(name):
+    _need_card()
+    definition, strategy = CONSTRUCTS[name]
+    kern = gtscript.stencil(backend="cuda:hopper", definition=definition)
+    plain = gtscript.stencil(backend="torch", definition=definition)
+    host = defs.make_inputs(kern.field_info, (41, 70, 7), np.random.default_rng(4))
+    out = {}
+    for tag, st in (("kernel", kern), ("plain", plain)):
+        fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+        info = {}
+        st(**fields, origin=(2, 2, 0), domain=(37, 66, 7), exec_info=info)
+        torch.cuda.synchronize()
+        assert info["kernel_strategy"] == (strategy if tag == "kernel" else "plain")
+        out[tag] = {n: np.asarray(v) for n, v in fields.items()}
+    for n in host:
+        _assert_same(out["kernel"][n], out["plain"][n], n)
 
 
 @pytest.mark.cuda
 def test_unsupported_raises_on_card():
     _need_card()
-    st = gtscript.stencil(backend="cuda:hopper", definition=_temporary_across_loops)
-    a = storage.zeros((8, 8, 3), backend="cuda:hopper")
-    b = storage.zeros((8, 8, 3), backend="cuda:hopper")
-    with pytest.raises(CudaUnsupported, match="crosses vertical loops"):
+    st = gtscript.stencil(backend="cuda:hopper", definition=_half_precision)
+    a = storage.zeros((8, 8, 3), np.float16, backend="cuda:hopper")
+    b = storage.zeros((8, 8, 3), np.float16, backend="cuda:hopper")
+    with pytest.raises(CudaUnsupported, match="float16 has no kernel type"):
         st(a, b, origin=(2, 2, 0), domain=(4, 4, 3))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["forward_cumsum", "staggeredish_interval_chain", "copy_stencil"])
+def test_lower_dimensional_write_needs_a_unit_axis_on_card():
+    _need_card()
+    st = gtscript.stencil(backend="cuda:hopper", definition=_k_field_write)
+    inp = storage.zeros((8, 8, 3), backend="cuda:hopper")
+    prof = storage.zeros((3,), backend="cuda:hopper", dimensions=("K",))
+    with pytest.raises(CudaUnsupported, match="no I/J axis"):
+        st(inp, prof, origin=(2, 2, 0), domain=(4, 4, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name",
+    ["forward_cumsum", "staggeredish_interval_chain", "copy_stencil", "vector_axpy",
+     "_tiled_in_place"],
+)
 def test_aliased_arguments_on_card(name):
     """One storage passed for every field role: the wrapper sees the
     overlap and launches the plain-pointer variant; results match the
     plain version given the same aliasing."""
     _need_card()
-    entry = defs.REGISTRY[name]
-    host = np.random.default_rng(2).random((14, 13, 8))
+    entry = defs.REGISTRY.get(name, {"definition": globals().get(name), "scalars": {}})
     out = {}
     for backend in ("cuda:hopper", "torch"):
         st = gtscript.stencil(backend=backend, definition=entry["definition"])
-        field = storage.from_array(host, backend="cuda:hopper", aligned_index=(2, 2, 0))
         roles = [n for n, i in st.field_info.items() if i is not None]
-        st(**{n: field for n in roles}, domain=(10, 9, 8))
+        host = defs.make_inputs(st.field_info, (14, 13, 8), np.random.default_rng(2))[roles[0]]
+        field = storage.from_array(host, backend="cuda:hopper")
+        info = {}
+        st(**{n: field for n in roles}, **entry["scalars"], origin=(2, 2, 0),
+           domain=(10, 9, 8), exec_info=info)
         torch.cuda.synchronize()
+        if backend == "cuda:hopper":
+            assert info["kernel_strategy"] == _backend(entry["definition"]).strategy
         out[backend] = np.asarray(field)
     np.testing.assert_allclose(out["cuda:hopper"], out["torch"], rtol=1e-12, atol=0)
 
 
 @pytest.mark.cuda
-def test_racy_aliasing_raises_on_card():
+@pytest.mark.parametrize(
+    "name, roles",
+    [
+        ("lap_of_lap", ("inp", "out")),
+        ("hdiff_sponge", ("in_field", "out_field")),
+        ("smoothed_column_sum", ("inp", "out")),
+    ],
+)
+def test_racy_aliasing_raises_on_card(name, roles):
     _need_card()
-    st = gtscript.stencil(backend="cuda:hopper", definition=defs.lap_of_lap)
-    field = storage.zeros((14, 13, 4), backend="cuda:hopper", aligned_index=(2, 2, 0))
+    entry = defs.REGISTRY[name]
+    st = gtscript.stencil(
+        backend="cuda:hopper", definition=entry["definition"], dtypes=entry["dtypes"]
+    )
+    host = defs.make_inputs(st.field_info, (14, 13, 4), np.random.default_rng(3))
+    fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+    fields[roles[1]] = fields[roles[0]]
     with pytest.raises(CudaUnsupported, match="share memory"):
-        st(inp=field, out=field, domain=(10, 9, 4))
+        st(**fields, origin=(2, 2, 0), domain=(10, 9, 4))

@@ -12,6 +12,7 @@ from gt4py_tpu_torch.cartesian.gtir_pretty import parse, pretty
 
 from . import torch_stencil_defs as defs
 from .cartesian_tests import stencil_defs as ref_defs
+from .test_torch_cartesian import JAX_TWINS
 
 
 def _pretty_pair(name, *, backend="torch", **options):
@@ -19,12 +20,14 @@ def _pretty_pair(name, *, backend="torch", **options):
     definition = entry["definition"] if entry else getattr(defs, name)
     externals = dict(entry["externals"]) if entry else {}
     externals.update(options.pop("externals", {}))
+    if name in JAX_TWINS:  # the port's own definitions, named as the port names them
+        options.update(dtypes=entry["dtypes"], name=name)
     port = gtscript.stencil(
         backend=backend, definition=definition, externals=externals, **options
     )
     ref = ref_gtscript.stencil(
-        backend="numpy", definition=getattr(ref_defs, name), externals=externals,
-        **options,
+        backend="numpy", definition=JAX_TWINS.get(name) or getattr(ref_defs, name),
+        externals=externals, **options,
     )
     return pretty(port._analyzed.stencil), ref_pretty(ref._analyzed.stencil)
 

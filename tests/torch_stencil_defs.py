@@ -1,12 +1,15 @@
 """Stencil definitions and NumPy oracles for the port's tests and chip_smoke.py.
 
-Copied from tests/cartesian_tests/stencil_defs.py (hdiff, vadv and tridiag at
-:111-310, plus registry stencils of the two kernel classes), with the
+Copied from tests/cartesian_tests/stencil_defs.py — hdiff, vadv and tridiag
+at :111-310 and every stencil of its registry (:408-805) — with the
 annotations resolved against ``gt4py_tpu_torch``'s gtscript. This module
-imports no JAX, so it also serves on a machine without it. The ``*_generic``
-variants take their dtype from the ``dtypes={"dt": ...}`` build option, for
-float32 runs; the generic hdiff is bench.py's ``hdiff32`` (float literals, so
-that with ``literal_float_precision=32`` it computes in float32 throughout).
+imports no JAX, so it also serves on a machine without it. The
+``*_generic`` variants take their dtype from the ``dtypes={"dt": ...}``
+build option, for float32 runs; the generic hdiff is bench.py's ``hdiff32``
+(float literals, so that with ``literal_float_precision=32`` it computes in
+float32 throughout). Two full-width dycore-style stencils of the port's own,
+``hdiff_sponge`` and ``smoothed_column_sum``, complete the registry; their
+JAX twins live in tests/test_torch_cartesian.py.
 """
 
 import numpy as np
@@ -19,6 +22,7 @@ from gt4py_tpu_torch.cartesian.gtscript import (
     I,
     J,
     K,
+    __INLINED,
     ceil,
     computation,
     cos,
@@ -33,6 +37,17 @@ from gt4py_tpu_torch.cartesian.gtscript import (
 )
 
 Field3D = gtscript.Field[np.float64]
+Field2D = gtscript.Field[gtscript.IJ, np.float64]
+FieldI64 = gtscript.Field[np.int64]
+FieldVec3 = gtscript.Field[(np.float64, (3,))]
+FieldMat33 = gtscript.Field[(np.float64, (3, 3))]
+FieldK = gtscript.Field[gtscript.K, np.float64]
+Table4 = gtscript.GlobalTable[(np.float64, (4,))]
+Table22 = gtscript.GlobalTable[(np.float64, (2, 2))]
+FieldBool = gtscript.Field[np.bool_]
+FieldF32 = gtscript.Field[np.float32]
+FieldI32 = gtscript.Field[np.int32]
+FieldI8 = gtscript.Field[np.int8]
 
 
 def copy_stencil(field_a: Field3D, field_b: Field3D):
@@ -493,19 +508,312 @@ def tridiagonal_solver_generic(
             out = rhs - sup * out[0, 0, 1]
 
 
-def _entry(definition, strategy, *, externals=None, scalars=None, min_k=1):
+# --- the rest of the registry of tests/cartesian_tests/stencil_defs.py ----------
+
+
+def arithmetic_ops(field_a: Field3D, field_b: Field3D):
+    with computation(PARALLEL), interval(...):
+        field_a = (((((field_b + 42.0) - 42.0) * +42.0) / -42.0) % 42.0) ** 2
+
+
+@gtscript.function
+def _fn_sqrt_abs(b):
+    return sqrt(abs(b[0, 0, 0]))
+
+
+def function_call(field_a: Field3D, field_b: Field3D):
+    with computation(PARALLEL), interval(...):
+        field_b = _fn_sqrt_abs(field_a) + 1.0
+
+
+def temporary_stencil(field_a: Field3D, field_b: Field2D, scalar_in: float):
+    with computation(PARALLEL), interval(...):
+        tmp = field_a * scalar_in
+
+    with computation(FORWARD), interval(0, 1):
+        field_b += tmp
+
+
+def runtime_if(field_a: Field3D, field_b: Field3D):
+    with computation(BACKWARD), interval(...):
+        if field_a > 0.0:
+            field_b = -1
+            field_a = -field_a
+        else:
+            field_b = 1
+            field_a = field_a
+
+
+def while_stencil(field_a: Field3D, field_b: Field3D):
+    with computation(BACKWARD), interval(...):
+        while field_a > 2.0:
+            field_b = -1
+            field_a = -field_b
+
+
+def large_k_interval(in_field: Field3D, out_field: Field3D):
+    with computation(PARALLEL):
+        with interval(0, 6):
+            out_field = in_field
+        with interval(6, -10):
+            out_field = in_field + 1
+        with interval(-10, None):
+            out_field = in_field
+
+
+def compile_time_if(inp: Field3D, out: Field3D):
+    from __externals__ import USE_FAST, WEIGHT
+
+    with computation(PARALLEL), interval(...):
+        if __INLINED(USE_FAST):
+            out = inp * WEIGHT
+        else:
+            out = inp * 0.125
+
+
+def variable_k_shift(a: Field3D, idx: FieldI64, out: Field3D):
+    with computation(PARALLEL), interval(...):
+        out = a[0, 0, idx]
+
+
+def absolute_k_reference(a: Field3D, out: Field3D):
+    with computation(PARALLEL), interval(...):
+        out = a - a.at(K=0)
+
+
+def table_lookup(idx: FieldI64, out: Field3D, table: Table4):
+    with computation(PARALLEL), interval(...):
+        out = table[idx]
+
+
+def table_lookup_2d(i0: FieldI64, i1: FieldI64, out: Field3D, table: Table22):
+    with computation(PARALLEL), interval(...):
+        out = table[i0, i1]
+
+
+def vector_axpy(x: FieldVec3, y: FieldVec3, out: FieldVec3, alpha: float):
+    with computation(PARALLEL), interval(...):
+        out = x * alpha + y
+
+
+def matvec_product(mat: FieldMat33, vec: FieldVec3, out: FieldVec3):
+    with computation(PARALLEL), interval(...):
+        out = mat @ vec
+
+
+def component_extract(vec: FieldVec3, sel: FieldI64, out: Field3D):
+    with computation(PARALLEL), interval(...):
+        out = vec[0, 0, 0][sel]
+
+
+def k_profile_scale(inp: Field3D, prof: FieldK, out: Field3D):
+    with computation(PARALLEL), interval(...):
+        out = inp * prof
+
+
+def newton_sqrt_while(a: Field3D, out: Field3D):
+    with computation(PARALLEL), interval(...):
+        guess = a * 0.5 + 0.5
+        err = guess * guess - a
+        while (err > 1e-10) or (err < -1e-10):
+            guess = 0.5 * (guess + a / guess)
+            err = guess * guess - a
+        out = guess
+
+
+def dtype_zoo(
+    flag: FieldBool,
+    tiny: FieldI8,
+    idx32: FieldI32,
+    big: FieldI64,
+    f32: FieldF32,
+    f64: Field3D,
+):
+    """Literal assignment across the dtype spectrum (reference data_types
+    class: per-dtype fields written with in-range literals)."""
+    with computation(PARALLEL), interval(...):
+        flag = True
+        tiny = 101
+        idx32 = 1000000007
+        big = 123456789012345
+        f32 = 0.8125
+        f64 = 0.333251953125
+
+
+def land_mask(height: Field3D, mask: FieldBool):
+    """Boolean field computed from a comparison (reference form_land_mask)."""
+    with computation(PARALLEL), interval(...):
+        mask = height >= 0.5
+
+
+def bool_elif_koffset(base: Field3D, marker: FieldBool, hi: Field3D, lo: Field3D):
+    """Bool-field elif chain with K-offset reads of the condition field
+    (reference set_inner_as_kord class)."""
+    with computation(PARALLEL), interval(1, -1):
+        gap = 0.0
+        if marker and marker[0, 0, -1]:
+            hi = base
+        elif marker and marker[0, 0, 1]:
+            lo = base
+        else:
+            gap = hi - lo
+            hi = hi + 0.125 * gap
+
+
+def nested_conditional_locals(src: Field3D, dst: Field3D):
+    """Local scalars declared inside nested conditionals, different
+    computations re-declaring the same local (reference
+    local_var_inside_nested_conditional class)."""
+    with computation(PARALLEL), interval(0, 2):
+        fallback = 2.0
+        if src[0, 0, 0] > 0.3:
+            bump = 4.0
+            if bump + src < dst:
+                fallback = 3.0
+            else:
+                fallback = 4.0
+            dst = bump + fallback
+    with computation(FORWARD), interval(2, None):
+        if src[0, 0, 0] < 0.3:
+            bump = 6.0
+            dst = bump
+
+
+def empty_computation_inlined(src: Field3D, dst: Field3D):
+    """A computation emptied by __INLINED(False) must still compile
+    (reference allow_empty_computation)."""
+    from __externals__ import EXTRA_SMOOTH
+
+    with computation(FORWARD), interval(...):
+        dst = src
+    with computation(PARALLEL), interval(...):
+        if __INLINED(EXTRA_SMOOTH):
+            dst = abs(src)
+
+
+def single_level_offset(src: Field3D, dst: Field3D):
+    """Single-level interval with a horizontal offset read (reference
+    single_level_with_offset)."""
+    with computation(PARALLEL), interval(1, 2):
+        dst = 0.5 * (src[1, 0, 0] + src[-1, 0, 0])
+
+
+def region_conditional(src: Field3D, dst: Field3D):
+    """Runtime conditional inside horizontal regions (reference
+    horizontal_region_with_conditional)."""
+    with computation(PARALLEL), interval(...):
+        dst = src
+        with horizontal(region[I[0]:I[2], :], region[I[-2]:I[-1] + 1, :]):
+            if src > 0.4:
+                dst = src + 1.0
+            else:
+                dst = 0.0
+
+
+def region_in_sequential(inp: Field3D, out: Field3D):
+    """Horizontal region restriction inside a FORWARD loop (feature
+    interaction: per-column carry + edge specialization)."""
+    with computation(FORWARD):
+        with interval(0, 1):
+            out = inp
+        with interval(1, None):
+            out = out[0, 0, -1] + inp
+            with horizontal(region[I[0], :]):
+                out = 0.0
+
+
+def optional_tendency(
+    in_field: Field3D,
+    out_field: Field3D,
+    dyn_tend: Field3D,
+    phys_tend: Field3D = None,
+    *,
+    dt: float,
+):
+    """Optional-field pattern (reference optional_field): the phys_tend
+    parameter may be omitted entirely when __INLINED(PHYS_TEND) prunes its
+    use (covered in test_features); registered here with the field live so
+    every backend executes the two-tendency update."""
+    from __externals__ import PHYS_TEND
+
+    with computation(PARALLEL), interval(...):
+        out_field = in_field + dt * dyn_tend
+        if __INLINED(PHYS_TEND):
+            out_field = out_field + dt * phys_tend
+
+
+# --- two full-width dycore-style stencils for the card ----------------------------
+
+
+def hdiff_sponge(
+    in_field: "gtscript.Field['dt']",
+    out_field: "gtscript.Field['dt']",
+    coeff: "gtscript.Field[gtscript.IJ, 'dt']",
+    damp: "gtscript.Field[gtscript.K, 'dt']",
+):
+    """hdiff as three PARALLEL computations handing temporaries on (the
+    Laplacian, the limited fluxes, the update), with a diffusion coefficient
+    that varies only in the horizontal and a vertical sponge profile."""
+    with computation(PARALLEL), interval(...):
+        lap = 4.0 * in_field[0, 0, 0] - (
+            in_field[1, 0, 0] + in_field[-1, 0, 0] + in_field[0, 1, 0] + in_field[0, -1, 0]
+        )
+    with computation(PARALLEL), interval(...):
+        res = lap[1, 0, 0] - lap[0, 0, 0]
+        flx = 0.0 if (res * (in_field[1, 0, 0] - in_field[0, 0, 0])) > 0 else res
+        res = lap[0, 1, 0] - lap[0, 0, 0]
+        fly = 0.0 if (res * (in_field[0, 1, 0] - in_field[0, 0, 0])) > 0 else res
+    with computation(PARALLEL), interval(...):
+        out_field = in_field[0, 0, 0] - coeff[0, 0] * damp[0] * (
+            flx[0, 0, 0] - flx[-1, 0, 0] + fly[0, 0, 0] - fly[0, -1, 0]
+        )
+
+
+def validate_hdiff_sponge(in_field, coeff, damp):
+    """NumPy oracle over the interior [2:-2, 2:-2]: hdiff with the
+    coefficient ``coeff[i, j] * damp[k]``."""
+    return validate_horizontal_diffusion(in_field, coeff[:, :, None] * damp[None, None, :])
+
+
+def smoothed_column_sum(inp: "gtscript.Field['dt']", out: "gtscript.Field['dt']"):
+    """A FORWARD sweep that couples neighbouring columns at every level: a
+    damped running sum ``acc`` and, in ``out``, the running sum of its
+    4-neighbour mean."""
+    with computation(FORWARD):
+        with interval(0, 1):
+            acc = inp
+            out = 0.25 * (acc[1, 0, 0] + acc[-1, 0, 0] + acc[0, 1, 0] + acc[0, -1, 0])
+        with interval(1, None):
+            acc = inp + 0.5 * acc[0, 0, -1]
+            out = out[0, 0, -1] + 0.25 * (
+                acc[1, 0, 0] + acc[-1, 0, 0] + acc[0, 1, 0] + acc[0, -1, 0]
+            )
+
+
+def validate_smoothed_column_sum(inp):
+    """NumPy oracle over the interior [1:-1, 1:-1]."""
+    acc = inp.copy()
+    for k in range(1, inp.shape[2]):
+        acc[:, :, k] = inp[:, :, k] + 0.5 * acc[:, :, k - 1]
+    mean = 0.25 * (acc[2:, 1:-1] + acc[:-2, 1:-1] + acc[1:-1, 2:] + acc[1:-1, :-2])
+    return np.cumsum(mean, axis=2)
+
+
+def _entry(definition, strategy, *, externals=None, scalars=None, min_k=1, dtypes=None):
     return {
         "definition": definition,
         "strategy": strategy,
         "externals": externals or {},
         "scalars": scalars or {},
         "min_k": min_k,
+        "dtypes": dtypes or {},
     }
 
 
-#: name -> definition, the kernel skeleton that serves it on the card,
-#: build externals, scalar arguments and the smallest K it takes. The names
-#: are those of tests/cartesian_tests/stencil_defs.py.
+#: name -> definition, the kernel skeleton pinned to serve it on the card
+#: (the role of EXPECTED_STRATEGY in tests/tpu_tests/test_registry_hardware.py),
+#: build externals, scalar arguments, the smallest K it takes and build
+#: dtypes. The names are those of tests/cartesian_tests/stencil_defs.py.
 REGISTRY = {
     "copy_stencil": _entry(copy_stencil, "plane"),
     "horizontal_diffusion": _entry(horizontal_diffusion, "plane"),
@@ -530,4 +838,67 @@ REGISTRY = {
         dycore_smagorinsky_like, "column", scalars={"cs": 0.18}, min_k=2
     ),
     "shift_all_directions": _entry(shift_all_directions, "column", min_k=3),
+    "arithmetic_ops": _entry(arithmetic_ops, "plane"),
+    "function_call": _entry(function_call, "plane"),
+    "temporary_stencil": _entry(temporary_stencil, "column", scalars={"scalar_in": 1.5}),
+    "runtime_if": _entry(runtime_if, "column"),
+    "while_stencil": _entry(while_stencil, "column"),
+    "large_k_interval": _entry(large_k_interval, "plane", min_k=16),
+    "compile_time_if": _entry(
+        compile_time_if, "plane", externals={"USE_FAST": True, "WEIGHT": 0.25}
+    ),
+    "variable_k_shift": _entry(variable_k_shift, "column"),
+    "absolute_k_reference": _entry(absolute_k_reference, "column"),
+    "table_lookup": _entry(table_lookup, "fused_plane"),
+    "table_lookup_2d": _entry(table_lookup_2d, "fused_plane"),
+    "vector_axpy": _entry(vector_axpy, "fused_plane", scalars={"alpha": 1.75}),
+    "matvec_product": _entry(matvec_product, "fused_plane"),
+    "component_extract": _entry(component_extract, "fused_plane"),
+    "k_profile_scale": _entry(k_profile_scale, "fused_plane"),
+    "newton_sqrt_while": _entry(newton_sqrt_while, "plane"),
+    "dtype_zoo": _entry(dtype_zoo, "plane"),
+    "land_mask": _entry(land_mask, "plane"),
+    "bool_elif_koffset": _entry(bool_elif_koffset, "column", min_k=3),
+    "nested_conditional_locals": _entry(nested_conditional_locals, "column", min_k=3),
+    "empty_computation_inlined": _entry(
+        empty_computation_inlined, "column", externals={"EXTRA_SMOOTH": False}
+    ),
+    "single_level_offset": _entry(single_level_offset, "plane", min_k=3),
+    "region_conditional": _entry(region_conditional, "plane"),
+    "region_in_sequential": _entry(region_in_sequential, "column", min_k=2),
+    "optional_tendency": _entry(
+        optional_tendency, "plane", externals={"PHYS_TEND": True}, scalars={"dt": 0.5}
+    ),
+    "hdiff_sponge": _entry(hdiff_sponge, "fused_plane", dtypes={"dt": np.float64}),
+    "smoothed_column_sum": _entry(
+        smoothed_column_sum, "tiled", dtypes={"dt": np.float64}, min_k=2
+    ),
 }
+
+#: registry stencils with no twin in tests/cartesian_tests/stencil_defs.py
+#: (their JAX twins live in tests/test_torch_cartesian.py)
+PORT_ONLY = ("hdiff_sponge", "smoothed_column_sum")
+
+
+def make_inputs(field_info, shape, rng):
+    """NumPy inputs for every field a stencil touches, made with ``rng``.
+
+    ``shape`` is the (I, J, K) allocation of a 3-D field; lower-dimensional
+    fields keep the axes they have, data dimensions trail, tables take their
+    own shape. Floats are uniform in [0, 1), integers 0 or 1 (a valid index
+    of every table and data dimension of the registry), booleans random.
+    """
+    out = {}
+    for name, info in field_info.items():
+        if info is None:
+            continue
+        spatial = tuple(n for n, on in zip(shape, info.domain_mask) if on)
+        full = spatial + tuple(info.data_dims)
+        dtype = np.dtype(info.dtype)
+        if dtype.kind == "b":
+            out[name] = rng.random(full) > 0.5
+        elif dtype.kind in "iu":
+            out[name] = rng.integers(0, 2, full).astype(dtype)
+        else:
+            out[name] = rng.random(full).astype(dtype)
+    return out
