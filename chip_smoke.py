@@ -7,24 +7,33 @@ the public API at the size weather and climate dycores run it, on a
 256×256×80 domain with a halo of 2, in float32 and float64: hdiff (the
 ``plane`` kernel), vadv and tridiag (``column``), hdiff_sponge, hdiff as
 three computations with an IJ coefficient and a K sponge profile
-(``fused_plane``), and smoothed_column_sum, a FORWARD sweep coupling
-neighbouring columns at every level (``tiled``).
+(``fused_plane``), smoothed_column_sum, a FORWARD sweep coupling
+neighbouring columns at every level (``tiled``), and vadv_fused and
+tridiag_fused, vadv and tridiag built with the stage-fusion switch on
+(``fused_column``, one launch per application).
 
 1. Builds every kernel of those paths and of the registry phase from the
    sources in this checkout, one ``nvcc`` per source, all at once.
 2. For each path: sets the launch counts to 0, runs the stencil once and as
    ``chain(10)``, reads the counts: its kernel must have launched. Every one
-   of the four kernels must have launched on some path.
+   of the five kernels must have launched on some path.
 3. Holds every result against the plain version (the ``torch`` backend on the
    same card, same inputs) and, on a small input, against the NumPy oracle.
 4. Times plain, kernel, kernel, plain with CUDA events over chained steps;
    takes the stencil's device time per step from CUDA events around a chain
    queued behind a spin kernel (no host cost inside); holds each kernel's
    compulsory bytes per second against a device-to-device copy measured in
-   the same run.
+   the same run (a field is read only where the stencil reads its values
+   from before the call); the bound is the compulsory bytes over the H100's
+   3.35 TB/s or the operations over its peak rate, whichever is longer.
 5. Registry phase: every stencil of tests/torch_stencil_defs.py runs on
    ``cuda:hopper`` at 32×32×max(8, min_k) in its own dtypes, through the
-   kernel pinned for it, against the plain version on the card.
+   kernel pinned for it (and K4's class again with the switch on, through
+   ``fused_column``), against the plain version on the card.
+6. Sweeps phase: the two sweeps that read an earlier level beyond the points
+   its writers compute (``tiled``, one launch per level) at 256×256×80 in
+   float64, three times each, every run equal to the plain version; then
+   the µs of a call.
 
 Prints the card's name and power limit, one JSON line with the kernels, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -59,12 +68,19 @@ REPLACES = {
     "plane": "gt4py_tpu/cartesian/backend/pallas_split.py:424",
     "fused_plane": "gt4py_tpu/cartesian/backend/pallas_codegen.py:1992",
     "column": "gt4py_tpu/cartesian/backend/pallas_seq.py:1130",
+    "fused_column": "gt4py_tpu/cartesian/backend/pallas_seq.py:1704",
     "tiled": "gt4py_tpu/cartesian/backend/pallas_codegen.py:818",
 }
 SOURCE = "gt4py_tpu_torch/cartesian/backend/cuda_codegen.py"
+#: the H100 SXM's data sheet: device memory rate, and peak rates outside the
+#: tensor cores (float32 67 TFLOP/s, float64 34 TFLOP/s)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+#: the switch that builds a stencil of K4's class for fused_column
+FUSE_ENV = "GT4PY_CUDA_FUSE_STAGES"
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -88,50 +104,23 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {card}")
 
-    def build(definition, backend, dtype, externals=None):
-        opts = {"dtypes": {"dt": dtype, "vadv_dt": dtype}}
+    def build(definition, backend, dtype, externals=None, fuse=False, **extra):
+        opts = {"dtypes": {"dt": dtype, "vadv_dt": dtype}, **extra}
         if dtype == "float32":
             opts.update(literal_float_precision=32, literal_int_precision=32)
-        return gtscript.stencil(
-            backend=backend, definition=definition, externals=externals or {}, **opts
+        return build_switched(
+            gtscript, fuse, backend=backend, definition=definition,
+            externals=externals or {}, **opts,
         )
 
     def inputs(case, dtype, shape, seed):
         return {n: v.astype(dtype) for n, v in make_host(case, shape, seed, np).items()}
 
-    cases = [
-        {
-            "name": "hdiff", "kernel": "plane",
-            "definition": defs.horizontal_diffusion_generic, "externals": {},
-            "fields": ("in_field", "out_field", "coeff"), "scalars": {},
-            "swap": {"in_field": "out_field", "out_field": "in_field"},
-        },
-        {
-            "name": "vadv", "kernel": "column",
-            "definition": defs.vertical_advection_dycore_generic,
-            "externals": defs.VADV_EXTERNALS,
-            "fields": ("utens_stage", "u_stage", "wcon", "u_pos", "utens"),
-            "scalars": {"dtr_stage": 0.15}, "swap": {},
-        },
-        {
-            "name": "tridiag", "kernel": "column",
-            "definition": defs.tridiagonal_solver_generic, "externals": {},
-            "fields": ("inf", "diag", "sup", "rhs", "out"), "scalars": {},
-            "swap": {"rhs": "out", "out": "rhs"},
-        },
-        {
-            "name": "hdiff_sponge", "kernel": "fused_plane",
-            "definition": defs.hdiff_sponge, "externals": {},
-            "fields": ("in_field", "out_field", "coeff", "damp"), "scalars": {},
-            "dims": {"coeff": "IJ", "damp": "K"},
-            "swap": {"in_field": "out_field", "out_field": "in_field"},
-        },
-        {
-            "name": "smoothed_column_sum", "kernel": "tiled",
-            "definition": defs.smoothed_column_sum, "externals": {},
-            "fields": ("inp", "out"), "scalars": {}, "swap": {},
-        },
-    ]
+    if argv[1:]:
+        print(f"usage: {argv[0]}", file=sys.stderr)
+        return 2
+
+    cases = path_cases(defs)
     shape = (NI + 2 * HALO, NJ + 2 * HALO, NK)
     origin = (HALO, HALO, 0)
     domain = (NI, NJ, NK)
@@ -140,7 +129,10 @@ def main() -> int:
     runs = []
     for dtype in ("float32", "float64"):
         for case in cases:
-            kern = build(case["definition"], "cuda:hopper", dtype, case["externals"])
+            kern = build(
+                case["definition"], "cuda:hopper", dtype, case["externals"],
+                fuse=case.get("fuse", False),
+            )
             plain = build(case["definition"], "torch", dtype, case["externals"])
             if kern._backend.strategy != case["kernel"]:
                 raise AssertionError(
@@ -151,8 +143,16 @@ def main() -> int:
             runs.append({"case": case, "dtype": dtype, "kern": kern, "plain": plain,
                          "scalars": scalars})
     registry = registry_stencils(defs, gtscript)
+    sweeps = [
+        {"name": name, "kern": build(definition, "cuda:hopper", "float64"),
+         "plain": build(definition, "torch", "float64")}
+        for name, definition in (
+            ("lagged_neighbour_sweep", defs.lagged_neighbour_sweep),
+            ("lag_read_before_write", defs.lag_read_before_write),
+        )
+    ]
     t0 = time.perf_counter()
-    stencils = [r["kern"] for r in runs] + [r["kern"] for r in registry]
+    stencils = [r["kern"] for r in runs + registry + sweeps]
     cuda_backend.build_libraries(st._backend.module.source for st in stencils)
     for st in stencils:
         st._backend._functions()  # load
@@ -223,15 +223,25 @@ def main() -> int:
         dev = device_ms(run, card_fields(run["host"], origin, case, storage), 20)
         run["ms"], run["plain_ms"] = (k1 + k2) / 2, (p1 + p2) / 2
         run["device_ms"] = dev
-        run["gbs"] = compulsory_bytes(run["kern"], np.dtype(run["dtype"]).itemsize) / dev / 1e6
+        nbytes = compulsory_bytes(run["kern"], np.dtype(run["dtype"]).itemsize)
+        flops = operations(run["kern"])
+        run["gbs"] = nbytes / dev / 1e6
+        run["copy_bound_ms"] = nbytes / (copy_gbs * 1e9) * 1e3
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[run["dtype"]] * 1e3
+        run["bound_ms"], run["bound_by"] = max(
+            (by_bytes, "bytes"), (by_ops, "operations")
+        )
         pts = NI * NJ * NK
         rows.append(
-            f"{case['name']:19s} {run['dtype']:8s} {case['kernel']:11s} "
+            f"{case['name']:19s} {run['dtype']:8s} {case['kernel']:12s} "
             f"plain {run['plain_ms'] * 1e3:10.1f} us/step ({p1 * 1e3:.1f}, {p2 * 1e3:.1f})  "
             f"kernel {run['ms'] * 1e3:8.1f} us/step ({k1 * 1e3:.1f}, {k2 * 1e3:.1f})  "
             f"device {dev * 1e3:8.1f} us/step  "
             f"{pts / (dev * 1e-3) / 1e9:7.2f} Gpoints/s  "
-            f"{run['gbs']:7.1f} GB/s of compulsory bytes ({run['gbs'] / copy_gbs:.1%} of copy)"
+            f"{run['gbs']:7.1f} GB/s of compulsory bytes ({run['gbs'] / copy_gbs:.1%} of copy)  "
+            f"bound {run['bound_ms'] * 1e3:.1f} us ({run['bound_by']}; "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP; "
+            f"{run['copy_bound_ms'] * 1e3:.1f} us at the copy rate)"
         )
     print(f"timings on {smi}, {NI}x{NJ}x{NK}; steps by CUDA events, "
           "device time by CUDA events behind a spin kernel:")
@@ -249,6 +259,14 @@ def main() -> int:
     print(f"registry: {len(registry)} stencils at {REG_N}x{REG_N}, each through its pinned "
           f"kernel ({by_kernel}) == plain, in {time.perf_counter() - t0:.1f} s")
 
+    # -- 6. the lagged sweeps, one tiled launch per level --------------------------
+    t0 = time.perf_counter()
+    for sweep in sweeps:
+        run_sweep(sweep, shape, origin, domain, storage, cuda_backend, np, torch)
+    print(f"sweeps at {NI}x{NJ}x{NK} float64, three runs each == plain, in "
+          f"{time.perf_counter() - t0:.1f} s; us per call by CUDA events: "
+          + ", ".join(f"{s['name']} {s['ms'] * 1e3:.1f}" for s in sweeps))
+
     kernels = [
         {
             "name": f"{run['case']['kernel']}/{run['case']['name']}/{run['dtype']}",
@@ -260,6 +278,11 @@ def main() -> int:
             "ms": run["device_ms"],
             "step_ms": run["ms"],
             "plain_ms": run["plain_ms"],
+            "bound_ms": run["bound_ms"],
+            "bound_by": run["bound_by"],
+            # no single PyTorch call computes a GTScript stencil
+            "library_ms": None,
+            "copy_bound_ms": run["copy_bound_ms"],
             "compulsory_gbs": run["gbs"],
             "copy_gbs": copy_gbs,
         }
@@ -271,6 +294,67 @@ def main() -> int:
         "device": {"platform": "gpu", "kind": card, "count": torch.cuda.device_count()},
     }))
     return 0
+
+
+def path_cases(defs) -> list:
+    """The main paths: definition, kernel, fields, scalars and the swap of
+    a ``chain`` step."""
+    cases = [
+        {
+            "name": "hdiff", "kernel": "plane",
+            "definition": defs.horizontal_diffusion_generic, "externals": {},
+            "fields": ("in_field", "out_field", "coeff"), "scalars": {},
+            "swap": {"in_field": "out_field", "out_field": "in_field"},
+        },
+        {
+            "name": "vadv", "kernel": "column",
+            "definition": defs.vertical_advection_dycore_generic,
+            "externals": defs.VADV_EXTERNALS,
+            "fields": ("utens_stage", "u_stage", "wcon", "u_pos", "utens"),
+            "scalars": {"dtr_stage": 0.15}, "swap": {},
+        },
+        {
+            "name": "tridiag", "kernel": "column",
+            "definition": defs.tridiagonal_solver_generic, "externals": {},
+            "fields": ("inf", "diag", "sup", "rhs", "out"), "scalars": {},
+            "swap": {"rhs": "out", "out": "rhs"},
+        },
+        {
+            "name": "hdiff_sponge", "kernel": "fused_plane",
+            "definition": defs.hdiff_sponge, "externals": {},
+            "fields": ("in_field", "out_field", "coeff", "damp"), "scalars": {},
+            "dims": {"coeff": "IJ", "damp": "K"},
+            "swap": {"in_field": "out_field", "out_field": "in_field"},
+        },
+        {
+            "name": "smoothed_column_sum", "kernel": "tiled",
+            "definition": defs.smoothed_column_sum, "externals": {},
+            "fields": ("inp", "out"), "scalars": {}, "swap": {},
+        },
+    ]
+    # vadv and tridiag again, with the stage-fusion switch on: same
+    # definitions, inputs, swaps and oracles
+    cases += [
+        {**base, "name": f"{base['name']}_fused", "kernel": "fused_column", "fuse": True,
+         "like": base["name"]}
+        for base in cases if base["name"] in ("vadv", "tridiag")
+    ]
+    return cases
+
+
+def build_switched(gtscript, fuse: bool, **options):
+    """``gtscript.stencil(**options)`` with the stage-fusion switch on or
+    off (it is read when a stencil is built, and is part of its
+    fingerprint)."""
+    saved = os.environ.get(FUSE_ENV)
+    os.environ[FUSE_ENV] = "1" if fuse else "0"
+    try:
+        return gtscript.stencil(**options)
+    finally:
+        if saved is None:
+            del os.environ[FUSE_ENV]
+        else:
+            os.environ[FUSE_ENV] = saved
 
 
 def field_shape(case, name, shape):
@@ -296,13 +380,14 @@ def make_host(case, shape, seed, np):
     well-conditioned ranges the stencils see in a model."""
     rng = np.random.default_rng(seed)
     host = {n: rng.random(field_shape(case, n, shape)) for n in case["fields"]}
-    if case["name"] == "tridiag":  # diagonally dominant system
+    like = case.get("like", case["name"])
+    if like == "tridiag":  # diagonally dominant system
         host["inf"] = -host["inf"]
         host["sup"] = -host["sup"]
         host["diag"] = host["diag"] + 4.0
-    elif case["name"] in ("hdiff", "hdiff_sponge"):  # a stable diffusion coefficient
+    elif like in ("hdiff", "hdiff_sponge"):  # a stable diffusion coefficient
         host["coeff"] = 0.1 * host["coeff"]
-    elif case["name"] == "vadv":  # vertical wind small beside 1/dt: pivots stay away from 0
+    elif like == "vadv":  # vertical wind small beside 1/dt: pivots stay away from 0
         host["wcon"] = 0.1 * host["wcon"]
     return host
 
@@ -312,11 +397,12 @@ def check_oracle(run, defs, np, storage) -> None:
     import torch
 
     case, dtype = run["case"], run["dtype"]
-    if case["name"] in ("hdiff", "hdiff_sponge"):
+    like = case.get("like", case["name"])
+    if like in ("hdiff", "hdiff_sponge"):
         shape, origin, domain = (24, 21, 8), (2, 2, 0), (20, 17, 8)
-    elif case["name"] == "smoothed_column_sum":
+    elif like == "smoothed_column_sum":
         shape, origin, domain = (14, 13, 16), (1, 1, 0), (12, 11, 16)
-    elif case["name"] == "vadv":  # wcon is read at i + 1
+    elif like == "vadv":  # wcon is read at i + 1
         shape, origin, domain = (13, 12, NK), (0, 0, 0), (12, 12, NK)
     else:
         shape, origin, domain = (12, 12, NK), (0, 0, 0), (12, 12, NK)
@@ -327,16 +413,16 @@ def check_oracle(run, defs, np, storage) -> None:
     fields = card_fields({n: v.astype(dtype) for n, v in host.items()}, origin, case, storage)
     run["kern"](**fields, **run["scalars"], domain=domain)
     torch.cuda.synchronize()
-    if case["name"] == "hdiff":
+    if like == "hdiff":
         got = np.asarray(fields["out_field"])[2:-2, 2:-2]
         want = defs.validate_horizontal_diffusion(host["in_field"], host["coeff"])
-    elif case["name"] == "hdiff_sponge":
+    elif like == "hdiff_sponge":
         got = np.asarray(fields["out_field"])[2:-2, 2:-2]
         want = defs.validate_hdiff_sponge(host["in_field"], host["coeff"], host["damp"])
-    elif case["name"] == "smoothed_column_sum":
+    elif like == "smoothed_column_sum":
         got = np.asarray(fields["out"])[1:-1, 1:-1]
         want = defs.validate_smoothed_column_sum(host["inp"])
-    elif case["name"] == "vadv":
+    elif like == "vadv":
         got = np.asarray(fields["utens_stage"])[: domain[0]]
         want = defs.validate_vertical_advection_dycore(
             host["utens_stage"], host["u_stage"], host["wcon"], host["u_pos"],
@@ -373,37 +459,173 @@ def time_steps(stencil, fields, run, n: int) -> float:
 
 def compulsory_bytes(stencil, itemsize: int) -> int:
     """Bytes one application must move at the least, computed from shapes:
-    each API field read once if the stencil reads it and stored once if it
-    writes it, over the domain along the axes it has (halos and temporaries
-    left out)."""
+    each API field stored once if the stencil writes it, and read once if
+    some read can reach a point before the stencil writes it there
+    (:func:`initial_reads`), over the domain along the axes it has (halos
+    and temporaries left out)."""
+    needed = initial_reads(stencil._backend.analyzed, NK)
     total = 0
-    for info in stencil.field_info.values():
+    for name, info in stencil.field_info.items():
         if info is not None:
-            access = info.access.value  # READ = 1, WRITE = 2
+            written = bool(info.access.value & 2)  # READ = 1, WRITE = 2
             points = 1
             for n, on in zip((NI, NJ, NK), info.domain_mask):
                 points *= n if on else 1
-            total += points * itemsize * (bool(access & 1) + bool(access & 2))
+            total += points * itemsize * ((name in needed) + written)
+    return total
+
+
+def initial_reads(analyzed, nk: int) -> set:
+    """The API fields whose values before the call the stencil reads: some
+    read reaches a point and level before the stencil writes it there.
+    Walks each vertical loop over ``nk`` levels in its order (a PARALLEL
+    loop statement by statement over its levels), holding the levels of
+    each 3-D field that an unconditional write has set over the domain; a
+    read is served by such a write only where every point it reads lies in
+    the domain, and never at a variable or absolute K."""
+    from gt4py_tpu_torch.cartesian import gtir
+    from gt4py_tpu_torch.cartesian.passes.extents import _iter_reads
+
+    full = {n for n, info in analyzed.field_infos.items() if info is not None and len(info.axes) == 3}
+    written: set = set()  # (name, level)
+    needed: set = set()
+
+    def visit(stmt, k: int) -> None:
+        ext = analyzed.stmt_extents[stmt]
+        for r in _iter_reads(stmt):
+            if r.name not in analyzed.field_infos:
+                continue
+            reach = ext.shifted_ij(r.offset[0], r.offset[1])
+            level = min(max(k + r.offset[2], 0), nk - 1)
+            if (
+                r.koffset is not None or r.abs_k is not None
+                or (r.name, level) not in written
+                or reach.i[0] < 0 or reach.i[1] > 0 or reach.j[0] < 0 or reach.j[1] > 0
+            ):
+                needed.add(r.name)
+        t = getattr(stmt, "target", None)
+        if (
+            isinstance(stmt, gtir.Assign) and t.name in full and stmt.mask is None
+            and not stmt.horizontal_masks and not t.data_index
+            and t.offset == (0, 0, 0) and t.koffset is None
+        ):
+            written.add((t.name, k))
+
+    for vloop in analyzed.stencil.vertical_loops:
+        ranges = [(s, *s.interval.resolve(nk)) for s in vloop.sections]
+        if vloop.loop_order == gtir.LoopOrder.PARALLEL:
+            for section, ks, ke in ranges:
+                for stmt in section.body:
+                    for k in range(ks, ke):
+                        visit(stmt, k)
+            continue
+        levels = range(nk)
+        if vloop.loop_order == gtir.LoopOrder.BACKWARD:
+            levels = reversed(levels)
+        for k in levels:
+            for section, ks, ke in ranges:
+                if ks <= k < ke:
+                    for stmt in section.body:
+                        visit(stmt, k)
+    return needed
+
+
+def operations(stencil) -> int:
+    """Arithmetic operations one application does at the least, computed
+    from its GTIR: each arithmetic operator, negation and math call once at
+    every point of its statement's extent and level of its interval."""
+    from gt4py_tpu_torch import eve
+    from gt4py_tpu_torch.cartesian import gtir
+
+    analyzed = stencil._backend.analyzed
+    total = 0
+    for vloop in analyzed.stencil.vertical_loops:
+        for section in vloop.sections:
+            ks, ke = section.interval.resolve(NK)
+            for stmt in section.body:
+                ext = analyzed.stmt_extents[stmt]
+                ops = sum(
+                    isinstance(n.op, gtir.ArithmeticOperator)
+                    for n in eve.walk_type(stmt, gtir.BinaryOp)
+                )
+                ops += sum(1 for _ in eve.walk_type(stmt, gtir.NativeFuncCall))
+                ops += sum(
+                    n.op == gtir.UnaryOperator.NEG for n in eve.walk_type(stmt, gtir.UnaryOp)
+                )
+                points = (NI + ext.i[1] - ext.i[0]) * (NJ + ext.j[1] - ext.j[0])
+                total += ops * points * max(ke - ks, 0)
     return total
 
 
 def registry_stencils(defs, gtscript) -> list:
     """Every registry stencil, built for the kernel and for the plain
-    version, in its own dtypes; fails where the served kernel is not the
-    one pinned for it."""
+    version, in its own dtypes, and K4's class again with the stage-fusion
+    switch on; fails where the served kernel is not the one pinned for it."""
     out = []
-    for name, entry in sorted(defs.REGISTRY.items()):
+    pins = [(name, entry, False) for name, entry in sorted(defs.REGISTRY.items())]
+    pins += [
+        (name, {**defs.REGISTRY[name], "strategy": kernel}, True)
+        for name, kernel in sorted(defs.FUSED_STAGES.items())
+    ]
+    for name, entry, fuse in pins:
         opts = dict(definition=entry["definition"], externals=entry["externals"],
                     dtypes=entry["dtypes"])
-        kern = gtscript.stencil(backend="cuda:hopper", **opts)
+        kern = build_switched(gtscript, fuse, backend="cuda:hopper", **opts)
         if kern._backend.strategy != entry["strategy"]:
             raise AssertionError(
                 f"registry {name}: served by {kern._backend.strategy} "
                 f"({kern._backend.unsupported}), pinned to {entry['strategy']}"
             )
-        out.append({"name": name, "entry": entry, "kern": kern,
-                    "plain": gtscript.stencil(backend="torch", **opts)})
+        out.append({"name": name + (" (switch on)" if fuse else ""), "entry": entry,
+                    "kern": kern, "plain": gtscript.stencil(backend="torch", **opts)})
     return out
+
+
+def run_sweep(sweep, shape, origin, domain, storage, cuda_backend, np, torch) -> None:
+    """One lagged sweep at full size in float64: the plain version once and
+    the kernel three times, each time on a fresh copy of the same inputs and
+    counted, one launch per level; every run equal to the plain version and
+    to the first run (a race between blocks would make the runs differ).
+    Then ms per call of five calls (host and device)."""
+    rng = np.random.default_rng(17)
+    host = {n: rng.random(shape) for n in ("inp", "out")}
+
+    def fields():
+        return {n: storage.from_array(v, backend="cuda:hopper", aligned_index=origin)
+                for n, v in host.items()}
+
+    want = fields()
+    sweep["plain"](**want, domain=domain)
+    first = None
+    for attempt in range(3):
+        got = fields()
+        cuda_backend.TILED.launches = 0
+        info: dict = {}
+        sweep["kern"](**got, domain=domain, exec_info=info)
+        torch.cuda.synchronize()
+        if info["kernel_strategy"] != "tiled" or cuda_backend.TILED.launches != domain[2]:
+            raise AssertionError(
+                f"{sweep['name']}: {cuda_backend.TILED.launches} tiled launches, not one per "
+                f"level ({domain[2]}; {info})"
+            )
+        for n in host:
+            g, w = got[n].array, want[n].array
+            if not torch.allclose(g, w, rtol=RTOL["float64"], atol=0.0) or (
+                first is not None and not torch.equal(g, first[n].array)
+            ):
+                raise AssertionError(
+                    f"{sweep['name']} run {attempt + 1}: kernel disagrees with plain in {n} "
+                    f"(max abs err {float((g - w).abs().max())})"
+                )
+        first = first or got
+    n = 5
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        sweep["kern"](**got, domain=domain)
+    end.record()
+    end.synchronize()
+    sweep["ms"] = start.elapsed_time(end) / n
 
 
 def run_registry_stencil(reg, defs, storage, cuda_backend, np, torch) -> None:
@@ -489,4 +711,4 @@ def device_ms(run, fields, n: int) -> float:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv))

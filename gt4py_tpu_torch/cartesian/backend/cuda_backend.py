@@ -1,11 +1,13 @@
 """Kernel backend ``cuda:hopper`` — the counterpart of ``tpu:pallas``.
 
 Counterpart of gt4py_tpu/cartesian/backend/pallas_backend.py. The stencil
-is rendered to CUDA C++ by cuda_codegen.py, into one of four hand-written
+is rendered to CUDA C++ by cuda_codegen.py, into one of five hand-written
 kernel skeletons: ``plane`` (K1's class: all-PARALLEL 3-D stencils, one
 launch per vertical loop), ``fused_plane`` (the rest of K2's: one launch per
 stencil), ``column`` (K3's: sequential and K-offset loops, one thread per
-column) or ``tiled`` (K5's: sequential loops that read what they write at a
+column), ``fused_column`` (K4's, with the stage-fusion switch
+``config.fuse_stages`` on: every loop in one launch, one thread per column)
+or ``tiled`` (K5's: sequential loops that read what they write at a
 horizontal offset, one block per tile). It is compiled on first use with
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
 cached on disk by content hash under ``.gt_cache/torch/cuda/``, and bound
@@ -22,8 +24,9 @@ Dispatch:
   ``kernel_strategy = "plain"``.
 
 Each skeleton has one :class:`KernelWrapper` (``PLANE``, ``FUSED_PLANE``,
-``COLUMN``, ``TILED``) whose ``launches`` counts the launches of its
-kernels, so a run can show that its main path went through them.
+``COLUMN``, ``FUSED_COLUMN``, ``TILED``) whose ``launches`` counts the
+launches of its kernels, so a run can show that its main path went through
+them.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from gt4py_tpu_torch import config
 from gt4py_tpu_torch.cartesian.backend.base import Backend, register
 from gt4py_tpu_torch.cartesian.backend.cuda_codegen import (
     NOTHING_LAUNCHED,
@@ -76,22 +80,27 @@ class KernelWrapper:
         self.name = name
         self.launches = 0
 
-    def launch(self, fn, args) -> None:
-        rc = fn(*args)
+    def launch(self, fn, args, per_level: bool = False) -> None:
+        """Call one launcher. A ``per_level`` launcher launches its kernel
+        once per level and writes how many it launched through a trailing
+        pointer; every other launcher launches one kernel."""
+        launched = _LL(1)
+        rc = fn(*args, ctypes.byref(launched)) if per_level else fn(*args)
         if rc == NOTHING_LAUNCHED:
             return
         if rc != 0:
             raise RuntimeError(
                 f"{self.name} kernel launch failed: CUDA error {rc}"
             )
-        self.launches += 1
+        self.launches += launched.value
 
 
 PLANE = KernelWrapper("plane")
 FUSED_PLANE = KernelWrapper("fused_plane")
 COLUMN = KernelWrapper("column")
+FUSED_COLUMN = KernelWrapper("fused_column")
 TILED = KernelWrapper("tiled")
-WRAPPERS = {w.name: w for w in (PLANE, FUSED_PLANE, COLUMN, TILED)}
+WRAPPERS = {w.name: w for w in (PLANE, FUSED_PLANE, COLUMN, FUSED_COLUMN, TILED)}
 
 
 def nvcc_path() -> str:
@@ -172,7 +181,7 @@ def load_library(source: str) -> ctypes.CDLL:
         return lib
 
 
-def _bind(lib: ctypes.CDLL, name: str):
+def _bind(lib: ctypes.CDLL, name: str, per_level: bool = False):
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = [
@@ -187,7 +196,7 @@ def _bind(lib: ctypes.CDLL, name: str):
         _LL,
         ctypes.c_void_p,  # cudaStream_t: a pointer, never a 32-bit int
         ctypes.c_int,  # noalias
-    ]
+    ] + ([ctypes.POINTER(_LL)] if per_level else [])  # kernels launched
     return fn
 
 
@@ -235,7 +244,7 @@ class CudaHopperBackend(Backend):
         #: why the kernels cannot serve this stencil (None: they can)
         self.unsupported: Optional[str] = None
         try:
-            self.module = generate(analyzed)
+            self.module = generate(analyzed, fuse_stages=config.fuse_stages())
         except CudaUnsupported as exc:
             self.unsupported = str(exc)
         self._fns: Optional[list] = None
@@ -268,7 +277,11 @@ class CudaHopperBackend(Backend):
     def _functions(self) -> list:
         if self._fns is None:
             lib = load_library(self.module.source)
-            self._fns = [_bind(lib, name) for name in self.module.launchers]
+            levels = self.module.per_level
+            self._fns = [
+                (_bind(lib, name, name in levels), name in levels)
+                for name in self.module.launchers
+            ]
         return self._fns
 
     def prepare(self, arrays, scalars, domain, origins):
@@ -289,6 +302,11 @@ class CudaHopperBackend(Backend):
                     f"{'/'.join(axes)} axis; the {mod.strategy} kernel writes it only over "
                     f"a domain of size 1 along it, not {domain}"
                 )
+        if nk < mod.min_nk:
+            raise CudaUnsupported(
+                f"stencil '{self.analyzed.name}': the {mod.strategy} kernel's carries need "
+                f"at least {mod.min_nk} levels, not {nk}"
+            )
         nslots = max(len(mod.slots), 1)
         ptrs = (ctypes.c_void_p * nslots)()
         shapes = (_LL * max(mod.n_shape_slots, 1))()
@@ -299,8 +317,9 @@ class CudaHopperBackend(Backend):
             if m.is_temp:
                 e = m.extent
                 # (K, I, J) with J contiguous, zero-filled like the plain
-                # version's temporaries
-                buf = torch.zeros(
+                # version's temporaries where the kernel may read a point
+                # before writing it
+                buf = (torch.zeros if m.fill else torch.empty)(
                     (nk + e.k[1] - e.k[0], ni + e.i[1] - e.i[0], nj + e.j[1] - e.j[0]),
                     dtype=torch_dtype(m.dtype),
                     device=device,
@@ -350,9 +369,11 @@ class CudaHopperBackend(Backend):
         def launch() -> None:
             with torch.cuda.device(device):
                 stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-                for fn in fns:
+                for fn, per_level in fns:
                     wrapper.launch(
-                        fn, (ptrs, shapes, strides, orig, fsc, isc, ni, nj, nk, stream, noalias)
+                        fn,
+                        (ptrs, shapes, strides, orig, fsc, isc, ni, nj, nk, stream, noalias),
+                        per_level,
                     )
 
         launch.keepalive = (keepalive, arrays)

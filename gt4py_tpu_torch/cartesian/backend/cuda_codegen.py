@@ -1,4 +1,4 @@
-"""GTIR → CUDA C++ for the four hand-written Hopper kernel skeletons.
+"""GTIR → CUDA C++ for the five hand-written Hopper kernel skeletons.
 
 Counterpart of gt4py_tpu/cartesian/backend/pallas_codegen.py
 (``_BlockEvaluator``, which renders GTIR into the Pallas kernels) plus the
@@ -7,9 +7,11 @@ here with a ``__device__`` prelude. As on the TPU, the kernels are generated
 per stencil: the hand-written part is a kernel skeleton, and the stencil's
 statements are rendered into its body as CUDA C++.
 
-Four skeletons. :func:`generate` takes the first that serves the
-stencil, from its GTIR alone, in this order (the dispatch of
-``pallas_codegen.build_pallas_fn``, :400-512):
+Five skeletons. :func:`generate` takes the first that serves the
+stencil, from its GTIR and the stage-fusion switch alone, in this order
+(the dispatch of ``pallas_codegen.build_pallas_fn``, :400-512, with
+``pallas_seq.build_staged_fn``'s fusion switch, :302-333, where
+``column`` is taken):
 
 ``plane`` — replaces K1, ``pallas_split.build_plane_split_fn``
 (gt4py_tpu/cartesian/backend/pallas_split.py:195, ``pallas_call`` at
@@ -84,6 +86,55 @@ beside them, ``while``, variable and absolute K.
     The ``__restrict__`` variant (below) lets the compiler forward stored
     values instead of reloading them, the measured gain for vadv.
 
+``fused_column`` — replaces K4, ``pallas_seq._build_fused_call``
+(pallas_seq.py:1490, ``pallas_call`` at :1704). Only with the stage-fusion
+switch on (``config.fuse_stages``, off by default as in the JAX package),
+and only for K4's class among the stencils ``column`` serves: two or more
+vertical loops over 3-D fields without data dimensions, no name written in
+two loops, every loop's sections covering the K range back to back, no
+carry read that reaches before its walk's first level, no ``while`` and no
+variable or absolute K. It also declines what needs another column's
+value: a read at a horizontal offset of anything the stencil writes (K4
+serves that from its whole-plane scratch; here ``column`` does, loop by
+loop).
+    Mapping: ONE launch per stencil. K4's grid walks the loops' K ranges
+    back to back on one core; Hopper blocks run in no order, so here a
+    thread owns its column and runs the loops back to back itself: one
+    thread per (i, j) column of the union of all statement extents, every
+    statement guarded by its own extent. FORWARD walks ascend, BACKWARD
+    ones descend, a PARALLEL loop runs level by level (it reads nothing it
+    writes at a K offset, so that equals statement by statement).
+    Temporaries never touch device memory: a temporary used in one loop is
+    a register, and its carries (``datacol[0, 0, 1]``) a ring of registers
+    rotated once a level, ``max |dk|`` deep; a level at which its section
+    does not write it first, unconditionally and over the whole column set,
+    starts it at 0, the plain version's zero-filled temporary. A value that
+    a later loop reads (vadv's ``ccol`` and ``dcol``, K4's cross names,
+    ``_cross_names`` :1451) is also stored level by level where that loop
+    reads it back, by the same thread. K4 keeps it in full-K VMEM scratch;
+    the H100's shared memory cannot hold it for every column at once
+    (vadv: 2 × 80 × 4 B a column, 42 MB for 65,536 columns, against
+    132 × 227 KB), so it goes to a (K, I, J) buffer in device memory, which
+    the L2 mostly holds between the two walks, zero-filled only where a
+    later loop could read a level the loop does not set in full (vadv:
+    neither). An API field a later loop reads (tridiag's ``sup`` and
+    ``rhs``) is read back from device memory, where the same thread stored
+    it. Each thread reads only its own column, so no barrier is needed. A
+    slab of dynamic shared memory per block was measured and lost 3 of 4
+    cells, by up to 2×, to its occupancy (PERF.md). Blocks of
+    ``FC_THREADS`` columns, 32 along J. Reads at K offsets clamp
+    (``gt_clampk``) as in ``column``; ``--fmad=false``; a ``__restrict__``
+    variant under the same no-overlap check; ``NOTHING_LAUNCHED`` on an
+    empty grid.
+    Bound on the H100: the compulsory bytes (vadv: five fields read, one
+    written, 6 × 21.0 MB float32 at 256×256×80, ≈ 38 µs at 3.35 TB/s) and
+    the latency of the dependent K chain, 2 × 80 levels of division and
+    reads per thread. What the design does about them: the loop-local
+    temporaries (9 of vadv's 11) never touch device memory, no buffer is
+    zero-filled (the fill alone was a third of vadv's device time in
+    ``column``), the carries stay in registers, and every column runs in
+    one wave.
+
 ``tiled`` — replaces K5, ``pallas_codegen._build_tiled_fn``
 (pallas_codegen.py:637, kernel :682, ``pallas_call`` :818). It serves
 what ``column`` declines: a value written in a vertical loop and read at a
@@ -96,11 +147,23 @@ neighbouring columns at every level.
     The values the loop writes and reads at a horizontal offset live in a
     small ring of shared-memory planes, one plane per level the loop reads
     back (``acc[0, 0, -1]`` needs two); a read of a level the ring does not
-    hold — one the walk has not written — is a global load. A read of an
-    earlier level beyond the points its writers compute there
+    hold — one the walk has not written — is a global load.
+    A read of an earlier level beyond the points its writers compute there
     (``acc = inp + acc[1, 0, -1]`` reaches one column further at every
-    level) would need a neighbouring block's value, which no block waits
-    for: it raises :class:`CudaUnsupported`. Every value is
+    level; so does ``acc[1, 0, -1]`` read before this level's write) needs a
+    neighbouring block's value of that level. Such a loop is *per-level*:
+    K3's sequential grid finishes a whole plane before the next, and its
+    counterpart here is a grid-wide step per level. The launcher launches
+    the kernel once per level, in the walk's order, on one stream, and
+    writes how many kernels it launched for the wrapper to count; a
+    launch computes only its level ``k``, with the shared-memory planes of
+    that level, and reads every earlier level from device memory, where
+    every block stored its own points in the launch before. So the ring
+    holds one plane. One launch per level was taken over a cooperative
+    launch with ``grid.sync()``: it is as short, keeps every block's shared
+    memory and grid size free of the co-residency limit, and costs a launch
+    (a few µs) per level only for the loops that need the step; a loop
+    without the hazard stays one launch with its ring. Every value is
     also stored to device memory at the points the block owns, so later
     loops and reads at variable or absolute K (plain global loads, clamped
     as the ``column`` kernel clamps them) see it. Temporaries have global
@@ -112,8 +175,9 @@ Numerics follow c_codegen.py: NumPy floor-mod, true division, NaN-
 propagating min/max, banker's round. The build uses ``--fmad=false``
 (cuda_backend.py), so products and sums round as in the eager plain
 version. Arguments may alias (``stencil(a, a)``), so the kernels take plain
-pointers; the column kernel has a second, ``__restrict__`` variant that the
-wrapper launches when it has checked that no two field buffers overlap.
+pointers; the column and fused_column kernels have a second,
+``__restrict__`` variant that the wrapper launches when it has checked that
+no two field buffers overlap.
 Constructs no skeleton can serve raise :class:`CudaUnsupported` with the
 reason; there is no silent fallback.
 """
@@ -153,6 +217,10 @@ FP_TK = 4
 #: threads beat 8 × 32 with 256, 4 × 32, 2 × 32, 4 × 16, 16 × 16 and 4 × 64
 TL_TI, TL_TJ = 8, 32
 TILED_THREADS = 512
+#: fused_column: threads (columns) per block, 32 along J. Measured on the
+#: H100 for vadv and tridiag (PERF.md): 256 beat 64 and 128 for vadv
+#: float32 and tied elsewhere
+FC_THREADS = 256
 #: what a launcher returns when its grid is empty and no kernel ran
 #: (``cudaError_t`` values are never negative)
 NOTHING_LAUNCHED = -1
@@ -297,6 +365,9 @@ class FieldMeta:
     shape_off: int = -1
     is_temp: bool = False
     extent: Optional[Extent] = None  # temps only
+    #: global temporaries: the wrapper zero-fills the buffer (the kernel
+    #: may read a point before it writes it)
+    fill: bool = True
 
     @property
     def ndim(self) -> int:
@@ -307,14 +378,14 @@ class FieldMeta:
 class KernelModule:
     """Generated source plus what the launching wrapper needs."""
 
-    strategy: str  # "plane" | "fused_plane" | "column" | "tiled"
+    strategy: str  # "plane" | "fused_plane" | "column" | "fused_column" | "tiled"
     source: str
     #: launch slots in order: API fields and tables, then global temporaries
     slots: list[FieldMeta]
     scalars: list[tuple[str, str, int, np.dtype]]  # (name, 'f'|'i', slot, dtype)
     n_shape_slots: int
     #: extern "C" launcher names in launch order: one per vertical loop, or
-    #: one per stencil (fused_plane)
+    #: one per stencil (fused_plane, fused_column)
     launchers: list[str]
     #: API fields the stencil writes
     written: frozenset[str] = frozenset()
@@ -328,6 +399,12 @@ class KernelModule:
     #: kernel can only serve at size 1: every block along such an axis
     #: would store to the same element
     unit_axes: dict[str, str] = dataclasses.field(default_factory=dict)
+    #: fused_column: the smallest K the kernel serves (a carry read must
+    #: not reach before its walk's first level)
+    min_nk: int = 0
+    #: launchers that launch their kernel once per level (tiled); each
+    #: takes a trailing ``long long*`` and writes there how many it launched
+    per_level: frozenset[str] = frozenset()
 
 
 def _is_k_shift(acc: gtir.FieldAccess) -> bool:
@@ -345,7 +422,7 @@ def _nonlocal_reads(
     }
     out = set(staged)
     widened = strategy in ("plane", "fused_plane", "tiled")
-    k_walk = strategy in ("column", "tiled")
+    k_walk = strategy in ("column", "fused_column", "tiled")
     for vloop in analyzed.stencil.vertical_loops:
         parallel = vloop.loop_order == gtir.LoopOrder.PARALLEL
         for section in vloop.sections:
@@ -364,11 +441,13 @@ def _nonlocal_reads(
     return frozenset(out)
 
 
-def generate(analyzed: AnalyzedStencil) -> KernelModule:
+def generate(analyzed: AnalyzedStencil, *, fuse_stages: bool = False) -> KernelModule:
     """The kernels of the first skeleton that serves the stencil (its name
     in ``.strategy``); raises :class:`CudaUnsupported` with every
-    skeleton's reason when none does."""
-    return _Generator(analyzed).generate()
+    skeleton's reason when none does. ``fuse_stages`` is the stage-fusion
+    switch: where ``column`` serves the stencil, ``fused_column`` does
+    instead if the stencil is of K4's class."""
+    return _Generator(analyzed, fuse_stages=fuse_stages).generate()
 
 
 @dataclasses.dataclass
@@ -382,6 +461,7 @@ class _Item:
     ext: Extent
     reads: list
     writes: list
+    loop: int = 0  # index of its vertical loop
 
     @property
     def wide(self) -> bool:
@@ -424,6 +504,22 @@ class _Buffer:
         return self.plane * self.nd * self.ring
 
 
+@dataclasses.dataclass
+class _Held:
+    """fused_column: a temporary kept on chip, a register in the loop that
+    writes it, with ``ring`` registers for the levels that loop reads back,
+    started at 0 at the levels of the sections in ``reset``. A value a later
+    loop reads (``cross``) is also stored per level to a (K, I, J) buffer,
+    zero-filled where ``zero``."""
+
+    meta: FieldMeta
+    writer: int
+    ring: int = 0
+    reset: frozenset[int] = frozenset()
+    cross: bool = False
+    zero: bool = False
+
+
 def _bound_le(a: gtir.AxisBound, b: gtir.AxisBound) -> bool:
     """a <= b for every domain size."""
     return a.level == b.level and a.offset <= b.offset
@@ -431,6 +527,13 @@ def _bound_le(a: gtir.AxisBound, b: gtir.AxisBound) -> bool:
 
 def _interval_within(inner: gtir.Interval, outer: gtir.Interval) -> bool:
     return _bound_le(outer.start, inner.start) and _bound_le(inner.end, outer.end)
+
+
+def _shifted(iv: gtir.Interval, dk: int) -> gtir.Interval:
+    return gtir.Interval(
+        start=gtir.AxisBound(level=iv.start.level, offset=iv.start.offset + dk),
+        end=gtir.AxisBound(level=iv.end.level, offset=iv.end.offset + dk),
+    )
 
 
 def _covers(ext: Extent, fp: Extent) -> bool:
@@ -465,9 +568,10 @@ def _loop_symbols(vloop: gtir.VerticalLoop):
 
 
 class _Generator:
-    def __init__(self, analyzed: AnalyzedStencil):
+    def __init__(self, analyzed: AnalyzedStencil, *, fuse_stages: bool = False):
         self.analyzed = analyzed
         self.stencil = analyzed.stencil
+        self.fuse_stages = fuse_stages
         self.strategy = ""
         self.fields: dict[str, FieldMeta] = {}
         self.slots: list[FieldMeta] = []
@@ -544,14 +648,24 @@ class _Generator:
         self.item: Optional[_Item] = None
         self.loop_sections: list[tuple[int, gtir.Interval]] = []
         self.section_writes: set[str] = set()
+        #: tiled: the loops launched once per level
+        self.per_level: set[int] = set()
+        #: fused_column: what is kept on chip, the loop being emitted, and
+        #: the smallest K served
+        self.held: dict[str, _Held] = {}
+        self.loop = -1
+        self.min_nk = 0
         self.strategy = self._choose()
-        if self.strategy in ("column", "tiled"):  # global (K, I, J) buffers
-            for meta in self.fields.values():
-                if meta.is_temp:
-                    meta.index = len(self.slots)
-                    meta.shape_off = shape_off
-                    self.slots.append(meta)
-                    shape_off += 3
+        for meta in self.fields.values():  # global (K, I, J) buffers
+            if meta.is_temp and (
+                self.strategy in ("column", "tiled")
+                or (self.strategy == "fused_column" and self.held[meta.name].cross)
+            ):
+                meta.index = len(self.slots)
+                meta.shape_off = shape_off
+                meta.fill = self.strategy != "fused_column" or self.held[meta.name].zero
+                self.slots.append(meta)
+                shape_off += 3
         self.n_shape_slots = shape_off
 
     # -- dispatch --------------------------------------------------------------
@@ -580,9 +694,16 @@ class _Generator:
         try:
             for vloop in loops:
                 self._check_column(vloop)
-            return "column"
         except CudaUnsupported as exc:
             reasons.append(f"column: {exc}")
+        else:
+            if self.fuse_stages:
+                try:
+                    self.held = self._plan_fused_column()
+                    return "fused_column"
+                except CudaUnsupported:
+                    self.held = {}  # not K4's class: column, as with the switch off
+            return "column"
         try:
             self.tiled_plans = [self._plan_tiled(n) for n in range(len(loops))]
             return "tiled"
@@ -679,17 +800,19 @@ class _Generator:
         if self.strategy == "fused_plane":
             self._emit_fused_plane_kernel()
             launchers.append("gt_launch_0")
-        for n, vloop in enumerate(self.stencil.vertical_loops):
-            if self.strategy == "fused_plane":
-                break
-            if self.strategy == "plane":
-                self._emit_plane_kernel(n, vloop)
-            elif self.strategy == "column":
-                self._emit_column_kernel(n, vloop)
-            else:
-                self._emit_tiled_kernel(n, vloop)
-            launchers.append(f"gt_launch_{n}")
-            self.emit()
+        elif self.strategy == "fused_column":
+            self._emit_fused_column_kernel()
+            launchers.append("gt_launch_0")
+        else:  # one launcher per vertical loop
+            for n, vloop in enumerate(self.stencil.vertical_loops):
+                if self.strategy == "plane":
+                    self._emit_plane_kernel(n, vloop)
+                elif self.strategy == "column":
+                    self._emit_column_kernel(n, vloop)
+                else:
+                    self._emit_tiled_kernel(n, vloop)
+                launchers.append(f"gt_launch_{n}")
+                self.emit()
         staged = frozenset(
             b.meta.name for b in self.fused_plan or () if b.kind in ("staged", "table")
         )
@@ -705,6 +828,8 @@ class _Generator:
             written=frozenset(self.analyzed.written_fields()),
             nonlocal_reads=_nonlocal_reads(self.analyzed, self.strategy, staged),
             unit_axes=self._unit_axes(),
+            min_nk=self.min_nk,
+            per_level=frozenset(f"gt_launch_{n}" for n in self.per_level),
         )
 
     def _unit_axes(self) -> dict[str, str]:
@@ -756,18 +881,23 @@ class _Generator:
 
     def _emit_launcher(
         self, n: int, kernel: str, grid: str, block: str, noalias_call: str = "",
-        smem: int = 0,
+        smem: int = 0, levels=(),
     ) -> None:
         """``noalias`` (set by the wrapper when no two field buffers
         overlap) selects ``noalias_call``, the ``__restrict__`` variant.
         ``smem`` bytes of dynamic shared memory; above 48 KB the kernel is
-        first allowed them with ``cudaFuncSetAttribute``."""
+        first allowed them with ``cudaFuncSetAttribute``. ``levels``: the
+        host loops over ``k`` of a per-level kernel, launched once a level;
+        its launcher writes how many it launched to ``*launched``."""
         self.emit(
             f'extern "C" int gt_launch_{n}(void* const* fields, const long long* shapes,'
         )
         self.emit("    const long long* strides, const long long* origins,")
         self.emit("    const double* fscalars, const long long* iscalars,")
-        self.emit("    long long ni, long long nj, long long nk, void* stream, int noalias) {")
+        self.emit(
+            "    long long ni, long long nj, long long nk, void* stream, int noalias"
+            + (", long long* launched) {" if levels else ") {")
+        )
         self.indent += 1
         self.emit("GtParams p;")
         self.emit("gt_fill(p, fields, shapes, strides, origins, fscalars, iscalars, ni, nj, nk);")
@@ -782,7 +912,15 @@ class _Generator:
                 f"cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});"
             )
             self.emit("if (gt_e != cudaSuccess) return (int)gt_e;")
-        if noalias_call:
+        if levels:
+            self.emit("(void)noalias;")
+            self.emit("*launched = 0;")
+            for walk in levels:
+                with self._block(walk):
+                    self.emit(f"{kernel}<<<grid, block, {smem}, (cudaStream_t)stream>>>(p, k);")
+                    self.emit("++*launched;")
+            self.emit(f"if (*launched == 0) return {NOTHING_LAUNCHED};")
+        elif noalias_call:
             self.emit(f"if (noalias) {noalias_call};")
             self.emit(f"else {kernel}<<<grid, block, 0, (cudaStream_t)stream>>>(p);")
         else:
@@ -1016,6 +1154,293 @@ class _Generator:
             with self._block(f"if ({cond})"):
                 self._emit_stmt(stmt)
 
+    # -- the fused_column kernel -------------------------------------------------
+
+    @staticmethod
+    def _walk(vloop: gtir.VerticalLoop) -> tuple[gtir.LevelMarker, bool]:
+        """The marker a loop's walk starts from, and whether its sections
+        cover the K range back to back in walk order (K4's full-K-range
+        check, pallas_seq.py:1510-1520)."""
+        S, E = gtir.LevelMarker.START, gtir.LevelMarker.END
+        backward = vloop.loop_order == gtir.LoopOrder.BACKWARD
+        secs = [s.interval for s in vloop.sections]
+        if backward:
+            bounds = [(iv.end, iv.start) for iv in secs]
+            first, last = gtir.AxisBound(level=E, offset=0), gtir.AxisBound(level=S, offset=0)
+        else:
+            bounds = [(iv.start, iv.end) for iv in secs]
+            first, last = gtir.AxisBound(level=S, offset=0), gtir.AxisBound(level=E, offset=0)
+        chained = all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+        return (E if backward else S), (
+            bool(bounds) and chained and bounds[0][0] == first and bounds[-1][1] == last
+        )
+
+    def _plan_fused_column(self) -> dict[str, _Held]:
+        """K4's class among the stencils ``column`` serves: the conditions of
+        ``pallas_seq.build_staged_fn`` (:302-333, :1505-1520), and no read of
+        another column's value. Returns what the kernel keeps on chip."""
+        loops = self.stencil.vertical_loops
+        if len(loops) < 2:
+            raise CudaUnsupported("one vertical loop: nothing to fuse")
+        for p in self.stencil.params:
+            if isinstance(p, gtir.GlobalTableDecl) or (
+                isinstance(p, gtir.FieldDecl)
+                and (tuple(p.dimensions) != (True, True, True) or p.data_dims)
+            ):
+                raise CudaUnsupported(f"'{p.name}' is a table, lower-dimensional or has data dims")
+        items = self._items(range(len(loops)))
+        writer: dict[str, int] = {}
+        for it in items:
+            if not isinstance(it.stmt, gtir.Assign):
+                raise CudaUnsupported("while loop")
+            for w in it.writes:
+                if w.offset != (0, 0, 0) or w.koffset is not None:
+                    raise CudaUnsupported(f"offset write to '{w.name}'")
+                if writer.setdefault(w.name, it.loop) != it.loop:
+                    raise CudaUnsupported(f"'{w.name}' is written in two vertical loops")
+        union = Extent.zeros()
+        for it in items:
+            union = union.union(it.ext)
+        min_nk = 0
+        ring: dict[str, int] = {}
+        for it in items:
+            vloop = loops[it.loop]
+            start, _ = self._walk(vloop)
+            for r in it.reads:
+                m = self._meta(r.name)
+                if r.koffset is not None or r.abs_k is not None:
+                    raise CudaUnsupported(f"variable or absolute K read of '{r.name}'")
+                if r.name not in writer:
+                    if m.is_temp:
+                        raise CudaUnsupported(f"temporary '{r.name}' is read but never written")
+                    continue
+                if r.offset[0] or r.offset[1]:
+                    raise CudaUnsupported(
+                        f"'{r.name}' is read at a horizontal offset: another column's value"
+                    )
+                if m.is_temp and it.loop < writer[r.name]:
+                    raise CudaUnsupported(f"temporary '{r.name}' is read before it is written")
+                dk = r.offset[2]
+                if it.loop != writer[r.name] or dk == 0:
+                    continue
+                if vloop.loop_order == gtir.LoopOrder.PARALLEL:
+                    raise CudaUnsupported(
+                        f"PARALLEL loop reads '{r.name}', which it writes, at a K offset"
+                    )
+                backward = vloop.loop_order == gtir.LoopOrder.BACKWARD
+                if (dk > 0) != backward:
+                    if m.is_temp:  # K4: "original K-offset read of loop-local temp"
+                        raise CudaUnsupported(f"'{r.name}' is read ahead of the walk")
+                    continue  # an API field's value from before the loop: device memory
+                # a carry: the walk must have visited level k + dk (K4
+                # declines a ring that needs seeding, pallas_seq.py:1506-1509)
+                first = it.interval.end if backward else it.interval.start
+                gap = abs(first.offset)
+                if first.level == start and gap < abs(dk):
+                    raise CudaUnsupported(f"carry of '{r.name}' needs seeding before the walk")
+                if first.level != start:  # gap nk - |offset| levels
+                    min_nk = max(min_nk, gap + abs(dk))
+                if m.is_temp:
+                    ring[r.name] = max(ring.get(r.name, 0), abs(dk))
+        for vloop in loops:
+            if not self._walk(vloop)[1]:
+                raise CudaUnsupported("a loop's sections do not cover the K range back to back")
+        held: dict[str, _Held] = {}
+        for name, w in writer.items():
+            m = self.fields[name]
+            if not m.is_temp:
+                continue  # an API field: stored to and read from device memory
+            later = any(it.loop > w and any(r.name == name for r in it.reads) for it in items)
+            first = sum(len(v.sections) for v in loops[:w])
+            secs = {
+                sid: [it for it in items if it.section == sid]
+                for sid in range(first, first + len(loops[w].sections))
+            }
+            # the sections at whose levels the loop sets every column's value
+            fulls = [
+                any(_full_write(it, name) and _covers(it.ext, union) for it in sec)
+                for sec in secs.values()
+            ]
+            later_reads = [
+                _shifted(it.interval, r.offset[2])
+                for it in items
+                if it.loop > w
+                for r in it.reads
+                if r.name == name
+            ]
+            read_set, tall = self._levels_set(loops[w], fulls, later_reads)
+            if read_set:
+                min_nk = max(min_nk, tall)
+            if later and m.extent.k != (0, 0):
+                raise CudaUnsupported(f"'{name}' is read beyond the K range")
+            depth = ring.get(name, 0)
+            held[name] = _Held(
+                meta=m,
+                writer=w,
+                ring=depth,
+                # levels whose value does not start with a whole write
+                # start at 0, the plain version's zero-filled temporary
+                reset=frozenset(
+                    sid
+                    for sid, sec in secs.items()
+                    if (depth or any(
+                        a.name == name and not _is_k_shift(a)
+                        for it in sec for a in it.reads + it.writes
+                    ))
+                    and not (
+                        any(it.writes_name(name) for it in sec)
+                        and self._first_access_covers(sec, name, union)
+                    )
+                ),
+                cross=later,
+                zero=later and not read_set,
+            )
+        self.min_nk = min_nk
+        return held
+
+    @staticmethod
+    def _levels_set(
+        vloop: gtir.VerticalLoop, fulls: list[bool], reads: list[gtir.Interval]
+    ) -> tuple[bool, int]:
+        """Whether every read interval lies within a run of back-to-back
+        sections that set the value in full, and the smallest K for which
+        that holds (a bound from START lies below one from END only once
+        the domain is tall enough)."""
+        runs: list[gtir.Interval] = []
+        backward = vloop.loop_order == gtir.LoopOrder.BACKWARD
+        for n, (section, full) in enumerate(zip(vloop.sections, fulls)):
+            iv = section.interval
+            if full and n and fulls[n - 1]:
+                last = runs[-1]
+                runs[-1] = gtir.Interval(
+                    start=iv.start if backward else last.start,
+                    end=last.end if backward else iv.end,
+                )
+            elif full:
+                runs.append(iv)
+        tall = [0]
+
+        def le(a: gtir.AxisBound, b: gtir.AxisBound) -> bool:
+            if a.level == b.level:
+                return a.offset <= b.offset
+            tall.append(a.offset - b.offset)
+            return a.level == gtir.LevelMarker.START
+
+        inside = all(
+            any(le(run.start, iv.start) and le(iv.end, run.end) for run in runs)
+            for iv in reads
+        )
+        return inside, max(tall)
+
+    def _emit_fused_column_kernel(self) -> None:
+        """One launch per stencil, in two variants as ``column``: plain
+        pointers, and ``__restrict__`` ones for arguments that do not
+        overlap."""
+        items = self._items(range(len(self.stencil.vertical_loops)))
+        names = {a.name for it in items for a in it.reads + it.writes}
+        written = {w.name for it in items for w in it.writes}
+        union = Extent.zeros()
+        for it in items:
+            union = union.union(it.ext)
+        kernel = "gt_fused_column_0"
+        used = [m for m in self.slots if m.name in names]
+        params = ", ".join(
+            f"{'const ' if m.name not in written else ''}char* __restrict__ {m.var}"
+            for m in used
+        )
+        args = ", ".join(
+            f"({'const ' if m.name not in written else ''}char*)fields[{m.index}]" for m in used
+        )
+        self._emit_fused_column_variant(kernel, names, union, "")
+        self.read_only = names - written
+        self._emit_fused_column_variant(kernel + "_r", names, union, params)
+        self.read_only = set()
+        self._emit_fused_column_launcher(kernel, union, args)
+
+    def _emit_fused_column_variant(self, kernel: str, names, union: Extent, params: str) -> None:
+        extra = f", {params}" if params else ""
+        self.emit(
+            f"__global__ void __launch_bounds__({FC_THREADS}) {kernel}(const GtParams p{extra}) {{"
+        )
+        self.indent += 1
+        self._emit_locals(names, pointers=not params)
+        self.emit(
+            f"const long long j = ({union.j[0]}) + (long long)blockIdx.x * blockDim.x + threadIdx.x;"
+        )
+        self.emit(
+            f"const long long i = ({union.i[0]}) + (long long)blockIdx.y * blockDim.y + threadIdx.y;"
+        )
+        self.emit(f"if (i >= ni + ({union.i[1]}) || j >= nj + ({union.j[1]})) return;")
+        for h in self.held.values():
+            ct, v = _ctype(h.meta.dtype), h.meta.var
+            regs = [f"{v}_r"] + [f"{v}_r{d}" for d in range(1, h.ring + 1)]
+            self.emit(f"{ct} {', '.join(f'{r} = ({ct})0' for r in regs)};")
+        self.point_base = {}
+        sid = 0
+        for n, vloop in enumerate(self.stencil.vertical_loops):
+            self.loop = n
+            backward = vloop.loop_order == gtir.LoopOrder.BACKWARD
+            for section in vloop.sections:
+                lo = self._k_bound(section.interval.start)
+                hi = self._k_bound(section.interval.end)
+                head = (
+                    f"for (long long k = {hi} - 1; k >= {lo}; --k)"
+                    if backward
+                    else f"for (long long k = {lo}; k < {hi}; ++k)"
+                )
+                with self._block(head):
+                    for h in self.held.values():
+                        if h.writer != n:
+                            continue
+                        ct, v = _ctype(h.meta.dtype), h.meta.var
+                        for d in range(h.ring, 1, -1):
+                            self.emit(f"{v}_r{d} = {v}_r{d - 1};")
+                        if h.ring:
+                            self.emit(f"{v}_r1 = {v}_r;")
+                        if sid in h.reset:
+                            self.emit(f"{v}_r = ({ct})0;")
+                    for stmt in section.body:
+                        self._emit_guarded(stmt, union)
+                sid += 1
+        self.loop = -1
+        self.indent -= 1
+        self.emit("}")
+        self.emit()
+
+    def _emit_fused_column_launcher(self, kernel: str, union: Extent, args: str) -> None:
+        ni_u = f"ni + ({union.i[1] - union.i[0]})"
+        nj_u = f"nj + ({union.j[1] - union.j[0]})"
+        rows = FC_THREADS // 32
+        self._emit_launcher(
+            0,
+            kernel,
+            f"(unsigned)(({nj_u} + 31) / 32), (unsigned)(({ni_u} + {rows - 1}) / {rows}), 1u",
+            f"32, {rows}",
+            noalias_call=(
+                f"{kernel}_r<<<grid, block, 0, (cudaStream_t)stream>>>(p{', ' if args else ''}{args})"
+            ),
+        )
+
+    def _held_access(self, node: gtir.FieldAccess) -> Optional[str]:
+        """fused_column: a temporary's register in the loop that writes it,
+        or None where a later loop reads it from device memory."""
+        h = self.held[node.name]
+        if self.loop != h.writer:
+            return None
+        dk = node.offset[2]
+        return f"{h.meta.var}_r{abs(dk)}" if dk else f"{h.meta.var}_r"
+
+    def _emit_held_assign(self, stmt: gtir.Assign, h: _Held) -> None:
+        """fused_column: a temporary's write, to its register and, for a
+        later loop, to device memory."""
+        t = stmt.target
+        ct, v = _ctype(h.meta.dtype), h.meta.var
+        stores = [f"{v}_r = gt_v;"]
+        if h.cross:
+            stores.append(f"{self._global_access(t)} = gt_v;")
+        body = f"{{ const {ct} gt_v = {self._expr(stmt.value)}; {' '.join(stores)} }}"
+        self.emit(body if stmt.mask is None else f"if ({self._expr(stmt.mask)}) {body}")
+
     # -- fused_plane and tiled: plans --------------------------------------------
 
     def _items(self, loops) -> list[_Item]:
@@ -1036,6 +1461,7 @@ class _Generator:
                                 ext=self.analyzed.stmt_extents[stmt],
                                 reads=list(_iter_reads(stmt)),
                                 writes=list(iter_writes(stmt)),
+                                loop=n,
                             )
                         )
                 section_id += 1
@@ -1052,14 +1478,18 @@ class _Generator:
                     raise CudaUnsupported(f"partial data-dimension index of '{a.name}'")
 
     @staticmethod
-    def _footprint(items: list[_Item], name: str) -> Extent:
+    def _footprint(items: list[_Item], name: str, level_only: bool = False) -> Extent:
         """Points of a symbol's plane the statements write or read,
         relative to the tile (the union of write extents and shifted read
-        extents)."""
+        extents; ``level_only``: reads of the current level only)."""
         fp: Optional[Extent] = None
         for it in items:
             exts = [it.ext for w in it.writes if w.name == name]
-            exts += [it.ext.shifted_ij(r.offset[0], r.offset[1]) for r in it.reads if r.name == name]
+            exts += [
+                it.ext.shifted_ij(r.offset[0], r.offset[1])
+                for r in it.reads
+                if r.name == name and not (level_only and r.offset[2])
+            ]
             for e in exts:
                 fp = e if fp is None else fp.union(e)
         assert fp is not None
@@ -1069,6 +1499,19 @@ class _Generator:
     def _nonlocal_read(items: list[_Item], name: str) -> bool:
         return any(
             r.name == name and (r.offset[0] != 0 or r.offset[1] != 0 or it.wide)
+            for it in items
+            for r in it.reads
+        )
+
+    @staticmethod
+    def _lagged_read(items: list[_Item], name: str) -> bool:
+        """An earlier level is read at points beyond those a writer of the
+        loop computes there."""
+        writers = [it for it in items if it.writes_name(name)]
+        return any(
+            r.name == name
+            and r.offset[2] != 0
+            and not all(_covers(w.ext, it.ext.shifted_ij(r.offset[0], r.offset[1])) for w in writers)
             for it in items
             for r in it.reads
         )
@@ -1110,9 +1553,11 @@ class _Generator:
                         "same level; a neighbouring block may already have written them"
                     )
 
-    def _shared_buffer(self, items: list[_Item], name: str, tile, ring: int = 1) -> _Buffer:
+    def _shared_buffer(
+        self, items: list[_Item], name: str, tile, ring: int = 1, level_only: bool = False
+    ) -> _Buffer:
         m = self.fields[name]
-        fp = self._footprint(items, name)
+        fp = self._footprint(items, name, level_only)
         return _Buffer(
             meta=m,
             kind="shared",
@@ -1203,11 +1648,18 @@ class _Generator:
             else (a.interval.end == b.interval.start)
             for a, b in zip(vloop.sections, vloop.sections[1:])
         )
+        shared = [
+            m for m in self.fields.values()
+            if m.name in written and self._nonlocal_read(items, m.name)
+        ]
+        # a ring plane holds an earlier level only where this block computed
+        # it; a read beyond that needs a neighbouring block's value of that
+        # level, so the loop takes a grid-wide step per level
+        if any(self._lagged_read(items, m.name) for m in shared):
+            self.per_level.add(n)
         buffers = []
-        for m in self.fields.values():
+        for m in shared:
             name = m.name
-            if name not in written or not self._nonlocal_read(items, name):
-                continue
             reach = 0
             for it in items:
                 accesses = [(w, True) for w in it.writes] + [(r, False) for r in it.reads]
@@ -1229,27 +1681,16 @@ class _Generator:
                             f"'{name}' is read at K offset {dk}, ahead of the walk"
                         )
                     reach = max(reach, abs(dk))
+            if n in self.per_level:
+                reach = 0  # earlier levels come from device memory
             if reach and not contiguous:
                 raise CudaUnsupported(
                     f"'{name}' is read at a K offset in a loop whose sections are not contiguous"
                 )
-            b = self._shared_buffer(items, name, (TL_TI, TL_TJ), ring=reach + 1)
-            writers = [it for it in items if it.writes_name(name)]
-            b.writers = frozenset(it.section for it in writers)
-            # a ring plane holds an earlier level only where this block
-            # computed it; elsewhere it holds that level as filled from device
-            # memory, which a neighbouring block may or may not have stored yet
-            for it in items:
-                for r in it.reads:
-                    if r.name != name or r.offset[2] == 0:
-                        continue
-                    need = it.ext.shifted_ij(r.offset[0], r.offset[1])
-                    if not all(_covers(w.ext, need) for w in writers):
-                        raise CudaUnsupported(
-                            f"'{name}' is read at offset {tuple(r.offset)} beyond the points "
-                            "its writers compute; a block cannot get a neighbouring "
-                            "block's value of an earlier level"
-                        )
+            b = self._shared_buffer(
+                items, name, (TL_TI, TL_TJ), ring=reach + 1, level_only=n in self.per_level
+            )
+            b.writers = frozenset(it.section for it in items if it.writes_name(name))
             init = set()
             for sid in sorted({it.section for it in items}):
                 sec = [it for it in items if it.section == sid]
@@ -1413,14 +1854,19 @@ class _Generator:
 
     def _emit_tiled_kernel(self, n: int, vloop: gtir.VerticalLoop) -> None:
         """One launch per vertical loop: each block walks the loop's levels
-        in order over its tile."""
+        in order over its tile. A per-level loop: one launch per level, in
+        the walk's order, each computing its level ``k``."""
         plan = self.tiled_plans[n]
         items = self._items([n])
         names = {a.name for it in items for a in it.reads + it.writes}
         self.buffers = {b.meta.name: b for b in plan}
+        self.loop = n
+        per_level = n in self.per_level
         kernel = f"gt_tiled_{n}"
+        level_param = ", const long long k" if per_level else ""
         self.emit(
-            f"__global__ void __launch_bounds__({TILED_THREADS}) {kernel}(const GtParams p) {{"
+            f"__global__ void __launch_bounds__({TILED_THREADS}) "
+            f"{kernel}(const GtParams p{level_param}) {{"
         )
         self.indent += 1
         self._emit_locals(names)
@@ -1434,16 +1880,18 @@ class _Generator:
             (sid, next(it.interval for it in items if it.section == sid)) for sid in sids
         ]
         backward = vloop.loop_order == gtir.LoopOrder.BACKWARD
+        walks = []
         for sid, interval in self.loop_sections:
             sec = [it for it in items if it.section == sid]
             self.section_writes = {w.name for it in sec for w in it.writes}
             lo, hi = self._k_bound(interval.start), self._k_bound(interval.end)
-            head = (
+            walk = (
                 f"for (long long k = {hi} - 1; k >= {lo}; --k)"
                 if backward
                 else f"for (long long k = {lo}; k < {hi}; ++k)"
             )
-            with self._block(head):
+            walks.append(walk)
+            with self._block(f"if (k >= {lo} && k < {hi})" if per_level else walk):
                 for b in plan:
                     if b.meta.name in self.section_writes:
                         cur = f"gt_slot(k, {b.ring})" if b.ring > 1 else "0"
@@ -1462,12 +1910,14 @@ class _Generator:
         self.emit()
         self.buffers = {}
         self.section_writes = set()
+        self.loop = -1
         self._emit_launcher(
             n,
             kernel,
             f"(unsigned)((nj + {TL_TJ - 1}) / {TL_TJ}), (unsigned)((ni + {TL_TI - 1}) / {TL_TI}), 1u",
             f"{TILED_THREADS}",
             smem=self.tiled_bytes[n],
+            levels=walks if per_level else (),
         )
 
     def _flat_index(self, node: gtir.FieldAccess, m: FieldMeta) -> str:
@@ -1506,6 +1956,8 @@ class _Generator:
             return at(None)
         if dk == 0:
             return at(f"{v}_cur") if node.name in self.section_writes else None
+        if self.loop in self.per_level:
+            return None  # device memory: every block stored it in an earlier launch
         level = f"(k + ({dk}))"
         held = " || ".join(
             f"({level} >= {self._k_bound(iv.start)} && {level} < {self._k_bound(iv.end)})"
@@ -1618,6 +2070,9 @@ class _Generator:
         if self.strategy in ("fused_plane", "tiled"):
             self._emit_buffered_assign(stmt)
             return
+        if stmt.target.name in self.held:
+            self._emit_held_assign(stmt, self.held[stmt.target.name])
+            return
         t = stmt.target
         if t.koffset is not None:
             # Variable-K-offset write: out-of-range target levels are
@@ -1647,6 +2102,10 @@ class _Generator:
         return m
 
     def _access(self, node: gtir.FieldAccess, *, k_override: str = "") -> str:
+        if node.name in self.held:
+            held = self._held_access(node)
+            if held is not None:
+                return held
         if node.name in self.buffers:
             held = self._buffer_access(node)
             if held is not None:
@@ -1674,7 +2133,7 @@ class _Generator:
                 terms.append(f"({di}) * {v}_si")
             if m.axes[1] and dj:
                 terms.append(f"({dj}) * {v}_sj")
-        if m.axes[2] and self.strategy in ("column", "tiled"):
+        if m.axes[2] and self.strategy in ("column", "fused_column", "tiled"):
             if k_override:
                 terms.append(f"{k_override} * {v}_sk")
             elif node.abs_k is not None:

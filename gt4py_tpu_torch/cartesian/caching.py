@@ -19,6 +19,8 @@ import os
 import textwrap
 from typing import Callable
 
+from gt4py_tpu_torch import config
+
 API_VERSION = "1"
 
 GT_CACHE_ROOT = os.path.join(
@@ -45,5 +47,7 @@ def stencil_fingerprint(definition: Callable, build_options: dict) -> str:
         # backend options change the pass pipeline (skip/add steps), so a
         # custom PassPipeline must not reuse another pipeline's artifacts
         repr(sorted((k, repr(v)) for k, v in build_options.get("backend_opts", {}).items())),
+        # the stage-fusion switch picks the kernel (column or fused_column)
+        f"fuse_stages={config.fuse_stages()}",
     ]
     return hashlib.sha256("\x00".join(parts).encode()).hexdigest()

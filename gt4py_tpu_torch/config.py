@@ -13,6 +13,13 @@ Environment variables honored (reference names kept where meaningful):
 - ``GT4PY_BUILD_CACHE_LIFETIME``  ``session`` | ``persistent``
 - ``GT4PY_COLLECT_METRICS_LEVEL`` (instrumentation/metrics.py)
 - ``GT4PY_DUMP_METRICS_AT_EXIT``
+- ``GT4PY_CUDA_FUSE_STAGES``  ``1`` runs every vertical loop of a sequential
+                              stencil of K4's class in one ``fused_column``
+                              kernel (default ``0``: one ``column`` launch per
+                              loop); the JAX package's ``GT4PY_PALLAS_FUSE_STAGES``
+                              (pallas_seq.py:302-312). Read when a stencil is
+                              built (:func:`fuse_stages`), and part of its
+                              fingerprint.
 """
 
 from __future__ import annotations
@@ -40,6 +47,11 @@ CACHE_DIR_NAME: str = os.environ.get("GT_CACHE_DIR_NAME", "gt4py_tpu_torch")
 
 _lifetime_raw = os.environ.get("GT4PY_BUILD_CACHE_LIFETIME", "persistent").lower()
 BUILD_CACHE_LIFETIME: BuildCacheLifetime = BuildCacheLifetime(_lifetime_raw)
+
+
+def fuse_stages() -> bool:
+    """The stage-fusion switch, as it stands when a stencil is built."""
+    return os.environ.get("GT4PY_CUDA_FUSE_STAGES", "0").lower() not in ("0", "", "false")
 
 
 def cache_dir() -> str:

@@ -91,6 +91,35 @@ def _ref_smoothed_column_sum(inp: "gtscript.Field['dt']", out: "gtscript.Field['
 JAX_TWINS = {"hdiff_sponge": _ref_hdiff_sponge, "smoothed_column_sum": _ref_smoothed_column_sum}
 
 
+def _ref_lagged_neighbour_sweep(inp: "gtscript.Field['dt']", out: "gtscript.Field['dt']"):
+    with computation(FORWARD):
+        with interval(0, 1):
+            acc = inp
+            out = acc
+        with interval(1, None):
+            lag = acc[1, 0, -1]
+            acc = inp + 0.5 * lag
+            out = acc
+
+
+def _ref_lag_read_before_write(inp: "gtscript.Field['dt']", out: "gtscript.Field['dt']"):
+    with computation(FORWARD):
+        with interval(0, 1):
+            acc = inp
+        with interval(1, None):
+            out = acc[1, 0, -1] + acc[0, -1, -1]
+            acc = inp * 2.0
+
+
+#: sweeps reading an earlier level beyond the points its writers compute,
+#: which the port's tiled kernel serves with one launch per level: the
+#: port's definition and its JAX twin
+LAGGED_SWEEPS = {
+    "lagged_neighbour_sweep": (defs.lagged_neighbour_sweep, _ref_lagged_neighbour_sweep),
+    "lag_read_before_write": (defs.lag_read_before_write, _ref_lag_read_before_write),
+}
+
+
 def _reference_definition(name):
     return JAX_TWINS[name] if name in defs.PORT_ONLY else getattr(ref_defs, name)
 
@@ -244,6 +273,19 @@ F32_CASES = {
         "domain": (16, 15, 8),
         "pallas_strategy": "staged",
     },
+    **{
+        name: {
+            "port": port,
+            "ref": ref,
+            "externals": {},
+            "scalars": {},
+            "shape": (20, 19, 8),
+            "origin": (2, 2, 0),
+            "domain": (16, 15, 8),
+            "pallas_strategy": "staged",
+        }
+        for name, (port, ref) in LAGGED_SWEEPS.items()
+    },
 }
 
 _F32_OPTS = dict(
@@ -284,11 +326,13 @@ def pallas_results():
     return out
 
 
-@pytest.mark.parametrize("key", ["hdiff_sponge", "smoothed_column_sum"])
+@pytest.mark.parametrize(
+    "key", ["hdiff_sponge", "smoothed_column_sum", *sorted(LAGGED_SWEEPS)]
+)
 def test_jax_serves_full_width_definitions_with_pallas(key, pallas_results):
-    """The JAX package runs the two definitions through a Pallas kernel:
-    hdiff_sponge through K2 (``plane``), smoothed_column_sum through K3
-    (``staged``)."""
+    """The JAX package runs the port-only definitions through a Pallas
+    kernel: hdiff_sponge through K2 (``plane``), smoothed_column_sum and the
+    lagged sweeps through K3 (``staged``)."""
     assert pallas_results[key][2] == F32_CASES[key]["pallas_strategy"]
 
 
@@ -301,6 +345,96 @@ def test_matches_pallas_interpret_float32(key, backend, pallas_results):
         backend=backend, definition=case["port"], externals=case["externals"], **_F32_OPTS
     )
     fields = {n: storage.from_array(v, backend=backend, device="cpu") for n, v in host.items()}
+    st(**fields, **case["scalars"], origin=case["origin"], domain=case["domain"])
+    for n in host:
+        got = np.asarray(fields[n])
+        assert got.dtype == np.float32
+        np.testing.assert_allclose(got, expected[n], rtol=F32_RTOL, atol=F32_ATOL, err_msg=n)
+
+
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+@pytest.mark.parametrize("name", sorted(LAGGED_SWEEPS))
+def test_lagged_sweeps_match_numpy_backend_exactly(name, backend):
+    """Served on the card by tiled, one launch per level; here the plain
+    version, against the JAX numpy backend in float64."""
+    port, ref = LAGGED_SWEEPS[name]
+    opts = dict(dtypes={"dt": np.float64})
+    st = port_gtscript.stencil(backend=backend, definition=port, **opts)
+    if backend == "cuda:hopper":
+        assert st._backend.strategy == "tiled"
+    host = _inputs(["inp", "out"], (20, 19, 9), seed=8)
+    expected = {n: v.copy() for n, v in host.items()}
+    gtscript.stencil(backend="numpy", definition=ref, **opts)(
+        **expected, origin=(2, 2, 0), domain=(16, 15, 9)
+    )
+    fields = {n: storage.from_array(v, backend=backend, device="cpu") for n, v in host.items()}
+    st(**fields, origin=(2, 2, 0), domain=(16, 15, 9))
+    for n in host:
+        np.testing.assert_allclose(np.asarray(fields[n]), expected[n], rtol=1e-12, atol=0, err_msg=n)
+
+
+# --- K4: the stage-fusion switch ---------------------------------------------------
+
+
+@pytest.mark.parametrize("name", sorted(defs.FUSED_STAGES))
+def test_fused_stages_match_numpy_backend_exactly(name, monkeypatch):
+    """With the switch on, K4's class is pinned to fused_column. The CPU
+    tensors here run the plain version, which this holds against the JAX
+    numpy backend in float64; fused_column itself is held against the plain
+    version by the ``cuda``-marked tests and chip_smoke.py on the card."""
+    monkeypatch.setenv("GT4PY_CUDA_FUSE_STAGES", "1")
+    entry = defs.REGISTRY[name]
+    shape = _shape(entry)
+    st = port_gtscript.stencil(
+        backend="cuda:hopper", definition=entry["definition"], externals=entry["externals"],
+        dtypes=entry["dtypes"],
+    )
+    assert st._backend.strategy == defs.FUSED_STAGES[name]
+    host = defs.make_inputs(st.field_info, shape, np.random.default_rng(12))
+    expected = _run_reference(name, entry, host, shape)
+    fields = {n: storage.from_array(v, backend="cuda:hopper", device="cpu") for n, v in host.items()}
+    st(**fields, **entry["scalars"], origin=(HALO, HALO, 0),
+       domain=(shape[0] - 2 * HALO, shape[1] - 2 * HALO, shape[2]))
+    for n in host:
+        np.testing.assert_allclose(np.asarray(fields[n]), expected[n], rtol=1e-12, atol=0, err_msg=n)
+
+
+@pytest.mark.parametrize("key", ["vadv", "tridiag"])
+def test_matches_k4_interpret_float32(key, monkeypatch):
+    """The JAX package's K4 (``pallas_seq._build_fused_call``, interpret
+    mode, GT4PY_PALLAS_FUSE_STAGES=1), which no test of that package
+    reaches, against the port's plain version, every field in float32. The
+    port is built with its switch on and pinned to fused_column, but CPU
+    tensors run the plain version; fused_column is held against that on
+    the card (the ``cuda``-marked tests and chip_smoke.py)."""
+    from gt4py_tpu.cartesian.backend import pallas_seq
+
+    built = []
+    build_fused_call = pallas_seq._build_fused_call
+
+    def counting(*args, **kwargs):
+        built.append(build_fused_call(*args, **kwargs))
+        return built[-1]
+
+    monkeypatch.setattr(pallas_seq, "_build_fused_call", counting)
+    monkeypatch.setenv("GT4PY_PALLAS_FUSE_STAGES", "1")
+    monkeypatch.setenv("GT4PY_CUDA_FUSE_STAGES", "1")
+    case = F32_CASES[key]
+    k4 = gtscript.stencil(
+        backend="tpu:pallas", definition=case["ref"], externals=case["externals"],
+        rebuild=True, **_F32_OPTS,
+    )
+    host = _f32_host(case, k4)
+    expected = {n: v.copy() for n, v in host.items()}
+    info = {}
+    k4(**expected, **case["scalars"], origin=case["origin"], domain=case["domain"],
+       exec_info=info)
+    assert built and info["pallas_strategy"] == "staged"
+    st = port_gtscript.stencil(
+        backend="cuda:hopper", definition=case["port"], externals=case["externals"], **_F32_OPTS
+    )
+    assert st._backend.strategy == "fused_column"
+    fields = {n: storage.from_array(v, backend="cuda:hopper", device="cpu") for n, v in host.items()}
     st(**fields, **case["scalars"], origin=case["origin"], domain=case["domain"])
     for n in host:
         got = np.asarray(fields[n])

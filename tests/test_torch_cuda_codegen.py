@@ -1,7 +1,8 @@
 """The ``cuda:hopper`` code generator and its build and launch wrappers.
 
 On the CPU: generation succeeds and picks the ``plane``, ``fused_plane``,
-``column`` or ``tiled`` skeleton, a construct no skeleton serves raises
+``column``, ``fused_column`` (with the stage-fusion switch on) or ``tiled``
+skeleton, a construct no skeleton serves raises
 ``CudaUnsupported`` with its reason, and the build command, the kernels'
 launch structure and the launch ABI hold what the card needs. Tests marked
 ``cuda`` build and launch the kernels; they decide inside the test whether
@@ -40,6 +41,7 @@ T4 = gtscript.GlobalTable[(np.float64, (4,))]
 
 
 def _backend(definition, **options):
+    options.setdefault("dtypes", {"dt": np.float64})
     return gtscript.stencil(backend="cuda:hopper", definition=definition, **options)._backend
 
 
@@ -73,7 +75,10 @@ def test_strategy_for_registry_stencil(name):
 
 
 def test_registry_pins_every_skeleton():
-    assert {e["strategy"] for e in defs.REGISTRY.values()} == set(cuda_backend.WRAPPERS)
+    """REGISTRY's pins, with those taken with the stage-fusion switch on,
+    name every skeleton."""
+    pinned = {e["strategy"] for e in defs.REGISTRY.values()} | set(defs.FUSED_STAGES.values())
+    assert pinned == set(cuda_backend.WRAPPERS)
 
 
 @pytest.mark.parametrize(
@@ -217,34 +222,11 @@ def _region_sweep(inp: F64, out: F64):
         out = acc[1, 0, 0] + acc[-1, 0, 0]
 
 
-def _lagged_neighbour_sweep(inp: F64, out: F64):
-    """Each level reads the level below one column further on: a tile would
-    need its neighbour's value of the level before."""
-    with computation(FORWARD):
-        with interval(0, 1):
-            acc = inp
-            out = acc
-        with interval(1, None):
-            lag = acc[1, 0, -1]
-            acc = inp + 0.5 * lag
-            out = acc
-
-
-def _lag_read_before_write(inp: F64, out: F64):
-    """The level below is read at an offset before this level's write, so
-    the write's extent does not reach the read."""
-    with computation(FORWARD):
-        with interval(0, 1):
-            acc = inp
-        with interval(1, None):
-            out = acc[1, 0, -1] + acc[0, -1, -1]
-            acc = inp * 2.0
-
-
-#: constructs beyond the registry that take the two new kernels' less
-#: travelled paths: planes filled from device memory or zeros at every
-#: level, a BACKWARD ring, PARALLEL loops in the tiled kernel, regions,
-#: tables and while
+#: constructs beyond the registry that take the fused_plane and tiled
+#: kernels' less travelled paths: planes filled from device memory or zeros
+#: at every level, a BACKWARD ring, PARALLEL loops in the tiled kernel,
+#: regions, tables and while, and sweeps reading an earlier level beyond the
+#: points its writers compute (a tiled launch per level)
 CONSTRUCTS = {
     "_shifted_read_after_write": (_shifted_read_after_write, "fused_plane"),
     "_temporary_across_loops": (_temporary_across_loops, "fused_plane"),
@@ -258,6 +240,8 @@ CONSTRUCTS = {
     "_parallel_then_race": (_parallel_then_race, "tiled"),
     "_region_sweep": (_region_sweep, "tiled"),
     "_tiled_in_place": (_tiled_in_place, "tiled"),
+    "_lagged_neighbour_sweep": (defs.lagged_neighbour_sweep, "tiled"),
+    "_lag_read_before_write": (defs.lag_read_before_write, "tiled"),
 }
 
 
@@ -303,11 +287,7 @@ def test_formerly_refused_constructs_get_a_kernel(definition, strategy):
 
 @pytest.mark.parametrize(
     "definition, reason",
-    [
-        (_half_precision, "float16 has no kernel type"),
-        (_lagged_neighbour_sweep, "beyond the points its writers compute"),
-        (_lag_read_before_write, "beyond the points its writers compute"),
-    ],
+    [(_half_precision, "float16 has no kernel type")],
 )
 def test_unsupported_constructs_name_their_reason(definition, reason):
     backend = _backend(definition)
@@ -396,6 +376,272 @@ def test_tiled_ring_and_barriers():
     assert "gt_clampk(f1_ok + k + (-1), f1_nk)" in kernel
     # one barrier after each statement of each of the two sections
     assert kernel.count("__syncthreads();") == 4
+
+
+@pytest.mark.parametrize("name", ["_lagged_neighbour_sweep", "_lag_read_before_write"])
+def test_lagged_sweep_launches_once_per_level(name):
+    """A read of the level below beyond the points its writers compute: the
+    launcher launches the kernel once per level, in the walk's order, and
+    the kernel reads earlier levels from device memory (a ring of one)."""
+    module = _backend(CONSTRUCTS[name][0]).module
+    source = module.source
+    assert module.strategy == "tiled" and module.launchers == ["gt_launch_0"]
+    assert module.per_level == {"gt_launch_0"}
+    kernel = _kernel(source, "gt_tiled_0")
+    launcher = source.split('extern "C" int gt_launch_0(')[1]
+    assert "gt_tiled_0(const GtParams p, const long long k)" in source
+    assert "for (long long k" not in kernel and "if (k >= (1) && k < (nk + (0)))" in kernel
+    assert "gt_slot" not in kernel
+    assert "gt_clampk(t0_ok + k + (-1), t0_nk)" in kernel  # acc one level down, from memory
+    # level 0, then levels 1 .. nk - 1, each a launch
+    walks = re.findall(r"(for \(long long k = .*\) \{)\s*gt_tiled_0<<<grid", launcher)
+    assert walks == [
+        "for (long long k = (0); k < (1); ++k) {",
+        "for (long long k = (1); k < (nk + (0)); ++k) {",
+    ]
+    assert launcher.count("<<<") == 2
+    # it writes how many kernels it launched, for the wrapper to count
+    assert "int noalias, long long* launched) {" in launcher
+    assert launcher.count("++*launched;") == 2
+    assert f"if (*launched == 0) return {cuda_codegen.NOTHING_LAUNCHED};" in launcher
+
+
+def test_sweep_without_the_hazard_launches_once():
+    module = _registry_backend("smoothed_column_sum").module
+    source = module.source
+    launcher = source.split('extern "C" int gt_launch_0(')[1]
+    assert "gt_tiled_0(const GtParams p)" in source
+    assert launcher.count("<<<") == 1 and "for (" not in launcher
+    assert module.per_level == frozenset() and "launched" not in launcher
+
+
+# --- the stage-fusion switch and the fused_column kernel ---------------------------
+
+
+@pytest.fixture
+def fuse_stages(monkeypatch):
+    monkeypatch.setenv("GT4PY_CUDA_FUSE_STAGES", "1")
+
+
+@pytest.mark.parametrize("name", sorted(defs.REGISTRY))
+def test_strategy_with_the_fusion_switch(name, fuse_stages, monkeypatch):
+    """Switch on: K4's class takes fused_column, one launch per stencil and
+    one kernel body per variant; every other stencil keeps its kernel and
+    its source, byte for byte."""
+    entry = defs.REGISTRY[name]
+    fused = _registry_backend(name)
+    assert fused.unsupported is None
+    assert fused.strategy == defs.FUSED_STAGES.get(name, entry["strategy"])
+    monkeypatch.delenv("GT4PY_CUDA_FUSE_STAGES")
+    plain_switch = _registry_backend(name)
+    assert plain_switch.strategy == entry["strategy"]
+    if name in defs.FUSED_STAGES:
+        source = fused.module.source
+        assert fused.module.launchers == ["gt_launch_0"]
+        assert source.count("__global__") == 2 and source.count("<<<") == 2
+        assert "gt_fused_column_0(const GtParams p)" in source
+        assert "gt_fused_column_0_r(const GtParams p" in source
+        assert "fused_column" not in plain_switch.module.source
+    else:
+        assert fused.module.source == plain_switch.module.source
+
+
+def test_fusion_switch_is_part_of_the_fingerprint(monkeypatch):
+    """The same definition built with the switch off, on and off again: two
+    stencil objects, the first served from the build memo the third time."""
+    monkeypatch.delenv("GT4PY_CUDA_FUSE_STAGES", raising=False)
+    definition = defs.REGISTRY["tridiagonal_solver"]["definition"]
+    off = gtscript.stencil(backend="cuda:hopper", definition=definition)
+    monkeypatch.setenv("GT4PY_CUDA_FUSE_STAGES", "1")
+    on = gtscript.stencil(backend="cuda:hopper", definition=definition)
+    monkeypatch.setenv("GT4PY_CUDA_FUSE_STAGES", "0")
+    again = gtscript.stencil(backend="cuda:hopper", definition=definition)
+    assert on is not off and again is off
+    assert (off._backend.strategy, on._backend.strategy) == ("column", "fused_column")
+
+
+def _fused_generator(name):
+    """The generator of a registry stencil with the switch on, and its
+    module."""
+    backend = _registry_backend(name)
+    gen = cuda_codegen._Generator(backend.analyzed, fuse_stages=True)
+    return gen, gen.generate()
+
+
+def test_fused_column_keeps_vadv_temporaries_on_chip(fuse_stages):
+    gen, module = _fused_generator("vertical_advection_dycore")
+    assert module.strategy == "fused_column"
+    assert len(gen.stencil.temporaries) == 11
+    # the 9 loop-local temporaries are registers: no global buffer; the two
+    # cross names of K4 (read by the BACKWARD loop) have one each, written
+    # before they are read, so not zero-filled
+    temps = [m for m in module.slots if m.is_temp]
+    assert [m.name for m in module.slots if not m.is_temp] == [
+        "utens_stage", "u_stage", "wcon", "u_pos", "utens"
+    ]
+    assert sorted(m.name for m in temps) == ["ccol", "dcol"]
+    assert not any(m.fill for m in temps)
+    kernel = _kernel(module.source, "gt_fused_column_0")
+    for name in ("ccol", "dcol"):
+        assert gen.held[name].cross and not gen.held[name].zero
+    for name in set(t.name for t in gen.stencil.temporaries) - {"ccol", "dcol"}:
+        assert not gen.held[name].cross and f"{gen.fields[name].var}_r = gt_v;" in kernel
+    # datacol[0, 0, 1] is one carry register
+    datacol = gen.fields["datacol"].var
+    assert f"{datacol}_r1 = {datacol}_r;" in kernel
+    assert module.min_nk == 2
+    assert "gt_smem" not in module.source
+    # up, then down, in one kernel
+    up = kernel.index("for (long long k = (0); k < (1); ++k)")
+    down = kernel.index("for (long long k = (nk + (0)) - 1; k >= (nk + (-1)); --k)")
+    assert up < down
+
+
+def test_fused_column_launch_shape(fuse_stages):
+    """Blocks of FC_THREADS columns, 32 along J, over the union of the
+    statement extents (vadv reads wcon at i + 1), no dynamic shared memory,
+    and the __restrict__ variant only under the wrapper's noalias flag."""
+    _, module = _fused_generator("vertical_advection_dycore")
+    launcher = module.source.split('extern "C" int gt_launch_0(')[1]
+    rows = cuda_codegen.FC_THREADS // 32
+    assert f"__launch_bounds__({cuda_codegen.FC_THREADS}) gt_fused_column_0(" in module.source
+    assert f"const dim3 block(32, {rows});" in launcher
+    assert f"/ {rows}), 1u);" in launcher
+    assert "if (noalias) gt_fused_column_0_r<<<grid, block, 0," in launcher
+    assert "else gt_fused_column_0<<<grid, block, 0," in launcher
+    assert "cudaFuncSetAttribute" not in module.source
+
+
+def test_fused_column_reads_tridiag_fields_from_device_memory(fuse_stages):
+    gen, module = _fused_generator("tridiagonal_solver")
+    kernel = _kernel(module.source, "gt_fused_column_0")
+    assert gen.held == {} and [m.name for m in module.slots] == ["inf", "diag", "sup", "rhs", "out"]
+    rhs = gen.fields["rhs"].var
+    # the BACKWARD loop reads back what the same thread stored in the FORWARD one
+    assert f"= (*(double*)({rhs} + ({rhs}_oi + i + (0)) * {rhs}_si" in kernel
+    assert not module.nonlocal_reads  # every read at the thread's own column: aliasing is safe
+
+
+def _carry_across_a_gap(inp: F64, out: F64, out2: F64):
+    """acc is not written at level 1, so the carry read at level 2 sees 0,
+    and so does the later loop there."""
+    with computation(FORWARD):
+        with interval(0, 1):
+            acc = inp
+        with interval(1, 2):
+            out = inp
+        with interval(2, None):
+            acc = inp + 0.5 * acc[0, 0, -1]
+            out = acc
+    with computation(BACKWARD), interval(...):
+        out2 = acc + 1.0
+
+
+def _masked_carry(inp: F64, out: F64):
+    """acc is written only where inp > 0.5: elsewhere the carry and the
+    later loop read 0."""
+    with computation(FORWARD):
+        with interval(0, 1):
+            acc = inp
+        with interval(1, None):
+            if inp > 0.5:
+                acc = inp + 0.5 * acc[0, 0, -1]
+    with computation(BACKWARD), interval(...):
+        out = acc
+
+
+def _sweep_then_parallel(inp: F64, out: F64):
+    """A PARALLEL loop reads the sweep's value one level up, so the two
+    loops stay apart."""
+    with computation(FORWARD):
+        with interval(0, 1):
+            acc = inp
+        with interval(1, None):
+            acc = inp + 0.5 * acc[0, 0, -1]
+    with computation(PARALLEL):
+        with interval(0, -1):
+            out = acc[0, 0, 1] - acc
+        with interval(-1, None):
+            out = acc
+
+
+#: stencils of K4's class beyond the registry that take fused_column's less
+#: travelled paths: a level that does not write a carried temporary, a
+#: masked carry, a PARALLEL loop reading a sweep's value at a K offset
+FUSED_CONSTRUCTS = {
+    "_carry_across_a_gap": _carry_across_a_gap,
+    "_masked_carry": _masked_carry,
+    "_sweep_then_parallel": _sweep_then_parallel,
+}
+
+
+@pytest.mark.parametrize("name", sorted(FUSED_CONSTRUCTS))
+def test_fused_construct_strategy(name, fuse_stages):
+    backend = _backend(FUSED_CONSTRUCTS[name])
+    assert backend.strategy == "fused_column"
+    gen = cuda_codegen._Generator(backend.analyzed, fuse_stages=True)
+    gen.generate()
+    acc = gen.held["acc"]
+    assert acc.ring == 1 and acc.cross
+    # where a level does not write acc whole, its register restarts at 0
+    # and its buffer is zero-filled; the whole sweep needs neither
+    restarts = name != "_sweep_then_parallel"
+    assert bool(acc.reset) == acc.zero == restarts
+    assert (f"{acc.meta.var}_r = (double)0;" in backend.module.source) == restarts
+
+
+def _cross_read_at_offset(inp: F64, out: F64):
+    with computation(FORWARD), interval(...):
+        tmp = inp * 2.0
+    with computation(BACKWARD), interval(...):
+        out = tmp[1, 0, 0]
+
+
+def _carry_before_the_walk(inp: F64, out: F64):
+    with computation(FORWARD):
+        with interval(0, 1):
+            acc = inp
+        with interval(1, None):
+            acc = inp + 0.5 * acc[0, 0, -2]
+    with computation(BACKWARD), interval(...):
+        out = acc
+
+
+def _partial_k_range(inp: F64, out: F64):
+    with computation(FORWARD), interval(0, -1):
+        acc = inp * 2.0
+    with computation(BACKWARD), interval(...):
+        out = acc
+
+
+@pytest.mark.parametrize(
+    "definition, reason",
+    [
+        (defs.REGISTRY["heat_step"]["definition"], "written in two vertical loops"),
+        (defs.REGISTRY["staggeredish_interval_chain"]["definition"], "written in two"),
+        (defs.REGISTRY["dycore_smagorinsky_like"]["definition"], "one vertical loop"),
+        (_cross_read_at_offset, "horizontal offset"),
+        (_carry_before_the_walk, "needs seeding"),
+        (_partial_k_range, "do not cover the K range"),
+    ],
+)
+def test_fused_column_declines_what_k4_declines(definition, reason, fuse_stages):
+    """These stay on column with the switch on, and why."""
+    backend = _backend(definition)
+    assert backend.strategy == "column"
+    with pytest.raises(CudaUnsupported, match=reason):
+        cuda_codegen._Generator(backend.analyzed, fuse_stages=True)._plan_fused_column()
+
+
+def test_fused_column_refuses_too_few_levels(fuse_stages):
+    """vadv's carries reach one level beyond the first section: below two
+    levels the wrapper refuses, naming the bound."""
+    memo = _registry_backend("vertical_advection_dycore")
+    backend = cuda_backend.CudaHopperBackend(memo.analyzed, {})  # not the build memo's
+    assert backend.module.min_nk == 2
+    arrays = {n: torch.zeros(4, 4, 1, dtype=torch.float64) for n in backend.analyzed.field_infos}
+    with pytest.raises(CudaUnsupported, match="at least 2 levels"):
+        backend.prepare(arrays, {"dtr_stage": 0.1}, (4, 4, 1), {})
 
 
 def test_lower_dimensional_writes_need_a_unit_axis():
@@ -506,6 +752,37 @@ def test_wrapper_counts_only_successful_launches():
     assert wrapper.launches == 1
 
 
+def test_wrapper_counts_every_level_of_a_per_level_launcher():
+    """A per-level launcher writes how many kernels it launched; the
+    wrapper adds that, and nothing on a failed or empty launch."""
+
+    def launcher(levels, rc):
+        def fn(*args):
+            args[-1]._obj.value = levels
+            return rc
+
+        return fn
+
+    wrapper = cuda_backend.KernelWrapper("probe")
+    wrapper.launch(launcher(80, 0), (), per_level=True)
+    assert wrapper.launches == 80
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        wrapper.launch(launcher(3, 9), (), per_level=True)
+    wrapper.launch(launcher(0, cuda_codegen.NOTHING_LAUNCHED), (), per_level=True)
+    wrapper.launch(lambda *a: 0, ())
+    assert wrapper.launches == 81
+
+
+def test_per_level_launcher_abi_takes_the_count_pointer():
+    class FakeLib:
+        gt_launch_0 = ctypes.CFUNCTYPE(ctypes.c_int)(lambda: 0)
+
+    fn = cuda_backend._bind(FakeLib(), "gt_launch_0", per_level=True)
+    assert fn.argtypes[-3] is ctypes.c_void_p  # the stream
+    assert fn.argtypes[-2] is ctypes.c_int  # the noalias flag
+    assert fn.argtypes[-1] is ctypes.POINTER(ctypes.c_longlong)  # kernels launched
+
+
 @pytest.mark.parametrize("name", ["horizontal_diffusion", "tridiagonal_solver"])
 def test_launcher_reports_an_empty_grid(name):
     entry = defs.REGISTRY[name]
@@ -608,8 +885,9 @@ def test_kernel_matches_plain_on_card(name):
 def test_construct_matches_plain_on_card(name):
     _need_card()
     definition, strategy = CONSTRUCTS[name]
-    kern = gtscript.stencil(backend="cuda:hopper", definition=definition)
-    plain = gtscript.stencil(backend="torch", definition=definition)
+    opts = dict(definition=definition, dtypes={"dt": np.float64})
+    kern = gtscript.stencil(backend="cuda:hopper", **opts)
+    plain = gtscript.stencil(backend="torch", **opts)
     host = defs.make_inputs(kern.field_info, (41, 70, 7), np.random.default_rng(4))
     out = {}
     for tag, st in (("kernel", kern), ("plain", plain)):
@@ -618,6 +896,68 @@ def test_construct_matches_plain_on_card(name):
         st(**fields, origin=(2, 2, 0), domain=(37, 66, 7), exec_info=info)
         torch.cuda.synchronize()
         assert info["kernel_strategy"] == (strategy if tag == "kernel" else "plain")
+        out[tag] = {n: np.asarray(v) for n, v in fields.items()}
+    for n in host:
+        _assert_same(out["kernel"][n], out["plain"][n], n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["_lagged_neighbour_sweep", "_lag_read_before_write"])
+def test_lagged_sweep_counts_a_launch_per_level_on_card(name):
+    """The grid-wide step per level: the tiled wrapper counts one kernel
+    launch for each of the domain's levels."""
+    _need_card()
+    st = gtscript.stencil(
+        backend="cuda:hopper", definition=CONSTRUCTS[name][0], dtypes={"dt": np.float64}
+    )
+    host = defs.make_inputs(st.field_info, (41, 70, 7), np.random.default_rng(5))
+    fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+    cuda_backend.TILED.launches = 0
+    st(**fields, origin=(2, 2, 0), domain=(37, 66, 7))
+    torch.cuda.synchronize()
+    assert cuda_backend.TILED.launches == 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(defs.FUSED_STAGES))
+def test_fused_column_matches_plain_on_card(name, fuse_stages):
+    """K4's class through fused_column (one launch per application) against
+    the plain version on the same card, every field and point compared."""
+    _need_card()
+    entry = defs.REGISTRY[name]
+    opts = dict(externals=entry["externals"], dtypes=entry["dtypes"])
+    kern = gtscript.stencil(backend="cuda:hopper", definition=entry["definition"], **opts)
+    plain = gtscript.stencil(backend="torch", definition=entry["definition"], **opts)
+    host = defs.make_inputs(kern.field_info, (41, 70, 19), np.random.default_rng(6))
+    out = {}
+    for tag, st in (("kernel", kern), ("plain", plain)):
+        fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+        cuda_backend.FUSED_COLUMN.launches = 0
+        info = {}
+        st(**fields, **entry["scalars"], origin=(2, 2, 0), domain=(37, 66, 19), exec_info=info)
+        torch.cuda.synchronize()
+        assert info["kernel_strategy"] == ("fused_column" if tag == "kernel" else "plain")
+        assert cuda_backend.FUSED_COLUMN.launches == (1 if tag == "kernel" else 0)
+        out[tag] = {n: np.asarray(v) for n, v in fields.items()}
+    for n in host:
+        _assert_same(out["kernel"][n], out["plain"][n], n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FUSED_CONSTRUCTS))
+def test_fused_construct_matches_plain_on_card(name, fuse_stages):
+    _need_card()
+    definition = FUSED_CONSTRUCTS[name]
+    kern = gtscript.stencil(backend="cuda:hopper", definition=definition)
+    plain = gtscript.stencil(backend="torch", definition=definition)
+    host = defs.make_inputs(kern.field_info, (41, 70, 9), np.random.default_rng(7))
+    out = {}
+    for tag, st in (("kernel", kern), ("plain", plain)):
+        fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+        info = {}
+        st(**fields, origin=(2, 2, 0), domain=(37, 66, 9), exec_info=info)
+        torch.cuda.synchronize()
+        assert info["kernel_strategy"] == ("fused_column" if tag == "kernel" else "plain")
         out[tag] = {n: np.asarray(v) for n, v in fields.items()}
     for n in host:
         _assert_same(out["kernel"][n], out["plain"][n], n)

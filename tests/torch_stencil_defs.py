@@ -799,6 +799,30 @@ def validate_smoothed_column_sum(inp):
     return np.cumsum(mean, axis=2)
 
 
+def lagged_neighbour_sweep(inp: "gtscript.Field['dt']", out: "gtscript.Field['dt']"):
+    """Each level reads the level below one column further on: a tile
+    needs its neighbour's value of the level before, at every level."""
+    with computation(FORWARD):
+        with interval(0, 1):
+            acc = inp
+            out = acc
+        with interval(1, None):
+            lag = acc[1, 0, -1]
+            acc = inp + 0.5 * lag
+            out = acc
+
+
+def lag_read_before_write(inp: "gtscript.Field['dt']", out: "gtscript.Field['dt']"):
+    """The level below is read at an offset before this level's write, so
+    the write's extent does not reach the read."""
+    with computation(FORWARD):
+        with interval(0, 1):
+            acc = inp
+        with interval(1, None):
+            out = acc[1, 0, -1] + acc[0, -1, -1]
+            acc = inp * 2.0
+
+
 def _entry(definition, strategy, *, externals=None, scalars=None, min_k=1, dtypes=None):
     return {
         "definition": definition,
@@ -878,6 +902,16 @@ REGISTRY = {
 #: registry stencils with no twin in tests/cartesian_tests/stencil_defs.py
 #: (their JAX twins live in tests/test_torch_cartesian.py)
 PORT_ONLY = ("hdiff_sponge", "smoothed_column_sum")
+
+#: the kernel that serves a registry stencil with the stage-fusion switch
+#: on (GT4PY_CUDA_FUSE_STAGES=1) where it is not REGISTRY's: K4's class,
+#: the three stencils the JAX package's _build_fused_call builds a kernel
+#: for with GT4PY_PALLAS_FUSE_STAGES=1
+FUSED_STAGES = {
+    "vertical_advection_dycore": "fused_column",
+    "tridiagonal_solver": "fused_column",
+    "empty_computation_inlined": "fused_column",
+}
 
 
 def make_inputs(field_info, shape, rng):
