@@ -26,6 +26,10 @@ tridiag_fused, vadv and tridiag built with the stage-fusion switch on
    the same run (a field is read only where the stencil reads its values
    from before the call); the bound is the compulsory bytes over the H100's
    3.35 TB/s or the operations over its peak rate, whichever is longer.
+   For the column walks (vadv and tridiag on ``column`` and
+   ``fused_column``): µs per walked level, the prefetch ring's depth and
+   shared bytes per block, and what ``ptxas`` reports for each kernel
+   (registers, spills) from the build logs.
 5. Registry phase: every stencil of tests/torch_stencil_defs.py runs on
    ``cuda:hopper`` at 32×32×max(8, min_k) in its own dtypes, through the
    kernel pinned for it (and K4's class again with the switch on, through
@@ -33,7 +37,7 @@ tridiag_fused, vadv and tridiag built with the stage-fusion switch on
 6. Sweeps phase: the two sweeps that read an earlier level beyond the points
    its writers compute (``tiled``, one launch per level) at 256×256×80 in
    float64, three times each, every run equal to the plain version; then
-   the µs of a call.
+   the µs of a call beside its bound.
 
 Prints the card's name and power limit, one JSON line with the kernels, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -78,6 +82,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 #: the switch that builds a stencil of K4's class for fused_column
 FUSE_ENV = "GT4PY_CUDA_FUSE_STAGES"
+#: the column walks' kernels
+WALKS = ("column", "fused_column")
 
 
 def main(argv) -> int:
@@ -93,7 +99,7 @@ def main(argv) -> int:
 
     from gt4py_tpu_torch import storage
     from gt4py_tpu_torch.cartesian import gtscript
-    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend, cuda_codegen
     from tests import torch_stencil_defs as defs
 
     smi = subprocess.run(
@@ -248,6 +254,11 @@ def main(argv) -> int:
     print(f"  device-to-device copy of 256 MiB: {copy_gbs:.1f} GB/s (read + write)")
     for r in rows:
         print("  " + r)
+    print(f"column walks on {smi}: device µs per walked level, bytes per block of the "
+          f"prefetch ring (depth RING_LEVELS = {cuda_codegen.RING_LEVELS}), ptxas:")
+    for run in runs:
+        if run["case"]["kernel"] in WALKS:
+            print("  " + walk_report(run, cuda_backend))
 
     # -- 5. the registry -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -263,9 +274,11 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     for sweep in sweeps:
         run_sweep(sweep, shape, origin, domain, storage, cuda_backend, np, torch)
+    for sweep in sweeps:  # one application's compulsory bytes over 3.35 TB/s
+        sweep["bound_ms"] = compulsory_bytes(sweep["kern"], 8) / HBM_BYTES_PER_S * 1e3
     print(f"sweeps at {NI}x{NJ}x{NK} float64, three runs each == plain, in "
-          f"{time.perf_counter() - t0:.1f} s; us per call by CUDA events: "
-          + ", ".join(f"{s['name']} {s['ms'] * 1e3:.1f}" for s in sweeps))
+          f"{time.perf_counter() - t0:.1f} s; us per call by CUDA events (bound): "
+          + ", ".join(f"{s['name']} {s['ms'] * 1e3:.1f} ({s['bound_ms'] * 1e3:.1f})" for s in sweeps))
 
     kernels = [
         {
@@ -707,6 +720,56 @@ def device_ms(run, fields, n: int) -> float:
     raise AssertionError(
         f"{run['case']['name']}: the host did not queue chain({n}) within a spin "
         f"of {cycles // 4} cycles"
+    )
+
+
+def walked_levels(analyzed, nk: int) -> int:
+    """Levels the FORWARD and BACKWARD loops of one application walk."""
+    from gt4py_tpu_torch.cartesian import gtir
+
+    total = 0
+    for vloop in analyzed.stencil.vertical_loops:
+        if vloop.loop_order != gtir.LoopOrder.PARALLEL:
+            for section in vloop.sections:
+                ks, ke = section.interval.resolve(nk)
+                total += max(ke - ks, 0)
+    return total
+
+
+def ptxas_report(source: str, cuda_backend) -> dict:
+    """kernel -> (registers, spill store bytes), from the ``-Xptxas -v``
+    lines of the build log beside the source."""
+    import re
+
+    log = cuda_backend._paths(source)[2] + ".log"
+    out, kernel = {}, None
+    with open(log) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+            if m:
+                kernel = m.group(2)[: int(m.group(1))]
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and kernel:
+                out[kernel] = (out.get(kernel, (0, 0))[0], int(m.group(1)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernel:
+                out[kernel] = (int(m.group(1)), out.get(kernel, (0, 0))[1])
+    return out
+
+
+def walk_report(run, cuda_backend) -> str:
+    """One column walk's cell: µs per walked level, its ring bytes per
+    block and each kernel's registers and spills."""
+    module = run["kern"]._backend.module
+    levels = walked_levels(run["kern"]._backend.analyzed, NK)
+    ptxas = ptxas_report(module.source, cuda_backend)
+    return (
+        f"{run['case']['name']:13s} {run['dtype']:8s} {levels} levels, "
+        f"{run['device_ms'] * 1e3 / levels:.3f} us per level; ring bytes "
+        + ", ".join(f"{k} {b}" for k, b in sorted(module.ring_bytes.items()))
+        + "; ptxas " + ", ".join(
+            f"{k} {r} registers {s} B spilled" for k, (r, s) in sorted(ptxas.items())
+        )
     )
 
 

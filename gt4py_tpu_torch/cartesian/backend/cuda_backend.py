@@ -56,11 +56,13 @@ from gt4py_tpu_torch.core.ndarray_utils import numpy_dtype, torch_dtype
 
 #: ``--fmad=false`` keeps a*b+c as a rounded product and a rounded sum, as
 #: the eager plain version computes it (the role of -ffp-contract=off in
-#: c_backend.py:67-69); no fast-math.
+#: c_backend.py:67-69); no fast-math. ``-Xptxas -v`` writes each kernel's
+#: registers, shared memory and spills to the build log beside the source
+#: (``gt_<key>.cu.log``).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LL = ctypes.c_longlong

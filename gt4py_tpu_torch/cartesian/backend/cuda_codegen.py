@@ -78,13 +78,38 @@ beside them, ``while``, variable and absolute K.
     value (``sup[0, 0, -1]``) reads back what the same thread wrote: no
     carry planes or rings as in K3. Reads at K offsets are clamped to the
     allocation (``gt_clampk``), the semantics of K3's clamped shifted
-    streams. Temporaries are (K, I, J) device buffers the wrapper allocates
-    zero-filled. Bound on the H100: latency of the dependent K chain. The
-    columns of one 256×256 plane give 65536 threads, about 500 per SM, to
-    hide each level's loads, and each level waits for the level before;
-    every temporary is a global buffer (register carries are later work).
+    streams. A temporary that one FORWARD or BACKWARD walk writes and reads
+    only at its own column, at K offsets behind the walk and outside any
+    ``while``, is a register with a ring of carries, as in ``fused_column``
+    (below); a later loop that reads it reads a (K, I, J) buffer the walk
+    stores it to, zero-filled only where that loop could read a level the
+    walk does not set in full (vadv: 9 of its 11 temporaries are registers
+    only, ``ccol`` and ``dcol`` keep an unfilled buffer). Every other
+    temporary is a (K, I, J) buffer the wrapper allocates zero-filled.
     The ``__restrict__`` variant (below) lets the compiler forward stored
-    values instead of reloading them, the measured gain for vadv.
+    values instead of reloading them, and prefetches each walk's levels:
+    K3 streams every (field, K offset) as its own plane and Pallas fetches
+    the next grid step's planes while the current one computes; here each
+    (field, horizontal offset) the walk reads is a stream that the thread
+    copies with ``cp.async``, ``RING_LEVELS - 1`` levels ahead of its chain,
+    into its own slots of a ring of levels in dynamic shared memory, laid
+    out [slot][stream][thread]; the walk's K-offset reads of a stream read
+    neighbouring slots. The thread copies only what it reads itself, so no
+    barrier is needed. A field the walk writes is streamed only where it is
+    read at the walk's level before that level's first write (tridiag's
+    ``sup`` and ``rhs``). The ring takes at most ``RING_BYTES_MAX`` a
+    block, so that two blocks share an SM: a walk with more streams rings
+    those it reads first and loads the rest directly. The plain-pointer
+    variant loads directly, since a prefetched value could predate a write
+    through another name.
+    Bound on the H100: the compulsory bytes (vadv: five fields read, one
+    written, 125.8 MB a step in float32 at 256×256×80, 37.6 µs at 3.35 TB/s)
+    and the dependent K chain, 80 levels a walk per thread. Without the
+    ring each level waited for its own loads (by estimate about 8 KB in
+    flight per SM, half what hides the memory latency); with it the copies of
+    the next levels are in flight while a level computes. What it reached,
+    per level and against the bound, is in PERF.md (NVIDIA H100 80GB HBM3,
+    700 W).
 
 ``fused_column`` — replaces K4, ``pallas_seq._build_fused_call``
 (pallas_seq.py:1490, ``pallas_call`` at :1704). Only with the stage-fusion
@@ -124,16 +149,25 @@ loop).
     cells, by up to 2×, to its occupancy (PERF.md). Blocks of
     ``FC_THREADS`` columns, 32 along J. Reads at K offsets clamp
     (``gt_clampk``) as in ``column``; ``--fmad=false``; a ``__restrict__``
-    variant under the same no-overlap check; ``NOTHING_LAUNCHED`` on an
-    empty grid.
+    variant under the same no-overlap check, in which every walk prefetches
+    its levels through the ring ``column`` has (one region of dynamic
+    shared memory, reused walk after walk with no barrier between them:
+    where the walks mix 4- and 8-byte streams, every stream takes 8 bytes a
+    thread, so a thread's elements lie at the same bytes in every walk); a
+    later walk also streams what an earlier one stored (vadv's ``ccol`` and
+    ``dcol``, tridiag's ``sup`` and ``rhs``), behind a ``__threadfence()``
+    that orders the thread's stores before its asynchronous copies;
+    ``NOTHING_LAUNCHED`` on an empty grid.
     Bound on the H100: the compulsory bytes (vadv: five fields read, one
     written, 6 × 21.0 MB float32 at 256×256×80, ≈ 38 µs at 3.35 TB/s) and
-    the latency of the dependent K chain, 2 × 80 levels of division and
-    reads per thread. What the design does about them: the loop-local
-    temporaries (9 of vadv's 11) never touch device memory, no buffer is
-    zero-filled (the fill alone was a third of vadv's device time in
-    ``column``), the carries stay in registers, and every column runs in
-    one wave.
+    the dependent K chain, 2 × 80 levels of division and reads per thread.
+    What the design does about them: the loop-local temporaries (9 of
+    vadv's 11) never touch device memory, no buffer is zero-filled, the
+    carries stay in registers, the ring keeps the next levels' copies in
+    flight while a level computes, and at 256×256 every block is resident
+    at once (256 blocks, two per SM, each with at most 61,440 bytes of ring
+    for vadv float64). Times against the bound are in PERF.md (NVIDIA H100
+    80GB HBM3, 700 W).
 
 ``tiled`` — replaces K5, ``pallas_codegen._build_tiled_fn``
 (pallas_codegen.py:637, kernel :682, ``pallas_call`` :818). It serves
@@ -221,6 +255,19 @@ TILED_THREADS = 512
 #: H100 for vadv and tridiag (PERF.md): 256 beat 64 and 128 for vadv
 #: float32 and tied elsewhere
 FC_THREADS = 256
+#: column and fused_column, ``__restrict__`` variants: how far a walk's
+#: prefetch ring runs ahead. At level k a thread starts the copies of level
+#: k + RING_LEVELS - 1; the ring holds RING_LEVELS slots plus one for each
+#: level behind the walk its reads reach. Measured on the H100 for vadv and
+#: tridiag on both kernels in float32 and float64 (PERF.md): 4 beat 2, 8
+#: and 16 on the sum of the eight cells, and in six of them
+RING_LEVELS = 4
+#: the most dynamic shared memory a ring may take per block: two blocks of
+#: a 256×256 grid on each SM (228 KB, 1 KB of it reserved per block), so
+#: that every block is resident at once. A walk whose streams would take
+#: more rings only those that fit, in the order it first reads them, and
+#: loads the rest directly
+RING_BYTES_MAX = 113 * 1024
 #: what a launcher returns when its grid is empty and no kernel ran
 #: (``cudaError_t`` values are never negative)
 NOTHING_LAUNCHED = -1
@@ -333,6 +380,33 @@ GT_D int64_t gt_imin(int64_t a, int64_t b) { return a < b ? a : b; }
 GT_D int64_t gt_imax(int64_t a, int64_t b) { return a > b ? a : b; }
 """
 
+#: the prefetch ring (sources that have one): a ``cp.async`` of 4 or 8
+#: bytes per element from device memory into the thread's own slot of
+#: shared memory (a 32-bit shared address), one commit group per level, and
+#: the ring's reads. Every one is a volatile asm, so the compiler keeps their
+#: order (a read never moves above the wait that completes its copy, nor a
+#: copy above the read of the slot it overwrites) without a "memory" clobber,
+#: which would also stop it from keeping the thread's own stores to the
+#: fields in registers across levels
+_RING_PRELUDE = r"""GT_D void gt_cp_async4(unsigned dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(dst), "l"(src));
+}
+GT_D void gt_cp_async8(unsigned dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" :: "r"(dst), "l"(src));
+}
+GT_D void gt_cp_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N> GT_D void gt_cp_wait() { asm volatile("cp.async.wait_group %0;\n" :: "n"(N)); }
+GT_D void gt_cp_wait_all() { asm volatile("cp.async.wait_all;\n"); }
+#define GT_LDS(T, PTX, C) GT_D T gt_lds_##T(unsigned a) { \
+    T v; asm volatile("ld.shared." PTX " %0, [%1];\n" : "=" C(v) : "r"(a)); return v; }
+GT_LDS(float, "f32", "f")
+GT_LDS(double, "f64", "d")
+GT_LDS(int32_t, "b32", "r")
+GT_LDS(uint32_t, "b32", "r")
+GT_LDS(int64_t, "b64", "l")
+GT_LDS(uint64_t, "b64", "l")
+"""
+
 
 def _np_dtype(dtype: Any) -> np.dtype:
     if dtype is None:
@@ -405,6 +479,9 @@ class KernelModule:
     #: launchers that launch their kernel once per level (tiled); each
     #: takes a trailing ``long long*`` and writes there how many it launched
     per_level: frozenset[str] = frozenset()
+    #: column and fused_column: ``__restrict__`` kernel -> the bytes of
+    #: dynamic shared memory its prefetch rings take per block
+    ring_bytes: dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 def _is_k_shift(acc: gtir.FieldAccess) -> bool:
@@ -506,18 +583,67 @@ class _Buffer:
 
 @dataclasses.dataclass
 class _Held:
-    """fused_column: a temporary kept on chip, a register in the loop that
-    writes it, with ``ring`` registers for the levels that loop reads back,
-    started at 0 at the levels of the sections in ``reset``. A value a later
-    loop reads (``cross``) is also stored per level to a (K, I, J) buffer,
-    zero-filled where ``zero``."""
+    """column and fused_column: a temporary kept on chip, a register in the
+    loop that writes it, with ``ring`` registers for the levels that loop
+    reads back, started at 0 at the levels of the sections in ``reset``. A
+    value a later loop reads (``cross``) is also stored per level to a
+    (K, I, J) buffer."""
 
     meta: FieldMeta
     writer: int
     ring: int = 0
     reset: frozenset[int] = frozenset()
     cross: bool = False
-    zero: bool = False
+
+
+@dataclasses.dataclass
+class _Stream:
+    """One (field, horizontal offset) a walk's prefetch ring copies, level
+    by level, at the points of ``ext`` (the statements that read it)."""
+
+    meta: FieldMeta
+    di: int
+    dj: int
+    ext: Extent
+    offset: int = 0  # bytes into a slot
+    pitch: int = 0  # bytes from one thread's element to the next one's
+
+
+@dataclasses.dataclass
+class _Ring:
+    """The prefetch ring of one FORWARD or BACKWARD walk: ``slots`` levels
+    of every stream in dynamic shared memory, laid out [slot][stream][thread]
+    so that a warp's copies and reads hit consecutive banks. Its reads reach
+    ``back`` levels behind the walk and ``ahead`` levels ahead; ``reads``
+    holds, per statement (``id``), the reads it serves as (name, offset)."""
+
+    streams: list[_Stream]
+    back: int
+    ahead: int
+    backward: bool
+    reads: dict[int, frozenset]
+    slot_bytes: int
+
+    @property
+    def slots(self) -> int:
+        return RING_LEVELS + self.back
+
+    @property
+    def bytes(self) -> int:
+        return self.slots * self.slot_bytes
+
+    def stream(self, name: str, di: int, dj: int) -> int:
+        return next(
+            n for n, s in enumerate(self.streams) if (s.meta.name, s.di, s.dj) == (name, di, dj)
+        )
+
+
+def _ring_blocks(ring) -> str:
+    """A ringed kernel's blocks per SM for ``__launch_bounds__``: a
+    256×256 grid runs two blocks of 256 columns on each SM at once. Without
+    the hint ptxas may hold a small ringed kernel to 32 registers and spill
+    (forward_cumsum, PERF.md)."""
+    return ", 2" if ring else ""
 
 
 def _bound_le(a: gtir.AxisBound, b: gtir.AxisBound) -> bool:
@@ -650,20 +776,32 @@ class _Generator:
         self.section_writes: set[str] = set()
         #: tiled: the loops launched once per level
         self.per_level: set[int] = set()
-        #: fused_column: what is kept on chip, the loop being emitted, and
-        #: the smallest K served
+        #: column and fused_column: what is kept on chip, the loop being
+        #: emitted, and the smallest K served
         self.held: dict[str, _Held] = {}
+        #: column and fused_column: temporary -> whether the wrapper
+        #: zero-fills its buffer
+        self.fill: dict[str, bool] = {}
         self.loop = -1
         self.min_nk = 0
+        #: column and fused_column, ``__restrict__`` variants: the ring of
+        #: the walk being emitted, the reads it serves in the statement
+        #: being emitted, and each kernel's ring bytes
+        self.ring: Optional[_Ring] = None
+        self.ring_reads: frozenset = frozenset()
+        self.ring_bytes: dict[str, int] = {}
         self.strategy = self._choose()
+        if self.strategy == "column":
+            self.held, self.fill, _ = self._plan_held(fused=False)
         for meta in self.fields.values():  # global (K, I, J) buffers
+            h = self.held.get(meta.name)
             if meta.is_temp and (
-                self.strategy in ("column", "tiled")
-                or (self.strategy == "fused_column" and self.held[meta.name].cross)
+                self.strategy == "tiled"
+                or (self.strategy in ("column", "fused_column") and (h is None or h.cross))
             ):
                 meta.index = len(self.slots)
                 meta.shape_off = shape_off
-                meta.fill = self.strategy != "fused_column" or self.held[meta.name].zero
+                meta.fill = self.fill.get(meta.name, True)
                 self.slots.append(meta)
                 shape_off += 3
         self.n_shape_slots = shape_off
@@ -699,10 +837,10 @@ class _Generator:
         else:
             if self.fuse_stages:
                 try:
-                    self.held = self._plan_fused_column()
+                    self.held, self.fill, self.min_nk = self._plan_fused_column()
                     return "fused_column"
                 except CudaUnsupported:
-                    self.held = {}  # not K4's class: column, as with the switch off
+                    pass  # not K4's class: column, as with the switch off
             return "column"
         try:
             self.tiled_plans = [self._plan_tiled(n) for n in range(len(loops))]
@@ -816,6 +954,8 @@ class _Generator:
         staged = frozenset(
             b.meta.name for b in self.fused_plan or () if b.kind in ("staged", "table")
         )
+        if self.ring_bytes:
+            head.insert(2, _RING_PRELUDE)
         # NOTE: name-free source: the library cache is keyed by its hash, so
         # identical definitions under different names share one build.
         return KernelModule(
@@ -830,6 +970,7 @@ class _Generator:
             unit_axes=self._unit_axes(),
             min_nk=self.min_nk,
             per_level=frozenset(f"gt_launch_{n}" for n in self.per_level),
+            ring_bytes=dict(self.ring_bytes),
         )
 
     def _unit_axes(self) -> dict[str, str]:
@@ -881,14 +1022,16 @@ class _Generator:
 
     def _emit_launcher(
         self, n: int, kernel: str, grid: str, block: str, noalias_call: str = "",
-        smem: int = 0, levels=(),
+        smem: int = 0, levels=(), noalias_smem: int = 0,
     ) -> None:
         """``noalias`` (set by the wrapper when no two field buffers
-        overlap) selects ``noalias_call``, the ``__restrict__`` variant.
-        ``smem`` bytes of dynamic shared memory; above 48 KB the kernel is
-        first allowed them with ``cudaFuncSetAttribute``. ``levels``: the
-        host loops over ``k`` of a per-level kernel, launched once a level;
-        its launcher writes how many it launched to ``*launched``."""
+        overlap) selects ``noalias_call``, the ``__restrict__`` variant
+        ``<kernel>_r``, which takes ``noalias_smem`` bytes of dynamic shared
+        memory. ``smem`` bytes of dynamic shared memory; above 48 KB the
+        kernel is first allowed them with ``cudaFuncSetAttribute``.
+        ``levels``: the host loops over ``k`` of a per-level kernel, launched
+        once a level; its launcher writes how many it launched to
+        ``*launched``."""
         self.emit(
             f'extern "C" int gt_launch_{n}(void* const* fields, const long long* shapes,'
         )
@@ -907,11 +1050,7 @@ class _Generator:
             f"if (grid.x == 0 || grid.y == 0 || grid.z == 0) return {NOTHING_LAUNCHED};"
         )
         if smem > SHARED_BYTES_MAX:
-            self.emit(
-                f"const cudaError_t gt_e = cudaFuncSetAttribute({kernel}, "
-                f"cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});"
-            )
-            self.emit("if (gt_e != cudaSuccess) return (int)gt_e;")
+            self._emit_smem_allowance(kernel, smem)
         if levels:
             self.emit("(void)noalias;")
             self.emit("*launched = 0;")
@@ -921,7 +1060,12 @@ class _Generator:
                     self.emit("++*launched;")
             self.emit(f"if (*launched == 0) return {NOTHING_LAUNCHED};")
         elif noalias_call:
-            self.emit(f"if (noalias) {noalias_call};")
+            if noalias_smem > SHARED_BYTES_MAX:
+                with self._block("if (noalias)"):
+                    self._emit_smem_allowance(f"{kernel}_r", noalias_smem)
+                    self.emit(f"{noalias_call};")
+            else:
+                self.emit(f"if (noalias) {noalias_call};")
             self.emit(f"else {kernel}<<<grid, block, 0, (cudaStream_t)stream>>>(p);")
         else:
             self.emit("(void)noalias;")
@@ -929,6 +1073,14 @@ class _Generator:
         self.emit("return (int)cudaGetLastError();")
         self.indent -= 1
         self.emit("}")
+
+    def _emit_smem_allowance(self, kernel: str, smem: int) -> None:
+        """Allow ``kernel`` more than 48 KB of dynamic shared memory."""
+        self.emit(
+            f"const cudaError_t gt_e = cudaFuncSetAttribute({kernel}, "
+            f"cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});"
+        )
+        self.emit("if (gt_e != cudaSuccess) return (int)gt_e;")
 
     @staticmethod
     def _k_bound(b: gtir.AxisBound) -> str:
@@ -1072,8 +1224,9 @@ class _Generator:
         field pointers as ``__restrict__`` parameters (read-only ones
         ``const``), for arguments whose buffers do not overlap. With no
         aliasing to fear, the compiler forwards a value a thread stored to
-        its later loads and issues independent loads early, which the
-        dependent K chain otherwise serialises."""
+        its later loads, and a FORWARD or BACKWARD walk reads what it can
+        from its prefetch ring (:meth:`_plan_ring`) instead of waiting on
+        each level's loads."""
         self._check_column(vloop)
         writes, reads = _loop_symbols(vloop)
         names = {a.name for a in writes + reads}
@@ -1092,10 +1245,14 @@ class _Generator:
             f"({'const ' if m.name not in written else ''}char*)fields[{m.index}]"
             for m in used
         )
-        self._emit_column_variant(kernel, vloop, names, union, "")
+        ring = self._plan_ring(n, union, COL_BJ * COL_BI)
+        smem = ring.bytes if ring else 0
+        self._emit_column_variant(kernel, n, vloop, names, union, "", None)
         self.read_only = names - written
-        self._emit_column_variant(kernel + "_r", vloop, names, union, params)
+        self._emit_column_variant(kernel + "_r", n, vloop, names, union, params, ring)
         self.read_only = set()
+        if ring:
+            self.ring_bytes[kernel + "_r"] = smem
         ni_u = f"ni + ({union.i[1] - union.i[0]})"
         nj_u = f"nj + ({union.j[1] - union.j[0]})"
         self._emit_launcher(
@@ -1105,14 +1262,16 @@ class _Generator:
             f"(unsigned)(({ni_u} + {COL_BI - 1}) / {COL_BI}), 1u",
             f"{COL_BJ}, {COL_BI}",
             noalias_call=(
-                f"{kernel}_r<<<grid, block, 0, (cudaStream_t)stream>>>(p{', ' if args else ''}{args})"
+                f"{kernel}_r<<<grid, block, {smem}, (cudaStream_t)stream>>>"
+                f"(p{', ' if args else ''}{args})"
             ),
+            noalias_smem=smem,
         )
 
-    def _emit_column_variant(self, kernel, vloop, names, union, params: str) -> None:
+    def _emit_column_variant(self, kernel, n, vloop, names, union, params: str, ring) -> None:
         extra = f", {params}" if params else ""
         self.emit(
-            f"__global__ void __launch_bounds__({COL_BJ * COL_BI}) "
+            f"__global__ void __launch_bounds__({COL_BJ * COL_BI}{_ring_blocks(ring)}) "
             f"{kernel}(const GtParams p{extra}) {{"
         )
         self.indent += 1
@@ -1125,60 +1284,460 @@ class _Generator:
         )
         self.emit(f"if (i >= ni + ({union.i[1]}) || j >= nj + ({union.j[1]})) return;")
         self.point_base = {}
-        backward = vloop.loop_order == gtir.LoopOrder.BACKWARD
-        for section in vloop.sections:
-            lo, hi = self._k_bound(section.interval.start), self._k_bound(section.interval.end)
-            if vloop.loop_order == gtir.LoopOrder.PARALLEL:
+        self._emit_registers(h for h in self.held.values() if h.writer == n)
+        if ring:
+            self._emit_ring_memory()
+        if vloop.loop_order == gtir.LoopOrder.PARALLEL:
+            for section in vloop.sections:
+                lo, hi = self._k_bound(section.interval.start), self._k_bound(section.interval.end)
                 for stmt in section.body:
                     with self._block(f"for (long long k = {lo}; k < {hi}; ++k)"):
                         self._emit_guarded(stmt, union)
-                continue
+        else:
+            first = sum(len(v.sections) for v in self.stencil.vertical_loops[:n])
+            self._emit_walk(n, vloop, union, first, ring)
+        self.indent -= 1
+        self.emit("}")
+        self.emit()
+
+    def _emit_registers(self, held) -> None:
+        """Declare held temporaries' registers and their carries, at 0."""
+        for h in held:
+            ct, v = _ctype(h.meta.dtype), h.meta.var
+            regs = [f"{v}_r"] + [f"{v}_r{d}" for d in range(1, h.ring + 1)]
+            self.emit(f"{ct} {', '.join(f'{r} = ({ct})0' for r in regs)};")
+
+    def _emit_walk(self, n: int, vloop, union: Extent, sid: int, ring: Optional[_Ring]) -> int:
+        """Loop ``n`` level by level, in its sections' order: FORWARD and
+        PARALLEL ascending, BACKWARD descending. At each level the registers
+        of the temporaries it holds rotate their carries and restart at 0
+        where its section does not first write them whole; ``ring``
+        prefetches the levels the walk reads. Returns the next section's
+        stencil-wide index."""
+        self.loop = n
+        backward = vloop.loop_order == gtir.LoopOrder.BACKWARD
+        if ring:
+            self.emit("{")
+            self.indent += 1
+            self._emit_ring_setup(ring, vloop, union)
+            self.ring = ring
+        for section in vloop.sections:
+            lo = self._k_bound(section.interval.start)
+            hi = self._k_bound(section.interval.end)
             head = (
                 f"for (long long k = {hi} - 1; k >= {lo}; --k)"
                 if backward
                 else f"for (long long k = {lo}; k < {hi}; ++k)"
             )
             with self._block(head):
+                if ring:
+                    self.emit(f"const int gt_p = (int)({'gt_w0 - k' if backward else 'k - gt_w0'});")
+                    self.emit(f"gt_fetch(gt_p + {RING_LEVELS - 1});")
+                    self.emit(f"gt_cp_wait<{RING_LEVELS - 1 - ring.ahead}>();")
+                for h in self.held.values():
+                    if h.writer != n:
+                        continue
+                    ct, v = _ctype(h.meta.dtype), h.meta.var
+                    for d in range(h.ring, 1, -1):
+                        self.emit(f"{v}_r{d} = {v}_r{d - 1};")
+                    if h.ring:
+                        self.emit(f"{v}_r1 = {v}_r;")
+                    if sid in h.reset:
+                        self.emit(f"{v}_r = ({ct})0;")
                 for stmt in section.body:
                     self._emit_guarded(stmt, union)
-        self.indent -= 1
-        self.emit("}")
-        self.emit()
+            sid += 1
+        if ring:
+            self.ring = None
+            self.emit("gt_cp_wait_all();")
+            self.indent -= 1
+            self.emit("}")
+        self.loop = -1
+        return sid
 
     def _emit_guarded(self, stmt: gtir.Stmt, union: Extent) -> None:
         cond = self._extent_cond(self.analyzed.stmt_extents[stmt], union)
+        if self.ring:
+            self.ring_reads = self.ring.reads.get(id(stmt), frozenset())
         if cond == "1":
             with self._block(""):
                 self._emit_stmt(stmt)
         else:
             with self._block(f"if ({cond})"):
                 self._emit_stmt(stmt)
+        self.ring_reads = frozenset()
+
+    # -- the prefetch ring (column and fused_column, __restrict__ variants) ------
+
+    def _plan_ring(self, n: int, union: Extent, threads: int, pitch: int = 0) -> Optional[_Ring]:
+        """The Hopper counterpart of K3's pipelined plane streams
+        (``spec_keys``, pallas_seq.py:1097-1134): each (field, horizontal
+        offset) that loop ``n``'s FORWARD or BACKWARD walk reads is one
+        stream, copied into the ring ``RING_LEVELS - 1`` levels ahead of the
+        chain; its constant K offsets read neighbouring slots. A stream is
+        (a) a 3-D field of 4 or 8 bytes without data dimensions that the
+        loop does not write, at any constant K offset less than
+        ``RING_LEVELS`` levels ahead of or behind the walk, or (b) one it
+        writes only at its own point and level, outside any ``while``, read
+        at the walk's level before the level's first write to it: its value
+        from before the loop. The rest stays a direct load: a value the
+        thread wrote (a register, or forwarded), reads further from the
+        walk, at a variable or absolute K, in a ``while``, or at a
+        horizontal offset in a horizontal region (its address may lie
+        outside the allocation), tables, data dimensions and
+        lower-dimensional fields. Streams are ringed in the order the walk
+        first reads them as long as the ring stays within
+        ``RING_BYTES_MAX``; the reads of the others stay direct loads too.
+        A thread's element of a stream lies ``pitch`` bytes after the one
+        before it (0: the stream's item size). None where the walk has no
+        stream, is PARALLEL, or its sections do not run back to back;
+        raises :class:`CudaUnsupported`, naming the bytes, where not even
+        one stream fits."""
+        vloop = self.stencil.vertical_loops[n]
+        if vloop.loop_order == gtir.LoopOrder.PARALLEL or not self._chained(vloop):
+            return None
+        backward = vloop.loop_order == gtir.LoopOrder.BACKWARD
+        items = self._items([n])
+        written = {w.name for it in items for w in it.writes}
+        level_writes = written - {
+            a.name
+            for it in items
+            for a in (
+                it.reads + it.writes
+                if isinstance(it.stmt, gtir.While)
+                else [w for w in it.writes if w.offset != (0, 0, 0) or w.koffset is not None]
+            )
+        }
+        streams: dict[tuple, _Stream] = {}  # in the order the walk first reads them
+        reach: dict[tuple, list[int]] = {}  # stream -> the levels its reads reach
+        served: dict[int, list] = {}  # statement -> [(stream, (name, offset))]
+        for sid in sorted({it.section for it in items}):
+            before: set[str] = set()  # written earlier at this level
+            for it in items:
+                if it.section != sid:
+                    continue
+                served[id(it.stmt)] = []
+                for r in () if isinstance(it.stmt, gtir.While) else it.reads:
+                    m = self.fields.get(r.name)
+                    di, dj, dk = r.offset
+                    q = -dk if backward else dk
+                    h = self.held.get(r.name)
+                    if (
+                        m is None
+                        or m.axes != (True, True, True)
+                        or m.data_dims
+                        or m.dtype.itemsize not in (4, 8)
+                        or r.koffset is not None
+                        or r.abs_k is not None
+                        or r.data_index
+                        or (h is not None and h.writer == n)
+                        or ((di or dj) and it.stmt.horizontal_masks)
+                        or abs(q) >= RING_LEVELS
+                        or (
+                            r.name in written
+                            and not (r.name in level_writes and dk == 0 and r.name not in before)
+                        )
+                    ):
+                        continue
+                    key = (r.name, di, dj)
+                    s = streams.get(key)
+                    if s is None:
+                        streams[key] = _Stream(meta=m, di=di, dj=dj, ext=it.ext)
+                    else:
+                        s.ext = s.ext.union(it.ext)
+                    reach.setdefault(key, []).append(q)
+                    served[id(it.stmt)].append((key, (r.name, r.offset)))
+                before |= {w.name for w in it.writes}
+        if not streams:
+            return None
+
+        def size(keys: list) -> int:
+            back = max(0, max(-q for key in keys for q in reach[key]))
+            return (RING_LEVELS + back) * threads * sum(
+                pitch or streams[key].meta.dtype.itemsize for key in keys
+            )
+
+        kept: list[tuple] = []
+        for key in streams:
+            if size(kept + [key]) <= RING_BYTES_MAX:
+                kept.append(key)
+        if not kept:
+            need = min(size([key]) for key in streams)
+            raise CudaUnsupported(
+                f"loop {n}'s prefetch ring needs {need} bytes of shared memory per block "
+                f"for one stream; a block may take {RING_BYTES_MAX}"
+            )
+        # 8-byte streams first: every element aligned
+        ordered = sorted((streams[key] for key in kept), key=lambda s: -s.meta.dtype.itemsize)
+        offset = 0
+        for s in ordered:
+            s.offset, s.pitch = offset, pitch or s.meta.dtype.itemsize
+            offset += threads * s.pitch
+        qs = [q for key in kept for q in reach[key]]
+        return _Ring(
+            streams=ordered,
+            back=max(0, max(-q for q in qs)),
+            ahead=max(0, max(qs)),
+            backward=backward,
+            reads={
+                stmt: frozenset(read for key, read in reads if key in kept)
+                for stmt, reads in served.items()
+            },
+            slot_bytes=offset,
+        )
+
+    def _emit_ring_memory(self) -> None:
+        """The ring's shared address ``gt_sm`` and the thread's index in
+        its block, ``gt_tid``."""
+        self.emit("extern __shared__ __align__(16) unsigned char gt_smem[];")
+        self.emit("const unsigned gt_sm = (unsigned)__cvta_generic_to_shared(gt_smem);")
+        self.emit("const unsigned gt_tid = threadIdx.y * blockDim.x + threadIdx.x;")
+
+    def _emit_ring_setup(self, ring: _Ring, vloop, union: Extent) -> None:
+        """The walk's first level ``gt_w0`` and length ``gt_wn``, each
+        stream's slot pointer and column address, ``gt_fetch(f)``, which
+        copies the level ``f`` steps into the walk (clamped as ``gt_clampk``
+        clamps a read, at the points of the statements reading the stream)
+        and commits one group, and the prologue: the levels behind the walk
+        its reads reach, and the first ``RING_LEVELS - 1``."""
+        first, last = vloop.sections[0].interval, vloop.sections[-1].interval
+        if ring.backward:
+            top = self._k_bound(first.end)
+            self.emit(f"const long long gt_w0 = {top} - 1, gt_wn = {top} - {self._k_bound(last.start)};")
+        else:
+            bottom = self._k_bound(first.start)
+            self.emit(
+                f"const long long gt_w0 = {bottom}, gt_wn = {self._k_bound(last.end)} - {bottom};"
+            )
+        copies = []
+        for s, st in enumerate(ring.streams):
+            m, v = st.meta, st.meta.var
+            self.emit(f"const unsigned gt_q{s} = gt_sm + {st.offset}u + gt_tid * {st.pitch}u;")
+            self.emit(
+                f"const char* const gt_g{s} = {v} + ({v}_oi + i + ({st.di})) * {v}_si"
+                f" + ({v}_oj + j + ({st.dj})) * {v}_sj;"
+            )
+            copy = (
+                f"gt_cp_async{m.dtype.itemsize}(gt_q{s} + gt_s * {ring.slot_bytes}u, "
+                f"gt_g{s} + gt_clampk({v}_ok + gt_k, {v}_nk) * {v}_sk);"
+            )
+            cond = self._extent_cond(st.ext, union)
+            copies.append(copy if cond == "1" else f"if ({cond}) {copy}")
+        self.emit("auto gt_fetch = [&](const int gt_f) {")
+        self.indent += 1
+        with self._block(f"if (gt_f < gt_wn + {ring.ahead})"):
+            self.emit(f"const long long gt_k = gt_w0 {'-' if ring.backward else '+'} gt_f;")
+            self.emit(f"const unsigned gt_s = (unsigned)(gt_f + {ring.back}) % {ring.slots}u;")
+            for c in copies:
+                self.emit(c)
+        self.emit("gt_cp_commit();")
+        self.indent -= 1
+        self.emit("};")
+        self.emit(f"for (int gt_f = {-ring.back}; gt_f < {RING_LEVELS - 1}; ++gt_f) gt_fetch(gt_f);")
+
+    def _ring_access(self, node: gtir.FieldAccess) -> str:
+        """A read the ring serves: its stream's slot of level k + dk."""
+        ring = self.ring
+        di, dj, dk = node.offset
+        s = ring.stream(node.name, di, dj)
+        q = -dk if ring.backward else dk
+        ct = _ctype(ring.streams[s].meta.dtype)
+        return (
+            f"gt_lds_{ct}(gt_q{s} + (unsigned)(gt_p + {q + ring.back}) % {ring.slots}u"
+            f" * {ring.slot_bytes}u)"
+        )
 
     # -- the fused_column kernel -------------------------------------------------
 
     @staticmethod
-    def _walk(vloop: gtir.VerticalLoop) -> tuple[gtir.LevelMarker, bool]:
+    def _walk_bounds(vloop: gtir.VerticalLoop) -> list:
+        """Each section's (first, last) bound in walk order."""
+        secs = [s.interval for s in vloop.sections]
+        if vloop.loop_order == gtir.LoopOrder.BACKWARD:
+            return [(iv.end, iv.start) for iv in secs]
+        return [(iv.start, iv.end) for iv in secs]
+
+    @classmethod
+    def _chained(cls, vloop: gtir.VerticalLoop) -> bool:
+        """The sections run back to back in walk order: each starts where
+        the one before ends, so the walk visits a contiguous run of levels
+        (each once: the stencil's ``min_sequential_axis_size`` keeps every
+        section's size at 0 or more)."""
+        bounds = cls._walk_bounds(vloop)
+        return all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+
+    @classmethod
+    def _walk(cls, vloop: gtir.VerticalLoop) -> tuple[gtir.LevelMarker, bool]:
         """The marker a loop's walk starts from, and whether its sections
         cover the K range back to back in walk order (K4's full-K-range
         check, pallas_seq.py:1510-1520)."""
         S, E = gtir.LevelMarker.START, gtir.LevelMarker.END
         backward = vloop.loop_order == gtir.LoopOrder.BACKWARD
-        secs = [s.interval for s in vloop.sections]
+        bounds = cls._walk_bounds(vloop)
         if backward:
-            bounds = [(iv.end, iv.start) for iv in secs]
             first, last = gtir.AxisBound(level=E, offset=0), gtir.AxisBound(level=S, offset=0)
         else:
-            bounds = [(iv.start, iv.end) for iv in secs]
             first, last = gtir.AxisBound(level=S, offset=0), gtir.AxisBound(level=E, offset=0)
-        chained = all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
         return (E if backward else S), (
-            bool(bounds) and chained and bounds[0][0] == first and bounds[-1][1] == last
+            bool(bounds) and cls._chained(vloop) and bounds[0][0] == first and bounds[-1][1] == last
         )
 
-    def _plan_fused_column(self) -> dict[str, _Held]:
+    def _reset_sections(
+        self, secs: dict[int, list[_Item]], name: str, depth: int, cover: Extent
+    ) -> frozenset[int]:
+        """The sections at whose levels a held temporary's register starts
+        at 0, the plain version's zero-filled temporary: where the level's
+        value is read, or carried to the next level (``depth``), and the
+        section does not first write it, unconditionally, at every point
+        of ``cover`` (the columns the threads run)."""
+        return frozenset(
+            sid
+            for sid, sec in secs.items()
+            if (depth or any(
+                a.name == name and not _is_k_shift(a)
+                for it in sec for a in it.reads + it.writes
+            ))
+            and not (
+                any(it.writes_name(name) for it in sec)
+                and self._first_access_covers(sec, name, cover)
+            )
+        )
+
+    def _plan_held(self, *, fused: bool) -> tuple[dict[str, _Held], dict[str, bool], int]:
+        """column and fused_column: the temporaries kept in registers, loop
+        by loop, for each temporary that keeps a (K, I, J) buffer whether
+        the wrapper zero-fills it, and the smallest K for which the unfilled
+        buffers hold every level a read reaches.
+
+        A temporary is a register in the one loop that writes it (and no
+        earlier loop touches) where :meth:`_register` says so; a later loop
+        that reads it reads a buffer the register is stored to, level by
+        level (``cross``). A buffer is zero-filled unless one loop writes
+        it, no loop reads it before that one, the writer reads it only from
+        its register, and every later read is at a constant K offset of a
+        level the writer sets in full at the points read (``_levels_set``).
+        ``column`` serves every K the stencil takes, so a buffer whose
+        reads need a taller domain is zero-filled; ``fused_column`` (every
+        loop walks level by level, and the class checks of
+        :meth:`_plan_fused_column` have passed) fills none for that and
+        serves only that K and above (``min_nk``)."""
+        loops = self.stencil.vertical_loops
+        items = self._items(range(len(loops)))
+        min_k = math.inf if fused else self.analyzed.domain_info.min_sequential_axis_size
+        held: dict[str, _Held] = {}
+        fill: dict[str, bool] = {}
+        min_nk = 0
+        for m in self.fields.values():
+            if not m.is_temp:
+                continue
+            name = m.name
+            mine = [it for it in items if any(a.name == name for a in it.reads + it.writes)]
+            writers = {it.loop for it in mine if it.writes_name(name)}
+            w = min(writers) if len(writers) == 1 and min(it.loop for it in mine) in writers else None
+            h = None if w is None else self._register(
+                name, w, [it for it in mine if it.loop == w], min_k, fused
+            )
+            if h is not None:
+                h.cross = any(it.loop > w for it in mine)
+                held[name] = h
+            if h is None or h.cross:
+                tall = self._levels_read(name, w, mine, h is not None)
+                fill[name] = tall is None or tall > min_k
+                if not fill[name]:
+                    min_nk = max(min_nk, tall)
+        return held, fill, min_nk
+
+    def _register(
+        self, name: str, w: int, mine: list[_Item], min_k: float, fused: bool
+    ) -> Optional[_Held]:
+        """The register ``name`` is in loop ``w``, or None: the loop runs
+        level by level (FORWARD or BACKWARD, or any loop of ``fused``) with
+        sections back to back (``_chained``), and there every access to the
+        temporary is outside any ``while``, every write at its own point and
+        level, every read at the thread's own column and at a constant K
+        offset at or behind the walk. A carry read in a section whose walk
+        starts from the other end of the K range (``interval(-1, None)`` in
+        a FORWARD loop) must find its level at 0 or above for every K of at
+        least ``min_k``: below it a read would be clamped to the allocation,
+        which the register cannot follow."""
+        vloop = self.stencil.vertical_loops[w]
+        if (vloop.loop_order == gtir.LoopOrder.PARALLEL and not fused) or not self._chained(vloop):
+            return None
+        start, _ = self._walk(vloop)
+        backward = vloop.loop_order == gtir.LoopOrder.BACKWARD
+        depth = 0
+        for it in mine:
+            if isinstance(it.stmt, gtir.While):
+                return None
+            if any(
+                a.name == name and (a.offset != (0, 0, 0) or a.koffset is not None)
+                for a in it.writes
+            ):
+                return None
+            for r in it.reads:
+                if r.name != name:
+                    continue
+                dk = r.offset[2]
+                if r.koffset is not None or r.abs_k is not None or r.offset[0] or r.offset[1]:
+                    return None
+                if dk and (dk > 0) != backward:
+                    return None  # ahead of the walk
+                first = it.interval.end if backward else it.interval.start
+                if dk and first.level != start and abs(first.offset) + abs(dk) > min_k:
+                    return None
+                depth = max(depth, abs(dk))
+        first_sid = sum(len(v.sections) for v in self.stencil.vertical_loops[:w])
+        loop_items = self._items([w])
+        cover = Extent.zeros()
+        for it in loop_items:
+            cover = cover.union(it.ext)
+        secs = {
+            sid: [it for it in loop_items if it.section == sid]
+            for sid in range(first_sid, first_sid + len(vloop.sections))
+        }
+        return _Held(
+            meta=self.fields[name],
+            writer=w,
+            ring=depth,
+            reset=self._reset_sections(secs, name, depth, cover),
+        )
+
+    def _levels_read(
+        self, name: str, w: Optional[int], mine: list[_Item], held: bool
+    ) -> Optional[int]:
+        """The smallest K for which every read of a temporary's buffer finds
+        a point and level that the loop writing it set, or None where a read
+        may find one that no loop set (then the buffer is zero-filled)."""
+        if w is None or any(
+            r.name == name for it in mine if it.loop == w and not held for r in it.reads
+        ):
+            return None
+        later = [(it, r) for it in mine if it.loop > w for r in it.reads if r.name == name]
+        if any(r.koffset is not None or r.abs_k is not None for _, r in later):
+            return None
+        vloop = self.stencil.vertical_loops[w]
+        first_sid = sum(len(v.sections) for v in self.stencil.vertical_loops[:w])
+        loop_items = self._items([w])
+        fulls = [
+            any(
+                _full_write(it, name)
+                and all(_covers(it.ext, at.ext.shifted_ij(r.offset[0], r.offset[1])) for at, r in later)
+                for it in loop_items
+                if it.section == sid
+            )
+            for sid in range(first_sid, first_sid + len(vloop.sections))
+        ]
+        read_set, tall = self._levels_set(
+            vloop, fulls, [_shifted(it.interval, r.offset[2]) for it, r in later]
+        )
+        return tall if read_set else None
+
+    def _plan_fused_column(self) -> tuple[dict[str, _Held], dict[str, bool], int]:
         """K4's class among the stencils ``column`` serves: the conditions of
         ``pallas_seq.build_staged_fn`` (:302-333, :1505-1520), and no read of
-        another column's value. Returns what the kernel keeps on chip."""
+        another column's value. Returns what the kernel keeps on chip
+        (:meth:`_plan_held`: every temporary is a register), which buffers
+        are zero-filled, and the smallest K the kernel serves."""
         loops = self.stencil.vertical_loops
         if len(loops) < 2:
             raise CudaUnsupported("one vertical loop: nothing to fuse")
@@ -1198,11 +1757,7 @@ class _Generator:
                     raise CudaUnsupported(f"offset write to '{w.name}'")
                 if writer.setdefault(w.name, it.loop) != it.loop:
                     raise CudaUnsupported(f"'{w.name}' is written in two vertical loops")
-        union = Extent.zeros()
-        for it in items:
-            union = union.union(it.ext)
         min_nk = 0
-        ring: dict[str, int] = {}
         for it in items:
             vloop = loops[it.loop]
             start, _ = self._walk(vloop)
@@ -1220,6 +1775,8 @@ class _Generator:
                     )
                 if m.is_temp and it.loop < writer[r.name]:
                     raise CudaUnsupported(f"temporary '{r.name}' is read before it is written")
+                if m.is_temp and it.loop > writer[r.name] and m.extent.k != (0, 0):
+                    raise CudaUnsupported(f"'{r.name}' is read beyond the K range")
                 dk = r.offset[2]
                 if it.loop != writer[r.name] or dk == 0:
                     continue
@@ -1240,63 +1797,14 @@ class _Generator:
                     raise CudaUnsupported(f"carry of '{r.name}' needs seeding before the walk")
                 if first.level != start:  # gap nk - |offset| levels
                     min_nk = max(min_nk, gap + abs(dk))
-                if m.is_temp:
-                    ring[r.name] = max(ring.get(r.name, 0), abs(dk))
         for vloop in loops:
             if not self._walk(vloop)[1]:
                 raise CudaUnsupported("a loop's sections do not cover the K range back to back")
-        held: dict[str, _Held] = {}
-        for name, w in writer.items():
-            m = self.fields[name]
-            if not m.is_temp:
-                continue  # an API field: stored to and read from device memory
-            later = any(it.loop > w and any(r.name == name for r in it.reads) for it in items)
-            first = sum(len(v.sections) for v in loops[:w])
-            secs = {
-                sid: [it for it in items if it.section == sid]
-                for sid in range(first, first + len(loops[w].sections))
-            }
-            # the sections at whose levels the loop sets every column's value
-            fulls = [
-                any(_full_write(it, name) and _covers(it.ext, union) for it in sec)
-                for sec in secs.values()
-            ]
-            later_reads = [
-                _shifted(it.interval, r.offset[2])
-                for it in items
-                if it.loop > w
-                for r in it.reads
-                if r.name == name
-            ]
-            read_set, tall = self._levels_set(loops[w], fulls, later_reads)
-            if read_set:
-                min_nk = max(min_nk, tall)
-            if later and m.extent.k != (0, 0):
-                raise CudaUnsupported(f"'{name}' is read beyond the K range")
-            depth = ring.get(name, 0)
-            held[name] = _Held(
-                meta=m,
-                writer=w,
-                ring=depth,
-                # levels whose value does not start with a whole write
-                # start at 0, the plain version's zero-filled temporary
-                reset=frozenset(
-                    sid
-                    for sid, sec in secs.items()
-                    if (depth or any(
-                        a.name == name and not _is_k_shift(a)
-                        for it in sec for a in it.reads + it.writes
-                    ))
-                    and not (
-                        any(it.writes_name(name) for it in sec)
-                        and self._first_access_covers(sec, name, union)
-                    )
-                ),
-                cross=later,
-                zero=later and not read_set,
-            )
-        self.min_nk = min_nk
-        return held
+        held, fill, tall = self._plan_held(fused=True)
+        for name in writer:
+            if self.fields[name].is_temp and name not in held:
+                raise CudaUnsupported(f"temporary '{name}' cannot be kept in a register")
+        return held, fill, max(min_nk, tall)
 
     @staticmethod
     def _levels_set(
@@ -1351,16 +1859,34 @@ class _Generator:
         args = ", ".join(
             f"({'const ' if m.name not in written else ''}char*)fields[{m.index}]" for m in used
         )
-        self._emit_fused_column_variant(kernel, names, union, "")
+        loops = self.stencil.vertical_loops
+        rings = [self._plan_ring(n, union, FC_THREADS) for n in range(len(loops))]
+        sizes = {s.meta.dtype.itemsize for r in rings if r for s in r.streams}
+        if len(sizes) > 1:
+            # the walks reuse one region without a barrier between them, so
+            # a thread's elements must lie at the same bytes in every walk:
+            # one pitch for all streams
+            rings = [
+                self._plan_ring(n, union, FC_THREADS, pitch=max(sizes)) for n in range(len(loops))
+            ]
+        self._emit_fused_column_variant(kernel, names, union, "", [None] * len(loops))
         self.read_only = names - written
-        self._emit_fused_column_variant(kernel + "_r", names, union, params)
+        self._emit_fused_column_variant(kernel + "_r", names, union, params, rings)
         self.read_only = set()
-        self._emit_fused_column_launcher(kernel, union, args)
+        smem = max((r.bytes for r in rings if r), default=0)
+        if smem:
+            self.ring_bytes[kernel + "_r"] = smem
+        self._emit_fused_column_launcher(kernel, union, args, smem)
 
-    def _emit_fused_column_variant(self, kernel: str, names, union: Extent, params: str) -> None:
+    def _emit_fused_column_variant(
+        self, kernel: str, names, union: Extent, params: str, rings: list
+    ) -> None:
+        """The loops back to back, each walk with its ring from ``rings``
+        (one region of shared memory, reused walk after walk)."""
         extra = f", {params}" if params else ""
         self.emit(
-            f"__global__ void __launch_bounds__({FC_THREADS}) {kernel}(const GtParams p{extra}) {{"
+            f"__global__ void __launch_bounds__({FC_THREADS}{_ring_blocks(any(rings))}) "
+            f"{kernel}(const GtParams p{extra}) {{"
         )
         self.indent += 1
         self._emit_locals(names, pointers=not params)
@@ -1371,43 +1897,25 @@ class _Generator:
             f"const long long i = ({union.i[0]}) + (long long)blockIdx.y * blockDim.y + threadIdx.y;"
         )
         self.emit(f"if (i >= ni + ({union.i[1]}) || j >= nj + ({union.j[1]})) return;")
-        for h in self.held.values():
-            ct, v = _ctype(h.meta.dtype), h.meta.var
-            regs = [f"{v}_r"] + [f"{v}_r{d}" for d in range(1, h.ring + 1)]
-            self.emit(f"{ct} {', '.join(f'{r} = ({ct})0' for r in regs)};")
+        self._emit_registers(self.held.values())
+        if any(rings):
+            self._emit_ring_memory()
         self.point_base = {}
         sid = 0
+        stored: set[str] = set()  # what this thread stored in earlier loops
         for n, vloop in enumerate(self.stencil.vertical_loops):
-            self.loop = n
-            backward = vloop.loop_order == gtir.LoopOrder.BACKWARD
-            for section in vloop.sections:
-                lo = self._k_bound(section.interval.start)
-                hi = self._k_bound(section.interval.end)
-                head = (
-                    f"for (long long k = {hi} - 1; k >= {lo}; --k)"
-                    if backward
-                    else f"for (long long k = {lo}; k < {hi}; ++k)"
-                )
-                with self._block(head):
-                    for h in self.held.values():
-                        if h.writer != n:
-                            continue
-                        ct, v = _ctype(h.meta.dtype), h.meta.var
-                        for d in range(h.ring, 1, -1):
-                            self.emit(f"{v}_r{d} = {v}_r{d - 1};")
-                        if h.ring:
-                            self.emit(f"{v}_r1 = {v}_r;")
-                        if sid in h.reset:
-                            self.emit(f"{v}_r = ({ct})0;")
-                    for stmt in section.body:
-                        self._emit_guarded(stmt, union)
-                sid += 1
-        self.loop = -1
+            ring = rings[n]
+            if ring and any(s.meta.name in stored for s in ring.streams):
+                # the ring copies values this thread stored in an earlier
+                # loop: those stores come first
+                self.emit("__threadfence();")
+            sid = self._emit_walk(n, vloop, union, sid, ring)
+            stored |= {w.name for it in self._items([n]) for w in it.writes}
         self.indent -= 1
         self.emit("}")
         self.emit()
 
-    def _emit_fused_column_launcher(self, kernel: str, union: Extent, args: str) -> None:
+    def _emit_fused_column_launcher(self, kernel: str, union: Extent, args: str, smem: int) -> None:
         ni_u = f"ni + ({union.i[1] - union.i[0]})"
         nj_u = f"nj + ({union.j[1] - union.j[0]})"
         rows = FC_THREADS // 32
@@ -1417,13 +1925,15 @@ class _Generator:
             f"(unsigned)(({nj_u} + 31) / 32), (unsigned)(({ni_u} + {rows - 1}) / {rows}), 1u",
             f"32, {rows}",
             noalias_call=(
-                f"{kernel}_r<<<grid, block, 0, (cudaStream_t)stream>>>(p{', ' if args else ''}{args})"
+                f"{kernel}_r<<<grid, block, {smem}, (cudaStream_t)stream>>>"
+                f"(p{', ' if args else ''}{args})"
             ),
+            noalias_smem=smem,
         )
 
     def _held_access(self, node: gtir.FieldAccess) -> Optional[str]:
-        """fused_column: a temporary's register in the loop that writes it,
-        or None where a later loop reads it from device memory."""
+        """column and fused_column: a temporary's register in the loop that
+        writes it, or None where a later loop reads it from device memory."""
         h = self.held[node.name]
         if self.loop != h.writer:
             return None
@@ -1431,8 +1941,8 @@ class _Generator:
         return f"{h.meta.var}_r{abs(dk)}" if dk else f"{h.meta.var}_r"
 
     def _emit_held_assign(self, stmt: gtir.Assign, h: _Held) -> None:
-        """fused_column: a temporary's write, to its register and, for a
-        later loop, to device memory."""
+        """column and fused_column: a temporary's write, to its register
+        and, for a later loop, to device memory."""
         t = stmt.target
         ct, v = _ctype(h.meta.dtype), h.meta.var
         stores = [f"{v}_r = gt_v;"]
@@ -2087,7 +2597,7 @@ class _Generator:
                 self.emit(f"if ({cond}) {{ {store} }}")
                 return
             raise CudaUnsupported("variable-K write to a shared-memory temporary")
-        store = f"{self._access(stmt.target)} = {self._expr(stmt.value)};"
+        store = f"{self._global_access(stmt.target)} = {self._expr(stmt.value)};"
         if stmt.mask is None:
             self.emit(store)
         else:
@@ -2106,6 +2616,13 @@ class _Generator:
             held = self._held_access(node)
             if held is not None:
                 return held
+        if (
+            (node.name, node.offset) in self.ring_reads
+            and node.koffset is None
+            and node.abs_k is None
+            and not node.data_index
+        ):
+            return self._ring_access(node)
         if node.name in self.buffers:
             held = self._buffer_access(node)
             if held is not None:

@@ -46,7 +46,7 @@ def _field_names(stencil):
     return [n for n, info in stencil.field_info.items() if info is not None]
 
 
-# --- JAX twins of the port's two full-width definitions ------------------------
+# --- JAX twins of the port-only definitions ------------------------------------
 
 
 def _ref_hdiff_sponge(
@@ -88,7 +88,64 @@ def _ref_smoothed_column_sum(inp: "gtscript.Field['dt']", out: "gtscript.Field['
             )
 
 
-JAX_TWINS = {"hdiff_sponge": _ref_hdiff_sponge, "smoothed_column_sum": _ref_smoothed_column_sum}
+Field3D = gtscript.Field[np.float64]
+
+
+def _ref_read_ahead_sweep(inp: Field3D, out: Field3D, out2: Field3D):
+    """A FORWARD loop that reads the field it writes at its own level and
+    one level ahead of the walk (both its values from before the loop), and
+    a BACKWARD loop carrying the result down."""
+    with computation(FORWARD):
+        with interval(0, -1):
+            out = inp + 0.5 * (out + out[0, 0, 1])
+        with interval(-1, None):
+            out = inp + 0.5 * out
+    with computation(BACKWARD):
+        with interval(-1, None):
+            out2 = out
+        with interval(0, -1):
+            out2 = out + 0.25 * out2[0, 0, 1]
+
+
+def _ref_restarted_temporary(inp: Field3D, out: Field3D):
+    """A temporary carried up a FORWARD walk that sections 1 and 2 do not
+    write (it reads 0 at their levels, and its carry restarts from 0), then
+    written only where ``inp > 0.5``."""
+    with computation(FORWARD):
+        with interval(0, 1):
+            acc = inp
+            out = acc
+        with interval(1, 3):
+            out = acc[0, 0, -1] + inp
+        with interval(3, None):
+            if inp > 0.5:
+                acc = acc[0, 0, -1] + inp
+            out = acc + out[0, 0, -1]
+
+
+def _ref_narrow_offset_read(inp: Field3D, wind: Field3D, out: Field3D):
+    """A FORWARD loop whose columns are widened by ``flux``, which the later
+    loop reads at a horizontal offset, while the narrower ``adv`` reads
+    ``wind`` at ``i + 1``: at the widened columns that read would leave
+    wind's allocation, so only ``adv``'s columns may copy it."""
+    with computation(FORWARD):
+        with interval(0, 1):
+            flux = inp
+            adv = wind[1, 0, 0] - wind[0, 0, 0]
+        with interval(1, None):
+            flux = inp + 0.5 * flux[0, 0, -1]
+            adv = wind[1, 0, 0] - wind[0, 0, 0] + 0.5 * adv[0, 0, -1]
+    with computation(PARALLEL), interval(...):
+        out = flux[1, 0, 0] + flux[-1, 0, 0] + adv
+
+
+JAX_TWINS = {
+    "hdiff_sponge": _ref_hdiff_sponge,
+    "smoothed_column_sum": _ref_smoothed_column_sum,
+    "read_ahead_sweep": _ref_read_ahead_sweep,
+    "restarted_temporary": _ref_restarted_temporary,
+    "narrow_offset_read": _ref_narrow_offset_read,
+}
 
 
 def _ref_lagged_neighbour_sweep(inp: "gtscript.Field['dt']", out: "gtscript.Field['dt']"):

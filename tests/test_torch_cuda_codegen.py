@@ -20,6 +20,7 @@ from gt4py_tpu_torch import storage
 from gt4py_tpu_torch.cartesian import gtscript
 from gt4py_tpu_torch.cartesian.backend import cuda_backend, cuda_codegen
 from gt4py_tpu_torch.cartesian.backend.cuda_codegen import CudaUnsupported
+from gt4py_tpu_torch.cartesian.definitions import Extent
 from gt4py_tpu_torch.cartesian.gtscript import (
     BACKWARD,
     FORWARD,
@@ -483,14 +484,18 @@ def test_fused_column_keeps_vadv_temporaries_on_chip(fuse_stages):
     assert not any(m.fill for m in temps)
     kernel = _kernel(module.source, "gt_fused_column_0")
     for name in ("ccol", "dcol"):
-        assert gen.held[name].cross and not gen.held[name].zero
+        assert gen.held[name].cross and not gen.fill[name]
     for name in set(t.name for t in gen.stencil.temporaries) - {"ccol", "dcol"}:
         assert not gen.held[name].cross and f"{gen.fields[name].var}_r = gt_v;" in kernel
     # datacol[0, 0, 1] is one carry register
     datacol = gen.fields["datacol"].var
     assert f"{datacol}_r1 = {datacol}_r;" in kernel
     assert module.min_nk == 2
-    assert "gt_smem" not in module.source
+    # no shared memory in the plain-pointer variant; the __restrict__ one
+    # prefetches through its ring
+    plain = module.source.split("gt_fused_column_0(const GtParams p)")[1].split("__global__")[0]
+    assert "gt_smem" not in plain
+    assert set(module.ring_bytes) == {"gt_fused_column_0_r"}
     # up, then down, in one kernel
     up = kernel.index("for (long long k = (0); k < (1); ++k)")
     down = kernel.index("for (long long k = (nk + (0)) - 1; k >= (nk + (-1)); --k)")
@@ -499,17 +504,26 @@ def test_fused_column_keeps_vadv_temporaries_on_chip(fuse_stages):
 
 def test_fused_column_launch_shape(fuse_stages):
     """Blocks of FC_THREADS columns, 32 along J, over the union of the
-    statement extents (vadv reads wcon at i + 1), no dynamic shared memory,
-    and the __restrict__ variant only under the wrapper's noalias flag."""
+    statement extents (vadv reads wcon at i + 1); the plain-pointer variant
+    without dynamic shared memory, the __restrict__ variant only under the
+    wrapper's noalias flag, with its ring's bytes (vadv float64: above 48 KB,
+    so first allowed them)."""
     _, module = _fused_generator("vertical_advection_dycore")
     launcher = module.source.split('extern "C" int gt_launch_0(')[1]
     rows = cuda_codegen.FC_THREADS // 32
+    smem = module.ring_bytes["gt_fused_column_0_r"]
+    assert smem > cuda_codegen.SHARED_BYTES_MAX
     assert f"__launch_bounds__({cuda_codegen.FC_THREADS}) gt_fused_column_0(" in module.source
     assert f"const dim3 block(32, {rows});" in launcher
     assert f"/ {rows}), 1u);" in launcher
-    assert "if (noalias) gt_fused_column_0_r<<<grid, block, 0," in launcher
+    noalias = launcher.split("if (noalias) {")[1].split("}")[0]
+    assert (
+        f"cudaFuncSetAttribute(gt_fused_column_0_r, cudaFuncAttributeMaxDynamicSharedMemorySize, "
+        f"{smem});" in noalias
+    )
+    assert f"gt_fused_column_0_r<<<grid, block, {smem}," in noalias
     assert "else gt_fused_column_0<<<grid, block, 0," in launcher
-    assert "cudaFuncSetAttribute" not in module.source
+    assert launcher.count("cudaFuncSetAttribute") == 1
 
 
 def test_fused_column_reads_tridiag_fields_from_device_memory(fuse_stages):
@@ -586,7 +600,7 @@ def test_fused_construct_strategy(name, fuse_stages):
     # where a level does not write acc whole, its register restarts at 0
     # and its buffer is zero-filled; the whole sweep needs neither
     restarts = name != "_sweep_then_parallel"
-    assert bool(acc.reset) == acc.zero == restarts
+    assert bool(acc.reset) == gen.fill["acc"] == restarts
     assert (f"{acc.meta.var}_r = (double)0;" in backend.module.source) == restarts
 
 
@@ -644,6 +658,384 @@ def test_fused_column_refuses_too_few_levels(fuse_stages):
         backend.prepare(arrays, {"dtr_stage": 0.1}, (4, 4, 1), {})
 
 
+# --- column: registers for loop-local temporaries, and the prefetch ring -------------
+
+
+def _column_generator(name, **options):
+    backend = _registry_backend(name, **options)
+    gen = cuda_codegen._Generator(backend.analyzed)
+    return gen, gen.generate()
+
+
+def test_column_keeps_vadv_temporaries_in_registers(monkeypatch):
+    """vadv on column: the 9 loop-local temporaries and datacol are
+    registers, ccol and dcol also keep a buffer for the BACKWARD loop,
+    written before it is read: the wrapper allocates no zero-filled
+    temporary, and column serves every K the stencil takes."""
+    gen, module = _column_generator("vertical_advection_dycore")
+    assert module.strategy == "column" and module.min_nk == 0
+    assert set(gen.held) == {t.name for t in gen.stencil.temporaries}
+    temps = [m for m in module.slots if m.is_temp]
+    assert sorted(m.name for m in temps) == ["ccol", "dcol"]
+    assert not any(m.fill for m in temps)
+    assert {n for n, h in gen.held.items() if h.cross} == {"ccol", "dcol"}
+    datacol = gen.held["datacol"]
+    assert (datacol.writer, datacol.ring) == (1, 1)
+    v = datacol.meta.var
+    assert f"{v}_r1 = {v}_r;" in _kernel(module.source, "gt_column_1")
+    # the wrapper: buffers for ccol and dcol, none of them zero-filled
+    backend = cuda_backend.CudaHopperBackend(gen.analyzed, {})
+    backend._fns = []  # nothing to build or launch here
+    arrays = {n: torch.zeros(5, 4, 6, dtype=torch.float64) for n in backend.analyzed.field_infos}
+    calls = []
+    for fn in ("zeros", "empty"):
+        real = getattr(torch, fn)
+        monkeypatch.setattr(
+            torch, fn, lambda *a, _fn=fn, _real=real, **k: calls.append(_fn) or _real(*a, **k)
+        )
+    backend.prepare(arrays, {"dtr_stage": 0.1}, (4, 4, 6), {})
+    assert calls == ["empty", "empty"]
+
+
+def _temporary_in_a_while(inp: F64, out: F64):
+    with computation(FORWARD), interval(...):
+        tmp = inp
+        while tmp < 0.5:
+            tmp = tmp * 2.0 + 0.125
+        out = tmp
+
+
+def _temporary_read_ahead(inp: F64, out: F64):
+    with computation(FORWARD):
+        with interval(0, -1):
+            tmp = inp * 2.0
+            out = tmp + tmp[0, 0, 1]
+        with interval(-1, None):
+            tmp = inp
+            out = tmp
+
+
+def _temporary_at_an_offset_later(inp: F64, out: F64):
+    with computation(FORWARD):
+        with interval(0, 1):
+            tmp = inp
+        with interval(1, None):
+            tmp = inp + 0.5 * tmp[0, 0, -1]
+    with computation(BACKWARD), interval(...):
+        out = tmp[1, 0, 0] + tmp[0, 0, 1]
+
+
+@pytest.mark.parametrize(
+    "definition, registers, buffers",
+    [
+        # PARALLEL loops run statement by statement: their temporaries keep
+        # zero-filled buffers as before, and so does one written in two loops
+        (defs.REGISTRY["bool_elif_koffset"]["definition"], {}, {"gap": True}),
+        (defs.REGISTRY["nested_conditional_locals"]["definition"], {"_mask_4": 0},
+         {"fallback": True, "bump": True}),
+        # the analysis merges these PARALLEL loops into the FORWARD one
+        # after them: one walk, every temporary a register
+        (defs.REGISTRY["dycore_smagorinsky_like"]["definition"],
+         {"shear": 0, "tension": 0, "smag": 0}, {}),
+        (defs.REGISTRY["temporary_stencil"]["definition"], {"tmp": 0}, {}),
+        # inside a while, or read ahead of the walk: a buffer as before
+        (_temporary_in_a_while, {}, {"tmp": True}),
+        (_temporary_read_ahead, {}, {"tmp": True}),
+        # a register in its loop, and a buffer for the later loop, which
+        # reads it at a horizontal and a K offset, zero-filled where that
+        # reaches beyond the levels written
+        (_temporary_at_an_offset_later, {"tmp": 1}, {"tmp": True}),
+        (defs.narrow_offset_read, {"flux": 1, "adv": 1}, {"flux": False, "adv": False}),
+        (defs.restarted_temporary, {"acc": 1, "_mask_1": 0}, {}),
+    ],
+)
+def test_column_registers_and_buffers(definition, registers, buffers):
+    """Which temporaries column keeps in registers (with their carry
+    depth), and which keep a (K, I, J) buffer, zero-filled or not."""
+    backend = _backend(definition)
+    assert backend.strategy == "column"
+    gen = cuda_codegen._Generator(backend.analyzed)
+    module = gen.generate()
+    assert {n: h.ring for n, h in gen.held.items()} == registers
+    assert {m.name: m.fill for m in module.slots if m.is_temp} == buffers
+    assert module.min_nk == 0
+
+
+def test_column_register_restarts_where_its_section_does_not_write_it():
+    gen, module = _column_generator("restarted_temporary")
+    acc = gen.held["acc"]
+    # section 0 writes acc whole; section 1 not at all, section 2 under a mask
+    assert acc.reset == {1, 2} and not acc.cross
+    for body in _bodies(module.source).values():
+        assert body.count(f"{acc.meta.var}_r = (double)0;") == 2
+
+
+def _bodies(source):
+    """kernel name -> its body."""
+    out = {}
+    for chunk in source.split("__global__ void __launch_bounds__(")[1:]:
+        name = chunk.split(") ", 1)[1].split("(", 1)[0]
+        out[name] = chunk.split('extern "C"')[0]
+    return out
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+@pytest.mark.parametrize("name", ["vertical_advection_dycore", "tridiagonal_solver"])
+def test_ring_only_in_restrict_variants(name, fuse, monkeypatch):
+    """The prefetch ring is in the __restrict__ variants and nowhere else;
+    the plain-pointer variants load what they read directly, as before."""
+    monkeypatch.setenv("GT4PY_CUDA_FUSE_STAGES", "1" if fuse else "0")
+    module = _registry_backend(name).module
+    bodies = _bodies(module.source)
+    ringed = {k for k in bodies if k.endswith("_r")}
+    assert set(module.ring_bytes) == ringed and len(ringed) == (1 if fuse else 2)
+    for kernel, body in bodies.items():
+        ring = kernel in ringed
+        for mark in ("gt_smem", "gt_fetch(", "gt_cp_async", "gt_cp_wait<", "gt_lds_"):
+            assert (mark in body) == ring, (kernel, mark)
+        # two blocks per SM: ptxas gives a ringed kernel the registers it needs
+        assert (f"__launch_bounds__(256, 2) {kernel}(" in module.source) == ring
+    assert "cp.async" in module.source and "asm volatile" in module.source
+
+
+def test_ring_nowhere_but_the_column_walks():
+    """plane, fused_plane and tiled sources carry neither the ring nor its
+    prelude; nor do column loops that walk no level (PARALLEL)."""
+    for name, entry in defs.REGISTRY.items():
+        module = _registry_backend(name).module
+        if entry["strategy"] != "column":
+            assert "cp.async" not in module.source and not module.ring_bytes, name
+    heat = _registry_backend("heat_step").module
+    assert set(heat.ring_bytes) == {"gt_column_1_r", "gt_column_2_r"}
+
+
+def _ring(name, n, **options):
+    gen, _ = _column_generator(name, **options)
+    return gen._plan_ring(n, Extent.zeros(), cuda_codegen.COL_BJ * cuda_codegen.COL_BI)
+
+
+def test_ring_streams_of_vadv():
+    """vadv's FORWARD walk: six streams, wcon at i and i + 1 each its own,
+    u_stage read a level behind and ahead; the BACKWARD walk reads ccol and
+    dcol back (a later loop's buffers) and u_pos; datacol is a register."""
+    up = _ring("vertical_advection_dycore", 0)
+    assert {(s.meta.name, s.di, s.dj) for s in up.streams} == {
+        ("utens_stage", 0, 0), ("u_stage", 0, 0), ("wcon", 0, 0), ("wcon", 1, 0),
+        ("u_pos", 0, 0), ("utens", 0, 0),
+    }
+    assert (up.back, up.ahead, up.slots) == (1, 1, cuda_codegen.RING_LEVELS + 1)
+    down = _ring("vertical_advection_dycore", 1)
+    assert {s.meta.name for s in down.streams} == {"ccol", "dcol", "u_pos"}
+    assert (down.back, down.ahead, down.backward) == (0, 0, True)
+
+
+def test_ring_streams_what_a_walk_writes_only_before_its_first_write():
+    """tridiag's FORWARD walk streams sup and rhs at its own level, read
+    before the level writes them (their values from before the loop); the
+    level below, which the thread wrote, stays a direct load."""
+    up = _ring("tridiagonal_solver", 0)
+    assert {s.meta.name for s in up.streams} == {"inf", "diag", "sup", "rhs"}
+    assert (up.back, up.ahead) == (0, 0)
+    module = _registry_backend("tridiagonal_solver").module
+    body = _bodies(module.source)["gt_column_0_r"]
+    sup = next(m.var for m in module.slots if m.name == "sup")
+    assert f"gt_clampk({sup}_ok + k + (-1), {sup}_nk) * {sup}_sk" in body  # direct
+    assert f"*(double*)({sup} + ({sup}_oi + i + (0)) * {sup}_si + ({sup}_oj + j + (0)) * " \
+        f"{sup}_sj + ({sup}_ok + k) * {sup}_sk)) = " in body  # the store
+    assert body.count(f"({sup}_ok + k) * {sup}_sk") == 2  # two stores, no load
+    down = _ring("tridiagonal_solver", 1)
+    assert {s.meta.name for s in down.streams} == {"rhs", "sup"}  # out[0, 0, 1]: direct
+
+
+def test_ring_reads_ahead_of_the_walk_of_a_written_field_stay_direct():
+    gen, module = _column_generator("read_ahead_sweep")
+    up = gen._plan_ring(0, Extent.zeros(), 256)
+    assert {s.meta.name for s in up.streams} == {"inp", "out"} and up.ahead == 0
+    out = next(m.var for m in module.slots if m.name == "out")
+    assert f"gt_clampk({out}_ok + k + (1), {out}_nk)" in _bodies(module.source)["gt_column_0_r"]
+
+
+def test_ring_copies_are_guarded_by_extent():
+    """narrow_offset_read: the loop's columns reach one beyond the domain on
+    both sides (flux), wind is read at i + 1 only where adv is computed, so
+    its copies are guarded by adv's extent; inp's are not guarded."""
+    module = _registry_backend("narrow_offset_read").module
+    body = _bodies(module.source)["gt_column_0_r"]
+    copies = [line.strip() for line in body.splitlines() if "gt_cp_async8(" in line]
+    wind = next(m.var for m in module.slots if m.name == "wind")
+    inp = next(m.var for m in module.slots if m.name == "inp")
+    guarded = [c for c in copies if c.startswith("if (i >= (0) && i < ni + (0)) gt_cp_async8(")]
+    assert len(copies) == 3 and len(guarded) == 2
+    assert all(f"{wind}_sk" in c for c in guarded)
+    assert any(c.startswith("gt_cp_async8(") and f"{inp}_sk" in c for c in copies)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_ring_shared_memory_per_block(dtype):
+    """[slot][stream][thread]: RING_LEVELS slots, plus one per level behind
+    the walk its reads reach, of every stream for the block's 256 columns;
+    above 48 KB the launcher first allows them."""
+    backend = _backend(
+        defs.vertical_advection_dycore_generic, dtypes={"vadv_dt": dtype},
+        externals=defs.VADV_EXTERNALS,
+    )
+    module = backend.module
+    size = np.dtype(dtype).itemsize
+    threads = cuda_codegen.COL_BJ * cuda_codegen.COL_BI
+    levels = cuda_codegen.RING_LEVELS
+    # the BACKWARD walk streams u_pos and the buffers of ccol and dcol,
+    # which type inference makes float64 in either case
+    assert module.ring_bytes == {
+        "gt_column_0_r": (levels + 1) * 6 * size * threads,
+        "gt_column_1_r": levels * (size + 2 * 8) * threads,
+    }
+    for n in range(2):
+        kernel = f"gt_column_{n}_r"
+        smem = module.ring_bytes[kernel]
+        launcher = module.source.split(f'extern "C" int gt_launch_{n}(')[1]
+        assert f"{kernel}<<<grid, block, {smem}," in launcher
+        allowed = f"cudaFuncSetAttribute({kernel}, cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});"
+        assert (allowed in launcher) == (smem > cuda_codegen.SHARED_BYTES_MAX)
+
+
+def _many_streams(inp: F64, out: F64):
+    with computation(FORWARD), interval(...):
+        out = (
+            inp[-7, 0, 0] + inp[-6, 0, 0] + inp[-5, 0, 0] + inp[-4, 0, 0] + inp[-3, 0, 0]
+            + inp[-2, 0, 0] + inp[-1, 0, 0] + inp[0, 0, 0] + inp[1, 0, 0] + inp[2, 0, 0]
+            + inp[3, 0, 0] + inp[4, 0, 0] + inp[5, 0, 0] + inp[6, 0, 0] + inp[7, 0, 0]
+            + inp[0, -7, 0] + inp[0, -6, 0] + inp[0, -5, 0] + inp[0, -4, 0] + inp[0, -3, 0]
+            + inp[0, -2, 0] + inp[0, -1, 0] + inp[0, 1, 0] + inp[0, 2, 0] + inp[0, 3, 0]
+            + inp[0, 4, 0] + inp[0, 5, 0] + inp[0, 6, 0] + inp[0, 7, 0]
+        )
+
+
+def test_ring_keeps_within_its_budget():
+    """29 streams of float64 would take RING_LEVELS × 29 × 8 B × 256 =
+    232 KB: the walk rings the first 14 it reads (112 KB, within
+    RING_BYTES_MAX, so two blocks fit an SM) and loads the other 15
+    directly; column serves it as it did before the ring."""
+    backend = _backend(_many_streams)
+    assert backend.strategy == "column" and backend.unsupported is None
+    threads = cuda_codegen.COL_BJ * cuda_codegen.COL_BI
+    stream = cuda_codegen.RING_LEVELS * 8 * threads
+    kept = cuda_codegen.RING_BYTES_MAX // stream
+    assert kept == 14
+    assert backend.module.ring_bytes == {"gt_column_0_r": kept * stream}
+    ring = cuda_codegen._Generator(backend.analyzed)._plan_ring(0, Extent.zeros(), threads)
+    assert [(s.di, s.dj) for s in ring.streams] == [(d, 0) for d in range(-7, 7)]
+    body = _bodies(backend.module.source)["gt_column_0_r"]
+    assert body.count("gt_cp_async8(") == kept and body.count("gt_lds_double(") == kept
+    inp = next(m.var for m in backend.module.slots if m.name == "inp")
+    assert body.count(f"({inp}_ok + k) * {inp}_sk") == 29 - kept  # direct
+
+
+def _far_behind(inp: F64, out: F64):
+    with computation(FORWARD):
+        with interval(0, 6):
+            out = inp
+        with interval(6, None):
+            out = inp + inp[0, 0, -1] + inp[0, 0, -6]
+
+
+def test_ring_leaves_reads_far_behind_the_walk_direct():
+    """A read RING_LEVELS or more levels behind the walk would add a slot to
+    every stream for each level: it stays a direct load, as a read that far
+    ahead does."""
+    backend = _backend(_far_behind)
+    threads = cuda_codegen.COL_BJ * cuda_codegen.COL_BI
+    ring = cuda_codegen._Generator(backend.analyzed)._plan_ring(0, Extent.zeros(), threads)
+    assert (ring.back, ring.slots) == (1, cuda_codegen.RING_LEVELS + 1)
+    inp = next(m.var for m in backend.module.slots if m.name == "inp")
+    body = _bodies(backend.module.source)["gt_column_0_r"]
+    assert f"gt_clampk({inp}_ok + k + (-6), {inp}_nk)" in body
+    assert f"gt_clampk({inp}_ok + k + (-1), {inp}_nk)" not in body
+
+
+def test_ring_beyond_the_card_names_the_bytes(monkeypatch):
+    """Where not even one stream fits a block's budget, the stencil is
+    refused, naming the bytes."""
+    backend = _backend(_many_streams)
+    monkeypatch.setattr(cuda_codegen, "RING_BYTES_MAX", 4096)
+    need = cuda_codegen.RING_LEVELS * 8 * cuda_codegen.COL_BJ * cuda_codegen.COL_BI
+    with pytest.raises(CudaUnsupported, match=f"needs {need} bytes of shared memory per block"):
+        cuda_codegen._Generator(backend.analyzed).generate()
+
+
+def _walk_rings(body):
+    """Each walk's ring as the kernel body lays it out: (slots, slot bytes,
+    [(offset, pitch, item size) per stream])."""
+    walks = []
+    for chunk in body.split("const long long gt_w0")[1:]:
+        streams = {
+            q: (int(off), int(pitch))
+            for q, off, pitch in re.findall(
+                r"const unsigned gt_q(\d+) = gt_sm \+ (\d+)u \+ gt_tid \* (\d+)u;", chunk
+            )
+        }
+        sizes = dict((q, int(n)) for n, q in re.findall(r"gt_cp_async(\d)\(gt_q(\d+) ", chunk))
+        (slot_bytes,) = set(re.findall(r"\+ gt_s \* (\d+)u", chunk))
+        (slots,) = re.findall(r"const unsigned gt_s = \(unsigned\)\(gt_f \+ \d+\) % (\d+)u;", chunk)
+        walks.append((int(slots), int(slot_bytes), [(*streams[q], sizes[q]) for q in streams]))
+    return walks
+
+
+def _thread_bytes(walks, threads):
+    """byte of the shared region -> the threads whose ring elements cover
+    it, over every walk of one kernel."""
+    owners = {}
+    for slots, slot_bytes, streams in walks:
+        for slot in range(slots):
+            for offset, pitch, size in streams:
+                for t in range(threads):
+                    at = slot * slot_bytes + offset + t * pitch
+                    for b in range(at, at + size):
+                        owners.setdefault(b, set()).add(t)
+    return owners
+
+
+@pytest.mark.parametrize(
+    "name, dtypes",
+    [(name, None) for name in sorted(defs.FUSED_STAGES)]
+    + [("vertical_advection_dycore_generic", np.float32),
+       ("vertical_advection_dycore_generic", np.float64)],
+)
+def test_fused_column_walks_keep_each_thread_on_its_own_bytes(name, dtypes, fuse_stages):
+    """fused_column's walks reuse one region of shared memory with no
+    barrier between them: in the kernel's source, no byte of it is any two
+    threads' in any two walks. vadv with float32 fields streams float32 in
+    the FORWARD walk and float64 (ccol, dcol) in the BACKWARD one, so every
+    stream takes 8 B a thread there."""
+    if dtypes is None:
+        backend = _registry_backend(name)
+    else:
+        backend = _backend(
+            defs.vertical_advection_dycore_generic, dtypes={"vadv_dt": dtypes},
+            externals=defs.VADV_EXTERNALS,
+        )
+    assert backend.strategy == "fused_column"
+    body = _bodies(backend.module.source)["gt_fused_column_0_r"]
+    walks = _walk_rings(body)
+    assert bool(walks) == bool(backend.module.ring_bytes)
+    owners = _thread_bytes(walks, cuda_codegen.FC_THREADS)
+    assert all(len(t) == 1 for t in owners.values())
+    assert max(owners, default=-1) < backend.module.ring_bytes.get("gt_fused_column_0_r", 0)
+    sizes = {size for _, _, streams in walks for *_, size in streams}
+    pitches = {pitch for _, _, streams in walks for _, pitch, _ in streams}
+    assert (sizes == {4, 8}) == (dtypes is np.float32)
+    assert pitches == ({8} if dtypes is np.float32 else sizes)
+
+
+def test_fused_column_fences_before_streaming_its_own_stores(fuse_stages):
+    """tridiag on fused_column: the BACKWARD walk streams sup and rhs, which
+    the same thread stored in the FORWARD walk: a fence comes first."""
+    _, module = _fused_generator("tridiagonal_solver")
+    body = _bodies(module.source)["gt_fused_column_0_r"]
+    down = body.split("__threadfence();")[1]
+    assert body.count("__threadfence();") == 1 and down.count("gt_cp_async8(") == 2
+    assert "__threadfence" not in _bodies(module.source)["gt_fused_column_0"]
+
+
 def test_lower_dimensional_writes_need_a_unit_axis():
     module = _backend(_k_field_write).module
     assert module.strategy == "fused_plane"
@@ -677,8 +1069,10 @@ def test_column_restrict_variant_only_when_noalias():
     for n in range(2):
         plain = source.split(f"gt_column_{n}(const GtParams p)")[1].split("__global__")[0]
         assert "restrict" not in plain
-        assert f"if (noalias) gt_column_{n}_r<<<" in source
-        assert f"else gt_column_{n}<<<" in source
+        launcher = source.split(f'extern "C" int gt_launch_{n}(')[1].split("cudaGetLastError")[0]
+        noalias, other = launcher.split("if (noalias)")[1].split("else ")
+        assert f"gt_column_{n}_r<<<" in noalias
+        assert f"gt_column_{n}<<<grid, block, 0," in other
     # read-only fields of a loop are const in its restrict variant
     assert "const char* __restrict__ f0" in source  # inf
 
@@ -963,6 +1357,82 @@ def test_fused_construct_matches_plain_on_card(name, fuse_stages):
         _assert_same(out["kernel"][n], out["plain"][n], n)
 
 
+#: the column walks of the registry: every stencil column serves, and K4's
+#: class again with the switch on (fused_column)
+COLUMN_WALKS = [
+    (name, False) for name, e in sorted(defs.REGISTRY.items()) if e["strategy"] == "column"
+] + [(name, True) for name in sorted(defs.FUSED_STAGES)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["restrict", "plain"])
+@pytest.mark.parametrize("depth", ["short", "long"])
+@pytest.mark.parametrize("name, fuse", COLUMN_WALKS)
+def test_column_walk_matches_plain_on_card(name, fuse, depth, variant, monkeypatch):
+    """Every column walk against the plain version on the same card, over
+    as few levels as the stencil takes (fewer than the prefetch ring's depth
+    for all but multi_section_forward and restarted_temporary) and over
+    many times more, in
+    the __restrict__ variant (with its ring) and in the plain-pointer one,
+    which the wrapper takes when it sees overlapping arguments (here it is
+    told so); each launch is counted."""
+    _need_card()
+    monkeypatch.setenv("GT4PY_CUDA_FUSE_STAGES", "1" if fuse else "0")
+    if variant == "plain":
+        monkeypatch.setattr(cuda_backend, "overlapping", lambda arrays: [("", "")])
+    entry = defs.REGISTRY[name]
+    opts = dict(externals=entry["externals"], dtypes=entry["dtypes"])
+    kern = gtscript.stencil(backend="cuda:hopper", definition=entry["definition"], **opts)
+    plain = gtscript.stencil(backend="torch", definition=entry["definition"], **opts)
+    nk = max(entry["min_k"], 2) if depth == "short" else 4 * cuda_codegen.RING_LEVELS + 5
+    host = defs.make_inputs(kern.field_info, (25, 23, nk), np.random.default_rng(8))
+    wrapper = cuda_backend.WRAPPERS["fused_column" if fuse else "column"]
+    launches = 1 if fuse else len(kern._backend.analyzed.stencil.vertical_loops)
+    out = {}
+    for tag, st in (("kernel", kern), ("plain", plain)):
+        fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+        wrapper.launches = 0
+        st(**fields, **entry["scalars"], origin=(3, 3, 0), domain=(19, 17, nk))
+        torch.cuda.synchronize()
+        assert wrapper.launches == (launches if tag == "kernel" else 0)
+        out[tag] = {n: np.asarray(v) for n, v in fields.items()}
+    for n in host:
+        _assert_same(out["kernel"][n], out["plain"][n], n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse", [False, True])
+def test_vadv_float32_fields_float64_temporaries_on_card(fuse, monkeypatch):
+    """vadv with float32 fields keeps ccol and dcol in float64, so the
+    BACKWARD walk streams 8-byte values and the FORWARD one 4-byte ones
+    (fused_column: through one region of shared memory, at one pitch).
+    Against the plain version at 256×256×80, where every block is resident
+    and warps run their walks out of step; the launch counted."""
+    _need_card()
+    monkeypatch.setenv("GT4PY_CUDA_FUSE_STAGES", "1" if fuse else "0")
+    opts = dict(
+        definition=defs.vertical_advection_dycore_generic, externals=defs.VADV_EXTERNALS,
+        dtypes={"vadv_dt": np.float32},
+    )
+    kern = gtscript.stencil(backend="cuda:hopper", **opts)
+    plain = gtscript.stencil(backend="torch", **opts)
+    assert kern._backend.strategy == ("fused_column" if fuse else "column")
+    nk = 80
+    host = defs.make_inputs(kern.field_info, (260, 260, nk), np.random.default_rng(4))
+    host["wcon"] = (0.1 * host["wcon"]).astype(host["wcon"].dtype)
+    wrapper = cuda_backend.WRAPPERS[kern._backend.strategy]
+    out = {}
+    for tag, st in (("kernel", kern), ("plain", plain)):
+        fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+        wrapper.launches = 0
+        st(**fields, dtr_stage=np.float32(0.15), origin=(2, 2, 0), domain=(256, 256, nk))
+        torch.cuda.synchronize()
+        assert wrapper.launches == ((1 if fuse else 2) if tag == "kernel" else 0)
+        out[tag] = {n: np.asarray(v) for n, v in fields.items()}
+    for n in host:
+        _assert_same(out["kernel"][n], out["plain"][n], n)
+
+
 @pytest.mark.cuda
 def test_unsupported_raises_on_card():
     _need_card()
@@ -987,7 +1457,7 @@ def test_lower_dimensional_write_needs_a_unit_axis_on_card():
 @pytest.mark.parametrize(
     "name",
     ["forward_cumsum", "staggeredish_interval_chain", "copy_stencil", "vector_axpy",
-     "_tiled_in_place"],
+     "_tiled_in_place", "read_ahead_sweep", "restarted_temporary"],
 )
 def test_aliased_arguments_on_card(name):
     """One storage passed for every field role: the wrapper sees the

@@ -8,8 +8,10 @@ imports no JAX, so it also serves on a machine without it. The
 build option, for float32 runs; the generic hdiff is bench.py's ``hdiff32``
 (float literals, so that with ``literal_float_precision=32`` it computes in
 float32 throughout). Two full-width dycore-style stencils of the port's own,
-``hdiff_sponge`` and ``smoothed_column_sum``, complete the registry; their
-JAX twins live in tests/test_torch_cartesian.py.
+``hdiff_sponge`` and ``smoothed_column_sum``, and three column walks at the
+edges of the column kernels' prefetch ring and registers
+(``read_ahead_sweep``, ``restarted_temporary``, ``narrow_offset_read``)
+complete the registry; their JAX twins live in tests/test_torch_cartesian.py.
 """
 
 import numpy as np
@@ -823,6 +825,57 @@ def lag_read_before_write(inp: "gtscript.Field['dt']", out: "gtscript.Field['dt'
             acc = inp * 2.0
 
 
+# --- three column walks at the edges of the prefetch ring and the registers -----
+
+
+def read_ahead_sweep(inp: Field3D, out: Field3D, out2: Field3D):
+    """A FORWARD loop that reads the field it writes at its own level and
+    one level ahead of the walk (both its values from before the loop), and
+    a BACKWARD loop carrying the result down."""
+    with computation(FORWARD):
+        with interval(0, -1):
+            out = inp + 0.5 * (out + out[0, 0, 1])
+        with interval(-1, None):
+            out = inp + 0.5 * out
+    with computation(BACKWARD):
+        with interval(-1, None):
+            out2 = out
+        with interval(0, -1):
+            out2 = out + 0.25 * out2[0, 0, 1]
+
+
+def restarted_temporary(inp: Field3D, out: Field3D):
+    """A temporary carried up a FORWARD walk that sections 1 and 2 do not
+    write (it reads 0 at their levels, and its carry restarts from 0), then
+    written only where ``inp > 0.5``."""
+    with computation(FORWARD):
+        with interval(0, 1):
+            acc = inp
+            out = acc
+        with interval(1, 3):
+            out = acc[0, 0, -1] + inp
+        with interval(3, None):
+            if inp > 0.5:
+                acc = acc[0, 0, -1] + inp
+            out = acc + out[0, 0, -1]
+
+
+def narrow_offset_read(inp: Field3D, wind: Field3D, out: Field3D):
+    """A FORWARD loop whose columns are widened by ``flux``, which the later
+    loop reads at a horizontal offset, while the narrower ``adv`` reads
+    ``wind`` at ``i + 1``: at the widened columns that read would leave
+    wind's allocation, so only ``adv``'s columns may copy it."""
+    with computation(FORWARD):
+        with interval(0, 1):
+            flux = inp
+            adv = wind[1, 0, 0] - wind[0, 0, 0]
+        with interval(1, None):
+            flux = inp + 0.5 * flux[0, 0, -1]
+            adv = wind[1, 0, 0] - wind[0, 0, 0] + 0.5 * adv[0, 0, -1]
+    with computation(PARALLEL), interval(...):
+        out = flux[1, 0, 0] + flux[-1, 0, 0] + adv
+
+
 def _entry(definition, strategy, *, externals=None, scalars=None, min_k=1, dtypes=None):
     return {
         "definition": definition,
@@ -897,20 +950,27 @@ REGISTRY = {
     "smoothed_column_sum": _entry(
         smoothed_column_sum, "tiled", dtypes={"dt": np.float64}, min_k=2
     ),
+    "read_ahead_sweep": _entry(read_ahead_sweep, "column", min_k=2),
+    "restarted_temporary": _entry(restarted_temporary, "column", min_k=4),
+    "narrow_offset_read": _entry(narrow_offset_read, "column", min_k=2),
 }
 
 #: registry stencils with no twin in tests/cartesian_tests/stencil_defs.py
 #: (their JAX twins live in tests/test_torch_cartesian.py)
-PORT_ONLY = ("hdiff_sponge", "smoothed_column_sum")
+PORT_ONLY = (
+    "hdiff_sponge", "smoothed_column_sum", "read_ahead_sweep", "restarted_temporary",
+    "narrow_offset_read",
+)
 
 #: the kernel that serves a registry stencil with the stage-fusion switch
 #: on (GT4PY_CUDA_FUSE_STAGES=1) where it is not REGISTRY's: K4's class,
 #: the three stencils the JAX package's _build_fused_call builds a kernel
-#: for with GT4PY_PALLAS_FUSE_STAGES=1
+#: for with GT4PY_PALLAS_FUSE_STAGES=1, and the port's read_ahead_sweep
 FUSED_STAGES = {
     "vertical_advection_dycore": "fused_column",
     "tridiagonal_solver": "fused_column",
     "empty_computation_inlined": "fused_column",
+    "read_ahead_sweep": "fused_column",
 }
 
 
