@@ -26,18 +26,20 @@ tridiag_fused, vadv and tridiag built with the stage-fusion switch on
    the same run (a field is read only where the stencil reads its values
    from before the call); the bound is the compulsory bytes over the H100's
    3.35 TB/s or the operations over its peak rate, whichever is longer.
-   For the column walks (vadv and tridiag on ``column`` and
-   ``fused_column``): µs per walked level, the prefetch ring's depth and
-   shared bytes per block, and what ``ptxas`` reports for each kernel
-   (registers, spills) from the build logs.
+   For the walks (vadv and tridiag on ``column`` and ``fused_column``,
+   hdiff_sponge on ``fused_plane``, smoothed_column_sum on ``tiled``): µs
+   per walked level, the prefetch ring's depth and shared bytes per block,
+   and what ``ptxas`` reports for each kernel (registers, spills) from the
+   build logs.
 5. Registry phase: every stencil of tests/torch_stencil_defs.py runs on
    ``cuda:hopper`` at 32×32×max(8, min_k) in its own dtypes, through the
    kernel pinned for it (and K4's class again with the switch on, through
    ``fused_column``), against the plain version on the card.
 6. Sweeps phase: the two sweeps that read an earlier level beyond the points
-   its writers compute (``tiled``, one launch per level) at 256×256×80 in
-   float64, three times each, every run equal to the plain version; then
-   the µs of a call beside its bound.
+   its writers compute (``tiled``, one cooperative launch a call) at
+   256×256×80 in float64, three times each, every run equal to the plain
+   version; then the µs of a call with the host and on the device (behind a
+   spin kernel) beside its bound, and its ``ptxas`` report.
 
 Prints the card's name and power limit, one JSON line with the kernels, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -83,7 +85,7 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 #: the switch that builds a stencil of K4's class for fused_column
 FUSE_ENV = "GT4PY_CUDA_FUSE_STAGES"
 #: the column walks' kernels
-WALKS = ("column", "fused_column")
+WALKS = ("column", "fused_column", "fused_plane", "tiled")
 
 
 def main(argv) -> int:
@@ -229,6 +231,10 @@ def main(argv) -> int:
         dev = device_ms(run, card_fields(run["host"], origin, case, storage), 20)
         run["ms"], run["plain_ms"] = (k1 + k2) / 2, (p1 + p2) / 2
         run["device_ms"] = dev
+        if case["kernel"] in ("fused_plane", "tiled"):
+            run["unringed_ms"] = unringed_ms(
+                run, card_fields(run["host"], origin, case, storage), cuda_backend
+            )
         nbytes = compulsory_bytes(run["kern"], np.dtype(run["dtype"]).itemsize)
         flops = operations(run["kern"])
         run["gbs"] = nbytes / dev / 1e6
@@ -254,8 +260,10 @@ def main(argv) -> int:
     print(f"  device-to-device copy of 256 MiB: {copy_gbs:.1f} GB/s (read + write)")
     for r in rows:
         print("  " + r)
-    print(f"column walks on {smi}: device µs per walked level, bytes per block of the "
-          f"prefetch ring (depth RING_LEVELS = {cuda_codegen.RING_LEVELS}), ptxas:")
+    print(f"walks on {smi}: device µs per walked level (a PARALLEL stencil: per level), "
+          f"bytes per block of the prefetch ring (column walks: depth RING_LEVELS = "
+          f"{cuda_codegen.RING_LEVELS}; tile walks: TILE_RING_LEVELS = "
+          f"{cuda_codegen.TILE_RING_LEVELS}, fused_plane FP_TK = {cuda_codegen.FP_TK}), ptxas:")
     for run in runs:
         if run["case"]["kernel"] in WALKS:
             print("  " + walk_report(run, cuda_backend))
@@ -270,15 +278,22 @@ def main(argv) -> int:
     print(f"registry: {len(registry)} stencils at {REG_N}x{REG_N}, each through its pinned "
           f"kernel ({by_kernel}) == plain, in {time.perf_counter() - t0:.1f} s")
 
-    # -- 6. the lagged sweeps, one tiled launch per level --------------------------
+    # -- 6. the lagged sweeps, one cooperative tiled launch a call ----------------
     t0 = time.perf_counter()
     for sweep in sweeps:
         run_sweep(sweep, shape, origin, domain, storage, cuda_backend, np, torch)
     for sweep in sweeps:  # one application's compulsory bytes over 3.35 TB/s
         sweep["bound_ms"] = compulsory_bytes(sweep["kern"], 8) / HBM_BYTES_PER_S * 1e3
-    print(f"sweeps at {NI}x{NJ}x{NK} float64, three runs each == plain, in "
-          f"{time.perf_counter() - t0:.1f} s; us per call by CUDA events (bound): "
-          + ", ".join(f"{s['name']} {s['ms'] * 1e3:.1f} ({s['bound_ms'] * 1e3:.1f})" for s in sweeps))
+    print(f"sweeps at {NI}x{NJ}x{NK} float64, three runs each == plain, one cooperative "
+          f"launch a call, in {time.perf_counter() - t0:.1f} s; us per call by CUDA events, "
+          "host included / device behind a spin kernel (bound): "
+          + ", ".join(f"{s['name']} {s['ms'] * 1e3:.1f} / {s['device_ms'] * 1e3:.1f} "
+                      f"({s['bound_ms'] * 1e3:.1f}; {s['device_ms'] * 1e3 / NK:.3f} us a level)"
+                      for s in sweeps))
+    for sweep in sweeps:
+        print("  " + walk_report({"kern": sweep["kern"], "device_ms": sweep["device_ms"],
+                                  "case": {"name": sweep["name"]}, "dtype": "float64"},
+                                 cuda_backend))
 
     kernels = [
         {
@@ -597,9 +612,10 @@ def registry_stencils(defs, gtscript) -> list:
 def run_sweep(sweep, shape, origin, domain, storage, cuda_backend, np, torch) -> None:
     """One lagged sweep at full size in float64: the plain version once and
     the kernel three times, each time on a fresh copy of the same inputs and
-    counted, one launch per level; every run equal to the plain version and
+    counted, one cooperative launch; every run equal to the plain version and
     to the first run (a race between blocks would make the runs differ).
-    Then ms per call of five calls (host and device)."""
+    Then ms per call of five calls, host included, and behind a spin
+    kernel (device only)."""
     rng = np.random.default_rng(17)
     host = {n: rng.random(shape) for n in ("inp", "out")}
 
@@ -616,10 +632,10 @@ def run_sweep(sweep, shape, origin, domain, storage, cuda_backend, np, torch) ->
         info: dict = {}
         sweep["kern"](**got, domain=domain, exec_info=info)
         torch.cuda.synchronize()
-        if info["kernel_strategy"] != "tiled" or cuda_backend.TILED.launches != domain[2]:
+        if info["kernel_strategy"] != "tiled" or cuda_backend.TILED.launches != 1:
             raise AssertionError(
-                f"{sweep['name']}: {cuda_backend.TILED.launches} tiled launches, not one per "
-                f"level ({domain[2]}; {info})"
+                f"{sweep['name']}: {cuda_backend.TILED.launches} tiled launches, not one "
+                f"cooperative launch ({info})"
             )
         for n in host:
             g, w = got[n].array, want[n].array
@@ -639,6 +655,9 @@ def run_sweep(sweep, shape, origin, domain, storage, cuda_backend, np, torch) ->
     end.record()
     end.synchronize()
     sweep["ms"] = start.elapsed_time(end) / n
+    sweep["device_ms"] = spin_ms(
+        lambda: [sweep["kern"](**got, domain=domain) for _ in range(n)], n, sweep["name"]
+    )
 
 
 def run_registry_stencil(reg, defs, storage, cuda_backend, np, torch) -> None:
@@ -695,22 +714,42 @@ def copy_bandwidth() -> float:
 
 def device_ms(run, fields, n: int) -> float:
     """ms per step that ``chain(n)`` from the main path's inputs holds the
-    card: CUDA events around the chain, with the stream first held by a spin
-    kernel long enough for the host to queue every launch behind it, so the
-    reading holds the stencil's device work (kernels and the temporaries'
-    zero-fill) and none of the host's per-call cost. Fails if the host was
-    still queuing when the spin ended."""
-    import torch
-
+    card (:func:`spin_ms`): the stencil's device work (kernels and the
+    temporaries' zero-fill) and none of the host's per-call cost."""
     kw = dict(swap=run["case"]["swap"], domain=(NI, NJ, NK))
     run["kern"].chain(1, **fields, **run["scalars"], **kw)
+    return spin_ms(
+        lambda: run["kern"].chain(n, **fields, **run["scalars"], **kw), n, run["case"]["name"]
+    )
+
+
+def unringed_ms(run, fields, cuda_backend) -> float:
+    """A tile walk's :func:`device_ms` in its plain-pointer variant, the
+    one the wrapper launches where two arguments share memory (here it is
+    told they do): the same barriers for the main paths' stencils, but no
+    input ring, no register carries of API fields and no ``__restrict__``."""
+    saved = cuda_backend.overlapping
+    cuda_backend.overlapping = lambda arrays: [("", "")]
+    try:
+        return device_ms(run, fields, 20)
+    finally:
+        cuda_backend.overlapping = saved
+
+
+def spin_ms(work, n: int, name: str) -> float:
+    """ms per step that ``work()``, ``n`` steps, holds the card: CUDA
+    events around it, with the stream first held by a spin kernel long
+    enough for the host to queue every launch behind it. Fails if the host
+    was still queuing when the spin ended."""
+    import torch
+
     torch.cuda.synchronize()
     cycles = 100_000_000  # ~50 ms at the H100's clocks
     for _ in range(4):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(cycles)
         start.record()
-        run["kern"].chain(n, **fields, **run["scalars"], **kw)
+        work()
         end.record()
         queued_in_time = not start.query()
         end.synchronize()
@@ -718,8 +757,7 @@ def device_ms(run, fields, n: int) -> float:
             return start.elapsed_time(end) / n
         cycles *= 4
     raise AssertionError(
-        f"{run['case']['name']}: the host did not queue chain({n}) within a spin "
-        f"of {cycles // 4} cycles"
+        f"{name}: the host did not queue {n} steps within a spin of {cycles // 4} cycles"
     )
 
 
@@ -761,12 +799,14 @@ def walk_report(run, cuda_backend) -> str:
     """One column walk's cell: µs per walked level, its ring bytes per
     block and each kernel's registers and spills."""
     module = run["kern"]._backend.module
-    levels = walked_levels(run["kern"]._backend.analyzed, NK)
+    levels = walked_levels(run["kern"]._backend.analyzed, NK) or NK
     ptxas = ptxas_report(module.source, cuda_backend)
     return (
-        f"{run['case']['name']:13s} {run['dtype']:8s} {levels} levels, "
+        f"{run['case']['name']:22s} {run['dtype']:8s} {levels} levels, "
         f"{run['device_ms'] * 1e3 / levels:.3f} us per level; ring bytes "
         + ", ".join(f"{k} {b}" for k, b in sorted(module.ring_bytes.items()))
+        + (f"; plain-pointer variant {run['unringed_ms'] * 1e3:.1f} us a step"
+           if "unringed_ms" in run else "")
         + "; ptxas " + ", ".join(
             f"{k} {r} registers {s} B spilled" for k, (r, s) in sorted(ptxas.items())
         )

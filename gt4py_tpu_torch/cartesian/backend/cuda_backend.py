@@ -82,19 +82,18 @@ class KernelWrapper:
         self.name = name
         self.launches = 0
 
-    def launch(self, fn, args, per_level: bool = False) -> None:
-        """Call one launcher. A ``per_level`` launcher launches its kernel
-        once per level and writes how many it launched through a trailing
-        pointer; every other launcher launches one kernel."""
-        launched = _LL(1)
-        rc = fn(*args, ctypes.byref(launched)) if per_level else fn(*args)
+    def launch(self, fn, args) -> None:
+        """Call one launcher: it launches one kernel (a cooperative one
+        too), or none on an empty grid, or returns the CUDA error that
+        refused the launch, which raises here."""
+        rc = fn(*args)
         if rc == NOTHING_LAUNCHED:
             return
         if rc != 0:
             raise RuntimeError(
                 f"{self.name} kernel launch failed: CUDA error {rc}"
             )
-        self.launches += launched.value
+        self.launches += 1
 
 
 PLANE = KernelWrapper("plane")
@@ -183,7 +182,7 @@ def load_library(source: str) -> ctypes.CDLL:
         return lib
 
 
-def _bind(lib: ctypes.CDLL, name: str, per_level: bool = False):
+def _bind(lib: ctypes.CDLL, name: str, cooperative: bool = False):
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = [
@@ -198,7 +197,7 @@ def _bind(lib: ctypes.CDLL, name: str, per_level: bool = False):
         _LL,
         ctypes.c_void_p,  # cudaStream_t: a pointer, never a 32-bit int
         ctypes.c_int,  # noalias
-    ] + ([ctypes.POINTER(_LL)] if per_level else [])  # kernels launched
+    ] + ([ctypes.c_void_p] if cooperative else [])  # the tiles' level counters
     return fn
 
 
@@ -279,10 +278,9 @@ class CudaHopperBackend(Backend):
     def _functions(self) -> list:
         if self._fns is None:
             lib = load_library(self.module.source)
-            levels = self.module.per_level
+            coop = self.module.cooperative
             self._fns = [
-                (_bind(lib, name, name in levels), name in levels)
-                for name in self.module.launchers
+                (_bind(lib, name, name in coop), name in coop) for name in self.module.launchers
             ]
         return self._fns
 
@@ -367,16 +365,17 @@ class CudaHopperBackend(Backend):
         noalias = int(not pairs)
         wrapper = WRAPPERS[mod.strategy]
         fns = self._functions()
+        if mod.cooperative:
+            # the tiles' level counters; each launch zeroes them first
+            flags = torch.empty(max(mod.tiles(ni, nj), 1), dtype=torch.int32, device=device)
+            keepalive.append(flags)
 
         def launch() -> None:
             with torch.cuda.device(device):
                 stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-                for fn, per_level in fns:
-                    wrapper.launch(
-                        fn,
-                        (ptrs, shapes, strides, orig, fsc, isc, ni, nj, nk, stream, noalias),
-                        per_level,
-                    )
+                args = (ptrs, shapes, strides, orig, fsc, isc, ni, nj, nk, stream, noalias)
+                for fn, cooperative in fns:
+                    wrapper.launch(fn, args + ((flags.data_ptr(),) if cooperative else ()))
 
         launch.keepalive = (keepalive, arrays)
         return launch

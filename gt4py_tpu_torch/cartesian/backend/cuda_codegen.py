@@ -49,20 +49,41 @@ data dimensions or GlobalTables; ``while`` and horizontal regions too.
     and the tile of each read-only IJ field with its halo. It then walks
     the levels of its K block; at each level it evaluates every statement
     of every vertical loop in program order, each over its tile widened by
-    its extent, with ``__syncthreads()`` after each. Temporaries and the
-    API fields read at a horizontal offset after they are written live in
-    shared-memory planes over their footprint (the union of the points the
-    statements write and read), so the halo a loop hands to the next is
-    recomputed by the block and never leaves the SM. API fields are stored
-    to device memory only at the points the block owns: its tile, and for
-    the tiles at the domain's edge the halo beyond it that a statement's
-    extent reaches (the plain version writes there too). The TPU's one-hot
-    table lookup (pallas_codegen.py:62-69) was a Mosaic workaround; here a
-    table read is an indexed shared-memory load. The layout is dynamic
-    shared memory, with ``cudaFuncSetAttribute`` above 48 KB and
-    :class:`CudaUnsupported`, naming the bytes, above the H100's 227 KB.
+    its extent. Temporaries and the API fields read at a horizontal offset
+    after they are written live in shared-memory planes over their
+    footprint (the union of the points the statements write and read), so
+    the halo a loop hands to the next is recomputed by the block and never
+    leaves the SM. API fields are stored to device memory only at the
+    points the block owns: its tile, and for the tiles at the domain's edge
+    the halo beyond it that a statement's extent reaches (the plain version
+    writes there too). The TPU's one-hot table lookup
+    (pallas_codegen.py:62-69) was a Mosaic workaround; here a table read is
+    an indexed shared-memory load. The layout is dynamic shared memory,
+    with ``cudaFuncSetAttribute`` above 48 KB and :class:`CudaUnsupported`,
+    naming the bytes, above the H100's 227 KB.
+    Two variants, as ``column``'s: ``gt_fused_plane_0_r``, launched when
+    no two field buffers overlap, prefetches its inputs through a ring of
+    planes (below), and the plain one loads them directly. The ring, the
+    tile counterpart of K2's pipelined input blocks: each 3-D API field the
+    walk reads (and, of one it writes, a read of the level before the
+    level's first write) is a ring of up to ``TILE_RING_LEVELS`` planes
+    over the footprint of its reads, fewer where the block would otherwise
+    leave under ``TILE_RESIDENT_THREADS`` threads resident on an SM, which
+    the whole block fills with ``cp.async``, each level depth − 1 levels
+    before the walk reaches it, at most ``RING_BYTES_MAX`` a block; one ``cp.async.wait_group``
+    and the level's first barrier make a level's planes visible. Between statements a barrier stands only where
+    the later one reads, at another thread's point, what the earlier one
+    wrote, or overwrites what it read (:meth:`_Generator._hazard`, from the
+    GTIR): hdiff_sponge pays three barriers a level (the level's, lap |
+    flx, fly | out_field) where it paid four and a fill barrier.
     Bound on the H100: bytes, as for ``plane``; the staged IJ fields and
-    tables are read once per block instead of once per level.
+    tables are read once per block instead of once per level. Measured
+    (PERF.md; NVIDIA H100 80GB HBM3, 700 W): hdiff_sponge 65.0 µs a
+    step in float32 (a ring of 4 levels) and 71.5 in float64 (2 levels) at
+    256×256×80, against 76.6 and 84.7 for the plain-pointer variant, which
+    has the same barriers and no ring, and a bound of 12.6 and 25.2.
+    Longer walks (``FP_TK`` 8, 16, 80) lost: each level's work on the SM,
+    not memory, holds it.
 
 ``column`` — replaces K3, ``pallas_seq._build_stage_call``
 (gt4py_tpu/cartesian/backend/pallas_seq.py:732, ``pallas_call`` at :1130,
@@ -174,43 +195,64 @@ loop).
 what ``column`` declines: a value written in a vertical loop and read at a
 horizontal offset in the same loop, as in a sweep that couples
 neighbouring columns at every level.
-    Mapping: one launch per vertical loop; grid (J tiles, I tiles), 256
+    Mapping: one launch per vertical loop; grid (J tiles, I tiles), 512
     threads per TL_TI × TL_TJ tile. The block walks the loop's K range in its
     order (PARALLEL ascending). At each level it evaluates each statement
-    over its tile widened by its extent, ``__syncthreads()`` after each.
-    The values the loop writes and reads at a horizontal offset live in a
-    small ring of shared-memory planes, one plane per level the loop reads
-    back (``acc[0, 0, -1]`` needs two); a read of a level the ring does not
-    hold — one the walk has not written — is a global load.
+    over its tile widened by its extent, with barriers placed as in
+    ``fused_plane``: one that turns the level over, and one between two
+    statements only where a plane is shared (smoothed_column_sum: one
+    between ``acc`` and ``out``, where it paid two a level). The values the
+    loop writes and reads at a horizontal offset live in a small ring of
+    shared-memory planes, one per level the loop reads back at other
+    points; a read of a level the ring does not hold — one the walk has not
+    written — is a global load. A thread computes the same points at every
+    level, so a value read at the thread's own point a level or more behind
+    the walk (``acc[0, 0, -1]``, ``out[0, 0, -1]``), written whole by one
+    statement of one extent at every level read, is a register carry, as in
+    ``column`` (:meth:`_Generator._plan_carries`). Every value is also
+    stored to device memory at the points the block owns, so later loops
+    and reads at variable or absolute K (plain global loads, clamped as the
+    ``column`` kernel clamps them) see it; a temporary that nothing reads
+    from device memory has no buffer and is never stored (smoothed_column_
+    sum's ``acc``). Other temporaries have global (K, I, J) buffers as in
+    ``column``. Two variants as in ``fused_plane``: the ``_r`` one has the
+    input ring and carries API fields too; the other carries temporaries
+    only, since another name may share an API field's memory.
     A read of an earlier level beyond the points its writers compute there
     (``acc = inp + acc[1, 0, -1]`` reaches one column further at every
     level; so does ``acc[1, 0, -1]`` read before this level's write) needs a
-    neighbouring block's value of that level. Such a loop is *per-level*:
-    K3's sequential grid finishes a whole plane before the next, and its
-    counterpart here is a grid-wide step per level. The launcher launches
-    the kernel once per level, in the walk's order, on one stream, and
-    writes how many kernels it launched for the wrapper to count; a
-    launch computes only its level ``k``, with the shared-memory planes of
-    that level, and reads every earlier level from device memory, where
-    every block stored its own points in the launch before. So the ring
-    holds one plane. One launch per level was taken over a cooperative
-    launch with ``grid.sync()``: it is as short, keeps every block's shared
-    memory and grid size free of the co-residency limit, and costs a launch
-    (a few µs) per level only for the loops that need the step; a loop
-    without the hazard stays one launch with its ring. Every value is
-    also stored to device memory at the points the block owns, so later
-    loops and reads at variable or absolute K (plain global loads, clamped
-    as the ``column`` kernel clamps them) see it. Temporaries have global
-    (K, I, J) buffers as in ``column``. Bound on the H100: the dependent K
-    chain, as for ``column``, plus the halo recompute; the grid has one
-    block per tile, so the tile is kept small to give every SM work.
+    neighbouring block's value of that level; K3's sequential grid finishes
+    a whole plane before the next. Such a loop is *cooperative*: one
+    ``cudaLaunchCooperativeKernel`` of as many blocks as are resident at
+    once (at most one per tile; the launch fails, and the wrapper raises,
+    where not one fits). Each block walks every level over its tiles in a
+    fixed order; before a tile's level, its thread 0 waits (an acquire
+    load, bounded by ``SPIN_POLLS`` and then ``__trap()``) until every tile
+    that the level's reads of earlier levels reach, worked out from the
+    read offsets and the statement extents in units of tiles, has published
+    the level before; after the tile's stores, a barrier and thread 0's
+    ``__threadfence()`` and release store publish its own. The counters are
+    an int32 buffer from the wrapper that the launcher zeroes each call.
+    Earlier levels are read from device memory through L2 (``__ldcg``),
+    since L1 is not coherent across SMs within a launch; such a loop has no
+    input ring and no carries. Measured (PERF.md): the lagged sweeps
+    take 391 and 424 µs of device time a call at 256×256×80 in float64,
+    4.9-5.3 µs a level, against ≈ 470-870 µs with a launch per level.
+    Bound on the H100: the dependent K chain, as for ``column``, plus the
+    halo recompute; the grid has one block per tile, so the tile is kept
+    small to give every SM work. Measured: smoothed_column_sum 66.3 µs a
+    step in float32 and 61.6 in float64 at 256×256×80 (before the ring, the
+    barrier rule and the carries: 117.3, 141.6),
+    against a bound of 12.5 and 25.0; ≈ 0.8 µs a level in either type and
+    at every tile shape measured, so a level's work on the SM, not its
+    bytes, holds it.
 
 Numerics follow c_codegen.py: NumPy floor-mod, true division, NaN-
 propagating min/max, banker's round. The build uses ``--fmad=false``
 (cuda_backend.py), so products and sums round as in the eager plain
 version. Arguments may alias (``stencil(a, a)``), so the kernels take plain
-pointers; the column and fused_column kernels have a second,
-``__restrict__`` variant that the wrapper launches when it has checked that
+pointers; the column, fused_column, fused_plane and tiled kernels have a
+second, ``_r`` variant that the wrapper launches when it has checked that
 no two field buffers overlap.
 Constructs no skeleton can serve raise :class:`CudaUnsupported` with the
 reason; there is no silent fallback.
@@ -242,7 +284,11 @@ SHARED_BYTES_MAX = 48 * 1024
 SHARED_BYTES_LIMIT = 227 * 1024
 #: fused_plane: levels a block walks; its tile and block are the plane
 #: kernel's. Measured on the H100 for hdiff_sponge (PERF.md): 4 levels beat
-#: 1, 2 and 8; 16 × 64 beat 8 × 64, 8 × 32 and 16 × 32, and 512 threads
+#: 1, 2 and 8; 16 × 64 beat 8 × 64, 8 × 32 and 16 × 32, and 512 threads.
+#: With the input ring (``chip_smoke.py --tile-variants``, PERF.md;
+#: f32 / f64 device µs at 256×256×80, ring depth 4): 4 levels 64.8 / 84.1,
+#: 8 levels 65.9 / 87.1, 16 levels 80.3 / 108.1, all 80 (64 blocks)
+#: 209.3 / 236.5; at depths 2 and 3 too, 4 levels won or tied
 FP_TK = 4
 #: tiled-kernel tile and block: one block per tile and no K blocks, so a
 #: small tile keeps every SM busy (256 blocks at 256 × 256); enough threads
@@ -268,6 +314,27 @@ RING_LEVELS = 4
 #: more rings only those that fit, in the order it first reads them, and
 #: loads the rest directly
 RING_BYTES_MAX = 113 * 1024
+#: tiled and fused_plane: the most levels of the input-plane ring. At level
+#: k a block starts the copies of level k + depth - 1; each ringed field
+#: holds depth planes plus one for each level behind the walk its reads
+#: reach. Measured on the H100 (PERF.md, a ``chip_smoke.py`` mode since
+#: removed; device µs at 256×256×80, FP_TK = 4, hdiff_sponge f32, f64,
+#: smoothed_column_sum f32, f64): depth 2 67.6, 71.5, 68.2, 77.3; depth 3
+#: 66.3, 74.8, 70.5, 76.3; depth 4 64.8, 84.1, 66.3, 61.6
+TILE_RING_LEVELS = 4
+#: an H100 SM's shared memory, and what each resident block reserves of it
+SM_SHARED_BYTES = 228 * 1024
+BLOCK_RESERVED_BYTES = 1024
+#: tiled and fused_plane: a ring takes fewer levels, down to 2, where its
+#: block's shared memory would leave fewer threads than this resident on an
+#: SM. In the measurements above, hdiff_sponge f64 (256 threads a block)
+#: keeps 4 blocks at depth 2, 3 at depth 3 and 2 at depth 4, and was
+#: fastest at 2; f32 keeps 4 at depth 4 and was fastest there
+TILE_RESIDENT_THREADS = 1024
+#: cooperative tiled loops: polls of a neighbour's level counter before the
+#: kernel traps, so that a scheduling fault ends the launch with an error
+#: instead of hanging it
+SPIN_POLLS = 1 << 30
 #: what a launcher returns when its grid is empty and no kernel ran
 #: (``cudaError_t`` values are never negative)
 NOTHING_LAUNCHED = -1
@@ -407,6 +474,17 @@ GT_LDS(int64_t, "b64", "l")
 GT_LDS(uint64_t, "b64", "l")
 """
 
+#: cooperative tiled loops: a tile's level counter, published with release
+#: semantics after the tile's stores and polled with acquire semantics by
+#: the blocks whose reads reach the tile
+_FLAG_PRELUDE = r"""GT_D int gt_flag_load(const int* f) {
+    int v; asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(f) : "memory"); return v;
+}
+GT_D void gt_flag_store(int* f, int v) {
+    asm volatile("st.release.gpu.global.s32 [%0], %1;\n" :: "l"(f), "r"(v) : "memory");
+}
+"""
+
 
 def _np_dtype(dtype: Any) -> np.dtype:
     if dtype is None:
@@ -476,12 +554,22 @@ class KernelModule:
     #: fused_column: the smallest K the kernel serves (a carry read must
     #: not reach before its walk's first level)
     min_nk: int = 0
-    #: launchers that launch their kernel once per level (tiled); each
-    #: takes a trailing ``long long*`` and writes there how many it launched
-    per_level: frozenset[str] = frozenset()
-    #: column and fused_column: ``__restrict__`` kernel -> the bytes of
-    #: dynamic shared memory its prefetch rings take per block
+    #: launchers of a cooperative kernel (tiled loops whose levels wait on
+    #: neighbouring tiles): each takes a trailing ``int*``, the tiles' level
+    #: counters, an int32 buffer of ``tiles(ni, nj)`` elements the wrapper
+    #: allocates and the launcher zeroes
+    cooperative: frozenset[str] = frozenset()
+    #: kernel -> the bytes of dynamic shared memory its prefetch ring takes
+    #: per block (column and fused_column: ``__restrict__`` variants; tiled
+    #: and fused_plane: the input-plane ring)
     ring_bytes: dict[str, int] = dataclasses.field(default_factory=dict)
+    #: the tiled kernels' tile (rows of I, columns of J) the source was
+    #: generated for
+    tile: tuple[int, int] = (0, 0)
+
+    def tiles(self, ni: int, nj: int) -> int:
+        """Tiles of a tiled kernel's grid over an ni × nj domain."""
+        return -(-ni // self.tile[0]) * -(-nj // self.tile[1])
 
 
 def _is_k_shift(acc: gtir.FieldAccess) -> bool:
@@ -552,7 +640,8 @@ class _Item:
 class _Buffer:
     """A symbol held in shared memory by a fused_plane or tiled block:
     ``shared`` (a temporary or a written API field read at other points),
-    ``staged`` (a read-only IJ field, loaded once) or ``table``. Planes
+    ``staged`` (a read-only IJ field, loaded once), ``table``, or ``input``
+    (a ring of planes of a 3-D field the walk reads, copied ahead). Planes
     cover the tile widened by the footprint ``fp``; a ring holds ``ring``
     planes; each point holds ``nd`` data-dimension elements."""
 
@@ -569,6 +658,9 @@ class _Buffer:
     init: frozenset[int] = frozenset()
     #: tiled: the sections that write the symbol, whose levels the ring holds
     writers: frozenset[int] = frozenset()
+    #: kind "input" (a ringed input's planes): the reads it serves, per
+    #: statement (``id``), as (name, offset)
+    serves: dict = dataclasses.field(default_factory=dict)
 
     @property
     def plane(self) -> int:
@@ -579,6 +671,11 @@ class _Buffer:
         if self.kind == "table":
             return int(np.prod(self.meta.data_dims)) if self.meta.data_dims else 1
         return self.plane * self.nd * self.ring
+
+    @property
+    def bytes(self) -> int:
+        """Its bytes of dynamic shared memory, 16-byte aligned."""
+        return -(-self.elements * self.meta.dtype.itemsize // 16) * 16
 
 
 @dataclasses.dataclass
@@ -683,6 +780,21 @@ def _full_write(it: _Item, name: str) -> bool:
     )
 
 
+def _is_carry(carries: dict, r: gtir.FieldAccess, backward: bool) -> bool:
+    """tiled: a read of a carried value at the thread's own point, a
+    constant number of levels behind the walk."""
+    dk = r.offset[2]
+    return (
+        r.name in carries
+        and r.offset[:2] == (0, 0)
+        and dk != 0
+        and (dk > 0) == backward
+        and r.koffset is None
+        and r.abs_k is None
+        and not r.data_index
+    )
+
+
 def _loop_symbols(vloop: gtir.VerticalLoop):
     """(writes, reads) of one vertical loop, as FieldAccess lists."""
     writes, reads = [], []
@@ -774,8 +886,22 @@ class _Generator:
         self.item: Optional[_Item] = None
         self.loop_sections: list[tuple[int, gtir.Interval]] = []
         self.section_writes: set[str] = set()
-        #: tiled: the loops launched once per level
-        self.per_level: set[int] = set()
+        #: tiled: the loops whose levels wait on neighbouring tiles (one
+        #: cooperative launch each), each loop's own-column carries (name ->
+        #: (depth, statement extent)), and the temporaries no kernel reads
+        #: from device memory (no buffer)
+        self.cooperative: set[int] = set()
+        self.tiled_carries: dict[int, dict[str, tuple[int, Extent]]] = {}
+        self.carries: dict[str, tuple[int, Extent]] = {}
+        self.no_buffer: set[str] = set()
+        #: tiled and fused_plane: each kernel's input-plane ring (planner
+        #: output, kernel index -> buffers of kind "input"), and whether the
+        #: variant being emitted is the ``_r`` one (ring and API-field carries)
+        self.tile_rings: dict[int, list[_Buffer]] = {}
+        self.noalias = False
+        #: cooperative tiled kernels: fields read from L2 (``__ldcg``), since
+        #: another SM may have written them during the launch
+        self.coherent: set[str] = set()
         #: column and fused_column: what is kept on chip, the loop being
         #: emitted, and the smallest K served
         self.held: dict[str, _Held] = {}
@@ -796,7 +922,7 @@ class _Generator:
         for meta in self.fields.values():  # global (K, I, J) buffers
             h = self.held.get(meta.name)
             if meta.is_temp and (
-                self.strategy == "tiled"
+                (self.strategy == "tiled" and meta.name not in self.no_buffer)
                 or (self.strategy in ("column", "fused_column") and (h is None or h.cross))
             ):
                 meta.index = len(self.slots)
@@ -954,6 +1080,8 @@ class _Generator:
         staged = frozenset(
             b.meta.name for b in self.fused_plan or () if b.kind in ("staged", "table")
         )
+        if self.cooperative:
+            head.insert(2, _FLAG_PRELUDE)
         if self.ring_bytes:
             head.insert(2, _RING_PRELUDE)
         # NOTE: name-free source: the library cache is keyed by its hash, so
@@ -969,8 +1097,9 @@ class _Generator:
             nonlocal_reads=_nonlocal_reads(self.analyzed, self.strategy, staged),
             unit_axes=self._unit_axes(),
             min_nk=self.min_nk,
-            per_level=frozenset(f"gt_launch_{n}" for n in self.per_level),
+            cooperative=frozenset(f"gt_launch_{n}" for n in self.cooperative),
             ring_bytes=dict(self.ring_bytes),
+            tile=(TL_TI, TL_TJ),
         )
 
     def _unit_axes(self) -> dict[str, str]:
@@ -1022,16 +1151,16 @@ class _Generator:
 
     def _emit_launcher(
         self, n: int, kernel: str, grid: str, block: str, noalias_call: str = "",
-        smem: int = 0, levels=(), noalias_smem: int = 0,
+        smem: int = 0, cooperative: bool = False, noalias_smem: int = 0,
     ) -> None:
         """``noalias`` (set by the wrapper when no two field buffers
         overlap) selects ``noalias_call``, the ``__restrict__`` variant
         ``<kernel>_r``, which takes ``noalias_smem`` bytes of dynamic shared
         memory. ``smem`` bytes of dynamic shared memory; above 48 KB the
         kernel is first allowed them with ``cudaFuncSetAttribute``.
-        ``levels``: the host loops over ``k`` of a per-level kernel, launched
-        once a level; its launcher writes how many it launched to
-        ``*launched``."""
+        ``cooperative``: one ``cudaLaunchCooperativeKernel`` of as many
+        blocks as are resident at once, at most one per tile of ``grid``,
+        after zeroing the tiles' level counters ``flags``."""
         self.emit(
             f'extern "C" int gt_launch_{n}(void* const* fields, const long long* shapes,'
         )
@@ -1039,7 +1168,7 @@ class _Generator:
         self.emit("    const double* fscalars, const long long* iscalars,")
         self.emit(
             "    long long ni, long long nj, long long nk, void* stream, int noalias"
-            + (", long long* launched) {" if levels else ") {")
+            + (", int* flags) {" if cooperative else ") {")
         )
         self.indent += 1
         self.emit("GtParams p;")
@@ -1051,22 +1180,43 @@ class _Generator:
         )
         if smem > SHARED_BYTES_MAX:
             self._emit_smem_allowance(kernel, smem)
-        if levels:
+        if cooperative:
             self.emit("(void)noalias;")
-            self.emit("*launched = 0;")
-            for walk in levels:
-                with self._block(walk):
-                    self.emit(f"{kernel}<<<grid, block, {smem}, (cudaStream_t)stream>>>(p, k);")
-                    self.emit("++*launched;")
-            self.emit(f"if (*launched == 0) return {NOTHING_LAUNCHED};")
-        elif noalias_call:
+            self.emit("int gt_dev = 0, gt_sms = 0, gt_per_sm = 0;")
+            self.emit("cudaError_t gt_c = cudaGetDevice(&gt_dev);")
+            self.emit(
+                "if (gt_c == cudaSuccess) gt_c = cudaDeviceGetAttribute(&gt_sms, "
+                "cudaDevAttrMultiProcessorCount, gt_dev);"
+            )
+            self.emit(
+                "if (gt_c == cudaSuccess) gt_c = cudaOccupancyMaxActiveBlocksPerMultiprocessor("
+                f"&gt_per_sm, {kernel}, (int)block.x, {smem});"
+            )
+            self.emit("if (gt_c != cudaSuccess) return (int)gt_c;")
+            self.emit("const long long gt_tiles = (long long)grid.x * grid.y;")
+            self.emit("const long long gt_fit = (long long)gt_per_sm * gt_sms;")
+            self.emit("const long long gt_blocks = gt_tiles < gt_fit ? gt_tiles : gt_fit;")
+            self.emit("if (gt_blocks == 0) return (int)cudaErrorCooperativeLaunchTooLarge;")
+            self.emit(
+                "gt_c = cudaMemsetAsync(flags, 0, gt_tiles * sizeof(int), (cudaStream_t)stream);"
+            )
+            self.emit("if (gt_c != cudaSuccess) return (int)gt_c;")
+            self.emit("void* gt_args[] = {(void*)&p, (void*)&flags};")
+            self.emit(
+                f"return (int)cudaLaunchCooperativeKernel((const void*){kernel}, "
+                f"dim3((unsigned)gt_blocks), block, gt_args, {smem}, (cudaStream_t)stream);"
+            )
+            self.indent -= 1
+            self.emit("}")
+            return
+        if noalias_call:
             if noalias_smem > SHARED_BYTES_MAX:
                 with self._block("if (noalias)"):
                     self._emit_smem_allowance(f"{kernel}_r", noalias_smem)
                     self.emit(f"{noalias_call};")
             else:
                 self.emit(f"if (noalias) {noalias_call};")
-            self.emit(f"else {kernel}<<<grid, block, 0, (cudaStream_t)stream>>>(p);")
+            self.emit(f"else {kernel}<<<grid, block, {smem}, (cudaStream_t)stream>>>(p);")
         else:
             self.emit("(void)noalias;")
             self.emit(f"{kernel}<<<grid, block, {smem}, (cudaStream_t)stream>>>(p);")
@@ -2085,7 +2235,7 @@ class _Generator:
         total = 0
         for b in buffers:
             b.offset = total
-            total += -(-b.elements * b.meta.dtype.itemsize // 16) * 16
+            total += b.bytes
         if total > SHARED_BYTES_LIMIT:
             raise CudaUnsupported(
                 f"{kernel} needs {total} bytes of shared memory per block "
@@ -2136,6 +2286,9 @@ class _Generator:
                     )
                 )
         self.fused_bytes = self._layout(buffers, "fused_plane")
+        self.tile_rings[0] = self._plan_tile_ring(
+            items, buffers, (TI, TJ), PLANE_THREADS, self.fused_bytes, fused=True
+        )
         return buffers
 
     def _plan_tiled(self, n: int) -> list[_Buffer]:
@@ -2164,9 +2317,13 @@ class _Generator:
         ]
         # a ring plane holds an earlier level only where this block computed
         # it; a read beyond that needs a neighbouring block's value of that
-        # level, so the loop takes a grid-wide step per level
+        # level, so the loop's levels wait on the neighbouring tiles
         if any(self._lagged_read(items, m.name) for m in shared):
-            self.per_level.add(n)
+            self.cooperative.add(n)
+        coop = n in self.cooperative
+        carries = {} if coop else self._plan_carries(n, items)
+        self.tiled_carries[n] = carries
+        backward = order == gtir.LoopOrder.BACKWARD
         buffers = []
         for m in shared:
             name = m.name
@@ -2190,15 +2347,17 @@ class _Generator:
                         raise CudaUnsupported(
                             f"'{name}' is read at K offset {dk}, ahead of the walk"
                         )
+                    if not is_write and _is_carry(carries, a, backward):
+                        continue  # a register
                     reach = max(reach, abs(dk))
-            if n in self.per_level:
+            if coop:
                 reach = 0  # earlier levels come from device memory
             if reach and not contiguous:
                 raise CudaUnsupported(
                     f"'{name}' is read at a K offset in a loop whose sections are not contiguous"
                 )
             b = self._shared_buffer(
-                items, name, (TL_TI, TL_TJ), ring=reach + 1, level_only=n in self.per_level
+                items, name, (TL_TI, TL_TJ), ring=reach + 1, level_only=coop
             )
             b.writers = frozenset(it.section for it in items if it.writes_name(name))
             init = set()
@@ -2211,8 +2370,249 @@ class _Generator:
                     init.add(sid)
             b.init = frozenset(init)
             buffers.append(b)
-        self.tiled_bytes[n] = self._layout(buffers, "tiled")
+            if m.is_temp and not coop and not init and self._on_chip_only(n, b, carries):
+                self.no_buffer.add(name)
+        total = self._layout(buffers, "tiled")
+        self.tiled_bytes[n] = total
+        if not coop and contiguous:
+            self.tile_rings[n] = self._plan_tile_ring(
+                items, buffers, (TL_TI, TL_TJ), TILED_THREADS, total, backward
+            )
         return buffers
+
+    def _plan_carries(self, n: int, items: list[_Item]) -> dict[str, tuple[int, Extent]]:
+        """tiled: the values of loop ``n`` read at the thread's own point a
+        level or more behind the walk that a register carries from level to
+        level, as ``column`` carries its held temporaries: name -> (depth,
+        extent). A thread computes the same point of a statement at every
+        level, so where every write of the value is one unconditional
+        statement over one extent, that extent fits one pass of the block's
+        threads, every such read lies in a statement of that extent, and
+        every level read is one a writing section set (``_levels_set``), the
+        thread's register holds what device memory would."""
+        vloop = self.stencil.vertical_loops[n]
+        if vloop.loop_order == gtir.LoopOrder.PARALLEL:
+            return {}
+        backward = vloop.loop_order == gtir.LoopOrder.BACKWARD
+        first = sum(len(v.sections) for v in self.stencil.vertical_loops[:n])
+        out = {}
+        for name in sorted({w.name for it in items for w in it.writes}):
+            m = self.fields[name]
+            writers = [it for it in items if it.writes_name(name)]
+            ext = writers[0].ext
+            rows, cols = TL_TI + ext.i[1] - ext.i[0], TL_TJ + ext.j[1] - ext.j[0]
+            if (
+                m.data_dims
+                or rows * cols > TILED_THREADS
+                or not all(_full_write(it, name) and it.ext == ext for it in writers)
+                or (not m.is_temp and self._nonlocal_read(items, name))
+            ):
+                continue
+            probe = {name: (1, ext)}
+            behind = [(it, r) for it in items for r in it.reads if _is_carry(probe, r, backward)]
+            if not behind or any(it.ext != ext for it, _ in behind):
+                continue
+            fulls = [
+                any(it.section == first + s and it.writes_name(name) for it in writers)
+                for s in range(len(vloop.sections))
+            ]
+            inside, tall = self._levels_set(
+                vloop, fulls, [_shifted(it.interval, r.offset[2]) for it, r in behind]
+            )
+            if inside and tall <= self.analyzed.domain_info.min_sequential_axis_size:
+                out[name] = (max(abs(r.offset[2]) for _, r in behind), ext)
+        return out
+
+    def _ring_holds(self, n: int, b: _Buffer, interval: gtir.Interval, dk: int) -> bool:
+        """tiled: every level ``dk`` away from the levels of ``interval`` is
+        one that a section writing ``b``'s symbol computes, so its ring
+        holds the level whenever the section runs."""
+        vloop = self.stencil.vertical_loops[n]
+        first = sum(len(v.sections) for v in self.stencil.vertical_loops[:n])
+        fulls = [first + s in b.writers for s in range(len(vloop.sections))]
+        inside, tall = self._levels_set(vloop, fulls, [_shifted(interval, dk)])
+        return inside and tall <= self.analyzed.domain_info.min_sequential_axis_size
+
+    def _on_chip_only(self, n: int, b: _Buffer, carries) -> bool:
+        """tiled: no read of ``b``'s temporary goes to device memory: no other
+        loop touches it, and each read in loop ``n`` is a carry, a read of
+        the current level in a section that writes it, or a read of a level
+        its ring holds."""
+        name = b.meta.name
+        backward = self.stencil.vertical_loops[n].loop_order == gtir.LoopOrder.BACKWARD
+        for it in self._items(range(len(self.stencil.vertical_loops))):
+            if it.loop != n and any(a.name == name for a in it.reads + it.writes):
+                return False
+            for r in it.reads:
+                if r.name != name or it.loop != n or _is_carry(carries, r, backward):
+                    continue
+                dk = r.offset[2]
+                if dk == 0 and it.section not in b.writers:
+                    return False
+                if dk and not self._ring_holds(n, b, it.interval, dk):
+                    return False
+        return True
+
+    def _plan_tile_ring(
+        self, items: list[_Item], buffers: list[_Buffer], tile, threads: int, base: int,
+        backward: bool = False, fused: bool = False,
+    ) -> list[_Buffer]:
+        """tiled and fused_plane, ``_r`` variants: the input-plane ring, the
+        tile counterpart of ``column``'s (:meth:`_plan_ring`), at the most
+        levels up to ``TILE_RING_LEVELS`` at which the block, ``base`` bytes
+        of shared memory and its ring, leaves ``TILE_RESIDENT_THREADS``
+        threads resident on an SM (at least 2). Each 3-D API field of 4 or
+        8 bytes without data dimensions that the walk reads and holds in no
+        other shared buffer is a ring of ``depth`` planes over the footprint
+        of the reads it serves, plus one for each level behind the walk
+        those reach. It serves a read at a constant K offset at most
+        ``depth - 1`` levels behind the walk or ``depth - 2`` ahead, except
+        one at a horizontal offset in a horizontal region (its address may
+        lie outside the allocation); of a field any statement of the walk
+        writes, in any section, only a read of the current level, outside
+        any ``while``, before any statement of the level writes it
+        (``fused``: before any statement of any loop writes it): its value
+        from before the walk, at points this block alone writes. Fields are
+        ringed in the order the walk first reads them while the ring stays
+        within ``RING_BYTES_MAX`` and the block within the card's shared
+        memory; the others' reads stay direct loads."""
+        for depth in range(TILE_RING_LEVELS, 1, -1):
+            ring = self._tile_ring_at(items, buffers, tile, base, depth, backward, fused)
+            used = base + sum(b.bytes for b in ring) + BLOCK_RESERVED_BYTES
+            if not ring or SM_SHARED_BYTES // used * threads >= TILE_RESIDENT_THREADS:
+                break
+        offset = base
+        for b in ring:
+            b.offset = offset
+            offset += b.bytes
+        return ring
+
+    def _tile_ring_at(
+        self, items: list[_Item], buffers: list[_Buffer], tile, base: int, depth: int,
+        backward: bool, fused: bool,
+    ) -> list[_Buffer]:
+        """:meth:`_plan_tile_ring`'s ring of ``depth`` levels."""
+        held = {b.meta.name for b in buffers}
+        serves: dict[str, dict] = {}  # name -> {id(stmt): {(name, offset)}}
+        reach: dict[str, list[int]] = {}
+        foot: dict[str, Extent] = {}
+        for it in items:
+            stmt = it.stmt
+            is_while = isinstance(stmt, gtir.While)
+            masked = bool(getattr(stmt, "horizontal_masks", ())) or (
+                is_while and any(getattr(s, "horizontal_masks", ()) for s in stmt.body)
+            )
+            for r in it.reads:
+                m = self.fields.get(r.name)
+                di, dj, dk = r.offset
+                q = -dk if backward else dk
+                if (
+                    m is None
+                    or m.is_temp
+                    or r.name in held
+                    or m.axes != (True, True, True)
+                    or m.data_dims
+                    or m.dtype.itemsize not in (4, 8)
+                    or r.koffset is not None
+                    or r.abs_k is not None
+                    or r.data_index
+                    or ((di or dj) and masked)
+                    or -q > depth - 1
+                    or q > depth - 2
+                ):
+                    continue
+                # the ring copies a level before the walk reaches it, so of a
+                # field any section writes, it may hold only what the read
+                # finds there before the level's first write
+                writes = [w for w in items if w.writes_name(r.name)]
+                if writes and (
+                    dk
+                    or is_while
+                    or any(
+                        w.pos < it.pos for w in writes if fused or w.section == it.section
+                    )
+                ):
+                    continue
+                serves.setdefault(r.name, {}).setdefault(id(stmt), set()).add(
+                    (r.name, r.offset)
+                )
+                reach.setdefault(r.name, []).append(q)
+                e = it.ext.shifted_ij(di, dj)
+                foot[r.name] = foot[r.name].union(e) if r.name in foot else e
+
+        def planes(names: list[str]) -> list[_Buffer]:
+            back = max(0, max(-q for name in names for q in reach[name]))
+            out = []
+            for name in names:
+                fp = Extent(i=foot[name].i, j=foot[name].j)
+                out.append(
+                    _Buffer(
+                        meta=self.fields[name], kind="input", fp=fp,
+                        rows=tile[0] + fp.i[1] - fp.i[0], cols=tile[1] + fp.j[1] - fp.j[0],
+                        ring=depth + back, serves=serves[name],
+                    )
+                )
+            return out
+
+        kept: list[str] = []
+        for name in serves:
+            trial = sum(b.bytes for b in planes(kept + [name]))
+            if trial <= RING_BYTES_MAX and base + trial <= SHARED_BYTES_LIMIT:
+                kept.append(name)
+        return planes(kept) if kept else []
+
+    def _other_level(self, it: _Item, r: gtir.FieldAccess) -> bool:
+        """The K-offset read ``r`` of statement ``it`` reads another level
+        than the current one at every level the statement runs: a register
+        carry, or a level inside the K range for every K the stencil takes,
+        so that no clamp brings it onto the current level."""
+        backward = self.loop >= 0 and (
+            self.stencil.vertical_loops[self.loop].loop_order == gtir.LoopOrder.BACKWARD
+        )
+        if _is_carry(self.carries, r, backward):
+            return True
+        iv = _shifted(it.interval, r.offset[2])
+        min_k = self.analyzed.domain_info.min_sequential_axis_size
+        S = gtir.LevelMarker.START
+        low = iv.start.offset >= 0 if iv.start.level == S else iv.start.offset + min_k >= 0
+        high = iv.end.offset <= min_k if iv.end.level == S else iv.end.offset <= 0
+        return low and high
+
+    def _hazard(self, since: list[_Item], it: _Item, alias: bool) -> bool:
+        """A barrier must come before ``it``: since the last barrier, a
+        statement wrote a symbol that ``it`` accesses, or read one that
+        ``it`` writes, where another thread may take the point (the two
+        statements' extents differ, or an access lies at a horizontal
+        offset), or at any level (a variable or absolute K). A read that
+        surely finds another level than the current one (:meth:`_other_level`)
+        does not meet the level's writes; any other K-offset read may be
+        clamped onto the current level. ``alias``: the API fields may share
+        memory, so they count as one symbol."""
+
+        def key(a) -> str:
+            return "" if alias and a.name in api else a.name
+
+        api = {n for n, m in self.fields.items() if not m.is_temp}
+        for e in since:
+            for w_side, r_side in ((e, it), (it, e)):
+                for w in w_side.writes:
+                    for a in r_side.reads + r_side.writes:
+                        if key(a) != key(w):
+                            continue
+                        anywhere = any(
+                            x.koffset is not None or x.abs_k is not None for x in (a, w)
+                        )
+                        if a.offset[2] and not anywhere and self._other_level(r_side, a):
+                            continue
+                        if (
+                            anywhere
+                            or e.ext != it.ext
+                            or a.name != w.name
+                            or a.offset[:2] != (0, 0)
+                            or w.offset[:2] != (0, 0)
+                        ):
+                            return True
+        return False
 
     # -- fused_plane and tiled: emission -----------------------------------------
 
@@ -2258,7 +2658,10 @@ class _Generator:
                 self.emit(f"const char* gt_a = {' + '.join([v] + terms)};")
                 if b.nd > 1:
                     self._emit_unravel(m, f"q % {b.nd}")
-                self.emit(f"gt_x = *(const {ct}*)gt_a;")
+                if m.name in self.coherent:
+                    self.emit(f"gt_x = __ldcg((const {ct}*)gt_a);")
+                else:
+                    self.emit(f"gt_x = *(const {ct}*)gt_a;")
             self.emit(f"{v}_s[{dest}] = gt_x;")
 
     def _emit_table_stage(self, b: _Buffer, threads: int) -> None:
@@ -2269,11 +2672,16 @@ class _Generator:
             self.emit(f"{v}_s[q] = *(const {ct}*)gt_a;")
 
     def _emit_item(self, it: _Item, tile, threads: int) -> None:
-        """One statement over the tile widened by its extent, then a
-        barrier."""
+        """One statement over the tile widened by its extent."""
         ext = it.ext
         rows = tile[0] + ext.i[1] - ext.i[0]
         cols = tile[1] + ext.j[1] - ext.j[0]
+        self.ring_reads = frozenset(
+            read
+            for b in self.buffers.values()
+            if b.kind == "input"
+            for read in b.serves.get(id(it.stmt), ())
+        )
         with self._block(f"for (int q = tid; q < {rows * cols}; q += {threads})"):
             self.emit(f"const long long i = i0 + ({ext.i[0]}) + q / {cols};")
             self.emit(f"const long long j = j0 + ({ext.j[0]}) + q % {cols};")
@@ -2288,8 +2696,17 @@ class _Generator:
                             f"const int {m.var}_x = (int)((i - i0 - ({b.fp.i[0]})) * {b.cols}"
                             f" + (j - j0 - ({b.fp.j[0]})));"
                         )
+                    # a ringed field's address at the point, for its reads
+                    # the ring does not serve and for its stores
+                    direct = b is not None and b.kind == "input" and (
+                        it.writes_name(name)
+                        or any(
+                            r.name == name and (name, r.offset) not in self.ring_reads
+                            for r in it.reads
+                        )
+                    )
                     if self.strategy == "fused_plane" and any(m.axes) and (
-                        b is None or (b.kind == "shared" and not m.is_temp)
+                        b is None or (b.kind == "shared" and not m.is_temp) or direct
                     ):
                         self._emit_field_base(m, with_k=True)
                 if it.wide:
@@ -2300,17 +2717,123 @@ class _Generator:
                 self.item = it
                 self._emit_stmt(it.stmt)
                 self.item = None
+        self.ring_reads = frozenset()
+
+    def _emit_statements(self, items: list[_Item], tile, threads: int, since: list) -> list:
+        """Statements in order, a barrier before each that :meth:`_hazard`
+        says needs one; ``since``: the statements since the last barrier
+        that surely ran. Returns those after the last statement."""
+        since = list(since)
+        for it in items:
+            if since and self._hazard(since, it, alias=not self.noalias):
+                self.emit("__syncthreads();")
+                since = []
+            self._emit_item(it, tile, threads)
+            since.append(it)
+        return since
+
+    def _ring_span(self, ring: list[_Buffer], backward: bool) -> tuple[int, int]:
+        """(back, ahead): how many levels behind and ahead of the walk the
+        reads a tile ring serves reach."""
+        qs = [
+            -off[2] if backward else off[2]
+            for b in ring for reads in b.serves.values() for _, off in reads
+        ]
+        return max(0, -min(qs)), max(0, max(qs))
+
+    def _emit_tile_ring_setup(
+        self, ring: list[_Buffer], threads: int, w0: str, wn: str, backward: bool
+    ) -> int:
+        """The tile ring's shared address, ``gt_tfetch(f)`` (the whole block
+        copies level ``f`` steps into the walk of every ringed plane with
+        ``cp.async``, clamped as ``gt_clampk`` clamps a read, at the points
+        of the footprint inside the widened domain; one commit group a
+        level), and the prologue: the levels behind the walk its reads reach
+        and the first ``depth - 1``. Returns (how far ahead the reads reach,
+        the ring's depth)."""
+        back, ahead = self._ring_span(ring, backward)
+        depth = ring[0].ring - back
+        self.emit("const unsigned gt_sm = (unsigned)__cvta_generic_to_shared(gt_smem);")
+        self.emit(f"const long long gt_w0 = {w0}, gt_wn = {wn};")
+        self.emit("auto gt_tfetch = [&](const int gt_f) {")
+        self.indent += 1
+        with self._block(f"if (gt_f < gt_wn + {ahead})"):
+            self.emit(f"const long long gt_k = gt_w0 {'-' if backward else '+'} gt_f;")
+            for b in ring:
+                m, v, size = b.meta, b.meta.var, b.meta.dtype.itemsize
+                with self._block(""):
+                    self.emit(
+                        f"const unsigned gt_d = gt_sm + {b.offset}u + "
+                        f"(unsigned)gt_slot(gt_k, {b.ring}) * {b.plane * size}u;"
+                    )
+                    self.emit(
+                        f"const char* const gt_g = {v} + gt_clampk({v}_ok + gt_k, {v}_nk) * {v}_sk;"
+                    )
+                    with self._block(f"for (int q = tid; q < {b.plane}; q += {threads})"):
+                        self.emit(f"const long long i = i0 + ({b.fp.i[0]}) + q / {b.cols};")
+                        self.emit(f"const long long j = j0 + ({b.fp.j[0]}) + q % {b.cols};")
+                        self.emit(
+                            f"if (i < ni + ({b.fp.i[1]}) && j < nj + ({b.fp.j[1]})) "
+                            f"gt_cp_async{size}(gt_d + (unsigned)q * {size}u, "
+                            f"gt_g + ({v}_oi + i) * {v}_si + ({v}_oj + j) * {v}_sj);"
+                        )
+        self.emit("gt_cp_commit();")
+        self.indent -= 1
+        self.emit("};")
+        self.emit(
+            f"for (int gt_f = {-back}; gt_f < {depth - 1}; ++gt_f) gt_tfetch(gt_f);"
+        )
+        return ahead, depth
+
+    def _emit_level_start(self, ring: list[_Buffer], span: tuple[int, int], walk_pos: str) -> None:
+        """The barrier that turns a level over: the level's planes have
+        landed (the ring's wait) and no thread still reads the slots the
+        level overwrites; then the ring starts the copies of the level
+        ``depth - 1`` steps on. ``span``: (ahead, depth) of
+        :meth:`_emit_tile_ring_setup`."""
+        ahead, depth = span
+        if ring:
+            self.emit(f"const int gt_p = (int)({walk_pos});")
+            self.emit(f"gt_cp_wait<{depth - 2 - ahead}>();")
         self.emit("__syncthreads();")
+        if ring:
+            self.emit(f"gt_tfetch(gt_p + {depth - 1});")
 
     def _emit_fused_plane_kernel(self) -> None:
         """One launch per stencil: stage the K-invariant data, then walk the
-        block's levels through every statement of every vertical loop."""
+        block's levels through every statement of every vertical loop. Two
+        variants: ``gt_fused_plane_0`` for any arguments, and
+        ``gt_fused_plane_0_r``, which prefetches its inputs through the
+        tile ring, for arguments that do not overlap."""
+        kernel = "gt_fused_plane_0"
+        ring = self.tile_rings.get(0, [])
+        self._emit_fused_plane_variant(kernel, [])
+        smem_r = self.fused_bytes
+        if ring:
+            self.noalias = True
+            self._emit_fused_plane_variant(kernel + "_r", ring)
+            self.noalias = False
+            smem_r = ring[-1].offset + ring[-1].bytes
+            self.ring_bytes[kernel + "_r"] = smem_r - self.fused_bytes
+        self._emit_launcher(
+            0,
+            kernel,
+            f"(unsigned)((nj + {TJ - 1}) / {TJ}), (unsigned)((ni + {TI - 1}) / {TI}), "
+            f"(unsigned)((nk + {FP_TK - 1}) / {FP_TK})",
+            f"{PLANE_THREADS}",
+            smem=self.fused_bytes,
+            noalias_call=(
+                f"{kernel}_r<<<grid, block, {smem_r}, (cudaStream_t)stream>>>(p)" if ring else ""
+            ),
+            noalias_smem=smem_r,
+        )
+
+    def _emit_fused_plane_variant(self, kernel: str, ring: list[_Buffer]) -> None:
         plan = self.fused_plan
         loops = self.stencil.vertical_loops
         items = self._items(range(len(loops)))
         names = {a.name for it in items for a in it.reads + it.writes}
-        self.buffers = {b.meta.name: b for b in plan}
-        kernel = "gt_fused_plane_0"
+        self.buffers = {b.meta.name: b for b in plan + ring}
         self.emit(
             f"__global__ void __launch_bounds__({PLANE_THREADS}) {kernel}(const GtParams p) {{"
         )
@@ -2322,16 +2845,18 @@ class _Generator:
         self.emit(f"const long long kb1 = kb0 + {FP_TK} < nk ? kb0 + {FP_TK} : nk;")
         self.emit("const int tid = threadIdx.x;")
         self._emit_ownership(TI, TJ)
-        self._emit_buffer_pointers(plan)
-        staged = [b for b in plan if b.kind in ("staged", "table")]
-        for b in staged:
+        self._emit_buffer_pointers(plan + ring)
+        for b in plan:
             if b.kind == "table":
                 self._emit_table_stage(b, PLANE_THREADS)
-            else:
+            elif b.kind == "staged":
                 self._emit_plane_fill(b, PLANE_THREADS, level=False)
-        if staged:
-            self.emit("__syncthreads();")
+        span = (
+            self._emit_tile_ring_setup(ring, PLANE_THREADS, "kb0", "kb1 - kb0", False)
+            if ring else (0, 0)
+        )
         with self._block("for (long long k = kb0; k < kb1; ++k)"):
+            self._emit_level_start(ring, span, "k - gt_w0")
             inits = [b for b in plan if b.kind == "shared" and b.init]
             for b in inits:
                 if b.meta.is_temp:
@@ -2343,54 +2868,115 @@ class _Generator:
                     self._emit_plane_fill(b, PLANE_THREADS, level=True)
             if inits:
                 self.emit("__syncthreads();")
+            since: list = []
             for sid in sorted({it.section for it in items}):
                 sec = [it for it in items if it.section == sid]
                 lo, hi = self._k_bound(sec[0].interval.start), self._k_bound(sec[0].interval.end)
                 with self._block(f"if (k >= {lo} && k < {hi})"):
-                    for it in sec:
-                        self._emit_item(it, (TI, TJ), PLANE_THREADS)
+                    self._emit_statements(sec, (TI, TJ), PLANE_THREADS, since)
+                # a barrier inside the section may not run: the section's
+                # statements stay pending for the next
+                since += sec
+        if ring:
+            self.emit("gt_cp_wait_all();")
         self.indent -= 1
         self.emit("}")
         self.emit()
         self.buffers = {}
-        self._emit_launcher(
-            0,
-            kernel,
-            f"(unsigned)((nj + {TJ - 1}) / {TJ}), (unsigned)((ni + {TI - 1}) / {TI}), "
-            f"(unsigned)((nk + {FP_TK - 1}) / {FP_TK})",
-            f"{PLANE_THREADS}",
-            smem=self.fused_bytes,
-        )
 
     def _emit_tiled_kernel(self, n: int, vloop: gtir.VerticalLoop) -> None:
         """One launch per vertical loop: each block walks the loop's levels
-        in order over its tile. A per-level loop: one launch per level, in
-        the walk's order, each computing its level ``k``."""
+        in order over its tile, in two variants as ``fused_plane``: the
+        ``_r`` one prefetches its inputs through the tile ring and carries
+        API fields in registers too. A cooperative loop: one variant, whose
+        blocks walk the levels over every tile of theirs, each tile waiting
+        for the neighbouring tiles its reads reach to finish the level
+        before."""
+        kernel = f"gt_tiled_{n}"
+        grid = (
+            f"(unsigned)((nj + {TL_TJ - 1}) / {TL_TJ}), (unsigned)((ni + {TL_TI - 1}) / {TL_TI}), 1u"
+        )
+        smem = self.tiled_bytes[n]
+        if n in self.cooperative:
+            self._emit_tiled_variant(n, vloop, kernel, [], cooperative=True)
+            self._emit_launcher(n, kernel, grid, f"{TILED_THREADS}", smem=smem, cooperative=True)
+            return
+        ring = self.tile_rings.get(n, [])
+        carries = self.tiled_carries.get(n, {})
+        api_carries = any(not self.fields[c].is_temp for c in carries)
+        self._emit_tiled_variant(n, vloop, kernel, [])
+        smem_r = smem
+        if ring or api_carries:
+            self.noalias = True
+            self._emit_tiled_variant(n, vloop, kernel + "_r", ring)
+            self.noalias = False
+        if ring:
+            smem_r = ring[-1].offset + ring[-1].bytes
+            self.ring_bytes[kernel + "_r"] = smem_r - smem
+        self._emit_launcher(
+            n,
+            kernel,
+            grid,
+            f"{TILED_THREADS}",
+            smem=smem,
+            noalias_call=(
+                f"{kernel}_r<<<grid, block, {smem_r}, (cudaStream_t)stream>>>(p)"
+                if ring or api_carries else ""
+            ),
+            noalias_smem=smem_r,
+        )
+
+    def _emit_tiled_variant(
+        self, n: int, vloop, kernel: str, ring: list[_Buffer], cooperative: bool = False
+    ) -> None:
         plan = self.tiled_plans[n]
         items = self._items([n])
         names = {a.name for it in items for a in it.reads + it.writes}
-        self.buffers = {b.meta.name: b for b in plan}
+        self.buffers = {b.meta.name: b for b in plan + ring}
         self.loop = n
-        per_level = n in self.per_level
-        kernel = f"gt_tiled_{n}"
-        level_param = ", const long long k" if per_level else ""
+        backward = vloop.loop_order == gtir.LoopOrder.BACKWARD
+        self.carries = {
+            name: c for name, c in self.tiled_carries.get(n, {}).items()
+            if self.noalias or self.fields[name].is_temp
+        }
+        written = {w.name for it in items for w in it.writes}
+        self.coherent = written if cooperative else set()
+        flags = ", int* __restrict__ gt_flags" if cooperative else ""
         self.emit(
             f"__global__ void __launch_bounds__({TILED_THREADS}) "
-            f"{kernel}(const GtParams p{level_param}) {{"
+            f"{kernel}(const GtParams p{flags}) {{"
         )
         self.indent += 1
         self._emit_locals(names)
-        self.emit(f"const long long i0 = (long long)blockIdx.y * {TL_TI};")
-        self.emit(f"const long long j0 = (long long)blockIdx.x * {TL_TJ};")
         self.emit("const int tid = threadIdx.x;")
-        self._emit_ownership(TL_TI, TL_TJ)
-        self._emit_buffer_pointers(plan)
+        if cooperative:
+            self.emit(f"const long long gt_tj = (nj + {TL_TJ - 1}) / {TL_TJ};")
+            self.emit(f"const long long gt_ti = (ni + {TL_TI - 1}) / {TL_TI};")
+            self.emit("const long long gt_tiles = gt_ti * gt_tj;")
+            self.emit("int gt_step = 0;")
+        else:
+            self.emit(f"const long long i0 = (long long)blockIdx.y * {TL_TI};")
+            self.emit(f"const long long j0 = (long long)blockIdx.x * {TL_TJ};")
+            self._emit_ownership(TL_TI, TL_TJ)
+        self._emit_buffer_pointers(plan + ring)
+        for name, (depth, _) in sorted(self.carries.items()):
+            ct, v = _ctype(self.fields[name].dtype), self.fields[name].var
+            regs = [f"{v}_r"] + [f"{v}_r{d}" for d in range(1, depth + 1)]
+            self.emit(f"{ct} {', '.join(f'{r} = ({ct})0' for r in regs)};")
         sids = sorted({it.section for it in items})
         self.loop_sections = [
             (sid, next(it.interval for it in items if it.section == sid)) for sid in sids
         ]
-        backward = vloop.loop_order == gtir.LoopOrder.BACKWARD
-        walks = []
+        span = (0, 0)
+        if ring:
+            first, last = vloop.sections[0].interval, vloop.sections[-1].interval
+            if backward:
+                top = self._k_bound(first.end)
+                w0, wn = f"{top} - 1", f"{top} - {self._k_bound(last.start)}"
+            else:
+                w0 = self._k_bound(first.start)
+                wn = f"{self._k_bound(last.end)} - {w0}"
+            span = self._emit_tile_ring_setup(ring, TILED_THREADS, w0, wn, backward)
         for sid, interval in self.loop_sections:
             sec = [it for it in items if it.section == sid]
             self.section_writes = {w.name for it in sec for w in it.writes}
@@ -2400,35 +2986,86 @@ class _Generator:
                 if backward
                 else f"for (long long k = {lo}; k < {hi}; ++k)"
             )
-            walks.append(walk)
-            with self._block(f"if (k >= {lo} && k < {hi})" if per_level else walk):
-                for b in plan:
-                    if b.meta.name in self.section_writes:
-                        cur = f"gt_slot(k, {b.ring})" if b.ring > 1 else "0"
-                        self.emit(f"const int {b.meta.var}_cur = {cur};")
-                inits = [b for b in plan if sid in b.init]
-                for b in inits:
-                    self._emit_plane_fill(
-                        b, TILED_THREADS, level=True, slot=f"{b.meta.var}_cur"
-                    )
-                if inits:
-                    self.emit("__syncthreads();")
-                for it in sec:
-                    self._emit_item(it, (TL_TI, TL_TJ), TILED_THREADS)
+            with self._block(walk):
+                if cooperative:
+                    with self._block(
+                        "for (long long gt_t = blockIdx.x; gt_t < gt_tiles; gt_t += gridDim.x)"
+                    ):
+                        self._emit_tile_wait(n, items)
+                        self._emit_tiled_level(plan, sec, sid)
+                        self.emit("__syncthreads();")
+                        self.emit(
+                            "if (tid == 0) { __threadfence(); "
+                            "gt_flag_store(gt_flags + gt_t, gt_step + 1); }"
+                        )
+                    self.emit("++gt_step;")
+                else:
+                    self._emit_level_start(ring, span, "gt_w0 - k" if backward else "k - gt_w0")
+                    for name, (depth, _) in sorted(self.carries.items()):
+                        v = self.fields[name].var
+                        for d in range(depth, 1, -1):
+                            self.emit(f"{v}_r{d} = {v}_r{d - 1};")
+                        self.emit(f"{v}_r1 = {v}_r;")
+                    self._emit_tiled_level(plan, sec, sid)
+        if ring:
+            self.emit("gt_cp_wait_all();")
         self.indent -= 1
         self.emit("}")
         self.emit()
         self.buffers = {}
         self.section_writes = set()
+        self.carries = {}
+        self.coherent = set()
         self.loop = -1
-        self._emit_launcher(
-            n,
-            kernel,
-            f"(unsigned)((nj + {TL_TJ - 1}) / {TL_TJ}), (unsigned)((ni + {TL_TI - 1}) / {TL_TI}), 1u",
-            f"{TILED_THREADS}",
-            smem=self.tiled_bytes[n],
-            levels=walks if per_level else (),
-        )
+
+    def _emit_tiled_level(self, plan: list[_Buffer], sec: list[_Item], sid: int) -> None:
+        """One level of a tiled walk over one tile, after its first barrier:
+        the shared planes' slots, their fills, the statements."""
+        for b in plan:
+            if b.meta.name in self.section_writes:
+                cur = f"gt_slot(k, {b.ring})" if b.ring > 1 else "0"
+                self.emit(f"const int {b.meta.var}_cur = {cur};")
+        inits = [b for b in plan if sid in b.init]
+        for b in inits:
+            self._emit_plane_fill(b, TILED_THREADS, level=True, slot=f"{b.meta.var}_cur")
+        if inits:
+            self.emit("__syncthreads();")
+        self._emit_statements(sec, (TL_TI, TL_TJ), TILED_THREADS, [])
+
+    def _emit_tile_wait(self, n: int, items: list[_Item]) -> None:
+        """Cooperative tiled loop: the tile's origin and ownership, then
+        thread 0 waits until every tile that the level's reads of earlier
+        levels reach has published the level before (its counter), and the
+        block follows it through a barrier."""
+        written = {w.name for it in items for w in it.writes}
+        span = {"i": [0, 0], "j": [0, 0]}
+        for it in items:
+            for r in it.reads:
+                if r.name in written and _is_k_shift(r):
+                    for ax, d, size in (("i", 0, TL_TI), ("j", 1, TL_TJ)):
+                        lo = getattr(it.ext, ax)[0] + r.offset[d]
+                        hi = getattr(it.ext, ax)[1] + r.offset[d]
+                        span[ax][0] = min(span[ax][0], lo // size)
+                        span[ax][1] = max(span[ax][1], (size - 1 + hi) // size)
+        self.emit("const long long gt_tr = gt_t / gt_tj, gt_tc = gt_t % gt_tj;")
+        self.emit(f"const long long i0 = gt_tr * {TL_TI}, j0 = gt_tc * {TL_TJ};")
+        self._emit_ownership(TL_TI, TL_TJ)
+        (ia, ib), (ja, jb) = span["i"], span["j"]
+        with self._block("if (tid == 0 && gt_step > 0)"):
+            with self._block(
+                f"for (long long gt_u = gt_imax(gt_tr + ({ia}), 0); "
+                f"gt_u <= gt_imin(gt_tr + ({ib}), gt_ti - 1); ++gt_u)"
+            ):
+                with self._block(
+                    f"for (long long gt_v = gt_imax(gt_tc + ({ja}), 0); "
+                    f"gt_v <= gt_imin(gt_tc + ({jb}), gt_tj - 1); ++gt_v)"
+                ):
+                    self.emit("const int* const gt_f = gt_flags + gt_u * gt_tj + gt_v;")
+                    self.emit("long long gt_n = 0;")
+                    self.emit(
+                        f"while (gt_flag_load(gt_f) < gt_step) if (++gt_n > {SPIN_POLLS}LL) __trap();"
+                    )
+        self.emit("__syncthreads();")
 
     def _flat_index(self, node: gtir.FieldAccess, m: FieldMeta) -> str:
         """Row-major element index of a data-dimension access; per-point
@@ -2448,7 +3085,7 @@ class _Generator:
     def _buffer_access(self, node: gtir.FieldAccess) -> Optional[str]:
         """A read or write of a symbol held in shared memory, or None where
         a tiled block must read device memory instead: a level its ring does
-        not hold."""
+        not hold, or a read the input ring does not serve."""
         b = self.buffers[node.name]
         m, v = b.meta, b.meta.var
         if b.kind == "table":
@@ -2462,22 +3099,25 @@ class _Generator:
                 e = f"({e}) * {b.nd} + {self._flat_index(node, m)}"
             return f"{v}_s[{e}]"
 
+        if b.kind == "input":
+            served = (node.name, node.offset) in self.ring_reads
+            return at(f"gt_slot(k + ({dk}), {b.ring})") if served else None
         if b.kind == "staged" or self.strategy == "fused_plane":
             return at(None)
         if dk == 0:
             return at(f"{v}_cur") if node.name in self.section_writes else None
-        if self.loop in self.per_level:
-            return None  # device memory: every block stored it in an earlier launch
+        if self.loop in self.cooperative:
+            return None  # device memory: the tiles it reaches have published it
         level = f"(k + ({dk}))"
+        slot = at(f"gt_slot({level}, {b.ring})")
+        if self.item is not None and self._ring_holds(self.loop, b, self.item.interval, dk):
+            return slot
         held = " || ".join(
             f"({level} >= {self._k_bound(iv.start)} && {level} < {self._k_bound(iv.end)})"
             for sid, iv in self.loop_sections
             if sid in b.writers
         )
-        return (
-            f"(({held or '0'}) ? {at(f'gt_slot({level}, {b.ring})')} "
-            f": {self._global_access(node)})"
-        )
+        return f"(({held or '0'}) ? {slot} : {self._global_access(node)})"
 
     def _emit_buffered_assign(self, stmt: gtir.Assign) -> None:
         """fused_plane and tiled: store to the shared plane (all computed
@@ -2498,7 +3138,9 @@ class _Generator:
         stores = []
         if b is not None and b.kind == "shared":
             stores.append(f"{self._buffer_access(t)} = gt_v;")
-        if not m.is_temp or self.strategy == "tiled":
+        if t.name in self.carries:
+            stores.append(f"{m.var}_r = gt_v;")
+        if not m.is_temp or (self.strategy == "tiled" and t.name not in self.no_buffer):
             g = f"{self._global_access(t)} = gt_v;"
             stores.append(f"if (gt_own) {g}" if own else g)
         body = f"{{ const {ct} gt_v = {self._expr(stmt.value)}; {' '.join(stores)} }}"
@@ -2617,20 +3259,31 @@ class _Generator:
             if held is not None:
                 return held
         if (
-            (node.name, node.offset) in self.ring_reads
+            self.ring is not None
+            and (node.name, node.offset) in self.ring_reads
             and node.koffset is None
             and node.abs_k is None
             and not node.data_index
         ):
             return self._ring_access(node)
+        if node.name in self.carries and _is_carry(
+            self.carries, node, self.stencil.vertical_loops[self.loop].loop_order
+            == gtir.LoopOrder.BACKWARD
+        ):
+            return f"{self.fields[node.name].var}_r{abs(node.offset[2])}"
         if node.name in self.buffers:
             held = self._buffer_access(node)
             if held is not None:
                 return held
+        if node.name in self.coherent:
+            return self._global_access(node, k_override=k_override, load="__ldcg")
         return self._global_access(node, k_override=k_override)
 
-    def _global_access(self, node: gtir.FieldAccess, *, k_override: str = "") -> str:
-        """The symbol in device memory (plane temporaries: shared memory)."""
+    def _global_access(
+        self, node: gtir.FieldAccess, *, k_override: str = "", load: str = ""
+    ) -> str:
+        """The symbol in device memory (plane temporaries: shared memory);
+        ``load``: read it through this intrinsic (``__ldcg``: from L2)."""
         m = self._meta(node.name)
         v = m.var
         ct = _ctype(m.dtype)
@@ -2671,6 +3324,8 @@ class _Generator:
                 idx = f"gt_clampk({idx}, {m.data_dims[d]})"
             terms.append(f"({idx}) * {v}_d{d}")
         const = "const " if m.name in self.read_only else ""
+        if load:
+            return f"{load}((const {ct}*)({' + '.join([base] + terms)}))"
         return f"(*({const}{ct}*)({' + '.join([base] + terms)}))"
 
     def _expr(self, node: gtir.Expr) -> str:

@@ -223,6 +223,27 @@ def _region_sweep(inp: F64, out: F64):
         out = acc[1, 0, 0] + acc[-1, 0, 0]
 
 
+def _section_written_lag(inp: F64, low: F64, out: F64):
+    """low is written by the first level's section only and read one level
+    down by the other section: level 0 holds what the first section stored,
+    the levels above their values from before the call."""
+    with computation(FORWARD):
+        with interval(0, 1):
+            acc = inp
+            low = 2.0 * inp
+            out = acc[1, 0, 0] + acc[-1, 0, 0]
+        with interval(1, None):
+            acc = inp + 0.5 * acc[0, 0, -1]
+            out = low[0, 0, -1] + acc[1, 0, 0] - acc[0, -1, 0]
+
+
+def _scaled_update(inp: F64, out: F64, prof: FK):
+    """out is read at its own point before the level writes it: its value
+    from before the call, which the tile ring may prefetch."""
+    with computation(PARALLEL), interval(...):
+        out = out * prof + inp[1, 0, 0] - inp[0, -1, 0]
+
+
 #: constructs beyond the registry that take the fused_plane and tiled
 #: kernels' less travelled paths: planes filled from device memory or zeros
 #: at every level, a BACKWARD ring, PARALLEL loops in the tiled kernel,
@@ -234,6 +255,7 @@ CONSTRUCTS = {
     "_masked_shared_write": (_masked_shared_write, "fused_plane"),
     "_temporary_across_intervals": (_temporary_across_intervals, "fused_plane"),
     "_table_while": (_table_while, "fused_plane"),
+    "_scaled_update": (_scaled_update, "fused_plane"),
     "_sequential_horizontal_race": (_sequential_horizontal_race, "tiled"),
     "_race_then_backward": (_race_then_backward, "tiled"),
     "_backward_ring": (_backward_ring, "tiled"),
@@ -241,6 +263,7 @@ CONSTRUCTS = {
     "_parallel_then_race": (_parallel_then_race, "tiled"),
     "_region_sweep": (_region_sweep, "tiled"),
     "_tiled_in_place": (_tiled_in_place, "tiled"),
+    "_section_written_lag": (_section_written_lag, "tiled"),
     "_lagged_neighbour_sweep": (defs.lagged_neighbour_sweep, "tiled"),
     "_lag_read_before_write": (defs.lag_read_before_write, "tiled"),
 }
@@ -262,7 +285,7 @@ def test_planes_filled_at_every_level_where_needed():
     assert "t0_s[q] = (double)0;" in zeros  # tmp: zeros where interval(0, 2) ends
     covered = _kernel(_registry_backend("hdiff_sponge").module.source, "gt_fused_plane_0")
     assert "_s[q] = (double)0;" not in covered  # every plane first written whole
-    sweep = _kernel(_backend(_masked_sweep).module.source, "gt_tiled_0")
+    sweep = _bodies(_backend(_masked_sweep).module.source)["gt_tiled_0"]
     # acc: filled from memory in the masked section only
     assert len(re.findall(r"t0_s\[t0_cur \* \d+ \+ q\] = gt_x;", sweep)) == 1
 
@@ -314,19 +337,22 @@ def test_fused_plane_is_one_launch_per_stencil():
     source = backend.module.source
     assert len(backend.analyzed.stencil.vertical_loops) == 3
     assert backend.module.launchers == ["gt_launch_0"]
-    assert source.count("<<<") == 1 and source.count("__global__") == 1
-    stage, walk = _kernel(source, "gt_fused_plane_0").split(
-        "for (long long k = kb0; k < kb1; ++k)"
-    )
-    # coeff (IJ) is staged in shared memory once, before the K walk; damp
-    # (K) and the fields are read in the walk; temporaries never leave the SM
-    assert "f2_s[q] = gt_x;" in stage and "f2_s[" in walk
-    assert "f3_b = f3 + (f3_ok + k) * f3_sk" in walk
-    assert "(*(double*)(f1_b)) = gt_v;" in walk  # out_field, at owned points
-    # barriers: one after staging, one after each of the four statements
-    assert stage.count("__syncthreads();") == 1
-    assert walk.count("__syncthreads();") == 4
-    assert "cudaFuncSetAttribute" not in source  # under 48 KB
+    # one launcher; two variants of one kernel (the __restrict__ one rings
+    # its inputs), of which each call launches one
+    assert source.count('extern "C"') == 1
+    assert set(_bodies(source)) == {"gt_fused_plane_0", "gt_fused_plane_0_r"}
+    for body in _bodies(source).values():
+        stage, walk = body.split("for (long long k = kb0; k < kb1; ++k)")
+        # coeff (IJ) is staged in shared memory once, before the K walk;
+        # damp (K) and the fields are read in the walk; temporaries never
+        # leave the SM
+        assert "f2_s[q] = gt_x;" in stage and "f2_s[" in walk
+        assert "f3_b = f3 + (f3_ok + k) * f3_sk" in walk
+        assert "(*(double*)(f1_b)) = gt_v;" in walk  # out_field, at owned points
+        # barriers: the level's first, lap | flx, fly | out_field
+        assert "__syncthreads();" not in stage
+        assert walk.count("__syncthreads();") == 3
+    assert "cudaFuncSetAttribute(gt_fused_plane_0," not in source  # under 48 KB
 
 
 def test_fused_plane_stores_widened_writes_only_where_it_owns():
@@ -363,57 +389,253 @@ def test_tiled_is_one_launch_per_loop():
     assert backend.strategy == "tiled"
     source = backend.module.source
     assert backend.module.launchers == ["gt_launch_0", "gt_launch_1"]
-    assert source.count("<<<") == 2
-    assert "for (long long k = (nk + (-1)) - 1; k >= (0); --k)" in _kernel(source, "gt_tiled_1")
+    for n in range(2):
+        launcher = source.split(f'extern "C" int gt_launch_{n}(')[1].split("cudaGetLastError")[0]
+        # one launch a call: the __restrict__ variant or the other
+        assert launcher.count("<<<") == 2 and "if (noalias)" in launcher and "for (" not in launcher
+    assert "for (long long k = (nk + (-1)) - 1; k >= (0); --k)" in _bodies(source)["gt_tiled_1"]
 
 
 def test_tiled_ring_and_barriers():
-    source = _registry_backend("smoothed_column_sum").module.source
-    kernel = _kernel(source, "gt_tiled_0")
-    # acc is read one level back at other points: a ring of two planes
-    assert "const int t0_cur = gt_slot(k, 2);" in kernel
-    assert "t0_s[gt_slot((k + (-1)), 2) * 340 + t0_x + (0)]" in kernel
-    # out is read one level back at its own point: device memory, clamped
-    assert "gt_clampk(f1_ok + k + (-1), f1_nk)" in kernel
-    # one barrier after each statement of each of the two sections
-    assert kernel.count("__syncthreads();") == 4
+    module = _registry_backend("smoothed_column_sum").module
+    bodies = _bodies(module.source)
+    for name, kernel in bodies.items():
+        # acc[0, 0, -1] is read at the thread's own point: a register carry,
+        # so acc's shared plane holds the current level only
+        assert "const int t0_cur = 0;" in kernel and "gt_slot((k + (-1))" not in kernel
+        assert "t0_r1 = t0_r;" in kernel and "* ((double)(t0_r1))" in kernel
+        # out[0, 0, -1] too, in the __restrict__ variant; the other reads
+        # device memory (another name may share out's memory)
+        restrict = name.endswith("_r")
+        assert ("((double)(f1_r1))" in kernel) == restrict
+        assert ("gt_clampk(f1_ok + k + (-1), f1_nk)" in kernel) != restrict
+        # per level: the level's barrier, and one between acc and out
+        for walk in kernel.split("for (long long k = ")[1:]:
+            assert walk.count("__syncthreads();") == 2
 
 
 @pytest.mark.parametrize("name", ["_lagged_neighbour_sweep", "_lag_read_before_write"])
 def test_lagged_sweep_launches_once_per_level(name):
-    """A read of the level below beyond the points its writers compute: the
-    launcher launches the kernel once per level, in the walk's order, and
-    the kernel reads earlier levels from device memory (a ring of one)."""
+    """A read of the level below beyond the points its writers compute:
+    one cooperative launch walks every level, each block over its tiles,
+    each tile first waiting for the tiles its reads reach to publish the
+    level before; earlier levels are read from L2 (``__ldcg``). (The name
+    is the one the test had when each level was a launch of its own.)"""
     module = _backend(CONSTRUCTS[name][0]).module
     source = module.source
     assert module.strategy == "tiled" and module.launchers == ["gt_launch_0"]
-    assert module.per_level == {"gt_launch_0"}
-    kernel = _kernel(source, "gt_tiled_0")
-    launcher = source.split('extern "C" int gt_launch_0(')[1]
-    assert "gt_tiled_0(const GtParams p, const long long k)" in source
-    assert "for (long long k" not in kernel and "if (k >= (1) && k < (nk + (0)))" in kernel
+    assert module.cooperative == {"gt_launch_0"}
+    kernel = _bodies(source)["gt_tiled_0"]
+    assert set(_bodies(source)) == {"gt_tiled_0"}
+    assert "gt_tiled_0(const GtParams p, int* __restrict__ gt_flags)" in source
+    assert "for (long long gt_t = blockIdx.x; gt_t < gt_tiles; gt_t += gridDim.x)" in kernel
     assert "gt_slot" not in kernel
-    assert "gt_clampk(t0_ok + k + (-1), t0_nk)" in kernel  # acc one level down, from memory
-    # level 0, then levels 1 .. nk - 1, each a launch
-    walks = re.findall(r"(for \(long long k = .*\) \{)\s*gt_tiled_0<<<grid", launcher)
-    assert walks == [
-        "for (long long k = (0); k < (1); ++k) {",
-        "for (long long k = (1); k < (nk + (0)); ++k) {",
-    ]
-    assert launcher.count("<<<") == 2
-    # it writes how many kernels it launched, for the wrapper to count
-    assert "int noalias, long long* launched) {" in launcher
-    assert launcher.count("++*launched;") == 2
-    assert f"if (*launched == 0) return {cuda_codegen.NOTHING_LAUNCHED};" in launcher
+    assert "__ldcg((const double*)(t0 + " in kernel and "gt_clampk(t0_ok + k + (-1), t0_nk)" in kernel
+    assert "while (gt_flag_load(gt_f) < gt_step)" in kernel and "__trap();" in kernel
+    assert "gt_flag_store(gt_flags + gt_t, gt_step + 1);" in kernel
+    launcher = source.split('extern "C" int gt_launch_0(')[1]
+    assert "int noalias, int* flags) {" in launcher
+    assert "for (" not in launcher and "<<<" not in launcher
+    assert launcher.count("cudaLaunchCooperativeKernel(") == 1
+    assert "cudaMemsetAsync(flags, 0, gt_tiles * sizeof(int)" in launcher
+    assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor(&gt_per_sm, gt_tiled_0," in launcher
 
 
 def test_sweep_without_the_hazard_launches_once():
     module = _registry_backend("smoothed_column_sum").module
     source = module.source
     launcher = source.split('extern "C" int gt_launch_0(')[1]
-    assert "gt_tiled_0(const GtParams p)" in source
-    assert launcher.count("<<<") == 1 and "for (" not in launcher
-    assert module.per_level == frozenset() and "launched" not in launcher
+    assert "gt_tiled_0(const GtParams p)" in source and "gt_tiled_0_r(const GtParams p)" in source
+    assert launcher.count("<<<") == 2 and "for (" not in launcher
+    assert module.cooperative == frozenset() and "Cooperative" not in launcher
+    assert "gt_flag" not in source
+
+
+# --- the tile walks: input ring, barriers, carries, buffers ---------------------
+
+
+def _tile_generator(definition, **options):
+    backend = _backend(definition, **options)
+    gen = cuda_codegen._Generator(backend.analyzed)
+    return gen, gen.generate()
+
+
+@pytest.mark.parametrize(
+    "name, kernel, rings, levels",
+    [
+        ("smoothed_column_sum", "gt_tiled_0", {"inp"}, 4),
+        # float64: 4 levels would leave two blocks an SM (test below)
+        ("hdiff_sponge", "gt_fused_plane_0", {"in_field"}, 2),
+        ("k_profile_scale", "gt_fused_plane_0", {"inp"}, 4),
+    ],
+)
+def test_tile_walks_ring_their_inputs(name, kernel, rings, levels):
+    """The __restrict__ variant copies its input planes with cp.async,
+    depth - 1 levels ahead, waits once a level for the level it reads, and
+    reads them from the ring; the other variant loads directly."""
+    module = _registry_backend(name).module
+    bodies = _bodies(module.source)
+    ringed = bodies[kernel + "_r"]
+    assert set(module.ring_bytes) == {kernel + "_r"}
+    fields = {m.name: m.var for m in module.slots}
+    for field in rings:
+        v = fields[field]
+        assert f"gt_clampk({v}_ok + gt_k, {v}_nk) * {v}_sk" in ringed
+        assert f"{v}_s[gt_slot(k + (0), {levels}) * " in ringed
+        assert f"{v}_s[" not in bodies[kernel]
+    assert ringed.count("gt_cp_async") == len(rings) and "gt_cp_async" not in bodies[kernel]
+    assert f"for (int gt_f = 0; gt_f < {levels - 1}; ++gt_f) gt_tfetch(gt_f);" in ringed
+    walks = ringed.split("for (long long k = ")[1:]
+    for walk in walks:
+        assert walk.count(f"gt_cp_wait<{levels - 2}>();") == 1
+        assert walk.count(f"gt_tfetch(gt_p + {levels - 1});") == 1
+    assert ringed.count("gt_cp_wait_all();") == 1
+    launcher = module.source.split('extern "C" int gt_launch_0(')[1]
+    assert f"{kernel}_r<<<grid, block, " in launcher.split("else")[0]
+
+
+@pytest.mark.parametrize("name, barriers", [("hdiff_sponge", 2), ("smoothed_column_sum", 1)])
+def test_tile_walk_barriers_by_the_sharing_rule(name, barriers):
+    """A barrier between two statements only where the later one reads at
+    another thread's point what the earlier one wrote (or overwrites what it
+    read), besides the one that turns each level over: hdiff_sponge
+    lap | flx, fly | out_field; smoothed_column_sum acc | out."""
+    module = _registry_backend(name).module
+    for body in _bodies(module.source).values():
+        for walk in body.split("for (long long k = ")[1:]:
+            assert walk.count("__syncthreads();") == 1 + barriers
+
+
+@pytest.mark.parametrize("dtype, levels, blocks", [(np.float32, 4, 4), (np.float64, 2, 4)])
+def test_tile_ring_depth_keeps_the_block_resident(dtype, levels, blocks):
+    """hdiff_sponge's ring takes the most levels, up to TILE_RING_LEVELS, at
+    which its block, shared planes and ring, still leaves
+    TILE_RESIDENT_THREADS threads resident on an SM: float32 keeps 4 levels;
+    float64 would keep 2 blocks of 256 threads at 4 levels and 3 at 3, so it
+    takes 2."""
+    gen, module = _tile_generator(
+        defs.REGISTRY["hdiff_sponge"]["definition"], dtypes={"dt": dtype}
+    )
+    (ring,) = gen.tile_rings[0]
+    assert ring.ring == levels
+    assert f"gt_tfetch(gt_p + {levels - 1});" in module.source
+
+    def resident(depth):
+        used = gen.fused_bytes + ring.bytes // levels * depth + cuda_codegen.BLOCK_RESERVED_BYTES
+        return cuda_codegen.SM_SHARED_BYTES // used
+
+    assert resident(levels) == blocks
+    assert resident(levels) * cuda_codegen.PLANE_THREADS >= cuda_codegen.TILE_RESIDENT_THREADS
+    for deeper in range(levels + 1, cuda_codegen.TILE_RING_LEVELS + 1):
+        assert resident(deeper) * cuda_codegen.PLANE_THREADS < cuda_codegen.TILE_RESIDENT_THREADS
+
+
+def test_tile_ring_skips_earlier_levels_of_a_field_another_section_writes():
+    """low is written at level 0 by the first section and read at k - 1 by
+    the second: the ring would copy level 0 before the first section stores
+    it, so the read stays a load from device memory. inp, read at its own
+    level and written nowhere, is ringed."""
+    gen, module = _tile_generator(_section_written_lag)
+    assert gen.tile_rings[0] and {b.meta.name for b in gen.tile_rings[0]} == {"inp"}
+    low = gen.fields["low"].var
+    ringed = _bodies(module.source)["gt_tiled_0_r"]
+    assert f"{low}_s[" not in ringed
+    assert f"gt_clampk({low}_ok + k + (-1), {low}_nk)" in ringed
+
+
+def test_hazard_rule_reads_the_gtir():
+    gen, _ = _tile_generator(
+        defs.REGISTRY["hdiff_sponge"]["definition"], dtypes={"dt": np.float64}
+    )
+    lap, flx, fly, out = gen._items(range(3))
+    assert gen._hazard([lap], flx, alias=False)  # lap read at i + 1
+    assert not gen._hazard([flx], fly, alias=False)  # nothing shared
+    assert gen._hazard([flx, fly], out, alias=False)  # flx at i - 1
+    # API fields that may share memory count as one: out_field's write
+    # meets lap's reads of in_field at other points
+    assert not gen._hazard([lap], out, alias=False)
+    assert gen._hazard([lap], out, alias=True)
+
+
+def test_smoothed_column_sum_keeps_acc_on_chip(monkeypatch):
+    """acc is read only from its ring and its register: it has no slot, the
+    wrapper allocates nothing for it and the kernels store none of it."""
+    gen, module = _tile_generator(
+        defs.REGISTRY["smoothed_column_sum"]["definition"], dtypes={"dt": np.float64}
+    )
+    assert [m.name for m in module.slots] == ["inp", "out"]
+    assert gen.no_buffer == {"acc"}
+    assert {n: d for n, (d, _) in gen.tiled_carries[0].items()} == {"acc": 1, "out": 1}
+    acc = gen.fields["acc"].var
+    assert f"(*(double*)({acc} +" not in module.source
+    backend = cuda_backend.CudaHopperBackend(gen.analyzed, {})
+    backend._fns = []
+    arrays = {n: torch.zeros(6, 5, 4, dtype=torch.float64) for n in backend.analyzed.field_infos}
+    calls = []
+    for fn in ("zeros", "empty"):
+        real = getattr(torch, fn)
+        monkeypatch.setattr(
+            torch, fn, lambda *a, _fn=fn, _real=real, **k: calls.append(_fn) or _real(*a, **k)
+        )
+    backend.prepare(arrays, {}, (4, 3, 4), {})
+    assert calls == []
+
+
+@pytest.mark.parametrize(
+    "definition, carries, buffers",
+    [
+        # a masked write: the level's value may be device memory's
+        (_masked_sweep, {}, {"acc"}),
+        # out is written whole at every level and read back one level up:
+        # carried; acc's plane is filled from device memory where its
+        # second section's write does not cover it, so it keeps a buffer
+        (_backward_ring, {"out": 1}, {"acc"}),
+        # tmp never leaves its loop; out[0, 0, 1] at the top level is the
+        # value from before the loop, so no carry
+        (_race_then_backward, {}, set()),
+        (defs.lagged_neighbour_sweep, {}, {"acc", "lag"}),
+    ],
+)
+def test_tiled_carries_and_buffers(definition, carries, buffers):
+    gen, module = _tile_generator(definition)
+    found = {}
+    for loop in gen.tiled_carries.values():
+        found.update({n: d for n, (d, _) in loop.items()})
+    assert found == carries
+    assert {m.name for m in module.slots if m.is_temp} == buffers
+
+
+def test_tile_ring_serves_a_field_read_before_its_write():
+    """out is read at its own point before the level writes it: the ring
+    prefetches its value from before the call; inp at two offsets shares one
+    plane over their footprint."""
+    gen, module = _tile_generator(_scaled_update)
+    (ring,) = gen.tile_rings.values()
+    assert {b.meta.name for b in ring} == {"inp", "out"}
+    inp, ringed_out = (next(b for b in ring if b.meta.name == n) for n in ("inp", "out"))
+    assert (inp.fp.i, inp.fp.j) == ((0, 1), (-1, 0))
+    assert (inp.rows, inp.cols) == (cuda_codegen.TI + 1, cuda_codegen.TJ + 1)
+    # the store still goes to the level's address in device memory
+    out = gen.fields["out"].var
+    body = _bodies(module.source)["gt_fused_plane_0_r"]
+    assert f"{out}_s[gt_slot(k + (0), {ringed_out.ring}) * " in body
+    assert f"({out}_ok + k) * {out}_sk;" in body and f"(*(double*)({out}_b)) = gt_v;" in body
+
+
+def _ring_beyond_budget(inp: F64, prof: FK, out: F64):
+    with computation(PARALLEL), interval(...):
+        out = inp[-30, 0, 0] * prof + inp[30, 0, 0] + inp[0, 0, 0]
+
+
+def test_tile_ring_keeps_within_its_budget():
+    """A plane over inp's footprint (76 × 64 float64, 38,912 B) times
+    TILE_RING_LEVELS exceeds RING_BYTES_MAX: inp stays a direct load."""
+    gen, module = _tile_generator(_ring_beyond_budget)
+    ring = gen.tile_rings[0]
+    assert "inp" not in {b.meta.name for b in ring}
+    assert all(
+        b.elements * b.meta.dtype.itemsize <= cuda_codegen.RING_BYTES_MAX for b in ring
+    )
 
 
 # --- the stage-fusion switch and the fused_column kernel ---------------------------
@@ -799,12 +1021,19 @@ def test_ring_only_in_restrict_variants(name, fuse, monkeypatch):
 
 
 def test_ring_nowhere_but_the_column_walks():
-    """plane, fused_plane and tiled sources carry neither the ring nor its
-    prelude; nor do column loops that walk no level (PARALLEL)."""
+    """The column ring (``gt_fetch``) is in column and fused_column sources
+    alone, and not in column loops that walk no level (PARALLEL); plane
+    sources carry no ring at all; fused_plane and tiled ones carry the tile
+    ring (``gt_tfetch``) in their __restrict__ variants only."""
     for name, entry in defs.REGISTRY.items():
         module = _registry_backend(name).module
-        if entry["strategy"] != "column":
+        if entry["strategy"] not in ("column", "fused_column"):
+            assert "gt_fetch(" not in module.source, name
+        if entry["strategy"] == "plane":
             assert "cp.async" not in module.source and not module.ring_bytes, name
+        for kernel, body in _bodies(module.source).items():
+            assert ("gt_tfetch(" in body) == (kernel in module.ring_bytes and entry["strategy"] in (
+                "fused_plane", "tiled")), (name, kernel)
     heat = _registry_backend("heat_step").module
     assert set(heat.ring_bytes) == {"gt_column_1_r", "gt_column_2_r"}
 
@@ -1147,34 +1376,38 @@ def test_wrapper_counts_only_successful_launches():
 
 
 def test_wrapper_counts_every_level_of_a_per_level_launcher():
-    """A per-level launcher writes how many kernels it launched; the
-    wrapper adds that, and nothing on a failed or empty launch."""
-
-    def launcher(levels, rc):
-        def fn(*args):
-            args[-1]._obj.value = levels
-            return rc
-
-        return fn
-
+    """A cooperative launcher walks every level in one launch: the wrapper
+    counts one launch a call, raises on a refused launch (a grid larger than
+    what is resident at once: cudaErrorCooperativeLaunchTooLarge, 82), and
+    counts nothing on an empty grid. (The name is the one the test had when
+    a launcher launched once per level.)"""
     wrapper = cuda_backend.KernelWrapper("probe")
-    wrapper.launch(launcher(80, 0), (), per_level=True)
-    assert wrapper.launches == 80
-    with pytest.raises(RuntimeError, match="CUDA error 9"):
-        wrapper.launch(launcher(3, 9), (), per_level=True)
-    wrapper.launch(launcher(0, cuda_codegen.NOTHING_LAUNCHED), (), per_level=True)
+    wrapper.launch(lambda *a: 0, (1, 2))
+    assert wrapper.launches == 1
+    with pytest.raises(RuntimeError, match="CUDA error 82"):
+        wrapper.launch(lambda *a: 82, (1, 2))
+    wrapper.launch(lambda *a: cuda_codegen.NOTHING_LAUNCHED, (1, 2))
     wrapper.launch(lambda *a: 0, ())
-    assert wrapper.launches == 81
+    assert wrapper.launches == 2
 
 
 def test_per_level_launcher_abi_takes_the_count_pointer():
+    """A cooperative launcher takes the tiles' level counters as a trailing
+    pointer (the name is the one the test had when that pointer was the
+    count of launches); the wrapper gives it an int32 buffer, one element
+    per tile."""
+
     class FakeLib:
         gt_launch_0 = ctypes.CFUNCTYPE(ctypes.c_int)(lambda: 0)
 
-    fn = cuda_backend._bind(FakeLib(), "gt_launch_0", per_level=True)
+    fn = cuda_backend._bind(FakeLib(), "gt_launch_0", cooperative=True)
     assert fn.argtypes[-3] is ctypes.c_void_p  # the stream
     assert fn.argtypes[-2] is ctypes.c_int  # the noalias flag
-    assert fn.argtypes[-1] is ctypes.POINTER(ctypes.c_longlong)  # kernels launched
+    assert fn.argtypes[-1] is ctypes.c_void_p  # the level counters
+    module = _backend(CONSTRUCTS["_lagged_neighbour_sweep"][0]).module
+    assert module.tile == (cuda_codegen.TL_TI, cuda_codegen.TL_TJ) == (8, 32)
+    assert module.tiles(256, 256) == 32 * 8
+    assert module.tiles(37, 45) == 5 * 2
 
 
 @pytest.mark.parametrize("name", ["horizontal_diffusion", "tridiagonal_solver"])
@@ -1297,9 +1530,9 @@ def test_construct_matches_plain_on_card(name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["_lagged_neighbour_sweep", "_lag_read_before_write"])
-def test_lagged_sweep_counts_a_launch_per_level_on_card(name):
-    """The grid-wide step per level: the tiled wrapper counts one kernel
-    launch for each of the domain's levels."""
+def test_lagged_sweep_counts_one_launch_per_call_on_card(name):
+    """One cooperative launch walks every level: the tiled wrapper counts
+    one launch a call."""
     _need_card()
     st = gtscript.stencil(
         backend="cuda:hopper", definition=CONSTRUCTS[name][0], dtypes={"dt": np.float64}
@@ -1309,7 +1542,7 @@ def test_lagged_sweep_counts_a_launch_per_level_on_card(name):
     cuda_backend.TILED.launches = 0
     st(**fields, origin=(2, 2, 0), domain=(37, 66, 7))
     torch.cuda.synchronize()
-    assert cuda_backend.TILED.launches == 7
+    assert cuda_backend.TILED.launches == 1
 
 
 @pytest.mark.cuda
@@ -1501,3 +1734,103 @@ def test_racy_aliasing_raises_on_card(name, roles):
     fields[roles[1]] = fields[roles[0]]
     with pytest.raises(CudaUnsupported, match="share memory"):
         st(**fields, origin=(2, 2, 0), domain=(10, 9, 4))
+
+
+#: the tile walks: every registry stencil fused_plane or tiled serves, and
+#: the tiled constructs (the lagged sweeps among them)
+TILE_WALKS = [
+    (name, e["definition"], e["dtypes"] or {"dt": np.float64}, e["scalars"], e["min_k"])
+    for name, e in sorted(defs.REGISTRY.items()) if e["strategy"] in ("fused_plane", "tiled")
+] + [
+    (name, definition, {"dt": np.float64}, {}, 2)
+    for name, (definition, strategy) in sorted(CONSTRUCTS.items()) if strategy == "tiled"
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["restrict", "plain"])
+@pytest.mark.parametrize("depth", ["short", "long"])
+@pytest.mark.parametrize("name, definition, dtypes, scalars, min_k", TILE_WALKS)
+def test_tile_walk_matches_plain_on_card(name, definition, dtypes, scalars, min_k, depth, variant,
+                                         monkeypatch):
+    """Every tile walk against the plain version on the same card, at a
+    ragged 37 × 45 domain (a multiple of neither tile), over fewer levels
+    than the tile ring holds and over 80, in the __restrict__ variant (with
+    its ring and carries) and in the plain-pointer one (the wrapper is told
+    that the arguments overlap); one counted launch a call."""
+    _need_card()
+    if variant == "plain":
+        monkeypatch.setattr(cuda_backend, "overlapping", lambda arrays: [("", "")])
+    kern = gtscript.stencil(backend="cuda:hopper", definition=definition, dtypes=dtypes)
+    plain = gtscript.stencil(backend="torch", definition=definition, dtypes=dtypes)
+    nk = max(min_k, 2) if depth == "short" else 80
+    assert depth == "long" or nk <= cuda_codegen.TILE_RING_LEVELS
+    host = defs.make_inputs(kern.field_info, (41, 49, nk), np.random.default_rng(9))
+    wrapper = cuda_backend.WRAPPERS[kern._backend.strategy]
+    launches = len(kern._backend.module.launchers)
+    out = {}
+    for tag, st in (("kernel", kern), ("plain", plain)):
+        fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+        wrapper.launches = 0
+        st(**fields, **scalars, origin=(2, 2, 0), domain=(37, 45, nk))
+        torch.cuda.synchronize()
+        assert wrapper.launches == (launches if tag == "kernel" else 0)
+        out[tag] = {n: np.asarray(v) for n, v in fields.items()}
+    for n in host:
+        _assert_same(out["kernel"][n], out["plain"][n], n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["_lagged_neighbour_sweep", "_lag_read_before_write"])
+def test_lagged_sweep_walks_many_tiles_a_block_on_card(name):
+    """1024 × 1024 has 4096 tiles, more than the blocks resident at once, so
+    each block walks several tiles a level: three runs, each one counted
+    launch, each equal to the others and to the plain version."""
+    _need_card()
+    definition = CONSTRUCTS[name][0]
+    kern = gtscript.stencil(backend="cuda:hopper", definition=definition, dtypes={"dt": np.float64})
+    plain = gtscript.stencil(backend="torch", definition=definition, dtypes={"dt": np.float64})
+    host = defs.make_inputs(kern.field_info, (1026, 1026, 16), np.random.default_rng(10))
+    kw = dict(origin=(1, 1, 0), domain=(1024, 1024, 16))
+    want = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+    plain(**want, **kw)
+    first = None
+    for _ in range(3):
+        got = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+        cuda_backend.TILED.launches = 0
+        kern(**got, **kw)
+        torch.cuda.synchronize()
+        assert cuda_backend.TILED.launches == 1
+        for n in host:
+            _assert_same(np.asarray(got[n]), np.asarray(want[n]), n)
+            if first is not None:
+                np.testing.assert_array_equal(np.asarray(got[n]), np.asarray(first[n]), err_msg=n)
+        first = first or got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name", ["hdiff_sponge", "smoothed_column_sum", "_lagged_neighbour_sweep", "_lag_read_before_write"]
+)
+def test_tile_walk_twice_and_chained_on_card(name):
+    """Two calls in a row on the same fields, then ``chain(5)``, against the
+    plain version doing the same: a level counter or ring slot left over
+    from the call before would show."""
+    _need_card()
+    entry = defs.REGISTRY.get(name) or {
+        "definition": CONSTRUCTS[name][0], "dtypes": {"dt": np.float64}
+    }
+    opts = dict(definition=entry["definition"], dtypes=entry["dtypes"] or {"dt": np.float64})
+    out = {}
+    for backend in ("cuda:hopper", "torch"):
+        st = gtscript.stencil(backend=backend, **opts)
+        host = defs.make_inputs(st.field_info, (41, 49, 23), np.random.default_rng(11))
+        fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+        kw = dict(origin=(2, 2, 0), domain=(37, 45, 23))
+        st(**fields, **kw)
+        st(**fields, **kw)
+        st.chain(5, **fields, **kw)
+        torch.cuda.synchronize()
+        out[backend] = {n: np.asarray(v) for n, v in fields.items()}
+    for n in out["torch"]:
+        _assert_same(out["cuda:hopper"][n], out["torch"][n], n)
