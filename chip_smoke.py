@@ -10,7 +10,8 @@ three computations with an IJ coefficient and a K sponge profile
 (``fused_plane``), smoothed_column_sum, a FORWARD sweep coupling
 neighbouring columns at every level (``tiled``), and vadv_fused and
 tridiag_fused, vadv and tridiag built with the stage-fusion switch on
-(``fused_column``, one launch per application).
+(``fused_column``, one launch per application); hdiff also in float16
+(stored half, computed in float32).
 
 1. Builds every kernel of those paths and of the registry phase from the
    sources in this checkout, one ``nvcc`` per source, all at once.
@@ -27,14 +28,19 @@ tridiag_fused, vadv and tridiag built with the stage-fusion switch on
    from before the call); the bound is the compulsory bytes over the H100's
    3.35 TB/s or the operations over its peak rate, whichever is longer.
    For the walks (vadv and tridiag on ``column`` and ``fused_column``,
-   hdiff_sponge on ``fused_plane``, smoothed_column_sum on ``tiled``): µs
-   per walked level, the prefetch ring's depth and shared bytes per block,
-   and what ``ptxas`` reports for each kernel (registers, spills) from the
-   build logs.
+   hdiff on ``plane``, hdiff_sponge on ``fused_plane``, smoothed_column_sum
+   on ``tiled``): µs per walked level (a PARALLEL stencil: per level), the
+   prefetch ring's depth and shared bytes per block, the plain-pointer
+   variant's time (the tile walks and ``plane``), and what ``ptxas``
+   reports for each kernel (registers, spills) from the build logs, with
+   the blocks resident on an SM; then every main-path kernel's SASS
+   instructions by class, where the toolkit has ``cuobjdump``.
 5. Registry phase: every stencil of tests/torch_stencil_defs.py runs on
    ``cuda:hopper`` at 32×32×max(8, min_k) in its own dtypes, through the
    kernel pinned for it (and K4's class again with the switch on, through
-   ``fused_column``), against the plain version on the card.
+   ``fused_column``), against the plain version on the card; then one
+   float16 stencil on each of the five kernels (``HALF_STENCILS``) against
+   the plain version at the half tolerance, its largest error printed.
 6. Sweeps phase: the two sweeps that read an earlier level beyond the points
    its writers compute (``tiled``, one cooperative launch a call) at
    256×256×80 in float64, three times each, every run equal to the plain
@@ -62,10 +68,17 @@ CHAIN_STEPS = 10
 #: plain version rounds every operation separately, so they agree to the
 #: last bit in practice; the bound leaves room for one rounding per
 #: operation of the longest chain (vadv/tridiag recurrences over 80 levels).
-RTOL = {"float32": 1e-5, "float64": 1e-12}
+#: float16: the kernel computes in float32 and rounds once, at the store,
+#: while the plain version rounds every operation to half, so the two agree
+#: to the JAX package's float16 tolerance (rtol = atol = 1e-2,
+#: tests/cartesian_tests/test_upcasting_matrix.py), not to the bit
+RTOL = {"float16": 1e-2, "float32": 1e-5, "float64": 1e-12}
+ATOL = {"float16": 1e-2, "float32": 0.0, "float64": 0.0}
 #: kernel vs the NumPy oracle (float64 throughout) on a small input, as
 #: (rtol, atol): float32 carries the rounding of 80-level recurrences
-ORACLE_TOL = {"float32": (1e-4, 1e-5), "float64": (1e-10, 1e-12)}
+ORACLE_TOL = {"float16": (1e-2, 1e-2), "float32": (1e-4, 1e-5), "float64": (1e-10, 1e-12)}
+#: the main paths that also run in float16
+HALF_PATHS = ("hdiff",)
 
 #: registry phase: domain and halo
 REG_N, REG_HALO = 32, 3
@@ -79,13 +92,16 @@ REPLACES = {
 }
 SOURCE = "gt4py_tpu_torch/cartesian/backend/cuda_codegen.py"
 #: the H100 SXM's data sheet: device memory rate, and peak rates outside the
-#: tensor cores (float32 67 TFLOP/s, float64 34 TFLOP/s)
+#: tensor cores (float32 67 TFLOP/s, float64 34 TFLOP/s; float16 fields
+#: are computed in float32)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float16": 67e12, "float32": 67e12, "float64": 34e12}
 #: the switch that builds a stencil of K4's class for fused_column
 FUSE_ENV = "GT4PY_CUDA_FUSE_STAGES"
-#: the column walks' kernels
-WALKS = ("column", "fused_column", "fused_plane", "tiled")
+#: the kernels of the walk report, and those with a plain-pointer variant
+#: timed beside the ringed one
+WALKS = ("plane", "column", "fused_column", "fused_plane", "tiled")
+UNRINGED = ("plane", "fused_plane", "tiled")
 
 
 def main(argv) -> int:
@@ -135,8 +151,10 @@ def main(argv) -> int:
 
     # -- 1. build every kernel of the paths and the registry ------------------
     runs = []
-    for dtype in ("float32", "float64"):
+    for dtype in ("float32", "float64", "float16"):
         for case in cases:
+            if dtype == "float16" and case["name"] not in HALF_PATHS:
+                continue
             kern = build(
                 case["definition"], "cuda:hopper", dtype, case["externals"],
                 fuse=case.get("fuse", False),
@@ -151,6 +169,7 @@ def main(argv) -> int:
             runs.append({"case": case, "dtype": dtype, "kern": kern, "plain": plain,
                          "scalars": scalars})
     registry = registry_stencils(defs, gtscript)
+    halves = half_stencils(defs, gtscript)
     sweeps = [
         {"name": name, "kern": build(definition, "cuda:hopper", "float64"),
          "plain": build(definition, "torch", "float64")}
@@ -160,7 +179,7 @@ def main(argv) -> int:
         )
     ]
     t0 = time.perf_counter()
-    stencils = [r["kern"] for r in runs + registry + sweeps]
+    stencils = [r["kern"] for r in runs + registry + halves + sweeps]
     cuda_backend.build_libraries(st._backend.module.source for st in stencils)
     for st in stencils:
         st._backend._functions()  # load
@@ -198,25 +217,38 @@ def main(argv) -> int:
     for run in runs:
         case, dtype = run["case"], run["dtype"]
         ref = card_fields(run["host"], origin, case, storage)
-        run["plain"](**ref, **run["scalars"], domain=domain)
-        run["plain"].chain(
-            CHAIN_STEPS, **ref, **run["scalars"], swap=case["swap"], domain=domain
-        )
+        main = run["main"]
+        if dtype == "float16":
+            # one application each: a chain feeds each step the other's
+            # rounding, and hdiff's flux limiter, a sign test on the
+            # difference of two neighbours, turns a one-ulp difference of
+            # equal neighbours into one of a whole flux
+            for n in case["fields"]:
+                if not bool(torch.isfinite(main[n].array).all()):
+                    raise AssertionError(f"{case['name']} {dtype}: non-finite values in {n}")
+            main = card_fields(run["host"], origin, case, storage)
+            run["kern"](**main, **run["scalars"], domain=domain)
+            run["plain"](**ref, **run["scalars"], domain=domain)
+        else:
+            run["plain"](**ref, **run["scalars"], domain=domain)
+            run["plain"].chain(
+                CHAIN_STEPS, **ref, **run["scalars"], swap=case["swap"], domain=domain
+            )
         err = 0.0
         for n in case["fields"]:
-            got, want = run["main"][n].array, ref[n].array
+            got, want = main[n].array, ref[n].array
             if not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"{case['name']} {dtype}: non-finite values in {n}")
-            err = max(err, float((got - want).abs().max()))
-            if not torch.allclose(got, want, rtol=RTOL[dtype], atol=0.0):
+            err = max(err, float((got.double() - want.double()).abs().max()))
+            if not torch.allclose(got, want, rtol=RTOL[dtype], atol=ATOL[dtype]):
                 raise AssertionError(
                     f"{case['name']} {dtype}: kernel disagrees with plain in {n} "
                     f"(max abs err {err})"
                 )
         run["max_abs_err"] = err
         check_oracle(run, defs, np, storage)
-        print(f"{case['name']} {dtype}: kernel == plain within rtol {RTOL[dtype]} "
-              f"(max abs err {err:.3e}); oracle ok")
+        print(f"{case['name']} {dtype}: kernel == plain within rtol {RTOL[dtype]}, "
+              f"atol {ATOL[dtype]} (max abs err {err:.3e}); oracle ok")
 
     # -- 4. timing: plain, kernel, kernel, plain -------------------------------------
     copy_gbs = copy_bandwidth() / 1e9
@@ -231,7 +263,7 @@ def main(argv) -> int:
         dev = device_ms(run, card_fields(run["host"], origin, case, storage), 20)
         run["ms"], run["plain_ms"] = (k1 + k2) / 2, (p1 + p2) / 2
         run["device_ms"] = dev
-        if case["kernel"] in ("fused_plane", "tiled"):
+        if case["kernel"] in UNRINGED:
             run["unringed_ms"] = unringed_ms(
                 run, card_fields(run["host"], origin, case, storage), cuda_backend
             )
@@ -267,6 +299,16 @@ def main(argv) -> int:
     for run in runs:
         if run["case"]["kernel"] in WALKS:
             print("  " + walk_report(run, cuda_backend))
+    tool = cuobjdump()
+    print(f"SASS instructions of the main paths' kernels ({tool or 'no cuobjdump: not measured'}): "
+          "static count of each kernel, and of its innermost loops' bodies (what a thread "
+          "issues once per point of a statement), by class")
+    for run in runs if tool else ():
+        source = run["kern"]._backend.module.source
+        for kernel, counts in sorted(sass_counts(source, cuda_backend, tool).items()):
+            print(f"  {run['case']['name']:19s} {run['dtype']:8s} {kernel:22s} "
+                  + "; ".join(f"{part} " + ", ".join(f"{c} {n}" for c, n in by.items())
+                              for part, by in counts.items()))
 
     # -- 5. the registry -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -277,6 +319,11 @@ def main(argv) -> int:
         by_kernel[reg["entry"]["strategy"]] = by_kernel.get(reg["entry"]["strategy"], 0) + 1
     print(f"registry: {len(registry)} stencils at {REG_N}x{REG_N}, each through its pinned "
           f"kernel ({by_kernel}) == plain, in {time.perf_counter() - t0:.1f} s")
+    for reg in halves:
+        run_half_stencil(reg, defs, storage, cuda_backend, np, torch)
+    print(f"float16: {len(halves)} stencils at {REG_N}x{REG_N}, one on each kernel, == plain "
+          f"within rtol = atol = {defs.HALF_TOL}; max abs err "
+          + ", ".join(f"{r['name']} ({r['entry'][1]}) {r['err']:.3e}" for r in halves))
 
     # -- 6. the lagged sweeps, one cooperative tiled launch a call ----------------
     t0 = time.perf_counter()
@@ -609,6 +656,57 @@ def registry_stencils(defs, gtscript) -> list:
     return out
 
 
+def half_stencils(defs, gtscript) -> list:
+    """The float16 stencils of ``defs.HALF_STENCILS``, one on each kernel,
+    built for the kernel (failing where another one serves it) and for the
+    plain version."""
+    out = []
+    for name, (definition, kernel, fuse) in sorted(defs.HALF_STENCILS.items()):
+        opts = dict(definition=definition, dtypes={"dt": "float16"})
+        kern = build_switched(gtscript, fuse, backend="cuda:hopper", **opts)
+        if kern._backend.strategy != kernel:
+            raise AssertionError(
+                f"float16 {name}: served by {kern._backend.strategy} "
+                f"({kern._backend.unsupported}), pinned to {kernel}"
+            )
+        out.append({"name": name, "entry": (definition, kernel, fuse), "kern": kern,
+                    "plain": gtscript.stencil(backend="torch", **opts)})
+    return out
+
+
+def run_half_stencil(reg, defs, storage, cuda_backend, np, torch) -> None:
+    """One float16 stencil at REG_N × REG_N × 16 through its kernel
+    (counted) and the plain version, every field and point compared at
+    ``defs.HALF_TOL``; its largest error goes to ``reg["err"]``."""
+    kernel = reg["entry"][1]
+    shape = (REG_N + 2 * REG_HALO, REG_N + 2 * REG_HALO, 16)
+    host = defs.half_inputs(reg["kern"].field_info, shape, np.random.default_rng(19))
+    out = {}
+    for tag in ("kern", "plain"):
+        fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+        cuda_backend.WRAPPERS[kernel].launches = 0
+        info: dict = {}
+        reg[tag](**fields, origin=(REG_HALO, REG_HALO, 0), domain=(REG_N, REG_N, 16),
+                 exec_info=info)
+        torch.cuda.synchronize()
+        if tag == "kern" and (
+            info["kernel_strategy"] != kernel or cuda_backend.WRAPPERS[kernel].launches == 0
+        ):
+            raise AssertionError(f"float16 {reg['name']}: {kernel} not launched")
+        out[tag] = {n: np.asarray(v).astype(np.float64) for n, v in fields.items()}
+    reg["err"] = 0.0
+    for n, want in out["plain"].items():
+        got = out["kern"][n]
+        if not np.all(np.isfinite(got)):
+            raise AssertionError(f"float16 {reg['name']}: non-finite values in {n}")
+        reg["err"] = max(reg["err"], float(np.max(np.abs(got - want))))
+        if not np.allclose(got, want, rtol=defs.HALF_TOL, atol=defs.HALF_TOL):
+            raise AssertionError(
+                f"float16 {reg['name']}: kernel disagrees with plain in {n} "
+                f"(max abs err {reg['err']})"
+            )
+
+
 def run_sweep(sweep, shape, origin, domain, storage, cuda_backend, np, torch) -> None:
     """One lagged sweep at full size in float64: the plain version once and
     the kernel three times, each time on a fresh copy of the same inputs and
@@ -795,12 +893,126 @@ def ptxas_report(source: str, cuda_backend) -> dict:
     return out
 
 
+def residency(source: str, cuda_backend) -> dict:
+    """kernel -> blocks resident on an SM (:func:`resident_blocks`), from
+    its registers and static shared memory in the build log and its
+    threads and dynamic shared memory in the source."""
+    import re
+
+    log = cuda_backend._paths(source)[2] + ".log"
+    static, kernel = {}, None
+    with open(log) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+            if m:
+                kernel = m.group(2)[: int(m.group(1))]
+            m = re.search(r"(\d+) bytes smem", line)
+            if m and kernel:
+                static[kernel] = int(m.group(1))
+    threads = {k: int(n) for n, k in re.findall(r"__launch_bounds__\((\d+)\) (\w+)\(", source)}
+    dynamic = {k: int(n) for k, n in re.findall(r"(\w+)<<<grid, block, (\d+),", source)}
+    dynamic.update(re.findall(r"cudaLaunchCooperativeKernel\(\(const void\*\)(\w+),.*?gt_args, (\d+),", source))
+    return {
+        k: resident_blocks(r, threads.get(k, 256), static.get(k, 0) + int(dynamic.get(k, 0)))
+        for k, (r, _) in ptxas_report(source, cuda_backend).items()
+    }
+
+
+def resident_blocks(registers: int, threads: int, shared: int) -> int:
+    """Blocks of a kernel an H100 SM holds at once, by the occupancy rule:
+    65,536 registers allocated 256 a warp at a time, 64 warps, 32 blocks,
+    and 228 KB of shared memory of which each block also takes 1 KB."""
+    warps = -(-threads // 32)
+    per_warp = -(-registers * 32 // 256) * 256
+    by_regs = (65536 // per_warp) // warps if per_warp else 32
+    by_shared = 228 * 1024 // (shared + 1024)
+    return min(32, 64 // warps, by_regs, by_shared)
+
+
+def cuobjdump():
+    """The toolkit's ``cuobjdump``, or None where it has none."""
+    import shutil
+
+    for path in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
+        if path and os.path.isfile(path):
+            return path
+    return None
+
+
+#: SASS opcodes by class, by their first letters where a family shares them
+SASS_CLASSES = (
+    ("global", ("LDG", "STG", "LDGSTS", "RED", "ATOMG", "ATOM", "LD", "ST")),
+    ("shared", ("LDS", "STS", "LDSM", "ATOMS")),
+    ("other", ("BAR", "BRA", "BSSY", "BSYNC", "EXIT", "NOP", "DEPBAR", "LDGDEPBAR", "WARPSYNC",
+               "CALL", "RET", "YIELD", "BREAK", "LDC", "ULDC", "MEMBAR", "ERRBAR", "CCTL", "BPT")),
+)
+
+
+def sass_class(op: str) -> str:
+    """global, shared, fp, int (integer and address arithmetic, moves,
+    predicates) or other (control, barriers, constant loads)."""
+    for name, ops in SASS_CLASSES:
+        if op in ops:
+            return name
+    if op[0] in "FDH" or op in ("MUFU", "I2F", "F2I", "I2FP", "F2IP"):
+        return "fp"
+    return "int"
+
+
+def sass_counts(source: str, cuda_backend, tool: str) -> dict:
+    """kernel -> {"static": {class: n}, "loops": {class: n}}: the SASS of
+    each kernel of the source's library (``cuobjdump -sass``), and of the
+    bodies of its innermost loops (a backward branch's span that holds no
+    other), which a thread issues once per point of a statement (times
+    any unrolling)."""
+    import re
+
+    lib = cuda_backend._paths(source)[1]
+    text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True).stdout
+    out = {}
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        m = re.match(r"_Z(\d+)(\w+)", chunk)
+        kernel = m.group(2)[: int(m.group(1))] if m else chunk.split()[0]
+        code, labels = [], {}
+        for line in chunk.splitlines():
+            lab = re.match(r"\s*(\.L_x_\d+):", line)
+            if lab:
+                labels[lab.group(1)] = len(code)
+            ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(.*)", line)
+            if ins:
+                code.append((int(ins.group(1), 16), ins.group(2).split(".")[0], ins.group(3)))
+        where = {addr: n for n, (addr, _, _) in enumerate(code)}
+        loops = []
+        for n, (addr, op, rest) in enumerate(code):
+            if op != "BRA":
+                continue
+            t = re.search(r"0x([0-9a-f]+)|`?\(?(\.L_x_\d+)", rest)
+            if t is None:
+                continue
+            target = where.get(int(t.group(1), 16)) if t.group(1) else labels.get(t.group(2))
+            if target is not None and target < n:
+                loops.append((target, n))
+        inner = [(a, b) for a, b in loops
+                 if not any((c, d) != (a, b) and a <= c and d <= b for c, d in loops)]
+        counts = {"static": {}, "loops": {}}
+        for n, (_, op, _) in enumerate(code):
+            if op == "NOP":
+                continue
+            cls = sass_class(op)
+            counts["static"][cls] = counts["static"].get(cls, 0) + 1
+            if any(a <= n <= b for a, b in inner):
+                counts["loops"][cls] = counts["loops"].get(cls, 0) + 1
+        out[kernel] = counts
+    return out
+
+
 def walk_report(run, cuda_backend) -> str:
-    """One column walk's cell: µs per walked level, its ring bytes per
-    block and each kernel's registers and spills."""
+    """One walk's cell: µs per walked level, its ring bytes per block and
+    each kernel's registers, spills and blocks resident on an SM."""
     module = run["kern"]._backend.module
     levels = walked_levels(run["kern"]._backend.analyzed, NK) or NK
     ptxas = ptxas_report(module.source, cuda_backend)
+    blocks = residency(module.source, cuda_backend)
     return (
         f"{run['case']['name']:22s} {run['dtype']:8s} {levels} levels, "
         f"{run['device_ms'] * 1e3 / levels:.3f} us per level; ring bytes "
@@ -808,7 +1020,8 @@ def walk_report(run, cuda_backend) -> str:
         + (f"; plain-pointer variant {run['unringed_ms'] * 1e3:.1f} us a step"
            if "unringed_ms" in run else "")
         + "; ptxas " + ", ".join(
-            f"{k} {r} registers {s} B spilled" for k, (r, s) in sorted(ptxas.items())
+            f"{k} {r} registers {s} B spilled {blocks[k]} blocks an SM"
+            for k, (r, s) in sorted(ptxas.items())
         )
     )
 

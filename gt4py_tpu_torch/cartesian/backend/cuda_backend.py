@@ -58,10 +58,14 @@ from gt4py_tpu_torch.core.ndarray_utils import numpy_dtype, torch_dtype
 #: the eager plain version computes it (the role of -ffp-contract=off in
 #: c_backend.py:67-69); no fast-math. ``-Xptxas -v`` writes each kernel's
 #: registers, shared memory and spills to the build log beside the source
-#: (``gt_<key>.cu.log``).
+#: (``gt_<key>.cu.log``). The two ``__CUDA_NO_HALF_*`` macros take
+#: ``__half`` arithmetic and implicit conversions out of ``cuda_fp16.h``: a
+#: generated source converts every half value with the intrinsics, and
+#: anything else fails to build.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
+    "-D__CUDA_NO_HALF_OPERATORS__", "-D__CUDA_NO_HALF_CONVERSIONS__",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
@@ -276,11 +280,12 @@ class CudaHopperBackend(Backend):
         return {n: arrays[n] for n in self.written if n in arrays}
 
     def _functions(self) -> list:
+        """(launcher, cooperative, its name) in launch order."""
         if self._fns is None:
             lib = load_library(self.module.source)
             coop = self.module.cooperative
             self._fns = [
-                (_bind(lib, name, name in coop), name in coop) for name in self.module.launchers
+                (_bind(lib, name, name in coop), name in coop, name) for name in self.module.launchers
             ]
         return self._fns
 
@@ -313,8 +318,17 @@ class CudaHopperBackend(Backend):
         strides = (_LL * max(mod.n_shape_slots, 1))()
         orig = (_LL * (3 * nslots))()
         keepalive = []
+        placed: dict[str, tuple] = {}  # slot -> its tensor ((I, J, K) view), origin
+        snapshots: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
         for m in mod.slots:
-            if m.is_temp:
+            if m.snapshot_of is not None:
+                # the symbol's values before a launch whose shared planes a
+                # neighbouring block could overwrite first: same layout
+                src, o = placed[m.snapshot_of]
+                t = torch.empty_strided(src.size(), src.stride(), dtype=src.dtype, device=device)
+                keepalive.append(t)
+                snapshots[m.snapshot_of] = (t, src)
+            elif m.is_temp:
                 e = m.extent
                 # (K, I, J) with J contiguous, zero-filled like the plain
                 # version's temporaries where the kernel may read a point
@@ -340,6 +354,8 @@ class CudaHopperBackend(Backend):
                         f"Field '{m.name}': expected a {m.ndim}-d tensor on {device}"
                     )
                 o = origins.get(m.name, (0, 0, 0))
+                self._check_offsets(m, t)
+            placed[m.name] = (t, o)
             ptrs[m.index] = t.data_ptr()
             item = t.element_size()
             for d in range(t.ndim):
@@ -374,8 +390,27 @@ class CudaHopperBackend(Backend):
             with torch.cuda.device(device):
                 stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
                 args = (ptrs, shapes, strides, orig, fsc, isc, ni, nj, nk, stream, noalias)
-                for fn, cooperative in fns:
+                for fn, cooperative, name in fns:
+                    for field in mod.snapshots.get(name, ()):
+                        snap, src = snapshots[field]
+                        snap.copy_(src)
                     wrapper.launch(fn, args + ((flags.data_ptr(),) if cooperative else ()))
 
         launch.keepalive = (keepalive, arrays)
         return launch
+
+    def _check_offsets(self, m, t: torch.Tensor) -> None:
+        """The plane kernel takes a point's offset from its tile's corner as
+        a 32-bit integer: refuse a field whose strides carry the tile's
+        reach (``KernelModule.offset_span``) beyond it."""
+        rows, cols = self.module.offset_span
+        if not rows or t.ndim < 2:
+            return
+        si, sj = (abs(t.stride(d)) * t.element_size() for d in range(2))
+        reach = rows * si + cols * sj
+        if reach > 2**31 - 1:
+            raise CudaUnsupported(
+                f"stencil '{self.analyzed.name}': field '{m.name}' has strides of {si} and {sj} "
+                f"bytes along I and J, so the {self.module.strategy} kernel's offsets over "
+                f"{rows} rows and {cols} columns of a tile reach {reach} bytes, beyond 32 bits"
+            )

@@ -18,24 +18,40 @@ stencil, from its GTIR and the stage-fusion switch alone, in this order
 :424). It serves stencils whose vertical loops are all PARALLEL with no
 K-offset reads, whose fields are all 3-D without data dimensions, and whose
 temporaries stay inside one loop.
-    Mapping: one launch per vertical loop; grid (J tiles, I tiles, K), one
-    block of 256 threads per (TI × TJ) tile of one K plane. K1 splits each
-    field into a 128-lane main block and a J-halo strip only because of the
-    TPU's 128-lane padding (pallas_split.py:1-29); here J is simply the
-    contiguous axis (storage/layout.py) and neighbouring threads take
-    neighbouring J. Statements run in program order; each is evaluated over
-    its tile widened by the statement's extent (``analyzed.stmt_extents``),
-    so the halo is recomputed at tile edges. Temporaries live in shared
-    memory, one zero-initialised (TI + ext_i) × (TJ + ext_j) plane each,
-    with ``__syncthreads()`` between statements; ragged edges are masked.
-    API fields are written only at domain points of the block's own tile;
-    each point computes its fields' addresses once and adds constant
-    offsets. Bound on the H100: bytes, ideally. hdiff reads two fields and
-    writes one, three 21.6 MB float32 streams at 256×256×80 — more than the
-    50 MB L2 — so a step moves ≈ 65 MB through device memory. This first
-    version reaches well under the bandwidth bound (PERF.md): the halo
-    recompute, two barriers per tile and 64-bit index arithmetic stand in
-    its way, and a larger tile (16 × 64 over 8 × 32) was the measured gain.
+    Mapping: one launch per vertical loop; grid (J tiles, I tiles, K walks
+    of ``PL_TK`` levels), one block per PL_TI × PL_TJ tile, which walks the
+    levels of its K walk (PARALLEL levels are independent, so any order is
+    right) and pays its setup once a walk. K1 splits each field into a
+    128-lane main block and a J-halo strip only because of the TPU's
+    128-lane padding (pallas_split.py:1-29); here J is simply the contiguous
+    axis (storage/layout.py). A block is one row of threads along J as wide
+    as the widest statement's columns, and as many rows as bring it near
+    ``PL_THREADS``; each thread takes one column of a statement's tile,
+    widened by the statement's extent (``analyzed.stmt_extents``), and walks
+    its rows of I, so the halo is recomputed at tile edges. Each field's
+    address at the tile's corner is computed once a block in 64 bits, at
+    each level once a level, and a point's offset from it is a 32-bit
+    integer (the wrapper refuses a field whose strides would carry it
+    beyond; ``KernelModule.offset_span``). Temporaries live in shared
+    memory, one (PL_TI + ext_i) × (PL_TJ + ext_j) plane each, zero-filled
+    only at the levels of a section whose first access to it is not an
+    unconditional write of the whole plane (hdiff: none). Statements run in
+    program order with a barrier only where :meth:`_Generator._hazard`
+    finds a plane shared, and one that turns each level over. API fields
+    are written only at domain points of the block's own tile. Two
+    variants, as ``fused_plane``'s: ``gt_plane_<n>_r``, launched when no two
+    field buffers overlap, prefetches the 3-D fields it reads through a
+    ``cp.async`` ring of planes over their reads' footprints (the tile ring
+    below, at most ``PL_RING_LEVELS`` deep), and the plain one loads them
+    directly. Bound on the H100: bytes. hdiff reads two fields and writes
+    one, three 21 MB float32 streams at 256×256×80 — more than the 50 MB
+    L2 — so a step moves ≈ 63 MB through device memory, 18.8 µs at
+    3.35 TB/s. The first version, one K plane a block, 64-bit index
+    arithmetic at every point and every temporary zero-filled behind a
+    barrier, took 51.4 µs (PERF.md; NVIDIA H100 80GB HBM3, 700 W). This
+    one is faster but still far from the bound, and float16, with half
+    the bytes, takes about as long: the work of a level on the SM, not
+    memory, holds it (times, SASS counts and the tuning in PERF.md).
 
 ``fused_plane`` — replaces K2, ``pallas_codegen.build_plane_fn``
 (pallas_codegen.py:1829, kernel :1887, ``pallas_call`` :1992). It serves
@@ -251,9 +267,18 @@ Numerics follow c_codegen.py: NumPy floor-mod, true division, NaN-
 propagating min/max, banker's round. The build uses ``--fmad=false``
 (cuda_backend.py), so products and sums round as in the eager plain
 version. Arguments may alias (``stencil(a, a)``), so the kernels take plain
-pointers; the column, fused_column, fused_plane and tiled kernels have a
-second, ``_r`` variant that the wrapper launches when it has checked that
-no two field buffers overlap.
+pointers; every kernel also has a second, ``_r`` variant that the wrapper
+launches when it has checked that no two field buffers overlap.
+A shared plane of an API field that ``fused_plane`` or ``tiled`` first
+loads from device memory at a level, and that a statement reads at other
+points before or in the level's last write of it, is loaded from a
+snapshot the wrapper copies before the launch (``KernelModule.snapshots``):
+a neighbouring block may already have stored its own points of that level.
+float16 fields are stored half and computed in float32, as K1 computes
+them (pallas_split.py:129-156): a half element is loaded with
+``__half2float`` and stored with ``__float2half_rn``; temporaries,
+literals, casts and math calls of a half type are float ones; a half field
+is never ringed (``cp.async`` copies 4, 8 or 16 bytes).
 Constructs no skeleton can serve raise :class:`CudaUnsupported` with the
 reason; there is no silent fallback.
 """
@@ -272,13 +297,27 @@ from gt4py_tpu_torch.cartesian.passes.extents import _iter_reads, iter_writes
 from gt4py_tpu_torch.cartesian.passes.pipeline import AnalyzedStencil
 from gt4py_tpu_torch.cartesian.passes.type_inference import _promote
 
-#: plane-kernel tile: TI rows of I by TJ columns of J, and its thread count
+#: fused_plane tile: TI rows of I by TJ columns of J, and its thread count
 TI, TJ = 16, 64
 PLANE_THREADS = 256
+#: plane kernel: its tile, PL_TI rows of I by PL_TJ columns of J, the
+#: levels PL_TK a block walks over it, and its PL_THREADS threads: a row of
+#: PL_TJ along J, and rows of I that a statement's rows are walked by.
+#: Tuned on the card for the sum of hdiff's float32 and float64 device
+#: times (PERF.md, a mode of chip_smoke.py since removed): 16 × 64 over 8 ×
+#: 64, 32 × 64, 16 × 32, 8 × 128 and 32 × 32; 4 levels over 1, 2, 8 and 16;
+#: 256 threads over 128 and 512; no register cap over 5, 6 or 8 blocks an
+#: SM
+PL_TI, PL_TJ = 16, 64
+PL_TK = 4
+PL_THREADS = 256
+#: plane, ``_r`` variant: the most levels its input ring holds (2 over 3
+#: and 4, measured as above)
+PL_RING_LEVELS = 2
 #: column-kernel block: (32 along J) × (8 along I) columns
 COL_BJ, COL_BI = 32, 8
-#: static shared memory a plane block may use for temporaries; above it
-#: a kernel needs dynamic shared memory and ``cudaFuncSetAttribute``
+#: shared memory a kernel takes without ``cudaFuncSetAttribute``, and the
+#: most a plane block may use for its temporaries (K1's class)
 SHARED_BYTES_MAX = 48 * 1024
 #: dynamic shared memory a block may use on the H100 (232,448 bytes)
 SHARED_BYTES_LIMIT = 227 * 1024
@@ -359,6 +398,7 @@ _CTYPES = {
     "float64": "double",
 }
 
+_F16 = np.dtype(np.float16)
 _F32 = np.dtype(np.float32)
 _BOOL = np.dtype(np.bool_)
 
@@ -399,6 +439,7 @@ _LIBM = {
 _PRELUDE = r"""
 #include <stdint.h>
 #include <cuda_runtime.h>
+#include <cuda_fp16.h>
 
 #define GT_D static __device__ __forceinline__
 GT_D long long gt_clampk(long long k, long long n) {
@@ -492,12 +533,57 @@ def _np_dtype(dtype: Any) -> np.dtype:
     return np.dtype(dtype)
 
 
-def _ctype(dtype: Any) -> str:
+def _compute(dtype: Any) -> np.dtype:
+    """The type a kernel computes a value of ``dtype`` in: float16 in
+    float32, as K1 computes half fields (pallas_split.py:129-156); every
+    other type in itself."""
     dt = _np_dtype(dtype)
+    return _F32 if dt == _F16 else dt
+
+
+def _is_f32(dtype: Any) -> bool:
+    """Computed in float32: the float names of the math library apply."""
+    return _compute(dtype) == _F32
+
+
+def _ctype(dtype: Any) -> str:
+    """The C type a value of ``dtype`` is computed and held on chip in
+    (registers, shared memory, temporaries' buffers)."""
+    dt = _compute(dtype)
     try:
         return _CTYPES[dt.name]
     except KeyError:
         raise CudaUnsupported(f"dtype {dt} has no kernel type yet") from None
+
+
+def _stype(dtype: Any) -> str:
+    """The C type of an API field's element in device memory: ``__half``
+    for float16 (loaded with ``__half2float``, stored with
+    ``__float2half_rn``), else its compute type."""
+    return "__half" if _np_dtype(dtype) == _F16 else _ctype(dtype)
+
+
+def _load(m: "FieldMeta", addr: str, load: str = "", const: bool = False) -> str:
+    """A read of ``m``'s element at byte address ``addr``, in its compute
+    type; ``load``: through this intrinsic (a half element as its 16 bits)."""
+    st = _stype(m.dtype)
+    if st == "__half":
+        if load:
+            return f"__half2float(__ushort_as_half({load}((const unsigned short*)({addr}))))"
+        return f"__half2float(*(const __half*)({addr}))"
+    if load:
+        return f"{load}((const {st}*)({addr}))"
+    return f"(*({'const ' if const else ''}{st}*)({addr}))"
+
+
+def _column_passes(cols: int, threads: int) -> list[tuple[int, str]]:
+    """The passes a row of ``threads`` threads makes over ``cols``
+    columns: (the pass's first column, the condition a thread's column
+    meets, "" where every thread's does)."""
+    return [
+        (c0, "" if c0 + threads <= cols else f"if (tx < {cols - c0})")
+        for c0 in range(0, cols, threads)
+    ]
 
 
 @dataclasses.dataclass
@@ -520,6 +606,9 @@ class FieldMeta:
     #: global temporaries: the wrapper zero-fills the buffer (the kernel
     #: may read a point before it writes it)
     fill: bool = True
+    #: a snapshot: the wrapper copies this symbol's buffer into the slot's
+    #: own, of the same layout, before each launch that reads it
+    snapshot_of: Optional[str] = None
 
     @property
     def ndim(self) -> int:
@@ -566,6 +655,14 @@ class KernelModule:
     #: the tiled kernels' tile (rows of I, columns of J) the source was
     #: generated for
     tile: tuple[int, int] = (0, 0)
+    #: launcher -> the symbols the wrapper snapshots before launching it
+    #: (their ``snapshot_of`` slots)
+    snapshots: dict[str, tuple[str, ...]] = dataclasses.field(default_factory=dict)
+    #: plane: the rows of I and columns of J that a block's 32-bit point
+    #: offsets reach from its tile's corner (statements widened by their
+    #: extents, ring planes by their footprints); the wrapper refuses a
+    #: field whose strides carry them beyond 32 bits
+    offset_span: tuple[int, int] = (0, 0)
 
     def tiles(self, ni: int, nj: int) -> int:
         """Tiles of a tiled kernel's grid over an ni × nj domain."""
@@ -674,8 +771,9 @@ class _Buffer:
 
     @property
     def bytes(self) -> int:
-        """Its bytes of dynamic shared memory, 16-byte aligned."""
-        return -(-self.elements * self.meta.dtype.itemsize // 16) * 16
+        """Its bytes of dynamic shared memory, 16-byte aligned: elements of
+        the compute type, raw elements for a ring (never a half field)."""
+        return -(-self.elements * _compute(self.meta.dtype).itemsize // 16) * 16
 
 
 @dataclasses.dataclass
@@ -817,11 +915,8 @@ class _Generator:
         self.scalar_vars: dict[str, str] = {}
         self.lines: list[str] = []
         self.indent = 0
-        #: plane kernel: name -> shared-memory tile row length (temps only)
-        self.shared: dict[str, int] = {}
-        #: name -> variable holding the symbol's address at the current
-        #: point: a byte pointer at (i, j[, k]) for fields, an element index
-        #: at (i, j) for shared-memory temporaries; offsets are added to it
+        #: name -> variable holding the field's byte address at the current
+        #: point, (i, j[, k]); an access adds its constant offsets to it
         self.point_base: dict[str, str] = {}
         #: column kernel, alias-free variant: symbols read but not written
         #: by the loop, accessed through ``const`` pointers
@@ -865,7 +960,9 @@ class _Generator:
             meta = FieldMeta(
                 name=t.name,
                 var=f"t{ti}",
-                dtype=_np_dtype(t.dtype),
+                # a half temporary lives in its compute type everywhere,
+                # buffers in device memory included (K1, pallas_split.py:720)
+                dtype=_compute(t.dtype),
                 axes=(True, True, True),
                 data_dims=(),
                 is_temp=True,
@@ -878,6 +975,16 @@ class _Generator:
         self.buffers: dict[str, _Buffer] = {}
         self.fused_plan: Optional[list[_Buffer]] = None
         self.tiled_plans: list[list[_Buffer]] = []
+        #: plane: each loop's shared planes (its temporaries), their bytes,
+        #: and the reach of the point offsets (KernelModule.offset_span)
+        self.plane_plans: list[list[_Buffer]] = []
+        #: fused_plane and tiled: kernel index -> the symbols whose shared
+        #: planes it loads from a snapshot of their values before the
+        #: launch (:meth:`_load_hazard`), and each one's snapshot slot
+        self.snapshots: dict[int, set[str]] = {}
+        self.snapshot_meta: dict[str, FieldMeta] = {}
+        self.plane_bytes: dict[int, int] = {}
+        self.offset_span = (0, 0)
         #: dynamic shared memory of the fused_plane kernel, of each tiled one
         self.fused_bytes = 0
         self.tiled_bytes: dict[int, int] = {}
@@ -930,6 +1037,15 @@ class _Generator:
                 meta.fill = self.fill.get(meta.name, True)
                 self.slots.append(meta)
                 shape_off += 3
+        for name in sorted(set().union(*self.snapshots.values())):
+            m = self.fields[name]
+            snap = dataclasses.replace(
+                m, name=f"{name}.before", var=f"s{len(self.snapshot_meta)}", index=len(self.slots),
+                shape_off=shape_off, is_temp=False, snapshot_of=name,
+            )
+            self.snapshot_meta[name] = snap
+            self.slots.append(snap)
+            shape_off += snap.ndim
         self.n_shape_slots = shape_off
 
     # -- dispatch --------------------------------------------------------------
@@ -947,6 +1063,7 @@ class _Generator:
         if plane_class:
             try:
                 self._check_plane_class()
+                self.plane_plans = [self._plan_plane(n) for n in range(len(loops))]
                 return "plane"
             except CudaUnsupported as exc:
                 reasons.append(f"plane: {exc}")
@@ -997,14 +1114,14 @@ class _Generator:
             self._check_plane(vloop)
             temps = {a.name: self.fields[a.name] for a in writes + reads}
             shared_bytes = sum(
-                (TI + m.extent.i[1] - m.extent.i[0]) * (TJ + m.extent.j[1] - m.extent.j[0])
+                (PL_TI + m.extent.i[1] - m.extent.i[0]) * (PL_TJ + m.extent.j[1] - m.extent.j[0])
                 * m.dtype.itemsize
                 for m in temps.values()
                 if m.is_temp
             )
             if shared_bytes > SHARED_BYTES_MAX:
                 raise CudaUnsupported(
-                    f"temporaries need {shared_bytes} bytes of static shared memory per block"
+                    f"temporaries need {shared_bytes} bytes of shared memory per block"
                 )
 
     # -- emission helpers ----------------------------------------------------
@@ -1100,6 +1217,8 @@ class _Generator:
             cooperative=frozenset(f"gt_launch_{n}" for n in self.cooperative),
             ring_bytes=dict(self.ring_bytes),
             tile=(TL_TI, TL_TJ),
+            snapshots={f"gt_launch_{n}": tuple(sorted(v)) for n, v in self.snapshots.items()},
+            offset_span=self.offset_span,
         )
 
     def _unit_axes(self) -> dict[str, str]:
@@ -1121,11 +1240,16 @@ class _Generator:
                 out[name] = lacking
         return out
 
-    def _emit_locals(self, names: set[str], *, pointers: bool = True) -> None:
+    def _emit_locals(self, names: set[str], *, pointers: bool = True, narrow: bool = False) -> None:
         """Kernel-local pointers (unless they are kernel parameters), byte
         strides, K sizes and origins of the launch slots the loop touches,
-        and the scalars."""
-        self.emit("const long long ni = p.ni, nj = p.nj, nk = p.nk;")
+        and the scalars; ``narrow``: the domain's I and J sizes as ``int``
+        (the plane kernel's points are 32-bit)."""
+        if narrow:
+            self.emit("const int ni = (int)p.ni, nj = (int)p.nj;")
+            self.emit("const long long nk = p.nk;")
+        else:
+            self.emit("const long long ni = p.ni, nj = p.nj, nk = p.nk;")
         self.emit("(void)ni; (void)nj; (void)nk;")
         for m in self.slots:
             if m.name not in names:
@@ -1290,56 +1414,208 @@ class _Generator:
                             f"statement reads its own target '{r.name}' at an offset"
                         )
 
+    def _plan_plane(self, n: int) -> list[_Buffer]:
+        """K1's class, loop ``n``: each temporary a shared plane over its
+        footprint, zero-filled at the levels of each section whose first
+        access to it is not an unconditional write of the whole plane (the
+        plain version's zero-filled temporary: a level the section does not
+        set reads 0), and the ``_r`` variant's input ring after them."""
+        items = self._items([n])
+        buffers = []
+        for m in self.fields.values():
+            if not m.is_temp or not any(a.name == m.name for it in items for a in it.reads + it.writes):
+                continue
+            b = self._shared_buffer(items, m.name, (PL_TI, PL_TJ))
+            init = set()
+            for sid in sorted({it.section for it in items}):
+                sec = [it for it in items if it.section == sid]
+                if any(a.name == m.name for it in sec for a in it.reads + it.writes) and not (
+                    self._first_access_covers(sec, m.name, b.fp)
+                ):
+                    init.add(sid)
+            b.init = frozenset(init)
+            buffers.append(b)
+        self.plane_bytes[n] = self._layout(buffers, "plane")
+        bj, bi = self._plane_block()
+        self.tile_rings[n] = self._plan_tile_ring(
+            items, buffers, (PL_TI, PL_TJ), bj * bi, self.plane_bytes[n], fused=True,
+            levels=PL_RING_LEVELS,
+        )
+        return buffers
+
+    @staticmethod
+    def _plane_block() -> tuple[int, int]:
+        """A plane block's threads: a row of ``PL_TJ`` along J (whole warps,
+        on the tile's columns) and as many rows of I as make ``PL_THREADS``;
+        a statement or ring plane wider than the tile takes its columns
+        beyond in further passes (:func:`_column_passes`)."""
+        return PL_TJ, max(1, PL_THREADS // PL_TJ)
+
     def _emit_plane_kernel(self, n: int, vloop: gtir.VerticalLoop) -> None:
-        writes, reads = _loop_symbols(vloop)
-        names = {a.name for a in writes + reads}
-        temps = [m for m in self.fields.values() if m.is_temp and m.name in names]
-        self.shared = {}
+        """Two variants of one skeleton, as ``column``'s: ``gt_plane_<n>``
+        with plain pointers, for any arguments, and ``gt_plane_<n>_r``
+        taking the fields as ``__restrict__`` parameters (read-only ones
+        ``const``) and prefetching its input planes through the tile ring
+        (:meth:`_plan_tile_ring`), for arguments whose buffers do not
+        overlap. Both walk ``PL_TK`` levels of one tile a block."""
+        items = self._items([n])
+        names = {a.name for it in items for a in it.reads + it.writes}
+        written = {w.name for it in items for w in it.writes}
+        plan, ring = self.plane_plans[n], self.tile_rings.get(n, [])
+        block = self._plane_block()
         kernel = f"gt_plane_{n}"
-        self.emit(f"__global__ void __launch_bounds__({PLANE_THREADS}) {kernel}(const GtParams p) {{")
-        self.indent += 1
-        self._emit_locals(names)
-        self.emit(f"const long long i0 = (long long)blockIdx.y * {TI};")
-        self.emit(f"const long long j0 = (long long)blockIdx.x * {TJ};")
-        self.emit("const long long k = blockIdx.z;")
-        self.emit("const int tid = threadIdx.x;")
-        for m in temps:
-            e = m.extent
-            si = TI + e.i[1] - e.i[0]
-            sj = TJ + e.j[1] - e.j[0]
-            ct = _ctype(m.dtype)
-            self.shared[m.name] = sj
-            self.emit(f"__shared__ {ct} {m.var}_s[{si * sj}];")
-            with self._block(f"for (int q = tid; q < {si * sj}; q += {PLANE_THREADS})"):
-                self.emit(f"{m.var}_s[q] = ({ct})0;")
-        if temps:
-            self.emit("__syncthreads();")
-        for section in vloop.sections:
-            lo, hi = self._k_bound(section.interval.start), self._k_bound(section.interval.end)
-            with self._block(f"if (k >= {lo} && k < {hi})"):
-                for s_idx, stmt in enumerate(section.body):
-                    ext = self.analyzed.stmt_extents[stmt]
-                    ni_s = TI + ext.i[1] - ext.i[0]
-                    nj_s = TJ + ext.j[1] - ext.j[0]
-                    with self._block(
-                        f"for (int q = tid; q < {ni_s * nj_s}; q += {PLANE_THREADS})"
-                    ):
-                        self.emit(f"const long long i = i0 + ({ext.i[0]}) + q / {nj_s};")
-                        self.emit(f"const long long j = j0 + ({ext.j[0]}) + q % {nj_s};")
-                        with self._block(f"if ({self._extent_cond(ext)})"):
-                            self._emit_point_bases(stmt, with_k=True)
-                            self._emit_stmt(stmt)
-                    if s_idx + 1 < len(section.body):
-                        self.emit("__syncthreads();")
-        self.indent -= 1
-        self.emit("}")
-        self.emit()
+        used = [m for m in self.slots if m.name in names]
+        params = ", ".join(
+            f"{'const ' if m.name not in written else ''}char* __restrict__ {m.var}" for m in used
+        )
+        args = ", ".join(
+            f"({'const ' if m.name not in written else ''}char*)fields[{m.index}]" for m in used
+        )
+        self._emit_plane_variant(kernel, items, plan, [], "", block)
+        self.noalias, self.read_only = True, names - written
+        self._emit_plane_variant(kernel + "_r", items, plan, ring, params, block)
+        self.noalias, self.read_only = False, set()
+        smem = self.plane_bytes[n]
+        smem_r = ring[-1].offset + ring[-1].bytes if ring else smem
+        if ring:
+            self.ring_bytes[kernel + "_r"] = smem_r - smem
+        reach = [(it.ext.i, it.ext.j) for it in items] + [(b.fp.i, b.fp.j) for b in ring]
+        self.offset_span = (
+            max([self.offset_span[0]] + [max(-i[0], PL_TI + i[1]) for i, _ in reach]),
+            max([self.offset_span[1]] + [max(-j[0], PL_TJ + j[1]) for _, j in reach]),
+        )
         self._emit_launcher(
             n,
             kernel,
-            f"(unsigned)((nj + {TJ - 1}) / {TJ}), (unsigned)((ni + {TI - 1}) / {TI}), (unsigned)nk",
-            f"{PLANE_THREADS}",
+            f"(unsigned)((nj + {PL_TJ - 1}) / {PL_TJ}), (unsigned)((ni + {PL_TI - 1}) / {PL_TI}), "
+            f"(unsigned)((nk + {PL_TK - 1}) / {PL_TK})",
+            f"{block[0]}, {block[1]}",
+            smem=smem,
+            noalias_call=(
+                f"{kernel}_r<<<grid, block, {smem_r}, (cudaStream_t)stream>>>"
+                f"(p{', ' if args else ''}{args})"
+            ),
+            noalias_smem=smem_r,
         )
+
+    def _emit_plane_variant(
+        self, kernel: str, items: list[_Item], plan: list[_Buffer], ring: list[_Buffer],
+        params: str, block: tuple[int, int],
+    ) -> None:
+        """One block: its tile's corner (i0, j0) and each field's address
+        there, computed once in 64 bits; per level each field's address at
+        the level; per point a 32-bit offset from it. Statements in program
+        order over the tile widened by their extents, with barriers where
+        :meth:`_hazard` places them and one that turns each level over where
+        the block shares a plane."""
+        bj, bi = block
+        names = {a.name for it in items for a in it.reads + it.writes}
+        fields = [m for m in self.slots if m.name in names]
+        self.buffers = {b.meta.name: b for b in plan + ring}
+        extra = f", {params}" if params else ""
+        self.emit(
+            f"__global__ void __launch_bounds__({bj * bi}) {kernel}(const GtParams p{extra}) {{"
+        )
+        self.indent += 1
+        self._emit_locals(names, pointers=not params, narrow=True)
+        self.emit(f"const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * {bj} + tx;")
+        self.emit(f"const int i0 = blockIdx.y * {PL_TI}, j0 = blockIdx.x * {PL_TJ};")
+        self.emit(f"const long long kb0 = (long long)blockIdx.z * {PL_TK};")
+        self.emit(f"const long long kb1 = kb0 + {PL_TK} < nk ? kb0 + {PL_TK} : nk;")
+        for m in fields:
+            v, const = m.var, "const " if m.name in self.read_only else ""
+            self.emit(f"{const}char* const {v}_t = {v} + ({v}_oi + i0) * {v}_si + ({v}_oj + j0) * {v}_sj;")
+            self.emit(f"const int {v}_si4 = (int){v}_si, {v}_sj4 = (int){v}_sj;")
+        self._emit_buffer_pointers(plan + ring)
+        span = (
+            self._emit_tile_ring_setup(ring, bj * bi, "kb0", "kb1 - kb0", False, block=block)
+            if ring else (0, 0)
+        )
+        with self._block("for (long long k = kb0; k < kb1; ++k)"):
+            if plan or ring:
+                self._emit_level_start(ring, span, "k - gt_w0")
+            for m in fields:
+                v, const = m.var, "const " if m.name in self.read_only else ""
+                self.emit(f"{const}char* const {v}_k = {v}_t + ({v}_ok + k) * {v}_sk;")
+            since: list = []
+            for sid in sorted({it.section for it in items}):
+                sec = [it for it in items if it.section == sid]
+                lo, hi = self._k_bound(sec[0].interval.start), self._k_bound(sec[0].interval.end)
+                with self._block(f"if (k >= {lo} && k < {hi})"):
+                    fills = [b for b in plan if sid in b.init]
+                    for b in fills:
+                        ct = _ctype(b.meta.dtype)
+                        with self._block(f"for (int q = tid; q < {b.plane}; q += {bj * bi})"):
+                            self.emit(f"{b.meta.var}_s[q] = ({ct})0;")
+                    if fills:
+                        self.emit("__syncthreads();")
+                    self._emit_statements(sec, None, bj * bi, [] if fills else since, plane=block)
+                # a barrier inside the section may not run: the section's
+                # statements stay pending for the next
+                since += sec
+        if ring:
+            self.emit("gt_cp_wait_all();")
+        self.indent -= 1
+        self.emit("}")
+        self.emit()
+        self.buffers = {}
+
+    def _emit_plane_item(self, it: _Item, block: tuple[int, int]) -> None:
+        """One statement over the tile widened by its extent: thread (tx,
+        ty) takes column tx of the widened tile (and tx + PL_TJ, ... in
+        further passes) and walks its rows ty, ty + rows of threads, ...; a
+        field's address at the point is its level's address plus a 32-bit
+        offset, a shared plane's element a 32-bit index."""
+        bj, bi = block
+        ext = it.ext
+        rows, cols = PL_TI + ext.i[1] - ext.i[0], PL_TJ + ext.j[1] - ext.j[0]
+        self.ring_reads = frozenset(
+            read
+            for b in self.buffers.values()
+            if b.kind == "input"
+            for read in b.serves.get(id(it.stmt), ())
+        )
+        for c0, cond in _column_passes(cols, bj):
+            with self._block(cond):
+                self._emit_plane_point(it, f"tx + ({c0 + ext.j[0]})", rows, bi)
+        self.ring_reads = frozenset()
+
+    def _emit_plane_point(self, it: _Item, dj: str, rows: int, bi: int) -> None:
+        """:meth:`_emit_plane_item`'s rows of one column pass: ``dj`` the
+        thread's column from the tile's corner."""
+        ext = it.ext
+        self.emit(f"const int gt_dj = {dj}, j = j0 + gt_dj;")
+        with self._block(f"for (int gt_r = ty; gt_r < {rows}; gt_r += {bi})"):
+            self.emit(f"const int gt_di = gt_r + ({ext.i[0]}), i = i0 + gt_di;")
+            with self._block(f"if ({self._extent_cond(ext)})"):
+                self.point_base = {}
+                for name in sorted({a.name for a in it.reads + it.writes}):
+                    m = self._meta(name)
+                    b = self.buffers.get(name)
+                    if b is not None:
+                        self.emit(
+                            f"const int {m.var}_x = (gt_di - ({b.fp.i[0]})) * {b.cols}"
+                            f" + (gt_dj - ({b.fp.j[0]}));"
+                        )
+                    # a ringed field's address too, for its reads the
+                    # ring does not serve and for its stores
+                    if not m.is_temp and (
+                        b is None
+                        or it.writes_name(name)
+                        or any(
+                            r.name == name and (name, r.offset) not in self.ring_reads
+                            for r in it.reads
+                        )
+                    ):
+                        const = "const " if name in self.read_only else ""
+                        self.emit(
+                            f"{const}char* const {m.var}_b = {m.var}_k + "
+                            f"(gt_di * {m.var}_si4 + gt_dj * {m.var}_sj4);"
+                        )
+                        self.point_base[name] = f"{m.var}_b"
+                self.item = it
+                self._emit_stmt(it.stmt)
+                self.item = None
 
     # -- the column kernel -----------------------------------------------------
 
@@ -1535,7 +1811,8 @@ class _Generator:
         walk, at a variable or absolute K, in a ``while``, or at a
         horizontal offset in a horizontal region (its address may lie
         outside the allocation), tables, data dimensions and
-        lower-dimensional fields. Streams are ringed in the order the walk
+        lower-dimensional fields, and float16 fields (``cp.async`` copies 4, 8
+        or 16 bytes, never 2). Streams are ringed in the order the walk
         first reads them as long as the ring stays within
         ``RING_BYTES_MAX``; the reads of the others stay direct loads too.
         A thread's element of a stream lies ``pitch`` bytes after the one
@@ -2097,7 +2374,7 @@ class _Generator:
         ct, v = _ctype(h.meta.dtype), h.meta.var
         stores = [f"{v}_r = gt_v;"]
         if h.cross:
-            stores.append(f"{self._global_access(t)} = gt_v;")
+            stores.append(self._global_store(t, "gt_v"))
         body = f"{{ const {ct} gt_v = {self._expr(stmt.value)}; {' '.join(stores)} }}"
         self.emit(body if stmt.mask is None else f"if ({self._expr(stmt.mask)}) {body}")
 
@@ -2188,30 +2465,25 @@ class _Generator:
         return True
 
     @staticmethod
-    def _check_load_hazard(items: list[_Item], name: str) -> None:
+    def _load_hazard(items: list[_Item], name: str) -> bool:
         """A plane first loaded from device memory at a level holds, at halo
         points, what a neighbouring block may already have stored there at
-        that level. That is the old value only if no point is read at this
-        level before it is written and a single statement writes it."""
-        writers = [it.pos for it in items if it.writes_name(name)]
-        if len(writers) > 1:
-            raise CudaUnsupported(
-                f"'{name}' is conditionally written by {len(writers)} statements and read "
-                "at other points; a block could see a neighbour's later value"
-            )
-        for it in items:
-            early = any(p >= it.pos for p in writers)
-            for r in it.reads:
-                if (
-                    early
-                    and r.name == name
-                    and not _is_k_shift(r)
-                    and (r.offset[0] != 0 or r.offset[1] != 0 or it.wide)
-                ):
-                    raise CudaUnsupported(
-                        f"'{name}' is read at other points before it is written at the "
-                        "same level; a neighbouring block may already have written them"
-                    )
+        that level: a value one of these statements writes. The block
+        computes every point its statements write, so a read after the
+        level's last write finds its own value or, where no statement
+        wrote, the one from before the level, however many statements
+        write it. A read at other points before or in a statement that
+        writes it may find a neighbour's value instead: such a plane is
+        loaded from a snapshot the wrapper takes before the launch."""
+        last = max((it.pos for it in items if it.writes_name(name)), default=-1)
+        return any(
+            it.pos <= last
+            and r.name == name
+            and not _is_k_shift(r)
+            and (r.offset[0] != 0 or r.offset[1] != 0 or it.wide)
+            for it in items
+            for r in it.reads
+        )
 
     def _shared_buffer(
         self, items: list[_Item], name: str, tile, ring: int = 1, level_only: bool = False
@@ -2269,8 +2541,9 @@ class _Generator:
                     and all(_interval_within(it.interval, first[0].interval) for it in mine)
                 )
                 if needs_init:
-                    if not m.is_temp:  # temporaries start from zeros, not memory
-                        self._check_load_hazard(items, name)
+                    # temporaries start from zeros, not memory
+                    if not m.is_temp and self._load_hazard(items, name):
+                        self.snapshots.setdefault(0, set()).add(name)
                     b.init = frozenset(it.section for it in mine)
                 buffers.append(b)
             elif m.axes == (True, True, False) and name not in written:
@@ -2366,7 +2639,8 @@ class _Generator:
                 if any(it.writes_name(name) for it in sec) and not self._first_access_covers(
                     sec, name, b.fp
                 ):
-                    self._check_load_hazard(sec, name)
+                    if self._load_hazard(sec, name):
+                        self.snapshots.setdefault(n, set()).add(name)
                     init.add(sid)
             b.init = frozenset(init)
             buffers.append(b)
@@ -2455,11 +2729,11 @@ class _Generator:
 
     def _plan_tile_ring(
         self, items: list[_Item], buffers: list[_Buffer], tile, threads: int, base: int,
-        backward: bool = False, fused: bool = False,
+        backward: bool = False, fused: bool = False, levels: int = TILE_RING_LEVELS,
     ) -> list[_Buffer]:
-        """tiled and fused_plane, ``_r`` variants: the input-plane ring, the
+        """tiled, fused_plane and plane, ``_r`` variants: the input-plane ring, the
         tile counterpart of ``column``'s (:meth:`_plan_ring`), at the most
-        levels up to ``TILE_RING_LEVELS`` at which the block, ``base`` bytes
+        levels up to ``levels`` at which the block, ``base`` bytes
         of shared memory and its ring, leaves ``TILE_RESIDENT_THREADS``
         threads resident on an SM (at least 2). Each 3-D API field of 4 or
         8 bytes without data dimensions that the walk reads and holds in no
@@ -2475,8 +2749,9 @@ class _Generator:
         from before the walk, at points this block alone writes. Fields are
         ringed in the order the walk first reads them while the ring stays
         within ``RING_BYTES_MAX`` and the block within the card's shared
-        memory; the others' reads stay direct loads."""
-        for depth in range(TILE_RING_LEVELS, 1, -1):
+        memory; the others' reads stay direct loads, as do a float16
+        field's (``cp.async`` has no 2-byte copy)."""
+        for depth in range(levels, 1, -1):
             ring = self._tile_ring_at(items, buffers, tile, base, depth, backward, fused)
             used = base + sum(b.bytes for b in ring) + BLOCK_RESERVED_BYTES
             if not ring or SM_SHARED_BYTES // used * threads >= TILE_RESIDENT_THREADS:
@@ -2640,10 +2915,16 @@ class _Generator:
         for d in reversed(range(len(m.data_dims))):
             self.emit(f"gt_a += (gt_r % {m.data_dims[d]}) * {m.var}_d{d}; gt_r /= {m.data_dims[d]};")
 
-    def _emit_plane_fill(self, b: _Buffer, threads: int, *, level: bool, slot: str = "") -> None:
+    def _emit_plane_fill(
+        self, b: _Buffer, threads: int, *, level: bool, slot: str = "", kernel: int = 0
+    ) -> None:
         """Fill a buffer's plane from device memory over its footprint
-        (``level``: at level k), zeros where the tile overhangs the field."""
-        m, v, ct = b.meta, b.meta.var, _ctype(b.meta.dtype)
+        (``level``: at level k), zeros where the tile overhangs the field;
+        from the symbol's snapshot where kernel ``kernel`` takes one."""
+        m, ct = b.meta, _ctype(b.meta.dtype)
+        if m.name in self.snapshots.get(kernel, ()):
+            m = self.snapshot_meta[m.name]
+        v = m.var
         n = b.plane * b.nd
         dest = f"{slot} * {n} + q" if slot else "q"
         with self._block(f"for (int q = tid; q < {n}; q += {threads})"):
@@ -2658,18 +2939,16 @@ class _Generator:
                 self.emit(f"const char* gt_a = {' + '.join([v] + terms)};")
                 if b.nd > 1:
                     self._emit_unravel(m, f"q % {b.nd}")
-                if m.name in self.coherent:
-                    self.emit(f"gt_x = __ldcg((const {ct}*)gt_a);")
-                else:
-                    self.emit(f"gt_x = *(const {ct}*)gt_a;")
-            self.emit(f"{v}_s[{dest}] = gt_x;")
+                load = "__ldcg" if m.name in self.coherent else ""
+                self.emit(f"gt_x = {_load(m, 'gt_a', load, const=True)};")
+            self.emit(f"{b.meta.var}_s[{dest}] = gt_x;")
 
     def _emit_table_stage(self, b: _Buffer, threads: int) -> None:
-        m, v, ct = b.meta, b.meta.var, _ctype(b.meta.dtype)
+        m, v = b.meta, b.meta.var
         with self._block(f"for (int q = tid; q < {b.elements}; q += {threads})"):
             self.emit(f"const char* gt_a = {v};")
             self._emit_unravel(m, "q")
-            self.emit(f"{v}_s[q] = *(const {ct}*)gt_a;")
+            self.emit(f"{v}_s[q] = {_load(m, 'gt_a', const=True)};")
 
     def _emit_item(self, it: _Item, tile, threads: int) -> None:
         """One statement over the tile widened by its extent."""
@@ -2719,16 +2998,23 @@ class _Generator:
                 self.item = None
         self.ring_reads = frozenset()
 
-    def _emit_statements(self, items: list[_Item], tile, threads: int, since: list) -> list:
+    def _emit_statements(
+        self, items: list[_Item], tile, threads: int, since: list, plane: Optional[tuple] = None
+    ) -> list:
         """Statements in order, a barrier before each that :meth:`_hazard`
         says needs one; ``since``: the statements since the last barrier
-        that surely ran. Returns those after the last statement."""
+        that surely ran. ``plane``: the plane kernel's block, whose points
+        :meth:`_emit_plane_item` maps. Returns those after the last
+        statement."""
         since = list(since)
         for it in items:
             if since and self._hazard(since, it, alias=not self.noalias):
                 self.emit("__syncthreads();")
                 since = []
-            self._emit_item(it, tile, threads)
+            if plane:
+                self._emit_plane_item(it, plane)
+            else:
+                self._emit_item(it, tile, threads)
             since.append(it)
         return since
 
@@ -2742,15 +3028,18 @@ class _Generator:
         return max(0, -min(qs)), max(0, max(qs))
 
     def _emit_tile_ring_setup(
-        self, ring: list[_Buffer], threads: int, w0: str, wn: str, backward: bool
+        self, ring: list[_Buffer], threads: int, w0: str, wn: str, backward: bool,
+        block: Optional[tuple[int, int]] = None,
     ) -> int:
         """The tile ring's shared address, ``gt_tfetch(f)`` (the whole block
         copies level ``f`` steps into the walk of every ringed plane with
         ``cp.async``, clamped as ``gt_clampk`` clamps a read, at the points
         of the footprint inside the widened domain; one commit group a
         level), and the prologue: the levels behind the walk its reads reach
-        and the first ``depth - 1``. Returns (how far ahead the reads reach,
-        the ring's depth)."""
+        and the first ``depth - 1``. ``block``: the plane kernel's threads
+        (along J, rows of I), which walk a plane's rows and take their
+        elements' addresses as 32-bit offsets from the plane's corner.
+        Returns (how far ahead the reads reach, the ring's depth)."""
         back, ahead = self._ring_span(ring, backward)
         depth = ring[0].ring - back
         self.emit("const unsigned gt_sm = (unsigned)__cvta_generic_to_shared(gt_smem);")
@@ -2766,6 +3055,9 @@ class _Generator:
                         f"const unsigned gt_d = gt_sm + {b.offset}u + "
                         f"(unsigned)gt_slot(gt_k, {b.ring}) * {b.plane * size}u;"
                     )
+                    if block:
+                        self._emit_plane_ring_copy(b, block)
+                        continue
                     self.emit(
                         f"const char* const gt_g = {v} + gt_clampk({v}_ok + gt_k, {v}_nk) * {v}_sk;"
                     )
@@ -2784,6 +3076,27 @@ class _Generator:
             f"for (int gt_f = {-back}; gt_f < {depth - 1}; ++gt_f) gt_tfetch(gt_f);"
         )
         return ahead, depth
+
+    def _emit_plane_ring_copy(self, b: _Buffer, block: tuple[int, int]) -> None:
+        """The plane kernel's copies of one ring plane, level ``gt_k``,
+        into ``gt_d``: its corner's address once, then each element at a
+        32-bit offset from it."""
+        bj, bi = block
+        v, size, (fi, fj) = b.meta.var, b.meta.dtype.itemsize, (b.fp.i, b.fp.j)
+        self.emit(
+            f"const char* const gt_g = {v} + gt_clampk({v}_ok + gt_k, {v}_nk) * {v}_sk"
+            f" + ({v}_oi + i0 + ({fi[0]})) * {v}_si + ({v}_oj + j0 + ({fj[0]})) * {v}_sj;"
+        )
+        for c0, cond in _column_passes(b.cols, bj):
+            with self._block(cond):
+                self.emit(f"const int gt_c = tx + {c0};")
+                with self._block(f"if (j0 + ({fj[0]}) + gt_c < nj + ({fj[1]}))"):
+                    with self._block(f"for (int gt_r = ty; gt_r < {b.rows}; gt_r += {bi})"):
+                        self.emit(
+                            f"if (i0 + ({fi[0]}) + gt_r < ni + ({fi[1]})) "
+                            f"gt_cp_async{size}(gt_d + (unsigned)(gt_r * {b.cols} + gt_c) * {size}u, "
+                            f"gt_g + (gt_r * {v}_si4 + gt_c * {v}_sj4));"
+                        )
 
     def _emit_level_start(self, ring: list[_Buffer], span: tuple[int, int], walk_pos: str) -> None:
         """The barrier that turns a level over: the level's planes have
@@ -2833,6 +3146,7 @@ class _Generator:
         loops = self.stencil.vertical_loops
         items = self._items(range(len(loops)))
         names = {a.name for it in items for a in it.reads + it.writes}
+        names |= {self.snapshot_meta[x].name for x in self.snapshots.get(0, ())}
         self.buffers = {b.meta.name: b for b in plan + ring}
         self.emit(
             f"__global__ void __launch_bounds__({PLANE_THREADS}) {kernel}(const GtParams p) {{"
@@ -2932,6 +3246,7 @@ class _Generator:
         plan = self.tiled_plans[n]
         items = self._items([n])
         names = {a.name for it in items for a in it.reads + it.writes}
+        names |= {self.snapshot_meta[x].name for x in self.snapshots.get(n, ())}
         self.buffers = {b.meta.name: b for b in plan + ring}
         self.loop = n
         backward = vloop.loop_order == gtir.LoopOrder.BACKWARD
@@ -3027,7 +3342,9 @@ class _Generator:
                 self.emit(f"const int {b.meta.var}_cur = {cur};")
         inits = [b for b in plan if sid in b.init]
         for b in inits:
-            self._emit_plane_fill(b, TILED_THREADS, level=True, slot=f"{b.meta.var}_cur")
+            self._emit_plane_fill(
+                b, TILED_THREADS, level=True, slot=f"{b.meta.var}_cur", kernel=self.loop
+            )
         if inits:
             self.emit("__syncthreads();")
         self._emit_statements(sec, (TL_TI, TL_TJ), TILED_THREADS, [])
@@ -3102,7 +3419,7 @@ class _Generator:
         if b.kind == "input":
             served = (node.name, node.offset) in self.ring_reads
             return at(f"gt_slot(k + ({dk}), {b.ring})") if served else None
-        if b.kind == "staged" or self.strategy == "fused_plane":
+        if b.kind == "staged" or self.strategy in ("fused_plane", "plane"):
             return at(None)
         if dk == 0:
             return at(f"{v}_cur") if node.name in self.section_writes else None
@@ -3120,8 +3437,9 @@ class _Generator:
         return f"(({held or '0'}) ? {slot} : {self._global_access(node)})"
 
     def _emit_buffered_assign(self, stmt: gtir.Assign) -> None:
-        """fused_plane and tiled: store to the shared plane (all computed
-        points) and to device memory at the points the block owns."""
+        """plane, fused_plane and tiled: store to the shared plane (all
+        computed points) and to device memory at the points the block
+        owns."""
         t = stmt.target
         m = self._meta(t.name)
         ct = _ctype(m.dtype)
@@ -3132,7 +3450,7 @@ class _Generator:
             cond = f"{kt} >= 0 && {kt} < {m.var}_nk" + (" && gt_own" if own else "")
             if stmt.mask is not None:
                 cond = f"({self._expr(stmt.mask)}) && ({cond})"
-            store = f"{self._global_access(t, k_override=kt)} = {self._expr(stmt.value)};"
+            store = self._global_store(t, self._expr(stmt.value), k_override=kt)
             self.emit(f"if ({cond}) {{ {store} }}")
             return
         stores = []
@@ -3141,7 +3459,7 @@ class _Generator:
         if t.name in self.carries:
             stores.append(f"{m.var}_r = gt_v;")
         if not m.is_temp or (self.strategy == "tiled" and t.name not in self.no_buffer):
-            g = f"{self._global_access(t)} = gt_v;"
+            g = self._global_store(t, "gt_v")
             stores.append(f"if (gt_own) {g}" if own else g)
         body = f"{{ const {ct} gt_v = {self._expr(stmt.value)}; {' '.join(stores)} }}"
         if stmt.mask is None:
@@ -3162,21 +3480,6 @@ class _Generator:
         ]
         self.emit(f"char* const {v}_b = {' + '.join([v] + terms)};")
         self.point_base[m.name] = f"{v}_b"
-
-    def _emit_point_bases(self, stmt: gtir.Stmt, *, with_k: bool) -> None:
-        names = {a.name for a in iter_writes(stmt)} | {a.name for a in _iter_reads(stmt)}
-        self.point_base = {}
-        for name in sorted(names):
-            m = self._meta(name)
-            if m.name in self.shared:
-                e = m.extent
-                self.emit(
-                    f"const int {m.var}_b = (int)((i - i0 - ({e.i[0]})) * {self.shared[name]}"
-                    f" + (j - j0 - ({e.j[0]})));"
-                )
-                self.point_base[name] = f"{m.var}_b"
-            else:
-                self._emit_field_base(m, with_k=with_k)
 
     # -- statements ------------------------------------------------------------
 
@@ -3219,7 +3522,7 @@ class _Generator:
             raise CudaUnsupported(f"statement {type(stmt).__name__}")
 
     def _emit_assign(self, stmt: gtir.Assign) -> None:
-        if self.strategy in ("fused_plane", "tiled"):
+        if self.strategy in ("plane", "fused_plane", "tiled"):
             self._emit_buffered_assign(stmt)
             return
         if stmt.target.name in self.held:
@@ -3230,16 +3533,14 @@ class _Generator:
             # Variable-K-offset write: out-of-range target levels are
             # DROPPED (a clamp would smear onto the boundary level).
             m = self._meta(t.name)
-            if m.name not in self.shared:
-                kt = f"({m.var}_ok + k + ({t.offset[2]}) + (long long)({self._expr(t.koffset)}))"
-                cond = f"{kt} >= 0 && {kt} < {m.var}_nk"
-                if stmt.mask is not None:
-                    cond = f"({self._expr(stmt.mask)}) && ({cond})"
-                store = f"{self._access(t, k_override=kt)} = {self._expr(stmt.value)};"
-                self.emit(f"if ({cond}) {{ {store} }}")
-                return
-            raise CudaUnsupported("variable-K write to a shared-memory temporary")
-        store = f"{self._global_access(stmt.target)} = {self._expr(stmt.value)};"
+            kt = f"({m.var}_ok + k + ({t.offset[2]}) + (long long)({self._expr(t.koffset)}))"
+            cond = f"{kt} >= 0 && {kt} < {m.var}_nk"
+            if stmt.mask is not None:
+                cond = f"({self._expr(stmt.mask)}) && ({cond})"
+            store = self._global_store(t, self._expr(stmt.value), k_override=kt)
+            self.emit(f"if ({cond}) {{ {store} }}")
+            return
+        store = self._global_store(stmt.target, self._expr(stmt.value))
         if stmt.mask is None:
             self.emit(store)
         else:
@@ -3282,15 +3583,27 @@ class _Generator:
     def _global_access(
         self, node: gtir.FieldAccess, *, k_override: str = "", load: str = ""
     ) -> str:
-        """The symbol in device memory (plane temporaries: shared memory);
-        ``load``: read it through this intrinsic (``__ldcg``: from L2)."""
+        """A read of the symbol in device memory, in its compute type;
+        ``load``: through this intrinsic (``__ldcg``: from L2)."""
+        m = self._meta(node.name)
+        addr = self._global_address(node, k_override)
+        return _load(m, addr, load, const=m.name in self.read_only)
+
+    def _global_store(self, node: gtir.FieldAccess, value: str, *, k_override: str = "") -> str:
+        """The statement storing ``value`` (of the compute type) to the
+        symbol in device memory; a half field rounds it to nearest even."""
+        m = self._meta(node.name)
+        addr = self._global_address(node, k_override)
+        if _stype(m.dtype) == "__half":
+            return f"*(__half*)({addr}) = __float2half_rn({value});"
+        return f"(*({_ctype(m.dtype)}*)({addr})) = {value};"
+
+    def _global_address(self, node: gtir.FieldAccess, k_override: str = "") -> str:
+        """The byte address of the symbol's element in device memory."""
         m = self._meta(node.name)
         v = m.var
-        ct = _ctype(m.dtype)
         di, dj, dk = node.offset
         base = self.point_base.get(m.name)
-        if m.name in self.shared:  # plane kernel temporary: shared-memory tile
-            return f"{v}_s[{base} + ({di * self.shared[m.name] + dj})]"
         terms = []
         if base is None:  # column kernel: the full (i, j) address per access
             base = v
@@ -3298,11 +3611,13 @@ class _Generator:
                 terms.append(f"({v}_oi + i + ({di})) * {v}_si")
             if m.axes[1]:
                 terms.append(f"({v}_oj + j + ({dj})) * {v}_sj")
-        else:  # plane kernel: constant offsets from the point's address
+        else:  # tile kernels: constant offsets from the point's address
+            # (plane: 32-bit strides, which the wrapper checks)
+            narrow = "4" if self.strategy == "plane" else ""
             if m.axes[0] and di:
-                terms.append(f"({di}) * {v}_si")
+                terms.append(f"({di}) * {v}_si{narrow}")
             if m.axes[1] and dj:
-                terms.append(f"({dj}) * {v}_sj")
+                terms.append(f"({dj}) * {v}_sj{narrow}")
         if m.axes[2] and self.strategy in ("column", "fused_column", "tiled"):
             if k_override:
                 terms.append(f"{k_override} * {v}_sk")
@@ -3323,10 +3638,7 @@ class _Generator:
             if not isinstance(e, gtir.Literal):  # clipped, as the plain version does
                 idx = f"gt_clampk({idx}, {m.data_dims[d]})"
             terms.append(f"({idx}) * {v}_d{d}")
-        const = "const " if m.name in self.read_only else ""
-        if load:
-            return f"{load}((const {ct}*)({' + '.join([base] + terms)}))"
-        return f"(*({const}{ct}*)({' + '.join([base] + terms)}))"
+        return " + ".join([base] + terms)
 
     def _expr(self, node: gtir.Expr) -> str:
         if isinstance(node, gtir.Literal):
@@ -3373,7 +3685,7 @@ class _Generator:
         if dtype.kind in "iu":
             return f"(({ct})({int(value)}LL))"
         v = float(value)
-        f32 = dtype == _F32
+        f32 = _is_f32(dtype)
         if math.isnan(v):
             return "__int_as_float(0x7fc00000)" if f32 else "__longlong_as_double(0x7ff8000000000000LL)"
         if math.isinf(v):
@@ -3416,12 +3728,12 @@ class _Generator:
         if op == A.MOD:
             if dt.kind in "iu":
                 return f"(({ct})gt_imod_np((int64_t){lc}, (int64_t){rc}))"
-            fn = "gt_fmodf_np" if dt == _F32 else "gt_fmod_np"
+            fn = "gt_fmodf_np" if _is_f32(dt) else "gt_fmod_np"
             return f"{fn}({lc}, {rc})"
         if op == A.POW:
             if dt.kind in "iu":
                 return f"(({ct})gt_ipow((int64_t){lc}, (int64_t){rc}))"
-            fn = "powf" if dt == _F32 else "pow"
+            fn = "powf" if _is_f32(dt) else "pow"
             return f"{fn}({lc}, {rc})"
         raise CudaUnsupported(f"operator '{op.value}'")
 
@@ -3450,7 +3762,7 @@ class _Generator:
             if node.func in (F.FLOOR, F.CEIL, F.TRUNC, F.ROUND, F.ROUND_AWAY_FROM_ZERO):
                 return cast_args[0]  # integral already
             raise CudaUnsupported(f"integer-typed call to {node.func.value}")
-        f32 = dt == _F32
+        f32 = _is_f32(dt)
         if node.func == F.ABS:
             return f"({'fabsf' if f32 else 'fabs'}({cast_args[0]}))"
         if node.func in (F.MIN, F.MAX):

@@ -10,7 +10,11 @@ included, halo points included — is compared with:
    tests/cartesian_tests/test_pallas_backend.py runs it), at rtol 1e-5 and
    atol 1e-6: both sides compute in float32, but XLA may fuse a product and
    a sum into one rounding and orders nothing else differently, so the
-   results differ by a few ulp, growing along the 8-level recurrences.
+   results differ by a few ulp, growing along the 8-level recurrences;
+3. both in float16, at rtol = atol = 1e-2 (the JAX package's float16
+   tolerance, tests/cartesian_tests/test_upcasting_matrix.py): the plain
+   version and the ``numpy`` backend round every operation to half, K1
+   computes half fields in float32 and rounds once, at the store.
 
 Data crosses between the packages only as NumPy arrays.
 """
@@ -642,3 +646,148 @@ def test_read_only_numpy_argument_rejected_for_dtype():
     a = np.zeros((4, 4, 2), np.float32)
     with pytest.raises(TypeError, match="dtype"):
         st(a, a.copy())
+
+
+# --- float16: stored half; K1 computes it in float32 -------------------------------
+
+
+def _ref_half_precision(inp: "gtscript.Field['dt']", out: "gtscript.Field['dt']"):
+    with computation(PARALLEL), interval(...):
+        out = inp
+
+
+#: the port's float16 stencils (defs.HALF_STENCILS, one on each kernel, and
+#: the copy the card once refused) and their JAX twins
+HALF_TWINS = {
+    "hdiff": _ref_hdiff_generic,
+    "hdiff_sponge": _ref_hdiff_sponge,
+    "tridiag": _ref_tridiag_generic,
+    "tridiag_fused": _ref_tridiag_generic,
+    "smoothed_column_sum": _ref_smoothed_column_sum,
+    "half_precision": _ref_half_precision,
+}
+
+
+def _half_port(name):
+    if name == "half_precision":
+        return defs.half_precision
+    return defs.HALF_STENCILS[name][0]
+
+
+@pytest.fixture(scope="module")
+def half_results():
+    """Each float16 stencil's inputs and the JAX package's results on them,
+    from its ``numpy`` backend and its ``tpu:pallas`` one in interpret mode."""
+    out = {}
+    for name, ref in HALF_TWINS.items():
+        port = port_gtscript.stencil(
+            backend="torch", definition=_half_port(name), dtypes={"dt": np.float16}
+        )
+        host = defs.half_inputs(port.field_info, (20, 19, 8), np.random.default_rng(5))
+        results = {}
+        for backend in ("numpy", "tpu:pallas"):
+            st = gtscript.stencil(
+                backend=backend, definition=ref, dtypes={"dt": np.float16}, rebuild=True
+            )
+            arrays = {n: v.copy() for n, v in host.items()}
+            st(**arrays, origin=(2, 2, 0), domain=(16, 15, 8))
+            results[backend] = {n: np.asarray(v) for n, v in arrays.items()}
+        out[name] = (host, results)
+    return out
+
+
+@pytest.mark.parametrize("reference", ["numpy", "tpu:pallas"])
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+@pytest.mark.parametrize("name", sorted(HALF_TWINS))
+def test_half_matches_the_reference(name, backend, reference, half_results, monkeypatch):
+    """float16 fields through the port's plain version against the JAX
+    package, every field in float16 and within the half tolerance."""
+    if name in defs.HALF_STENCILS and defs.HALF_STENCILS[name][2]:
+        monkeypatch.setenv("GT4PY_CUDA_FUSE_STAGES", "1")
+    host, results = half_results[name]
+    st = port_gtscript.stencil(
+        backend=backend, definition=_half_port(name), dtypes={"dt": np.float16}
+    )
+    if backend == "cuda:hopper" and name in defs.HALF_STENCILS:
+        assert st._backend.strategy == defs.HALF_STENCILS[name][1]
+    fields = {n: storage.from_array(v, backend=backend, device="cpu") for n, v in host.items()}
+    st(**fields, origin=(2, 2, 0), domain=(16, 15, 8))
+    for n in host:
+        got = np.asarray(fields[n])
+        assert got.dtype == np.float16
+        np.testing.assert_allclose(
+            got.astype(np.float64), results[reference][n].astype(np.float64),
+            rtol=defs.HALF_TOL, atol=defs.HALF_TOL, err_msg=n,
+        )
+
+
+# --- sweeps whose shared planes a neighbouring block could overwrite first ---------
+
+def _ref_two_writer_sweep(inp: Field3D, mid: Field3D, out: Field3D):
+    with computation(FORWARD), interval(...):
+        if inp > 0.6:
+            mid = 2.0 * inp
+        if inp < 0.3:
+            mid = inp - 1.0
+        out = mid[1, 0, 0] + mid[-1, 0, 0] + mid[0, 1, 0]
+
+
+def _ref_read_between_writes_sweep(inp: Field3D, mid: Field3D, out: Field3D):
+    with computation(FORWARD), interval(...):
+        if inp > 0.6:
+            mid = 2.0 * inp
+        out = mid[1, 0, 0] + mid[-1, 0, 0]
+        if inp < 0.3:
+            mid = inp - 1.0
+
+
+def _ref_read_before_write_sweep(inp: Field3D, out: Field3D, out2: Field3D):
+    with computation(FORWARD), interval(...):
+        out2 = out[1, 0, 0] - out[0, -1, 0]
+        out = inp + 0.5 * out2
+
+
+#: the two shapes tiled once refused, as sweeps, with their JAX twins and
+#: the Pallas kernel the JAX package serves each with: K3 (``staged``)
+#: agrees with its numpy backend; K5 (``tiled``) serves the read before the
+#: write but disagrees with its numpy backend there, so the port is held
+#: against numpy alone for it
+LOAD_HAZARDS = {
+    "two_writer_sweep": (defs.two_writer_sweep, _ref_two_writer_sweep, "staged"),
+    "read_between_writes_sweep": (
+        defs.read_between_writes_sweep, _ref_read_between_writes_sweep, "staged"
+    ),
+    "read_before_write_sweep": (
+        defs.read_before_write_sweep, _ref_read_before_write_sweep, "tiled"
+    ),
+}
+
+
+@pytest.mark.parametrize("reference", ["numpy", "tpu:pallas"])
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+@pytest.mark.parametrize("name", sorted(LOAD_HAZARDS))
+def test_load_hazard_sweeps_match_the_reference(name, backend, reference):
+    """Served on the card by tiled (the plane of a field read at other
+    points before the level's last write is loaded from a snapshot taken
+    before the launch); here the plain version, against the JAX package in
+    float64."""
+    port, ref, pallas = LOAD_HAZARDS[name]
+    if reference == "tpu:pallas" and pallas != "staged":
+        reference = "numpy"  # K5 disagrees with the numpy backend here
+    st = port_gtscript.stencil(backend=backend, definition=port, dtypes={"dt": np.float64})
+    if backend == "cuda:hopper":
+        assert st._backend.strategy == "tiled"
+    host = _inputs(_field_names(st), (14, 13, 6), seed=0)
+    expected = {n: v.copy() for n, v in host.items()}
+    info = {}
+    gtscript.stencil(backend=reference, definition=ref, rebuild=True)(
+        **expected, origin=(2, 2, 0), domain=(10, 9, 6), exec_info=info
+    )
+    if reference == "tpu:pallas":
+        assert info["pallas_strategy"] == pallas
+    fields = {n: storage.from_array(v, backend=backend, device="cpu") for n, v in host.items()}
+    st(**fields, origin=(2, 2, 0), domain=(10, 9, 6))
+    for n in host:
+        np.testing.assert_allclose(
+            np.asarray(fields[n]), np.asarray(expected[n]), rtol=1e-12, atol=0, err_msg=n
+        )

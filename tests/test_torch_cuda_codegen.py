@@ -27,9 +27,11 @@ from gt4py_tpu_torch.cartesian.gtscript import (
     PARALLEL,
     I,
     computation,
+    exp,
     horizontal,
     interval,
     region,
+    sqrt,
 )
 
 from . import torch_stencil_defs as defs
@@ -249,7 +251,35 @@ def _scaled_update(inp: F64, out: F64, prof: FK):
 #: at every level, a BACKWARD ring, PARALLEL loops in the tiled kernel,
 #: regions, tables and while, and sweeps reading an earlier level beyond the
 #: points its writers compute (a tiled launch per level)
+def _masked_temporary(inp: F64, out: F64):
+    """tmp is written by two masked statements and read at other points:
+    its shared plane is zero-filled, since neither write alone covers it."""
+    with computation(PARALLEL), interval(...):
+        if inp > 0.5:
+            tmp = inp
+        else:
+            tmp = -inp
+        out = tmp[1, 0, 0] + tmp[0, -1, 0]
+
+
+def _sectioned_plane(inp: F64, out: F64):
+    """Sections with their own K intervals, a temporary written whole in
+    one and under a mask in the other."""
+    with computation(PARALLEL):
+        with interval(0, 3):
+            tmp = 2.0 * inp
+            out = tmp[1, 0, 0] - tmp[-1, 0, 0]
+        with interval(3, None):
+            if inp > 0.4:
+                tmp = inp
+            else:
+                tmp = 0.5 * inp
+            out = tmp[0, 1, 0] + inp[-1, 0, 0]
+
+
 CONSTRUCTS = {
+    "_masked_temporary": (_masked_temporary, "plane"),
+    "_sectioned_plane": (_sectioned_plane, "plane"),
     "_shifted_read_after_write": (_shifted_read_after_write, "fused_plane"),
     "_temporary_across_loops": (_temporary_across_loops, "fused_plane"),
     "_masked_shared_write": (_masked_shared_write, "fused_plane"),
@@ -266,6 +296,9 @@ CONSTRUCTS = {
     "_section_written_lag": (_section_written_lag, "tiled"),
     "_lagged_neighbour_sweep": (defs.lagged_neighbour_sweep, "tiled"),
     "_lag_read_before_write": (defs.lag_read_before_write, "tiled"),
+    "_two_writer_sweep": (defs.two_writer_sweep, "tiled"),
+    "_read_between_writes_sweep": (defs.read_between_writes_sweep, "tiled"),
+    "_read_before_write_sweep": (defs.read_before_write_sweep, "tiled"),
 }
 
 
@@ -311,7 +344,7 @@ def test_formerly_refused_constructs_get_a_kernel(definition, strategy):
 
 @pytest.mark.parametrize(
     "definition, reason",
-    [(_half_precision, "float16 has no kernel type")],
+    [(_too_wide_temporary, "bytes of shared memory per block")],
 )
 def test_unsupported_constructs_name_their_reason(definition, reason):
     backend = _backend(definition)
@@ -322,14 +355,20 @@ def test_unsupported_constructs_name_their_reason(definition, reason):
 
 
 def test_unsupported_stencil_still_runs_plain_on_cpu():
-    st = gtscript.stencil(backend="cuda:hopper", definition=_half_precision)
+    """A stencil whose temporary's shared planes exceed the card's shared
+    memory has no kernel, and CPU tensors still run the plain version."""
+    st = gtscript.stencil(backend="cuda:hopper", definition=_too_wide_temporary)
     assert st._backend.module is None
-    inp = np.random.default_rng(0).random((8, 8, 3)).astype(np.float16)
+    inp = np.random.default_rng(0).random((207, 206, 3))
     out = np.zeros_like(inp)
     info = {}
-    st(inp, out, origin=(2, 2, 0), domain=(4, 4, 3), exec_info=info)
+    st(inp, out, origin=(101, 101, 0), domain=(4, 3, 3), exec_info=info)
     assert info["kernel_strategy"] == "plain"
-    np.testing.assert_array_equal(out[2:6, 2:6], inp[2:6, 2:6])
+    tmp = inp[2:, 1:-1] + inp[:-2, 1:-1] + inp[1:-1, 2:] + inp[1:-1, :-2]  # at (i + 1, j + 1)
+    want = (
+        tmp[200:204, 100:103] + tmp[0:4, 100:103] + tmp[100:104, 200:203] + tmp[100:104, 0:3]
+    )
+    np.testing.assert_allclose(out[101:105, 101:104], want, rtol=1e-12)
 
 
 def test_fused_plane_is_one_launch_per_stencil():
@@ -636,6 +675,202 @@ def test_tile_ring_keeps_within_its_budget():
     assert all(
         b.elements * b.meta.dtype.itemsize <= cuda_codegen.RING_BYTES_MAX for b in ring
     )
+
+
+# --- the plane kernel (K1): a walk of PL_TK levels a block, 32-bit offsets --------
+
+
+def _plane_generator(definition, **options):
+    gen, module = _tile_generator(definition, **options)
+    assert module.strategy == "plane"
+    return gen, module
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_plane_restrict_variant_rings_its_inputs(dtype):
+    """hdiff: gt_plane_0_r prefetches in_field (read at four neighbours)
+    and coeff (read at its own point: ringed, it measured faster than a
+    direct load) with cp.async into a ring of planes over their
+    footprints, waits once a level for the level it reads, and reads them
+    from the ring; gt_plane_0 loads them directly. The launcher takes the ringed
+    variant only where the wrapper found no overlap."""
+    gen, module = _plane_generator(defs.horizontal_diffusion_generic, dtypes={"dt": dtype})
+    bodies = _bodies(module.source)
+    ringed, plain = bodies["gt_plane_0_r"], bodies["gt_plane_0"]
+    ring = gen.tile_rings[0]
+    assert {b.meta.name for b in ring} == {"in_field", "coeff"}
+    depth = ring[0].ring
+    assert depth == cuda_codegen.PL_RING_LEVELS
+    assert set(module.ring_bytes) == {"gt_plane_0_r"}
+    assert module.ring_bytes["gt_plane_0_r"] == sum(b.bytes for b in ring)
+    assert "gt_tfetch(" in ringed and "gt_tfetch(" not in plain
+    assert f"gt_cp_wait<{depth - 2}>();" in ringed and "gt_cp_wait<" not in plain
+    assert f"gt_cp_async{np.dtype(dtype).itemsize}(" in ringed
+    v = gen.fields["in_field"].var
+    assert f"{v}_s[gt_slot(k + (0), {depth}) * " in ringed
+    launcher = module.source.split('extern "C" int gt_launch_0(')[1]
+    assert "if (noalias) gt_plane_0_r<<<grid, block, " in launcher
+    assert "else gt_plane_0<<<grid, block, " in launcher
+
+
+def test_plane_walks_levels_of_one_tile_a_block():
+    """A block walks PL_TK levels of one PL_TI × PL_TJ tile, the last walk
+    cut at nk; threads along J, rows of I walked by a loop."""
+    _, module = _plane_generator(defs.horizontal_diffusion_generic)
+    launcher = module.source.split('extern "C" int gt_launch_0(')[1]
+    tk = cuda_codegen.PL_TK
+    assert f"(unsigned)((nk + {tk - 1}) / {tk})" in launcher
+    assert f"(unsigned)((nj + {cuda_codegen.PL_TJ - 1}) / {cuda_codegen.PL_TJ})" in launcher
+    for body in _bodies(module.source).values():
+        assert f"const long long kb1 = kb0 + {tk} < nk ? kb0 + {tk} : nk;" in body
+        assert body.count("for (long long k = kb0; k < kb1; ++k)") == 1
+        assert "for (int gt_r = ty; gt_r < " in body
+
+
+def test_plane_point_offsets_are_32_bit():
+    """Each field's address at the tile's corner is computed once a block
+    and at each level once a level; a point's offset from it, and every
+    access's constant offset, is an int. No per-point division."""
+    gen, module = _plane_generator(defs.horizontal_diffusion_generic)
+    v = gen.fields["in_field"].var
+    for body in _bodies(module.source).values():
+        assert f"const int {v}_si4 = (int){v}_si, {v}_sj4 = (int){v}_sj;" in body
+        assert "const int gt_di = gt_r + (" in body and "const int gt_dj = tx + (" in body
+        assert "long long i =" not in body and "long long j =" not in body
+        assert " / " not in body.split("for (long long k = kb0")[1]
+    plain = _bodies(module.source)["gt_plane_0"]
+    assert f"{v}_k + (gt_di * {v}_si4 + gt_dj * {v}_sj4)" in plain
+    assert f"{v}_b + (1) * {v}_si4" in plain and f" * {v}_si)" not in plain.split("kb1")[1]
+
+
+def test_plane_refuses_offsets_beyond_32_bits():
+    """The wrapper refuses, naming the strides, a field whose strides carry
+    the tile's reach beyond 32 bits; one just inside passes."""
+    backend = _backend(defs.horizontal_diffusion_generic, dtypes={"dt": np.float32})
+    rows, cols = backend.module.offset_span
+    meta = backend.module.slots[0]
+    wide = torch.empty_strided((4, 4, 4), (2**31 // (4 * rows) + 1, 1, 4), device="meta")
+    with pytest.raises(CudaUnsupported, match="beyond 32 bits"):
+        backend._check_offsets(meta, wide)
+    fits = torch.empty_strided((4, 4, 4), ((2**31 - 1 - 4 * cols) // (4 * rows), 1, 4), device="meta")
+    backend._check_offsets(meta, fits)
+
+
+def test_plane_fills_no_plane_its_first_write_covers():
+    """hdiff writes lap whole before reading it: no plane is zero-filled
+    and no barrier waits for one. A temporary written under a
+    mask is filled at every level, in the section that needs it only."""
+    _, module = _plane_generator(defs.horizontal_diffusion_generic)
+    assert not re.search(r"_s\[q\] = \(\w+\)0;", module.source)
+    for body in _bodies(module.source).values():
+        # the level's turn, and lap | out_field
+        assert body.split("for (long long k = kb0")[1].count("__syncthreads();") == 2
+    _, masked = _plane_generator(_masked_temporary)
+    for body in _bodies(masked.source).values():
+        assert len(re.findall(r"_s\[q\] = \(double\)0;", body)) == 1
+    _, sectioned = _plane_generator(_sectioned_plane)
+    for body in _bodies(sectioned.source).values():
+        first, second = body.split("if (k >= (3)")
+        assert "if (k >= (0) && k < (3))" in first and "(double)0;" not in first
+        assert len(re.findall(r"_s\[q\] = \(double\)0;", second)) == 1
+
+
+# --- float16: stored half, computed in float32 -------------------------------------
+
+
+def _half_module(name, monkeypatch):
+    definition, kernel, fuse = defs.HALF_STENCILS[name]
+    monkeypatch.setenv("GT4PY_CUDA_FUSE_STAGES", "1" if fuse else "0")
+    module = _backend(definition, dtypes={"dt": np.float16}).module
+    assert module.strategy == kernel
+    return module
+
+
+#: every way a generated source may touch a half value: loads, stores and
+#: the conversion intrinsics
+_HALF_FORMS = re.compile(
+    r"__half2float\(\*\(const __half\*\)|__half2float\(__ushort_as_half\(|"
+    r"\*\(__half\*\)\(|__float2half_rn\(|<cuda_fp16.h>"
+)
+
+
+@pytest.mark.parametrize("name", sorted(defs.HALF_STENCILS))
+def test_half_sources_convert_with_intrinsics(name, monkeypatch):
+    """Every float16 field is loaded with __half2float and stored with
+    __float2half_rn; no __half value takes part in arithmetic, every value
+    is computed as float, and no 2-byte stream is copied with cp.async."""
+    module = _half_module(name, monkeypatch)
+    source = module.source
+    assert "__half2float(" in source and "__float2half_rn(" in source
+    assert "__half" not in _HALF_FORMS.sub("", source)
+    for kernel, body in _bodies(source).items():
+        assert "double" not in body, kernel
+        # every field is half: nothing is ringed
+        assert not re.search(r"gt_cp_async\d+\(", body), kernel
+    assert not module.ring_bytes
+
+
+def test_half_temporaries_live_in_float():
+    """hdiff in float16: lap (flx and fly are inlined into out's
+    statement) is a float plane in shared memory, its bytes those of float
+    elements."""
+    gen, module = _plane_generator(defs.horizontal_diffusion_generic, dtypes={"dt": np.float16})
+    plan = gen.plane_plans[0]
+    assert {b.meta.name for b in plan} == {"lap_field"}
+    assert all(b.meta.dtype == np.float32 for b in plan)
+    for b in plan:
+        assert f"float* const {b.meta.var}_s = (float*)(gt_smem + {b.offset});" in module.source
+    assert not gen.tile_rings[0]  # float16 fields are loaded directly
+    assert "gt_plane_0_r" not in module.ring_bytes
+
+
+def test_half_precision_gets_a_kernel():
+    """The float16 copy the card refused is served by plane: a half load
+    and a half store, nothing ringed."""
+    module = _backend(_half_precision).module
+    assert module.strategy == "plane" and not module.ring_bytes
+    for body in _bodies(module.source).values():
+        assert "__float2half_rn(gt_v)" in body and "__half2float(*(const __half*)(" in body
+
+
+def _half_math(a: F16, out: F16):
+    with computation(PARALLEL), interval(...):
+        out = sqrt(abs(a) + 1.0) + exp(-a) + a % 0.25 + abs(a) ** 1.5
+
+
+def test_half_literals_and_math_take_float_names():
+    """A float16 stencil's literals are float literals and its math calls
+    the float ones."""
+    body = _bodies(_backend(_half_math).module.source)["gt_plane_0"]
+    for call in ("sqrtf(", "fabsf(", "expf(", "gt_fmodf_np(", "powf("):
+        assert call in body, call
+    assert "double" not in body and "1.0f" in body
+
+
+# --- loads from device memory that a neighbouring block may have overwritten -------
+
+
+@pytest.mark.parametrize(
+    "definition, snapshot",
+    [
+        # read at other points only after its last write: no snapshot
+        (defs.two_writer_sweep, set()),
+        # read at other points between two writes, or before the only one
+        (defs.read_between_writes_sweep, {"mid"}),
+        (defs.read_before_write_sweep, {"out"}),
+    ],
+)
+def test_load_hazard_takes_a_snapshot(definition, snapshot):
+    """A plane first loaded from device memory where a read at other points
+    comes before or in the level's last write loads from a copy the wrapper
+    takes before the launch: a slot of the same layout, one per symbol."""
+    module = _backend(definition).module
+    assert module.strategy == "tiled"
+    assert set(module.snapshots.get("gt_launch_0", ())) == snapshot
+    snaps = {m.snapshot_of: m for m in module.slots if m.snapshot_of}
+    assert set(snaps) == snapshot
+    for name, m in snaps.items():
+        assert f"{m.var} + " in _bodies(module.source)["gt_tiled_0"]
 
 
 # --- the stage-fusion switch and the fused_column kernel ---------------------------
@@ -1022,18 +1257,19 @@ def test_ring_only_in_restrict_variants(name, fuse, monkeypatch):
 
 def test_ring_nowhere_but_the_column_walks():
     """The column ring (``gt_fetch``) is in column and fused_column sources
-    alone, and not in column loops that walk no level (PARALLEL); plane
-    sources carry no ring at all; fused_plane and tiled ones carry the tile
-    ring (``gt_tfetch``) in their __restrict__ variants only."""
+    alone, and not in column loops that walk no level (PARALLEL); plane,
+    fused_plane and tiled sources carry the tile ring (``gt_tfetch``) in
+    their __restrict__ variants only, and a plane source without one (no
+    3-D field of 4 or 8 bytes read) no ``cp.async`` at all."""
     for name, entry in defs.REGISTRY.items():
         module = _registry_backend(name).module
         if entry["strategy"] not in ("column", "fused_column"):
             assert "gt_fetch(" not in module.source, name
-        if entry["strategy"] == "plane":
-            assert "cp.async" not in module.source and not module.ring_bytes, name
+        if entry["strategy"] == "plane" and not module.ring_bytes:
+            assert "cp.async" not in module.source, name
         for kernel, body in _bodies(module.source).items():
             assert ("gt_tfetch(" in body) == (kernel in module.ring_bytes and entry["strategy"] in (
-                "fused_plane", "tiled")), (name, kernel)
+                "plane", "fused_plane", "tiled")), (name, kernel)
     heat = _registry_backend("heat_step").module
     assert set(heat.ring_bytes) == {"gt_column_1_r", "gt_column_2_r"}
 
@@ -1287,7 +1523,10 @@ def test_source_has_plain_c_interface():
     assert 'extern "C" int gt_launch_0(' in source
     assert "cudaGetLastError()" in source
     assert "torch/extension.h" not in source
-    assert "restrict" not in source  # API fields may alias
+    # API fields may alias: only the variant launched where they do not
+    # takes them as __restrict__
+    assert "restrict" not in _bodies(source)["gt_plane_0"]
+    assert "gt_plane_0_r(const GtParams p, const char* __restrict__ f0" in source
 
 
 def test_column_restrict_variant_only_when_noalias():
@@ -1669,11 +1908,11 @@ def test_vadv_float32_fields_float64_temporaries_on_card(fuse, monkeypatch):
 @pytest.mark.cuda
 def test_unsupported_raises_on_card():
     _need_card()
-    st = gtscript.stencil(backend="cuda:hopper", definition=_half_precision)
-    a = storage.zeros((8, 8, 3), np.float16, backend="cuda:hopper")
-    b = storage.zeros((8, 8, 3), np.float16, backend="cuda:hopper")
-    with pytest.raises(CudaUnsupported, match="float16 has no kernel type"):
-        st(a, b, origin=(2, 2, 0), domain=(4, 4, 3))
+    st = gtscript.stencil(backend="cuda:hopper", definition=_too_wide_temporary)
+    a = storage.zeros((207, 206, 3), backend="cuda:hopper")
+    b = storage.zeros((207, 206, 3), backend="cuda:hopper")
+    with pytest.raises(CudaUnsupported, match="bytes of shared memory per block"):
+        st(a, b, origin=(101, 101, 0), domain=(4, 3, 3))
 
 
 @pytest.mark.cuda
@@ -1834,3 +2073,118 @@ def test_tile_walk_twice_and_chained_on_card(name):
         out[backend] = {n: np.asarray(v) for n, v in fields.items()}
     for n in out["torch"]:
         _assert_same(out["cuda:hopper"][n], out["torch"][n], n)
+
+
+#: the plane walks: every registry stencil plane serves, and the plane
+#: constructs
+PLANE_WALKS = [
+    (name, e["definition"], e["dtypes"], e["externals"], e["scalars"], e["min_k"])
+    for name, e in sorted(defs.REGISTRY.items()) if e["strategy"] == "plane"
+] + [
+    (name, definition, {"dt": np.float64}, {}, {}, {"_sectioned_plane": 4}.get(name, 2))
+    for name, (definition, strategy) in sorted(CONSTRUCTS.items()) if strategy == "plane"
+]
+
+
+def _plane_walk(definition, dtypes, externals, shape, calls):
+    """The kernel and the plain version on the same inputs, each through
+    ``calls(stencil, fields)``: every field of both."""
+    out = {}
+    for backend in ("cuda:hopper", "torch"):
+        st = gtscript.stencil(
+            backend=backend, definition=definition, dtypes=dtypes, externals=externals
+        )
+        host = defs.make_inputs(st.field_info, shape, np.random.default_rng(12))
+        fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+        cuda_backend.PLANE.launches = 0
+        calls(st, fields)
+        torch.cuda.synchronize()
+        out[backend] = ({n: np.asarray(v) for n, v in fields.items()}, cuda_backend.PLANE.launches)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["restrict", "plain"])
+@pytest.mark.parametrize("depth", ["short", "long"])
+@pytest.mark.parametrize("name, definition, dtypes, externals, scalars, min_k", PLANE_WALKS)
+def test_plane_walk_matches_plain_on_card(name, definition, dtypes, externals, scalars, min_k,
+                                          depth, variant, monkeypatch):
+    """Every plane stencil against the plain version on the same card, at a
+    ragged 37 × 45 domain (a multiple of neither tile side), over fewer
+    levels than a block walks and over 80, in the __restrict__ variant
+    (with its ring) and in the plain-pointer one (the wrapper is told that
+    the arguments overlap); one counted launch a loop."""
+    _need_card()
+    if variant == "plain":
+        monkeypatch.setattr(cuda_backend, "overlapping", lambda arrays: [("", "")])
+    nk = max(min_k, 2) if depth == "short" else 80
+    out = _plane_walk(
+        definition, dtypes, externals, (41, 49, nk),
+        lambda st, fields: st(**fields, **scalars, origin=(2, 2, 0), domain=(37, 45, nk)),
+    )
+    (got, launches), (want, none) = out["cuda:hopper"], out["torch"]
+    assert launches == len(_backend(definition, dtypes=dtypes, externals=externals).module.launchers)
+    assert none == 0
+    for n in want:
+        _assert_same(got[n], want[n], n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name", ["horizontal_diffusion", "lap_of_lap", "region_interaction", "large_k_interval",
+             "_sectioned_plane"]
+)
+def test_plane_walk_twice_and_chained_on_card(name):
+    """Two calls in a row on the same fields, then ``chain(5)``, at 23
+    levels (a ragged last walk), against the plain version doing the same:
+    a ring slot or plane left over from a call or level before would
+    show."""
+    _need_card()
+    entry = defs.REGISTRY.get(name) or {
+        "definition": CONSTRUCTS[name][0], "dtypes": {"dt": np.float64}, "externals": {},
+        "scalars": {},
+    }
+    kw = dict(origin=(2, 2, 0), domain=(37, 45, 23))
+
+    def calls(st, fields):
+        st(**fields, **entry["scalars"], **kw)
+        st(**fields, **entry["scalars"], **kw)
+        st.chain(5, **fields, **entry["scalars"], **kw)
+
+    out = _plane_walk(entry["definition"], entry["dtypes"], entry["externals"], (41, 49, 23), calls)
+    assert out["cuda:hopper"][1] > 0
+    for n, want in out["torch"][0].items():
+        _assert_same(out["cuda:hopper"][0][n], want, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(defs.HALF_STENCILS))
+def test_half_stencil_matches_plain_on_card(name, monkeypatch):
+    """One float16 stencil on each of the five kernels against the plain
+    version on the same card, within the half tolerance (the kernel computes
+    in float32 and rounds at the store, the plain version rounds every
+    operation); the largest error is printed."""
+    _need_card()
+    definition, kernel, fuse = defs.HALF_STENCILS[name]
+    monkeypatch.setenv("GT4PY_CUDA_FUSE_STAGES", "1" if fuse else "0")
+    opts = dict(definition=definition, dtypes={"dt": np.float16})
+    kern = gtscript.stencil(backend="cuda:hopper", **opts)
+    plain = gtscript.stencil(backend="torch", **opts)
+    assert kern._backend.strategy == kernel
+    host = defs.half_inputs(kern.field_info, (41, 49, 19), np.random.default_rng(13))
+    wrapper = cuda_backend.WRAPPERS[kernel]
+    out = {}
+    for tag, st in (("kernel", kern), ("plain", plain)):
+        fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+        wrapper.launches = 0
+        st(**fields, origin=(2, 2, 0), domain=(37, 45, 19))
+        torch.cuda.synchronize()
+        assert (wrapper.launches > 0) == (tag == "kernel")
+        out[tag] = {n: np.asarray(v).astype(np.float64) for n, v in fields.items()}
+    err = max(np.max(np.abs(out["kernel"][n] - out["plain"][n])) for n in host)
+    print(f"float16 {name} on {kernel}: max abs err {err}")
+    for n in host:
+        assert np.all(np.isfinite(out["kernel"][n])), n
+        np.testing.assert_allclose(
+            out["kernel"][n], out["plain"][n], rtol=defs.HALF_TOL, atol=defs.HALF_TOL, err_msg=n
+        )

@@ -825,6 +825,40 @@ def lag_read_before_write(inp: "gtscript.Field['dt']", out: "gtscript.Field['dt'
             acc = inp * 2.0
 
 
+# --- sweeps whose shared planes start from device memory at every level ---------
+
+
+def two_writer_sweep(inp: Field3D, mid: Field3D, out: Field3D):
+    """mid is written by two statements under conditions and read at other
+    points after both: where neither writes, its value from before the call."""
+    with computation(FORWARD), interval(...):
+        if inp > 0.6:
+            mid = 2.0 * inp
+        if inp < 0.3:
+            mid = inp - 1.0
+        out = mid[1, 0, 0] + mid[-1, 0, 0] + mid[0, 1, 0]
+
+
+def read_between_writes_sweep(inp: Field3D, mid: Field3D, out: Field3D):
+    """mid is read at other points between its two conditional writes: where
+    the first did not write, the value from before the call, which the
+    second may overwrite."""
+    with computation(FORWARD), interval(...):
+        if inp > 0.6:
+            mid = 2.0 * inp
+        out = mid[1, 0, 0] + mid[-1, 0, 0]
+        if inp < 0.3:
+            mid = inp - 1.0
+
+
+def read_before_write_sweep(inp: Field3D, out: Field3D, out2: Field3D):
+    """out is read at other points before the level writes it: its values
+    from before the call."""
+    with computation(FORWARD), interval(...):
+        out2 = out[1, 0, 0] - out[0, -1, 0]
+        out = inp + 0.5 * out2
+
+
 # --- three column walks at the edges of the prefetch ring and the registers -----
 
 
@@ -972,6 +1006,42 @@ FUSED_STAGES = {
     "empty_computation_inlined": "fused_column",
     "read_ahead_sweep": "fused_column",
 }
+
+
+#: float16 stencils, one on each kernel: name -> (definition, the kernel
+#: that serves it, whether it is built with the stage-fusion switch on).
+#: Stored half and computed in float32 on the card, as K1 computes them
+#: (pallas_split.py:129-156); the plain version computes in half operation
+#: by operation, so the two agree to HALF_TOL, the JAX package's own
+#: tolerance for float16 (tests/cartesian_tests/test_upcasting_matrix.py)
+HALF_STENCILS = {
+    "hdiff": (horizontal_diffusion_generic, "plane", False),
+    "hdiff_sponge": (hdiff_sponge, "fused_plane", False),
+    "tridiag": (tridiagonal_solver_generic, "column", False),
+    "tridiag_fused": (tridiagonal_solver_generic, "fused_column", True),
+    "smoothed_column_sum": (smoothed_column_sum, "tiled", False),
+}
+HALF_TOL = 1e-2
+
+
+def half_precision(inp: "gtscript.Field['dt']", out: "gtscript.Field['dt']"):
+    """A copy, built with float16 fields: the construct the card refused
+    before float16 had a kernel type."""
+    with computation(PARALLEL), interval(...):
+        out = inp
+
+
+def half_inputs(field_info, shape, rng):
+    """float16 inputs of a HALF_STENCILS stencil (:func:`make_inputs`),
+    conditioned as a model's would be: a diagonally dominant tridiagonal
+    system, a stable diffusion coefficient."""
+    host = make_inputs(field_info, shape, rng)
+    if "diag" in host:
+        host["diag"] = host["diag"] + np.float16(4.0)
+        host["inf"], host["sup"] = -host["inf"], -host["sup"]
+    if "coeff" in host:
+        host["coeff"] = (0.1 * host["coeff"]).astype(np.float16)
+    return host
 
 
 def make_inputs(field_info, shape, rng):
