@@ -10,16 +10,21 @@ three computations with an IJ coefficient and a K sponge profile
 (``fused_plane``), smoothed_column_sum, a FORWARD sweep coupling
 neighbouring columns at every level (``tiled``), and vadv_fused and
 tridiag_fused, vadv and tridiag built with the stage-fusion switch on
-(``fused_column``, one launch per application); hdiff also in float16
-(stored half, computed in float32).
+(``fused_column``, one launch per application); hdiff also in float16 and
+bfloat16 (stored in 16 bits, computed in float32). ``chain`` replays one
+swap cycle of the kernels as a CUDA graph.
 
 1. Builds every kernel of those paths and of the registry phase from the
    sources in this checkout, one ``nvcc`` per source, all at once.
 2. For each path: sets the launch counts to 0, runs the stencil once and as
-   ``chain(10)``, reads the counts: its kernel must have launched. Every one
-   of the five kernels must have launched on some path.
+   ``chain(10)``, reads the counts: its kernel must have launched exactly
+   1 + 10 × its launchers' count (a graph replay adds the launches it
+   repeats). Every one of the five kernels must have launched on some path.
 3. Holds every result against the plain version (the ``torch`` backend on the
-   same card, same inputs) and, on a small input, against the NumPy oracle.
+   same card, same inputs; the half types on one application) and, on a
+   small input, against the NumPy oracle. Then the graph chain: on every
+   path ``chain(10)`` and ``chain(11)`` equal 10 and 11 single calls to the
+   bit, with a graph replay (``chain_mode``).
 4. Times plain, kernel, kernel, plain with CUDA events over chained steps;
    takes the stencil's device time per step from CUDA events around a chain
    queued behind a spin kernel (no host cost inside); holds each kernel's
@@ -34,18 +39,24 @@ tridiag_fused, vadv and tridiag built with the stage-fusion switch on
    variant's time (the tile walks and ``plane``), and what ``ptxas``
    reports for each kernel (registers, spills) from the build logs, with
    the blocks resident on an SM; then every main-path kernel's SASS
-   instructions by class, where the toolkit has ``cuobjdump``.
+   instructions by class, where the toolkit has ``cuobjdump``. Also each
+   path's step − device µs (what the host adds to a chained step), at
+   chain(20) and from the fit of chain(20) and chain(50) (which also gives
+   a chain call's fixed cost), and the host µs of a warm ``__call__``
+   (queued behind a spin kernel).
 5. Registry phase: every stencil of tests/torch_stencil_defs.py runs on
    ``cuda:hopper`` at 32×32×max(8, min_k) in its own dtypes, through the
    kernel pinned for it (and K4's class again with the switch on, through
    ``fused_column``), against the plain version on the card; then one
-   float16 stencil on each of the five kernels (``HALF_STENCILS``) against
-   the plain version at the half tolerance, its largest error printed.
+   float16 and one bfloat16 stencil on each of the five kernels
+   (``HALF_STENCILS``) against the plain version at the half tolerances
+   (``HALF_TOL``, ``BF16_TOL``), their largest errors printed.
 6. Sweeps phase: the two sweeps that read an earlier level beyond the points
    its writers compute (``tiled``, one cooperative launch a call) at
    256×256×80 in float64, three times each, every run equal to the plain
-   version; then the µs of a call with the host and on the device (behind a
-   spin kernel) beside its bound, and its ``ptxas`` report.
+   version, and ``chain(5)`` equal to five calls; then the µs of a call with
+   the host and on the device (behind a spin kernel) beside its bound, and
+   its ``ptxas`` report.
 
 Prints the card's name and power limit, one JSON line with the kernels, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -68,17 +79,21 @@ CHAIN_STEPS = 10
 #: plain version rounds every operation separately, so they agree to the
 #: last bit in practice; the bound leaves room for one rounding per
 #: operation of the longest chain (vadv/tridiag recurrences over 80 levels).
-#: float16: the kernel computes in float32 and rounds once, at the store,
-#: while the plain version rounds every operation to half, so the two agree
-#: to the JAX package's float16 tolerance (rtol = atol = 1e-2,
-#: tests/cartesian_tests/test_upcasting_matrix.py), not to the bit
-RTOL = {"float16": 1e-2, "float32": 1e-5, "float64": 1e-12}
-ATOL = {"float16": 1e-2, "float32": 0.0, "float64": 0.0}
+#: float16 and bfloat16: the kernel computes in float32 and rounds once, at
+#: the store, while the plain version rounds every operation to half, so the
+#: two agree to the JAX package's tolerances for one PARALLEL application
+#: (float16 1e-2, bfloat16 2e-2, tests/cartesian_tests/test_upcasting_matrix.py),
+#: not to the bit
+RTOL = {"float16": 1e-2, "bfloat16": 2e-2, "float32": 1e-5, "float64": 1e-12}
+ATOL = {"float16": 1e-2, "bfloat16": 2e-2, "float32": 0.0, "float64": 0.0}
 #: kernel vs the NumPy oracle (float64 throughout) on a small input, as
 #: (rtol, atol): float32 carries the rounding of 80-level recurrences
-ORACLE_TOL = {"float16": (1e-2, 1e-2), "float32": (1e-4, 1e-5), "float64": (1e-10, 1e-12)}
-#: the main paths that also run in float16
+ORACLE_TOL = {"float16": (1e-2, 1e-2), "bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-5),
+              "float64": (1e-10, 1e-12)}
+#: the half types, and the main paths that also run in them
+HALVES = ("float16", "bfloat16")
 HALF_PATHS = ("hdiff",)
+ITEMSIZE = {"float16": 2, "bfloat16": 2, "float32": 4, "float64": 8}
 
 #: registry phase: domain and halo
 REG_N, REG_HALO = 32, 3
@@ -92,10 +107,10 @@ REPLACES = {
 }
 SOURCE = "gt4py_tpu_torch/cartesian/backend/cuda_codegen.py"
 #: the H100 SXM's data sheet: device memory rate, and peak rates outside the
-#: tensor cores (float32 67 TFLOP/s, float64 34 TFLOP/s; float16 fields
-#: are computed in float32)
+#: tensor cores (float32 67 TFLOP/s, float64 34 TFLOP/s; half fields are
+#: computed in float32)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float16": 67e12, "float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float16": 67e12, "bfloat16": 67e12, "float32": 67e12, "float64": 34e12}
 #: the switch that builds a stencil of K4's class for fused_column
 FUSE_ENV = "GT4PY_CUDA_FUSE_STAGES"
 #: the kernels of the walk report, and those with a plain-pointer variant
@@ -138,7 +153,7 @@ def main(argv) -> int:
         )
 
     def inputs(case, dtype, shape, seed):
-        return {n: v.astype(dtype) for n, v in make_host(case, shape, seed, np).items()}
+        return {n: in_dtype(v, dtype) for n, v in make_host(case, shape, seed, np).items()}
 
     if argv[1:]:
         print(f"usage: {argv[0]}", file=sys.stderr)
@@ -151,9 +166,9 @@ def main(argv) -> int:
 
     # -- 1. build every kernel of the paths and the registry ------------------
     runs = []
-    for dtype in ("float32", "float64", "float16"):
+    for dtype in ("float32", "float64", *HALVES):
         for case in cases:
-            if dtype == "float16" and case["name"] not in HALF_PATHS:
+            if dtype in HALVES and case["name"] not in HALF_PATHS:
                 continue
             kern = build(
                 case["definition"], "cuda:hopper", dtype, case["externals"],
@@ -206,8 +221,12 @@ def main(argv) -> int:
         counts = {k: w.launches for k, w in cuda_backend.WRAPPERS.items()}
         run["launches"] = counts[case["kernel"]]
         print(f"launches on the {case['name']} {run['dtype']} path: {counts}")
-        if run["launches"] == 0:
-            raise AssertionError(f"{case['name']}: the {case['kernel']} kernel was not launched")
+        expected = (1 + CHAIN_STEPS) * len(run["kern"]._backend.module.launchers)
+        if run["launches"] != expected or sum(counts.values()) != expected:
+            raise AssertionError(
+                f"{case['name']}: {counts}, not {expected} launches of {case['kernel']} "
+                f"(one call and chain({CHAIN_STEPS}))"
+            )
         served |= {k for k, n in counts.items() if n}
     missing = set(cuda_backend.WRAPPERS) - served
     if missing:
@@ -218,7 +237,7 @@ def main(argv) -> int:
         case, dtype = run["case"], run["dtype"]
         ref = card_fields(run["host"], origin, case, storage)
         main = run["main"]
-        if dtype == "float16":
+        if dtype in HALVES:
             # one application each: a chain feeds each step the other's
             # rounding, and hdiff's flux limiter, a sign test on the
             # difference of two neighbours, turns a one-ulp difference of
@@ -250,6 +269,13 @@ def main(argv) -> int:
         print(f"{case['name']} {dtype}: kernel == plain within rtol {RTOL[dtype]}, "
               f"atol {ATOL[dtype]} (max abs err {err:.3e}); oracle ok")
 
+    t0 = time.perf_counter()
+    for run in runs:
+        run["chain_mode"] = check_graph_chain(run, origin, domain, storage, torch)
+    print(f"graph chain: chain({CHAIN_STEPS}) and chain({CHAIN_STEPS + 1}) == as many single "
+          f"calls, to the bit, on every path, in {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{r['case']['name']} {r['dtype']} {r['chain_mode']}" for r in runs))
+
     # -- 4. timing: plain, kernel, kernel, plain -------------------------------------
     copy_gbs = copy_bandwidth() / 1e9
     rows = []
@@ -267,7 +293,11 @@ def main(argv) -> int:
             run["unringed_ms"] = unringed_ms(
                 run, card_fields(run["host"], origin, case, storage), cuda_backend
             )
-        nbytes = compulsory_bytes(run["kern"], np.dtype(run["dtype"]).itemsize)
+        run["slope_ms"], run["chain_call_ms"] = chain_fit(run["kern"], fields, run)
+        run["call_host_ms"] = call_host_ms(
+            run, card_fields(run["host"], origin, case, storage), 20
+        )
+        nbytes = compulsory_bytes(run["kern"], ITEMSIZE[run["dtype"]])
         flops = operations(run["kern"])
         run["gbs"] = nbytes / dev / 1e6
         run["copy_bound_ms"] = nbytes / (copy_gbs * 1e9) * 1e3
@@ -281,14 +311,19 @@ def main(argv) -> int:
             f"plain {run['plain_ms'] * 1e3:10.1f} us/step ({p1 * 1e3:.1f}, {p2 * 1e3:.1f})  "
             f"kernel {run['ms'] * 1e3:8.1f} us/step ({k1 * 1e3:.1f}, {k2 * 1e3:.1f})  "
             f"device {dev * 1e3:8.1f} us/step  "
+            f"step - device {(run['ms'] - dev) * 1e3:6.2f} us ({run['chain_mode']}; fit: "
+            f"{(run['slope_ms'] - dev) * 1e3:6.2f} us a step, {run['chain_call_ms'] * 1e3:6.1f} "
+            f"us a chain call)  "
+            f"warm call {run['call_host_ms'] * 1e3:6.1f} us on the host  "
             f"{pts / (dev * 1e-3) / 1e9:7.2f} Gpoints/s  "
             f"{run['gbs']:7.1f} GB/s of compulsory bytes ({run['gbs'] / copy_gbs:.1%} of copy)  "
             f"bound {run['bound_ms'] * 1e3:.1f} us ({run['bound_by']}; "
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP; "
             f"{run['copy_bound_ms'] * 1e3:.1f} us at the copy rate)"
         )
-    print(f"timings on {smi}, {NI}x{NJ}x{NK}; steps by CUDA events, "
-          "device time by CUDA events behind a spin kernel:")
+    print(f"timings on {smi}, {NI}x{NJ}x{NK}; steps of chain(20) by CUDA events, "
+          "device time by CUDA events behind a spin kernel, a warm call's host time by "
+          "the host clock behind a spin kernel:")
     print(f"  device-to-device copy of 256 MiB: {copy_gbs:.1f} GB/s (read + write)")
     for r in rows:
         print("  " + r)
@@ -321,9 +356,12 @@ def main(argv) -> int:
           f"kernel ({by_kernel}) == plain, in {time.perf_counter() - t0:.1f} s")
     for reg in halves:
         run_half_stencil(reg, defs, storage, cuda_backend, np, torch)
-    print(f"float16: {len(halves)} stencils at {REG_N}x{REG_N}, one on each kernel, == plain "
-          f"within rtol = atol = {defs.HALF_TOL}; max abs err "
-          + ", ".join(f"{r['name']} ({r['entry'][1]}) {r['err']:.3e}" for r in halves))
+    for dtype in HALVES:
+        done = [r for r in halves if r["dtype"] == dtype]
+        print(f"{dtype}: {len(done)} stencils at {REG_N}x{REG_N}, one on each kernel, == plain "
+              f"within rtol = atol = tol; max abs err (tol) "
+              + ", ".join(f"{r['name']} ({r['entry'][1]}) {r['err']:.3e} ({r['tol']})"
+                          for r in done))
 
     # -- 6. the lagged sweeps, one cooperative tiled launch a call ----------------
     t0 = time.perf_counter()
@@ -332,7 +370,9 @@ def main(argv) -> int:
     for sweep in sweeps:  # one application's compulsory bytes over 3.35 TB/s
         sweep["bound_ms"] = compulsory_bytes(sweep["kern"], 8) / HBM_BYTES_PER_S * 1e3
     print(f"sweeps at {NI}x{NJ}x{NK} float64, three runs each == plain, one cooperative "
-          f"launch a call, in {time.perf_counter() - t0:.1f} s; us per call by CUDA events, "
+          f"launch a call, chain(5) == five calls ("
+          + ", ".join(f"{s['name']} {s['chain_mode']}" for s in sweeps)
+          + f"), in {time.perf_counter() - t0:.1f} s; us per call by CUDA events, "
           "host included / device behind a spin kernel (bound): "
           + ", ".join(f"{s['name']} {s['ms'] * 1e3:.1f} / {s['device_ms'] * 1e3:.1f} "
                       f"({s['bound_ms'] * 1e3:.1f}; {s['device_ms'] * 1e3 / NK:.3f} us a level)"
@@ -352,6 +392,11 @@ def main(argv) -> int:
             "max_abs_err": run["max_abs_err"],
             "ms": run["device_ms"],
             "step_ms": run["ms"],
+            "step_minus_device_us": (run["ms"] - run["device_ms"]) * 1e3,
+            "fit_step_minus_device_us": (run["slope_ms"] - run["device_ms"]) * 1e3,
+            "chain_call_us": run["chain_call_ms"] * 1e3,
+            "chain_mode": run["chain_mode"],
+            "call_host_us": run["call_host_ms"] * 1e3,
             "plain_ms": run["plain_ms"],
             "bound_ms": run["bound_ms"],
             "bound_by": run["bound_by"],
@@ -467,6 +512,85 @@ def make_host(case, shape, seed, np):
     return host
 
 
+def in_dtype(v, dtype: str):
+    """Host array ``v`` in ``dtype``: a NumPy array, or for bfloat16, which
+    NumPy cannot hold, a CPU ``torch.bfloat16`` tensor (rounded to nearest
+    even); ``storage.from_array`` takes either."""
+    import torch
+
+    if dtype == "bfloat16":
+        return torch.from_numpy(v).to(torch.bfloat16)
+    return v.astype(dtype)
+
+
+def as_float64(v, np):
+    """A host array or tensor of :func:`in_dtype` as float64 NumPy."""
+    return np.asarray(v.double() if hasattr(v, "double") else v, dtype=np.float64)
+
+
+def same_bits(a, b) -> bool:
+    """Two tensors equal to the bit (NaNs included)."""
+    import torch
+
+    bits = lambda t: t.contiguous().view(torch.uint8)  # noqa: E731
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+
+
+def check_graph_chain(run, origin, domain, storage, torch) -> str:
+    """``chain(n)`` for n = CHAIN_STEPS and CHAIN_STEPS + 1, each on fresh
+    fields (so the first cycle is launched, captured, then replayed),
+    against n single calls rotating the same roles: equal to the bit, with
+    the same launches; returns the chain's ``chain_mode`` (it must be
+    "graph")."""
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+
+    case, kern = run["case"], run["kern"]
+    swap, kw = case["swap"], dict(domain=domain, **run["scalars"])
+    mode = None
+    for n in (CHAIN_STEPS, CHAIN_STEPS + 1):
+        chained = card_fields(run["host"], origin, case, storage)
+        cur = card_fields(run["host"], origin, case, storage)
+        info: dict = {}
+        wrapper = cuda_backend.WRAPPERS[case["kernel"]]
+        wrapper.launches = 0
+        kern.chain(n, **chained, swap=swap, exec_info=info, **kw)
+        torch.cuda.synchronize()
+        launched, wrapper.launches = wrapper.launches, 0
+        for _ in range(n):
+            kern(**cur, **kw)
+            cur = {r: cur[swap.get(r, r)] for r in cur}
+        torch.cuda.synchronize()
+        if launched != wrapper.launches:
+            raise AssertionError(f"{case['name']}: chain({n}) launched {launched} kernels, "
+                                 f"{n} calls {wrapper.launches}")
+        for r in chained:
+            if not same_bits(chained[r].array, cur[r].array):
+                raise AssertionError(f"{case['name']} {run['dtype']}: chain({n}) differs from "
+                                     f"{n} calls in {r}")
+        mode = info["chain_mode"]
+        if mode != "graph":
+            raise AssertionError(f"{case['name']}: chain({n}) ran as {mode}, not a graph")
+    return mode
+
+
+def call_host_ms(run, fields, n: int) -> float:
+    """Host ms of one warm ``__call__`` (its prepared launch found in the
+    cache), over ``n`` calls queued behind a spin kernel, so that no call
+    waits for the card."""
+    import torch
+
+    kw = dict(domain=(NI, NJ, NK), **run["scalars"])
+    run["kern"](**fields, **kw)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # ~50 ms at the H100's clocks
+    t0 = time.perf_counter()
+    for _ in range(n):
+        run["kern"](**fields, **kw)
+    host = (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return host * 1e3
+
+
 def check_oracle(run, defs, np, storage) -> None:
     """The kernel on a small input against the NumPy oracle (one call)."""
     import torch
@@ -481,11 +605,9 @@ def check_oracle(run, defs, np, storage) -> None:
         shape, origin, domain = (13, 12, NK), (0, 0, 0), (12, 12, NK)
     else:
         shape, origin, domain = (12, 12, NK), (0, 0, 0), (12, 12, NK)
-    host = {
-        n: v.astype(dtype).astype(np.float64)
-        for n, v in make_host(case, shape, 11, np).items()
-    }
-    fields = card_fields({n: v.astype(dtype) for n, v in host.items()}, origin, case, storage)
+    typed = {n: in_dtype(v, dtype) for n, v in make_host(case, shape, 11, np).items()}
+    host = {n: as_float64(v, np) for n, v in typed.items()}
+    fields = card_fields(typed, origin, case, storage)
     run["kern"](**fields, **run["scalars"], domain=domain)
     torch.cuda.synchronize()
     if like == "hdiff":
@@ -518,11 +640,13 @@ def check_oracle(run, defs, np, storage) -> None:
 
 def time_steps(stencil, fields, run, n: int) -> float:
     """ms per step of ``stencil.chain`` (host and device, as a model loop
-    sees it), after one warm-up step."""
+    sees it), after a warm-up chain as long (which captures the graph), from
+    the inputs again (:func:`refill`)."""
     import torch
 
     kw = dict(swap=run["case"]["swap"], domain=(NI, NJ, NK))
-    stencil.chain(1, **fields, **run["scalars"], **kw)
+    stencil.chain(n, **fields, **run["scalars"], **kw)
+    refill(fields, run["host"])
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -530,6 +654,26 @@ def time_steps(stencil, fields, run, n: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def refill(fields, host) -> None:
+    """Copy the host inputs into the fields again. A timed chain starts from
+    them: tridiag's ping-pong shrinks its values geometrically, into
+    float32's subnormals within a few tens of steps, where its divisions
+    slow down."""
+    import torch
+
+    for n, v in host.items():
+        fields[n].array.copy_(v if isinstance(v, torch.Tensor) else torch.from_numpy(v))
+
+
+def chain_fit(stencil, fields, run) -> tuple[float, float]:
+    """(ms a step, ms a chain call) of the kernel's ``chain``: the two-point
+    fit of chain(20) and chain(50) by CUDA events (bench.py:12-22), which
+    splits what every step costs from what each call adds once."""
+    t20, t50 = (time_steps(stencil, fields, run, n) * n for n in (20, 50))
+    slope = (t50 - t20) / 30
+    return slope, t20 - 20 * slope
 
 
 def compulsory_bytes(stencil, itemsize: int) -> int:
@@ -657,33 +801,37 @@ def registry_stencils(defs, gtscript) -> list:
 
 
 def half_stencils(defs, gtscript) -> list:
-    """The float16 stencils of ``defs.HALF_STENCILS``, one on each kernel,
-    built for the kernel (failing where another one serves it) and for the
-    plain version."""
+    """The stencils of ``defs.HALF_STENCILS``, one on each kernel, in float16
+    and in bfloat16, built for the kernel (failing where another one serves
+    it) and for the plain version, with their tolerance."""
     out = []
-    for name, (definition, kernel, fuse) in sorted(defs.HALF_STENCILS.items()):
-        opts = dict(definition=definition, dtypes={"dt": "float16"})
-        kern = build_switched(gtscript, fuse, backend="cuda:hopper", **opts)
-        if kern._backend.strategy != kernel:
-            raise AssertionError(
-                f"float16 {name}: served by {kern._backend.strategy} "
-                f"({kern._backend.unsupported}), pinned to {kernel}"
-            )
-        out.append({"name": name, "entry": (definition, kernel, fuse), "kern": kern,
-                    "plain": gtscript.stencil(backend="torch", **opts)})
+    for dtype in HALVES:
+        for name, (definition, kernel, fuse) in sorted(defs.HALF_STENCILS.items()):
+            opts = dict(definition=definition, dtypes={"dt": dtype})
+            kern = build_switched(gtscript, fuse, backend="cuda:hopper", **opts)
+            if kern._backend.strategy != kernel:
+                raise AssertionError(
+                    f"{dtype} {name}: served by {kern._backend.strategy} "
+                    f"({kern._backend.unsupported}), pinned to {kernel}"
+                )
+            tol = defs.HALF_TOL if dtype == "float16" else defs.BF16_TOL[name]
+            out.append({"name": name, "dtype": dtype, "tol": tol,
+                        "entry": (definition, kernel, fuse), "kern": kern,
+                        "plain": gtscript.stencil(backend="torch", **opts)})
     return out
 
 
 def run_half_stencil(reg, defs, storage, cuda_backend, np, torch) -> None:
-    """One float16 stencil at REG_N × REG_N × 16 through its kernel
-    (counted) and the plain version, every field and point compared at
-    ``defs.HALF_TOL``; its largest error goes to ``reg["err"]``."""
-    kernel = reg["entry"][1]
+    """One half stencil at REG_N × REG_N × 16 through its kernel (counted)
+    and the plain version, every field and point compared at ``reg["tol"]``;
+    its largest error goes to ``reg["err"]``."""
+    kernel, dtype = reg["entry"][1], reg["dtype"]
     shape = (REG_N + 2 * REG_HALO, REG_N + 2 * REG_HALO, 16)
     host = defs.half_inputs(reg["kern"].field_info, shape, np.random.default_rng(19))
     out = {}
     for tag in ("kern", "plain"):
-        fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+        fields = {n: storage.from_array(v, dtype=dtype, backend="cuda:hopper")
+                  for n, v in host.items()}
         cuda_backend.WRAPPERS[kernel].launches = 0
         info: dict = {}
         reg[tag](**fields, origin=(REG_HALO, REG_HALO, 0), domain=(REG_N, REG_N, 16),
@@ -692,17 +840,17 @@ def run_half_stencil(reg, defs, storage, cuda_backend, np, torch) -> None:
         if tag == "kern" and (
             info["kernel_strategy"] != kernel or cuda_backend.WRAPPERS[kernel].launches == 0
         ):
-            raise AssertionError(f"float16 {reg['name']}: {kernel} not launched")
+            raise AssertionError(f"{dtype} {reg['name']}: {kernel} not launched")
         out[tag] = {n: np.asarray(v).astype(np.float64) for n, v in fields.items()}
     reg["err"] = 0.0
     for n, want in out["plain"].items():
         got = out["kern"][n]
         if not np.all(np.isfinite(got)):
-            raise AssertionError(f"float16 {reg['name']}: non-finite values in {n}")
+            raise AssertionError(f"{dtype} {reg['name']}: non-finite values in {n}")
         reg["err"] = max(reg["err"], float(np.max(np.abs(got - want))))
-        if not np.allclose(got, want, rtol=defs.HALF_TOL, atol=defs.HALF_TOL):
+        if not np.allclose(got, want, rtol=reg["tol"], atol=reg["tol"]):
             raise AssertionError(
-                f"float16 {reg['name']}: kernel disagrees with plain in {n} "
+                f"{dtype} {reg['name']}: kernel disagrees with plain in {n} "
                 f"(max abs err {reg['err']})"
             )
 
@@ -745,6 +893,17 @@ def run_sweep(sweep, shape, origin, domain, storage, cuda_backend, np, torch) ->
                     f"(max abs err {float((g - w).abs().max())})"
                 )
         first = first or got
+    chained, cur, info = fields(), fields(), {}
+    sweep["kern"].chain(5, **chained, swap={"inp": "out", "out": "inp"}, domain=domain,
+                        exec_info=info)
+    for _ in range(5):
+        sweep["kern"](**cur, domain=domain)
+        cur = {"inp": cur["out"], "out": cur["inp"]}
+    torch.cuda.synchronize()
+    for n in host:
+        if not same_bits(chained[n].array, cur[n].array):
+            raise AssertionError(f"{sweep['name']}: chain(5) differs from five calls in {n}")
+    sweep["chain_mode"] = info["chain_mode"]
     n = 5
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -815,7 +974,8 @@ def device_ms(run, fields, n: int) -> float:
     card (:func:`spin_ms`): the stencil's device work (kernels and the
     temporaries' zero-fill) and none of the host's per-call cost."""
     kw = dict(swap=run["case"]["swap"], domain=(NI, NJ, NK))
-    run["kern"].chain(1, **fields, **run["scalars"], **kw)
+    run["kern"].chain(n, **fields, **run["scalars"], **kw)
+    refill(fields, run["host"])
     return spin_ms(
         lambda: run["kern"].chain(n, **fields, **run["scalars"], **kw), n, run["case"]["name"]
     )
@@ -825,13 +985,20 @@ def unringed_ms(run, fields, cuda_backend) -> float:
     """A tile walk's :func:`device_ms` in its plain-pointer variant, the
     one the wrapper launches where two arguments share memory (here it is
     told they do): the same barriers for the main paths' stencils, but no
-    input ring, no register carries of API fields and no ``__restrict__``."""
+    input ring, no register carries of API fields and no ``__restrict__``.
+    The backend's prepared launches and chains are dropped before and after:
+    one found by the fields' pointers would keep the ringed variant."""
+    backend = run["kern"]._backend
     saved = cuda_backend.overlapping
     cuda_backend.overlapping = lambda arrays: [("", "")]
+    backend._launches.clear()
+    backend._chains.clear()
     try:
         return device_ms(run, fields, 20)
     finally:
         cuda_backend.overlapping = saved
+        backend._launches.clear()
+        backend._chains.clear()
 
 
 def spin_ms(work, n: int, name: str) -> float:

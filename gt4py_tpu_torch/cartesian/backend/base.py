@@ -65,6 +65,11 @@ class Backend(abc.ABC):
         self.options = options
         #: which kernel served the last call: "plane", "column" or "plain"
         self.last_strategy: str | None = None
+        #: how the last chain ran: "graph" (CUDA-graph replays) or
+        #: "launches" (one step after the other)
+        self.last_chain_mode: str | None = None
+        #: (roles, swap) -> (chain_plan, chain_dirty_roles)
+        self._cycles: dict = {}
 
     @abc.abstractmethod
     def run(
@@ -97,27 +102,45 @@ class Backend(abc.ABC):
         origins: dict[str, tuple[int, int, int]],
         n_steps: int,
         swap: dict[str, str],
+        cache_key: Any = None,
     ) -> dict[str, torch.Tensor]:
         """Run ``n_steps`` applications with buffer rotation between steps
         (``swap[role] = source_role``: the buffer serving ``source_role``
         after a step serves ``role`` in the next). Semantically equal to
-        the user's Python time loop, and run the same way: in place on the
-        caller's buffers, one step after the other.
+        the user's Python time loop: in place on the caller's buffers, step
+        ``s`` on the buffer assignment ``chain_plan(...)[s % C]`` of the
+        swap's cycle of ``C`` steps. Here each step is one :meth:`run`;
+        ``cuda:hopper`` overrides :meth:`run_steps` to replay a CUDA graph of
+        the cycle on a card. ``last_chain_mode`` says which: ``"graph"`` or
+        ``"launches"`` (one step after the other). ``cache_key``: the
+        runtime's identity-free key of the chain (shapes, dtypes, origins,
+        domain, swap), for the backend's warm lookups.
 
         Returns, for every role whose content can have changed (written
         roles and members of swap cycles), a tensor holding its final
         content that is not another role's buffer, so the runtime can copy
         each into its caller's object in any order."""
-        state = {name: as_tensor(info.original) for name, info in infos.items()}
-        own = dict(state)
-        dirty = chain_dirty_roles(self.analyzed, infos, swap)
-        for _ in range(int(n_steps)):
-            out = self.run(state, scalars, domain, origins)
-            after = {**state, **out}
-            state = {r: after[swap.get(r, r)] for r in state}
-        return {
-            r: state[r] if state[r] is own[r] else state[r].clone() for r in dirty
-        }
+        own = {name: as_tensor(info.original) for name, info in infos.items()}
+        roles = (tuple(own), tuple(sorted(swap.items())))
+        cycle = self._cycles.get(roles)
+        if cycle is None:  # the plan and the dirty roles of these roles and swap
+            cycle = self._cycles[roles] = (
+                chain_plan(own, swap), chain_dirty_roles(self.analyzed, infos, swap)
+            )
+        plan, dirty = cycle
+        self.run_steps(own, plan, scalars, domain, origins, int(n_steps), cache_key)
+        final = plan[int(n_steps) % len(plan)]
+        return {r: own[r] if final[r] == r else own[final[r]].clone() for r in dirty}
+
+    def run_steps(
+        self, own, plan, scalars, domain, origins, n_steps: int, cache_key: Any = None
+    ) -> None:
+        """Apply the stencil ``n_steps`` times, step ``s`` on the buffers
+        ``{role: own[plan[s % len(plan)][role]]}``."""
+        self.last_chain_mode = "launches"
+        for s in range(n_steps):
+            assignment = plan[s % len(plan)]
+            self.run({r: own[assignment[r]] for r in own}, scalars, domain, origins)
 
 
 def chain_dirty_roles(analyzed, infos, swap: dict[str, str]) -> list[str]:
@@ -136,15 +159,26 @@ def chain_dirty_roles(analyzed, infos, swap: dict[str, str]) -> list[str]:
     return sorted(dirty)
 
 
+def chain_plan(roles, swap: dict[str, str]) -> list[dict[str, str]]:
+    """The buffer assignments of one swap cycle: entry ``s`` maps each role
+    to the role whose own buffer serves it at step ``s`` (and at every step
+    ``s + m * C``), where ``C = len(plan)`` is the smallest count of steps
+    after which every buffer is back in its own role. Step 0 is the
+    identity; step ``s + 1`` takes ``role <- plan[s][swap.get(role, role)]``,
+    as the Python loop ``fields = {r: fields[swap.get(r, r)] for r in
+    fields}`` rotates them."""
+    roles = list(roles)
+    if sorted(swap) != sorted(swap.values()) or not set(swap) <= set(roles):
+        raise ValueError(f"swap mapping is not a permutation of the roles: {swap!r}")
+    plan = [{r: r for r in roles}]
+    while True:
+        nxt = {r: plan[-1][swap.get(r, r)] for r in roles}
+        if nxt == plan[0]:
+            return plan
+        plan.append(nxt)
+
+
 def chain_cycle_len(roles, swap: dict[str, str]) -> int:
-    """Smallest C with swap^C == identity on ``roles`` (the body unroll
-    that returns every buffer to its own slot; kept for the CUDA-graph
-    chain, which captures one cycle)."""
-    cur = {r: swap.get(r, r) for r in roles}
-    c = 1
-    while any(cur[r] != r for r in roles):
-        cur = {r: swap.get(cur[r], cur[r]) for r in roles}
-        c += 1
-        if c > len(roles) + 1:
-            raise ValueError(f"swap mapping is not a permutation: {swap!r}")
-    return c
+    """Smallest C with swap^C == identity on ``roles``: the steps of one
+    CUDA-graph capture of a chain."""
+    return len(chain_plan(roles, swap))

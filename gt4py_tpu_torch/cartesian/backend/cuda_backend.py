@@ -23,6 +23,12 @@ Dispatch:
 - CPU tensors: run the plain version (torch_backend.run_plain) and record
   ``kernel_strategy = "plain"``.
 
+A call on CUDA tensors runs a :class:`PreparedLaunch`, packed once per
+buffers, layouts, domain and origins and found again by the runtime's call
+key (the warm path of pallas_backend.py:125-167); ``chain`` captures one
+swap cycle of them into a CUDA graph and replays it (:class:`ChainGraph`,
+the counterpart of the jitted ``fori_loop`` of pallas_backend.py:232-378).
+
 Each skeleton has one :class:`KernelWrapper` (``PLANE``, ``FUSED_PLANE``,
 ``COLUMN``, ``FUSED_COLUMN``, ``TILED``) whose ``launches`` counts the
 launches of its kernels, so a run can show that its main path went through
@@ -43,7 +49,7 @@ import numpy as np
 import torch
 
 from gt4py_tpu_torch import config
-from gt4py_tpu_torch.cartesian.backend.base import Backend, register
+from gt4py_tpu_torch.cartesian.backend.base import Backend, as_tensor, register
 from gt4py_tpu_torch.cartesian.backend.cuda_codegen import (
     NOTHING_LAUNCHED,
     CudaUnsupported,
@@ -58,14 +64,16 @@ from gt4py_tpu_torch.core.ndarray_utils import numpy_dtype, torch_dtype
 #: the eager plain version computes it (the role of -ffp-contract=off in
 #: c_backend.py:67-69); no fast-math. ``-Xptxas -v`` writes each kernel's
 #: registers, shared memory and spills to the build log beside the source
-#: (``gt_<key>.cu.log``). The two ``__CUDA_NO_HALF_*`` macros take
-#: ``__half`` arithmetic and implicit conversions out of ``cuda_fp16.h``: a
-#: generated source converts every half value with the intrinsics, and
-#: anything else fails to build.
+#: (``gt_<key>.cu.log``). The ``__CUDA_NO_HALF_*`` and
+#: ``__CUDA_NO_BFLOAT16_*`` macros take ``__half`` and ``__nv_bfloat16``
+#: arithmetic and implicit conversions out of ``cuda_fp16.h`` and
+#: ``cuda_bf16.h``: a generated source converts every half value with the
+#: intrinsics, and anything else fails to build.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
     "-D__CUDA_NO_HALF_OPERATORS__", "-D__CUDA_NO_HALF_CONVERSIONS__",
+    "-D__CUDA_NO_BFLOAT16_OPERATORS__", "-D__CUDA_NO_BFLOAT16_CONVERSIONS__",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
@@ -86,18 +94,22 @@ class KernelWrapper:
         self.name = name
         self.launches = 0
 
-    def launch(self, fn, args) -> None:
+    def launch(self, fn, args, counted: bool = True) -> int:
         """Call one launcher: it launches one kernel (a cooperative one
         too), or none on an empty grid, or returns the CUDA error that
-        refused the launch, which raises here."""
+        refused the launch, which raises here. Returns the kernels
+        launched; ``counted``: add them to ``launches`` (a launch captured
+        into a CUDA graph is counted at each replay instead)."""
         rc = fn(*args)
         if rc == NOTHING_LAUNCHED:
-            return
+            return 0
         if rc != 0:
             raise RuntimeError(
                 f"{self.name} kernel launch failed: CUDA error {rc}"
             )
-        self.launches += 1
+        if counted:
+            self.launches += 1
+        return 1
 
 
 PLANE = KernelWrapper("plane")
@@ -238,6 +250,225 @@ def alias_hazard(module: KernelModule, pairs: list[tuple[str, str]]) -> Optional
     return None
 
 
+#: entries a cache of prepared launches, chains or chain graphs holds before
+#: it is emptied (the JAX package's warm-call cache, pallas_backend.py:146-148)
+CACHE_ENTRIES = 128
+
+
+def _bounded_put(cache: dict, key, value) -> None:
+    if len(cache) >= CACHE_ENTRIES:
+        cache.clear()
+    cache[key] = value
+
+
+def launch_key(arrays: dict[str, torch.Tensor], domain, origins) -> tuple:
+    """What a prepared launch depends on: each role's pointer, shape, byte
+    layout and dtype, the domain and the origins (the noalias decision
+    follows from the pointers and layouts)."""
+    return (
+        tuple(domain),
+        tuple(sorted(origins.items())),
+        tuple(
+            (n, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+            for n, t in sorted(arrays.items())
+        ),
+    )
+
+
+class PreparedLaunch:
+    """One stencil application on fixed buffers, packed once: the launch
+    arguments (pointers, shapes, byte strides, origins), whether no two
+    field buffers overlap, and the scratch it uses (temporaries, snapshots,
+    the cooperative level counters). The refusals (aliasing, a unit axis,
+    too few levels, 32-bit offsets) are checked here, once.
+
+    Calling it launches the kernels on the current stream: it packs the
+    scalars (the launchers read them at launch), zeroes every temporary
+    the plain version would read before writing (``fill``), copies each
+    snapshot, then calls the launchers in order. It holds no caller tensor,
+    so a cache of them pins no user memory: the caller's buffers are matched
+    by pointer and layout (:func:`launch_key`), and snapshots copy from the
+    ``arrays`` of the call. The scratch belongs to the backend and is shared
+    by its launches of the same domain, which must therefore run one after
+    the other on one stream, as a model's time loop does."""
+
+    def __init__(self, backend: "CudaHopperBackend", arrays, domain, origins):
+        mod = backend.module
+        name = backend.analyzed.name
+        self.device = device = call_device(arrays)
+        ni, nj, nk = (int(d) for d in domain)
+        sizes = dict(zip("IJK", (ni, nj, nk)))
+        for field, axes in mod.unit_axes.items():
+            if field in arrays and any(sizes[ax] != 1 for ax in axes):
+                raise CudaUnsupported(
+                    f"stencil '{name}': field '{field}' has no "
+                    f"{'/'.join(axes)} axis; the {mod.strategy} kernel writes it only over "
+                    f"a domain of size 1 along it, not {domain}"
+                )
+        if nk < mod.min_nk:
+            raise CudaUnsupported(
+                f"stencil '{name}': the {mod.strategy} kernel's carries need "
+                f"at least {mod.min_nk} levels, not {nk}"
+            )
+        hazard = alias_hazard(mod, overlapping(arrays))
+        if hazard is not None:
+            raise CudaUnsupported(f"stencil '{name}': {hazard}")
+        nslots = max(len(mod.slots), 1)
+        self.ptrs = (ctypes.c_void_p * nslots)()
+        self.shapes = (_LL * max(mod.n_shape_slots, 1))()
+        self.strides = (_LL * max(mod.n_shape_slots, 1))()
+        self.orig = (_LL * (3 * nslots))()
+        #: temporaries zeroed before every application
+        self.fills: list[torch.Tensor] = []
+        #: launcher -> [(snapshot, the API field it copies)]
+        self.snapshots: dict[str, list[tuple[torch.Tensor, str]]] = {}
+        placed: dict[str, tuple] = {}  # slot -> its tensor ((I, J, K) view), origin
+        for m in mod.slots:
+            if m.snapshot_of is not None:
+                # the symbol's values before a launch whose shared planes a
+                # neighbouring block could overwrite first: same layout
+                src, o = placed[m.snapshot_of]
+                t = backend.scratch(
+                    ("snapshot", m.name, tuple(src.shape), src.stride(), src.dtype, device),
+                    lambda src=src: torch.empty_strided(
+                        src.size(), src.stride(), dtype=src.dtype, device=device
+                    ),
+                )
+                for launcher, fields in mod.snapshots.items():
+                    if m.snapshot_of in fields:
+                        self.snapshots.setdefault(launcher, []).append((t, m.snapshot_of))
+            elif m.is_temp:
+                e = m.extent
+                # (K, I, J) with J contiguous
+                shape = (nk + e.k[1] - e.k[0], ni + e.i[1] - e.i[0], nj + e.j[1] - e.j[0])
+                buf = backend.scratch(
+                    ("temporary", m.name, shape, m.dtype, device),
+                    lambda shape=shape, m=m: torch.empty(
+                        shape, dtype=torch_dtype(m.dtype), device=device
+                    ),
+                )
+                if m.fill:  # the kernel may read a point before writing it
+                    self.fills.append(buf)
+                t = buf.permute(1, 2, 0)
+                o = (-e.i[0], -e.j[0], -e.k[0])
+            else:
+                t = arrays.get(m.name)
+                if t is None:
+                    continue  # AccessKind.NONE: never dereferenced
+                if numpy_dtype(t.dtype) != m.dtype:
+                    raise TypeError(
+                        f"Field '{m.name}': expected dtype {m.dtype}, got {t.dtype}"
+                    )
+                if t.device != device or t.ndim != m.ndim:
+                    raise ValueError(
+                        f"Field '{m.name}': expected a {m.ndim}-d tensor on {device}"
+                    )
+                o = origins.get(m.name, (0, 0, 0))
+                backend._check_offsets(m, t)
+            placed[m.name] = (t, o)
+            self.ptrs[m.index] = t.data_ptr()
+            item = t.element_size()
+            for d in range(t.ndim):
+                self.shapes[m.shape_off + d] = t.shape[d]
+                self.strides[m.shape_off + d] = t.stride(d) * item
+            for ax in range(3):
+                self.orig[m.index * 3 + ax] = int(o[ax])
+        n_f = sum(1 for sc in mod.scalars if sc[1] == "f")
+        self.fsc = (ctypes.c_double * max(n_f, 1))()
+        self.isc = (_LL * max(len(mod.scalars) - n_f, 1))()
+        self.scalar_slots = [(n, kind, slot) for n, kind, slot, _ in mod.scalars]
+        self.sizes = (ni, nj, nk)
+        self.noalias = int(not overlapping(arrays))
+        self.wrapper = WRAPPERS[mod.strategy]
+        self.fns = backend._functions()
+        # the tiles' level counters; each cooperative launch zeroes them first
+        self.flags = (
+            backend.scratch(
+                ("flags", mod.tiles(ni, nj), device),
+                lambda: torch.empty(max(mod.tiles(ni, nj), 1), dtype=torch.int32, device=device),
+            )
+            if mod.cooperative
+            else None
+        )
+        #: launched at least once (a capture needs each kernel run before)
+        self.ran = False
+
+    def __call__(self, arrays, scalars, counted: bool = True) -> int:
+        """Launch once on ``arrays`` (the buffers this launch was prepared
+        for); returns the kernels launched. ``counted``: add them to the
+        kernel's wrapper (a graph capture counts at its replays instead)."""
+        for name, kind, slot in self.scalar_slots:
+            value = scalars.get(name)
+            if value is None:
+                continue
+            if kind == "f":
+                self.fsc[slot] = float(value)
+            else:
+                self.isc[slot] = int(np.asarray(value))
+        launched = 0
+        with torch.cuda.device(self.device):
+            stream = ctypes.c_void_p(torch.cuda.current_stream(self.device).cuda_stream)
+            args = (self.ptrs, self.shapes, self.strides, self.orig, self.fsc, self.isc,
+                    *self.sizes, stream, self.noalias)
+            for buf in self.fills:
+                buf.zero_()
+            for fn, cooperative, name in self.fns:
+                for snap, field in self.snapshots.get(name, ()):
+                    snap.copy_(arrays[field])
+                extra = (self.flags.data_ptr(),) if cooperative else ()
+                launched += self.wrapper.launch(fn, args + extra, counted)
+        self.ran = True
+        return launched
+
+
+class ChainGraph:
+    """One swap cycle of a chain, its C prepared launches in order, captured
+    into one CUDA graph: the zeroing of filled temporaries, the snapshot
+    copies and the kernels, with the scalars baked into the kernels'
+    parameters at capture. A replay repeats the cycle on the current stream
+    and adds its launches to the kernel's wrapper."""
+
+    def __init__(self, launches: list[PreparedLaunch], states: list[dict], scalars):
+        self.launches = launches  # the scratch the graph's kernels use
+        self.device = launches[0].device
+        self.wrapper = launches[0].wrapper
+        self.graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        captured = False
+        with torch.cuda.device(self.device), torch.cuda.stream(stream):
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.per_replay = sum(
+                    launch(state, scalars, counted=False) for launch, state in zip(launches, states)
+                )
+                captured = True
+            finally:
+                try:
+                    self.graph.capture_end()
+                except RuntimeError:
+                    if captured:
+                        raise  # else the launch's own error propagates
+
+    def replay(self, times: int) -> None:
+        with torch.cuda.device(self.device):
+            for _ in range(times):
+                self.graph.replay()
+        self.wrapper.launches += self.per_replay * times
+
+
+class Chain:
+    """A chain's swap cycle on fixed buffers: its prepared launches, one per
+    buffer assignment, and the CUDA graphs captured of them, one per scalar
+    values."""
+
+    __slots__ = ("launches", "graphs")
+
+    def __init__(self, launches: list[PreparedLaunch]):
+        self.launches = launches
+        self.graphs: dict = {}
+
+
 @register
 class CudaHopperBackend(Backend):
     name = "cuda:hopper"
@@ -258,6 +489,13 @@ class CudaHopperBackend(Backend):
             for name, info in analyzed.field_infos.items()
             if info.access & AccessKind.WRITE
         ]
+        #: prepared launches by :func:`launch_key`, chains by step 0's and
+        #: the cycle's plan; both also by the runtime's call key plus the
+        #: pointers and strides (:meth:`_cached`)
+        self._launches: dict = {}
+        self._chains: dict = {}
+        #: temporaries, snapshots and level counters by shape and role
+        self._scratch: dict = {}
 
     @property
     def strategy(self) -> Optional[str]:
@@ -265,19 +503,97 @@ class CudaHopperBackend(Backend):
         return self.module.strategy if self.module is not None else None
 
     def run(self, arrays, scalars, domain, origins) -> dict[str, Any]:
-        device = call_device(arrays)
-        if device.type == "cpu":
+        return self._run(arrays, scalars, domain, origins, None)
+
+    def run_from_infos(self, infos, scalars, domain, origins, cache_key=None):
+        arrays = {name: as_tensor(info.original) for name, info in infos.items()}
+        return self._run(arrays, scalars, domain, origins, cache_key)
+
+    def _run(self, arrays, scalars, domain, origins, cache_key) -> dict[str, Any]:
+        if not self._on_card(arrays):
             self.last_strategy = "plain"
             return run_plain(self.analyzed, arrays, scalars, domain, origins)
+        self.prepared(arrays, domain, origins, cache_key)(arrays, scalars)
+        self.last_strategy = self.module.strategy
+        return {n: arrays[n] for n in self.written if n in arrays}
+
+    def _on_card(self, arrays) -> bool:
+        """True for CUDA tensors, which the kernels serve or the stencil
+        raises; False for CPU tensors, which run the plain version."""
+        device = call_device(arrays)
+        if device.type == "cpu":
+            return False
         if device.type != "cuda":
             raise ValueError(f"cuda:hopper runs on CUDA or CPU tensors, not {device}")
         if self.module is None:
             raise CudaUnsupported(
                 f"stencil '{self.analyzed.name}' on cuda:hopper: {self.unsupported}"
             )
-        self.prepare(arrays, scalars, domain, origins)()
+        return True
+
+    def run_steps(self, own, plan, scalars, domain, origins, n_steps: int, cache_key=None):
+        """On a card: the swap cycle's :class:`Chain` (one prepared launch per
+        buffer assignment); the first steps run them until each has launched
+        once, then the cycle is captured into a :class:`ChainGraph` (one per
+        scalar values, which the capture bakes in), replayed ``(n - done) //
+        C`` times, and the remaining steps run as prepared launches. The
+        lagged sweeps' cooperative launch and its ``cudaMemsetAsync`` are
+        captured too (CUDA 12 on the H100). CPU tensors: the plain version,
+        step by step."""
+        if not self._on_card(own):
+            return super().run_steps(own, plan, scalars, domain, origins, n_steps)
+        cycle = len(plan)
+        states = [{r: own[a[r]] for r in own} for a in plan]
+        chain = self._chain(own, plan, states, domain, origins, cache_key)
+        launches = chain.launches
         self.last_strategy = self.module.strategy
-        return {n: arrays[n] for n in self.written if n in arrays}
+        step = replays = 0
+        values = tuple(sorted((n, np.asarray(v).item()) for n, v in scalars.items()))
+        graph = chain.graphs.get(values)
+        if graph is None:
+            if not all(launch.ran for launch in launches):
+                while step < min(n_steps, cycle):
+                    launches[step](states[step], scalars)
+                    step += 1
+            if n_steps - step >= cycle:
+                graph = ChainGraph(launches, states, scalars)
+                _bounded_put(chain.graphs, values, graph)
+        if graph is not None:
+            replays = (n_steps - step) // cycle
+            graph.replay(replays)
+            step += replays * cycle
+        for s in range(step, n_steps):
+            launches[s % cycle](states[s % cycle], scalars)
+        self.last_chain_mode = "graph" if replays else "launches"
+
+    def _chain(self, own, plan, states, domain, origins, cache_key) -> Chain:
+        """The cached :class:`Chain` of these buffers and swap cycle."""
+        return self._cached(
+            self._chains, own, cache_key,
+            lambda: (launch_key(own, domain, origins),
+                     tuple(tuple(sorted(a.items())) for a in plan)),
+            lambda: Chain([self.prepared(state, domain, origins) for state in states]),
+        )
+
+    @staticmethod
+    def _cached(cache: dict, arrays, cache_key, key, make):
+        """``cache``'s entry for ``arrays``, made by ``make()`` the first
+        time: found by the runtime's identity-free call key plus the
+        tensors' pointers and strides where the runtime gives one (a warm
+        lookup), else by ``key()``; both are kept."""
+        if cache_key is not None:
+            fast = (cache_key, tuple((t.data_ptr(), t.stride()) for t in arrays.values()))
+            entry = cache.get(fast)
+            if entry is not None:
+                return entry
+        full = key()
+        entry = cache.get(full)
+        if entry is None:
+            entry = make()
+            _bounded_put(cache, full, entry)
+        if cache_key is not None:
+            _bounded_put(cache, fast, entry)
+        return entry
 
     def _functions(self) -> list:
         """(launcher, cooperative, its name) in launch order."""
@@ -289,115 +605,22 @@ class CudaHopperBackend(Backend):
             ]
         return self._fns
 
-    def prepare(self, arrays, scalars, domain, origins):
-        """Pack the launch arguments of one stencil application on CUDA
-        tensors (allocating its zero-filled temporaries) and return a
-        callable that launches its kernels, one per vertical loop, on the
-        current stream. ``run`` calls it once; calling it again repeats the
-        launches on the same buffers, which is how a timing loop measures
-        the kernels without the packing."""
-        device = call_device(arrays)
-        mod = self.module
-        ni, nj, nk = (int(d) for d in domain)
-        sizes = dict(zip("IJK", (ni, nj, nk)))
-        for name, axes in mod.unit_axes.items():
-            if name in arrays and any(sizes[ax] != 1 for ax in axes):
-                raise CudaUnsupported(
-                    f"stencil '{self.analyzed.name}': field '{name}' has no "
-                    f"{'/'.join(axes)} axis; the {mod.strategy} kernel writes it only over "
-                    f"a domain of size 1 along it, not {domain}"
-                )
-        if nk < mod.min_nk:
-            raise CudaUnsupported(
-                f"stencil '{self.analyzed.name}': the {mod.strategy} kernel's carries need "
-                f"at least {mod.min_nk} levels, not {nk}"
-            )
-        nslots = max(len(mod.slots), 1)
-        ptrs = (ctypes.c_void_p * nslots)()
-        shapes = (_LL * max(mod.n_shape_slots, 1))()
-        strides = (_LL * max(mod.n_shape_slots, 1))()
-        orig = (_LL * (3 * nslots))()
-        keepalive = []
-        placed: dict[str, tuple] = {}  # slot -> its tensor ((I, J, K) view), origin
-        snapshots: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
-        for m in mod.slots:
-            if m.snapshot_of is not None:
-                # the symbol's values before a launch whose shared planes a
-                # neighbouring block could overwrite first: same layout
-                src, o = placed[m.snapshot_of]
-                t = torch.empty_strided(src.size(), src.stride(), dtype=src.dtype, device=device)
-                keepalive.append(t)
-                snapshots[m.snapshot_of] = (t, src)
-            elif m.is_temp:
-                e = m.extent
-                # (K, I, J) with J contiguous, zero-filled like the plain
-                # version's temporaries where the kernel may read a point
-                # before writing it
-                buf = (torch.zeros if m.fill else torch.empty)(
-                    (nk + e.k[1] - e.k[0], ni + e.i[1] - e.i[0], nj + e.j[1] - e.j[0]),
-                    dtype=torch_dtype(m.dtype),
-                    device=device,
-                )
-                keepalive.append(buf)
-                t = buf.permute(1, 2, 0)
-                o = (-e.i[0], -e.j[0], -e.k[0])
-            else:
-                t = arrays.get(m.name)
-                if t is None:
-                    continue  # AccessKind.NONE: never dereferenced
-                if numpy_dtype(t.dtype) != m.dtype:
-                    raise TypeError(
-                        f"Field '{m.name}': expected dtype {m.dtype}, got {t.dtype}"
-                    )
-                if t.device != device or t.ndim != m.ndim:
-                    raise ValueError(
-                        f"Field '{m.name}': expected a {m.ndim}-d tensor on {device}"
-                    )
-                o = origins.get(m.name, (0, 0, 0))
-                self._check_offsets(m, t)
-            placed[m.name] = (t, o)
-            ptrs[m.index] = t.data_ptr()
-            item = t.element_size()
-            for d in range(t.ndim):
-                shapes[m.shape_off + d] = t.shape[d]
-                strides[m.shape_off + d] = t.stride(d) * item
-            for ax in range(3):
-                orig[m.index * 3 + ax] = int(o[ax])
-        n_f = sum(1 for s in mod.scalars if s[1] == "f")
-        fsc = (ctypes.c_double * max(n_f, 1))()
-        isc = (_LL * max(len(mod.scalars) - n_f, 1))()
-        for name, kind, slot, _ in mod.scalars:
-            value = scalars.get(name)
-            if value is None:
-                continue
-            if kind == "f":
-                fsc[slot] = float(value)
-            else:
-                isc[slot] = int(np.asarray(value))
-        pairs = overlapping(arrays)
-        hazard = alias_hazard(mod, pairs)
-        if hazard is not None:
-            raise CudaUnsupported(f"stencil '{self.analyzed.name}': {hazard}")
-        noalias = int(not pairs)
-        wrapper = WRAPPERS[mod.strategy]
-        fns = self._functions()
-        if mod.cooperative:
-            # the tiles' level counters; each launch zeroes them first
-            flags = torch.empty(max(mod.tiles(ni, nj), 1), dtype=torch.int32, device=device)
-            keepalive.append(flags)
+    def scratch(self, key, make):
+        """The backend's scratch tensor for ``key``, made by ``make()`` the
+        first time."""
+        t = self._scratch.get(key)
+        if t is None:
+            t = self._scratch[key] = make()
+        return t
 
-        def launch() -> None:
-            with torch.cuda.device(device):
-                stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-                args = (ptrs, shapes, strides, orig, fsc, isc, ni, nj, nk, stream, noalias)
-                for fn, cooperative, name in fns:
-                    for field in mod.snapshots.get(name, ()):
-                        snap, src = snapshots[field]
-                        snap.copy_(src)
-                    wrapper.launch(fn, args + ((flags.data_ptr(),) if cooperative else ()))
-
-        launch.keepalive = (keepalive, arrays)
-        return launch
+    def prepared(self, arrays, domain, origins, cache_key=None) -> PreparedLaunch:
+        """The cached :class:`PreparedLaunch` of these buffers, domain and
+        origins (``cache_key``: the runtime's call key, see :meth:`_cached`)."""
+        return self._cached(
+            self._launches, arrays, cache_key,
+            lambda: launch_key(arrays, domain, origins),
+            lambda: PreparedLaunch(self, arrays, domain, origins),
+        )
 
     def _check_offsets(self, m, t: torch.Tensor) -> None:
         """The plane kernel takes a point's offset from its tile's corner as

@@ -274,11 +274,12 @@ loads from device memory at a level, and that a statement reads at other
 points before or in the level's last write of it, is loaded from a
 snapshot the wrapper copies before the launch (``KernelModule.snapshots``):
 a neighbouring block may already have stored its own points of that level.
-float16 fields are stored half and computed in float32, as K1 computes
-them (pallas_split.py:129-156): a half element is loaded with
-``__half2float`` and stored with ``__float2half_rn``; temporaries,
-literals, casts and math calls of a half type are float ones; a half field
-is never ringed (``cp.async`` copies 4, 8 or 16 bytes).
+float16 and bfloat16 fields are stored half and computed in float32, as
+K1 computes them (pallas_split.py:129-156): a half element is loaded with
+``__half2float`` or ``__bfloat162float`` and stored with
+``__float2half_rn`` or ``__float2bfloat16_rn``; temporaries, literals,
+casts and math calls of a half type are float ones; a half field is never
+ringed (``cp.async`` copies 4, 8 or 16 bytes).
 Constructs no skeleton can serve raise :class:`CudaUnsupported` with the
 reason; there is no silent fallback.
 """
@@ -295,7 +296,8 @@ from gt4py_tpu_torch.cartesian import gtir
 from gt4py_tpu_torch.cartesian.definitions import Extent
 from gt4py_tpu_torch.cartesian.passes.extents import _iter_reads, iter_writes
 from gt4py_tpu_torch.cartesian.passes.pipeline import AnalyzedStencil
-from gt4py_tpu_torch.cartesian.passes.type_inference import _promote
+from gt4py_tpu_torch.cartesian.passes.type_inference import comparison_dtype
+from gt4py_tpu_torch.core.definitions import HALF_FLOAT_DTYPES, bfloat16, is_float_dtype
 
 #: fused_plane tile: TI rows of I by TJ columns of J, and its thread count
 TI, TJ = 16, 64
@@ -398,8 +400,14 @@ _CTYPES = {
     "float64": "double",
 }
 
-_F16 = np.dtype(np.float16)
 _F32 = np.dtype(np.float32)
+#: a half dtype -> its C type in device memory, and the intrinsics that
+#: convert it to and from float (the only conversions the build allows:
+#: ``-D__CUDA_NO_HALF_CONVERSIONS__ -D__CUDA_NO_BFLOAT16_CONVERSIONS__``)
+_HALF_TYPES = {
+    np.dtype(np.float16): ("__half", "__half2float", "__float2half_rn", "__ushort_as_half"),
+    bfloat16: ("__nv_bfloat16", "__bfloat162float", "__float2bfloat16_rn", "__ushort_as_bfloat16"),
+}
 _BOOL = np.dtype(np.bool_)
 
 #: NativeFunction -> CUDA math name (f64 variant; f32 appends 'f').
@@ -440,6 +448,7 @@ _PRELUDE = r"""
 #include <stdint.h>
 #include <cuda_runtime.h>
 #include <cuda_fp16.h>
+#include <cuda_bf16.h>
 
 #define GT_D static __device__ __forceinline__
 GT_D long long gt_clampk(long long k, long long n) {
@@ -534,11 +543,11 @@ def _np_dtype(dtype: Any) -> np.dtype:
 
 
 def _compute(dtype: Any) -> np.dtype:
-    """The type a kernel computes a value of ``dtype`` in: float16 in
-    float32, as K1 computes half fields (pallas_split.py:129-156); every
-    other type in itself."""
+    """The type a kernel computes a value of ``dtype`` in: float16 and
+    bfloat16 in float32, as K1 computes half fields
+    (pallas_split.py:129-156); every other type in itself."""
     dt = _np_dtype(dtype)
-    return _F32 if dt == _F16 else dt
+    return _F32 if dt in HALF_FLOAT_DTYPES else dt
 
 
 def _is_f32(dtype: Any) -> bool:
@@ -558,19 +567,22 @@ def _ctype(dtype: Any) -> str:
 
 def _stype(dtype: Any) -> str:
     """The C type of an API field's element in device memory: ``__half``
-    for float16 (loaded with ``__half2float``, stored with
-    ``__float2half_rn``), else its compute type."""
-    return "__half" if _np_dtype(dtype) == _F16 else _ctype(dtype)
+    for float16, ``__nv_bfloat16`` for bfloat16 (:data:`_HALF_TYPES`), else
+    its compute type."""
+    half = _HALF_TYPES.get(_np_dtype(dtype))
+    return half[0] if half else _ctype(dtype)
 
 
 def _load(m: "FieldMeta", addr: str, load: str = "", const: bool = False) -> str:
     """A read of ``m``'s element at byte address ``addr``, in its compute
     type; ``load``: through this intrinsic (a half element as its 16 bits)."""
-    st = _stype(m.dtype)
-    if st == "__half":
+    half = _HALF_TYPES.get(_np_dtype(m.dtype))
+    if half:
+        st, to_float, _, from_bits = half
         if load:
-            return f"__half2float(__ushort_as_half({load}((const unsigned short*)({addr}))))"
-        return f"__half2float(*(const __half*)({addr}))"
+            return f"{to_float}({from_bits}({load}((const unsigned short*)({addr}))))"
+        return f"{to_float}(*(const {st}*)({addr}))"
+    st = _stype(m.dtype)
     if load:
         return f"{load}((const {st}*)({addr}))"
     return f"(*({'const ' if const else ''}{st}*)({addr}))"
@@ -939,7 +951,7 @@ class _Generator:
             elif isinstance(p, gtir.ScalarDecl):
                 dt = _np_dtype(p.dtype)
                 _ctype(dt)
-                if dt.kind == "f":
+                if is_float_dtype(dt):
                     self.scalars.append((p.name, "f", f_slot, dt))
                     f_slot += 1
                 else:
@@ -1811,7 +1823,7 @@ class _Generator:
         walk, at a variable or absolute K, in a ``while``, or at a
         horizontal offset in a horizontal region (its address may lie
         outside the allocation), tables, data dimensions and
-        lower-dimensional fields, and float16 fields (``cp.async`` copies 4, 8
+        lower-dimensional fields, and half fields (``cp.async`` copies 4, 8
         or 16 bytes, never 2). Streams are ringed in the order the walk
         first reads them as long as the ring stays within
         ``RING_BYTES_MAX``; the reads of the others stay direct loads too.
@@ -2749,7 +2761,7 @@ class _Generator:
         from before the walk, at points this block alone writes. Fields are
         ringed in the order the walk first reads them while the ring stays
         within ``RING_BYTES_MAX`` and the block within the card's shared
-        memory; the others' reads stay direct loads, as do a float16
+        memory; the others' reads stay direct loads, as do a half
         field's (``cp.async`` has no 2-byte copy)."""
         for depth in range(levels, 1, -1):
             ring = self._tile_ring_at(items, buffers, tile, base, depth, backward, fused)
@@ -3594,8 +3606,9 @@ class _Generator:
         symbol in device memory; a half field rounds it to nearest even."""
         m = self._meta(node.name)
         addr = self._global_address(node, k_override)
-        if _stype(m.dtype) == "__half":
-            return f"*(__half*)({addr}) = __float2half_rn({value});"
+        half = _HALF_TYPES.get(_np_dtype(m.dtype))
+        if half:
+            return f"*({half[0]}*)({addr}) = {half[2]}({value});"
         return f"(*({_ctype(m.dtype)}*)({addr})) = {value};"
 
     def _global_address(self, node: gtir.FieldAccess, k_override: str = "") -> str:
@@ -3708,7 +3721,7 @@ class _Generator:
             c_op = "&&" if op == L.AND else "||"
             return f"(({left}) {c_op} ({right}))"
         if isinstance(op, C):
-            prom = _promote(
+            prom = comparison_dtype(
                 getattr(node.left, "dtype", None), getattr(node.right, "dtype", None)
             )
             pct = _ctype(prom) if prom is not None else "double"

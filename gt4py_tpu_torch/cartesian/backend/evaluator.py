@@ -19,7 +19,10 @@ Semantics (those of the JAX package's numpy branch):
 Dtypes: torch promotes differently from NumPy (a float64 0-d operand does not
 widen a float32 tensor; ``int * 0.5`` is float32). GTIR fixes every
 expression's dtype (passes/type_inference.py), so each operation here first
-casts its operands to that dtype and never relies on torch promotion.
+casts its operands to that dtype and never relies on torch promotion. Half
+types (float16, bfloat16) run in torch's own, rounded at every operation,
+as the JAX package's ``numpy`` backend rounds them with ml_dtypes; a
+comparison widens only its half side (``comparison_dtype``).
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 from gt4py_tpu_torch.cartesian import gtir
 from gt4py_tpu_torch.cartesian.definitions import AccessKind, Extent
 from gt4py_tpu_torch.cartesian.passes.pipeline import AnalyzedStencil
-from gt4py_tpu_torch.cartesian.passes.type_inference import _promote
+from gt4py_tpu_torch.cartesian.passes.type_inference import comparison_dtype
 from gt4py_tpu_torch.core.ndarray_utils import (
     TorchNamespace,
     slice_nd,
@@ -689,10 +692,10 @@ class Evaluator:
     # -- expression evaluation --------------------------------------------
 
     def _literal(self, value, dtype) -> torch.Tensor:
-        key = (repr(value), np.dtype(dtype).str)
+        key = (repr(value), np.dtype(dtype))
         lit = self._literals.get(key)
         if lit is None:
-            lit = self.xp.asarray(np.asarray(value, dtype=dtype))
+            lit = self.xp.asarray(value, dtype)
             self._literals[key] = lit
         return lit
 
@@ -720,7 +723,7 @@ class Evaluator:
             left = self.eval_expr(expr.left, ctx)
             right = self.eval_expr(expr.right, ctx)
             if isinstance(expr.op, gtir.ComparisonOperator):
-                common = _promote(
+                common = comparison_dtype(
                     getattr(expr.left, "dtype", None), getattr(expr.right, "dtype", None)
                 )
                 left, right = self._cast(left, common), self._cast(right, common)

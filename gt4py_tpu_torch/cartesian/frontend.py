@@ -29,6 +29,8 @@ import numpy as np
 
 from gt4py_tpu_torch import eve
 from gt4py_tpu_torch.cartesian import gtir, gtscript
+from gt4py_tpu_torch.core.definitions import bfloat16
+from gt4py_tpu_torch.core.ndarray_utils import numpy_dtype
 
 
 class GTScriptSyntaxError(Exception):
@@ -81,7 +83,7 @@ def _literal_dtype(value: Any, options: dict) -> np.dtype:
     if isinstance(value, (float, np.floating)):
         prec = options.get("literal_float_precision", 64)
         if prec in ("bf16", "bfloat16"):
-            raise GTScriptSyntaxError("bfloat16 literals are not supported yet")
+            return bfloat16
         return np.dtype(f"float{prec}")
     raise GTScriptSyntaxError(f"Unsupported literal value: {value!r}")
 
@@ -127,7 +129,7 @@ def _resolve_dtype(spec: Any, dtypes: dict) -> np.dtype:
                 f"Missing value for dtype key '{spec}' (pass it via the 'dtypes' option)"
             )
         spec = dtypes[spec]
-    return np.dtype(spec)
+    return numpy_dtype(spec)  # torch dtypes and "bfloat16" too
 
 
 class _FunctionScope:

@@ -43,6 +43,7 @@ from typing import Any, Optional
 import numpy as np
 
 from gt4py_tpu_torch.cartesian import gtir
+from gt4py_tpu_torch.core.definitions import as_dtype, dtype_name
 
 
 __all__ = ["pretty", "parse", "strip_locations"]
@@ -51,18 +52,18 @@ __all__ = ["pretty", "parse", "strip_locations"]
 # --- dtype codes -------------------------------------------------------------
 
 _DT2CODE = {
-    "float16": "f16", "float32": "f32", "float64": "f64",
+    "float16": "f16", "bfloat16": "bf16", "float32": "f32", "float64": "f64",
     "int8": "i8", "int16": "i16", "int32": "i32", "int64": "i64",
     "uint8": "u8", "uint16": "u16", "uint32": "u32", "uint64": "u64",
     "bool": "b1",
 }
-_CODE2DT = {v: np.dtype(k) for k, v in _DT2CODE.items()}
+_CODE2DT = {v: as_dtype(k) for k, v in _DT2CODE.items()}
 
 
 def _dt(dtype: Optional[np.dtype]) -> str:
     if dtype is None:
         return ""
-    return ":" + _DT2CODE.get(np.dtype(dtype).name, np.dtype(dtype).str)
+    return ":" + _DT2CODE.get(dtype_name(dtype), np.dtype(dtype).str)
 
 
 # --- pretty printer ----------------------------------------------------------

@@ -8,7 +8,9 @@ annotates every expression with its dtype, registers temporary dtypes from
 their first assignment, and inserts ``Cast`` nodes where an assignment's
 value dtype differs from the target dtype. Binary-op promotion follows NumPy
 rules, matching the
-reference's numpy-backend semantics.
+reference's numpy-backend semantics, and for bfloat16, where NumPy has no
+lattice, JAX's (core/definitions.py ``upcast``: the JAX package asks
+``jnp.promote_types``, which the port cannot import).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import numpy as np
 
 from gt4py_tpu_torch.cartesian import gtir
 from gt4py_tpu_torch.cartesian.frontend import GTScriptSyntaxError
-from gt4py_tpu_torch.core.definitions import HALF_FLOAT_DTYPES, is_float_dtype
+from gt4py_tpu_torch.core.definitions import HALF_FLOAT_DTYPES, is_float_dtype, upcast
 
 _BOOL = np.dtype(np.bool_)
 
@@ -202,7 +204,20 @@ def _promote(a: Optional[np.dtype], b: Optional[np.dtype]) -> Optional[np.dtype]
         return b
     if b is None:
         return a
-    return np.promote_types(a, b)
+    return upcast(a, b)
+
+
+_F32 = np.dtype(np.float32)
+
+
+def comparison_dtype(a: Optional[np.dtype], b: Optional[np.dtype]) -> Optional[np.dtype]:
+    """The dtype a comparison of ``a`` and ``b`` is evaluated in: a half
+    side widens to float32 first, which holds it exactly, and the other
+    side keeps its dtype (a float64 or int64 counterpart is never narrowed),
+    as the JAX package's evaluator does (evaluator.py:188-197)."""
+    a = _F32 if a in HALF_FLOAT_DTYPES else a
+    b = _F32 if b in HALF_FLOAT_DTYPES else b
+    return _promote(a, b)
 
 
 def _weaken_half_literals(exprs: "list[gtir.Expr]", dtypes: "list[Optional[np.dtype]]") -> None:

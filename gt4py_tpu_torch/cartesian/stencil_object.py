@@ -22,9 +22,11 @@ import time
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from gt4py_tpu_torch.cartesian.backend.base import as_tensor
 from gt4py_tpu_torch.cartesian.definitions import AccessKind, FieldInfo
+from gt4py_tpu_torch.core.definitions import bfloat16
 from gt4py_tpu_torch.core.ndarray_utils import numpy_dtype
 from gt4py_tpu_torch.storage.storage import Storage
 
@@ -53,6 +55,15 @@ class ArgsInfo:
     @property
     def dtype(self):
         return numpy_dtype(self.original.dtype)
+
+
+def _scalar(value: Any, dtype: np.dtype):
+    """A scalar argument as a NumPy scalar of its parameter's dtype; for
+    bfloat16, which NumPy cannot hold, its value rounded to bfloat16 (to
+    nearest even) as a float32."""
+    if dtype == bfloat16:
+        return np.float32(torch.tensor(float(value)).to(torch.bfloat16).item())
+    return np.asarray(value, dtype=dtype)[()]
 
 
 def _extract_array(value: Any):
@@ -130,6 +141,8 @@ class StencilObject:
         #: (origin-spec, domain, field shapes/dtypes/origins, param types)
         #: -> (normalized origins, resolved domain); see _call_run
         self._validation_cache: dict = {}
+        #: (that key, the swap) -> (origins over I, J, K, domain); see chain
+        self._chain_cache: dict = {}
 
     @property
     def name(self) -> str:
@@ -288,7 +301,14 @@ class StencilObject:
             if name not in param_args or param_args[name] is None:
                 raise ValueError(f"Missing value for '{name}' parameter.")
             value = param_args[name]
-            if np.dtype(type(value)) != parameter_info.dtype:
+            if parameter_info.dtype == bfloat16:
+                # NumPy has no bfloat16 scalar: a float is rounded to it
+                if not isinstance(value, (float, np.floating)):
+                    raise TypeError(
+                        f"The type of parameter '{name}' is '{type(value)}' instead of "
+                        f"a float for bfloat16"
+                    )
+            elif np.dtype(type(value)) != parameter_info.dtype:
                 raise TypeError(
                     f"The type of parameter '{name}' is '{type(value)}' instead of "
                     f"'{parameter_info.dtype}'"
@@ -366,28 +386,7 @@ class StencilObject:
             if self.field_info[n].access != AccessKind.NONE and i is not None
         }
 
-        # Validation caching (reference stencil_object.py:568-582): repeat
-        # calls with the same shapes/dtypes/origins/domain skip origin
-        # normalization, max-domain scanning, and the full argument
-        # validation — the warm validated path then costs about the same
-        # as an explicit freeze(). The key is identity-free (pure shape/
-        # dtype/origin tuples), so any same-shaped arrays hit.
-        try:
-            key = (
-                _spec_key(origin),
-                None if domain is None else tuple(int(d) for d in domain),
-                tuple(
-                    (n, i.shape, i.dtype, i.origin)
-                    for n, i in sorted(used_infos.items())
-                ),
-                tuple(
-                    (n, type(v).__name__)
-                    for n, v in sorted(param_args.items())
-                    if v is not None
-                ),
-            )
-        except TypeError:
-            key = None
+        key = self._call_key(used_infos, param_args, origin, domain)
         cached = self._validation_cache.get(key) if key is not None else None
         if cached is not None:
             origins, domain_t = cached
@@ -413,18 +412,36 @@ class StencilObject:
         if exec_info is not None:
             exec_info["call_run_end_time"] = time.perf_counter()
 
-    def _run_backend(
-        self, used_infos, param_args, domain, origins, exec_info, cache_key=None
-    ) -> None:
-        scalars = {}
-        for name, pinfo in self.parameter_info.items():
-            if pinfo.access == AccessKind.NONE:
-                continue
-            value = param_args.get(name)
-            scalars[name] = np.asarray(value, dtype=pinfo.dtype)[()]
+    @staticmethod
+    def _call_key(used_infos, param_args, origin, domain):
+        """Validation caching (reference stencil_object.py:568-582): repeat
+        calls with the same shapes/dtypes/origins/domain skip origin
+        normalization, max-domain scanning, and the full argument
+        validation — the warm validated path then costs about the same
+        as an explicit freeze(). The key is identity-free (pure shape/
+        dtype/origin tuples), so any same-shaped arrays hit; None where a
+        part is unhashable."""
+        try:
+            return (
+                _spec_key(origin),
+                None if domain is None else tuple(int(d) for d in domain),
+                tuple(
+                    (n, i.shape, i.dtype, i.origin)
+                    for n, i in sorted(used_infos.items())
+                ),
+                tuple(
+                    (n, type(v).__name__)
+                    for n, v in sorted(param_args.items())
+                    if v is not None
+                ),
+            )
+        except TypeError:
+            return None
 
+    def _origins3(self, used_infos, origins) -> dict[str, tuple[int, int, int]]:
+        """Each used field's origin over (I, J, K), 0 on the axes it lacks."""
         origins3: dict[str, tuple[int, int, int]] = {}
-        for name, info in used_infos.items():
+        for name in used_infos:
             finfo = self.field_info[name]
             mask = finfo.domain_mask
             o = list(origins[name][: finfo.domain_ndim])
@@ -435,6 +452,18 @@ class StencilObject:
                     full[ax] = o[pos]
                     pos += 1
             origins3[name] = tuple(full)
+        return origins3
+
+    def _run_backend(
+        self, used_infos, param_args, domain, origins, exec_info, cache_key=None
+    ) -> None:
+        scalars = {}
+        for name, pinfo in self.parameter_info.items():
+            if pinfo.access == AccessKind.NONE:
+                continue
+            value = param_args.get(name)
+            scalars[name] = _scalar(value, pinfo.dtype)
+        origins3 = self._origins3(used_infos, origins)
 
         from gt4py_tpu_torch.instrumentation import MetricsCollector, metrics_level
         from gt4py_tpu_torch.instrumentation.hooks import stencil_call
@@ -498,8 +527,13 @@ class StencilObject:
     ) -> None:
         """Run ``n_steps`` applications with buffer rotation between steps —
         the time-stepping loop a model driver would otherwise write in
-        Python, validated once. The steps run one after the other through
-        the backend (a CUDA-graph capture of the loop is later work).
+        Python, validated once. On a card, ``cuda:hopper`` captures one
+        swap cycle of its kernels into a CUDA graph and replays it (the
+        first steps of a new chain run as launches, which the capture
+        needs; a lagged sweep's cooperative launch is captured too);
+        elsewhere the steps
+        run one after the other. ``exec_info["chain_mode"]`` says which:
+        ``"graph"`` or ``"launches"``.
 
         ``swap`` maps each field role to the role whose buffer serves it
         in the NEXT step: ``swap={"in_field": "out_field", "out_field":
@@ -537,6 +571,48 @@ class StencilObject:
             for n, i in arg_infos.items()
             if self.field_info[n].access != AccessKind.NONE and i is not None
         }
+        # The call key and the swap find a validated chain's origins and
+        # domain, as __call__'s validation cache does.
+        key = self._call_key(used_infos, param_args, origin, domain)
+        if key is not None:
+            key = (key, tuple(sorted(swap.items())))
+        cached = self._chain_cache.get(key) if key is not None else None
+        if cached is not None:
+            origins3, domain_t = cached
+        else:
+            origins3, domain_t = self._check_chain(
+                used_infos, param_args, origin, domain, swap, validate_args
+            )
+            if validate_args and key is not None:
+                if len(self._chain_cache) >= 64:
+                    self._chain_cache.clear()
+                self._chain_cache[key] = (origins3, domain_t)
+
+        scalars = {}
+        for name, pinfo in self.parameter_info.items():
+            if pinfo.access == AccessKind.NONE:
+                continue
+            scalars[name] = _scalar(param_args.get(name), pinfo.dtype)
+
+        if n_steps == 0:
+            return
+        if exec_info is not None:
+            exec_info["run_start_time"] = time.perf_counter()
+        results = self._backend.run_chained_from_infos(
+            used_infos, scalars, domain_t, origins3, n_steps, swap, cache_key=key
+        )
+        if exec_info is not None:
+            exec_info["run_end_time"] = time.perf_counter()
+            exec_info["kernel_strategy"] = self._backend.last_strategy
+            exec_info["chain_mode"] = self._backend.last_chain_mode
+        self._write_back(results, used_infos)
+        if exec_info is not None:
+            exec_info["call_run_end_time"] = time.perf_counter()
+
+    def _check_chain(self, used_infos, param_args, origin, domain, swap, validate_args):
+        """A chain's origins over (I, J, K) and domain, its arguments
+        validated (``validate_args``) and its swap checked: a permutation
+        over known roles that agree in shape, dtype, origin and axes."""
         origins = self._normalize_origins(used_infos, origin)
         domain_t = (
             self._get_max_domain(used_infos, origins)
@@ -577,38 +653,7 @@ class StencilObject:
                     f"dtype/origin/axes: {a.shape}/{a.dtype}/{origins[dst]} "
                     f"vs {b.shape}/{b.dtype}/{origins[src]}"
                 )
-
-        scalars = {}
-        for name, pinfo in self.parameter_info.items():
-            if pinfo.access == AccessKind.NONE:
-                continue
-            scalars[name] = np.asarray(param_args.get(name), dtype=pinfo.dtype)[()]
-        origins3: dict[str, tuple[int, int, int]] = {}
-        for name, info in used_infos.items():
-            finfo = self.field_info[name]
-            mask = finfo.domain_mask
-            o = list(origins[name][: finfo.domain_ndim])
-            full = [0, 0, 0]
-            pos = 0
-            for ax in range(3):
-                if mask[ax]:
-                    full[ax] = o[pos]
-                    pos += 1
-            origins3[name] = tuple(full)
-
-        if n_steps == 0:
-            return
-        if exec_info is not None:
-            exec_info["run_start_time"] = time.perf_counter()
-        results = self._backend.run_chained_from_infos(
-            used_infos, scalars, domain_t, origins3, n_steps, swap
-        )
-        if exec_info is not None:
-            exec_info["run_end_time"] = time.perf_counter()
-            exec_info["kernel_strategy"] = self._backend.last_strategy
-        self._write_back(results, used_infos)
-        if exec_info is not None:
-            exec_info["call_run_end_time"] = time.perf_counter()
+        return self._origins3(used_infos, origins), domain_t
 
     def precompile(self, *, domain, origin=None, wait: bool = False) -> None:
         """Warm the kernel path for a concrete (domain, origin) in a
@@ -657,7 +702,7 @@ class StencilObject:
                 if fi.axes and fi.access != AccessKind.NONE
             }
         param_args = {
-            name: pi.dtype.type(1)
+            name: 1.0 if pi.dtype == bfloat16 else pi.dtype.type(1)
             for name, pi in self.parameter_info.items()
             if pi.access != AccessKind.NONE
         }
@@ -721,21 +766,10 @@ class FrozenStencil:
 
         # Pre-resolve per-field full (i, j, k) origins (the mask expansion
         # _run_backend does per call).
-        self._origins3: dict[str, tuple[int, int, int]] = {}
-        self._used_fields: list[str] = []
-        for name, finfo in so.field_info.items():
-            if finfo.access == AccessKind.NONE:
-                continue
-            self._used_fields.append(name)
-            mask = finfo.domain_mask
-            o = list(self.origin[name][: finfo.domain_ndim])
-            full = [0, 0, 0]
-            pos = 0
-            for ax in range(3):
-                if mask[ax]:
-                    full[ax] = o[pos]
-                    pos += 1
-            self._origins3[name] = tuple(full)
+        self._used_fields: list[str] = [
+            name for name, finfo in so.field_info.items() if finfo.access != AccessKind.NONE
+        ]
+        self._origins3 = so._origins3(self._used_fields, self.origin)
         self._scalar_info = [
             (name, pinfo.dtype)
             for name, pinfo in so.parameter_info.items()
@@ -746,7 +780,7 @@ class FrozenStencil:
         so = self.stencil_object
         used_infos = {n: _arg_info(kwargs[n]) for n in self._used_fields}
         scalars = {
-            n: np.asarray(kwargs[n], dtype=dt)[()] for n, dt in self._scalar_info
+            n: _scalar(kwargs[n], dt) for n, dt in self._scalar_info
         }
         results = so._backend.run_from_infos(
             used_infos, scalars, self.domain, self._origins3

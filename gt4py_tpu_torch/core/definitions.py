@@ -5,8 +5,17 @@ Copied from gt4py_tpu/core/definitions.py; imports renamed.
 Counterpart of the reference's ``gt4py._core.definitions``
 (src/gt4py/_core/definitions.py:146,198,388): a NumPy dtype model and a
 device model where the accelerator is a CUDA card addressed through torch.
-bfloat16 is not supported yet: the JAX package takes it from ``ml_dtypes``,
-which the port does not depend on; it will come from ``torch.bfloat16``.
+
+bfloat16: the JAX package takes its NumPy dtype from ``ml_dtypes``, which
+the port does not depend on (the card's machine has neither it nor JAX).
+NumPy has no bfloat16 of its own, and a dtype cannot be subclassed in
+Python, so the port's token is the structured dtype
+``np.dtype([("bfloat16", "<u2")])``: 2 bytes, and unlike a ``V2`` with
+metadata (which compares equal to every ``V2``) it equals no other dtype.
+It is only a name for the GTIR and the validation: values are never held
+in it. Tensors are ``torch.bfloat16`` (``ndarray_utils`` maps the two), and
+NumPy copies of them are float32. Its ``.name`` is NumPy's ``void16``:
+print it with :func:`dtype_name`, parse one with :func:`as_dtype`.
 """
 
 from __future__ import annotations
@@ -22,17 +31,37 @@ import numpy as np
 LITERAL_INT_PRECISION = 64
 LITERAL_FLOAT_PRECISION = 64
 
-# Half-precision float dtypes. float16 only: bfloat16 waits for torch.bfloat16.
+# Half-precision float dtypes: stored in 16 bits, computed in float32 by
+# the kernels (the JAX package's K1, pallas_split.py:129-156).
+bfloat16 = np.dtype([("bfloat16", "<u2")])
 float16 = np.float16
 
-HALF_FLOAT_DTYPES = frozenset({np.dtype(np.float16)})
-FLOAT_DTYPE_NAMES = frozenset({"float16", "float32", "float64"})
+HALF_FLOAT_DTYPES = frozenset({bfloat16, np.dtype(np.float16)})
+FLOAT_DTYPE_NAMES = frozenset({"float16", "bfloat16", "float32", "float64"})
+
+#: spellings of bfloat16 that :func:`as_dtype` accepts
+_BF16_NAMES = frozenset({"bfloat16", "bf16"})
+
+
+def as_dtype(spec: Any) -> np.dtype:
+    """The NumPy dtype of a dtype-like, with ``"bfloat16"``/``"bf16"`` (and
+    the token itself) as :data:`bfloat16`. ``torch.bfloat16`` and the other
+    torch dtypes go through ``ndarray_utils.numpy_dtype``."""
+    if isinstance(spec, str) and spec in _BF16_NAMES:
+        return bfloat16
+    return np.dtype(spec)
+
+
+def dtype_name(dtype: Any) -> str:
+    """A dtype's name: ``"bfloat16"`` for the token, else NumPy's."""
+    dt = as_dtype(dtype)
+    return "bfloat16" if dt == bfloat16 else dt.name
 
 
 def is_float_dtype(dtype: Any) -> bool:
-    """True for any float dtype."""
-    dt = np.dtype(dtype)
-    return dt.kind == "f" or dt.name in FLOAT_DTYPE_NAMES
+    """True for any float dtype including bfloat16 (whose kind is 'V')."""
+    dt = as_dtype(dtype)
+    return dt.kind == "f" or dtype_name(dt) in FLOAT_DTYPE_NAMES
 
 
 class DeviceType(enum.Enum):
@@ -53,11 +82,11 @@ class DType:
         if isinstance(dtype_like, DType):
             self.np_dtype = dtype_like.np_dtype
         else:
-            self.np_dtype = np.dtype(dtype_like)
+            self.np_dtype = as_dtype(dtype_like)
 
     @property
     def name(self) -> str:
-        return self.np_dtype.name
+        return dtype_name(self.np_dtype)
 
     @property
     def kind(self) -> str:
@@ -83,7 +112,7 @@ class DType:
         if isinstance(other, DType):
             return self.np_dtype == other.np_dtype
         try:
-            return self.np_dtype == np.dtype(other)
+            return self.np_dtype == as_dtype(other)
         except TypeError:
             return NotImplemented
 
@@ -91,10 +120,30 @@ class DType:
         return hash(self.np_dtype)
 
     def __repr__(self) -> str:
-        return f"DType({self.np_dtype.name})"
+        return f"DType({self.name})"
 
 
-def upcast(a: np.dtype, b: np.dtype) -> np.dtype:
+def _bf16_promotion(other: np.dtype) -> np.dtype:
+    """bfloat16 × ``other``, where NumPy has no lattice: JAX's, as the JAX
+    package follows it (passes/type_inference.py:198-212, which asks
+    ``jnp.promote_types``): bool and integers adapt to bfloat16, float16
+    and float32 meet it at float32, float64 stays."""
+    if other == bfloat16 or other.kind in "biu":
+        return bfloat16
+    if other == np.float64:
+        return np.dtype(np.float64)
+    if other.kind == "f":
+        return np.dtype(np.float32)
+    raise TypeError(f"no promotion of bfloat16 with {other}")
+
+
+def upcast(a: Any, b: Any) -> np.dtype:
     """Implicit binary-op result dtype, matching the reference's upcasting
-    rules (gtc/passes/gtir_upcaster.py): standard NumPy promotion."""
+    rules (gtc/passes/gtir_upcaster.py): standard NumPy promotion, and the
+    JAX lattice for bfloat16."""
+    a, b = as_dtype(a), as_dtype(b)
+    if a == bfloat16:
+        return _bf16_promotion(b)
+    if b == bfloat16:
+        return _bf16_promotion(a)
     return np.promote_types(a, b)

@@ -20,6 +20,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from gt4py_tpu_torch.core.definitions import as_dtype, bfloat16
+
 _NP_TO_TORCH = {
     np.dtype(np.bool_): torch.bool,
     np.dtype(np.int8): torch.int8,
@@ -30,33 +32,41 @@ _NP_TO_TORCH = {
     np.dtype(np.float16): torch.float16,
     np.dtype(np.float32): torch.float32,
     np.dtype(np.float64): torch.float64,
+    bfloat16: torch.bfloat16,  # the port's token (core/definitions.py)
 }
 _TORCH_TO_NP = {v: k for k, v in _NP_TO_TORCH.items()}
 
 
 def torch_dtype(dtype: Any) -> torch.dtype:
-    """The torch dtype of a NumPy dtype-like (torch dtypes pass through)."""
+    """The torch dtype of a NumPy dtype-like, ``"bfloat16"`` and the
+    bfloat16 token included (torch dtypes pass through)."""
     if isinstance(dtype, torch.dtype):
         return dtype
     try:
-        return _NP_TO_TORCH[np.dtype(dtype)]
+        return _NP_TO_TORCH[as_dtype(dtype)]
     except KeyError:
-        raise TypeError(f"dtype {np.dtype(dtype)} has no torch counterpart") from None
+        raise TypeError(f"dtype {as_dtype(dtype)} has no torch counterpart") from None
 
 
 def numpy_dtype(dtype: Any) -> np.dtype:
-    """The NumPy dtype of a torch dtype (NumPy dtype-likes pass through)."""
+    """The NumPy dtype of a torch dtype (``torch.bfloat16``: the port's
+    bfloat16 token); NumPy dtype-likes and ``"bfloat16"`` pass through
+    :func:`~gt4py_tpu_torch.core.definitions.as_dtype`."""
     if isinstance(dtype, torch.dtype):
         try:
             return _TORCH_TO_NP[dtype]
         except KeyError:
             raise TypeError(f"torch dtype {dtype} has no NumPy counterpart") from None
-    return np.dtype(dtype)
+    return as_dtype(dtype)
 
 
 def asnumpy(arr: Any) -> np.ndarray:
-    """Host copy of any supported array (device transfers included)."""
+    """Host copy of any supported array (device transfers included). NumPy
+    has no bfloat16: a bfloat16 tensor comes back as float32, which holds
+    every bfloat16 value exactly."""
     if isinstance(arr, torch.Tensor):
+        if arr.dtype == torch.bfloat16:
+            arr = arr.float()
         return arr.detach().cpu().numpy()
     return np.asarray(arr)
 
@@ -141,6 +151,9 @@ class TorchNamespace:
                     f"tensor on {x.device} used in a computation on {self.device}"
                 )
             return x if dtype is None else x.to(torch_dtype(dtype))
+        if dtype is not None and torch_dtype(dtype) == torch.bfloat16:
+            # NumPy cannot hold it: round the host value on the way in
+            return torch.as_tensor(np.asarray(x), device=self.device).to(torch.bfloat16)
         arr = np.asarray(x) if dtype is None else np.asarray(x, dtype=np.dtype(dtype))
         return torch.as_tensor(arr, device=self.device)
 

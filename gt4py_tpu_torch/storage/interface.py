@@ -18,7 +18,8 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
-from gt4py_tpu_torch.core.ndarray_utils import torch_dtype
+from gt4py_tpu_torch.core.definitions import is_float_dtype
+from gt4py_tpu_torch.core.ndarray_utils import numpy_dtype, torch_dtype
 from gt4py_tpu_torch.storage import layout
 from gt4py_tpu_torch.storage.storage import Storage
 
@@ -83,8 +84,8 @@ def empty(
     import os
 
     if os.environ.get("GT4PY_DEBUG_POISON_EMPTY", "0") not in ("0", "", "false"):
-        dt = np.dtype(dtype) if not isinstance(dtype, torch.dtype) else dtype
-        if isinstance(dt, torch.dtype) or dt.kind == "f":
+        dt = numpy_dtype(dtype)
+        if is_float_dtype(dt):
             fill: Any = float("nan")
         elif dt.kind in ("i", "u"):
             fill = np.iinfo(dt).max
@@ -161,7 +162,8 @@ def from_array(
     """Copy ``data`` (a tensor, a NumPy array or anything with
     ``__array__``, such as a ``gt4py_tpu`` Storage) into a new storage.
     ``aligned_index`` and ``dimensions`` default to the source's
-    ``__gt_origin__`` and ``__gt_dims__``."""
+    ``__gt_origin__`` and ``__gt_dims__``. A bfloat16 ``dtype`` (which
+    NumPy cannot hold) rounds NumPy data to nearest even through torch."""
     if aligned_index is None:
         aligned_index = getattr(data, "__gt_origin__", None)
     if dimensions is None:
@@ -170,6 +172,8 @@ def from_array(
         data = data.array
     if isinstance(data, torch.Tensor):
         src = data if dtype is None else data.to(torch_dtype(dtype))
+    elif dtype is not None and torch_dtype(dtype) == torch.bfloat16:
+        src = torch.from_numpy(np.array(data)).to(torch.bfloat16)
     else:
         array = np.ascontiguousarray(data if dtype is None else np.asarray(data, dtype=dtype))
         if not array.flags.writeable:  # torch.from_numpy wants a writable buffer

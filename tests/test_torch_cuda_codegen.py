@@ -616,7 +616,7 @@ def test_smoothed_column_sum_keeps_acc_on_chip(monkeypatch):
         monkeypatch.setattr(
             torch, fn, lambda *a, _fn=fn, _real=real, **k: calls.append(_fn) or _real(*a, **k)
         )
-    backend.prepare(arrays, {}, (4, 3, 4), {})
+    backend.prepared(arrays, (4, 3, 4), {})
     assert calls == []
 
 
@@ -1112,7 +1112,7 @@ def test_fused_column_refuses_too_few_levels(fuse_stages):
     assert backend.module.min_nk == 2
     arrays = {n: torch.zeros(4, 4, 1, dtype=torch.float64) for n in backend.analyzed.field_infos}
     with pytest.raises(CudaUnsupported, match="at least 2 levels"):
-        backend.prepare(arrays, {"dtr_stage": 0.1}, (4, 4, 1), {})
+        backend.prepared(arrays, (4, 4, 1), {})
 
 
 # --- column: registers for loop-local temporaries, and the prefetch ring -------------
@@ -1150,7 +1150,7 @@ def test_column_keeps_vadv_temporaries_in_registers(monkeypatch):
         monkeypatch.setattr(
             torch, fn, lambda *a, _fn=fn, _real=real, **k: calls.append(_fn) or _real(*a, **k)
         )
-    backend.prepare(arrays, {"dtr_stage": 0.1}, (4, 4, 6), {})
+    backend.prepared(arrays, (4, 4, 6), {})
     assert calls == ["empty", "empty"]
 
 
@@ -1705,6 +1705,73 @@ def test_build_error_names_the_compiler(tmp_path, monkeypatch):
         cuda_backend.load_library("/* empty */\n")
 
 
+def test_wrapper_counts_a_captured_launch_at_its_replays():
+    """A launch recorded into a CUDA graph is not counted when captured:
+    the launcher reports it, and each replay adds it."""
+    wrapper = cuda_backend.KernelWrapper("probe")
+    assert wrapper.launch(lambda *a: 0, (), counted=False) == 1
+    assert wrapper.launch(lambda *a: cuda_codegen.NOTHING_LAUNCHED, (), counted=False) == 0
+    assert wrapper.launches == 0
+
+
+def _cpu_backend(name="horizontal_diffusion"):
+    memo = _registry_backend(name)
+    backend = cuda_backend.CudaHopperBackend(memo.analyzed, {})
+    backend._fns = []  # nothing to build or launch here
+    return backend
+
+
+def test_prepared_launch_is_cached_by_buffers_and_layout():
+    """The cache keys a prepared launch on each role's pointer, shape,
+    strides and dtype, the domain and the origins: the same buffers find it
+    (by the runtime's call key too), another buffer or layout does not; it
+    holds no caller tensor."""
+    import weakref
+
+    backend = _cpu_backend()
+    names = [n for n, i in backend.analyzed.field_infos.items() if i is not None]
+    arrays = {n: torch.zeros(12, 11, 4, dtype=torch.float64) for n in names}
+    dom, orig = (8, 7, 4), {n: (2, 2, 0) for n in names}
+    first = backend.prepared(arrays, dom, orig)
+    assert backend.prepared(dict(arrays), dom, orig) is first
+    assert backend.prepared(arrays, dom, orig, cache_key="k") is first
+    assert backend.prepared(arrays, dom, orig, cache_key="k") is first  # the warm lookup
+    assert backend.prepared(arrays, (8, 7, 3), orig) is not first
+    moved = dict(arrays, coeff=torch.zeros(12, 11, 4, dtype=torch.float64))
+    assert backend.prepared(moved, dom, orig) is not first
+    strided = dict(arrays, coeff=torch.zeros(4, 11, 12, dtype=torch.float64).permute(2, 1, 0))
+    assert backend.prepared(strided, dom, orig) is not first
+    assert len({id(p) for p in backend._launches.values()}) == 4
+    gone = weakref.ref(moved["coeff"])
+    del moved
+    assert gone() is None
+
+
+def test_prepared_launch_cache_is_bounded(monkeypatch):
+    monkeypatch.setattr(cuda_backend, "CACHE_ENTRIES", 2)
+    backend = _cpu_backend()
+    names = [n for n, i in backend.analyzed.field_infos.items() if i is not None]
+    arrays = {n: torch.zeros(12, 11, 4, dtype=torch.float64) for n in names}
+    for nk in (2, 3, 4):
+        backend.prepared(arrays, (8, 7, nk), {})
+    assert len(backend._launches) == 1
+
+
+def test_prepared_launches_share_their_scratch():
+    """Two prepared launches of one domain use the same temporaries (one
+    set a domain, not one a cache entry); a filled one is zeroed at each
+    launch, not allocated zero-filled."""
+    backend = _cpu_backend("vertical_advection_dycore")
+    names = [n for n, i in backend.analyzed.field_infos.items() if i is not None]
+    a = {n: torch.zeros(5, 4, 6, dtype=torch.float64) for n in names}
+    b = {n: torch.zeros(5, 4, 6, dtype=torch.float64) for n in names}
+    pa, pb = backend.prepared(a, (4, 4, 6), {}), backend.prepared(b, (4, 4, 6), {})
+    assert pa is not pb
+    temps = [m for m in backend.module.slots if m.is_temp]
+    assert [pa.ptrs[m.index] for m in temps] == [pb.ptrs[m.index] for m in temps]
+    assert len(backend._scratch) == len(temps) == 2
+
+
 # --- on the card ------------------------------------------------------------------
 
 
@@ -1847,14 +1914,16 @@ def test_column_walk_matches_plain_on_card(name, fuse, depth, variant, monkeypat
     many times more, in
     the __restrict__ variant (with its ring) and in the plain-pointer one,
     which the wrapper takes when it sees overlapping arguments (here it is
-    told so); each launch is counted."""
+    told so, and the stencil is built anew, so that no launch prepared
+    before is found); each launch is counted."""
     _need_card()
     monkeypatch.setenv("GT4PY_CUDA_FUSE_STAGES", "1" if fuse else "0")
     if variant == "plain":
         monkeypatch.setattr(cuda_backend, "overlapping", lambda arrays: [("", "")])
     entry = defs.REGISTRY[name]
     opts = dict(externals=entry["externals"], dtypes=entry["dtypes"])
-    kern = gtscript.stencil(backend="cuda:hopper", definition=entry["definition"], **opts)
+    kern = gtscript.stencil(backend="cuda:hopper", definition=entry["definition"], rebuild=True,
+                            **opts)
     plain = gtscript.stencil(backend="torch", definition=entry["definition"], **opts)
     nk = max(entry["min_k"], 2) if depth == "short" else 4 * cuda_codegen.RING_LEVELS + 5
     host = defs.make_inputs(kern.field_info, (25, 23, nk), np.random.default_rng(8))
@@ -1996,11 +2065,13 @@ def test_tile_walk_matches_plain_on_card(name, definition, dtypes, scalars, min_
     ragged 37 × 45 domain (a multiple of neither tile), over fewer levels
     than the tile ring holds and over 80, in the __restrict__ variant (with
     its ring and carries) and in the plain-pointer one (the wrapper is told
-    that the arguments overlap); one counted launch a call."""
+    that the arguments overlap, of a stencil built anew); one counted launch
+    a call."""
     _need_card()
     if variant == "plain":
         monkeypatch.setattr(cuda_backend, "overlapping", lambda arrays: [("", "")])
-    kern = gtscript.stencil(backend="cuda:hopper", definition=definition, dtypes=dtypes)
+    kern = gtscript.stencil(backend="cuda:hopper", definition=definition, dtypes=dtypes,
+                            rebuild=True)
     plain = gtscript.stencil(backend="torch", definition=definition, dtypes=dtypes)
     nk = max(min_k, 2) if depth == "short" else 80
     assert depth == "long" or nk <= cuda_codegen.TILE_RING_LEVELS
@@ -2088,11 +2159,14 @@ PLANE_WALKS = [
 
 def _plane_walk(definition, dtypes, externals, shape, calls):
     """The kernel and the plain version on the same inputs, each through
-    ``calls(stencil, fields)``: every field of both."""
+    ``calls(stencil, fields)``: every field of both. Built anew, so that a
+    launch prepared before (by another test, maybe in the other variant) is
+    not found."""
     out = {}
     for backend in ("cuda:hopper", "torch"):
         st = gtscript.stencil(
-            backend=backend, definition=definition, dtypes=dtypes, externals=externals
+            backend=backend, definition=definition, dtypes=dtypes, externals=externals,
+            rebuild=True,
         )
         host = defs.make_inputs(st.field_info, shape, np.random.default_rng(12))
         fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
@@ -2188,3 +2262,289 @@ def test_half_stencil_matches_plain_on_card(name, monkeypatch):
         np.testing.assert_allclose(
             out["kernel"][n], out["plain"][n], rtol=defs.HALF_TOL, atol=defs.HALF_TOL, err_msg=n
         )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(defs.HALF_STENCILS))
+def test_bf16_stencil_matches_plain_on_card(name, monkeypatch):
+    """One bfloat16 stencil on each of the five kernels against the plain
+    version on the same card, at ``defs.BF16_TOL`` (the JAX package's
+    bfloat16 tolerances: the kernel computes in float32 and rounds at the
+    store, the plain version rounds every operation)."""
+    _need_card()
+    definition, kernel, fuse = defs.HALF_STENCILS[name]
+    monkeypatch.setenv("GT4PY_CUDA_FUSE_STAGES", "1" if fuse else "0")
+    opts = dict(definition=definition, dtypes={"dt": torch.bfloat16})
+    kern = gtscript.stencil(backend="cuda:hopper", **opts)
+    plain = gtscript.stencil(backend="torch", **opts)
+    assert kern._backend.strategy == kernel
+    host = defs.half_inputs(kern.field_info, (41, 49, 19), np.random.default_rng(13))
+    wrapper = cuda_backend.WRAPPERS[kernel]
+    out = {}
+    for tag, st in (("kernel", kern), ("plain", plain)):
+        fields = {n: storage.from_array(v, dtype="bfloat16", backend="cuda:hopper")
+                  for n, v in host.items()}
+        wrapper.launches = 0
+        st(**fields, origin=(2, 2, 0), domain=(37, 45, 19))
+        torch.cuda.synchronize()
+        assert (wrapper.launches > 0) == (tag == "kernel")
+        out[tag] = {n: np.asarray(v).astype(np.float64) for n, v in fields.items()}
+    tol = defs.BF16_TOL[name]
+    err = max(np.max(np.abs(out["kernel"][n] - out["plain"][n])) for n in host)
+    print(f"bfloat16 {name} on {kernel}: max abs err {err}")
+    for n in host:
+        assert np.all(np.isfinite(out["kernel"][n])), n
+        np.testing.assert_allclose(out["kernel"][n], out["plain"][n], rtol=tol, atol=tol, err_msg=n)
+
+
+# --- chain as a CUDA graph, and the warm call ------------------------------------------
+
+
+def _swap_pair(st) -> dict:
+    """A field the stencil writes and one it only reads, of the same dtype,
+    axes and data dimensions, to swap between steps ({} where none)."""
+    info = {n: i for n, i in st.field_info.items() if i is not None}
+    written = [n for n in info if n in st._backend.written]
+    for w in written:
+        for r in info:
+            if r not in written and (info[w].dtype, info[w].axes, info[w].data_dims) == (
+                info[r].dtype, info[r].axes, info[r].data_dims
+            ):
+                return {w: r, r: w}
+    return {}
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal to the bit (NaNs included)."""
+    bits = lambda t: t.detach().cpu().contiguous().view(torch.uint8)  # noqa: E731
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+
+
+def _chain_against_calls(st, host, n_steps, swap, scalars, **kw):
+    """``chain(n)`` on one copy of ``host`` and n single calls rotating the
+    same roles on another; returns (chain's fields, the calls' final roles,
+    the chain's exec_info, its launches, the calls' launches)."""
+    def fields():
+        return {n: storage.from_array(v, dtype=st.field_info[n].dtype, backend="cuda:hopper")
+                for n, v in host.items()}
+
+    def counted(work):
+        for w in cuda_backend.WRAPPERS.values():
+            w.launches = 0
+        work()
+        torch.cuda.synchronize()
+        return sum(w.launches for w in cuda_backend.WRAPPERS.values())
+
+    chained, cur, info = fields(), fields(), {}
+    chain_launches = counted(
+        lambda: st.chain(n_steps, **chained, **scalars, swap=swap, exec_info=info, **kw)
+    )
+
+    def calls():
+        nonlocal cur
+        for _ in range(n_steps):
+            st(**cur, **scalars, **kw)
+            cur = {r: cur[swap.get(r, r)] for r in cur}
+
+    call_launches = counted(calls)
+    return chained, cur, info, chain_launches, call_launches
+
+
+def _expected_mode(st, swap, n_steps) -> str:
+    """A fresh chain (a stencil built anew, ``rebuild=True``) launches its
+    first cycle, then replays the graph of it if as many steps are left."""
+    from gt4py_tpu_torch.cartesian.backend.base import chain_cycle_len
+
+    cycle = chain_cycle_len([n for n, i in st.field_info.items() if i is not None], swap)
+    return "graph" if n_steps - cycle >= cycle else "launches"
+
+
+def _assert_chain_is_the_calls(st, host, n_steps, swap, scalars, **kw):
+    chained, cur, info, chain_launches, call_launches = _chain_against_calls(
+        st, host, n_steps, swap, scalars, **kw
+    )
+    for r in chained:
+        assert _same_bits(chained[r].array, cur[r].array), r
+    assert chain_launches == call_launches > 0
+    assert info["chain_mode"] == _expected_mode(st, swap, n_steps)
+    assert info["kernel_strategy"] == st._backend.strategy
+
+
+_SMOKE_SPEC = None
+
+
+def _smoke():
+    """chip_smoke.py as a module (its main paths and inputs)."""
+    import importlib.util
+    import os
+
+    global _SMOKE_SPEC
+    if _SMOKE_SPEC is None:
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(root, "chip_smoke.py"))
+        _SMOKE_SPEC = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(_SMOKE_SPEC)
+    return _SMOKE_SPEC
+
+
+MAIN_PATHS = ["hdiff", "vadv", "tridiag", "hdiff_sponge", "smoothed_column_sum", "vadv_fused",
+              "tridiag_fused"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_steps", [1, 2, 5, 11])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("path", MAIN_PATHS)
+def test_graph_chain_of_a_main_path_is_its_calls_on_card(path, dtype, n_steps):
+    """Every main path of chip_smoke.py at 36 × 36 × 16 (halo 2): ``chain(n)``
+    through the CUDA graph equals n single calls to the bit, launches the
+    same kernels as many times, and runs as a graph once a replay follows
+    the first cycle."""
+    _need_card()
+    smoke = _smoke()
+    case = next(c for c in smoke.path_cases(defs) if c["name"] == path)
+    opts = {"dtypes": {"dt": dtype, "vadv_dt": dtype}}
+    if dtype == "float32":
+        opts.update(literal_float_precision=32, literal_int_precision=32)
+    st = smoke.build_switched(gtscript, case.get("fuse", False), backend="cuda:hopper",
+                              definition=case["definition"], externals=case["externals"],
+                              rebuild=True, **opts)
+    host = {n: v.astype(dtype) for n, v in smoke.make_host(case, (36, 36, 16), 5, np).items()}
+    scalars = {n: np.dtype(dtype).type(v) for n, v in case["scalars"].items()}
+    # lower-dimensional fields keep their own axes (card_fields), one copy a side
+    chained = smoke.card_fields(host, (2, 2, 0), case, storage)
+    cur = smoke.card_fields(host, (2, 2, 0), case, storage)
+    info = {}
+    for w in cuda_backend.WRAPPERS.values():
+        w.launches = 0
+    st.chain(n_steps, **chained, **scalars, swap=case["swap"], domain=(32, 32, 16), exec_info=info)
+    torch.cuda.synchronize()
+    chain_launches = cuda_backend.WRAPPERS[case["kernel"]].launches
+    cuda_backend.WRAPPERS[case["kernel"]].launches = 0
+    for _ in range(n_steps):
+        st(**cur, **scalars, domain=(32, 32, 16))
+        cur = {r: cur[case["swap"].get(r, r)] for r in cur}
+    torch.cuda.synchronize()
+    assert chain_launches == cuda_backend.WRAPPERS[case["kernel"]].launches == (
+        n_steps * len(st._backend.module.launchers)
+    )
+    for r in chained:
+        assert _same_bits(chained[r].array, cur[r].array), r
+    assert info["chain_mode"] == _expected_mode(st, case["swap"], n_steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_steps", [1, 2, 5, 11])
+@pytest.mark.parametrize("name", sorted(defs.REGISTRY))
+def test_graph_chain_of_a_registry_stencil_is_its_calls_on_card(name, n_steps):
+    """Every registry stencil, ping-ponging a written field with a field
+    it only reads where it has such a pair (else chained in place):
+    ``chain(n)`` equals n single calls to the bit, with the same launches."""
+    _need_card()
+    entry = defs.REGISTRY[name]
+    st = gtscript.stencil(backend="cuda:hopper", definition=entry["definition"],
+                          externals=entry["externals"], dtypes=entry["dtypes"], rebuild=True)
+    nk = max(9, entry["min_k"])
+    host = defs.make_inputs(st.field_info, (22, 21, nk), np.random.default_rng(2))
+    _assert_chain_is_the_calls(st, host, n_steps, _swap_pair(st), entry["scalars"],
+                               origin=(3, 3, 0), domain=(16, 15, nk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["_lagged_neighbour_sweep", "_lag_read_before_write"])
+def test_lagged_sweeps_chain_on_card(name):
+    """The cooperative sweeps chain as CUDA graphs too: CUDA captures the
+    cooperative launch and its memset of the level counters; equal to
+    single calls, one cooperative launch a step."""
+    _need_card()
+    st = gtscript.stencil(backend="cuda:hopper", definition=CONSTRUCTS[name][0],
+                          dtypes={"dt": np.float64}, rebuild=True)
+    assert st._backend.module.cooperative
+    host = defs.make_inputs(st.field_info, (41, 49, 23), np.random.default_rng(11))
+    for n_steps in (5, 11):
+        _assert_chain_is_the_calls(st, host, n_steps, {"inp": "out", "out": "inp"}, {},
+                                   origin=(2, 2, 0), domain=(37, 45, 23))
+
+
+@pytest.mark.cuda
+def test_new_scalar_value_recaptures_on_card():
+    """Scalars are baked into a captured graph: a chain with a new value
+    captures a graph of its own and computes with it (a stencil built anew,
+    so no other test's chains are in its caches)."""
+    _need_card()
+    entry = defs.REGISTRY["vertical_advection_dycore"]
+    st = gtscript.stencil(backend="cuda:hopper", definition=entry["definition"],
+                          externals=entry["externals"], dtypes=entry["dtypes"], rebuild=True)
+    host = defs.make_inputs(st.field_info, (12, 12, 16), np.random.default_rng(3))
+    chained = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+    for value in (0.1, 0.2, 0.1):
+        for n, v in host.items():  # the same buffers, refilled
+            chained[n].array.copy_(torch.from_numpy(v))
+        info = {}
+        st.chain(5, **chained, dtr_stage=value, exec_info=info)
+        cur = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+        for _ in range(5):
+            st(**cur, dtr_stage=value)
+        torch.cuda.synchronize()
+        assert info["chain_mode"] == "graph"
+        for n in host:
+            assert _same_bits(chained[n].array, cur[n].array), (value, n)
+    chains = {id(c): c for c in st._backend._chains.values()}.values()
+    assert [sorted(c.graphs) for c in chains] == [[(("dtr_stage", 0.1),), (("dtr_stage", 0.2),)]]
+
+
+@pytest.mark.cuda
+def test_filled_temporary_is_zeroed_every_step_on_card():
+    """``tmp[0, 0, 1]`` reads the level above before the FORWARD walk writes
+    it: the plain version's zero-filled temporary. The kernel's buffer is
+    zeroed before every step, in a graph replay too, so a chain equals the
+    plain version's chain (a buffer left from the step before would hold
+    2 * inp there)."""
+    _need_card()
+    opts = dict(definition=_temporary_read_ahead, dtypes={"dt": np.float64})
+    kern = gtscript.stencil(backend="cuda:hopper", **opts)
+    assert any(m.is_temp and m.fill for m in kern._backend.module.slots)
+    plain = gtscript.stencil(backend="torch", **opts)
+    host = defs.make_inputs(kern.field_info, (9, 10, 12), np.random.default_rng(4))
+    out = {}
+    for tag, st in (("kernel", kern), ("plain", plain)):
+        fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+        info = {}
+        st.chain(7, **fields, swap={"inp": "out", "out": "inp"}, exec_info=info)
+        st(**fields)
+        torch.cuda.synchronize()
+        out[tag] = ({n: np.asarray(v) for n, v in fields.items()}, info["chain_mode"])
+    assert out["kernel"][1] == "graph"
+    for n in host:
+        _assert_same(out["kernel"][0][n], out["plain"][0][n], n)
+
+
+@pytest.mark.cuda
+def test_warm_call_reuses_its_prepared_launch_on_card():
+    """A second call on the same storages finds its prepared launch; other
+    storages get one of their own; the cache holds no caller tensor (a
+    stencil built anew, so no other test's launches are in its cache)."""
+    import weakref
+
+    _need_card()
+    entry = defs.REGISTRY["horizontal_diffusion"]
+    st = gtscript.stencil(backend="cuda:hopper", definition=entry["definition"], rebuild=True)
+
+    def launches():  # each kept by its launch key and by the runtime's call key
+        return len({id(p) for p in st._backend._launches.values()})
+
+    host = defs.make_inputs(st.field_info, (20, 20, 8), np.random.default_rng(6))
+    fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+    kw = dict(origin=(2, 2, 0), domain=(16, 16, 8))
+    st(**fields, **kw)
+    st(**fields, **kw)
+    assert launches() == 1
+    other = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+    st(**other, **kw)
+    torch.cuda.synchronize()
+    assert launches() == 2
+    for n in host:
+        _assert_same(np.asarray(other[n]), np.asarray(fields[n]), n)
+    gone = weakref.ref(other["out_field"].array)
+    del other
+    assert gone() is None

@@ -60,12 +60,10 @@ def test_pretty_ir_round_trips(name):
     assert pretty(parse(text)) == text
 
 
-def test_bfloat16_literals_rejected():
-    """bf16 waits for torch.bfloat16: the port refuses it with a clear error."""
-    from gt4py_tpu_torch.cartesian.frontend import GTScriptSyntaxError
-
-    with pytest.raises(GTScriptSyntaxError, match="bfloat16"):
-        gtscript.stencil(
-            backend="torch", definition=defs.lap_of_lap, literal_float_precision="bf16",
-            rebuild=True,
-        )
+def test_bfloat16_literals_build():
+    """``literal_float_precision="bf16"`` builds, as in the JAX package, and
+    its GTIR prints as the JAX package's does, bf16 literals included."""
+    mine, ref = _pretty_pair("lap_of_lap", literal_float_precision="bf16")
+    assert ":bf16" in mine
+    assert mine == ref
+    assert pretty(parse(mine)) == mine

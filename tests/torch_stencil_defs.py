@@ -17,6 +17,7 @@ complete the registry; their JAX twins live in tests/test_torch_cartesian.py.
 import numpy as np
 
 from gt4py_tpu_torch.cartesian import gtscript
+from gt4py_tpu_torch.core.definitions import bfloat16
 from gt4py_tpu_torch.cartesian.gtscript import (
     BACKWARD,
     FORWARD,
@@ -1022,6 +1023,16 @@ HALF_STENCILS = {
     "smoothed_column_sum": (smoothed_column_sum, "tiled", False),
 }
 HALF_TOL = 1e-2
+#: the same stencils in bfloat16 (stored in 16 bits with an 8-bit mantissa,
+#: computed in float32 on the card), at the JAX package's bfloat16
+#: tolerances (test_upcasting_matrix.py): 0.02 for one PARALLEL
+#: application, 0.05 for a carry along K. The largest error this test
+#: suite's inputs give against the plain version computed in float32 and
+#: rounded once is 0.004 (PARALLEL) and 0.015 (smoothed_column_sum)
+BF16_TOL = {
+    "hdiff": 0.02, "hdiff_sponge": 0.02,
+    "tridiag": 0.05, "tridiag_fused": 0.05, "smoothed_column_sum": 0.05,
+}
 
 
 def half_precision(inp: "gtscript.Field['dt']", out: "gtscript.Field['dt']"):
@@ -1032,15 +1043,15 @@ def half_precision(inp: "gtscript.Field['dt']", out: "gtscript.Field['dt']"):
 
 
 def half_inputs(field_info, shape, rng):
-    """float16 inputs of a HALF_STENCILS stencil (:func:`make_inputs`),
+    """Half inputs of a HALF_STENCILS stencil (:func:`make_inputs`),
     conditioned as a model's would be: a diagonally dominant tridiagonal
     system, a stable diffusion coefficient."""
     host = make_inputs(field_info, shape, rng)
     if "diag" in host:
-        host["diag"] = host["diag"] + np.float16(4.0)
+        host["diag"] = host["diag"] + host["diag"].dtype.type(4.0)
         host["inf"], host["sup"] = -host["inf"], -host["sup"]
     if "coeff" in host:
-        host["coeff"] = (0.1 * host["coeff"]).astype(np.float16)
+        host["coeff"] = (0.1 * host["coeff"]).astype(host["coeff"].dtype)
     return host
 
 
@@ -1051,6 +1062,8 @@ def make_inputs(field_info, shape, rng):
     fields keep the axes they have, data dimensions trail, tables take their
     own shape. Floats are uniform in [0, 1), integers 0 or 1 (a valid index
     of every table and data dimension of the registry), booleans random.
+    NumPy has no bfloat16: a bfloat16 field's inputs are float32, which
+    ``storage.from_array(..., dtype=...)`` rounds to it.
     """
     out = {}
     for name, info in field_info.items():
@@ -1058,7 +1071,7 @@ def make_inputs(field_info, shape, rng):
             continue
         spatial = tuple(n for n, on in zip(shape, info.domain_mask) if on)
         full = spatial + tuple(info.data_dims)
-        dtype = np.dtype(info.dtype)
+        dtype = np.dtype(np.float32) if info.dtype == bfloat16 else np.dtype(info.dtype)
         if dtype.kind == "b":
             out[name] = rng.random(full) > 0.5
         elif dtype.kind in "iu":
