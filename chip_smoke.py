@@ -2,7 +2,9 @@
 """Smoke run of gt4py_tpu_torch on one CUDA card (an H100).
 
 Drives the port's main paths — ``gtscript.stencil`` → frontend → passes →
-``cuda:hopper`` → generated CUDA kernels, on ``storage`` fields — through
+``cuda:hopper`` → generated CUDA kernels, on ``storage`` fields, and the
+field-view operators that the cartesian bridge lowers onto the same
+kernels (step 7) — through
 the public API at the size weather and climate dycores run it, on a
 256×256×80 domain with a halo of 2, in float32 and float64: hdiff (the
 ``plane`` kernel), vadv and tridiag (``column``), hdiff_sponge, hdiff as
@@ -58,6 +60,23 @@ swap cycle of the kernels as a CUDA graph.
    the host and on the device (behind a spin kernel) beside its bound, and
    its ``ptxas`` report.
 
+7. Field-view phase: the port's field-view frontend (gt4py_tpu_torch.next)
+   on the same kernels, through ``gtx.field_operator(...,
+   backend="cuda:hopper")`` on card fields at 256×256×80: ``next_hdiff``
+   (``plane``), ``next_vadv`` and ``next_tridiag`` (``column``; with the
+   fusion switch on, ``fused_column`` for next_tridiag, while next_vadv's K
+   index field keeps it on ``column``), float32 and float64, each operator's
+   bridged variant traced and built in step 1 by a CPU call. Each run is
+   counted as a main path (its kernel's launchers once each, the bridge's
+   variant serving it), held against the ``torch`` backend on the card and
+   against the cartesian stencil of the same main path on the same data
+   (equal to the bit or not, recorded), and timed: device µs per call
+   behind a spin kernel beside the cartesian stencil's calls on the same
+   data (the ratio is ``bench.py``'s ``next_hdiff_vs_cartesian``), a warm
+   call's host µs, the plain version's ms. Then ``edge_sum``
+   (``neighbor_sum`` through a connectivity with missing neighbours) runs
+   embedded on the card and is held against the CPU.
+
 Prints the card's name and power limit, one JSON line with the kernels, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without a CUDA card it exits 1 and prints no result.
@@ -67,6 +86,8 @@ Usage: ``python3 chip_smoke.py`` (no arguments) from the repository root.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -133,6 +154,7 @@ def main(argv) -> int:
     from gt4py_tpu_torch import storage
     from gt4py_tpu_torch.cartesian import gtscript
     from gt4py_tpu_torch.cartesian.backend import cuda_backend, cuda_codegen
+    from tests import torch_next_defs as ndefs
     from tests import torch_stencil_defs as defs
 
     smi = subprocess.run(
@@ -143,14 +165,7 @@ def main(argv) -> int:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {card}")
 
-    def build(definition, backend, dtype, externals=None, fuse=False, **extra):
-        opts = {"dtypes": {"dt": dtype, "vadv_dt": dtype}, **extra}
-        if dtype == "float32":
-            opts.update(literal_float_precision=32, literal_int_precision=32)
-        return build_switched(
-            gtscript, fuse, backend=backend, definition=definition,
-            externals=externals or {}, **opts,
-        )
+    build = functools.partial(build_stencil, gtscript)
 
     def inputs(case, dtype, shape, seed):
         return {n: in_dtype(v, dtype) for n, v in make_host(case, shape, seed, np).items()}
@@ -193,12 +208,15 @@ def main(argv) -> int:
             ("lag_read_before_write", defs.lag_read_before_write),
         )
     ]
+    nruns = prepare_next_runs(ndefs, NK)
     t0 = time.perf_counter()
-    stencils = [r["kern"] for r in runs + registry + halves + sweeps]
-    cuda_backend.build_libraries(st._backend.module.source for st in stencils)
-    for st in stencils:
-        st._backend._functions()  # load
-    print(f"built and loaded {len(stencils)} stencils in {time.perf_counter() - t0:.1f} s")
+    backends = [r["kern"]._backend for r in runs + registry + halves + sweeps]
+    backends += [r["variant"].backend for r in nruns]
+    cuda_backend.build_libraries(b.module.source for b in backends)
+    for b in backends:
+        b._functions()  # load
+    print(f"built and loaded {len(backends)} stencils ({len(nruns)} bridged field-view "
+          f"variants) in {time.perf_counter() - t0:.1f} s")
 
     # -- 2. the main paths, each counted -------------------------------------------
     for run in runs:
@@ -382,6 +400,56 @@ def main(argv) -> int:
                                   "case": {"name": sweep["name"]}, "dtype": "float64"},
                                  cuda_backend))
 
+    # -- 7. the field-view path: operators through the bridge, each counted ---------
+    t0 = time.perf_counter()
+    for run in nruns:
+        run_next_main_path(run, ndefs, cuda_backend, torch)
+    by_path = {(r["case"]["name"], r["dtype"]): r for r in runs}
+    for run in nruns:
+        like = run["case"]["like"] + ("_fused" if run["fuse"] else "")
+        cart = by_path[(like, run["dtype"])]
+        check_next_run(run, ndefs, cart["kern"], storage, torch)
+        time_next_run(run, ndefs, torch)
+        run["chain_device_ms"] = cart["device_ms"]
+        nbytes = compulsory_bytes(as_stencil(run["variant"]))
+        flops = operations(as_stencil(run["variant"]))
+        run["bound_ms"], run["bound_by"] = max(
+            (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+            (flops / PEAK_FLOPS[run["dtype"]] * 1e3, "operations"),
+        )
+    print(f"field-view phase on {smi}, {NI}x{NJ}x{NK}, through gtx.field_operator(..., "
+          f"backend=\"cuda:hopper\") on card fields, in {time.perf_counter() - t0:.1f} s: "
+          "each served by the bridge's variant on its kernel, == the torch backend on the card "
+          "within rtol (float32 1e-5, float64 1e-12), == the cartesian stencil on the same "
+          "data to the bit; device us per call of 20 calls behind a spin kernel "
+          "(field view, cartesian __call__, field view / cartesian), the cartesian path's "
+          "chain(20) step from section 4, a warm call's host us, the plain version's ms:")
+    for run in nruns:
+        print(f"  {next_tag(run):25s} {run['dtype']:8s} {run['kernel']:12s} "
+              f"launches {run['launches']}  max abs err {run['max_abs_err']:.3e} (torch), "
+              f"{run['cart_abs_err']:.3e} (cartesian, same bits: {run['cart_same_bits']})  "
+              f"device {run['device_ms'] * 1e3:8.2f} us ({run['device_pair'][0] * 1e3:.2f}, "
+              f"{run['device_pair'][1] * 1e3:.2f})  cartesian {run['cart_call_ms'] * 1e3:8.2f} us "
+              f"({run['cart_pair'][0] * 1e3:.2f}, {run['cart_pair'][1] * 1e3:.2f})  "
+              f"ratio {run['device_ms'] / run['cart_call_ms']:.4f}  "
+              f"chain step {run['chain_device_ms'] * 1e3:8.2f} us  "
+              f"warm call {run['call_host_ms'] * 1e3:7.1f} us on the host  "
+              f"plain {run['plain_ms']:.2f} ms  bound {run['bound_ms'] * 1e3:.1f} us "
+              f"({run['bound_by']})")
+    if tool:
+        print("SASS instructions of the bridged kernels, as for the main paths':")
+    for run in nruns if tool else ():
+        if run["fuse"]:
+            continue
+        source = run["variant"].backend.module.source
+        for kernel, counts in sorted(sass_counts(source, cuda_backend, tool).items()):
+            print(f"  {run['case']['name']:19s} {run['dtype']:8s} {kernel:22s} "
+                  + "; ".join(f"{part} " + ", ".join(f"{c} {n}" for c, n in by.items())
+                              for part, by in counts.items()))
+    err = check_unstructured_on_card(ndefs, torch)
+    print(f"unstructured: edge_sum (neighbor_sum through a V2E table with missing "
+          f"neighbours) embedded on the card == the CPU run (max abs err {err:.3e})")
+
     kernels = [
         {
             "name": f"{run['case']['kernel']}/{run['case']['name']}/{run['dtype']}",
@@ -407,6 +475,29 @@ def main(argv) -> int:
             "copy_gbs": copy_gbs,
         }
         for run in runs
+    ]
+    kernels += [
+        {
+            "name": f"{run['kernel']}/{run['case']['name']}"
+                    f"{'_switch_on' if run['fuse'] else ''}/{run['dtype']}",
+            "route": "cuda",
+            "entry": "field_view_bridge",
+            "source": SOURCE,
+            "replaces": REPLACES[run["kernel"]],
+            "launches": run["launches"],
+            "max_abs_err": run["max_abs_err"],
+            "ms": run["device_ms"],
+            "cartesian_ms": run["cart_call_ms"],
+            "vs_cartesian": run["device_ms"] / run["cart_call_ms"],
+            "cartesian_same_bits": run["cart_same_bits"],
+            "cartesian_max_abs_err": run["cart_abs_err"],
+            "call_host_us": run["call_host_ms"] * 1e3,
+            "plain_ms": run["plain_ms"],
+            "bound_ms": run["bound_ms"],
+            "bound_by": run["bound_by"],
+            "library_ms": None,
+        }
+        for run in nruns
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
@@ -462,19 +553,37 @@ def path_cases(defs) -> list:
     return cases
 
 
-def build_switched(gtscript, fuse: bool, **options):
-    """``gtscript.stencil(**options)`` with the stage-fusion switch on or
-    off (it is read when a stencil is built, and is part of its
-    fingerprint)."""
+@contextlib.contextmanager
+def fusion_switch(fuse: bool):
+    """The stage-fusion switch on or off while the block runs (it is read
+    when a stencil or a bridged variant is built)."""
     saved = os.environ.get(FUSE_ENV)
     os.environ[FUSE_ENV] = "1" if fuse else "0"
     try:
-        return gtscript.stencil(**options)
+        yield
     finally:
         if saved is None:
             del os.environ[FUSE_ENV]
         else:
             os.environ[FUSE_ENV] = saved
+
+
+def build_stencil(gtscript, definition, backend, dtype, externals=None, fuse=False, **extra):
+    """A main path's stencil in ``dtype`` (float32: float32 literals)."""
+    opts = {"dtypes": {"dt": dtype, "vadv_dt": dtype}, **extra}
+    if dtype == "float32":
+        opts.update(literal_float_precision=32, literal_int_precision=32)
+    return build_switched(
+        gtscript, fuse, backend=backend, definition=definition,
+        externals=externals or {}, **opts,
+    )
+
+
+def build_switched(gtscript, fuse: bool, **options):
+    """``gtscript.stencil(**options)`` with the stage-fusion switch on or
+    off (it is part of the stencil's fingerprint)."""
+    with fusion_switch(fuse):
+        return gtscript.stencil(**options)
 
 
 def field_shape(case, name, shape):
@@ -676,12 +785,13 @@ def chain_fit(stencil, fields, run) -> tuple[float, float]:
     return slope, t20 - 20 * slope
 
 
-def compulsory_bytes(stencil, itemsize: int) -> int:
+def compulsory_bytes(stencil, itemsize: int = 0) -> int:
     """Bytes one application must move at the least, computed from shapes:
     each API field stored once if the stencil writes it, and read once if
     some read can reach a point before the stencil writes it there
     (:func:`initial_reads`), over the domain along the axes it has (halos
-    and temporaries left out)."""
+    and temporaries left out), ``itemsize`` bytes a point (0: each field's
+    own)."""
     needed = initial_reads(stencil._backend.analyzed, NK)
     total = 0
     for name, info in stencil.field_info.items():
@@ -690,8 +800,18 @@ def compulsory_bytes(stencil, itemsize: int) -> int:
             points = 1
             for n, on in zip((NI, NJ, NK), info.domain_mask):
                 points *= n if on else 1
-            total += points * itemsize * ((name in needed) + written)
+            size = itemsize or info.dtype.itemsize
+            total += points * size * ((name in needed) + written)
     return total
+
+
+def as_stencil(variant):
+    """A bridged variant seen as the stencil object :func:`compulsory_bytes`
+    and :func:`operations` read."""
+    import types
+
+    return types.SimpleNamespace(_backend=variant.backend,
+                                 field_info=variant.backend.analyzed.field_infos)
 
 
 def initial_reads(analyzed, nk: int) -> set:
@@ -1191,6 +1311,216 @@ def walk_report(run, cuda_backend) -> str:
             for k, (r, s) in sorted(ptxas.items())
         )
     )
+
+
+# -- the field-view phase -------------------------------------------------------
+
+
+def next_cases() -> list:
+    """The field-view main paths: the operator of tests/torch_next_defs.py,
+    the cartesian main path it is held against (same data, same kernel
+    class), and the fusion switch's settings it runs with: both where the
+    switch changes the kernel (next_tridiag goes to ``fused_column``), off
+    alone where it does not (next_vadv's lower-dimensional K index field
+    keeps it on ``column``)."""
+    return [
+        {"name": "next_hdiff", "op": "hdiff_op", "like": "hdiff", "fuse": (False,)},
+        {"name": "next_vadv", "op": "next_vadv", "like": "vadv", "fuse": (False,)},
+        {"name": "next_tridiag", "op": "solve_tridiag", "like": "tridiag", "fuse": (False, True)},
+    ]
+
+
+def bridged_variant(op):
+    """The bridge's variant serving ``op``; fails where the bridge took no
+    call (the operator ran embedded instead)."""
+    variants = [v for v in op.__dict__.get("_bridge_cache", {}).values() if v is not None]
+    if len(variants) != 1:
+        raise AssertionError(f"{op.definition.__name__}: the bridge holds {len(variants)} variants")
+    return variants[0]
+
+
+def prepare_next_runs(ndefs, nk: int, dtypes=("float32", "float64")) -> list:
+    """One run per field-view case, dtype and switch setting: the operator
+    on ``cuda:hopper``, called once on CPU fields of 8 × 8 × ``nk`` (the
+    plain version), which traces and builds its bridged variant for the
+    full-size call (the variant is keyed by dims, dtypes and the out K
+    range, not by I and J); fails where the variant's kernel is not the one
+    ``ndefs.KERNEL`` names."""
+    import numpy as np
+
+    runs = []
+    for dtype in dtypes:
+        for case in next_cases():
+            for fuse in case["fuse"]:
+                op = getattr(ndefs, case["op"]).with_backend("cuda:hopper")
+                args, kwargs, out = ndefs.inputs(case["op"], 8, 8, nk, np.dtype(dtype), 1, "cpu")
+                with fusion_switch(fuse):
+                    op(*args, out=out, offset_provider=ndefs.PROV_K, **kwargs)
+                variant = bridged_variant(op)
+                kernel = ndefs.KERNEL[case["op"]][int(fuse)]
+                if variant.backend.strategy != kernel:
+                    raise AssertionError(
+                        f"{case['name']} {dtype}: bridged onto {variant.backend.strategy}, "
+                        f"expected {kernel}"
+                    )
+                runs.append({"case": case, "dtype": dtype, "fuse": fuse, "op": op,
+                             "variant": variant, "kernel": kernel})
+    return runs
+
+
+def next_tag(run) -> str:
+    return f"{run['case']['name']}{' (switch on)' if run['fuse'] else ''}"
+
+
+def run_next_main_path(run, ndefs, cuda_backend, torch) -> None:
+    """The field-view main path of one run, counted: fields on the card at
+    the full width, the launch counts set to 0, one call of the operator
+    through ``cuda:hopper``, the counts read. The bridge must serve the call
+    with the variant built before and the kernel the table names, each of
+    its launchers launched once."""
+    import numpy as np
+
+    args, kwargs, out = ndefs.inputs(run["case"]["op"], NI, NJ, NK, np.dtype(run["dtype"]), 7)
+    for wrapper in cuda_backend.WRAPPERS.values():
+        wrapper.launches = 0
+    run["op"](*args, out=out, offset_provider=ndefs.PROV_K, **kwargs)
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in cuda_backend.WRAPPERS.items()}
+    variant = bridged_variant(run["op"])
+    expected = len(variant.backend.module.launchers)
+    if variant is not run["variant"] or variant.backend.last_strategy != run["kernel"]:
+        raise AssertionError(f"{next_tag(run)} {run['dtype']}: not served by the bridged "
+                             f"{run['kernel']} variant ({variant.backend.last_strategy})")
+    if counts[run["kernel"]] != expected or sum(counts.values()) != expected:
+        raise AssertionError(f"{next_tag(run)} {run['dtype']}: {counts}, not {expected} "
+                             f"launches of {run['kernel']}")
+    run.update(args=args, kwargs=kwargs, out=out, launches=counts[run["kernel"]])
+    print(f"launches on the {next_tag(run)} {run['dtype']} field-view path: {counts}")
+
+
+def check_next_run(run, ndefs, cart, storage, torch, device=None) -> None:
+    """The bridged result against the plain version (the port's ``torch``
+    backend, embedded Fields on the same card, same inputs) within
+    RTOL/ATOL, and against the port's cartesian stencil ``cart`` of the
+    same main path on the same data: equal to the bit, since the bridge
+    traces the operator into the same GTIR (``cart_same_bits``)."""
+    import numpy as np
+
+    dtype = np.dtype(run["dtype"])
+    got = run["out"].ndarray
+    args, kwargs, plain = ndefs.inputs(run["case"]["op"], NI, NJ, NK, dtype, 7, device)
+    getattr(ndefs, run["case"]["op"])(*args, out=plain, offset_provider=ndefs.PROV_K, **kwargs)
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{next_tag(run)} {run['dtype']}: non-finite values")
+    run["max_abs_err"] = float((got.double() - plain.ndarray.double()).abs().max())
+    if not torch.allclose(got, plain.ndarray, rtol=RTOL[run["dtype"]], atol=ATOL[run["dtype"]]):
+        raise AssertionError(f"{next_tag(run)} {run['dtype']}: the bridged kernel disagrees "
+                             f"with the torch backend (max abs err {run['max_abs_err']})")
+    want, run["cart_call"] = cartesian_twin(run, cart, storage)
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    run["cart_abs_err"] = float((got.double() - want.double()).abs().max())
+    run["cart_same_bits"] = same_bits(got.contiguous(), want.contiguous())
+    if not run["cart_same_bits"]:
+        raise AssertionError(f"{next_tag(run)} {run['dtype']}: differs from the cartesian "
+                             f"stencil (max abs err {run['cart_abs_err']})")
+
+
+def cartesian_twin(run, cart, storage):
+    """The cartesian stencil ``cart`` of the run's main path, called once on
+    storages holding the field-view run's inputs (its out field, or the
+    inputs it overwrites, copied fresh); returns its result over the
+    field-view out field's domain, and a function that calls it again."""
+    like, args, dtype = run["case"]["like"], run["args"], run["dtype"]
+    card = lambda f, origin: storage.from_array(  # noqa: E731
+        f.ndarray, backend="cuda:hopper", aligned_index=origin, device=f.device)
+    domain = (NI, NJ, NK)
+    if like == "hdiff":
+        inp, coeff = args
+        fields = {"in_field": card(inp, (2, 2, 0)), "coeff": card(coeff, (2, 2, 0)),
+                  "out_field": card(inp, (2, 2, 0))}
+        call = lambda: cart(**fields, domain=domain)  # noqa: E731
+        call()
+        return fields["out_field"].array[2:NI + 2, 2:NJ + 2], call
+    if like == "tridiag":
+        fields = {n: card(f, (0, 0, 0)) for n, f in zip(("inf", "diag", "sup", "rhs"), args)}
+        fields["out"] = card(args[3], (0, 0, 0))
+        call = lambda: cart(**fields, domain=domain)  # noqa: E731
+        call()
+        return fields["out"].array, call
+    names = ("utens_stage", "u_stage", "wcon", "u_pos", "utens")
+    fields = {n: card(f, (0, 0, 1)) for n, f in zip(names, args)}
+    call = lambda: cart(**fields, dtr_stage=args[-1], domain=domain)  # noqa: E731
+    call()
+    return fields["utens_stage"].array[:NI, :, 1:NK + 1], call
+
+
+def time_next_run(run, ndefs, torch) -> None:
+    """The field-view run's times: device ms per call of ``n`` calls queued
+    behind a spin kernel (``device_ms``), the same of the cartesian
+    stencil's calls on the same data (``cart_call_ms``, timed after, in
+    turn, so that one reading of each sits beside the other), a warm call's
+    host ms behind a spin (``call_host_ms``), and the plain version's ms per
+    call by CUDA events (``plain_ms``)."""
+    n = 20
+    op, args, kwargs, out = run["op"], run["args"], run["kwargs"], run["out"]
+    call = lambda: op(*args, out=out, offset_provider=ndefs.PROV_K, **kwargs)  # noqa: E731
+    call()
+    cart = run["cart_call"]
+    fv1 = spin_ms(lambda: [call() for _ in range(n)], n, next_tag(run))
+    ct1 = spin_ms(lambda: [cart() for _ in range(n)], n, next_tag(run) + " (cartesian)")
+    ct2 = spin_ms(lambda: [cart() for _ in range(n)], n, next_tag(run) + " (cartesian)")
+    fv2 = spin_ms(lambda: [call() for _ in range(n)], n, next_tag(run))
+    run["device_ms"], run["cart_call_ms"] = (fv1 + fv2) / 2, (ct1 + ct2) / 2
+    run["device_pair"], run["cart_pair"] = (fv1, fv2), (ct1, ct2)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    run["call_host_ms"] = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    plain = getattr(ndefs, run["case"]["op"])
+    plain_call = lambda: plain(*args, out=out, offset_provider=ndefs.PROV_K, **kwargs)  # noqa: E731
+    plain_call()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        plain_call()
+    end.record()
+    end.synchronize()
+    run["plain_ms"] = start.elapsed_time(end) / 3
+
+
+def check_unstructured_on_card(ndefs, torch) -> float:
+    """``edge_sum`` (``neighbor_sum`` through the toy mesh's V2E table with
+    missing neighbours) embedded on the card, against the same on the CPU;
+    no kernel is involved. Returns the largest absolute difference."""
+    import numpy as np
+
+    import gt4py_tpu_torch.next as gtx
+    from gt4py_tpu_torch.next import field_utils
+
+    _, v2e = ndefs.toy_mesh_tables()
+    v2e = ndefs.with_skips(v2e)
+    edges = np.random.default_rng(17).random(18)
+    out = {}
+    for device in ("cuda", "cpu"):
+        conn = field_utils.connectivity_from_numpy(
+            v2e, [ndefs.Vertex, ndefs.V2EDim], ndefs.Edge, skip_value=-1, device=device)
+        e = gtx.as_field([ndefs.Edge], edges, device=device)
+        res = gtx.zeros({ndefs.Vertex: 9}, device=device)
+        ndefs.edge_sum(e, out=res, offset_provider={"V2E": conn})
+        out[device] = res
+    if out["cuda"].device.type != "cuda":
+        raise AssertionError("edge_sum did not run on the card")
+    torch.cuda.synchronize()
+    got, want = out["cuda"].asnumpy(), out["cpu"].asnumpy()
+    if not np.allclose(got, want, rtol=RTOL["float64"], atol=0.0):
+        raise AssertionError(f"edge_sum on the card disagrees with the CPU: {got} vs {want}")
+    return float(np.abs(got - want).max())
 
 
 if __name__ == "__main__":

@@ -44,7 +44,7 @@ def run_plain(analyzed, arrays, scalars, domain, origins) -> dict[str, torch.Ten
 @register
 class TorchBackend(Backend):
     name = "torch"
-    storage_info = {"alignment": 64, "device": "cpu"}
+    storage_info = {"alignment": 64, "device": "cuda"}
 
     def run(self, arrays, scalars, domain, origins) -> dict[str, Any]:
         self.last_strategy = "plain"

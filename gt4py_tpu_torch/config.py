@@ -1,15 +1,18 @@
 """Environment-driven configuration flags.
 
-Copied from gt4py_tpu/config.py; imports renamed. Only the build and cache
-settings that the port reads are kept; the debug and JIT flags of the
-JAX package belong to ``next/``, which is not ported yet. Values are read
-once at import; tests may monkeypatch module attributes directly.
+Copied from gt4py_tpu/config.py; imports renamed. Only the settings that
+the port reads are kept: the build and cache settings, and the debug
+flags that ``next/errors.py`` reads. The JAX package's JIT and Pallas
+switches have no counterpart. Values are read once at import; tests may
+monkeypatch module attributes directly.
 
 Environment variables honored (reference names kept where meaningful):
 
 - ``GT_CACHE_ROOT``           cache root directory (default ``./.gt_cache``);
                               the port keeps its caches under ``<root>/torch``
 - ``GT_CACHE_DIR_NAME``       subdirectory name for per-project caches
+- ``GT4PY_DEBUG``             verbose exceptions + debug artifacts
+- ``GT4PY_VERBOSE_EXCEPTIONS``
 - ``GT4PY_BUILD_CACHE_LIFETIME``  ``session`` | ``persistent``
 - ``GT4PY_COLLECT_METRICS_LEVEL`` (instrumentation/metrics.py)
 - ``GT4PY_DUMP_METRICS_AT_EXIT``
@@ -27,6 +30,20 @@ from __future__ import annotations
 import enum
 import os
 import tempfile
+from typing import Final
+
+
+def env_flag_to_bool(name: str, default: bool) -> bool:
+    """Parse a boolean env var (reference: next/config.py:59)."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    v = raw.strip().lower()
+    if v in ("1", "true", "yes", "on"):
+        return True
+    if v in ("0", "false", "no", "off", ""):
+        return False
+    raise ValueError(f"Invalid boolean value {raw!r} for environment variable {name}")
 
 
 class BuildCacheLifetime(enum.Enum):
@@ -35,6 +52,12 @@ class BuildCacheLifetime(enum.Enum):
     SESSION = "session"
     PERSISTENT = "persistent"
 
+
+#: Master debug switch (reference GT4PY_DEBUG, next/config.py:96).
+DEBUG: Final[bool] = env_flag_to_bool("GT4PY_DEBUG", False)
+
+#: Pretty-printed DSL exceptions with source frames (next/config.py:104).
+VERBOSE_EXCEPTIONS: bool = env_flag_to_bool("GT4PY_VERBOSE_EXCEPTIONS", DEBUG)
 
 #: Root of all persistent caches (reference GT_CACHE_ROOT, cartesian/config.py:83).
 #: The port's own subdirectory, so it never shares fingerprints with gt4py_tpu.

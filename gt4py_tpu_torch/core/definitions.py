@@ -123,27 +123,85 @@ class DType:
         return f"DType({self.name})"
 
 
-def _bf16_promotion(other: np.dtype) -> np.dtype:
-    """bfloat16 × ``other``, where NumPy has no lattice: JAX's, as the JAX
-    package follows it (passes/type_inference.py:198-212, which asks
-    ``jnp.promote_types``): bool and integers adapt to bfloat16, float16
-    and float32 meet it at float32, float64 stays."""
-    if other == bfloat16 or other.kind in "biu":
-        return bfloat16
-    if other == np.float64:
-        return np.dtype(np.float64)
-    if other.kind == "f":
-        return np.dtype(np.float32)
-    raise TypeError(f"no promotion of bfloat16 with {other}")
+# JAX's type-promotion lattice with 64-bit types on, as the JAX package runs
+# it (``jax_enable_x64``, gt4py_tpu/__init__.py): each type's direct
+# successors. ``WEAK_INT`` and ``WEAK_FLOAT`` are the weak types of Python
+# ``int`` and ``float`` operands: they adapt to the other operand's type
+# (``float32_field * 2.0`` stays float32) and, on their own, stand for int64
+# and float64. The field-view embedded path promotes by this table, since
+# torch's own rules differ (an int32 tensor plus a Python float gives
+# float32 there, float64 here).
+WEAK_INT = "int*"
+WEAK_FLOAT = "float*"
+_B, _F16, _F32, _F64 = np.dtype(bool), np.dtype(np.float16), np.dtype(np.float32), np.dtype(np.float64)
+_I = {n: np.dtype(f"int{n}") for n in (8, 16, 32, 64)}
+_U = {n: np.dtype(f"uint{n}") for n in (8, 16, 32, 64)}
+_LATTICE: dict = {
+    _B: (WEAK_INT,),
+    WEAK_INT: (_U[8], _I[8]),
+    _U[8]: (_U[16], _I[16]),
+    _U[16]: (_U[32], _I[32]),
+    _U[32]: (_U[64], _I[64]),
+    _U[64]: (WEAK_FLOAT,),
+    _I[8]: (_I[16],),
+    _I[16]: (_I[32],),
+    _I[32]: (_I[64],),
+    _I[64]: (WEAK_FLOAT,),
+    WEAK_FLOAT: (bfloat16, _F16),
+    bfloat16: (_F32,),
+    _F16: (_F32,),
+    _F32: (_F64,),
+    _F64: (),
+}
+
+
+def _upper_bounds(t) -> frozenset:
+    seen, todo = set(), [t]
+    while todo:
+        x = todo.pop()
+        if x not in seen:
+            seen.add(x)
+            todo.extend(_LATTICE[x])
+    return frozenset(seen)
+
+
+_UPPER = {t: _upper_bounds(t) for t in _LATTICE}
+
+
+def promote_types(*types) -> tuple[np.dtype, bool]:
+    """The JAX result type of operands of ``types`` (NumPy dtypes, or
+    :data:`WEAK_INT`/:data:`WEAK_FLOAT` for Python scalars): ``(dtype,
+    weak)``, where ``weak`` says the result is itself a weak type, as when
+    every operand is a Python scalar."""
+    keys = [t if t in (WEAK_INT, WEAK_FLOAT) else as_dtype(t) for t in types]
+    for k in keys:
+        if k not in _UPPER:
+            raise TypeError(f"no JAX promotion for {k}")
+    common = frozenset.intersection(*(_UPPER[k] for k in keys))
+    lub = next(c for c in common if common <= _UPPER[c])
+    if lub == WEAK_INT:
+        return np.dtype(np.int64), True
+    if lub == WEAK_FLOAT:
+        return np.dtype(np.float64), True
+    return lub, False
 
 
 def upcast(a: Any, b: Any) -> np.dtype:
     """Implicit binary-op result dtype, matching the reference's upcasting
     rules (gtc/passes/gtir_upcaster.py): standard NumPy promotion, and the
-    JAX lattice for bfloat16."""
+    JAX lattice for bfloat16, as the JAX package follows it
+    (passes/type_inference.py:198-212, which asks ``jnp.promote_types``)."""
     a, b = as_dtype(a), as_dtype(b)
-    if a == bfloat16:
-        return _bf16_promotion(b)
-    if b == bfloat16:
-        return _bf16_promotion(a)
+    if bfloat16 in (a, b):
+        return promote_types(a, b)[0]
     return np.promote_types(a, b)
+
+
+def to_inexact(dtype: Any) -> np.dtype:
+    """JAX's floating type for an operation that needs one (true division,
+    ``sin``): floats stay; bool and integers of up to 32 bits give float32,
+    64-bit integers float64."""
+    dt = as_dtype(dtype)
+    if is_float_dtype(dt):
+        return dt
+    return np.dtype(np.float64 if dt.itemsize == 8 else np.float32)

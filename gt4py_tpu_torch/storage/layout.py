@@ -48,5 +48,5 @@ def from_name(backend_name: str) -> Optional[LayoutInfo]:
 # K major, then I, then J (minor): layout_map gives each of (I, J, K) its rank.
 _KIJ = (1, 2, 0)
 
-register("torch", LayoutInfo(alignment=64, device="cpu", layout_map=_KIJ))
+register("torch", LayoutInfo(alignment=64, device="cuda", layout_map=_KIJ))
 register("cuda:hopper", LayoutInfo(alignment=128, device="cuda", layout_map=_KIJ))

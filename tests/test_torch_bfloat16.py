@@ -247,17 +247,17 @@ def test_bf16_token_is_its_own_dtype():
 
 def test_bf16_storage_rounds_to_nearest_even_and_reads_back_as_float32():
     src = _uniform((5, 4, 3), 21)
-    st = storage.from_array(src, dtype="bfloat16", backend="torch")
+    st = storage.from_array(src, dtype="bfloat16", backend="torch", device="cpu")
     assert st.dtype == bfloat16 and st.array.dtype == torch.bfloat16
     want = src.astype(ref_bfloat16).astype(np.float32)  # ml_dtypes: nearest even
     np.testing.assert_array_equal(np.asarray(st), want)
     np.testing.assert_array_equal(asnumpy(st.array), want)
-    assert storage.zeros((2, 2, 2), torch.bfloat16).array.dtype == torch.bfloat16
+    assert storage.zeros((2, 2, 2), torch.bfloat16, device="cpu").array.dtype == torch.bfloat16
 
 
 def test_bf16_poison_fill_is_nan(monkeypatch):
     monkeypatch.setenv("GT4PY_DEBUG_POISON_EMPTY", "1")
-    st = storage.empty((2, 2, 2), "bfloat16", backend="torch")
+    st = storage.empty((2, 2, 2), "bfloat16", backend="torch", device="cpu")
     assert bool(torch.isnan(st.array).all())
 
 

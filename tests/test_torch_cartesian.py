@@ -549,7 +549,7 @@ def test_chain_zero_steps_changes_nothing():
     entry = defs.REGISTRY["horizontal_diffusion"]
     st = port_gtscript.stencil(backend="torch", definition=entry["definition"])
     host = _inputs(["in_field", "out_field", "coeff"], (12, 12, 3), seed=1)
-    fields = {n: storage.from_array(v, aligned_index=(2, 2, 0)) for n, v in host.items()}
+    fields = {n: storage.from_array(v, aligned_index=(2, 2, 0), device="cpu") for n, v in host.items()}
     st.chain(0, **fields, swap={"in_field": "out_field", "out_field": "in_field"})
     for n in host:
         np.testing.assert_array_equal(np.asarray(fields[n]), host[n])
@@ -557,8 +557,8 @@ def test_chain_zero_steps_changes_nothing():
 
 def test_chain_rejects_non_permutation():
     st = port_gtscript.stencil(backend="torch", definition=defs.copy_stencil)
-    a = storage.zeros((4, 4, 2))
-    b = storage.zeros((4, 4, 2))
+    a = storage.zeros((4, 4, 2), device="cpu")
+    b = storage.zeros((4, 4, 2), device="cpu")
     with pytest.raises(ValueError, match="permutation"):
         st.chain(2, a, b, swap={"field_a": "field_b"})
 
@@ -577,7 +577,7 @@ def test_storage_layout_is_k_leading(backend):
 
 @pytest.mark.parametrize("fn", ["empty", "zeros", "ones"])
 def test_storage_constructors(fn):
-    s = getattr(storage, fn)((3, 4, 2), np.float64, aligned_index=(1, 1, 0))
+    s = getattr(storage, fn)((3, 4, 2), np.float64, aligned_index=(1, 1, 0), device="cpu")
     assert s.shape == (3, 4, 2)
     assert s.__gt_origin__ == (1, 1, 0)
     assert s.device.type == "cpu"
@@ -588,7 +588,7 @@ def test_storage_constructors(fn):
 
 
 def test_storage_full_and_data_dims():
-    s = storage.full((3, 4, 2, 3), 2.5, dimensions=("I", "J", "K", "0"))
+    s = storage.full((3, 4, 2, 3), 2.5, dimensions=("I", "J", "K", "0"), device="cpu")
     assert s.shape == (3, 4, 2, 3)
     assert s.__gt_dims__ == ("I", "J", "K", "0")
     assert s.array.stride()[3] == 1  # data dimension innermost
@@ -624,8 +624,19 @@ def test_cuda_storage_needs_a_card():
         storage.zeros((4, 4, 4), backend="cuda:hopper")
 
 
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+def test_storage_defaults_to_the_card(backend):
+    """Both backends' storages default to the card, as the JAX package's
+    ``jax`` backend allocates on its accelerator; the CPU is only ever
+    asked for (``device="cpu"``)."""
+    from gt4py_tpu_torch.storage import layout
+
+    assert layout.from_name(backend).device == "cuda"
+    assert storage.zeros((2, 2, 2), backend=backend, device="cpu").device.type == "cpu"
+
+
 def test_storage_copy_and_setitem():
-    s = storage.from_array(np.arange(24.0).reshape(2, 3, 4))
+    s = storage.from_array(np.arange(24.0).reshape(2, 3, 4), device="cpu")
     c = s.copy()
     s[0, 0, 0] = -1.0
     assert float(np.asarray(c)[0, 0, 0]) == 0.0

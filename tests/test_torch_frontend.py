@@ -2,6 +2,11 @@
 for the same definition, ``gtir_pretty.pretty`` of the port's analyzed
 stencil equals the JAX package's, text for text."""
 
+import ast
+import difflib
+import os
+import re
+
 import numpy as np
 import pytest
 
@@ -13,6 +18,8 @@ from gt4py_tpu_torch.cartesian.gtir_pretty import parse, pretty
 from . import torch_stencil_defs as defs
 from .cartesian_tests import stencil_defs as ref_defs
 from .test_torch_cartesian import JAX_TWINS
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _pretty_pair(name, *, backend="torch", **options):
@@ -67,3 +74,61 @@ def test_bfloat16_literals_build():
     assert ":bf16" in mine
     assert mine == ref
     assert pretty(parse(mine)) == mine
+
+
+# --- the field-view front half (gt4py_tpu_torch.next) -------------------------------
+
+#: the port's copies of the JAX package's array-free field-view modules
+NEXT_COPIES = (
+    "errors.py", "frontend_validation.py", "type_system.py", "fingerprinting.py",
+    "experimental.py", "typing.py", "foast.py", "foast_passes.py",
+    "type_deduction.py", "past.py",
+)
+#: what the JAX package's side of a differing hunk must name: JAX itself,
+#: or a module the port does not have yet; the port's side names none
+_JAX_WORDS = re.compile(r"\bjax\b|\bjnp\b|\blax\b|\bXLA\b|ml_dtypes|\b_?stages\b")
+#: differing lines a copy may hold at most, on the JAX package's side
+_MAX_DIFFERING = 16
+
+
+def _module_body(path: str, rename: bool) -> list:
+    """A module's source lines after its docstring; ``rename``: as the port
+    copies it (imports renamed, machine paths dropped)."""
+    with open(path) as f:
+        text = f.read()
+    if rename:
+        text = re.sub(r"/\w+/reference/", "", text)
+        text = re.sub(r"\bgt4py_tpu\b", "gt4py_tpu_torch", text)
+    start = ast.parse(text).body[0].end_lineno
+    return text.splitlines()[start:]
+
+
+@pytest.mark.parametrize("name", NEXT_COPIES)
+def test_next_copy_has_not_drifted(name):
+    """Each copied ``next`` module equals the JAX package's, imports
+    renamed, but for hunks that replace a use of JAX: a change to either
+    copy's array-free code fails here."""
+    theirs = _module_body(os.path.join(REPO_ROOT, "gt4py_tpu", "next", name), rename=True)
+    ours = _module_body(os.path.join(REPO_ROOT, "gt4py_tpu_torch", "next", name), rename=False)
+    matcher = difflib.SequenceMatcher(a=theirs, b=ours, autojunk=False)
+    differing = 0
+    for tag, i1, i2, j1, j2 in matcher.get_opcodes():
+        if tag == "equal":
+            continue
+        ref_side, port_side = "\n".join(theirs[i1:i2]), "\n".join(ours[j1:j2])
+        assert _JAX_WORDS.search(ref_side), f"{name} drifted:\n-{ref_side}\n+{port_side}"
+        assert not _JAX_WORDS.search(port_side), f"{name}: the port's copy names JAX:\n{port_side}"
+        differing += i2 - i1
+    assert differing <= _MAX_DIFFERING, f"{name}: {differing} lines differ"
+
+
+@pytest.mark.parametrize("name", ["lap", "hdiff_op", "solve_tridiag", "next_vadv"])
+def test_next_foast_source_matches_reference(name):
+    """The copied FOAST pipeline emits the same source for the same
+    operator in both packages."""
+    from tests.next_tests import test_cartesian_bridge as ref_ops
+
+    from . import torch_next_defs as next_defs
+
+    assert getattr(next_defs, name).inspect(stage="foast") == getattr(ref_ops, name).inspect(
+        stage="foast")

@@ -29,6 +29,7 @@ ALLOWED = {
     "storage": {"core", "eve", "config"},
     "instrumentation": {"config"},
     "cartesian": {"core", "eve", "storage", "config", "instrumentation"},
+    "next": {"core", "eve", "storage", "config", "instrumentation", "cartesian"},
 }
 
 
@@ -74,11 +75,18 @@ def test_stencil_defs_helper_imports_no_jax():
     assert not bad
 
 
+def test_next_defs_helper_imports_no_jax():
+    path = os.path.join(REPO_ROOT, "tests", "torch_next_defs.py")
+    bad = [m for m in _imports_of(path) if _top(m) in FORBIDDEN]
+    assert not bad
+
+
 def test_import_leaves_jax_unloaded():
     code = (
         "import sys\n"
         "import gt4py_tpu_torch.cartesian.gtscript, gt4py_tpu_torch.storage\n"
         "import gt4py_tpu_torch.cartesian.backend\n"
+        "import gt4py_tpu_torch.next, gt4py_tpu_torch.next.cartesian_bridge\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'gt4py_tpu')]\n"
         "print(','.join(sorted(bad)))\n"
@@ -131,13 +139,21 @@ def test_own_registries():
     from gt4py_tpu_torch.cartesian import backend
     from gt4py_tpu_torch.storage import layout
 
+    from gt4py_tpu_torch.next import backend as next_backend
+
     assert sorted(backend.REGISTRY) == ["cuda:hopper", "torch"]
     assert sorted(layout.REGISTRY) == ["cuda:hopper", "torch"]
+    assert {n: b.kind for n, b in next_backend.REGISTRY.items()} == {
+        "cuda:hopper": "pallas", "torch": "eager"}
 
 
 def test_reference_registry_untouched():
     import gt4py_tpu_torch.cartesian.backend  # noqa: F401
+    import gt4py_tpu_torch.next  # noqa: F401
     from gt4py_tpu.cartesian import backend as ref_backend
+    from gt4py_tpu.next import backend as ref_next_backend
 
     assert "torch" not in ref_backend.REGISTRY
     assert "cuda:hopper" not in ref_backend.REGISTRY
+    assert "torch" not in ref_next_backend.REGISTRY
+    assert "cuda:hopper" not in ref_next_backend.REGISTRY
