@@ -77,6 +77,24 @@ swap cycle of the kernels as a CUDA graph.
    (``neighbor_sum`` through a connectivity with missing neighbours) runs
    embedded on the card and is held against the CPU.
 
+8. Oracle phases, on the card's host: the port's ``numpy`` backend
+   (the exact oracle, NumPy on CPU tensors) holds every registry build of
+   step 5, and every half one, at the tolerances of the plain version
+   (rtol 1e-12 in float64, 1e-5 in float32, the half ones as there), its
+   largest error printed for each kernel class; the per-point ``debug``
+   backend holds hdiff, vadv and tridiag at 12×12×8 in float32 and float64;
+   and at full width (256×256×80, halo 2, float64) the ``numpy`` and
+   ``cpu:c`` backends (C built with the host's ``cc`` and OpenMP) each
+   run hdiff, vadv and tridiag from the main path's inputs, equal to the
+   kernel within rtol 1e-12, and print their ms a call beside its device µs.
+9. Profiler phase: five warm ``__call__``s of hdiff (``plane``, float32)
+   and five of ``next_hdiff`` under ``instrumentation.gpu_trace``: the
+   device work in the trace must be exactly the generated kernel plus the
+   fills and copies its wrapper makes (none for hdiff), no other kernel (a
+   kernel of the plain version would show here); prints each call's host
+   µs from its start to the kernel's launch, from the trace, and their
+   median over calls 2-5 (the first carries the profiler's start-up).
+
 Prints the card's name and power limit, one JSON line with the kernels, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without a CUDA card it exits 1 and prints no result.
@@ -118,6 +136,10 @@ ITEMSIZE = {"float16": 2, "bfloat16": 2, "float32": 4, "float64": 8}
 
 #: registry phase: domain and halo
 REG_N, REG_HALO = 32, 3
+#: the main paths held against the debug backend, at this domain, and
+#: against the numpy and cpu:c backends at full width in float64
+DEBUG_DOMAIN = (12, 12, 8)
+ORACLE_PATHS = ("hdiff", "vadv", "tridiag")
 #: kernel -> the TPU pallas_call it replaces
 REPLACES = {
     "plane": "gt4py_tpu/cartesian/backend/pallas_split.py:424",
@@ -371,15 +393,23 @@ def main(argv) -> int:
     for reg in registry:
         by_kernel[reg["entry"]["strategy"]] = by_kernel.get(reg["entry"]["strategy"], 0) + 1
     print(f"registry: {len(registry)} stencils at {REG_N}x{REG_N}, each through its pinned "
-          f"kernel ({by_kernel}) == plain, in {time.perf_counter() - t0:.1f} s")
+          f"kernel ({by_kernel}) == plain and == the numpy backend on the host (rtol float64 "
+          f"{RTOL['float64']}, float32 {RTOL['float32']}), in {time.perf_counter() - t0:.1f} s")
+    worst: dict = {}
+    for reg in registry:
+        kernel = reg["entry"]["strategy"]
+        worst[kernel] = max(worst.get(kernel, (0.0, "")), (reg["oracle_err"], reg["name"]))
+    print("  largest relative error against the numpy backend, by kernel: "
+          + ", ".join(f"{k} {e:.3e} ({name})" for k, (e, name) in sorted(worst.items())))
     for reg in halves:
         run_half_stencil(reg, defs, storage, cuda_backend, np, torch)
     for dtype in HALVES:
         done = [r for r in halves if r["dtype"] == dtype]
         print(f"{dtype}: {len(done)} stencils at {REG_N}x{REG_N}, one on each kernel, == plain "
-              f"within rtol = atol = tol; max abs err (tol) "
-              + ", ".join(f"{r['name']} ({r['entry'][1]}) {r['err']:.3e} ({r['tol']})"
-                          for r in done))
+              f"and == the numpy backend within rtol = atol = tol; max abs err against plain, "
+              f"against numpy (tol) "
+              + ", ".join(f"{r['name']} ({r['entry'][1]}) {r['err']:.3e}, {r['oracle_err']:.3e} "
+                          f"({r['tol']})" for r in done))
 
     # -- 6. the lagged sweeps, one cooperative tiled launch a call ----------------
     t0 = time.perf_counter()
@@ -450,6 +480,57 @@ def main(argv) -> int:
     print(f"unstructured: edge_sum (neighbor_sum through a V2E table with missing "
           f"neighbours) embedded on the card == the CPU run (max abs err {err:.3e})")
 
+    # -- 8. the oracles on the host: debug, and numpy and cpu:c at full width ----------
+    t0 = time.perf_counter()
+    oracle_runs = [r for r in runs if r["case"]["name"] in ORACLE_PATHS]
+    for run in oracle_runs:
+        if run["dtype"] in ("float32", "float64"):
+            run["debug_err"] = check_debug(run, gtscript, storage, np, torch)
+    print(f"debug backend at {DEBUG_DOMAIN[0]}x{DEBUG_DOMAIN[1]}x{DEBUG_DOMAIN[2]} == the kernel "
+          f"within rtol (float32 {RTOL['float32']}, float64 {RTOL['float64']}), in "
+          f"{time.perf_counter() - t0:.1f} s; max abs err "
+          + ", ".join(f"{r['case']['name']} {r['dtype']} {r['debug_err']:.3e}"
+                      for r in oracle_runs if "debug_err" in r))
+    print(f"full width on the host ({os.cpu_count()} cores), {NI}x{NJ}x{NK} float64, one call "
+          f"each == the kernel within rtol {RTOL['float64']}; ms a call (host clock, mean of "
+          f"two) beside the kernel's device us a step (section 4):")
+    for run in oracle_runs:
+        if run["dtype"] != "float64":
+            continue
+        run["host_backends"] = hb = run_host_backends(run, gtscript, storage, np, torch)
+        print(f"  {run['case']['name']:8s} numpy {hb['numpy']['ms']:9.1f} ms "
+              f"(max abs err {hb['numpy']['max_abs_err']:.3e})  cpu:c {hb['cpu:c']['ms']:8.1f} ms "
+              f"(max abs err {hb['cpu:c']['max_abs_err']:.3e})  kernel "
+              f"{run['device_ms'] * 1e3:8.1f} us  (numpy / kernel "
+              f"{hb['numpy']['ms'] / run['device_ms']:.0f}x, cpu:c / kernel "
+              f"{hb['cpu:c']['ms'] / run['device_ms']:.0f}x)")
+
+    # -- 9. the profiler: a warm call runs its generated kernel and nothing else -----
+    hdiff32 = by_path[("hdiff", "float32")]
+    hfields = card_fields(hdiff32["host"], origin, hdiff32["case"], storage)
+    traced = [(
+        "hdiff float32 __call__",
+        trace_warm_call(lambda: hdiff32["kern"](**hfields, domain=domain),
+                        hdiff32["kern"]._backend.module, "gt4py_warm_call", cuda_backend, torch),
+    )]
+    nhdiff = next(r for r in nruns if r["case"]["name"] == "next_hdiff" and r["dtype"] == "float32")
+    traced.append((
+        "next_hdiff float32 call",
+        trace_warm_call(
+            lambda: nhdiff["op"](*nhdiff["args"], out=nhdiff["out"], offset_provider=ndefs.PROV_K,
+                                 **nhdiff["kwargs"]),
+            nhdiff["variant"].backend.module, "gt4py_warm_call", cuda_backend, torch),
+    ))
+    print(f"profiler on {smi}: a warm call under gpu_trace (torch.profiler, CPU and CUDA), its "
+          "device work == its generated kernel and the fills and copies its wrapper makes:")
+    for tag, tr in traced:
+        print(f"  {tag:26s} device work a call {tr['work']}; median of calls 2-5: host "
+              f"{tr['call_us']:.1f} us a call, {tr['to_launch_us']} us from its start to the "
+              f"launch ({tr['launch_api']}: {tr['launch_us']} us), kernel {tr['kernel_us']} us "
+              f"on the device; each call (call, to launch, launch) us: "
+              + "; ".join(f"{c['call_us']:.1f}, {c['to_launch_us']}, {c['launch_us']}"
+                          for c in tr["splits"]) + f"  trace {tr['trace']}")
+
     kernels = [
         {
             "name": f"{run['case']['kernel']}/{run['case']['name']}/{run['dtype']}",
@@ -473,6 +554,9 @@ def main(argv) -> int:
             "copy_bound_ms": run["copy_bound_ms"],
             "compulsory_gbs": run["gbs"],
             "copy_gbs": copy_gbs,
+            "debug_max_abs_err": run.get("debug_err"),
+            "numpy_ms": run.get("host_backends", {}).get("numpy", {}).get("ms"),
+            "cpu_c_ms": run.get("host_backends", {}).get("cpu:c", {}).get("ms"),
         }
         for run in runs
     ]
@@ -592,13 +676,15 @@ def field_shape(case, name, shape):
     return tuple(n for n, ax in zip(shape, "IJK") if ax in dims)
 
 
-def card_fields(host, origin, case, storage):
-    """Storages on the card, lower-dimensional ones with their own axes."""
+def card_fields(host, origin, case, storage, backend="cuda:hopper"):
+    """Storages of ``backend``, lower-dimensional ones with their own axes:
+    on the card for ``cuda:hopper``, on the host for the CPU backends
+    (``numpy``, ``debug``, ``cpu:c``)."""
     out = {}
     for n, v in host.items():
         dims = case.get("dims", {}).get(n, "IJK")
         out[n] = storage.from_array(
-            v, backend="cuda:hopper", dimensions=tuple(dims),
+            v, backend=backend, dimensions=tuple(dims),
             aligned_index=tuple(o for o, ax in zip(origin, "IJK") if ax in dims),
         )
     return out
@@ -916,7 +1002,8 @@ def registry_stencils(defs, gtscript) -> list:
                 f"({kern._backend.unsupported}), pinned to {entry['strategy']}"
             )
         out.append({"name": name + (" (switch on)" if fuse else ""), "entry": entry,
-                    "kern": kern, "plain": gtscript.stencil(backend="torch", **opts)})
+                    "kern": kern, "plain": gtscript.stencil(backend="torch", **opts),
+                    "oracle": gtscript.stencil(backend="numpy", **opts)})
     return out
 
 
@@ -937,7 +1024,8 @@ def half_stencils(defs, gtscript) -> list:
             tol = defs.HALF_TOL if dtype == "float16" else defs.BF16_TOL[name]
             out.append({"name": name, "dtype": dtype, "tol": tol,
                         "entry": (definition, kernel, fuse), "kern": kern,
-                        "plain": gtscript.stencil(backend="torch", **opts)})
+                        "plain": gtscript.stencil(backend="torch", **opts),
+                        "oracle": gtscript.stencil(backend="numpy", **opts)})
     return out
 
 
@@ -949,9 +1037,9 @@ def run_half_stencil(reg, defs, storage, cuda_backend, np, torch) -> None:
     shape = (REG_N + 2 * REG_HALO, REG_N + 2 * REG_HALO, 16)
     host = defs.half_inputs(reg["kern"].field_info, shape, np.random.default_rng(19))
     out = {}
-    for tag in ("kern", "plain"):
-        fields = {n: storage.from_array(v, dtype=dtype, backend="cuda:hopper")
-                  for n, v in host.items()}
+    for tag in ("kern", "plain", "oracle"):
+        be = "numpy" if tag == "oracle" else "cuda:hopper"
+        fields = {n: storage.from_array(v, dtype=dtype, backend=be) for n, v in host.items()}
         cuda_backend.WRAPPERS[kernel].launches = 0
         info: dict = {}
         reg[tag](**fields, origin=(REG_HALO, REG_HALO, 0), domain=(REG_N, REG_N, 16),
@@ -962,17 +1050,18 @@ def run_half_stencil(reg, defs, storage, cuda_backend, np, torch) -> None:
         ):
             raise AssertionError(f"{dtype} {reg['name']}: {kernel} not launched")
         out[tag] = {n: np.asarray(v).astype(np.float64) for n, v in fields.items()}
-    reg["err"] = 0.0
-    for n, want in out["plain"].items():
-        got = out["kern"][n]
-        if not np.all(np.isfinite(got)):
-            raise AssertionError(f"{dtype} {reg['name']}: non-finite values in {n}")
-        reg["err"] = max(reg["err"], float(np.max(np.abs(got - want))))
-        if not np.allclose(got, want, rtol=reg["tol"], atol=reg["tol"]):
-            raise AssertionError(
-                f"{dtype} {reg['name']}: kernel disagrees with plain in {n} "
-                f"(max abs err {reg['err']})"
-            )
+    reg["err"] = reg["oracle_err"] = 0.0
+    for ref, key in (("plain", "err"), ("oracle", "oracle_err")):
+        for n, want in out[ref].items():
+            got = out["kern"][n]
+            if not np.all(np.isfinite(got)):
+                raise AssertionError(f"{dtype} {reg['name']}: non-finite values in {n}")
+            reg[key] = max(reg[key], float(np.max(np.abs(got - want))))
+            if not np.allclose(got, want, rtol=reg["tol"], atol=reg["tol"]):
+                raise AssertionError(
+                    f"{dtype} {reg['name']}: kernel disagrees with {ref} in {n} "
+                    f"(max abs err {reg[key]})"
+                )
 
 
 def run_sweep(sweep, shape, origin, domain, storage, cuda_backend, np, torch) -> None:
@@ -1045,8 +1134,9 @@ def run_registry_stencil(reg, defs, storage, cuda_backend, np, torch) -> None:
     shape = (REG_N + 2 * REG_HALO, REG_N + 2 * REG_HALO, nk)
     host = defs.make_inputs(reg["kern"].field_info, shape, np.random.default_rng(13))
     out = {}
-    for tag in ("kern", "plain"):
-        fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+    for tag in ("kern", "plain", "oracle"):
+        be = "numpy" if tag == "oracle" else "cuda:hopper"
+        fields = {n: storage.from_array(v, backend=be) for n, v in host.items()}
         for wrapper in cuda_backend.WRAPPERS.values():
             wrapper.launches = 0
         info: dict = {}
@@ -1059,14 +1149,21 @@ def run_registry_stencil(reg, defs, storage, cuda_backend, np, torch) -> None:
         ):
             raise AssertionError(f"registry {reg['name']}: {entry['strategy']} not launched")
         out[tag] = {n: np.asarray(v) for n, v in fields.items()}
-    for n, want in out["plain"].items():
-        got = out["kern"][n]
-        if np.issubdtype(want.dtype, np.floating):
-            same = np.allclose(got, want, rtol=RTOL[want.dtype.name], atol=0.0, equal_nan=True)
-        else:
-            same = np.array_equal(got, want)
-        if not same:
-            raise AssertionError(f"registry {reg['name']}: kernel disagrees with plain in {n}")
+    reg["oracle_err"] = 0.0
+    for ref in ("plain", "oracle"):
+        for n, want in out[ref].items():
+            got = out["kern"][n]
+            if np.issubdtype(want.dtype, np.floating):
+                rtol = RTOL[want.dtype.name]
+                same = np.allclose(got, want, rtol=rtol, atol=0.0, equal_nan=True)
+                if ref == "oracle":
+                    reg["oracle_err"] = max(reg["oracle_err"], float(np.nanmax(
+                        np.abs(got - want) / np.maximum(np.abs(want), np.finfo(want.dtype).tiny),
+                        initial=0.0)))
+            else:
+                same = np.array_equal(got, want)
+            if not same:
+                raise AssertionError(f"registry {reg['name']}: kernel disagrees with {ref} in {n}")
 
 
 def copy_bandwidth() -> float:
@@ -1522,6 +1619,180 @@ def check_unstructured_on_card(ndefs, torch) -> float:
         raise AssertionError(f"edge_sum on the card disagrees with the CPU: {got} vs {want}")
     return float(np.abs(got - want).max())
 
+
+# -- the oracle and profiler phases ----------------------------------------------
+
+
+def check_debug(run, gtscript, storage, np, torch) -> float:
+    """The main path's kernel at DEBUG_DOMAIN against the per-point
+    ``debug`` backend on the host, one call each from the same inputs,
+    within RTOL and ATOL; returns the largest absolute difference."""
+    case, dtype = run["case"], run["dtype"]
+    ni, nj, nk = DEBUG_DOMAIN
+    if case["name"] == "hdiff":
+        shape, origin = (ni + 2 * HALO, nj + 2 * HALO, nk), (HALO, HALO, 0)
+    else:  # vadv reads wcon at i + 1
+        shape, origin = (ni + (case["name"] == "vadv"), nj, nk), (0, 0, 0)
+    host = {n: in_dtype(v, dtype) for n, v in make_host(case, shape, 11, np).items()}
+    debug = build_stencil(gtscript, case["definition"], "debug", dtype, case["externals"])
+    kern = card_fields(host, origin, case, storage)
+    oracle = card_fields(host, origin, case, storage, "debug")
+    run["kern"](**kern, **run["scalars"], domain=DEBUG_DOMAIN)
+    debug(**oracle, **run["scalars"], domain=DEBUG_DOMAIN)
+    torch.cuda.synchronize()
+    err = 0.0
+    for n in case["fields"]:
+        got, want = np.asarray(kern[n]), np.asarray(oracle[n])
+        err = max(err, float(np.max(np.abs(got - want))))
+        if not np.allclose(got, want, rtol=RTOL[dtype], atol=ATOL[dtype]):
+            raise AssertionError(f"{case['name']} {dtype}: kernel disagrees with the debug "
+                                 f"backend in {n} (max abs err {err})")
+    return err
+
+
+def run_host_backends(run, gtscript, storage, np, torch) -> dict:
+    """The main path at full width on the ``numpy`` and ``cpu:c`` backends,
+    from its inputs: each equal to one kernel call within RTOL (float64:
+    1e-12); their ms a call by the host clock, the mean of two calls after
+    a first one (which builds the C library)."""
+    case, domain, origin = run["case"], (NI, NJ, NK), (HALO, HALO, 0)
+    kern = card_fields(run["host"], origin, case, storage)
+    run["kern"](**kern, **run["scalars"], domain=domain)
+    torch.cuda.synchronize()
+    out = {}
+    for backend in ("numpy", "cpu:c"):
+        st = build_stencil(gtscript, case["definition"], backend, run["dtype"], case["externals"])
+        fields = card_fields(run["host"], origin, case, storage, backend)
+        call = lambda: st(**fields, **run["scalars"], domain=domain)  # noqa: E731
+        call()
+        err = 0.0
+        for n in case["fields"]:
+            got, want = kern[n].array.cpu().numpy(), np.asarray(fields[n])
+            err = max(err, float(np.max(np.abs(got - want))))
+            if not np.allclose(got, want, rtol=RTOL[run["dtype"]], atol=ATOL[run["dtype"]]):
+                raise AssertionError(f"{case['name']} {run['dtype']}: the kernel disagrees "
+                                     f"with the {backend} backend in {n} (max abs err {err})")
+        t0 = time.perf_counter()
+        for _ in range(2):
+            call()
+        out[backend] = {"ms": (time.perf_counter() - t0) / 2 * 1e3, "max_abs_err": err,
+                        "path": getattr(st._backend, "last_path", backend)}
+    if out["cpu:c"]["path"] != "c":
+        raise AssertionError(f"{case['name']}: cpu:c ran {out['cpu:c']['path']}, not C")
+    return out
+
+
+def expected_device_work(module) -> dict:
+    """What one call of a stencil on ``cuda:hopper`` runs on the card: its
+    generated kernels (one a launcher), the temporaries its wrapper zeroes
+    and the cooperative launches' level counters (fills), and the snapshots
+    it copies (copies)."""
+    fills = sum(1 for m in module.slots if m.is_temp and m.snapshot_of is None and m.fill)
+    copies = sum(
+        1 for m in module.slots if m.snapshot_of is not None
+        for fields in module.snapshots.values() if m.snapshot_of in fields
+    )
+    return {"generated": len(module.launchers), "fills": fills + len(module.cooperative),
+            "copies": copies, "other": []}
+
+
+def is_generated(name: str) -> bool:
+    """A kernel of the port's generated sources (``gt_plane_0_r(...)``)."""
+    import re
+
+    return re.match(r"gt_[A-Za-z0-9_]+", name) is not None
+
+
+def device_work(events) -> dict:
+    """The device work of a Chrome trace's events, as
+    :func:`expected_device_work` counts it; ``other`` names the rest."""
+    work = {"generated": 0, "fills": 0, "copies": 0, "other": []}
+    for e in events:
+        cat, name = e.get("cat"), e.get("name", "")
+        if e.get("ph") != "X" or cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        if cat == "kernel" and is_generated(name):
+            work["generated"] += 1
+        elif cat == "gpu_memset" or "FillFunctor" in name:
+            work["fills"] += 1
+        elif cat == "gpu_memcpy":
+            work["copies"] += 1
+        else:
+            work["other"].append(name)
+    return work
+
+
+def launch_splits(events, tag: str) -> list:
+    """From a trace, for each call annotated ``tag`` in order: its host µs
+    (``call_us``), from its start to the launch of its first generated
+    kernel (``to_launch_us``: the launch call within the call whose
+    correlation id is a generated kernel's; None where the trace holds no
+    launch call for it), the launch call's own µs and API, and the
+    kernel's device µs."""
+    kernels = {e["args"]["correlation"]: e for e in events
+               if e.get("cat") == "kernel" and is_generated(e["name"])
+               and "correlation" in e.get("args", {})}
+    launches = sorted((e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                       and e.get("args", {}).get("correlation") in kernels),
+                      key=lambda e: e["ts"])
+    out = []
+    for call in sorted((e for e in events
+                        if e.get("cat") == "user_annotation" and e.get("name") == tag),
+                       key=lambda e: e["ts"]):
+        launch = next((e for e in launches
+                       if call["ts"] <= e["ts"] <= call["ts"] + call["dur"]), None)
+        out.append({
+            "call_us": float(call["dur"]),
+            "to_launch_us": None if launch is None else float(launch["ts"] - call["ts"]),
+            "launch_us": None if launch is None else float(launch["dur"]),
+            "launch_api": None if launch is None else launch["name"],
+            "kernel_us": None if launch is None
+            else float(kernels[launch["args"]["correlation"]]["dur"]),
+        })
+    return out
+
+
+def trace_warm_call(call, module, tag: str, cuda_backend, torch, n: int = 5) -> dict:
+    """``n`` warm calls under ``gpu_trace``, each annotated ``tag``, counted:
+    the trace's device work must be exactly ``n`` times
+    :func:`expected_device_work` (no kernel of the plain version, nothing
+    else), each generated kernel launched once a call. Returns each call's
+    :func:`launch_splits`, the median of all but the first (which carries
+    the profiler's start-up), the device work and the trace's path."""
+    from gt4py_tpu_torch.instrumentation import gpu_trace
+
+    call()
+    call()
+    torch.cuda.synchronize()
+    for wrapper in cuda_backend.WRAPPERS.values():
+        wrapper.launches = 0
+    with gpu_trace() as prof:
+        for _ in range(n):
+            with torch.profiler.record_function(tag):
+                call()
+        torch.cuda.synchronize()
+    launched = sum(w.launches for w in cuda_backend.WRAPPERS.values())
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    found, one = device_work(events), expected_device_work(module)
+    expected = {k: v * n for k, v in one.items() if k != "other"}
+    expected["other"] = []
+    if found != expected or launched != expected["generated"]:
+        raise AssertionError(f"{tag}: the trace's device work {found} (launches counted: "
+                             f"{launched}) is not {n} calls' {expected}")
+    splits = launch_splits(events, tag)
+    if len(splits) != n:
+        raise AssertionError(f"{tag}: {len(splits)} annotated calls in the trace, not {n}")
+    later = splits[1:]
+
+    def median(key):
+        values = sorted(s[key] for s in later if s[key] is not None)
+        return values[len(values) // 2] if values else None
+
+    return {"splits": splits, "call_us": median("call_us"),
+            "to_launch_us": median("to_launch_us"), "launch_us": median("launch_us"),
+            "launch_api": later[-1]["launch_api"], "kernel_us": median("kernel_us"),
+            "work": one, "trace": prof.trace_path}
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv))

@@ -23,6 +23,12 @@ Environment variables honored (reference names kept where meaningful):
                               (pallas_seq.py:302-312). Read when a stencil is
                               built (:func:`fuse_stages`), and part of its
                               fingerprint.
+- ``GT4PY_ADD_GPU_TRACE_MARKERS``  ``1`` makes ``instrumentation.named_scope``
+                              open NVTX and ``record_function`` ranges
+                              (default off: a no-op); the JAX package's
+                              ``GT4PY_ADD_TPU_TRACE_MARKERS``
+- ``GT4PY_GPU_TRACE_DIR``     where ``instrumentation.gpu_trace`` writes its
+                              Chrome traces (default ``<CACHE_ROOT>/traces``)
 """
 
 from __future__ import annotations
@@ -67,6 +73,13 @@ CACHE_ROOT: str = os.path.join(
 
 #: Per-project cache directory name (reference GT_CACHE_DIR_NAME).
 CACHE_DIR_NAME: str = os.environ.get("GT_CACHE_DIR_NAME", "gt4py_tpu_torch")
+
+#: NVTX/record_function ranges of instrumentation.named_scope (reference
+#: GT4PY_ADD_GPU_TRACE_MARKERS, next/config.py:150).
+ADD_GPU_TRACE_MARKERS: bool = env_flag_to_bool("GT4PY_ADD_GPU_TRACE_MARKERS", False)
+
+#: Directory of instrumentation.gpu_trace's Chrome traces.
+GPU_TRACE_DIR: str = os.environ.get("GT4PY_GPU_TRACE_DIR", os.path.join(CACHE_ROOT, "traces"))
 
 _lifetime_raw = os.environ.get("GT4PY_BUILD_CACHE_LIFETIME", "persistent").lower()
 BUILD_CACHE_LIFETIME: BuildCacheLifetime = BuildCacheLifetime(_lifetime_raw)

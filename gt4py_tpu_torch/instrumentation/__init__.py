@@ -1,7 +1,6 @@
-"""Metrics and hooks (copied from gt4py_tpu/instrumentation/__init__.py).
-
-``profiler.py`` is not ported yet: the JAX package's version emits TPU
-trace markers through JAX; the port's will use NVTX ranges."""
+"""Metrics, hooks and the GPU profiler (copied from
+gt4py_tpu/instrumentation/__init__.py; the JAX package's ``tpu_trace`` is
+the port's ``gpu_trace``, profiler.py)."""
 
 from gt4py_tpu_torch.instrumentation.metrics import (  # noqa: F401
     Metric,
@@ -18,3 +17,4 @@ from gt4py_tpu_torch.instrumentation.hooks import (  # noqa: F401
     register_context_hook,
     register_event_hook,
 )
+from gt4py_tpu_torch.instrumentation.profiler import gpu_trace, named_scope  # noqa: F401

@@ -1,0 +1,78 @@
+"""GPU profiling helpers.
+
+Counterpart of gt4py_tpu/instrumentation/profiler.py, which gives the JAX
+package ``jax.profiler`` traces and ``jax.named_scope`` annotations; here,
+as in the reference's GPU profiler (CUDA events + NVTX ranges,
+src/gt4py/next/instrumentation/gpu_profiler.py:48-233), the trace is
+``torch.profiler``'s (CUPTI: host calls, CUDA runtime calls and device
+kernels on one timeline) and a scope is an NVTX range plus a
+``record_function`` range.
+
+- :func:`named_scope` annotates the enclosed work in traces; it is a no-op
+  unless ``GT4PY_ADD_GPU_TRACE_MARKERS`` is on (config.py; the JAX
+  package's switch is ``GT4PY_ADD_TPU_TRACE_MARKERS``). Like the JAX
+  package, the port places no scope in its own runtime.
+- :func:`gpu_trace` captures a trace of the enclosed block and writes it as
+  a Chrome trace (``chrome://tracing``, Perfetto) into ``log_dir``
+  (default ``GT4PY_GPU_TRACE_DIR``, else ``<GT_CACHE_ROOT>/torch/traces``).
+  It traces the CPU and the card; without a card it raises, unless the
+  caller asks for ``activities="cpu"``, a host-only trace.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from typing import Iterator, Optional, Sequence, Union
+
+from gt4py_tpu_torch import config
+
+
+@contextlib.contextmanager
+def named_scope(name: str) -> Iterator[None]:
+    """Annotate the enclosed work in profiler traces (an NVTX range where
+    there is a card, and a ``record_function`` range); a no-op unless
+    trace markers are on."""
+    if not config.ADD_GPU_TRACE_MARKERS:
+        yield
+        return
+    import torch
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(torch.profiler.record_function(name))
+        if torch.cuda.is_available():
+            stack.enter_context(torch.cuda.nvtx.range(name))
+        yield
+
+
+@contextlib.contextmanager
+def gpu_trace(
+    log_dir: Optional[str] = None,
+    *,
+    activities: Union[str, Sequence[str]] = ("cpu", "cuda"),
+) -> Iterator["object"]:
+    """Trace the enclosed block with ``torch.profiler.profile``; yields the
+    profile (``key_averages()``, ``events()``). On exit the Chrome trace is
+    written to ``log_dir`` and its path set as the profile's
+    ``trace_path``. ``activities``: ``"cpu"`` and/or ``"cuda"``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    kinds = {"cpu": ProfilerActivity.CPU, "cuda": ProfilerActivity.CUDA}
+    wanted = (activities,) if isinstance(activities, str) else tuple(activities)
+    unknown = [a for a in wanted if a not in kinds]
+    if unknown or not wanted:
+        raise ValueError(f"gpu_trace: activities must be 'cpu' and/or 'cuda', not {activities!r}")
+    if "cuda" in wanted and not torch.cuda.is_available():
+        raise RuntimeError(
+            "gpu_trace: no CUDA card to trace (torch.cuda.is_available() is false); "
+            "pass activities='cpu' for a host-only trace"
+        )
+    log_dir = log_dir or config.GPU_TRACE_DIR
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=[kinds[a] for a in wanted]) as prof:
+        yield prof
+    path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    prof.trace_path = path

@@ -3,8 +3,9 @@
 Counterpart of gt4py_tpu/storage/interface.py, with the same signatures
 (``shape, dtype, *, backend, aligned_index, dimensions``) plus an explicit
 ``device=``. The default device comes from the backend's layout
-(storage/layout.py): ``"cuda"`` for ``cuda:hopper`` — where torch raises if
-there is no card, with no CPU fallback — and ``"cpu"`` for ``torch``.
+(storage/layout.py): ``"cuda"`` for ``torch`` and ``cuda:hopper`` — where
+torch raises if there is no card, with no CPU fallback — and ``"cpu"`` for
+``numpy``, ``debug`` and ``cpu:c``.
 
 Buffers are allocated K-leading, (K, I, J) with J contiguous, and returned
 as an (I, J, K) view. :func:`from_array` is how the JAX package's state

@@ -7,9 +7,13 @@ live by default and how the logical axes map to the physical order;
 ``storage.empty(..., backend=...)`` consults the registry.
 
 The port's registry is its own: nothing here is registered into
-``gt4py_tpu``'s. Both backends allocate K-leading ``(K, I, J)`` buffers with
+``gt4py_tpu``'s. Every backend allocates K-leading ``(K, I, J)`` buffers with
 J contiguous, so neighbouring CUDA threads (``threadIdx.x`` along J) read
-neighbouring addresses; the public array order stays (I, J, K).
+neighbouring addresses, the ``cpu:c`` loop nest's inner J loop walks
+contiguous memory, and a storage passes between all five backends as it
+is; the public array order stays (I, J, K). ``torch`` and ``cuda:hopper``
+allocate on the card; ``numpy``, ``debug`` and ``cpu:c`` on the CPU, so
+naming one of these is how a caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -50,3 +54,6 @@ _KIJ = (1, 2, 0)
 
 register("torch", LayoutInfo(alignment=64, device="cuda", layout_map=_KIJ))
 register("cuda:hopper", LayoutInfo(alignment=128, device="cuda", layout_map=_KIJ))
+register("numpy", LayoutInfo(alignment=64, device="cpu", layout_map=_KIJ))
+register("debug", LayoutInfo(alignment=1, device="cpu", layout_map=_KIJ))
+register("cpu:c", LayoutInfo(alignment=64, device="cpu", layout_map=_KIJ))

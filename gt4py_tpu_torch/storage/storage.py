@@ -104,5 +104,20 @@ class Storage:
             f"device={self.device}, aligned_index={self.aligned_index})"
         )
 
+    def __eq__(self, other) -> torch.Tensor:
+        """Elementwise, as the JAX package's storage compares (a bool tensor
+        on this storage's device)."""
+        return self.array == self._operand(other)
+
+    def __ne__(self, other) -> torch.Tensor:
+        return self.array != self._operand(other)
+
+    def _operand(self, other) -> Any:
+        if isinstance(other, Storage):
+            return other.array
+        if isinstance(other, torch.Tensor):
+            return other
+        return torch.as_tensor(np.asarray(other), device=self.array.device)
+
     def __hash__(self):
         return id(self)

@@ -2548,3 +2548,126 @@ def test_warm_call_reuses_its_prepared_launch_on_card():
     gone = weakref.ref(other["out_field"].array)
     del other
     assert gone() is None
+
+
+# --- the CPU oracles against the kernels, on the card ----------------------------------
+
+#: kernel against the numpy backend on the host: rtol by the field's dtype
+ORACLE_RTOL = {"float64": 1e-12, "float32": 1e-5}
+
+
+def _against_oracle(got, want, name):
+    if np.issubdtype(want.dtype, np.floating):
+        np.testing.assert_allclose(got, want, rtol=ORACLE_RTOL[want.dtype.name], atol=0,
+                                   err_msg=name)
+    else:
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name, fuse",
+    [(n, False) for n in sorted(defs.REGISTRY)] + [(n, True) for n in sorted(defs.FUSED_STAGES)],
+)
+def test_registry_oracle_on_card(name, fuse, monkeypatch):
+    """Every registry stencil through its pinned kernel (K4's class again
+    with the stage-fusion switch on) against the port's ``numpy`` backend
+    run on the host from the same inputs: the exact oracle, which needs
+    neither JAX nor ml_dtypes."""
+    _need_card()
+    monkeypatch.setenv("GT4PY_CUDA_FUSE_STAGES", "1" if fuse else "0")
+    entry = defs.REGISTRY[name]
+    opts = dict(definition=entry["definition"], externals=entry["externals"],
+                dtypes=entry["dtypes"])
+    kern = gtscript.stencil(backend="cuda:hopper", **opts)
+    oracle = gtscript.stencil(backend="numpy", **opts)
+    assert kern._backend.strategy == (defs.FUSED_STAGES[name] if fuse else entry["strategy"])
+    shape = (22, 21, max(9, entry["min_k"]))
+    host = defs.make_inputs(kern.field_info, shape, np.random.default_rng(1))
+    out = {}
+    for tag, st, backend in (("kernel", kern, "cuda:hopper"), ("oracle", oracle, "numpy")):
+        fields = {n: storage.from_array(v, backend=backend) for n, v in host.items()}
+        assert {f.device.type for f in fields.values()} == {
+            "cuda" if backend == "cuda:hopper" else "cpu"}
+        st(**fields, **entry["scalars"], origin=(3, 3, 0), domain=(16, 15, shape[2]))
+        torch.cuda.synchronize()
+        out[tag] = {n: np.asarray(v) for n, v in fields.items()}
+    for n in host:
+        _against_oracle(out["kernel"][n], out["oracle"][n], n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hdiff", "vadv", "tridiag"])
+def test_cpu_c_full_width_on_card(name):
+    """hdiff, vadv and tridiag at 256×256×80 (halo 2, float64) on ``cpu:c``,
+    built with the machine's ``cc``, equal to ``cuda:hopper`` within rtol
+    1e-12."""
+    from .test_torch_chip_smoke import SMOKE
+
+    _need_card()
+    case = {c["name"]: c for c in SMOKE.path_cases(defs)}[name]
+    shape = (SMOKE.NI + 2 * SMOKE.HALO, SMOKE.NJ + 2 * SMOKE.HALO, SMOKE.NK)
+    host = SMOKE.make_host(case, shape, 7, np)
+    scalars = case["scalars"]
+    out = {}
+    for backend in ("cuda:hopper", "cpu:c"):
+        st = SMOKE.build_stencil(gtscript, case["definition"], backend, "float64",
+                                 case["externals"])
+        fields = {n: storage.from_array(v, backend=backend, aligned_index=(2, 2, 0))
+                  for n, v in host.items()}
+        st(**fields, **scalars, domain=(SMOKE.NI, SMOKE.NJ, SMOKE.NK))
+        torch.cuda.synchronize()
+        out[backend] = {n: np.asarray(v) for n, v in fields.items()}
+        if backend == "cpu:c":
+            assert st._backend.last_path == "c"
+    for n in host:
+        np.testing.assert_allclose(out["cpu:c"][n], out["cuda:hopper"][n], rtol=1e-12, atol=0,
+                                   err_msg=n)
+
+
+@pytest.mark.cuda
+def test_warm_call_trace_holds_only_the_generated_kernel():
+    """A warm ``__call__`` of hdiff (``plane``) under ``gpu_trace``: the
+    device work in the trace is its generated kernel and nothing else; no
+    kernel of the plain version runs."""
+    from .test_torch_chip_smoke import SMOKE
+
+    _need_card()
+    st = gtscript.stencil(backend="cuda:hopper", definition=defs.horizontal_diffusion_generic,
+                          dtypes={"dt": np.float32}, literal_float_precision=32)
+    host = defs.make_inputs(st.field_info, (68, 68, 16), np.random.default_rng(2))
+    fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+    traced = SMOKE.trace_warm_call(
+        lambda: st(**fields, origin=(2, 2, 0), domain=(64, 64, 16)),
+        st._backend.module, "gt4py_warm_call", cuda_backend, torch,
+    )
+    assert traced["work"] == {"generated": 1, "fills": 0, "copies": 0, "other": []}
+    assert len(traced["splits"]) == 5 and traced["call_us"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["numpy", "debug", "cpu:c"])
+def test_cuda_tensor_handed_to_a_cpu_backend_raises(backend):
+    _need_card()
+    st = gtscript.stencil(backend=backend, definition=defs.copy_stencil)
+    a = storage.ones((4, 4, 4), backend="cuda:hopper")
+    b = storage.zeros((4, 4, 4), backend="cuda:hopper")
+    with pytest.raises(TypeError, match="cuda"):
+        st(a, b)
+    assert float(b.array.sum()) == 0.0
+
+
+@pytest.mark.cuda
+def test_refused_construct_raises_on_card():
+    """What the exclusion matrix (tests/torch_definitions.py) records as
+    refused on the card raises there, and still runs on CPU tensors."""
+    from . import torch_definitions as tdefs
+
+    _need_card()
+    assert tdefs.BACKEND_SKIP_TEST_MATRIX["cuda:hopper"][tdefs.USES_WIDE_TEMPORARY] == (
+        tdefs.REFUSED_ON_CARD)
+    st = gtscript.stencil(backend="cuda:hopper", definition=_too_wide_temporary)
+    host = np.random.default_rng(0).random((207, 206, 3))
+    card = [storage.from_array(host, backend="cuda:hopper") for _ in range(2)]
+    with pytest.raises(CudaUnsupported, match="shared memory"):
+        st(*card, origin=(101, 101, 0), domain=(4, 3, 3))

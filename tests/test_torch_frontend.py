@@ -132,3 +132,40 @@ def test_next_foast_source_matches_reference(name):
 
     assert getattr(next_defs, name).inspect(stage="foast") == getattr(ref_ops, name).inspect(
         stage="foast")
+
+
+# --- the copied CPU backend generator and test kit ------------------------------------
+
+#: the port's copies of array-free modules outside ``next``: path under each
+#: package -> the port's own changes, each hunk's port side naming one
+PORT_COPIES = {
+    "cartesian/backend/c_codegen.py": (
+        # NumPy 2's repr of a float32 is "np.float32(0.1)", no C literal
+        "# str, not repr",
+    ),
+    "testing/__init__.py": (),
+    "testing/input_strategies.py": (),
+    "testing/narrowing.py": (),
+    # the suites' storages on a device of the caller's choosing
+    "testing/suites.py": ('device = getattr(suite, "device", None)', "device=device"),
+}
+
+
+@pytest.mark.parametrize("path", sorted(PORT_COPIES))
+def test_port_copy_has_not_drifted(path):
+    """Each copied module equals the JAX package's, imports renamed, but for
+    hunks that replace a use of JAX and the port's own changes listed in
+    PORT_COPIES, each of which must still be there."""
+    theirs = _module_body(os.path.join(REPO_ROOT, "gt4py_tpu", path), rename=True)
+    ours = _module_body(os.path.join(REPO_ROOT, "gt4py_tpu_torch", path), rename=False)
+    matcher = difflib.SequenceMatcher(a=theirs, b=ours, autojunk=False)
+    changes = set()
+    for tag, i1, i2, j1, j2 in matcher.get_opcodes():
+        if tag == "equal":
+            continue
+        ref_side, port_side = "\n".join(theirs[i1:i2]), "\n".join(ours[j1:j2])
+        mine = [c for c in PORT_COPIES[path] if c in port_side]
+        assert mine or _JAX_WORDS.search(ref_side), f"{path} drifted:\n-{ref_side}\n+{port_side}"
+        assert not _JAX_WORDS.search(port_side), f"{path}: the port's copy names JAX:\n{port_side}"
+        changes.update(mine)
+    assert changes == set(PORT_COPIES[path])

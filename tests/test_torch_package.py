@@ -30,6 +30,7 @@ ALLOWED = {
     "instrumentation": {"config"},
     "cartesian": {"core", "eve", "storage", "config", "instrumentation"},
     "next": {"core", "eve", "storage", "config", "instrumentation", "cartesian"},
+    "testing": {"cartesian", "storage", "core", "eve", "config"},
 }
 
 
@@ -87,6 +88,8 @@ def test_import_leaves_jax_unloaded():
         "import gt4py_tpu_torch.cartesian.gtscript, gt4py_tpu_torch.storage\n"
         "import gt4py_tpu_torch.cartesian.backend\n"
         "import gt4py_tpu_torch.next, gt4py_tpu_torch.next.cartesian_bridge\n"
+        "import gt4py_tpu_torch.testing, gt4py_tpu_torch.cartesian.cache_manager\n"
+        "import gt4py_tpu_torch.instrumentation.profiler\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'gt4py_tpu')]\n"
         "print(','.join(sorted(bad)))\n"
@@ -141,8 +144,12 @@ def test_own_registries():
 
     from gt4py_tpu_torch.next import backend as next_backend
 
-    assert sorted(backend.REGISTRY) == ["cuda:hopper", "torch"]
-    assert sorted(layout.REGISTRY) == ["cuda:hopper", "torch"]
+    mine = ["cpu:c", "cuda:hopper", "debug", "numpy", "torch"]
+    assert sorted(backend.REGISTRY) == mine
+    assert sorted(layout.REGISTRY) == mine
+    assert {n: layout.REGISTRY[n].device for n in mine} == {
+        "cpu:c": "cpu", "cuda:hopper": "cuda", "debug": "cpu", "numpy": "cpu", "torch": "cuda"}
+    assert {layout.REGISTRY[n].layout_map for n in mine} == {(1, 2, 0)}  # K-leading
     assert {n: b.kind for n, b in next_backend.REGISTRY.items()} == {
         "cuda:hopper": "pallas", "torch": "eager"}
 
@@ -155,5 +162,10 @@ def test_reference_registry_untouched():
 
     assert "torch" not in ref_backend.REGISTRY
     assert "cuda:hopper" not in ref_backend.REGISTRY
+    from gt4py_tpu_torch.cartesian.backend import REGISTRY as port_registry
+
+    for name in ("numpy", "debug", "cpu:c"):  # same names, the packages' own classes
+        assert ref_backend.REGISTRY[name] is not port_registry[name]
+        assert ref_backend.REGISTRY[name].__module__.startswith("gt4py_tpu.")
     assert "torch" not in ref_next_backend.REGISTRY
     assert "cuda:hopper" not in ref_next_backend.REGISTRY
