@@ -75,7 +75,26 @@ swap cycle of the kernels as a CUDA graph.
    data (the ratio is ``bench.py``'s ``next_hdiff_vs_cartesian``), a warm
    call's host µs, the plain version's ms. Then ``edge_sum``
    (``neighbor_sum`` through a connectivity with missing neighbours) runs
-   embedded on the card and is held against the CPU.
+   embedded on the card and is held against the CPU. Each main path's
+   card result is also held against the port's field-view ``numpy``
+   backend (the oracle) run on the host from the same inputs (rtol 1e-12
+   in float64, ORACLE_TOL in float32), its ``numpy`` ms printed.
+   7b. Every case of tests/torch_feature_defs.py (the JAX package's
+   test_feature_* breadth) runs on ``torch`` and ``cuda:hopper`` with card
+   fields, against ``numpy`` on the host; its bridged kernels were built in
+   step 1. Around each ``cuda:hopper`` run the launch counts are set to 0
+   and read: each kernel must have launched exactly the launchers the
+   bridge's calls asked of it (``cartesian_bridge.launchers_served``).
+   Prints how many cases were bridged, by kernel, and how many ran
+   embedded.
+   7c. ``cuda:hopper:aot``: next_hdiff and next_tridiag in float32 at full
+   width; ``compile()`` runs the stages (seconds each, ``cost_analysis()``),
+   the first call builds no variant and runs no ``nvcc`` (both counted) and
+   launches exactly the kernel, equal to ``cuda:hopper`` to the bit;
+   ``format_compiled``'s SASS by class where the toolkit has ``cuobjdump``.
+   7d. FVM nabla (bench.py:687-689) in float32 on ``periodic_quad_mesh(256)``
+   and ``(1024)`` (65,536 and 1,048,576 vertices): the ``torch`` backend on
+   card fields against ``numpy`` on the host, ms a call by CUDA events.
 
 8. Oracle phases, on the card's host: the port's ``numpy`` backend
    (the exact oracle, NumPy on CPU tensors) holds every registry build of
@@ -176,6 +195,10 @@ def main(argv) -> int:
     from gt4py_tpu_torch import storage
     from gt4py_tpu_torch.cartesian import gtscript
     from gt4py_tpu_torch.cartesian.backend import cuda_backend, cuda_codegen
+    from gt4py_tpu_torch.next import cartesian_bridge as bridge
+    from gt4py_tpu_torch.next import program_processors
+    from tests import torch_cases as tcases
+    from tests import torch_feature_defs as fdefs
     from tests import torch_next_defs as ndefs
     from tests import torch_stencil_defs as defs
 
@@ -231,14 +254,16 @@ def main(argv) -> int:
         )
     ]
     nruns = prepare_next_runs(ndefs, NK)
+    fsources = feature_sources(fdefs, tcases, bridge)
     t0 = time.perf_counter()
     backends = [r["kern"]._backend for r in runs + registry + halves + sweeps]
     backends += [r["variant"].backend for r in nruns]
-    cuda_backend.build_libraries(b.module.source for b in backends)
+    cuda_backend.build_libraries([*(b.module.source for b in backends), *fsources])
     for b in backends:
         b._functions()  # load
     print(f"built and loaded {len(backends)} stencils ({len(nruns)} bridged field-view "
-          f"variants) in {time.perf_counter() - t0:.1f} s")
+          f"variants) and {len(fsources)} kernels of the feature cases in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # -- 2. the main paths, each counted -------------------------------------------
     for run in runs:
@@ -439,6 +464,7 @@ def main(argv) -> int:
         like = run["case"]["like"] + ("_fused" if run["fuse"] else "")
         cart = by_path[(like, run["dtype"])]
         check_next_run(run, ndefs, cart["kern"], storage, torch)
+        check_next_oracle(run, ndefs)
         time_next_run(run, ndefs, torch)
         run["chain_device_ms"] = cart["device_ms"]
         nbytes = compulsory_bytes(as_stencil(run["variant"]))
@@ -479,6 +505,61 @@ def main(argv) -> int:
     err = check_unstructured_on_card(ndefs, torch)
     print(f"unstructured: edge_sum (neighbor_sum through a V2E table with missing "
           f"neighbours) embedded on the card == the CPU run (max abs err {err:.3e})")
+    print(f"field-view oracle: each main path's card result above == the numpy backend on "
+          f"the host from the same inputs ({NI}x{NJ}x{NK}, rtol float64 {RTOL['float64']}, "
+          f"float32 rtol/atol {ORACLE_TOL['float32']}); max abs err, numpy ms a call:")
+    for run in nruns:
+        print(f"  {next_tag(run):25s} {run['dtype']:8s} {run['kernel']:12s} max abs err "
+              f"{run['oracle_err']:.3e}  numpy {run['numpy_ms']:.1f} ms")
+
+    # -- 7b. the feature cases: torch and cuda:hopper on the card, numpy on the host --
+    t0 = time.perf_counter()
+    nvcc0 = cuda_backend.nvcc_runs
+    features = {name: run_feature_case(name, fdefs, tcases, bridge, cuda_backend, torch)
+                for name in fdefs.CASES}
+    by_kernel: dict = {}
+    for result in features.values():
+        for kernel in result["kernels"]:
+            by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+    bridged = sum(1 for r in features.values() if r["kernels"])
+    raising = sum(1 for r in features.values() if r["raises"])
+    print(f"feature cases: {len(features)} cases of tests/torch_feature_defs.py in "
+          f"{time.perf_counter() - t0:.1f} s ({cuda_backend.nvcc_runs - nvcc0} nvcc runs during "
+          f"them): torch and cuda:hopper on the card == numpy on the host (rtol float64 "
+          f"{RTOL['float64']}, integers and bools exactly; largest abs err "
+          f"{max(r['err'] for r in features.values()):.3e}); {bridged} bridged, by kernel "
+          f"{dict(sorted(by_kernel.items()))}, each launching exactly the launchers its calls "
+          f"asked for; {len(features) - bridged - raising} ran embedded; {raising} raised the "
+          "error their test asserts on all three backends")
+
+    # -- 7c. cuda:hopper:aot: the stages at compile(), nothing built at the call -------
+    aots = [run_aot(name, ndefs, cuda_backend, bridge, torch)
+            for name in ("hdiff_op", "solve_tridiag")]
+    print("cuda:hopper:aot at full width, float32: compile() runs the stages (s each), the first "
+          "call builds no variant and runs no nvcc, launches exactly its kernel, == cuda:hopper "
+          "to the bit; cost_analysis() is ptxas's report:")
+    for aot in aots:
+        print(f"  {aot['name']:14s} {aot['kernel']:12s} launches {aot['launches']}  stages "
+              + ", ".join(f"{k} {v:.4f}" for k, v in aot["seconds"].items())
+              + f"  (nvcc runs in compile(): {aot['compile_nvcc']})  cost {aot['cost']}")
+    for aot in aots if tool else ():
+        args, kwargs, out = aot["args"]
+        text = program_processors.format_compiled(
+            getattr(ndefs, aot["name"]), *args, out=out, offset_provider=ndefs.PROV_K, **kwargs)
+        print(f"  format_compiled({aot['name']}): {len(text.splitlines())} lines, SASS by class "
+              f"{sass_class_counts(text)}")
+    if not tool:
+        print("  format_compiled: no cuobjdump in the toolkit, SASS not measured")
+
+    # -- 7d. unstructured at real size: FVM nabla on the torch backend ----------------
+    nablas = [run_nabla(n, ndefs, torch) for n in (256, 1024)]
+    print(f"FVM nabla (nabla_x, E2V average and V2E neighbor_sum with signs over volume), "
+          f"float32, torch backend on the card == numpy on the host (rtol 1e-5, atol 1e-6), "
+          f"on {smi}; ms a call by CUDA events over 20 calls:")
+    for nb in nablas:
+        print(f"  {nb['vertices']:8d} vertices  {nb['ms']:.4f} ms  "
+              f"({nb['vertices'] / nb['ms'] / 1e3:.1f} Mvertices/s)  numpy {nb['numpy_ms']:.1f} "
+              f"ms  max abs err {nb['max_abs_err']:.3e}")
 
     # -- 8. the oracles on the host: debug, and numpy and cpu:c at full width ----------
     t0 = time.perf_counter()
@@ -1618,6 +1699,231 @@ def check_unstructured_on_card(ndefs, torch) -> float:
     if not np.allclose(got, want, rtol=RTOL["float64"], atol=0.0):
         raise AssertionError(f"edge_sum on the card disagrees with the CPU: {got} vs {want}")
     return float(np.abs(got - want).max())
+
+
+def oracle_tol(dtype: str) -> tuple:
+    """(rtol, atol) of a field-view result against the ``numpy`` backend:
+    rtol 1e-12 in float64; ORACLE_TOL in float32, where the oracle's scans
+    carry float64 (its ``init`` is a float64 array, as in the JAX
+    package's ``numpy``) and the kernels float32."""
+    return (RTOL["float64"], 0.0) if dtype == "float64" else ORACLE_TOL[dtype]
+
+
+def check_next_oracle(run, ndefs, shape=(NI, NJ, NK)) -> None:
+    """The card's field-view result of a main path (``run["out"]``, from
+    the inputs of seed 7) against the port's ``numpy`` backend run on the
+    host from the same inputs, within :func:`oracle_tol`; records the
+    largest error and the ``numpy`` ms a call (host clock)."""
+    import numpy as np
+
+    args, kwargs, out = ndefs.inputs(run["case"]["op"], *shape, np.dtype(run["dtype"]), 7,
+                                     "cpu")
+    op = getattr(ndefs, run["case"]["op"]).with_backend("numpy")
+    t0 = time.perf_counter()
+    op(*args, out=out, offset_provider=ndefs.PROV_K, **kwargs)
+    run["numpy_ms"] = (time.perf_counter() - t0) * 1e3
+    got, want = run["out"].asnumpy().astype(np.float64), out.asnumpy().astype(np.float64)
+    run["oracle_err"] = float(np.abs(got - want).max())
+    rtol, atol = oracle_tol(run["dtype"])
+    if not np.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError(f"{next_tag(run)} {run['dtype']}: the card disagrees with the numpy "
+                             f"backend (max abs err {run['oracle_err']})")
+
+
+def output_arrays(value) -> list:
+    """A case's written Field(s), as host arrays in order."""
+    if isinstance(value, tuple):
+        return [a for v in value for a in output_arrays(v)]
+    return [value.asnumpy()]
+
+
+def same_within(got, want, dtype_tol) -> float:
+    """The largest absolute difference of two output lists; raises where a
+    float array is not within ``dtype_tol[dtype]`` (rtol, atol 0) or an
+    integer or bool array differs."""
+    import numpy as np
+
+    err = 0.0
+    for a, b in zip(got, want, strict=True):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{a.dtype}{a.shape} against {b.dtype}{b.shape}")
+        if a.dtype.kind == "f":
+            if not np.allclose(a, b, rtol=dtype_tol[a.dtype.name], atol=0.0, equal_nan=True):
+                raise AssertionError(f"max abs err {np.nanmax(np.abs(a - b))}")
+            with np.errstate(invalid="ignore"):
+                diff = np.abs(a.astype(np.float64) - b.astype(np.float64))
+            diff = diff[np.isfinite(diff)]
+            err = max(err, float(diff.max()) if diff.size else 0.0)
+        elif not np.array_equal(a, b):
+            raise AssertionError("integer or bool outputs differ")
+    return err
+
+
+def feature_sources(fdefs, tcases, bridge) -> set:
+    """The kernel sources of the feature cases: every case runs on
+    ``cuda:hopper`` with CPU fields (the plain version), which traces the
+    bridge's variants and generates their kernels' CUDA C++."""
+    bridge.variant_log = log = []
+    try:
+        with tcases.on_device("cpu"):
+            for name in fdefs.CASES:
+                if name not in fdefs.RAISES:
+                    fdefs.run_case(name, "cuda:hopper")
+    finally:
+        bridge.variant_log = None
+    return {v.backend.module.source for v in log if v.backend.module is not None}
+
+
+def run_feature_case(name, fdefs, tcases, bridge, cuda_backend, torch) -> dict:
+    """One feature case on ``numpy`` (host fields), ``torch`` and
+    ``cuda:hopper`` (card fields), the launch counts set to 0 just before
+    the ``cuda:hopper`` run: every kernel it launched must have launched
+    exactly the launchers the bridge's calls asked of it, and the kernels
+    must be those ``BRIDGED_ONTO`` pins for the case. Returns the
+    kernels launched, the largest error against ``numpy`` and, for a case
+    whose test asserts an error, that all three raised it."""
+    if name in fdefs.RAISES:
+        cls = fdefs.RAISES[name][0]
+        for backend, device in (("numpy", "cpu"), ("torch", "cuda"), ("cuda:hopper", "cuda")):
+            with tcases.on_device(device):
+                try:
+                    fdefs.run_case(name, backend)
+                except Exception as exc:  # noqa: BLE001 — the class is checked
+                    if cls not in {c.__name__ for c in type(exc).__mro__}:
+                        raise
+                else:
+                    raise AssertionError(f"{name} on {backend}: no {cls} raised")
+        return {"raises": True, "kernels": {}, "err": 0.0}
+    with tcases.on_device("cpu"):
+        want = output_arrays(fdefs.run_case(name, "numpy"))
+    with tcases.on_device("cuda"):
+        plain = output_arrays(fdefs.run_case(name, "torch"))
+        for wrapper in cuda_backend.WRAPPERS.values():
+            wrapper.launches = 0
+        bridge.launchers_served.clear()
+        got = output_arrays(fdefs.run_case(name, "cuda:hopper"))
+        torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in cuda_backend.WRAPPERS.items() if w.launches}
+    if counts != dict(bridge.launchers_served):
+        raise AssertionError(f"{name}: launched {counts}, the bridge asked for "
+                             f"{dict(bridge.launchers_served)}")
+    if set(counts) != fdefs.bridged_kernels(name):
+        raise AssertionError(f"{name}: ran on {sorted(counts) or 'embedded'}, not on "
+                             f"{sorted(fdefs.bridged_kernels(name)) or 'embedded'}")
+    tol = {"float64": RTOL["float64"], "float32": RTOL["float32"], "float16": RTOL["float16"]}
+    err = max(same_within(plain, want, tol), same_within(got, want, tol))
+    return {"raises": False, "kernels": counts, "err": err}
+
+
+def run_aot(name, ndefs, cuda_backend, bridge, torch, device="cuda", shape=(NI, NJ, NK)) -> dict:
+    """``name`` in float32 at full width through ``cuda:hopper:aot``:
+    ``compile()`` runs the stages (each one's seconds recorded); the first
+    call after it must build no variant, run no ``nvcc`` and launch exactly
+    the lowered kernel's launchers; its result must equal ``cuda:hopper``'s
+    to the bit. ``device="cpu"`` rehearses it on the plain version (nothing
+    is built there)."""
+    import numpy as np
+
+    from gt4py_tpu_torch.next import resolve_backend
+
+    on_card = device == "cuda"
+
+    base = resolve_backend("cuda:hopper:aot")
+    seconds: dict = {}
+
+    def timed(step_name, step):
+        def run(job):
+            t0 = time.perf_counter()
+            out = step(job)
+            seconds[step_name] = time.perf_counter() - t0
+            return out
+        return run
+
+    steps = ("validate", "deduce", "specialize", "trace", "lower", "compile")
+    backend = base.replace(transforms=base.transforms.replace(
+        **{s: timed(s, getattr(base.transforms, s)) for s in steps}))
+    args, kwargs, out = ndefs.inputs(name, *shape, np.dtype(np.float32), 7, device)
+    op = getattr(ndefs, name).with_backend(backend)
+    nvcc0 = cuda_backend.nvcc_runs
+    op.compile(*args, out=out, offset_provider=ndefs.PROV_K, **kwargs)
+    compile_nvcc = cuda_backend.nvcc_runs - nvcc0
+    job = op.compiled_job(*args, out=out, offset_provider=ndefs.PROV_K, **kwargs)
+    if job.compiled_stage is None or (on_card and job.compiled_stage.library is None):
+        raise AssertionError(f"{name}: cuda:hopper:aot built no library ({job.unsupported})")
+    for wrapper in cuda_backend.WRAPPERS.values():
+        wrapper.launches = 0
+    built, runs = bridge.variants_built, cuda_backend.nvcc_runs
+    op(*args, out=out, offset_provider=ndefs.PROV_K, **kwargs)
+    if on_card:
+        torch.cuda.synchronize()
+    builds = (bridge.variants_built - built, cuda_backend.nvcc_runs - runs)
+    counts = {k: w.launches for k, w in cuda_backend.WRAPPERS.items() if w.launches}
+    kernel = job.lowered_stage.strategy
+    expected = {kernel: len(job.lowered_stage.module.launchers)} if on_card else {}
+    if builds != (0, 0) or counts != expected:
+        raise AssertionError(f"{name} aot: first call built {builds} (variants, nvcc), "
+                             f"launched {counts}, not {expected}")
+    _, _, want = ndefs.inputs(name, *shape, np.dtype(np.float32), 7, device)
+    getattr(ndefs, name).with_backend("cuda:hopper")(
+        *args, out=want, offset_provider=ndefs.PROV_K, **kwargs)
+    if on_card:
+        torch.cuda.synchronize()
+    if not same_bits(out.ndarray.contiguous(), want.ndarray.contiguous()):
+        raise AssertionError(f"{name} aot: differs from cuda:hopper")
+    return {"name": name, "kernel": kernel, "seconds": seconds, "compile_nvcc": compile_nvcc,
+            "cost": job.compiled_stage.cost_analysis(), "launches": counts.get(kernel, 0),
+            "args": (args, kwargs, out)}
+
+
+def sass_class_counts(text: str) -> dict:
+    """SASS instructions by class (:func:`sass_class`) in a
+    ``cuobjdump -sass`` listing."""
+    import re
+
+    counts: dict = {}
+    for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", text):
+        op = m.group(1).split(".")[0]
+        if op != "NOP":
+            counts[sass_class(op)] = counts.get(sass_class(op), 0) + 1
+    return counts
+
+
+def run_nabla(n: int, ndefs, torch, device="cuda") -> dict:
+    """FVM nabla (``ndefs.nabla_x``) in float32 on ``periodic_quad_mesh(n)``:
+    the ``torch`` backend with card fields against ``numpy`` on the host,
+    rtol 1e-5 with atol 1e-6 (a vertex's signed sum of edge terms of about
+    0.5 cancels towards 0); ms a call by CUDA events over 20 calls, and the
+    ``numpy`` ms a call by the host clock (``device="cpu"``: the host
+    clock for both, a rehearsal)."""
+    import numpy as np
+
+    args, provider, out = ndefs.nabla_inputs(n, np.float32, 11, device)
+    call = lambda: ndefs.nabla_x(*args, out=out, offset_provider=provider)  # noqa: E731
+    call()
+    calls = 20
+    if device == "cuda":
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            call()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / calls
+    else:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        ms = (time.perf_counter() - t0) / calls * 1e3
+    hargs, hprovider, hout = ndefs.nabla_inputs(n, np.float32, 11, "cpu")
+    t0 = time.perf_counter()
+    ndefs.nabla_x.with_backend("numpy")(*hargs, out=hout, offset_provider=hprovider)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    got, want = out.asnumpy(), hout.asnumpy()
+    err = float(np.abs(got.astype(np.float64) - want).max())
+    if not np.allclose(got, want, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"nabla at {n * n} vertices: card and numpy differ ({err})")
+    return {"vertices": n * n, "ms": ms, "numpy_ms": numpy_ms, "max_abs_err": err}
 
 
 # -- the oracle and profiler phases ----------------------------------------------

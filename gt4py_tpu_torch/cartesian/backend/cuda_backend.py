@@ -86,6 +86,10 @@ class CudaBuildError(RuntimeError):
     pass
 
 
+#: ``nvcc`` processes started since the count was last set to 0
+nvcc_runs = 0
+
+
 class KernelWrapper:
     """One hand-written kernel skeleton. ``launches`` counts its kernel
     launches; it grows only where a kernel is launched."""
@@ -151,6 +155,7 @@ def build_libraries(sources) -> None:
     """Compile every source whose library is not on disk yet: one ``nvcc``
     per source, all started together, so a cold start waits for the
     slowest build rather than for their sum."""
+    global nvcc_runs
     started = []
     try:
         for source in dict.fromkeys(sources):
@@ -161,6 +166,7 @@ def build_libraries(sources) -> None:
             with open(cu_path, "w") as f:
                 f.write(source)
             log = open(cu_path + ".log", "w+")
+            nvcc_runs += 1
             started.append(
                 (subprocess.Popen(build_command(cu_path, tmp), stdout=log, stderr=log),
                  log, cu_path, tmp, so_path)

@@ -376,7 +376,7 @@ class Evaluator:
             sl = []
             k_pad = (0, 0)
             for ax, (present, lo, size) in enumerate(
-                zip(dims, (ext.i[0], ext.j[0], ext.k[0]), self._win_shape(name))
+                zip(dims, (ext.i[0], ext.j[0], ext.k[0]), self._axis_sizes(name))
             ):
                 if present:
                     start = origin[ax] + lo
@@ -409,6 +409,13 @@ class Evaluator:
             t.name: (t.dtype if t.dtype is not None else np.float64)
             for t in self.stencil.temporaries
         }
+
+    def _axis_sizes(self, name: str) -> tuple:
+        """The window's size along each of I, J and K (0 where the field
+        has no such axis): ``_win_shape`` lists the present axes only, so a
+        lower-dimensional field's K origin would otherwise be dropped."""
+        sizes = iter(self._win_shape(name))
+        return tuple(next(sizes) if present else 0 for present in self.dims[name])
 
     def _get_window(self, name: str):
         w = self.win[name]

@@ -2,12 +2,14 @@
 
 Counterpart of gt4py_tpu/next/ (and of the reference's ``gt4py.next``):
 Dimension/Domain/Field model, @field_operator / @scan_operator / @program
-entry points, neighbor reductions over connectivities. Two backends:
+entry points, neighbor reductions over connectivities. Four backends:
 ``torch`` (the default; embedded execution on torch tensors, the JAX
-package's ``jax`` and ``embedded``) and ``cuda:hopper`` (operators whose
+package's ``jax`` and ``embedded``), ``cuda:hopper`` (operators whose
 offsets are all cartesian run through the cartesian bridge on the port's
 Hopper kernels; the rest runs embedded — the JAX package's
-``tpu:pallas``). Constructors put fields on the card unless the caller
+``tpu:pallas``), ``cuda:hopper:aot`` (the same through explicit trace,
+lower and compile stages — ``jax:aot``) and ``numpy`` (the oracle: NumPy
+on the host). Constructors put fields on the card unless the caller
 passes ``device="cpu"``.
 """
 
@@ -77,6 +79,10 @@ del _fb, _name
 from gt4py_tpu_torch.next.field_utils import asnumpy  # noqa: F401,E402
 from gt4py_tpu_torch.next.named_collections import named_collection  # noqa: F401,E402
 from gt4py_tpu_torch.next.experimental import as_offset  # noqa: F401,E402
+from gt4py_tpu_torch.next.mesh_utils import (  # noqa: F401,E402
+    Renumbering,
+    spatial_renumbering,
+)
 
 
 def wait_for_compilation() -> None:
@@ -91,6 +97,7 @@ from gt4py_tpu_torch.next.otf import (  # noqa: F401,E402
     MultiWorkflow,
     NamedStepSequence,
 )
+from gt4py_tpu_torch.next import stages  # noqa: F401,E402
 from gt4py_tpu_torch.next.backend import (  # noqa: F401,E402
     Backend,
     Transforms,

@@ -3,12 +3,13 @@
 Counterpart of gt4py_tpu/next/backend.py (role of the reference's
 ``gt4py.next.backend``, src/gt4py/next/backend.py:98-154): a ``Backend``
 couples a *transforms* workflow (definition → validated → typed →
-specialized → executable) with a runtime ``kind``. The workflow is
+specialized → [traced → lowered] → executable, the stages of
+:mod:`gt4py_tpu_torch.next.stages`) with a runtime ``kind``. The workflow is
 user-controllable as in the JAX package: ``Backend.replace(transforms=
 backend.transforms.replace(...))`` swaps any step, and
 ``program_transforms`` applies function→function rewrites.
 
-Two backends are registered:
+Four backends are registered:
 
 - ``torch`` (kind ``eager``), the counterpart of the JAX package's ``jax``
   and ``embedded``: the FOAST-compiled definition runs on embedded torch
@@ -18,9 +19,16 @@ Two backends are registered:
   an operator whose offsets are all cartesian goes through the cartesian
   bridge onto the port's Hopper kernels; what the bridge does not take runs
   embedded, as in the JAX package's decorators.
-
-The JAX package's ``jax:aot`` (explicit trace → lower → compile stages) and
-``numpy`` (the NumPy oracle) backends have no counterpart yet.
+- ``cuda:hopper:aot`` (kind ``aot``), the counterpart of ``jax:aot``: the
+  explicit stages — trace (the bridge's variant of the argument
+  signature), lower (its generated CUDA C++), compile (``nvcc`` and load,
+  on card tensors) — run at ``FieldOperator.compile(...)`` or at the first
+  call, before any launch; the executable then runs the prebuilt variant.
+  For an operator the bridge refuses, the job stops after the typed stage
+  with the reason (``CompileJob.unsupported``) and the executable runs
+  embedded, as ``cuda:hopper`` falls through.
+- ``numpy`` (kind ``numpy``), the oracle: the raw definition on NumPy
+  Fields (next/decorators.py).
 
 Decorators accept either a registered name (``backend="torch"``) or a
 Backend instance (``backend=my_backend``)."""
@@ -31,6 +39,7 @@ import dataclasses
 import functools
 from typing import Any, Callable, Optional, Union
 
+from gt4py_tpu_torch.next import stages
 from gt4py_tpu_torch.next.otf import NamedStepSequence
 
 
@@ -48,17 +57,26 @@ __all__ = [
 @dataclasses.dataclass
 class CompileJob:
     """The value threaded through the Transforms workflow: the definition
-    and the example arguments of the variant being built, with the
-    artifacts filled in step by step."""
+    stage plus the example arguments of the variant being compiled, with
+    artifact fields filled in step by step. The port's trace also needs the
+    call's ``out`` field(s), ``domain`` and ``offset_provider``;
+    ``unsupported`` records why the bridge refused the operator (the job
+    then stops after ``typed_stage``)."""
 
-    definition: Callable
-    op_kind: str = "field_operator"
-    static_args: tuple = ()
+    definition_stage: stages.OperatorDefinition
     args: tuple = ()
     kwargs: dict = dataclasses.field(default_factory=dict)
     type_info: Optional[Any] = None  # pre-deduced info from the decorator
+    typed_stage: Optional[stages.TypedDefinition] = None
     fn: Optional[Callable] = None  # specialized callable
+    traced_stage: Optional[stages.TracedProgram] = None
+    lowered_stage: Optional[stages.LoweredProgram] = None
+    compiled_stage: Optional[stages.CompiledProgram] = None
     executable: Optional[Callable] = None
+    out: Any = None
+    domain: Any = None
+    offset_provider: Optional[dict] = None
+    unsupported: Optional[str] = None
 
 
 def _validate(job: CompileJob) -> CompileJob:
@@ -67,21 +85,27 @@ def _validate(job: CompileJob) -> CompileJob:
     functions too)."""
     from gt4py_tpu_torch.next.frontend_validation import validate_definition
 
-    validate_definition(job.definition, kind=job.op_kind)
+    validate_definition(
+        job.definition_stage.definition, kind=job.definition_stage.kind
+    )
     return job
 
 
 def _deduce(job: CompileJob) -> CompileJob:
     from gt4py_tpu_torch.next.type_deduction import deduce
 
-    if job.type_info is None:
-        job.type_info = deduce(job.definition, kind=job.op_kind)
+    info = job.type_info
+    if info is None:
+        info = deduce(
+            job.definition_stage.definition, kind=job.definition_stage.kind
+        )
+    job.typed_stage = stages.TypedDefinition(job.definition_stage, info)
     return job
 
 
 def _specialize(job: CompileJob) -> CompileJob:
-    statics = dict(job.static_args)
-    fn = job.definition
+    statics = dict(job.definition_stage.static_args)
+    fn = job.definition_stage.definition
     job.fn = functools.partial(fn, **statics) if statics else fn
     return job
 
@@ -104,6 +128,94 @@ def _compile_eager(job: CompileJob) -> CompileJob:
     return job
 
 
+#: the cartesian backend the ahead-of-time stages build for
+AOT_CARTESIAN = "cuda:hopper"
+
+
+def _trace(job: CompileJob) -> CompileJob:
+    """The bridge's variant of this argument signature: the definition
+    traced into cartesian GTIR and analyzed for ``cuda:hopper``. Where the
+    bridge refuses (unstructured offsets, tuple returns, a ``domain=``,
+    more than I/J/K, ...), the reason goes to ``job.unsupported``."""
+    from gt4py_tpu_torch.next import cartesian_bridge as bridge
+
+    traced = []
+    definition = job.definition_stage.definition
+    kwargs = {**dict(job.definition_stage.static_args), **job.kwargs}
+    try:
+        if job.domain is not None:
+            raise bridge.BridgeUnsupported("a domain= restricts the out field")
+        fields, scalars, key = bridge.call_signature(
+            definition, job.args, kwargs, job.out, job.offset_provider, AOT_CARTESIAN
+        )
+        variant = bridge.build_variant(
+            definition, fields, scalars, job.out, job.offset_provider, AOT_CARTESIAN,
+            gtir_transform=lambda stencil: traced.append(stencil) or stencil,
+        )
+    except bridge.BridgeUnsupported as exc:
+        job.unsupported = str(exc)
+        return job
+    assert job.typed_stage is not None
+    job.traced_stage = stages.TracedProgram(job.typed_stage, traced[0], variant, key)
+    return job
+
+
+def _lower(job: CompileJob) -> CompileJob:
+    """The traced variant's generated CUDA C++ (``cuda_codegen``)."""
+    if job.traced_stage is None:
+        return job
+    backend = job.traced_stage.variant.backend
+    job.lowered_stage = stages.LoweredProgram(
+        job.traced_stage, backend.module, backend.unsupported
+    )
+    return job
+
+
+def _on_card(job: CompileJob) -> bool:
+    import torch.utils._pytree as pytree
+
+    from gt4py_tpu_torch.next.embedded import Field
+
+    leaves = pytree.tree_leaves((job.args, job.kwargs, job.out), is_leaf=lambda x: isinstance(x, Field))
+    return any(isinstance(f, Field) and f.device.type == "cuda" for f in leaves)
+
+
+def _compile_aot(job: CompileJob) -> CompileJob:
+    """Build and load the lowered kernels where the arguments live on a
+    card (one ``nvcc`` per source not yet on disk; CPU tensors build
+    nothing and run the plain version). The executable takes the variant's
+    arguments and ``out=``, and runs the prebuilt variant: a call traces,
+    lowers and builds nothing. Without a lowered stage (the bridge refused)
+    the executable is the specialized definition, run embedded, as the
+    default compile step makes it."""
+    if job.lowered_stage is None:
+        return _compile_eager(job)
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+    from gt4py_tpu_torch.next import cartesian_bridge as bridge
+
+    variant = job.traced_stage.variant
+    module = job.lowered_stage.module
+    library = log = None
+    if module is not None and _on_card(job):
+        variant.backend._functions()
+        _, library, source_path = cuda_backend._paths(module.source)
+        try:
+            with open(source_path + ".log") as f:
+                log = f.read()
+        except OSError:
+            log = ""
+    definition = job.definition_stage.definition
+    statics = dict(job.definition_stage.static_args)
+
+    def executable(*args: Any, out: Any, **kwargs: Any) -> None:
+        fields, scalars = bridge.bind_arguments(definition, args, {**statics, **kwargs})
+        bridge.execute(variant, fields, scalars, out)
+
+    job.compiled_stage = stages.CompiledProgram(job.lowered_stage, executable, library, log)
+    job.executable = executable
+    return job
+
+
 @dataclasses.dataclass(frozen=True)
 class Transforms(NamedStepSequence):
     """The Transforms workflow (reference backend.py:98-137). Fields
@@ -116,6 +228,8 @@ class Transforms(NamedStepSequence):
     program_transforms: Optional[Callable] = dataclasses.field(
         default_factory=_ProgramTransforms
     )
+    trace: Optional[Callable] = None  # the default path traces nothing
+    lower: Optional[Callable] = None
     compile: Optional[Callable] = _compile_eager
 
     def with_rewrites(self, *rewrites: Callable[[Callable], Callable]) -> "Transforms":
@@ -129,10 +243,10 @@ class Backend:
     executable."""
 
     name: str
-    kind: str  # 'eager' | 'pallas'
+    kind: str  # 'eager' | 'pallas' | 'aot' | 'numpy'
     transforms: Transforms = dataclasses.field(default_factory=Transforms)
 
-    def make_executable(
+    def make_job(
         self,
         definition: Callable,
         *,
@@ -141,18 +255,39 @@ class Backend:
         type_info: Any = None,
         args: tuple = (),
         kwargs: Optional[dict] = None,
-    ) -> Callable:
+        **call: Any,
+    ) -> CompileJob:
+        """Run the transforms on one variant; ``call``: the call's ``out``,
+        ``domain`` and ``offset_provider`` (the ahead-of-time trace needs
+        them)."""
         job = CompileJob(
-            definition=definition,
-            op_kind=op_kind,
-            static_args=static_args,
+            definition_stage=stages.OperatorDefinition(definition, op_kind, static_args),
             args=args,
             kwargs=dict(kwargs or {}),
             type_info=type_info,
+            **call,
         )
         job = self.transforms(job)
         assert job.executable is not None, "transforms produced no executable"
-        return job.executable
+        return job
+
+    def make_executable(self, definition: Callable, **options: Any) -> Callable:
+        return self.make_job(definition, **options).executable
+
+    def compile_job(
+        self, definition: Callable, *args: Any, out: Any = None,
+        offset_provider: Optional[dict] = None, **kwargs: Any,
+    ) -> CompileJob:
+        """Run the transforms and return the full job with every artifact
+        (for inspection/formatters)."""
+        job = CompileJob(
+            definition_stage=stages.OperatorDefinition(definition),
+            args=args,
+            kwargs=dict(kwargs),
+            out=out,
+            offset_provider=offset_provider,
+        )
+        return self.transforms(job)
 
     def replace(self, **kwargs: Any) -> "Backend":
         return dataclasses.replace(self, **kwargs)
@@ -168,6 +303,14 @@ def register(backend: Backend) -> Backend:
 
 register(Backend(name="torch", kind="eager"))
 register(Backend(name="cuda:hopper", kind="pallas"))
+register(
+    Backend(
+        name="cuda:hopper:aot",
+        kind="aot",
+        transforms=Transforms(trace=_trace, lower=_lower, compile=_compile_aot),
+    )
+)
+register(Backend(name="numpy", kind="numpy", transforms=Transforms(compile=None)))
 
 
 def resolve(backend: Union[str, Backend, None]) -> Optional[Backend]:
@@ -184,8 +327,8 @@ def resolve(backend: Union[str, Backend, None]) -> Optional[Backend]:
 
 
 def backend_kind(backend: Union[str, Backend, None]) -> Optional[str]:
-    """The runtime-dispatch kind of a backend spec ('eager', 'pallas') or
-    None for eager execution without the pool."""
+    """The runtime-dispatch kind of a backend spec ('eager', 'pallas',
+    'aot', 'numpy') or None for eager execution without the pool."""
     if backend is None:
         return None
     if isinstance(backend, Backend):
@@ -194,3 +337,12 @@ def backend_kind(backend: Union[str, Backend, None]) -> Optional[str]:
     if resolved is not None:
         return resolved.kind
     return backend  # legacy free-form strings keep their own dispatch
+
+
+def cartesian_backend(backend: Union[str, Backend]) -> str:
+    """The cartesian backend the bridge builds a field-view backend's
+    operators for: the one of the same name, ``cuda:hopper`` for the
+    ahead-of-time kind."""
+    if backend_kind(backend) == "aot":
+        return AOT_CARTESIAN
+    return getattr(backend, "name", backend)

@@ -29,6 +29,7 @@ Copied from gt4py_tpu/next/cartesian_bridge.py; imports renamed.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import inspect
 from typing import Any, Callable, Optional
@@ -42,6 +43,19 @@ from gt4py_tpu_torch.next.common import Dimension, DimensionKind
 
 class BridgeUnsupported(Exception):
     pass
+
+
+#: variants built (traced and analyzed) since the count was last set to 0
+variants_built = 0
+#: where a caller sets a list, each variant built is appended to it (to build
+#: their kernels together ahead of the calls that launch them)
+variant_log: Optional[list] = None
+#: kernel -> the bridged calls run on a variant it serves since the counter
+#: was cleared (on CPU tensors the calls run its plain version)
+calls_served: collections.Counter = collections.Counter()
+#: kernel -> the launchers the bridge's calls on the card asked of it since
+#: the counter was cleared (what ``cuda_backend.WRAPPERS`` must count)
+launchers_served: collections.Counter = collections.Counter()
 
 
 _BINOPS = {
@@ -429,6 +443,15 @@ class _Tracer:
         return self.dim_axis[dim], int(delta)
 
 
+def _no_gtir(symbol: str) -> Callable:
+    """A SymNode operator that refuses: GTIR has no ``symbol``."""
+
+    def refuse(self, *other):
+        raise BridgeUnsupported(f"operator '{symbol}' has no GTIR counterpart")
+
+    return refuse
+
+
 class SymNode:
     """Symbolic value recorded while the definition executes."""
 
@@ -529,6 +552,18 @@ class SymNode:
 
     def __abs__(self):
         return SymNode(self.tr, "call", gtir.NativeFunction.ABS, (self,))
+
+    __floordiv__ = __rfloordiv__ = _no_gtir("//")
+    __xor__ = __rxor__ = _no_gtir("^")
+    __pos__ = _no_gtir("unary +")
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        # embedded code reached with a symbolic value (``not`` of a scalar
+        # parameter: torch.logical_not)
+        raise BridgeUnsupported(
+            f"torch.{getattr(func, '__name__', func)} of a symbolic value"
+        )
 
     __hash__ = object.__hash__
 
@@ -724,8 +759,9 @@ def build_variant(
     program_processors/runners/double_roundtrip.py role, one level BELOW
     the FOAST round-trip in next/foast_pretty.py)."""
     from gt4py_tpu_torch.cartesian.backend.base import REGISTRY
-    from gt4py_tpu_torch.cartesian.passes.pipeline import analyze_gtir
 
+    global variants_built
+    variants_built += 1
     dim_axis, dims = _dim_map(field_args)
     out_dtype = np.dtype(out.dtype)
     float_dtype = out_dtype if out_dtype.kind == "f" else np.dtype(np.float64)
@@ -801,15 +837,35 @@ def build_variant(
     )
     if gtir_transform is not None:
         stencil = gtir_transform(stencil)
-    analyzed = analyze_gtir(stencil, {"backend": backend_name})
+    analyzed = _analyze(stencil, backend_name)
     backend = REGISTRY[backend_name](analyzed, {})
-    return BridgeVariant(
+    return _logged(BridgeVariant(
         backend=backend,
         dims=dims,
         field_params=field_params,
         scalar_params=sorted(scalar_args),
         out_name=out_name,
-    )
+    ))
+
+
+def _analyze(stencil: gtir.Stencil, backend_name: str):
+    """The traced stencil through the cartesian passes. A stencil they
+    reject as a program (``GTScriptSyntaxError``: ``~`` or ``&`` of
+    integers, which GTIR has only as logical operators) is outside the
+    bridgeable subset; any other error propagates."""
+    from gt4py_tpu_torch.cartesian.frontend import GTScriptSyntaxError
+    from gt4py_tpu_torch.cartesian.passes.pipeline import analyze_gtir
+
+    try:
+        return analyze_gtir(stencil, {"backend": backend_name})
+    except GTScriptSyntaxError as exc:
+        raise BridgeUnsupported(f"the traced stencil is not valid GTIR: {exc}") from None
+
+
+def _logged(variant: BridgeVariant) -> BridgeVariant:
+    if variant_log is not None:
+        variant_log.append(variant)
+    return variant
 
 
 def build_scan_variant(
@@ -834,8 +890,10 @@ def build_scan_variant(
     (src/gt4py/next/ffront/foast_to_gtir.py:123-148) into
     gtfn ScanExecution (codegens/gtfn/codegen.py:181-208)."""
     from gt4py_tpu_torch.cartesian.backend.base import REGISTRY
-    from gt4py_tpu_torch.cartesian.passes.pipeline import analyze_gtir
     from gt4py_tpu_torch.next.embedded import Field
+
+    global variants_built
+    variants_built += 1
 
     out_fields = list(out) if isinstance(out, (tuple, list)) else [out]
     if not all(isinstance(f, Field) for f in out_fields):
@@ -964,16 +1022,16 @@ def build_scan_variant(
     )
     if gtir_transform is not None:
         stencil = gtir_transform(stencil)
-    analyzed = analyze_gtir(stencil, {"backend": backend_name})
+    analyzed = _analyze(stencil, backend_name)
     backend = REGISTRY[backend_name](analyzed, {})
-    return BridgeVariant(
+    return _logged(BridgeVariant(
         backend=backend,
         dims=dims,
         field_params=field_params,
         scalar_params=sorted(scalar_args),
         out_name=out_names[0],
         out_names=out_names,
-    )
+    ))
 
 
 def signature_key(field_args, scalar_args, out, providers, backend_name):
@@ -1052,126 +1110,129 @@ def execute(variant: BridgeVariant, field_args, scalar_args, out):
         for n, v in scalar_args.items()
     }
     variant.backend.run(arrays, scalars, tuple(domain), origins)
+    module = getattr(variant.backend, "module", None)
+    if module is not None:
+        calls_served[module.strategy] += 1
+        if getattr(variant.backend, "last_strategy", None) == module.strategy:
+            launchers_served[module.strategy] += len(module.launchers)
 
 
-def _backend_name(op) -> str:
-    """The cartesian backend of an operator's backend (a registered name or
-    a Backend instance): the one of the same name."""
-    return getattr(op.backend, "name", op.backend)
-
-
-def try_call(op, args, kwargs, out, providers) -> bool:
-    """Route a field-operator call through the cartesian kernels; returns
-    False when the operator/signature is outside the cartesian subset."""
+def bind_arguments(definition, args, kwargs, carry: bool = False) -> tuple[dict, dict]:
+    """(field arguments, scalar arguments) by name of a call of
+    ``definition`` (of a scan's: after its carry); raises BridgeUnsupported
+    where the arguments do not bind, one is neither a Field nor a scalar
+    (a tuple, a connectivity, ...), or none is a Field."""
     from gt4py_tpu_torch.next.embedded import Field
 
+    sig = inspect.signature(definition)
     try:
-        sig = inspect.signature(op.definition)
-        bound = sig.bind(*args, **kwargs)
+        bound = sig.bind(None, *args, **kwargs) if carry else sig.bind(*args, **kwargs)
         bound.apply_defaults()
-    except TypeError:
-        return False
+    except TypeError as exc:
+        raise BridgeUnsupported(f"arguments do not bind: {exc}") from None
     field_args = {}
     scalar_args = {}
-    for name, value in bound.arguments.items():
-        if isinstance(value, Field):
-            field_args[name] = value
-        elif isinstance(value, (int, float, np.integer, np.floating, bool)):
-            scalar_args[name] = value
-        else:
-            return False
-    if not field_args or out is None or not isinstance(out, Field):
-        return False
-
-    cache = getattr(op, "_bridge_cache", None)
-    if cache is None:
-        cache = {}
-        object.__setattr__(op, "_bridge_cache", cache)
-    try:
-        key = signature_key(field_args, scalar_args, out, providers, _backend_name(op))
-    except BridgeUnsupported:
-        return False
-    variant = cache.get(key)
-    if variant is None:
-        if key in cache:
-            return False
-        try:
-            from gt4py_tpu_torch.next.foast import exec_definition
-
-            variant = build_variant(
-                exec_definition(op), field_args, scalar_args, out, providers,
-                _backend_name(op),
-            )
-        except BridgeUnsupported:
-            cache[key] = None
-            return False
-        cache[key] = variant
-    if variant is None:
-        return False
-    try:
-        execute(variant, field_args, scalar_args, out)
-        return True
-    except BridgeUnsupported:
-        cache[key] = None
-        return False
-
-
-def try_call_scan(op, args, kwargs, out, providers) -> bool:
-    """Route a scan-operator call onto the cartesian sequential-K kernels;
-    returns False when the call is outside the bridgeable subset (tuple
-    fields, LOCAL dims, non-scalar init, domain mismatches, ...)."""
-    from gt4py_tpu_torch.next.embedded import Field
-
-    sig = inspect.signature(op.definition)
-    names = list(sig.parameters)
-    if not names:
-        return False
-    try:
-        bound = sig.bind(None, *args, **kwargs)  # None = carry placeholder
-        bound.apply_defaults()
-    except TypeError:
-        return False
-    field_args = {}
-    scalar_args = {}
-    for name, value in bound.arguments.items():
-        if name == names[0]:
+    for i, (name, value) in enumerate(bound.arguments.items()):
+        if carry and i == 0:
             continue
         if isinstance(value, Field):
             field_args[name] = value
         elif isinstance(value, (int, float, np.integer, np.floating, bool)):
             scalar_args[name] = value
         else:
-            return False
-    if not field_args or out is None:
-        return False
-    out_fields = list(out) if isinstance(out, (tuple, list)) else [out]
-    if not all(isinstance(f, Field) for f in out_fields):
-        return False
+            raise BridgeUnsupported(f"argument '{name}' is a {type(value).__name__}")
+    if not field_args:
+        raise BridgeUnsupported("no field argument")
+    return field_args, scalar_args
 
-    cache = op.__dict__.setdefault("_bridge_cache", {})
-    try:
-        key = signature_key(
-            field_args, scalar_args, out_fields[0], providers, _backend_name(op)
-        ) + (
-            ("scan", op.axis, bool(op.forward), repr(op.init), len(out_fields)),
-        )
-    except BridgeUnsupported:
-        return False
-    variant = cache.get(key)
-    if variant is None:
-        if key in cache:
-            return False
+
+def call_signature(definition, args, kwargs, out, providers, backend_name):
+    """(field arguments, scalar arguments, variant key) of a field
+    operator's call for the cartesian backend ``backend_name``; raises
+    BridgeUnsupported where the bridge cannot take the call."""
+    from gt4py_tpu_torch.next.embedded import Field
+
+    if not isinstance(out, Field):
+        raise BridgeUnsupported("the bridge writes one out field")
+    field_args, scalar_args = bind_arguments(definition, args, kwargs)
+    key = signature_key(field_args, scalar_args, out, providers, backend_name)
+    return field_args, scalar_args, key
+
+
+_UNSEEN = object()
+
+
+def _run_cached(cache: dict, key, make: Callable, field_args, scalar_args, out) -> bool:
+    """Execute the variant cached under ``key``, made by ``make`` on a miss
+    (a refusal cached as None); False where there is none."""
+    variant = cache.get(key, _UNSEEN)  # one lookup on the warm path
+    if variant is _UNSEEN:
         try:
-            variant = build_scan_variant(
-                op, field_args, scalar_args, out, providers, _backend_name(op)
-            )
+            variant = make()
         except BridgeUnsupported:
-            cache[key] = None
-            return False
+            variant = None
         cache[key] = variant
+    if variant is None:
+        return False
     try:
         execute(variant, field_args, scalar_args, out)
         return True
     except BridgeUnsupported:
         cache[key] = None
         return False
+
+
+def try_call(
+    op, args, kwargs, out, providers, backend_name: str,
+    make_variant: Optional[Callable[[], BridgeVariant]] = None,
+) -> bool:
+    """Route a field-operator call through the kernels of the cartesian
+    backend ``backend_name``; returns False when the operator/signature is
+    outside the cartesian subset. Variants are cached on the operator
+    (``_bridge_cache``), a refusal as None; on a miss ``make_variant``
+    (default: :func:`build_variant` on the operator's executed
+    definition) makes one or raises BridgeUnsupported."""
+    try:
+        field_args, scalar_args, key = call_signature(
+            op.definition, args, kwargs, out, providers, backend_name
+        )
+    except BridgeUnsupported:
+        return False
+    if make_variant is None:
+
+        def make_variant():
+            from gt4py_tpu_torch.next.foast import exec_definition
+
+            return build_variant(
+                exec_definition(op), field_args, scalar_args, out, providers, backend_name
+            )
+
+    cache = op.__dict__.setdefault("_bridge_cache", {})
+    return _run_cached(cache, key, make_variant, field_args, scalar_args, out)
+
+
+def try_call_scan(op, args, kwargs, out, providers, backend_name: str) -> bool:
+    """Route a scan-operator call onto the sequential-K kernels of the
+    cartesian backend ``backend_name``; returns False when the call is
+    outside the bridgeable subset (tuple fields, LOCAL dims, non-scalar
+    init, domain mismatches, ...)."""
+    from gt4py_tpu_torch.next.embedded import Field
+
+    out_fields = list(out) if isinstance(out, (tuple, list)) else [out]
+    if not all(isinstance(f, Field) for f in out_fields):
+        return False
+    try:
+        field_args, scalar_args = bind_arguments(op.definition, args, kwargs, carry=True)
+        key = signature_key(
+            field_args, scalar_args, out_fields[0], providers, backend_name
+        ) + (
+            ("scan", op.axis, bool(op.forward), repr(op.init), len(out_fields)),
+        )
+    except BridgeUnsupported:
+        return False
+    cache = op.__dict__.setdefault("_bridge_cache", {})
+    return _run_cached(
+        cache, key,
+        lambda: build_scan_variant(op, field_args, scalar_args, out, providers, backend_name),
+        field_args, scalar_args, out,
+    )

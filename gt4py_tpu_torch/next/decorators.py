@@ -6,9 +6,18 @@ Counterpart of gt4py_tpu/next/decorators.py (role of the reference's
 (``backend="torch"``, the default, through the compiled-programs pool;
 ``backend=None`` without it), or, with ``backend="cuda:hopper"``, through
 the cartesian bridge onto the port's Hopper kernels, falling back to
-embedded execution for what the bridge does not take. There is no jit:
+embedded execution for what the bridge does not take;
+``"cuda:hopper:aot"`` builds the bridge's variant through explicit
+trace, lower and compile stages first (next/backend.py). There is no jit:
 the JAX package's fused write-back and whole-program jit are XLA's.
 Results are written in place into the ``out`` field's tensor.
+
+``backend="numpy"`` is the oracle (gt4py_tpu/next/decorators.py:509-516,
+765-767): the raw definition runs on NumPy-backed Fields, views of the
+caller's CPU tensors, so results land in place; a scan runs its level
+loop in NumPy. A Field on a card raises a TypeError: nothing is moved
+between devices. An operator called on NumPy Fields (inside a ``numpy``
+program or operator) runs the same way, whatever its own backend.
 """
 
 from __future__ import annotations
@@ -25,9 +34,14 @@ from gt4py_tpu_torch.core.definitions import promote_types
 from gt4py_tpu_torch.core.ndarray_utils import torch_dtype
 from gt4py_tpu_torch.next.common import Dimension, Domain, NamedRange
 from gt4py_tpu_torch.next.embedded import (
+    Bf16Array,
     Field,
     _promote_dims,
     _type_of,
+    as_numpy_array,
+    as_numpy_field,
+    in_numpy_mode,
+    numpy_mode,
     offset_provider_context,
 )
 
@@ -55,13 +69,13 @@ def _restrict_result(result: "Field", target: Domain, out_dtype) -> torch.Tensor
                 )
             slices.append(slice(nr.unit_range.start - rr.start, nr.unit_range.stop - rr.start))
     perm = [result.domain.index(nr.dim) for nr in target.ranges]
-    arr = result.ndarray
+    arr, ops = result.ndarray, result.ops
     if perm != sorted(perm):
-        arr = arr.permute(perm)
-    value = arr[tuple(slices)].to(torch_dtype(out_dtype))
+        arr = ops.permute(arr, perm)
+    value = ops.astype(arr[tuple(slices)], out_dtype)
     target_shape = tuple(len(nr.unit_range) for nr in target.ranges)
     if tuple(value.shape) != target_shape:
-        value = value.expand(target_shape)
+        value = ops.expand(value, target_shape)
     return value
 
 
@@ -109,9 +123,50 @@ def _write_out(result: Any, out: Any, domain: Optional[Domain]) -> None:
     dest = out.ndarray
     if domain is not None and target is not out.domain:
         dest = dest[_out_slices(target, out.domain)]
+    if isinstance(dest, np.ndarray):
+        value = as_numpy_array(value)
+        dest[...] = value.copy() if np.may_share_memory(value, dest) else value
+        return
     if shares_memory(value, dest):
         value = value.clone()
     dest.copy_(value)
+
+
+def _symbolic_leaf(values: Any) -> Any:
+    """The first of ``values``, or of the tuples among them, that is a
+    symbolic value of a cartesian-bridge trace, else None."""
+    for v in values:
+        if isinstance(v, tuple):
+            v = _symbolic_leaf(v)
+        if getattr(v, "_gt_symbolic_", False):
+            return v
+    return None
+
+
+def _to_numpy(tree: Any) -> Any:
+    """``tree`` with each Field over NumPy (views of CPU tensors)."""
+    return pytree.tree_map(
+        lambda x: as_numpy_field(x) if isinstance(x, Field) else x, tree, is_leaf=_is_field
+    )
+
+
+def _write_back_bf16(out: Any, np_out: Any) -> None:
+    """Copy each bfloat16 carrier out field back into its tensor."""
+    for f, g in zip(
+        pytree.tree_leaves(out, is_leaf=_is_field), pytree.tree_leaves(np_out, is_leaf=_is_field)
+    ):
+        if isinstance(f, Field) and isinstance(g.ndarray, Bf16Array):
+            f.ndarray.copy_(torch.from_numpy(g.ndarray.view(np.ndarray)).to(torch.bfloat16))
+
+
+def _run_numpy(fn: Callable, args: tuple, kwargs: dict, out: Any, domain: Any) -> None:
+    """``fn`` (a raw definition) on NumPy views of the arguments, its
+    result written into NumPy views of ``out``."""
+    np_out = _to_numpy(out)
+    with numpy_mode():
+        result = fn(*_to_numpy(args), **_to_numpy(kwargs))
+        _write_out(result, np_out, domain)
+    _write_back_bf16(out, np_out)
 
 
 def _first_field(out: Any) -> Optional[Field]:
@@ -166,6 +221,7 @@ class FieldOperator:
         state.pop("_pool", None)
         state.pop("_foast_cache", None)
         state.pop("_bridge_cache", None)
+        state.pop("_aot_jobs", None)
         return state
 
     def __setstate__(self, state):
@@ -216,24 +272,88 @@ class FieldOperator:
 
     def _make_executable(self, args, kwargs) -> Callable:
         from gt4py_tpu_torch.next.backend import Backend, resolve
+
+        be = resolve(self.backend) if isinstance(self.backend, (str, Backend)) else None
+        if be is None or be.transforms.compile is None:
+            # no executable to build (the numpy backend runs the raw
+            # definition at the call)
+            from gt4py_tpu_torch.next.foast import exec_definition
+
+            statics = {k: v for k, v in kwargs.items() if k in self.options.static_params}
+            definition = exec_definition(self)
+            return functools.partial(definition, **statics) if statics else definition
+        return self._make_job(be, args, kwargs).executable
+
+    def _make_job(self, be, args, kwargs, **call):
+        """One variant built through the backend's Transforms workflow
+        (reference backend.py:154 Backend.compile: user-replaced steps
+        apply); ``call``: the ahead-of-time kind's ``out``, ``domain`` and
+        ``offset_provider``."""
         from gt4py_tpu_torch.next.foast import exec_definition
 
         definition = exec_definition(self)
+        if definition is not self.definition and not hasattr(definition, "__wrapped__"):
+            # the generated function's source is the definition's: its
+            # stage fingerprints (fingerprinting.fingerprint_function) are
+            # then stable across operators of the same definition
+            definition.__wrapped__ = self.definition
         statics = {k: v for k, v in kwargs.items() if k in self.options.static_params}
         dynamic = {k: v for k, v in kwargs.items() if k not in statics}
-        be = resolve(self.backend) if isinstance(self.backend, (str, Backend)) else None
-        if be is None:
-            return functools.partial(definition, **statics) if statics else definition
-        # Build through the backend's Transforms workflow (reference
-        # backend.py:154 Backend.compile): user-replaced steps apply.
-        return be.make_executable(
+        return be.make_job(
             definition,
             op_kind="field_operator",
             static_args=tuple(sorted(statics.items())),
             type_info=self.type_info,
             args=args,
             kwargs=dynamic,
+            **call,
         )
+
+    def _aot_job(self, args, kwargs, out, domain, offset_provider):
+        """The ``cuda:hopper:aot`` CompileJob of this call. Its stages run
+        once per variant key of the bridge, at ``compile()`` or at the
+        first call; the traced variant (None where the bridge refused) goes
+        into the bridge cache that the calls read (``try_call``)."""
+        from gt4py_tpu_torch.next import cartesian_bridge as bridge
+        from gt4py_tpu_torch.next.backend import AOT_CARTESIAN, resolve
+
+        jobs = self.__dict__.setdefault("_aot_jobs", {})
+        try:
+            key = None if domain is not None else bridge.call_signature(
+                self.definition, args, kwargs, out, offset_provider, AOT_CARTESIAN)[2]
+        except bridge.BridgeUnsupported:
+            key = None  # runs embedded; the job's trace says why
+        if key in jobs:
+            return jobs[key]
+        job = self._make_job(resolve(self.backend), args, kwargs, out=out, domain=domain,
+                             offset_provider=offset_provider)
+        if key is not None:
+            jobs[key] = job
+            traced = job.traced_stage
+            self.__dict__.setdefault("_bridge_cache", {})[key] = (
+                traced.variant if traced is not None else None)
+        return job
+
+    def _aot_variant(self, args, kwargs, out, offset_provider):
+        """The variant of an ahead-of-time call the bridge cache misses,
+        made by the stages (:meth:`_aot_job`)."""
+        from gt4py_tpu_torch.next.cartesian_bridge import BridgeUnsupported
+
+        job = self._aot_job(args, kwargs, out, None, offset_provider)
+        if job.traced_stage is None:
+            raise BridgeUnsupported(job.unsupported)
+        return job.traced_stage.variant
+
+    def compiled_job(self, *args, out: Any = None, offset_provider: Optional[dict] = None,
+                     domain: Any = None, **kwargs):
+        """The CompileJob of the ``cuda:hopper:aot`` variant for these
+        arguments (built if it was not), with every stage it reached."""
+        from gt4py_tpu_torch.next.backend import backend_kind
+
+        if backend_kind(self.backend) != "aot":
+            raise ValueError(f"operator on {self.backend!r} has no ahead-of-time stages")
+        with offset_provider_context(offset_provider):
+            return self._aot_job(args, kwargs, out, _make_domain(domain), offset_provider)
 
     def compile(self, *args, offset_provider: Optional[dict] = None, **kwargs) -> "FieldOperator":
         """Build variants for the given example arguments ahead of the
@@ -242,6 +362,15 @@ class FieldOperator:
         cross product of all such lists is built. Returns self."""
         import itertools
 
+        from gt4py_tpu_torch.next.backend import backend_kind
+
+        # out= and domain= are not arguments of the definition: a call keys
+        # its variant without them; the ahead-of-time stages trace for them
+        out, domain = kwargs.pop("out", None), _make_domain(kwargs.pop("domain", None))
+        if backend_kind(self.backend) == "aot":
+            with offset_provider_context(offset_provider):
+                self._aot_job(args, kwargs, out, domain, offset_provider)
+            return self
         list_params = {
             k: v
             for k, v in kwargs.items()
@@ -290,13 +419,22 @@ class FieldOperator:
         with stencil_call.wrap(name), MetricsCollector(name, "total"):
             with offset_provider_context(offset_provider):
                 kind = backend_kind(self.backend)
-                if kind == "pallas":
+                if kind == "numpy" or in_numpy_mode():
+                    # the oracle: the raw definition on NumPy Fields
+                    _run_numpy(self.definition, args, kwargs, out, dom)
+                    return
+                if kind in ("pallas", "aot"):
                     # Structured (cartesian-offset) operators execute on the
                     # cartesian Hopper kernels; unstructured signatures fall
-                    # through to embedded.
+                    # through to embedded. The ahead-of-time kind makes its
+                    # variants through its stages.
+                    from gt4py_tpu_torch.next.backend import cartesian_backend
                     from gt4py_tpu_torch.next.cartesian_bridge import try_call
 
-                    if dom is None and try_call(self, args, kwargs, out, offset_provider):
+                    make = None if kind == "pallas" else functools.partial(
+                        self._aot_variant, args, kwargs, out, offset_provider)
+                    if dom is None and try_call(self, args, kwargs, out, offset_provider,
+                                                cartesian_backend(self.backend), make):
                         return
                     result = exec_definition(self)(*args, **kwargs)
                 elif kind == "eager":
@@ -411,13 +549,9 @@ class ScanOperator:
     ):
         # Called on symbolic values inside a cartesian-bridge trace: inline
         # as a sequential vertical loop of the enclosing stencil.
-        symbolic = [
-            a
-            for a in (*args, *kwargs.values())
-            if getattr(a, "_gt_symbolic_", False)
-        ]
-        if symbolic:
-            return symbolic[0].tr.trace_scan(self, args, kwargs)
+        symbolic = _symbolic_leaf((*args, *kwargs.values()))
+        if symbolic is not None:
+            return symbolic.tr.trace_scan(self, args, kwargs)
         if self.type_info is not None and out is not None:
             from gt4py_tpu_torch.next.type_deduction import OperatorTypeInfo, check_call_args
 
@@ -434,13 +568,23 @@ class ScanOperator:
         from gt4py_tpu_torch.next.backend import backend_kind
 
         dom = _make_domain(domain)
-        if backend_kind(self.backend) == "pallas" and out is not None and dom is None:
+        kind = backend_kind(self.backend)
+        if out is not None and (kind == "numpy" or in_numpy_mode()):
+            # the oracle: the level loop in NumPy, on views of the arguments
+            out_domain = _first_field(out).domain
+            with offset_provider_context(offset_provider):
+                _run_numpy(lambda *a, **kw: self._apply(a, kw, out_domain=out_domain),
+                           args, kwargs, out, dom)
+            return None
+        if kind in ("pallas", "aot") and out is not None and dom is None:
             # Structured scans lower onto the cartesian sequential-K Hopper
             # kernels; unsupported shapes fall through to embedded.
+            from gt4py_tpu_torch.next.backend import cartesian_backend
             from gt4py_tpu_torch.next.cartesian_bridge import try_call_scan
 
             with offset_provider_context(offset_provider):
-                if try_call_scan(self, args, kwargs, out, offset_provider):
+                if try_call_scan(self, args, kwargs, out, offset_provider,
+                                 cartesian_backend(self.backend)):
                     return None
         with offset_provider_context(offset_provider):
             first = _first_field(out)
@@ -454,18 +598,13 @@ class ScanOperator:
         _write_out(result, out, dom)
         return None
 
-    def _apply(self, args, kwargs, out_domain: Optional[Domain] = None, device: Any = None):
-        """The embedded scan: the definition runs once per level of
-        ``axis``, in order, on Fields over the other dimensions (the JAX
-        package's ``lax.scan``); the levels are stacked along ``axis``,
-        which leads the result's layout. ``device``: where a scan without
-        Field arguments puts its result (the out field's)."""
-        from gt4py_tpu_torch.next.foast import exec_definition
-
-        definition = exec_definition(self)
-        # Arguments are pytrees: nested tuples of Fields and scalars ride
-        # as single scan arguments (reference test_tuple_scalar_scan,
-        # test_scan_nested_tuple_input).
+    def _aligned(self, args, out_domain: Optional[Domain], wrap: Callable):
+        """The scan's domain and its arguments aligned onto it: (dims,
+        domain, index of ``axis`` in dims, the arguments with each Field
+        leaf replaced by ``wrap(leaf, its aligned array)``). Arguments are
+        pytrees: nested tuples of Fields and scalars ride as single scan
+        arguments (reference test_tuple_scalar_scan,
+        test_scan_nested_tuple_input)."""
         field_args = [
             leaf
             for a in args
@@ -511,16 +650,45 @@ class ScanOperator:
             if isinstance(leaf, Field):
                 d, arr = leaf._aligned(dims, ref)
                 dom = d if dom is None else dom.intersection(d)
-                return _Column(arr, leaf.weak)
+                return wrap(leaf, arr)
             return leaf
 
         aligned = [pytree.tree_map(align_leaf, a, is_leaf=_is_field) for a in args]
-        k_axis = dims.index(self.axis)
-        nk = dom.shape[k_axis]
+        return dims, dom, dims.index(self.axis), aligned
+
+    def _levels(self, definition: Callable, carry: Any, at_level: Callable, nk: int, kwargs):
+        """The carry after each level of ``axis``, in the axis' order."""
+        levels = []
+        order = range(nk) if self.forward else range(nk - 1, -1, -1)
+        for k in order:
+            carry = definition(carry, *at_level(k), **kwargs)
+            levels.append(carry)
+        if not levels:
+            raise ValueError(f"scan over an empty {self.axis} range")
+        if not self.forward:
+            levels.reverse()
+        return levels
+
+    def _apply(self, args, kwargs, out_domain: Optional[Domain] = None, device: Any = None):
+        """The embedded scan: the definition runs once per level of
+        ``axis``, in order, on Fields over the other dimensions (the JAX
+        package's ``lax.scan``); the levels are stacked along ``axis``,
+        which leads the result's layout. ``device``: where a scan without
+        Field arguments puts its result (the out field's)."""
+        from gt4py_tpu_torch.next.foast import exec_definition
+
+        if in_numpy_mode():
+            return self._apply_numpy(_to_numpy(args), kwargs, out_domain)
+        dims, dom, k_axis, aligned = self._aligned(
+            args, out_domain, lambda leaf, arr: _Column(arr, leaf.weak)
+        )
         level_dom = Domain(tuple(r for i, r in enumerate(dom.ranges) if i != k_axis))
         level_shape = tuple(s for i, s in enumerate(dom.shape) if i != k_axis)
-        if field_args:
-            device = field_args[0].ndarray.device
+        columns = [
+            leaf for a in aligned for leaf in pytree.tree_leaves(a) if isinstance(leaf, _Column)
+        ]
+        if columns:
+            device = columns[0].array.device
 
         def pick(k, leaf):
             if isinstance(leaf, _Column):
@@ -530,17 +698,9 @@ class ScanOperator:
         def at_level(k):
             return tuple(pytree.tree_map(functools.partial(pick, k), a) for a in aligned)
 
-        carry = self.init
-        levels = []
-        order = range(nk) if self.forward else range(nk - 1, -1, -1)
-        for k in order:
-            carry = definition(carry, *at_level(k), **kwargs)
-            levels.append(carry)
-        if not self.forward:
-            levels.reverse()
-        if not levels:
-            raise ValueError(f"scan over an empty {self.axis} range")
-
+        levels = self._levels(
+            exec_definition(self), self.init, at_level, dom.shape[k_axis], kwargs
+        )
         leaves = [pytree.tree_leaves(lv, is_leaf=_is_field) for lv in levels]
         spec = pytree.tree_structure(levels[0], is_leaf=_is_field)
         stacked = []
@@ -551,6 +711,30 @@ class ScanOperator:
             arr = torch.stack([_level_tensor(v, level_shape, device, tdt) for v in column])
             stacked.append(Field(dom, arr.movedim(0, k_axis)))
         return pytree.tree_unflatten(stacked, spec)
+
+    def _apply_numpy(self, args, kwargs, out_domain: Optional[Domain] = None):
+        """The NumPy scan (gt4py_tpu/next/decorators.py:765-767 and its
+        level loop): the RAW definition runs once per level on the
+        arguments' NumPy planes (the oracle's independence: no FOAST), the
+        carry starting as ``init`` broadcast to a plane, and the levels are
+        stacked along ``axis``."""
+        dims, dom, k_axis, aligned = self._aligned(args, out_domain, lambda leaf, arr: arr)
+        nk = dom.shape[k_axis]
+        non_k_shape = tuple(s for i, s in enumerate(dom.shape) if i != k_axis)
+
+        def to_levels(a):
+            if hasattr(a, "ndim") and a.ndim == len(dims):
+                return np.moveaxis(a, k_axis, 0)
+            return np.broadcast_to(np.asarray(a), (nk,) + non_k_shape)
+
+        carry = pytree.tree_map(lambda v: np.broadcast_to(np.asarray(v), non_k_shape), self.init)
+        xs = tuple(pytree.tree_map(to_levels, a) for a in aligned)
+        levels = self._levels(
+            self.definition, carry,
+            lambda k: tuple(pytree.tree_map(lambda level: level[k], x) for x in xs), nk, kwargs,
+        )
+        stacked = pytree.tree_map(lambda *ls: np.stack(ls), *levels)
+        return pytree.tree_map(lambda arr: Field(dom, np.moveaxis(arr, 0, k_axis)), stacked)
 
     def __get__(self, obj, objtype=None):
         return self
@@ -694,8 +878,17 @@ class Program:
                     f"Arguments {sorted(overlap)} are already bound on this program"
                 )
             kwargs = {**self.bound_args, **kwargs}
+        from gt4py_tpu_torch.next.backend import backend_kind
         from gt4py_tpu_torch.next.past import exec_program
 
+        if backend_kind(self.backend) == "numpy":
+            # the oracle: the body on NumPy views of the arguments, so every
+            # operator it calls runs in NumPy and writes in place
+            np_args, np_kwargs = _to_numpy(args), _to_numpy(kwargs)
+            with offset_provider_context(offset_provider), numpy_mode():
+                exec_program(self)(*np_args, **np_kwargs)
+            _write_back_bf16((args, kwargs), (np_args, np_kwargs))
+            return
         with offset_provider_context(offset_provider):
             exec_program(self)(*args, **kwargs)
 

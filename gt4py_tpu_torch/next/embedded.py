@@ -18,6 +18,15 @@ take. Differences from the JAX package:
   are not ported;
 - restriction is a view of the base tensor, so writing into
   ``out=field[:, 1:]`` writes the base field: no write-back link.
+
+A Field may also hold a NumPy array: the ``numpy`` backend's oracle (the
+JAX package's ``_xp``, embedded.py:87). Every operation takes its
+namespace from the array, through one small table (:class:`_TorchOps`,
+:class:`_NumpyOps`), and a NumPy Field computes by NumPy's own rules, as
+the JAX package's ``numpy`` backend applies NumPy's operators: NumPy 2's
+promotion, Python scalars and Fields of weak type adapting to the other
+operand (NEP 50). bfloat16 is carried in float32 and rounded after every
+operation (``numpy_evaluator.round_bf16``), as ml_dtypes computes it.
 """
 
 from __future__ import annotations
@@ -30,9 +39,16 @@ from typing import Any, Callable, Optional, Union
 import numpy as np
 import torch
 
+from gt4py_tpu_torch.cartesian.backend.numpy_evaluator import (
+    bf16_apply,
+    carrier_dtype,
+    round_bf16,
+)
 from gt4py_tpu_torch.core.definitions import (
     WEAK_FLOAT,
     WEAK_INT,
+    as_dtype,
+    bfloat16,
     promote_types,
     to_inexact,
 )
@@ -82,6 +98,28 @@ class offset_provider_context:
         return False
 
 
+# The array namespace of Fields made from no array (``broadcast(1.0,
+# dims)``, a scan without Field arguments): NumPy inside a call of the
+# ``numpy`` backend, torch otherwise.
+_NUMPY_MODE: contextvars.ContextVar[bool] = contextvars.ContextVar("numpy_mode", default=False)
+
+
+class numpy_mode:
+    """Within this context, Fields made from no array hold NumPy arrays."""
+
+    def __enter__(self):
+        self._token = _NUMPY_MODE.set(True)
+        return self
+
+    def __exit__(self, *args):
+        _NUMPY_MODE.reset(self._token)
+        return False
+
+
+def in_numpy_mode() -> bool:
+    return _NUMPY_MODE.get()
+
+
 def _promote_dims(a: tuple[Dimension, ...], b: tuple[Dimension, ...]) -> tuple[Dimension, ...]:
     """Union of dims preserving relative order (reference common.py:1367)."""
     result = list(a)
@@ -97,7 +135,7 @@ def _promote_dims(a: tuple[Dimension, ...], b: tuple[Dimension, ...]) -> tuple[D
     return tuple(result)
 
 
-# -- promotion -------------------------------------------------------------------
+# -- promotion ----------------------------------------------------------------
 
 
 def _type_of(value: Any, weak: bool = False) -> Any:
@@ -169,30 +207,324 @@ def _as_tensor(v: Any, dtype: torch.dtype, like: Any) -> torch.Tensor:
     return torch.as_tensor(v, dtype=dtype, device=device)
 
 
+# -- bfloat16 on NumPy --------------------------------------------------------------
+
+#: dtypes whose operations with bfloat16 give bfloat16 in ml_dtypes
+_BF16_PARTNERS = (np.dtype(np.bool_), np.dtype(np.int8), np.dtype(np.uint8))
+
+
+class Bf16Array(np.ndarray):
+    """bfloat16 values carried in a float32 array (NumPy has no bfloat16).
+    A ufunc whose ml_dtypes result is bfloat16 (every operand bfloat16, a
+    Python bool or a type narrower than it) computes as
+    ``numpy_evaluator.bf16_apply`` does — in float64, rounded to float32,
+    then to bfloat16 — and gives a Bf16Array; any other ufunc runs on the
+    float32 values, as ml_dtypes promotes bfloat16 with a Python number or
+    a wider type (to float32 or past it). Views (slices, reshapes,
+    transposes) stay Bf16Arrays."""
+
+    def __array_ufunc__(self, ufunc, method, *inputs, **kwargs):
+        if kwargs.get("out") is not None:
+            raise TypeError("a bfloat16 carrier takes no out= argument")
+        plain = [x.view(np.ndarray) if isinstance(x, Bf16Array) else x for x in inputs]
+        bf16 = all(_bf16_partner(x) for x in inputs)
+        if method == "reduce" and bf16 and ufunc is np.add:
+            # ml_dtypes adds level after level, rounding every partial sum
+            axis = kwargs.get("axis", 0)
+            parts = np.moveaxis(plain[0], axis, 0)
+            total = parts[0]
+            for part in parts[1:]:
+                total = bf16_apply(np.add, total, part)
+            return as_bf16(total)
+        result = getattr(ufunc, method)(*plain, **kwargs)
+        if not bf16 or np.asarray(result).dtype.kind != "f":
+            return result
+        if method == "__call__":
+            result = bf16_apply(ufunc, *plain)
+        return as_bf16(result)
+
+
+def _bf16_partner(x: Any) -> bool:
+    """Whether ml_dtypes keeps bfloat16 beside ``x``."""
+    if isinstance(x, (Bf16Array, bool)):
+        return True
+    return isinstance(x, (np.ndarray, np.generic)) and x.dtype in _BF16_PARTNERS
+
+
+def as_bf16(values: Any) -> Bf16Array:
+    """``values`` rounded to bfloat16, as a :class:`Bf16Array`."""
+    return np.asarray(round_bf16(np.asarray(values, dtype=np.float32))).view(Bf16Array)
+
+
+def _np_dtype_of(arr: Any) -> np.dtype:
+    """The dtype a NumPy value stands for: bfloat16 for a carrier."""
+    return bfloat16 if isinstance(arr, Bf16Array) else np.asarray(arr).dtype
+
+
+def _np_cast(arr: Any, dtype: Any) -> Any:
+    """``arr`` as ``dtype``, bfloat16 as a rounded carrier."""
+    dt = as_dtype(dtype)
+    if dt == bfloat16:
+        return arr if isinstance(arr, Bf16Array) else as_bf16(arr)
+    if isinstance(arr, Bf16Array):
+        arr = arr.view(np.ndarray)
+    return arr if arr.dtype == dt else arr.astype(dt)
+
+
+def _stand_in(arr: Any) -> Any:
+    """The Python scalar a weak NumPy array promotes as (NEP 50)."""
+    kind = _np_dtype_of(arr).kind
+    return 0.0 if kind in "fV" else (False if kind == "b" else 0)
+
+
+def _np_weak(value: Any, weak: bool, other: Any, other_weak: bool) -> Any:
+    """A weak NumPy operand cast to the type NumPy gives a Python scalar
+    beside ``other`` (NEP 50); strong operands and a pair of weak ones
+    stay as they are."""
+    if not weak or other_weak or not isinstance(value, np.ndarray):
+        return value
+    if isinstance(other, np.ndarray):
+        dt = _np_dtype_of(other)
+        if dt == bfloat16:
+            return _np_cast(value, bfloat16)
+        other = np.empty((), dt)
+    if not isinstance(other, (np.ndarray, np.generic)):
+        return value
+    return _np_cast(value, np.result_type(other, _stand_in(value)))
+
+
+class _TorchOps:
+    """A Field's array operations on torch tensors, with the JAX package's
+    promotion (:func:`_promoted`)."""
+
+    def binary(self, op: "_Op", a: Any, b: Any, wa: bool, wb: bool) -> tuple:
+        """``(op(a, b), whether the result is weak)``."""
+        a, b = _same_device(a, b)
+        if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
+            return op.fn(a, b), False
+        (a, b), tdt, weak = _promoted((a, b), (wa, wb), op.inexact)
+        if op.tensors:
+            like = a if isinstance(a, torch.Tensor) else b
+            a, b = _as_tensor(a, tdt, like), _as_tensor(b, tdt, like)
+        return op.fn(a, b), weak and not op.compare
+
+    def select(self, cond: Any, a: Any, b: Any, wa: bool, wb: bool) -> tuple:
+        """``(where(cond, a, b), weak)``, the branches promoted."""
+        a, b = _same_device(a, b)
+        (a, b), tdt, weak = _promoted((a, b), (wa, wb))
+        like = cond if isinstance(cond, torch.Tensor) else (a if isinstance(a, torch.Tensor) else b)
+        a, b = _as_tensor(a, tdt, like), _as_tensor(b, tdt, like)
+        cond = _as_tensor(cond, torch.bool, a)
+        return torch.where(cond, a, b), weak
+
+    def result_dtype(self, values: tuple, weaks: tuple) -> torch.dtype:
+        return _promoted(values, weaks)[1]
+
+    def take_along(self, arr, idx, axis: int):
+        return torch.take_along_dim(arr, idx, dim=axis)
+
+    def gather(self, arr, axis: int, idx):
+        return torch.index_select(arr, axis, idx)
+
+    def index(self, table, like):
+        """A connectivity's table as indices beside ``like``."""
+        return table.to(like.device).to(torch.int64)
+
+    def arange(self, n: int, like):
+        return torch.arange(n, device=like.device)
+
+    def as_int(self, arr, like):
+        return arr.to(device=like.device, dtype=torch.int64)
+
+    def clip(self, arr, lo: int, hi: int):
+        return arr.clamp(lo, hi)
+
+    def permute(self, arr, perm):
+        return arr.permute(perm)
+
+    def unsqueeze(self, arr, axis: int):
+        return arr.unsqueeze(axis)
+
+    def expand(self, arr, shape):
+        return arr.expand(shape)
+
+    def take_index(self, arr, axis: int, index: int):
+        return arr.select(axis, index)
+
+    def where(self, cond, a, b):
+        return torch.where(cond, a, b)
+
+    def scalar(self, value: Any, dtype: np.dtype, like):
+        return torch.as_tensor(value, dtype=torch_dtype(dtype), device=like.device)
+
+    def full(self, shape, value: Any, dtype, like):
+        value = value.item() if isinstance(value, np.generic) else value
+        return torch.full(shape, value, dtype=dtype, device=like.device)
+
+    def cast(self, arr, dtype, like):
+        return arr.to(device=like.device, dtype=dtype)
+
+    def concat(self, arrays, axis: int):
+        return torch.cat(arrays, dim=axis)
+
+    def reduce(self, name: str, arr, axis: int):
+        if name == "sum":
+            return torch.sum(arr, dim=axis)
+        return (torch.amax if name == "max" else torch.amin)(arr, dim=axis)
+
+    def astype(self, arr, dtype):
+        return arr.to(torch_dtype(dtype))
+
+    logical_and = staticmethod(torch.logical_and)
+    logical_not = staticmethod(torch.logical_not)
+    abs = staticmethod(torch.abs)
+
+
+class _NumpyOps:
+    """A Field's array operations on NumPy arrays, with NumPy's promotion:
+    what the JAX package's ``numpy`` backend computes (its ``_xp`` is
+    NumPy there). A weak operand (a Field made from a Python scalar)
+    promotes as the Python scalar does (NEP 50)."""
+
+    def binary(self, op: "_Op", a: Any, b: Any, wa: bool, wb: bool) -> tuple:
+        a, b = _np_weak(a, wa, b, wb), _np_weak(b, wb, a, wa)
+        return op.np_fn(a, b), wa and wb and not op.compare
+
+    def select(self, cond: Any, a: Any, b: Any, wa: bool, wb: bool) -> tuple:
+        a, b = _np_weak(a, wa, b, wb), _np_weak(b, wb, a, wa)
+        if isinstance(a, Bf16Array) or isinstance(b, Bf16Array):
+            if _bf16_partner(a) and _bf16_partner(b):
+                return as_bf16(np.where(cond, a, b)), wa and wb
+            # ml_dtypes takes a Python number beside bfloat16 as float64
+            a, b = (
+                np.asarray(x, np.float64) if isinstance(x, (int, float)) else
+                x.view(np.ndarray) if isinstance(x, Bf16Array) else x
+                for x in (a, b)
+            )
+        return np.where(cond, a, b), wa and wb
+
+    def result_dtype(self, values: tuple, weaks: tuple) -> np.dtype:
+        dts = [_np_dtype_of(v) for v, w in zip(values, weaks) if isinstance(v, np.ndarray) and not w]
+        if bfloat16 in dts:
+            return bfloat16
+        scalars = [
+            v.item() if isinstance(v, np.ndarray) else v
+            for v, w in zip(values, weaks)
+            if not isinstance(v, np.ndarray) or w
+        ]
+        return np.result_type(*dts, *scalars)
+
+    def take_along(self, arr, idx, axis: int):
+        return _keep_bf16(arr, np.take_along_axis(arr.view(np.ndarray), idx, axis=axis))
+
+    def gather(self, arr, axis: int, idx):
+        return _keep_bf16(arr, np.take(arr.view(np.ndarray), idx, axis=axis))
+
+    def index(self, table, like):
+        return asnumpy(table).astype(np.int64)
+
+    def arange(self, n: int, like):
+        return np.arange(n, dtype=np.int32)
+
+    def as_int(self, arr, like):
+        return np.asarray(arr).astype(np.int32)
+
+    def clip(self, arr, lo: int, hi: int):
+        return np.clip(arr, lo, hi)
+
+    def permute(self, arr, perm):
+        return arr.transpose(perm)
+
+    def unsqueeze(self, arr, axis: int):
+        return np.expand_dims(arr, axis)
+
+    def expand(self, arr, shape):
+        return np.broadcast_to(arr, shape, subok=True)
+
+    def take_index(self, arr, axis: int, index: int):
+        return np.take(arr, index, axis=axis)
+
+    def where(self, cond, a, b):
+        return np.where(cond, a, b)
+
+    def scalar(self, value: Any, dtype: np.dtype, like):
+        return _np_cast(np.asarray(value, dtype=carrier_dtype(dtype)), dtype)
+
+    def full(self, shape, value: Any, dtype, like):
+        return _np_cast(np.full(shape, value, dtype=carrier_dtype(dtype)), dtype)
+
+    def cast(self, arr, dtype, like):
+        return _np_cast(arr, dtype)
+
+    def concat(self, arrays, axis: int):
+        return _keep_bf16(arrays[0], np.concatenate(arrays, axis=axis))
+
+    def reduce(self, name: str, arr, axis: int):
+        return getattr(np, name)(arr, axis=axis)
+
+    def astype(self, arr, dtype):
+        return _np_cast(arr, dtype)
+
+    logical_and = staticmethod(np.logical_and)
+    logical_not = staticmethod(np.logical_not)
+    abs = staticmethod(np.abs)
+
+
+def _keep_bf16(source: Any, result: np.ndarray) -> np.ndarray:
+    """``result`` (values selected from ``source``) as a carrier where
+    ``source`` is one."""
+    return result.view(Bf16Array) if isinstance(source, Bf16Array) else result
+
+
+TORCH_OPS = _TorchOps()
+NUMPY_OPS = _NumpyOps()
+
+
+def ops_of(*values: Any):
+    """The operation table of the arrays among ``values``: NumPy's where
+    one is a NumPy array, torch's otherwise."""
+    if any(isinstance(v, np.ndarray) for v in values):
+        return NUMPY_OPS
+    if any(isinstance(v, torch.Tensor) for v in values):
+        return TORCH_OPS
+    return NUMPY_OPS if in_numpy_mode() else TORCH_OPS
+
+
+def as_numpy_array(value: Any) -> Any:
+    """A tensor as NumPy for a NumPy Field: a view of a CPU tensor (a
+    bfloat16 one as a rounded float32 carrier, a copy); a tensor on a card
+    raises, since nothing is moved between devices."""
+    if not isinstance(value, torch.Tensor):
+        return value
+    if value.device.type != "cpu":
+        raise TypeError(
+            f"the numpy backend runs on the host: a tensor on {value.device} cannot be "
+            "handed to it (nothing is moved between devices)"
+        )
+    if value.dtype == torch.bfloat16:
+        return as_bf16(value.float().numpy())
+    return value.detach().numpy()
+
+
 class _Op:
-    """A binary array operation with the JAX package's promotion: the
-    operands are cast to their JAX result type (its floating type where
-    ``inexact``) and ``fn`` applied; ``tensors``: ``fn`` takes tensors only.
-    ``compare``: the result is bool (never weak)."""
+    """A binary array operation: ``fn`` on tensors, with the JAX package's
+    promotion (the operands are cast to their JAX result type, its floating
+    type where ``inexact``; ``tensors``: ``fn`` takes tensors only), and
+    ``np_fn`` on NumPy arrays, with NumPy's. ``compare``: the result is
+    bool (never weak)."""
 
-    __slots__ = ("fn", "inexact", "tensors", "compare")
+    __slots__ = ("fn", "np_fn", "inexact", "tensors", "compare")
 
-    def __init__(self, fn: Callable, inexact=False, tensors=False, compare=False):
+    def __init__(self, fn: Callable, inexact=False, tensors=False, compare=False, np_fn=None):
         self.fn = fn
+        self.np_fn = np_fn or fn
         self.inexact = inexact
         self.tensors = tensors
         self.compare = compare
 
     def apply(self, a: Any, b: Any, wa: bool = False, wb: bool = False) -> tuple:
         """``(result, weak)``."""
-        a, b = _same_device(a, b)
-        if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
-            return self.fn(a, b), False
-        (a, b), tdt, weak = _promoted((a, b), (wa, wb), self.inexact)
-        if self.tensors:
-            like = a if isinstance(a, torch.Tensor) else b
-            a, b = _as_tensor(a, tdt, like), _as_tensor(b, tdt, like)
-        return self.fn(a, b), weak and not self.compare
+        return ops_of(a, b).binary(self, a, b, wa, wb)
 
     def __call__(self, a: Any, b: Any) -> Any:
         return self.apply(a, b)[0]
@@ -211,16 +543,17 @@ LT = _Op(operator.lt, compare=True)
 LE = _Op(operator.le, compare=True)
 GT = _Op(operator.gt, compare=True)
 GE = _Op(operator.ge, compare=True)
-LOGICAL_AND = _Op(torch.logical_and, tensors=True, compare=True)
-LOGICAL_OR = _Op(torch.logical_or, tensors=True, compare=True)
-LOGICAL_XOR = _Op(torch.logical_xor, tensors=True, compare=True)
+LOGICAL_AND = _Op(torch.logical_and, tensors=True, compare=True, np_fn=np.logical_and)
+LOGICAL_OR = _Op(torch.logical_or, tensors=True, compare=True, np_fn=np.logical_or)
+LOGICAL_XOR = _Op(torch.logical_xor, tensors=True, compare=True, np_fn=np.logical_xor)
 
 
 @dataclasses.dataclass
 class Field:
-    """Discrete field over a Domain, backed by a torch tensor (one axis per
-    domain dimension). Supports arithmetic, comparison, shifts via
-    ``field(offset)``, and reductions via fbuiltins."""
+    """Discrete field over a Domain, backed by a torch tensor or a NumPy
+    array (one axis per domain dimension). Supports arithmetic,
+    comparison, shifts via ``field(offset)``, and reductions via
+    fbuiltins."""
 
     domain: Domain
     ndarray: Any
@@ -237,6 +570,8 @@ class Field:
     __array_ufunc__ = None
 
     def __post_init__(self):
+        if isinstance(self.ndarray, np.generic):  # NumPy's 0-d results
+            self.ndarray = np.asarray(self.ndarray)
         expected = tuple(
             1 if not r.unit_range.is_finite else len(r.unit_range)
             for r in self.domain.ranges
@@ -270,6 +605,8 @@ class Field:
 
     @property
     def dtype(self):
+        if isinstance(self.ndarray, np.ndarray):
+            return _np_dtype_of(self.ndarray)
         return numpy_dtype(self.ndarray.dtype)
 
     @property
@@ -282,7 +619,12 @@ class Field:
 
     @property
     def device(self) -> torch.device:
-        return self.ndarray.device
+        return getattr(self.ndarray, "device", torch.device("cpu"))
+
+    @property
+    def ops(self):
+        """The operation table of the array's namespace."""
+        return NUMPY_OPS if isinstance(self.ndarray, np.ndarray) else TORCH_OPS
 
     def asnumpy(self) -> np.ndarray:
         return asnumpy(self.ndarray)
@@ -292,7 +634,8 @@ class Field:
         dtype (a typed scalar, as the JAX package's 0-d array is)."""
         if self.domain.ndim != 0:
             raise ValueError("as_scalar requires a zero-dimensional field")
-        return asnumpy(self.ndarray)[()]
+        value = asnumpy(self.ndarray)[()]
+        return np.float32(value) if isinstance(self.ndarray, Bf16Array) else value
 
     # -- shifts ------------------------------------------------------------
 
@@ -487,11 +830,11 @@ class Field:
         )
         view = [1] * len(shape)
         view[axis] = shape[axis]
-        base = torch.arange(shape[axis], device=a_wide.device).reshape(view) + off0
-        pos = (base + b.to(device=a_wide.device, dtype=torch.int64)).clamp(0, n - 1)
-        # take_along_dim broadcasts index vs array on non-axis dims
-        out = torch.take_along_dim(a_wide, pos, dim=axis)
-        return Field(dom, out)
+        ops = self.ops
+        base = ops.arange(shape[axis], a_wide).reshape(view) + off0
+        pos = ops.clip(base + ops.as_int(b, a_wide), 0, n - 1)
+        # take_along broadcasts index vs array on non-axis dims
+        return Field(dom, ops.take_along(a_wide, pos, axis))
 
     def _shift_cartesian(self, dim: Dimension, index: int) -> "Field":
         """out(i) = self(i + index)  ⇔ domain range shifted by -index."""
@@ -509,13 +852,13 @@ class Field:
                 f"Field over {self.domain} cannot be remapped via {conn!r}"
             )
         axis = self.domain.index(conn.codomain)
-        table = conn.table if column is None else conn.table[:, column]
-        table = table.to(self.ndarray.device)
+        ops = self.ops
+        table = ops.index(conn.table if column is None else conn.table[:, column], self.ndarray)
         own_start = self.domain[conn.codomain].unit_range.start
         n = self.ndarray.shape[axis]
-        safe_idx = (table.to(torch.int64) - own_start).clamp(0, n - 1)
+        safe_idx = ops.clip(table - own_start, 0, n - 1)
         shape = tuple(self.ndarray.shape)
-        gathered = torch.index_select(self.ndarray, axis, safe_idx.reshape(-1)).reshape(
+        gathered = ops.gather(self.ndarray, axis, safe_idx.reshape(-1)).reshape(
             shape[:axis] + tuple(table.shape) + shape[axis + 1:]
         )
         # gathered axes: dims[:axis] + (source[, neighbor]) + dims[axis+1:]
@@ -535,13 +878,14 @@ class Field:
             valid = (table != conn.skip_value).reshape(
                 (1,) * axis + tuple(table.shape) + (1,) * (self.ndarray.ndim - axis - 1)
             )
-            mask = valid.expand(gathered.shape)
+            mask = ops.expand(valid, gathered.shape)
         return Field(Domain(new_ranges), gathered, mask)
 
     def _reduce_index(self, dim: Dimension, index: int) -> "Field":
         axis = self.domain.index(dim)
-        taken = self.ndarray.select(axis, index)
-        mask = self.mask.select(axis, index) if self.mask is not None else None
+        ops = self.ops
+        taken = ops.take_index(self.ndarray, axis, index)
+        mask = ops.take_index(self.mask, axis, index) if self.mask is not None else None
         return self._like(
             Domain(self.domain.ranges[:axis] + self.domain.ranges[axis + 1:]),
             taken,
@@ -642,6 +986,7 @@ class Field:
             # decides (it refuses a Field, so the bridge falls back)
             return NotImplemented
         if isinstance(other, Field):
+            self, other = _same_namespace(self, other)
             if other.domain.ranges == self.domain.ranges:
                 dom, a, b = self.domain, self.ndarray, other.ndarray
                 dims = self.dims
@@ -661,8 +1006,11 @@ class Field:
         return Field(self.domain, result, self.mask, weak)
 
     def _operand(self, other: Any) -> Any:
-        """A non-Field operand: NumPy arrays become tensors on this field's
-        device."""
+        """A non-Field operand in this field's namespace: NumPy arrays
+        become tensors on this field's device, tensors NumPy arrays beside a
+        NumPy field."""
+        if isinstance(self.ndarray, np.ndarray):
+            return as_numpy_array(other)
         if isinstance(other, np.ndarray):
             return torch.as_tensor(other, device=self.ndarray.device)
         return other
@@ -696,8 +1044,9 @@ class Field:
         # Transpose own dims into target order and insert missing axes.
         own_dims = [d for d in dims if d in self.domain]
         perm = [self.domain.index(d) for d in own_dims]
+        ops = self.ops
         if perm != sorted(perm):
-            arr = arr.permute(perm)
+            arr = ops.permute(arr, perm)
 
         shape = []
         for i, d in enumerate(dims):
@@ -705,9 +1054,9 @@ class Field:
                 len(dom[d].unit_range) if dom[d].unit_range.is_finite else 1
             )
             if d not in self.domain:
-                arr = arr.unsqueeze(i)
+                arr = ops.unsqueeze(arr, i)
             shape.append(size)
-        arr = arr.expand(tuple(shape))
+        arr = ops.expand(arr, tuple(shape))
         return dom, arr
 
     def __add__(self, o):
@@ -757,10 +1106,10 @@ class Field:
         return self
 
     def __abs__(self):
-        return self._like(self.domain, torch.abs(self.ndarray), self.mask)
+        return self._like(self.domain, self.ops.abs(self.ndarray), self.mask)
 
     def __invert__(self):
-        return Field(self.domain, torch.logical_not(self.ndarray), self.mask)
+        return Field(self.domain, self.ops.logical_not(self.ndarray), self.mask)
 
     def __and__(self, o):
         return self._binary(o, LOGICAL_AND)
@@ -816,5 +1165,25 @@ def _combine_masks(a: Field, b: Field, dims):
             parts.append(arr)
     out = parts[0]
     for p in parts[1:]:
-        out = torch.logical_and(out, p)
+        out = ops_of(out, p).logical_and(out, p)
     return out
+
+
+def _same_namespace(a: Field, b: Field) -> tuple:
+    """Two Fields over one namespace: beside a NumPy Field, a Field over a
+    CPU tensor is viewed as NumPy (one on a card raises)."""
+    a_np, b_np = isinstance(a.ndarray, np.ndarray), isinstance(b.ndarray, np.ndarray)
+    if a_np == b_np:
+        return a, b
+    if a_np:
+        return a, as_numpy_field(b)
+    return as_numpy_field(a), b
+
+
+def as_numpy_field(field: Field) -> Field:
+    """``field`` over NumPy: a view of its CPU tensor (see
+    :func:`as_numpy_array`)."""
+    if isinstance(field.ndarray, np.ndarray):
+        return field
+    mask = None if field.mask is None else as_numpy_array(field.mask)
+    return Field(field.domain, as_numpy_array(field.ndarray), mask, field.weak)

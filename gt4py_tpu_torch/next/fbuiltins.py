@@ -1,12 +1,14 @@
 """Field-operator builtins (reference: gt4py.next.ffront.fbuiltins,
 src/gt4py/next/ffront/fbuiltins.py:254-433): neighbor reductions,
 ``broadcast``, ``where``, ``astype``, ``concat_where`` and the math
-vocabulary, eagerly executable on embedded torch fields.
+vocabulary, eagerly executable on embedded fields.
 
 Counterpart of gt4py_tpu/next/fbuiltins.py. Each builtin dispatches on the
-cartesian bridge's symbolic values (``SymNode``) first, as there; the
-types of the results follow the JAX package's promotion
-(``embedded._promoted``).
+cartesian bridge's symbolic values (``SymNode``) first, as there. On torch
+fields the types of the results follow the JAX package's promotion
+(``embedded._promoted``); on NumPy fields (the ``numpy`` backend) NumPy
+computes them, by its own rules, through the array's operation table
+(``embedded.ops_of``).
 """
 
 from __future__ import annotations
@@ -21,12 +23,14 @@ from gt4py_tpu_torch.core.definitions import as_dtype, bfloat16 as _bf16, dtype_
 from gt4py_tpu_torch.core.ndarray_utils import torch_dtype
 from gt4py_tpu_torch.next.common import Dimension, Domain, NamedRange, UnitRange
 from gt4py_tpu_torch.next.embedded import (
+    Bf16Array,
     Field,
-    _as_tensor,
+    _np_cast,
     _Op,
     _promote_dims,
-    _promoted,
-    _same_device,
+    bf16_apply,
+    in_numpy_mode,
+    ops_of,
 )
 
 
@@ -37,14 +41,14 @@ def _is_sym(x) -> bool:
 _NEUTRAL = {"sum": 0, "max": -np.inf, "min": np.inf}
 
 
-def _neutral(op: str, dtype: torch.dtype) -> Any:
+def _neutral(op: str, dtype: np.dtype) -> Any:
     """The reduction's neutral element in ``dtype`` (integers: their
     extremes, where the JAX package casts an infinity)."""
     value = _NEUTRAL[op]
-    if not dtype.is_floating_point and value != 0:
-        info = torch.iinfo(dtype) if dtype != torch.bool else None
-        if info is None:
+    if dtype.kind in "iub" and value != 0:
+        if dtype.kind == "b":
             return value < 0
+        info = np.iinfo(dtype)
         return info.min if value < 0 else info.max
     return value
 
@@ -57,16 +61,12 @@ def _reduce(field: Field, axis: Dimension, op: str) -> Field:
     if not isinstance(field, Field):
         raise TypeError("neighbor reductions require a Field")
     ax = field.domain.index(axis)
-    arr = field.ndarray
+    arr, ops = field.ndarray, field.ops
     new_domain = Domain(field.domain.ranges[:ax] + field.domain.ranges[ax + 1:])
     if field.mask is not None:
-        fill = torch.as_tensor(_neutral(op, arr.dtype), dtype=arr.dtype, device=arr.device)
-        arr = torch.where(field.mask, arr, fill)
-    if op == "sum":
-        result = torch.sum(arr, dim=ax)
-    else:
-        result = (torch.amax if op == "max" else torch.amin)(arr, dim=ax)
-    return Field(new_domain, result)
+        fill = ops.scalar(_neutral(op, field.dtype), field.dtype, arr)
+        arr = ops.where(field.mask, arr, fill)
+    return Field(new_domain, ops.reduce(op, arr, ax))
 
 
 def neighbor_sum(field: Field, axis: Dimension) -> Field:
@@ -104,11 +104,13 @@ def broadcast(value: Union[Field, Any], dims: tuple[Dimension, ...]) -> Field:
                 shape.append(1)
         perm = [value.domain.index(d) for d in new_dims if d in value.domain]
         if perm != sorted(perm):
-            arr = arr.permute(perm)
+            arr = value.ops.permute(arr, perm)
         return Field(Domain(tuple(ranges)), arr.reshape(shape), None, value.weak)
-    weak = not isinstance(value, (torch.Tensor, np.generic, bool))
-    if isinstance(value, torch.Tensor):
+    weak = not isinstance(value, (torch.Tensor, np.ndarray, np.generic, bool))
+    if isinstance(value, (torch.Tensor, np.ndarray)):
         arr = value
+    elif in_numpy_mode():
+        arr = np.asarray(value, dtype=_scalar_dtype(value))
     else:
         arr = torch.as_tensor(value, dtype=torch_dtype(_scalar_dtype(value)))
     domain = Domain(tuple(NamedRange(d, UnitRange.infinite()) for d in dims))
@@ -125,17 +127,6 @@ def _scalar_dtype(value: Any) -> np.dtype:
     if isinstance(value, int):
         return np.dtype(np.int64)
     return np.dtype(np.float64)
-
-
-def _select(cond: Any, a: Any, b: Any, wa: bool = False, wb: bool = False) -> tuple:
-    """``torch.where`` with the JAX package's promotion of the two
-    branches: ``(result, weak)``."""
-    a, b = _same_device(a, b)
-    (a, b), tdt, weak = _promoted((a, b), (wa, wb))
-    like = cond if isinstance(cond, torch.Tensor) else (a if isinstance(a, torch.Tensor) else b)
-    a, b = _as_tensor(a, tdt, like), _as_tensor(b, tdt, like)
-    cond = _as_tensor(cond, torch.bool, a)
-    return torch.where(cond, a, b), weak
 
 
 def where(cond: Field, a: Union[Field, Any], b: Union[Field, Any]) -> Field:
@@ -156,7 +147,7 @@ def where(cond: Field, a: Union[Field, Any], b: Union[Field, Any]) -> Field:
         # Raw values: plain element-wise select.
         if not any(isinstance(x, torch.Tensor) for x in (cond, a, b)):
             return np.where(cond, a, b)
-        return _select(cond, a, b)[0]
+        return ops_of(cond, a, b).select(cond, a, b, False, False)[0]
     dims = operands[0].dims
     for o in operands[1:]:
         dims = _promote_dims(dims, o.dims)
@@ -181,7 +172,8 @@ def where(cond: Field, a: Union[Field, Any], b: Union[Field, Any]) -> Field:
     dom_b, arr_b = align(b)
     dom = dom_c or dom_a or dom_b
     weak = lambda x: x.weak if isinstance(x, Field) else False  # noqa: E731
-    result, is_weak = _select(arr_c, arr_a, arr_b, weak(a), weak(b))
+    ops = ops_of(arr_c, arr_a, arr_b)
+    result, is_weak = ops.select(arr_c, arr_a, arr_b, weak(a), weak(b))
     return Field(dom, result, None, is_weak)
 
 
@@ -200,10 +192,10 @@ def astype(field: Union[Field, Any], dtype: Any) -> Field:
         return field._builtin("astype", field, dtype)
     np_dtype = _np_dtype(dtype)
     if isinstance(field, Field):
-        return Field(field.domain, field.ndarray.to(torch_dtype(np_dtype)), field.mask)
-    if isinstance(field, torch.Tensor) or np_dtype == _bf16:
+        return Field(field.domain, field.ops.astype(field.ndarray, np_dtype), field.mask)
+    if isinstance(field, torch.Tensor) or (np_dtype == _bf16 and not in_numpy_mode()):
         return torch.as_tensor(field).to(torch_dtype(np_dtype))
-    return np.asarray(field).astype(np_dtype)
+    return _np_cast(np.asarray(field), np_dtype)
 
 
 #: torch's functions for the math builtins, by the JAX package's names
@@ -236,15 +228,29 @@ def _apply_unary(name: str, arr: torch.Tensor) -> torch.Tensor:
     return _unary_impl(name)(arr)
 
 
+def _np_unary(name: str, arr: Any) -> Any:
+    """The math builtin on a NumPy array, as NumPy computes it (``gamma``:
+    SciPy's, as the JAX package's numpy path calls it)."""
+    if name == "gamma":
+        from scipy.special import gamma as _g
+
+        if isinstance(arr, Bf16Array):
+            return bf16_apply(_g, arr.view(np.ndarray)).view(Bf16Array)
+        return _g(arr)
+    return getattr(np, name)(arr)
+
+
 def _field_unary(name: str):
     def fn(x):
         if _is_sym(x):
             return x._builtin(name, x)
         if isinstance(x, Field):
+            if isinstance(x.ndarray, np.ndarray):
+                return Field(x.domain, _np_unary(name, x.ndarray), x.mask)
             return Field(x.domain, _apply_unary(name, x.ndarray), x.mask)
         if isinstance(x, torch.Tensor):
             return _apply_unary(name, x)
-        return getattr(np, name)(x)
+        return _np_unary(name, x)
 
     fn.__name__ = name
     return fn
@@ -252,10 +258,10 @@ def _field_unary(name: str):
 
 #: binary builtins: the JAX package's name -> torch's function
 _BINARY = {
-    "minimum": _Op(torch.minimum, tensors=True),
-    "maximum": _Op(torch.maximum, tensors=True),
-    "mod": _Op(torch.remainder),
-    "power": _Op(torch.pow, tensors=True),
+    "minimum": _Op(torch.minimum, tensors=True, np_fn=np.minimum),
+    "maximum": _Op(torch.maximum, tensors=True, np_fn=np.maximum),
+    "mod": _Op(torch.remainder, np_fn=np.mod),
+    "power": _Op(torch.pow, tensors=True, np_fn=np.power),
 }
 
 
@@ -315,17 +321,8 @@ def neg(x):
     return -x
 
 
-def gamma(x):
-    """Gamma function (reference fbuiltins.gamma / NativeFunction.GAMMA)."""
-    if _is_sym(x):
-        return x._builtin("gamma", x)
-    if isinstance(x, Field):
-        return Field(x.domain, _apply_unary("gamma", x.ndarray), x.mask)
-    if isinstance(x, torch.Tensor):
-        return _apply_unary("gamma", x)
-    from scipy.special import gamma as _g
-
-    return _g(x)
+#: the gamma function (reference fbuiltins.gamma / NativeFunction.GAMMA)
+gamma = _field_unary("gamma")
 
 
 MATH_BUILTIN_NAMES = [
@@ -439,8 +436,9 @@ def concat_where(cond, a, b) -> Field:
                 rr = orr if rr is None else rr.intersection(orr)
         ortho[d] = rr if rr is not None else UnitRange.infinite()
 
-    device = operands[0].ndarray.device
-    _, result_dtype, _ = _promoted(
+    like = operands[0].ndarray
+    ops = ops_of(*(o.ndarray for o in operands))
+    result_dtype = ops.result_dtype(
         tuple(x.ndarray if isinstance(x, Field) else x for x in (a, b)),
         tuple(x.weak if isinstance(x, Field) else False for x in (a, b)),
     )
@@ -506,12 +504,11 @@ def concat_where(cond, a, b) -> Field:
             for r in target_ranges
         )
         if not isinstance(x, Field):
-            value = x.item() if isinstance(x, np.generic) else x
-            return torch.full(shape, value, dtype=result_dtype, device=device)
+            return ops.full(shape, x, result_dtype, like)
         probe = Field.__new__(Field)
         probe.domain = Domain(target_ranges)
         _, arr = x._aligned(dims, probe)
-        return arr.expand(shape).to(device=device, dtype=result_dtype)
+        return ops.cast(ops.expand(arr, shape), result_dtype, like)
 
     arrays = [piece_array(rr, x) for rr, x in pieces]
     axis = list(dims).index(cond.dim)
@@ -521,6 +518,6 @@ def concat_where(cond, a, b) -> Field:
     )
     return Field(
         Domain(out_ranges),
-        arrays[0] if len(arrays) == 1 else torch.cat(arrays, dim=axis),
+        arrays[0] if len(arrays) == 1 else ops.concat(arrays, axis),
     )
 

@@ -609,7 +609,9 @@ def _gtx_not(x: Any) -> Any:
         )
     import torch
 
-    return torch.logical_not(torch.as_tensor(x))
+    if not hasattr(x, "__torch_function__"):  # a Python or NumPy scalar
+        x = torch.as_tensor(x)
+    return torch.logical_not(x)
 
 
 def _gtx_scalar_cond(cond: Any) -> Any:

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from typing import Annotated, Final, TypeAlias, Union
 
-from collections.abc import Callable as _Callable
+from gt4py_tpu_torch.next import stages as _stages
 from gt4py_tpu_torch.next.backend import Backend as _Backend
 from gt4py_tpu_torch.next.common import (
     CartesianConnectivity as _CartesianConnectivity,
@@ -25,7 +25,7 @@ from gt4py_tpu_torch.next.decorators import (
 
 _ONLY_FOR_TYPING: Final[str] = "only for typing"
 
-DSLDefinition: TypeAlias = Annotated[_Callable, _ONLY_FOR_TYPING]
+DSLDefinition: TypeAlias = Annotated[_stages.OperatorDefinition, _ONLY_FOR_TYPING]
 FieldOperator: TypeAlias = Annotated[_FieldOperator, _ONLY_FOR_TYPING]
 ScanOperator: TypeAlias = Annotated[_ScanOperator, _ONLY_FOR_TYPING]
 Program: TypeAlias = Annotated[_Program, _ONLY_FOR_TYPING]

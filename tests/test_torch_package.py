@@ -82,6 +82,27 @@ def test_next_defs_helper_imports_no_jax():
     assert not bad
 
 
+@pytest.mark.parametrize("name", ["torch_cases.py", "torch_feature_defs.py"])
+def test_feature_kit_imports_no_jax(name):
+    """The feature kit and cases chip_smoke.py runs on the card's machine
+    import no JAX (the feature cases' JAX twins load the JAX package's kit
+    only when loaded against it)."""
+    path = os.path.join(REPO_ROOT, "tests", name)
+    bad = [m for m in _imports_of(path) if _top(m) in FORBIDDEN]
+    assert not bad
+
+
+@pytest.mark.parametrize(
+    "name", ["stages.py", "program_processors.py", "foast_pretty.py", "mesh_utils.py"])
+def test_field_view_tier_modules_import_no_jax(name):
+    """The field-view tier's new modules exist in the port and import no
+    JAX (test_no_forbidden_import covers them too; this pins their names)."""
+    path = os.path.join(PKG_ROOT, "next", name)
+    assert os.path.isfile(path)
+    bad = [m for m in _imports_of(path) if _top(m) in FORBIDDEN]
+    assert not bad
+
+
 def test_import_leaves_jax_unloaded():
     code = (
         "import sys\n"
@@ -90,6 +111,9 @@ def test_import_leaves_jax_unloaded():
         "import gt4py_tpu_torch.next, gt4py_tpu_torch.next.cartesian_bridge\n"
         "import gt4py_tpu_torch.testing, gt4py_tpu_torch.cartesian.cache_manager\n"
         "import gt4py_tpu_torch.instrumentation.profiler\n"
+        "import gt4py_tpu_torch.next.stages, gt4py_tpu_torch.next.program_processors\n"
+        "import gt4py_tpu_torch.next.foast_pretty, gt4py_tpu_torch.next.mesh_utils\n"
+        "import tests.torch_cases, tests.torch_feature_defs\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'gt4py_tpu')]\n"
         "print(','.join(sorted(bad)))\n"
@@ -151,7 +175,7 @@ def test_own_registries():
         "cpu:c": "cpu", "cuda:hopper": "cuda", "debug": "cpu", "numpy": "cpu", "torch": "cuda"}
     assert {layout.REGISTRY[n].layout_map for n in mine} == {(1, 2, 0)}  # K-leading
     assert {n: b.kind for n, b in next_backend.REGISTRY.items()} == {
-        "cuda:hopper": "pallas", "torch": "eager"}
+        "cuda:hopper": "pallas", "cuda:hopper:aot": "aot", "numpy": "numpy", "torch": "eager"}
 
 
 def test_reference_registry_untouched():

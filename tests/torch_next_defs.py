@@ -292,3 +292,35 @@ def inputs(name: str, ni: int, nj: int, nk: int, dtype, seed: int, device=None):
     if name == "solve_tridiag":
         return tridiag_inputs(ni, nj, nk, dtype, seed, device)
     return vadv_inputs(ni, nj, nk, dtype, seed, device)
+
+
+@gtx.field_operator
+def nabla_x(pp, s_x, sign, vol):
+    """The FVM nabla's x component (bench.py:687-689): the vertex values
+    averaged onto each edge (``E2V``), scaled by the edge's ``s_x``, summed
+    with orientation signs over each vertex's edges (``V2E``) and divided
+    by the dual volume."""
+    zavg = 0.5 * (pp(E2V[0]) + pp(E2V[1])) * s_x
+    return neighbor_sum(zavg(V2E) * sign, axis=V2EDim) / vol
+
+
+def nabla_inputs(n: int, dtype, seed: int, device=None):
+    """``nabla_x``'s arguments, offset provider and out field on the periodic
+    ``n`` × ``n`` quad mesh of ``mesh_utils.periodic_quad_mesh`` (the
+    bench's 65k row at n = 256, its 1M row at n = 1024): uniform vertex
+    values and edge lengths, volumes in [0.5, 1.5)."""
+    from gt4py_tpu_torch.next.mesh_utils import periodic_quad_mesh
+
+    e2v, v2e, signs = periodic_quad_mesh(n)
+    nv = n * n
+    rng = np.random.default_rng(seed)
+    provider = {
+        "E2V": gtx.as_connectivity([Edge, E2VDim], Vertex, e2v, device=device),
+        "V2E": gtx.as_connectivity([Vertex, V2EDim], Edge, v2e, device=device),
+    }
+    pp = gtx.as_field([Vertex], rng.random(nv).astype(dtype), device=device)
+    s_x = gtx.as_field([Edge], rng.random(2 * nv).astype(dtype), device=device)
+    sign = gtx.as_field([Vertex, V2EDim], signs.astype(dtype), device=device)
+    vol = gtx.as_field([Vertex], (rng.random(nv) + 0.5).astype(dtype), device=device)
+    out = gtx.zeros({Vertex: nv}, dtype, device=device)
+    return (pp, s_x, sign, vol), provider, out
