@@ -114,6 +114,21 @@ swap cycle of the kernels as a CUDA graph.
    µs from its start to the kernel's launch, from the trace, and their
    median over calls 2-5 (the first carries the profiler's start-up).
 
+10. Examples phase: examples 1-8 of gt4py_tpu_torch/examples/ (the JAX
+   package's examples/*.py) on card storages and fields at full width (the
+   ``EX_*`` sizes), their kernels built in step 1 (bridged variants traced
+   by a CPU call). Around each run the launch counts are set to 0 and read:
+   each kernel example launches exactly what it asked (burgers 100 × (1
+   copy2 + 3 rk_stage) ``plane`` calls, each its launchers), shallow_water
+   none (staggered: embedded). Each result is held against the port's
+   ``numpy`` backend (or the field-view ``numpy`` oracle) run on the host
+   from the same inputs (rtol 1e-12 in float64, ORACLE_TOL in float32);
+   burgers' error against the Zhao solution within the factor-0 bound of
+   test_burgers.py. Prints each one's wall seconds, device µs a call
+   (recorded calls replayed behind a spin kernel), the plain version's,
+   the bound, and burgers' host µs per RK step; each kernel call joins the
+   ``kernels`` line (``"entry": "example"``).
+
 Prints the card's name and power limit, one JSON line with the kernels, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without a CUDA card it exits 1 and prints no result.
@@ -179,6 +194,25 @@ FUSE_ENV = "GT4PY_CUDA_FUSE_STAGES"
 #: timed beside the ringed one
 WALKS = ("plane", "column", "fused_column", "fused_plane", "tiled")
 UNRINGED = ("plane", "fused_plane", "tiled")
+#: step 10, the examples (gt4py_tpu_torch/examples/) at full width: the
+#: tridiagonal solver (float32) at 256×256×80 and its own 64×64×48; the
+#: Laplacian at the example's N = 48 and at 256×256×80; burgers at factor 5
+#: (321×321×1), 100 RK3 steps; the isentropic diagnostics at nx = ny = 256,
+#: nz = 80 (fields 256×256×81); implicit diffusion at 256×256×80 and its own
+#: 16×16×24 (float64 all but the solver)
+EX_TRIDIAG = ((256, 256, 80), (64, 64, 48))
+EX_LAP = ((48, 48, 48), (256, 256, 80))
+EX_BURGERS = (5, 100)
+EX_ISENTROPIC = (256, 256, 80)
+EX_IMPLICIT = ((256, 256, 80), (16, 16, 24))
+#: burgers' error against the Zhao solution at factor 0
+#: (tests/cartesian_tests/test_burgers.py:18-21); the full width must be within it
+ZHAO_BOUND = 5e-3
+#: calls timed behind a spin kernel, and calls of the plain version timed
+EX_TIMED_CALLS, EX_PLAIN_CALLS = 20, 3
+#: an example on the card against the numpy backend: float64 rtol 1e-12; the
+#: float32 solver within ORACLE_TOL, as (rtol, atol)
+EX_TOL = {"float64": RTOL["float64"], "float32": ORACLE_TOL["float32"]}
 
 
 def main(argv) -> int:
@@ -255,14 +289,16 @@ def main(argv) -> int:
     ]
     nruns = prepare_next_runs(ndefs, NK)
     fsources = feature_sources(fdefs, tcases, bridge)
+    examples = prepare_examples()
     t0 = time.perf_counter()
     backends = [r["kern"]._backend for r in runs + registry + halves + sweeps]
-    backends += [r["variant"].backend for r in nruns]
+    backends += [r["variant"].backend for r in nruns] + examples["backends"]
     cuda_backend.build_libraries([*(b.module.source for b in backends), *fsources])
     for b in backends:
         b._functions()  # load
     print(f"built and loaded {len(backends)} stencils ({len(nruns)} bridged field-view "
-          f"variants) and {len(fsources)} kernels of the feature cases in "
+          f"variants, {len(examples['backends'])} of the examples) and {len(fsources)} kernels "
+          f"of the feature cases in "
           f"{time.perf_counter() - t0:.1f} s")
 
     # -- 2. the main paths, each counted -------------------------------------------
@@ -612,6 +648,18 @@ def main(argv) -> int:
               + "; ".join(f"{c['call_us']:.1f}, {c['to_launch_us']}, {c['launch_us']}"
                           for c in tr["splits"]) + f"  trace {tr['trace']}")
 
+    # -- 10. the examples at full width on the card ----------------------------------
+    t0 = time.perf_counter()
+    print(f"examples (gt4py_tpu_torch/examples/) on {smi}, card storages and fields, each "
+          "counted and held against the numpy backend on the host (rtol float64 "
+          f"{RTOL['float64']}, float32 {ORACLE_TOL['float32']}); device us a call: "
+          f"{EX_TIMED_CALLS} calls behind a spin kernel:")
+    example_rows = run_examples(examples, cuda_backend, torch)
+    print(f"examples phase in {time.perf_counter() - t0:.1f} s; bounds (compulsory bytes over "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s): " + ", ".join(
+              f"{r['name']} {r['ms'] * 1e3:.1f} us against {r['bound_ms'] * 1e3:.2f} "
+              f"({r['bound_by']}), plain {r['plain_ms'] * 1e3:.1f}" for r in example_rows))
+
     kernels = [
         {
             "name": f"{run['case']['kernel']}/{run['case']['name']}/{run['dtype']}",
@@ -664,6 +712,7 @@ def main(argv) -> int:
         }
         for run in nruns
     ]
+    kernels += example_rows
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,
@@ -952,20 +1001,20 @@ def chain_fit(stencil, fields, run) -> tuple[float, float]:
     return slope, t20 - 20 * slope
 
 
-def compulsory_bytes(stencil, itemsize: int = 0) -> int:
+def compulsory_bytes(stencil, itemsize: int = 0, domain=(NI, NJ, NK)) -> int:
     """Bytes one application must move at the least, computed from shapes:
     each API field stored once if the stencil writes it, and read once if
     some read can reach a point before the stencil writes it there
     (:func:`initial_reads`), over the domain along the axes it has (halos
     and temporaries left out), ``itemsize`` bytes a point (0: each field's
     own)."""
-    needed = initial_reads(stencil._backend.analyzed, NK)
+    needed = initial_reads(stencil._backend.analyzed, domain[2])
     total = 0
     for name, info in stencil.field_info.items():
         if info is not None:
             written = bool(info.access.value & 2)  # READ = 1, WRITE = 2
             points = 1
-            for n, on in zip((NI, NJ, NK), info.domain_mask):
+            for n, on in zip(domain, info.domain_mask):
                 points *= n if on else 1
             size = itemsize or info.dtype.itemsize
             total += points * size * ((name in needed) + written)
@@ -1036,10 +1085,11 @@ def initial_reads(analyzed, nk: int) -> set:
     return needed
 
 
-def operations(stencil) -> int:
+def operations(stencil, domain=(NI, NJ, NK)) -> int:
     """Arithmetic operations one application does at the least, computed
     from its GTIR: each arithmetic operator, negation and math call once at
     every point of its statement's extent and level of its interval."""
+    ni, nj, nk = domain
     from gt4py_tpu_torch import eve
     from gt4py_tpu_torch.cartesian import gtir
 
@@ -1047,7 +1097,7 @@ def operations(stencil) -> int:
     total = 0
     for vloop in analyzed.stencil.vertical_loops:
         for section in vloop.sections:
-            ks, ke = section.interval.resolve(NK)
+            ks, ke = section.interval.resolve(nk)
             for stmt in section.body:
                 ext = analyzed.stmt_extents[stmt]
                 ops = sum(
@@ -1058,7 +1108,7 @@ def operations(stencil) -> int:
                 ops += sum(
                     n.op == gtir.UnaryOperator.NEG for n in eve.walk_type(stmt, gtir.UnaryOp)
                 )
-                points = (NI + ext.i[1] - ext.i[0]) * (NJ + ext.j[1] - ext.j[0])
+                points = (ni + ext.i[1] - ext.i[0]) * (nj + ext.j[1] - ext.j[0])
                 total += ops * points * max(ke - ks, 0)
     return total
 
@@ -1255,16 +1305,7 @@ def copy_bandwidth() -> float:
 
     src = torch.rand(64 * 1024 * 1024, device="cuda")
     dst = torch.empty_like(src)
-    dst.copy_(src)
-    torch.cuda.synchronize()
-    n = 20
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        dst.copy_(src)
-    end.record()
-    end.synchronize()
-    return 2 * src.numel() * src.element_size() * n / (start.elapsed_time(end) * 1e-3)
+    return 2 * src.numel() * src.element_size() / (events_ms(lambda: dst.copy_(src), 20) * 1e-3)
 
 
 def device_ms(run, fields, n: int) -> float:
@@ -1739,8 +1780,8 @@ def output_arrays(value) -> list:
 
 def same_within(got, want, dtype_tol) -> float:
     """The largest absolute difference of two output lists; raises where a
-    float array is not within ``dtype_tol[dtype]`` (rtol, atol 0) or an
-    integer or bool array differs."""
+    float array is not within ``dtype_tol[dtype]`` (an rtol with atol 0, or
+    an (rtol, atol) pair) or an integer or bool array differs."""
     import numpy as np
 
     err = 0.0
@@ -1748,7 +1789,9 @@ def same_within(got, want, dtype_tol) -> float:
         if a.dtype != b.dtype or a.shape != b.shape:
             raise AssertionError(f"{a.dtype}{a.shape} against {b.dtype}{b.shape}")
         if a.dtype.kind == "f":
-            if not np.allclose(a, b, rtol=dtype_tol[a.dtype.name], atol=0.0, equal_nan=True):
+            tol = dtype_tol[a.dtype.name]
+            rtol, atol = tol if isinstance(tol, tuple) else (tol, 0.0)
+            if not np.allclose(a, b, rtol=rtol, atol=atol, equal_nan=True):
                 raise AssertionError(f"max abs err {np.nanmax(np.abs(a - b))}")
             with np.errstate(invalid="ignore"):
                 diff = np.abs(a.astype(np.float64) - b.astype(np.float64))
@@ -2099,6 +2142,311 @@ def trace_warm_call(call, module, tag: str, cuda_backend, torch, n: int = 5) -> 
             "to_launch_us": median("to_launch_us"), "launch_us": median("launch_us"),
             "launch_api": later[-1]["launch_api"], "kernel_us": median("kernel_us"),
             "work": one, "trace": prof.trace_path}
+
+
+# -- the examples phase (step 10) ------------------------------------------------
+
+
+class Recorder:
+    """A stencil or field operator that keeps the arguments of its last
+    call, so that call can be replayed on the same card buffers for its
+    device time and its plain version's; the kernel launches its calls
+    made (the wrappers' counts before and after each call); and the host
+    clock at the start of each call."""
+
+    def __init__(self, target):
+        self.target, self.last, self.launches, self.started = target, None, 0, []
+
+    def __call__(self, *args, **kwargs):
+        from gt4py_tpu_torch.cartesian.backend import cuda_backend
+
+        self.started.append(time.perf_counter())
+        self.last = (args, kwargs)
+        before = sum(w.launches for w in cuda_backend.WRAPPERS.values())
+        value = self.target(*args, **kwargs)
+        self.launches += sum(w.launches for w in cuda_backend.WRAPPERS.values()) - before
+        return value
+
+    def __getattr__(self, name):
+        return getattr(self.target, name)
+
+
+def launchers(obj) -> int:
+    """Launches one call of a stencil (or a bridged operator's variant) asks of its kernel."""
+    backend = obj._backend if hasattr(obj, "_backend") else bridged_variant(obj).backend
+    return len(backend.module.launchers)
+
+
+def prepare_examples() -> dict:
+    """Step 1's part of the examples phase: each kernel example's stencils
+    and operators built for ``cuda:hopper`` at the sizes step 10 runs, each
+    bridged operator's variant traced by one call on CPU fields of 8 × 8
+    and the full K (a variant is keyed by dims, dtypes and the out K range,
+    not by I and J); returns them and the kernel sources to build."""
+    import numpy as np
+
+    from gt4py_tpu_torch.examples import (
+        burgers, custom_backend, implicit_vertical_diffusion, isentropic_diagnostics,
+        lap_cartesian_vs_next, tridiagonal_solver, typed_operators)
+
+    ex: dict = {"tridiag": tridiagonal_solver.make_stencils("cuda:hopper")}
+    ex["lap"] = {}
+    for shape in EX_LAP:
+        st, op = lap_cartesian_vs_next.make_stencils("cuda:hopper")
+        lap_cartesian_vs_next.main("cuda:hopper", "cpu", (8, 8, shape[2]),
+                                   np.random.default_rng(0).random((8, 8, shape[2])), (st, op))
+        ex["lap"][shape] = (st, op)
+    ex["burgers"] = burgers.make_stencils("cuda:hopper")
+    ex["isentropic"] = isentropic_diagnostics.make_diagnostics("cuda:hopper")
+    with fusion_switch(True):
+        ex["isentropic_switch_on"] = isentropic_diagnostics.make_diagnostics("cuda:hopper")
+    ex["implicit"] = {}
+    for shape in EX_IMPLICIT:
+        _, op, _ = implicit_vertical_diffusion.solve("cuda:hopper", "cpu", (8, 8, shape[2]))
+        ex["implicit"][shape] = op
+    typed = bridged_variant(typed_operators.main("cuda:hopper", "cpu")["op"])
+    shown = custom_backend.main("cuda:hopper", "cpu")
+    ex["custom"] = shown["op"]
+    ex["typed"] = (typed.backend.strategy, len(typed.backend.module.launchers))
+    stencils = [ex["tridiag"], *(st for st, _ in ex["lap"].values()), *ex["burgers"],
+                ex["isentropic"], ex["isentropic_switch_on"]]
+    variants = [bridged_variant(op) for _, op in ex["lap"].values()]
+    variants += [bridged_variant(op) for op in ex["implicit"].values()]
+    variants += [typed, bridged_variant(shown["op"]), shown["job"].traced_stage.variant]
+    ex["backends"] = [s._backend for s in stencils] + [v.backend for v in variants]
+    return ex
+
+
+def counted(work, cuda_backend, sync):
+    """(``work()``'s value, the launches it made by kernel, its wall
+    seconds to ``sync()``): the counts set to 0 just before, read just after."""
+    for wrapper in cuda_backend.WRAPPERS.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    value = work()
+    sync()
+    wall = time.perf_counter() - t0
+    return value, {k: w.launches for k, w in cuda_backend.WRAPPERS.items() if w.launches}, wall
+
+
+def expect_launches(tag: str, counts: dict, expected: dict) -> None:
+    if {k: n for k, n in counts.items() if n} != {k: n for k, n in expected.items() if n}:
+        raise AssertionError(f"example {tag}: launches {counts}, not {expected}")
+
+
+def replay_ms(rec, n: int, tag: str) -> float:
+    """Device ms a call of the recorded call, ``n`` calls behind a spin kernel."""
+    args, kwargs = rec.last
+    rec.target(*args, **kwargs)
+    return spin_ms(lambda: [rec.target(*args, **kwargs) for _ in range(n)], n, tag)
+
+
+def events_ms(work, n: int) -> float:
+    """ms a call of ``work()``, ``n`` calls between two CUDA events after
+    one call to warm it (host included)."""
+    import torch
+
+    work()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        work()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def example_row(tag, kernel, rec, plain, domain, dtype, asked, err, as_st=None) -> dict:
+    """One stencil or operator of an example as a line of the ``kernels``
+    JSON: the launches its calls made in the example's run (raises unless
+    they are the ``asked`` ones), its device ms behind a spin kernel (the
+    recorded call replayed), its plain version's ms on the same card
+    buffers (CUDA events), and its bound: compulsory bytes over the H100's
+    rate or operations over its peak."""
+    expect_launches(tag, {kernel: rec.launches}, {kernel: asked})
+    args, kwargs = rec.last
+    ms = replay_ms(rec, EX_TIMED_CALLS, tag)
+    plain_ms = events_ms(lambda: plain(*args, **kwargs), EX_PLAIN_CALLS)
+    st = as_st or rec.target
+    nbytes, flops = compulsory_bytes(st, 0, domain), operations(st, domain)
+    bound_ms, bound_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                             (flops / PEAK_FLOPS[dtype] * 1e3, "operations"))
+    return {"name": f"{kernel}/example_{tag}/{dtype}", "route": "cuda", "entry": "example",
+            "source": SOURCE, "replaces": REPLACES[kernel], "launches": rec.launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "domain": list(domain)}
+
+
+def agree(got, want, tag: str) -> float:
+    """:func:`same_within` of an example's outputs, as host arrays, and the
+    numpy backend's, within EX_TOL; raises too where an output is not finite."""
+    import numpy as np
+
+    got, want = [np.asarray(a) for a in got], [np.asarray(b) for b in want]
+    if not all(np.isfinite(a).all() for a in got):
+        raise AssertionError(f"example {tag}: an output is not finite")
+    try:
+        return same_within(got, want, EX_TOL)
+    except AssertionError as e:
+        raise AssertionError(f"example {tag}: the card disagrees with the numpy backend: {e}")
+
+
+def run_examples(ex, cuda_backend, torch, device="cuda") -> list:
+    """Step 10: examples 1-8 of gt4py_tpu_torch/examples/ on card storages and
+    fields at the full widths, each counted (launches by kernel equal to
+    what the example asked, and each stencil's or operator's own launches,
+    as its :class:`Recorder` measured them, equal to what it asked) and
+    held against the port's ``numpy`` backend (or the field-view ``numpy``
+    oracle) run on the host from the same inputs, within EX_TOL. Prints
+    each one's wall seconds and device µs a call; returns the kernels' rows.
+    ``device="cpu"`` rehearses the phase on CPU tensors (the plain version)."""
+    import numpy as np
+
+    from gt4py_tpu_torch.examples import (
+        burgers, custom_backend, implicit_vertical_diffusion, isentropic_diagnostics,
+        lap_cartesian_vs_next, shallow_water, tridiagonal_solver, typed_operators)
+
+    rows: list = []
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    count = functools.partial(counted, cuda_backend=cuda_backend, sync=sync)
+
+    def report(tag, wall, counts, err, extra=""):
+        print(f"  {tag:34s} wall {wall:8.3f} s  launches {counts}  max abs err against "
+              f"numpy {err:.3e}{extra}")
+
+    # 1. tridiagonal_solver, float32: its full width and its own size
+    for shape in EX_TRIDIAG:
+        rec = Recorder(ex["tridiag"])
+        got, counts, wall = count(
+            lambda: tridiagonal_solver.main("cuda:hopper", device, shape, rec))
+        expect_launches(f"tridiagonal_solver {shape}", counts, {"column": launchers(rec)})
+        err = agree([got], [tridiagonal_solver.main("numpy", None, shape)], "tridiagonal_solver")
+        row = example_row(f"tridiagonal_solver_{'x'.join(map(str, shape))}", "column", rec,
+                          tridiagonal_solver.make_stencils("torch"), shape, "float32",
+                          launchers(rec), err)
+        rows.append(row)
+        report(f"tridiagonal_solver {shape}", wall, counts, err,
+               f"  device {row['ms'] * 1e3:.1f} us a call")
+
+    # 2. lap_cartesian_vs_next, float64: the stencil and the bridged operator
+    for shape in EX_LAP:
+        st, op = (Recorder(t) for t in ex["lap"][shape])
+        data = np.random.default_rng(0).random(shape)
+        got, counts, wall = count(
+            lambda: lap_cartesian_vs_next.main("cuda:hopper", device, shape, data, (st, op)),)
+        expect_launches(f"lap {shape}", counts, {"plane": launchers(st) + launchers(op.target)})
+        want = lap_cartesian_vs_next.main("numpy", None, shape, data)
+        err = agree(got[:2], want[:2], "lap_cartesian_vs_next")
+        dom = (shape[0] - 2, shape[1] - 2, shape[2])
+        size = "x".join(map(str, shape))
+        plain_st, plain_op = lap_cartesian_vs_next.make_stencils("torch")
+        rows.append(example_row(f"lap_cartesian_{size}", "plane", st, plain_st, dom, "float64",
+                                launchers(st), err))
+        rows.append(example_row(f"lap_next_{size}", "plane", op, plain_op, dom, "float64",
+                                launchers(op.target), err, as_stencil(bridged_variant(op.target))))
+        report(f"lap_cartesian_vs_next {shape}", wall, counts, err,
+               f"  device {rows[-2]['ms'] * 1e3:.1f} (stencil), {rows[-1]['ms'] * 1e3:.1f} "
+               "(field view) us a call")
+
+    # 3. burgers, float64: factor 5 (321 x 321 x 1), 100 RK3 steps
+    factor, niter = EX_BURGERS
+    rk, copy2 = (Recorder(t) for t in ex["burgers"])
+    got, counts, wall = count(
+        lambda: burgers.run("cuda:hopper", factor, niter, False, device, (rk, copy2)))
+    expect_launches("burgers", counts,
+                    {"plane": niter * (launchers(copy2) + 3 * launchers(rk))})
+    err = agree(got[2:], burgers.run("numpy", factor, niter, False)[2:], "burgers")
+    if not (got[0] < ZHAO_BOUND and got[1] < ZHAO_BOUND):
+        raise AssertionError(f"example burgers: error against Zhao {got[:2]} above {ZHAO_BOUND}")
+    n = 10 * 2**factor + 1
+    plain_rk, plain_copy = burgers.make_stencils("torch")
+    rows.append(example_row("burgers_rk_stage", "plane", rk, plain_rk, (n - 6, n - 6, 1),
+                            "float64", 3 * niter * launchers(rk), err))
+    rows.append(example_row("burgers_copy2", "plane", copy2, plain_copy, (n, n, 1), "float64",
+                            niter * launchers(copy2), err))
+    # an RK step on the host clock: from one step's copy2 call to the next one's
+    step_us = (copy2.started[-1] - copy2.started[0]) / (niter - 1) * 1e6
+    dev_us = (3 * rows[-2]["ms"] + rows[-1]["ms"]) * 1e3
+    report(f"burgers factor {factor} ({n}x{n}x1), {niter} steps", wall, counts, err,
+           f"; ||u-uex|| {got[0]:.3e}, ||v-vex|| {got[1]:.3e} (bound {ZHAO_BOUND}); an RK step "
+           f"{step_us:.1f} us on the host clock (3 apply_bc round trips included), its kernels "
+           f"{dev_us:.1f} us on the device (rk_stage {rows[-2]['ms'] * 1e3:.1f}, copy2 "
+           f"{rows[-1]['ms'] * 1e3:.1f} a call)")
+
+    # 4. isentropic_diagnostics, float64: 256 x 256 x 81 fields, switch off and on
+    nx, ny, nz = EX_ISENTROPIC
+    want_stor = isentropic_diagnostics.run("numpy", nx, ny, nz, False)[1]
+    fields = ("p", "exn", "mtg", "h")
+    plain_isentropic = isentropic_diagnostics.make_diagnostics("torch")
+    for key in ("isentropic", "isentropic_switch_on"):
+        step = Recorder(ex[key])
+        kernel = step._backend.strategy
+        (errs, stor), counts, wall = count(
+            lambda: isentropic_diagnostics.run("cuda:hopper", nx, ny, nz, False, device, step),)
+        expect_launches(key, counts, {kernel: launchers(step)})
+        err = agree([stor[k] for k in fields], [want_stor[k] for k in fields], key)
+        rows.append(example_row(key.replace("isentropic", "isentropic_diagnostics"), kernel, step,
+                                plain_isentropic, (nx, ny, nz + 1), "float64", launchers(step),
+                                err))
+        report(f"{key} ({nx}x{ny}x{nz + 1}) on {kernel}", wall, counts, err,
+               f"; rel errors against the example's NumPy oracle "
+               f"{max(errs.values()):.2e}; device {rows[-1]['ms'] * 1e3:.1f} us a call")
+
+    # 5. implicit_vertical_diffusion, float64: full width against the field-view
+    #    numpy oracle; its own size also against the dense solve (main)
+    for shape in EX_IMPLICIT:
+        op = Recorder(ex["implicit"][shape])
+        entry = implicit_vertical_diffusion.main if shape == EX_IMPLICIT[-1] else (
+            implicit_vertical_diffusion.solve)
+        (got, _, strategy), counts, wall = count(lambda: entry("cuda:hopper", device, shape, op))
+        variant = bridged_variant(op.target)
+        expect_launches(f"implicit {shape}", counts, {"column": launchers(op.target)})
+        ran = "column" if device == "cuda" else "plain"  # what last_strategy reads
+        if strategy != ran or variant.backend.strategy != "column":
+            raise AssertionError(f"example implicit {shape}: served by {strategy}")
+        want = implicit_vertical_diffusion.solve("numpy", None, shape)[0]
+        err = agree([got], [want], "implicit_vertical_diffusion")
+        rows.append(example_row(f"implicit_vertical_diffusion_{'x'.join(map(str, shape))}",
+                                "column", op, op.target.with_backend("torch"), shape, "float64",
+                                launchers(op.target), err, as_stencil(variant)))
+        report(f"implicit_vertical_diffusion {shape}", wall, counts, err,
+               f"  device {rows[-1]['ms'] * 1e3:.1f} us a call")
+
+    # 6. shallow_water: staggered, embedded on card tensors (no kernel)
+    got, counts, wall = count(lambda: shallow_water.main("cuda:hopper", device))
+    expect_launches("shallow_water", counts, {})
+    err = agree(got, shallow_water.main("numpy"), "shallow_water")
+    report("shallow_water (n 64, 50 steps)", wall, counts, err, "  embedded on the card")
+
+    # 7. typed_operators: the rejections before any trace; the laplacian bridged
+    got, counts, wall = count(lambda: typed_operators.main("cuda:hopper", device))
+    want = typed_operators.main("numpy")
+    texts = ("signature", "rejected", "decoration")
+    if [got[k] for k in texts] != [want[k] for k in texts]:
+        raise AssertionError(f"example typed_operators: {got} against {want}")
+    expect_launches("typed_operators", counts, {ex["typed"][0]: ex["typed"][1]})
+    err = agree([got["out"]], [want["out"]], "typed_operators")
+    report("typed_operators", wall, counts, err, f"; rejected: {got['rejected']!r}")
+
+    # 8. custom_backend: the rewriting and eager backends embedded, the AOT job and
+    #    cuda:hopper through the bridge
+    op = Recorder(ex["custom"])
+    shown, counts, wall = count(lambda: custom_backend.main("cuda:hopper", device, stencils=op))
+    variant = bridged_variant(op.target)
+    kernel = variant.backend.strategy
+    expect_launches("custom_backend", counts,
+                    {kernel: launchers(op.target) + len(
+                        shown["job"].traced_stage.variant.backend.module.launchers)})
+    keys = ("rewritten", "aot", "eager", "backend")
+    want = custom_backend.main("numpy")
+    err = agree([shown[k] for k in keys], [want[k] for k in keys], "custom_backend")
+    rows.append(example_row("custom_backend_smooth", kernel, op, op.target.with_backend("torch"),
+                            (shown["phi"].shape[0], 1, 1), "float64", launchers(op.target), err,
+                            as_stencil(variant)))
+    report(f"custom_backend on {kernel}", wall, counts, err,
+           f"; ptxas of the AOT job: {shown['job'].compiled_stage.cost_analysis()}")
+    return rows
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv))

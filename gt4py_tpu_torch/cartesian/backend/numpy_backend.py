@@ -27,6 +27,7 @@ import torch
 
 from gt4py_tpu_torch.cartesian.backend.base import Backend, register
 from gt4py_tpu_torch.cartesian.backend.numpy_evaluator import Evaluator
+from gt4py_tpu_torch.cartesian.backend.torch_backend import check_tensors
 from gt4py_tpu_torch.cartesian.definitions import AccessKind
 
 
@@ -52,7 +53,9 @@ class HostViews:
 
     @staticmethod
     def check_cpu(arrays: dict[str, torch.Tensor], backend: str) -> None:
-        """Raise a ``TypeError`` naming the device of a tensor not on the CPU."""
+        """Raise a ``TypeError`` naming an argument that is not a tensor, or
+        the device of a tensor not on the CPU."""
+        check_tensors(arrays)
         for name, t in arrays.items():
             if t.device.type != "cpu":
                 raise TypeError(

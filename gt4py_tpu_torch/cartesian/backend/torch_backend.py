@@ -19,8 +19,20 @@ from gt4py_tpu_torch.cartesian.backend.evaluator import Evaluator
 from gt4py_tpu_torch.cartesian.definitions import AccessKind
 
 
+def check_tensors(arrays: dict) -> None:
+    """Raise a ``TypeError`` naming a field argument that is not a tensor
+    (and its type)."""
+    for name, a in arrays.items():
+        if not isinstance(a, torch.Tensor):
+            raise TypeError(
+                f"stencil argument '{name}' is a {type(a).__module__}.{type(a).__name__}, "
+                "not a torch.Tensor: pass a Storage or a tensor"
+            )
+
+
 def call_device(arrays: dict[str, torch.Tensor]) -> torch.device:
     """The one device all of a call's tensors live on."""
+    check_tensors(arrays)
     devices = {a.device for a in arrays.values()}
     if len(devices) != 1:
         raise ValueError(

@@ -655,12 +655,12 @@ class StencilObject:
                 )
         return self._origins3(used_infos, origins), domain_t
 
-    def precompile(self, *, domain, origin=None, wait: bool = False) -> None:
+    def precompile(self, *, domain, origin=None, wait: bool = False, device=None) -> None:
         """Warm the kernel path for a concrete (domain, origin) in a
         background thread: code generation and the ``nvcc`` build of the
         selected kernels, exercised by one call on zero-filled placeholder
-        storages on the backend's default device, so the first real call
-        finds the library built.
+        storages on ``device`` (default: the backend's), so the first real
+        call finds the library built.
 
         Reference analog: asynchronous worker builds
         (otf/compilation_tasks.py:136) and the next-side AOT
@@ -679,7 +679,7 @@ class StencilObject:
             if not fi.axes:  # GlobalTable
                 field_args[name] = storage.zeros(
                     tuple(fi.data_dims), fi.dtype, backend=self.backend,
-                    dimensions=tuple(str(d) for d in range(len(fi.data_dims))),
+                    dimensions=tuple(str(d) for d in range(len(fi.data_dims))), device=device,
                 )
                 continue
             spatial = [
@@ -692,6 +692,7 @@ class StencilObject:
             field_args[name] = storage.zeros(
                 tuple(spatial) + tuple(fi.data_dims), fi.dtype, backend=self.backend,
                 dimensions=tuple(fi.axes) + tuple(str(d) for d in range(len(fi.data_dims))),
+                device=device,
             )
         if origin is None:
             origin = {

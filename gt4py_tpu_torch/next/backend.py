@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import types
 from typing import Any, Callable, Optional, Union
 
 from gt4py_tpu_torch.next import stages
@@ -122,9 +123,41 @@ class _ProgramTransforms:
         return job
 
 
+def _rebound(fn: types.FunctionType, namespace: dict) -> types.FunctionType:
+    """``fn`` with ``namespace`` as its globals."""
+    bound = types.FunctionType(
+        fn.__code__, namespace, fn.__name__, fn.__defaults__, fn.__closure__
+    )
+    bound.__kwdefaults__ = fn.__kwdefaults__
+    bound.__dict__.update(fn.__dict__)
+    return bound
+
+
+def _pinned(fn: Callable) -> Callable:
+    """``fn`` reading its module's globals as they are now: a variant's
+    module constants are fixed when it is built, as the JAX package's
+    ``jax.jit`` fixes them when it traces (rebinding one later changes no
+    variant already built). The plain functions of the same module that
+    ``fn`` calls read the same snapshot. Limits: a function of another
+    module reads that module's live globals, and a ``global`` statement in
+    ``fn`` or its module's helpers writes into the snapshot, not the
+    module."""
+    if isinstance(fn, functools.partial):
+        return functools.partial(_pinned(fn.func), *fn.args, **fn.keywords)
+    if not isinstance(fn, types.FunctionType):
+        return fn
+    live = fn.__globals__
+    snapshot = dict(live)
+    for name, value in live.items():
+        if isinstance(value, types.FunctionType) and value.__globals__ is live:
+            snapshot[name] = _rebound(value, snapshot)
+    return _rebound(fn, snapshot)
+
+
 def _compile_eager(job: CompileJob) -> CompileJob:
-    """Default compile step: the specialized function is the executable."""
-    job.executable = job.fn
+    """Default compile step: the specialized function, its module
+    constants pinned (:func:`_pinned`), is the executable."""
+    job.executable = _pinned(job.fn)
     return job
 
 

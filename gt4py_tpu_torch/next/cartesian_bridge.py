@@ -38,7 +38,7 @@ import numpy as np
 import torch.utils._pytree as pytree
 
 from gt4py_tpu_torch.cartesian import gtir
-from gt4py_tpu_torch.next.common import Dimension, DimensionKind
+from gt4py_tpu_torch.next.common import Dimension, DimensionKind, is_staggered
 
 
 class BridgeUnsupported(Exception):
@@ -435,6 +435,9 @@ class _Tracer:
             else:
                 raise BridgeUnsupported(f"offset '{fo.value}' is not cartesian")
         elif isinstance(offset, CartesianConnectivity):
+            if offset.codomain != offset.dim:
+                # a half shift: a premap onto the staggered twin
+                raise BridgeUnsupported(f"staggered shift {offset!r}")
             dim, delta = offset.dim, offset.offset
         else:
             raise BridgeUnsupported(f"offset {offset!r} is not cartesian")
@@ -719,6 +722,10 @@ def _dim_map(field_args: dict) -> dict:
     for f in field_args.values():
         for nr in f.domain.ranges:
             d = nr.dim
+            if is_staggered(d):
+                # a half shift moves between a dimension and its staggered
+                # twin: two axes of one grid, which I/J/K cannot hold
+                raise BridgeUnsupported(f"staggered dimension {d.value}")
             if d.kind == DimensionKind.HORIZONTAL:
                 if d not in horizontals:
                     horizontals.append(d)

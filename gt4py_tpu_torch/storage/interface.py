@@ -24,9 +24,6 @@ from gt4py_tpu_torch.core.ndarray_utils import numpy_dtype, torch_dtype
 from gt4py_tpu_torch.storage import layout
 from gt4py_tpu_torch.storage.storage import Storage
 
-_DEFAULT_DIMS = {1: ("I",), 2: ("I", "J"), 3: ("I", "J", "K")}
-
-
 def _validate(shape, aligned_index, dimensions, backend) -> None:
     if layout.from_name(backend) is None:
         raise ValueError(
@@ -43,30 +40,10 @@ def _validate(shape, aligned_index, dimensions, backend) -> None:
         raise ValueError(f"'dimensions' ({dimensions}) does not match shape {shape}")
 
 
-def _physical_perm(ndim: int, dimensions: Optional[Sequence[str]]) -> list[int]:
-    """Logical axes in allocation order: K first, then I and J, then data
-    dimensions (innermost), each group in logical order."""
-    dims = tuple(dimensions) if dimensions is not None else _DEFAULT_DIMS.get(ndim)
-    if dims is None:  # more than 3 axes and no annotation: I, J, K, data...
-        dims = ("I", "J", "K") + tuple(str(d) for d in range(ndim - 3))
-    spatial = [i for i, d in enumerate(dims) if d in ("I", "J")]
-    k = [i for i, d in enumerate(dims) if d == "K"]
-    data = [i for i, d in enumerate(dims) if d not in ("I", "J", "K")]
-    return k + spatial + data
-
-
 def _allocate(shape, dtype, backend, dimensions, device, fill) -> torch.Tensor:
     info = layout.from_name(backend)
     dev = torch.device(device if device is not None else info.device)
-    perm = _physical_perm(len(shape), dimensions)
-    phys_shape = tuple(shape[p] for p in perm)
-    td = torch_dtype(dtype)
-    if fill is None:  # the caller fills it
-        buf = torch.empty(phys_shape, dtype=td, device=dev)
-    else:
-        buf = torch.full(phys_shape, fill, dtype=td, device=dev)
-    inverse = [perm.index(a) for a in range(len(shape))]
-    return buf.permute(*inverse)
+    return layout.allocate(shape, torch_dtype(dtype), dev, dimensions, fill)
 
 
 def empty(

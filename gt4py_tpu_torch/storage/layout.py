@@ -19,7 +19,9 @@ naming one of these is how a caller asks for the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +49,40 @@ def register(backend_name: str, info: LayoutInfo) -> None:
 
 def from_name(backend_name: str) -> Optional[LayoutInfo]:
     return REGISTRY.get(backend_name)
+
+
+_DEFAULT_DIMS = {1: ("I",), 2: ("I", "J"), 3: ("I", "J", "K")}
+
+
+def physical_perm(ndim: int, dimensions: Optional[Sequence[str]]) -> list[int]:
+    """Logical axes in allocation order: K first, then I and J, then data
+    dimensions (innermost), each group in logical order."""
+    dims = tuple(dimensions) if dimensions is not None else _DEFAULT_DIMS.get(ndim)
+    if dims is None:  # more than 3 axes and no annotation: I, J, K, data...
+        dims = ("I", "J", "K") + tuple(str(d) for d in range(ndim - 3))
+    spatial = [i for i, d in enumerate(dims) if d in ("I", "J")]
+    k = [i for i, d in enumerate(dims) if d == "K"]
+    data = [i for i, d in enumerate(dims) if d not in ("I", "J", "K")]
+    return k + spatial + data
+
+
+def allocate(
+    shape: Sequence[int],
+    dtype: torch.dtype,
+    device: torch.device,
+    dimensions: Optional[Sequence[str]] = None,
+    fill: Any = None,
+) -> torch.Tensor:
+    """A logical-order view of a K-leading buffer on ``device``; filled
+    with ``fill`` unless it is None (the caller fills it)."""
+    perm = physical_perm(len(shape), dimensions)
+    phys_shape = tuple(shape[p] for p in perm)
+    if fill is None:
+        buf = torch.empty(phys_shape, dtype=dtype, device=device)
+    else:
+        buf = torch.full(phys_shape, fill, dtype=dtype, device=device)
+    inverse = [perm.index(a) for a in range(len(shape))]
+    return buf.permute(*inverse)
 
 
 # K major, then I, then J (minor): layout_map gives each of (I, J, K) its rank.

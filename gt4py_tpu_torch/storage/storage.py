@@ -4,10 +4,15 @@ Counterpart of gt4py_tpu/storage/storage.py. What stays from the JAX
 package is the ``aligned_index`` ↦ *default origin* convention
 (``__gt_origin__``) and the dimension annotations (``__gt_dims__``).
 
-What changes: torch tensors are mutable, so a :class:`Storage` holds one
-tensor for its whole life and stencils write into it in place; there is no
-rebinding and no native-layout cache. The tensor is an (I, J, K) view of a
-K-leading buffer (storage/layout.py), so a kernel reads J contiguously.
+What changes: torch tensors are mutable, so stencils write into a
+:class:`Storage`'s tensor in place, and there is no native-layout cache.
+The tensor is an (I, J, K) view of a K-leading buffer (storage/layout.py),
+so a kernel reads J contiguously. Assigning ``.array`` (as the JAX
+package's setter does, an ndarray, a tensor or another storage) keeps the
+storage on its device: a value of the same shape and dtype is copied into
+the tensor it holds, whose pointer then stays valid for the launches and
+CUDA graphs prepared on it; any other value gets a new K-leading tensor on
+the same device. Nothing moves a storage between the CPU and the card.
 """
 
 from __future__ import annotations
@@ -18,12 +23,13 @@ import numpy as np
 import torch
 
 from gt4py_tpu_torch.core.ndarray_utils import asnumpy, numpy_dtype
+from gt4py_tpu_torch.storage import layout
 
 
 class Storage:
     """Mutable ndarray-like wrapper around a ``torch.Tensor``."""
 
-    __slots__ = ("array", "aligned_index", "dimensions")
+    __slots__ = ("_array", "aligned_index", "dimensions")
 
     def __init__(
         self,
@@ -34,11 +40,33 @@ class Storage:
     ):
         if not isinstance(array, torch.Tensor):
             raise TypeError(f"Storage wraps a torch.Tensor, got {type(array).__name__}")
-        self.array = array
+        self._array = array
         self.aligned_index = (
             tuple(int(i) for i in aligned_index) if aligned_index is not None else None
         )
         self.dimensions = tuple(dimensions) if dimensions is not None else None
+
+    @property
+    def array(self) -> torch.Tensor:
+        return self._array
+
+    @array.setter
+    def array(self, value: Any) -> None:
+        """Take ``value``'s content on this storage's device: copied into
+        the tensor held where shape and dtype match (its pointer stays),
+        else into a new K-leading tensor of ``value``'s shape and dtype."""
+        if isinstance(value, Storage):
+            value = value.array
+        if not isinstance(value, torch.Tensor):
+            value = torch.from_numpy(np.array(value))
+        held = self._array
+        if value.shape == held.shape and value.dtype == held.dtype:
+            held.copy_(value)
+            return
+        dims = self.dimensions if self.dimensions and len(self.dimensions) == value.ndim else None
+        fresh = layout.allocate(tuple(value.shape), value.dtype, held.device, dims)
+        fresh.copy_(value)
+        self._array = fresh
 
     # -- gt4py interface (reference _core/definitions.py:363-376) -----------
 

@@ -179,3 +179,70 @@ def test_other_errors_of_the_bridge_propagate(where, monkeypatch):
     ops, dims = _define(gtx)
     with pytest.raises(TypeError, match="Unexpected expression"):
         _run(gtx, ops, dims, "negate", "cuda:hopper", device="cpu")
+
+
+# --- staggered dimensions and half shifts (examples/shallow_water.py) -------------------
+
+
+def _staggered(pkg, backend, cpu: dict):
+    """shallow_water's ``update_h``, ``h - 0.02 * (u(I + 0.5) - u(I - 0.5))``,
+    on ``backend`` from the same inputs; returns the out field's values."""
+    I = pkg.Dimension("I")
+    IHalf = pkg.flip_staggered(I)
+
+    @pkg.field_operator
+    def update_h(h: pkg.Field[pkg.Dims[I], np.float64],
+                 u: pkg.Field[pkg.Dims[IHalf], np.float64]) -> pkg.Field[pkg.Dims[I], np.float64]:
+        return h - 0.02 * (u(I + 0.5) - u(I - 0.5))
+
+    n = 8
+    h = pkg.as_field([I], np.linspace(1.0, 2.0, n), **cpu)
+    u = pkg.as_field([IHalf], np.arange(n + 1.0) ** 2, **cpu)
+    out = pkg.zeros({I: n}, **cpu)
+    op = update_h.with_backend(backend)
+    op(h, u, out=out)
+    return out.asnumpy(), op
+
+
+def test_staggered_operator_runs_embedded_as_the_reference():
+    """A half shift moves between a dimension and its staggered twin,
+    which the cartesian I/J/K cannot hold: the bridge refuses the call
+    (the operator runs embedded) and equals the JAX package's ``jax``
+    backend. The JAX package's ``tpu:pallas`` bridges it, mapping the two
+    dimensions to two axes and reading each half shift as a whole one,
+    and differs."""
+    import gt4py_tpu.next as ref_gtx
+
+    got, op = _staggered(gtx, "cuda:hopper", {"device": "cpu"})
+    assert list(op._bridge_cache.values()) == [None]
+    want, _ = _staggered(ref_gtx, "jax", {})
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+    theirs, ref_op = _staggered(ref_gtx, "tpu:pallas", {})
+    assert [v for v in ref_op._bridge_cache.values() if v is not None]
+    assert not np.allclose(theirs, want)
+
+
+def test_staggered_dimension_is_refused():
+    with pytest.raises(bridge.BridgeUnsupported, match="staggered dimension"):
+        bridge._dim_map({"u": gtx.zeros({gtx.flip_staggered(gtx.Dimension("I")): 3},
+                                        device="cpu")})
+
+
+def test_half_shift_of_an_untyped_operator_runs_embedded():
+    """An operator without annotations skips type deduction: a half shift
+    of a field over I (a premap onto its staggered twin, which the field
+    lacks) reaches the trace, which refuses it, so the call runs embedded
+    and raises there as on ``torch``, where a bridged call would have read
+    the field at the whole shift."""
+    I = gtx.Dimension("I")
+
+    @gtx.field_operator
+    def half(h):
+        return h(I + 0.5)
+
+    h = gtx.as_field([I], np.arange(6.0), device="cpu")
+    for backend in ("torch", "cuda:hopper"):
+        op = half.with_backend(backend)
+        with pytest.raises(ValueError, match="no _StaggeredI dimension"):
+            op(h, out=gtx.zeros({I: (0, 5)}, device="cpu"))
+    assert list(op._bridge_cache.values()) == [None]

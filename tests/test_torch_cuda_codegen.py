@@ -2671,3 +2671,31 @@ def test_refused_construct_raises_on_card():
     card = [storage.from_array(host, backend="cuda:hopper") for _ in range(2)]
     with pytest.raises(CudaUnsupported, match="shared memory"):
         st(*card, origin=(101, 101, 0), domain=(4, 3, 3))
+
+
+@pytest.mark.cuda
+def test_array_setter_on_card():
+    """``Storage.array = ndarray`` on a card storage: the same shape and
+    dtype are copied into the held tensor (its pointer, which a prepared
+    launch holds, stays), a new shape gets a new K-leading tensor on the
+    card; the copy stencil's kernel then writes what the ``numpy`` backend
+    writes on the host from the same assignments."""
+    _need_card()
+    results = {}
+    for backend, device in (("cuda:hopper", "cuda"), ("numpy", "cpu")):
+        st = gtscript.stencil(backend=backend, definition=defs.copy_stencil)
+        a = storage.zeros((4, 4, 2), backend=backend, device=device)
+        b = storage.zeros((4, 4, 2), backend=backend, device=device)
+        held = a.array.data_ptr()
+        a.array = np.full((4, 4, 2), 2.0)
+        assert a.array.data_ptr() == held
+        st(a, b)
+        first = b.asnumpy()
+        a.array = np.arange(30.0).reshape(5, 3, 2)
+        b.array = np.zeros((5, 3, 2))
+        st(a, b)
+        assert a.device.type == b.device.type == device
+        assert a.array.stride() == (3, 1, 15) and b.shape == (5, 3, 2)
+        results[backend] = (first, b.asnumpy())
+    for got, want in zip(results["cuda:hopper"], results["numpy"]):
+        np.testing.assert_array_equal(got, want)

@@ -31,6 +31,7 @@ ALLOWED = {
     "cartesian": {"core", "eve", "storage", "config", "instrumentation"},
     "next": {"core", "eve", "storage", "config", "instrumentation", "cartesian"},
     "testing": {"cartesian", "storage", "core", "eve", "config"},
+    "examples": {"cartesian", "next", "storage", "core", "eve", "config", "instrumentation"},
 }
 
 
@@ -103,6 +104,61 @@ def test_field_view_tier_modules_import_no_jax(name):
     assert not bad
 
 
+EXAMPLES = ["burgers", "custom_backend", "implicit_vertical_diffusion", "isentropic_diagnostics",
+            "lap_cartesian_vs_next", "shallow_water", "tridiagonal_solver", "typed_operators"]
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_import_no_jax(name):
+    """Each of the JAX package's examples has its counterpart in the port's
+    ``examples`` subpackage, and it imports no JAX (test_no_forbidden_import
+    covers them too; this pins their names)."""
+    path = os.path.join(PKG_ROOT, "examples", name + ".py")
+    assert os.path.isfile(path)
+    assert os.path.isfile(os.path.join(REPO_ROOT, "examples", name + ".py"))
+    bad = [m for m in _imports_of(path) if _top(m) in FORBIDDEN]
+    assert not bad
+
+
+#: the JAX package's test files held against the port, each by one
+#: tests/test_torch_<stem>.py whose first docstring line names it
+RETARGETED = [
+    *(f"next_tests/test_{stem}.py" for stem in (
+        "common_depth", "common_model", "field_ops", "edge_semantics", "staggered",
+        "toy_connectivity", "inverse_image_properties", "reductions_matrix",
+        "builtins_matrix", "execution_breadth", "advanced_composition", "scan_features",
+        "icon_like_scan", "arg_call_interface", "type_deduction", "type_conversion",
+        "algebra_properties", "frontend_validation", "diagnostic_messages",
+        "import_from_mod", "field_api_depth")),
+    *(f"cartesian_tests/test_{stem}.py" for stem in (
+        "stencil_object_validation", "k_offset_write", "stencils", "seq_fusion",
+        "power_unroll", "gtir_pretty", "burgers", "isentropic")),
+    "test_instrumentation.py",
+]
+
+
+@pytest.mark.parametrize("ref", RETARGETED)
+def test_retargeted_file_names_its_reference(ref):
+    """A rename on either side shows here: the reference file exists, and
+    its port twin's first docstring line names it."""
+    assert os.path.isfile(os.path.join(REPO_ROOT, "tests", ref))
+    stem = os.path.basename(ref).removeprefix("test_")
+    mine = os.path.join(REPO_ROOT, "tests", f"test_torch_{stem}")
+    with open(mine) as f:
+        doc = ast.get_docstring(ast.parse(f.read())) or ""
+    assert doc.splitlines()[0].split()[0] == f"tests/{ref}"
+
+
+def test_retargeted_files_import_no_jax():
+    """The retargeted files run on the port alone (the examples' parity
+    test, tests/test_torch_examples.py, is what imports both)."""
+    for ref in RETARGETED:
+        stem = os.path.basename(ref).removeprefix("test_")
+        path = os.path.join(REPO_ROOT, "tests", f"test_torch_{stem}")
+        bad = [m for m in _imports_of(path) if _top(m) in FORBIDDEN]
+        assert not bad, (path, bad)
+
+
 def test_import_leaves_jax_unloaded():
     code = (
         "import sys\n"
@@ -114,6 +170,13 @@ def test_import_leaves_jax_unloaded():
         "import gt4py_tpu_torch.next.stages, gt4py_tpu_torch.next.program_processors\n"
         "import gt4py_tpu_torch.next.foast_pretty, gt4py_tpu_torch.next.mesh_utils\n"
         "import tests.torch_cases, tests.torch_feature_defs\n"
+        "import gt4py_tpu_torch.examples.burgers, gt4py_tpu_torch.examples.custom_backend\n"
+        "import gt4py_tpu_torch.examples.implicit_vertical_diffusion\n"
+        "import gt4py_tpu_torch.examples.isentropic_diagnostics\n"
+        "import gt4py_tpu_torch.examples.lap_cartesian_vs_next\n"
+        "import gt4py_tpu_torch.examples.shallow_water\n"
+        "import gt4py_tpu_torch.examples.tridiagonal_solver\n"
+        "import gt4py_tpu_torch.examples.typed_operators\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'gt4py_tpu')]\n"
         "print(','.join(sorted(bad)))\n"

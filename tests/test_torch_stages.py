@@ -47,6 +47,18 @@ def _scaled(a, s):
     return a * s
 
 
+_HELPER_GAIN = 3.0
+
+
+def _gained(a):
+    return a * _HELPER_GAIN
+
+
+@gtx.field_operator
+def _through_helper(a):
+    return _gained(a)
+
+
 def _field(n=8):
     return gtx.as_field([I], np.arange(float(n)), device="cpu")
 
@@ -190,6 +202,25 @@ def test_custom_rewrite_and_compile_steps_apply():
     _dbl.with_backend(custom)(_field(), out=out)
     np.testing.assert_array_equal(out.asnumpy(), 2 * np.arange(8.0))
     assert calls
+
+
+def test_helper_of_the_same_module_reads_the_pinned_constants():
+    """A plain function of the operator's module, called from the
+    definition, reads the module constants as they were when the variant
+    was built, as the JAX package's ``jax.jit`` fixes what its trace read."""
+    import tests.test_torch_stages as mod
+
+    out = gtx.zeros({I: 8}, device="cpu")
+    op = _through_helper.with_backend("torch")
+    op(_field(), out=out)
+    np.testing.assert_array_equal(out.asnumpy(), 3 * np.arange(8.0))
+    old = mod._HELPER_GAIN
+    try:
+        mod._HELPER_GAIN = 7.0
+        op(_field(), out=out)
+        np.testing.assert_array_equal(out.asnumpy(), 3 * np.arange(8.0))
+    finally:
+        mod._HELPER_GAIN = old
 
 
 def test_ptxas_report_parses_the_build_log():

@@ -342,3 +342,82 @@ def test_numpy_ndarray_accepted_by_stencils(backend):
     b = np.zeros((3, 3, 3))
     st(a, b)
     np.testing.assert_array_equal(b, a)
+
+
+# --- .array reassignment (the JAX package's setter, gt4py_tpu/storage/storage.py) -----
+
+
+def _reassign_and_copy(pkg, gts, backend, definition, device=None):
+    """Assign an ndarray of the storage's shape, then one of a new shape,
+    to ``.array``, running a copy stencil after each; returns what each
+    step left in the written storage: (values, shape, dtype, device)."""
+    extra = {} if device is None else {"device": device}
+    st = gts.stencil(backend=backend, definition=definition)
+    a = pkg.zeros((4, 4, 2), np.float64, backend=backend, **extra)
+    b = pkg.zeros((4, 4, 2), np.float64, backend=backend, **extra)
+    seen = []
+    a.array = np.full((4, 4, 2), 2.0)
+    st(a, b)
+    seen.append((np.asarray(b).copy(), b.shape, b.dtype, getattr(b, "device", None)))
+    a.array = np.arange(30.0).reshape(5, 3, 2)
+    b.array = np.zeros((5, 3, 2))
+    st(a, b)
+    seen.append((np.asarray(b).copy(), b.shape, b.dtype, getattr(b, "device", None)))
+    return seen, a, b
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_array_setter_then_stencil_call(backend):
+    """``.array = ndarray`` keeps a CPU storage on the CPU, copies in place
+    where shape and dtype match (the pointer a prepared launch holds stays)
+    and allocates a new K-leading tensor where they do not; a copy stencil
+    then reads and writes the new values, as on the JAX package's
+    ``numpy`` backend (equal to the bit). ``cuda:hopper`` on CPU tensors
+    runs its kernels' plain version."""
+    mine, a, b = _reassign_and_copy(storage, gtscript, backend, defs.copy_stencil, "cpu")
+    theirs, _, _ = _reassign_and_copy(ref_storage, ref_gtscript, "numpy", ref_defs.copy_stencil)
+    for (got, shape, dtype, device), (want, rshape, rdtype, _) in zip(mine, theirs):
+        np.testing.assert_array_equal(got, want)
+        assert shape == rshape and dtype == rdtype == np.dtype(np.float64)
+        assert device.type == "cpu"
+    np.testing.assert_array_equal(mine[0][0], np.full((4, 4, 2), 2.0))
+    np.testing.assert_array_equal(mine[1][0], np.arange(30.0).reshape(5, 3, 2))
+    for s in (a, b):  # the new tensor is laid out as an allocation is: K-leading
+        assert s.array.stride() == (3, 1, 15)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_array_setter_copies_in_place(backend):
+    """Same shape and dtype: the held tensor is written, not replaced;
+    a tensor, a Storage or a nested list is taken as an ndarray is."""
+    a = storage.zeros((3, 4, 2), np.float64, backend=backend, **_cpu(backend))
+    held = a.array
+    for value in (np.full((3, 4, 2), 1.5), torch.full((3, 4, 2), 2.5, dtype=torch.float64),
+                  storage.full((3, 4, 2), 3.5, backend="numpy"),
+                  np.full((3, 4, 2), 4.5).tolist()):
+        a.array = value
+        assert a.array is held
+        np.testing.assert_array_equal(a.asnumpy(), np.asarray(value, dtype=np.float64))
+
+
+def test_array_setter_new_dtype_follows_the_value():
+    """A value of another dtype replaces the tensor, as the JAX package's
+    setter updates the storage's dtype."""
+    a = storage.zeros((2, 3, 4), np.float64, backend="numpy")
+    ref = ref_storage.zeros((2, 3, 4), np.float64, backend="numpy")
+    for s in (a, ref):
+        s.array = np.ones((2, 3, 4), np.float32)
+    assert a.dtype == np.dtype(ref.dtype) == np.dtype(np.float32)
+    assert a.array.stride() == (3, 1, 6)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_non_tensor_argument_is_named(backend):
+    """A call whose field is a storage holding something other than a
+    tensor names the argument and its type (every backend)."""
+    st = gtscript.stencil(backend=backend, definition=defs.copy_stencil)
+    a = storage.ones((3, 3, 2), backend=backend, **_cpu(backend))
+    b = storage.zeros((3, 3, 2), backend=backend, **_cpu(backend))
+    a._array = np.ones((3, 3, 2))  # what a plain slot let an assignment leave
+    with pytest.raises(TypeError, match="'field_a' is a numpy.ndarray, not a torch.Tensor"):
+        st(a, b)

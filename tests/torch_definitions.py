@@ -36,6 +36,9 @@ CARD_BACKENDS = [b for b in ALL_BACKENDS if layout_from_name(b).device == "cuda"
 
 USES_WIDE_TEMPORARY = "uses_wide_temporary"
 USES_FUSED_LOWER_DIM = "uses_fused_lower_dim"
+#: a marker the JAX package's tests declare (test_stencils.py); no row of
+#: the port's matrix names it: every backend runs a while loop
+USES_WHILE = "uses_while"
 
 SKIP = "skip"
 XFAIL = "xfail"

@@ -1079,3 +1079,36 @@ def make_inputs(field_info, shape, rng):
         else:
             out[name] = rng.random(full).astype(dtype)
     return out
+
+
+# --- the rest of stencil_defs.py that tests/test_torch_stencils.py reads --------
+
+
+def validate_arithmetic_ops(field_b):
+    return (((((field_b + 42.0) - 42.0) * +42.0) / -42.0) % 42.0) ** 2
+
+
+def scalar_inputs(field_a: Field3D, scalar_in: float):
+    with computation(PARALLEL), interval(...):
+        field_a = field_a * scalar_in
+
+
+def validate_function_call(field_a):
+    return np.sqrt(np.abs(field_a)) + 1.0
+
+
+def validate_runtime_if(field_a):
+    field_b = np.where(field_a > 0.0, -1.0, 1.0)
+    new_a = np.where(field_a > 0.0, -field_a, field_a)
+    return new_a, field_b
+
+
+def validate_while(field_a, field_b):
+    a = field_a.copy()
+    b = field_b.copy()
+    mask = a > 2.0
+    while mask.any():
+        b[mask] = -1
+        a[mask] = 1.0
+        mask = a > 2.0
+    return a, b
