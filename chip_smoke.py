@@ -129,6 +129,26 @@ swap cycle of the kernels as a CUDA graph.
    the bound, and burgers' host µs per RK step; each kernel call joins the
    ``kernels`` line (``"entry": "example"``).
 
+11. Distributed phase (gt4py_tpu_torch.parallel): ``DistributedStencil``
+   over a 2 × 2 ``CartesianMesh`` of ``[cuda:0] * 4`` on a global
+   512 × 512 × 80 domain, each shard 256 × 256 × 80 with a halo of 2: hdiff
+   (``plane``) periodic, clamp and zero, vadv and tridiag (``column``), vadv
+   with the switch on (``fused_column``), float32 and float64, and hdiff on
+   an uneven 510 × 506 × 80 (pad and trim). Each case is counted (each
+   shard's launches of its kernel, no other), equal to the single-card
+   stencil on a storage extended by the boundary condition to the bit and
+   to the plain version on the same mesh; prints device µs a step of 20
+   chained ``apply``s on sharded arrays behind a spin kernel, the exchange's
+   copies and the shards' kernels apart, beside 4 × the single-shard step
+   of section 4, a warm ``apply``'s host µs, the scatter and gather µs of a
+   global call, the plain version's ms and the bound (compulsory bytes of
+   the global domain plus the halo slabs over 3.35 TB/s). Then
+   ``DistributedUnstructured`` FVM nabla at 1,048,576 vertices on a ring of
+   four shards, equal to one device, ms a call beside step 7d's and its
+   slabs; then the distributed_hdiff example, counted and held against
+   numpy on the host. Each case joins the ``kernels`` line
+   (``"entry": "distributed"``).
+
 Prints the card's name and power limit, one JSON line with the kernels, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without a CUDA card it exits 1 and prints no result.
@@ -210,6 +230,15 @@ EX_IMPLICIT = ((256, 256, 80), (16, 16, 24))
 ZHAO_BOUND = 5e-3
 #: calls timed behind a spin kernel, and calls of the plain version timed
 EX_TIMED_CALLS, EX_PLAIN_CALLS = 20, 3
+#: step 11, the distributed path: DIST_SHARDS shards of one card (a 2 × 2
+#: mesh), each at the main path's 256 × 256 × 80 on the global DIST_DOMAIN;
+#: the uneven domain (pad and trim); the ring nabla's mesh (n × n vertices);
+#: chained applies timed behind a spin kernel
+DIST_SHARDS = 4
+DIST_DOMAIN = (2 * NI, 2 * NJ, NK)
+DIST_UNEVEN = (2 * NI - 2, 2 * NJ - 6, NK)
+DIST_NABLA = 1024
+DIST_CALLS = 20
 #: an example on the card against the numpy backend: float64 rtol 1e-12; the
 #: float32 solver within ORACLE_TOL, as (rtol, atol)
 EX_TOL = {"float64": RTOL["float64"], "float32": ORACLE_TOL["float32"]}
@@ -290,9 +319,10 @@ def main(argv) -> int:
     nruns = prepare_next_runs(ndefs, NK)
     fsources = feature_sources(fdefs, tcases, bridge)
     examples = prepare_examples()
+    dex = prepare_distributed()
     t0 = time.perf_counter()
     backends = [r["kern"]._backend for r in runs + registry + halves + sweeps]
-    backends += [r["variant"].backend for r in nruns] + examples["backends"]
+    backends += [r["variant"].backend for r in nruns] + examples["backends"] + dex["backends"]
     cuda_backend.build_libraries([*(b.module.source for b in backends), *fsources])
     for b in backends:
         b._functions()  # load
@@ -660,6 +690,10 @@ def main(argv) -> int:
               f"{r['name']} {r['ms'] * 1e3:.1f} us against {r['bound_ms'] * 1e3:.2f} "
               f"({r['bound_by']}), plain {r['plain_ms'] * 1e3:.1f}" for r in example_rows))
 
+    # -- 11. the distributed path: four shards of the card, each at full width -------
+    dist_rows = run_distributed(runs, dex, {nb["vertices"]: nb["ms"] for nb in nablas}, ndefs,
+                                storage, cuda_backend, torch, smi)
+
     kernels = [
         {
             "name": f"{run['case']['kernel']}/{run['case']['name']}/{run['dtype']}",
@@ -712,7 +746,10 @@ def main(argv) -> int:
         }
         for run in nruns
     ]
-    kernels += example_rows
+    kernels += example_rows + dist_rows
+    print(f"bounds of bench.py's unported probes at {NI}x{NJ}x{NK} (bytes over "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s): " + ", ".join(
+              f"{k} {b / 1e6:.1f} MB {ms * 1e3:.1f} us" for k, (b, ms) in probe_bounds().items()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,
@@ -1019,6 +1056,22 @@ def compulsory_bytes(stencil, itemsize: int = 0, domain=(NI, NJ, NK)) -> int:
             size = itemsize or info.dtype.itemsize
             total += points * size * ((name in needed) + written)
     return total
+
+
+def probe_bounds(ni=NI, nj=NJ, nk=NK, halo=HALO) -> dict:
+    """(bytes, ms) of the bytes bound of bench.py's three calibration probes,
+    not ported yet (the H100 bench, ROADMAP M5), at the main path's size over
+    the H100's 3.35 TB/s: ``_mk_probe`` walks 4 float32 inputs and 1 output
+    over (nk, ni, nj/2) planes (plus its m FMAs or n divisions a point),
+    ``_pw_kernel`` computes ``a + b*c - d`` over (nk, ni, nj) float32 planes,
+    ``_mk_bf16_probe`` reads and writes bfloat16 over (nk, ni + 2 halo,
+    nj + 2 halo)."""
+    nbytes = {
+        "bench.py:1494 _mk_probe": 5 * nk * ni * (nj // 2) * 4,
+        "bench.py:1414 _pw_kernel": 5 * nk * ni * nj * 4,
+        "bench.py:1351 _mk_bf16_probe": 2 * nk * (ni + 2 * halo) * (nj + 2 * halo) * 2,
+    }
+    return {k: (b, b / HBM_BYTES_PER_S * 1e3) for k, b in nbytes.items()}
 
 
 def as_stencil(variant):
@@ -2446,6 +2499,329 @@ def run_examples(ex, cuda_backend, torch, device="cuda") -> list:
                             as_stencil(variant)))
     report(f"custom_backend on {kernel}", wall, counts, err,
            f"; ptxas of the AOT job: {shown['job'].compiled_stage.cost_analysis()}")
+    return rows
+
+
+# -- the distributed phase (step 11) ----------------------------------------------
+
+
+def distributed_cases(runs) -> list:
+    """Step 11's cases over the main paths' stencils (built in step 1): hdiff
+    (``plane``) under periodic, clamp and zero boundaries, vadv and tridiag
+    (``column``), vadv with the switch on (``fused_column``), each in
+    float32 and float64 on DIST_DOMAIN; hdiff float32 periodic on the uneven
+    DIST_UNEVEN (pad and trim)."""
+    by = {(r["case"]["name"], r["dtype"]): r for r in runs}
+    cases = []
+    for dtype in ("float32", "float64"):
+        for boundary in ("periodic", "clamp", "zero"):
+            cases.append({"run": by[("hdiff", dtype)], "boundary": boundary,
+                          "domain": DIST_DOMAIN, "tag": f"hdiff_{boundary}"})
+        for name in ("vadv", "tridiag", "vadv_fused"):
+            cases.append({"run": by[(name, dtype)], "boundary": "periodic",
+                          "domain": DIST_DOMAIN, "tag": name})
+    cases.append({"run": by[("hdiff", "float32")], "boundary": "periodic",
+                  "domain": DIST_UNEVEN, "tag": "hdiff_uneven"})
+    return cases
+
+
+def prepare_distributed() -> dict:
+    """Step 1's part of the distributed phase: the distributed_hdiff
+    example's stencil and operator for ``cuda:hopper``, the operator's
+    bridged variant traced by one run on four CPU shards of 8 × 8 × 8."""
+    import torch
+
+    from gt4py_tpu_torch.examples import distributed_hdiff
+
+    st, op = distributed_hdiff.make_stencils("cuda:hopper")
+    with contextlib.redirect_stdout(None):
+        distributed_hdiff.main("cuda:hopper", [torch.device("cpu")] * DIST_SHARDS, (8, 8, 8),
+                               (st, op))
+    return {"st": st, "op": op, "plain": distributed_hdiff.make_stencils("torch")[0],
+            "backends": [st._backend, bridged_variant(op).backend]}
+
+
+def host_us(work, n: int, torch, device) -> float:
+    """Host µs of one ``work()``, ``n`` calls queued behind a spin kernel so
+    that none waits for the card (the host clock alone on the CPU)."""
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)  # ~100 ms at the H100's clocks
+        ended = torch.cuda.Event()
+        ended.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        work()
+    host = (time.perf_counter() - t0) / n
+    if device == "cuda":
+        if ended.query():
+            raise AssertionError("the host was still queuing when the spin kernel ended")
+        torch.cuda.synchronize()
+    return host * 1e6
+
+
+def synced_us(work, n: int, torch, device) -> float:
+    """µs of ``work()`` to a synchronised card, mean of ``n`` calls after
+    one to warm it (the host clock)."""
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    work()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        work()
+        sync()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def padded_host(v, boundary, np):
+    """A global host array extended by HALO along I and J the way the
+    boundary condition extends the domain: wrapped, edge or zeros."""
+    mode = {"periodic": "wrap", "clamp": "edge", "zero": "constant"}[boundary]
+    return np.pad(v, ((HALO, HALO), (HALO, HALO), (0, 0)), mode=mode)
+
+
+def run_distributed_case(c, mesh, storage, cuda_backend, np, torch, device="cuda") -> dict:
+    """One case of step 11: ``DistributedStencil`` over ``mesh`` on global
+    tensors, counted (each shard's launches of the case's kernel, and no
+    other kernel), equal to the single-card stencil on the same data read
+    from a storage extended by the boundary condition (to the bit, or
+    raises) and to the plain version on the same mesh (RTOL/ATOL); then
+    device ms per step of DIST_CALLS chained ``apply``s on sharded arrays
+    behind a spin kernel, the exchange's and the shards' kernels' apart, a
+    warm ``apply``'s host µs, and the scatter and gather µs of a global
+    call; returns the case's row of the ``kernels`` line."""
+    from gt4py_tpu_torch.parallel import DistributedStencil
+
+    run, case, dtype = c["run"], c["run"]["case"], c["run"]["dtype"]
+    kern, kernel, domain = run["kern"], case["kernel"], c["domain"]
+    tag = f"{c['tag']} {dtype} {'x'.join(map(str, domain))}"
+    host = {n: in_dtype(v, dtype) for n, v in c["host"].items()}
+    scalars = run["scalars"]
+    # global tensors: only read (a written field given so comes back in new buffers)
+    fields = {n: torch.from_numpy(v).to(device) for n, v in host.items()}
+    dist = DistributedStencil(kern, mesh, boundary=c["boundary"])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out, counts, _ = counted(lambda: dist.apply(**fields, **scalars), cuda_backend,
+                             torch.cuda.synchronize if device == "cuda" else (lambda: None))
+    asked = len(mesh.devices) * len(kern._backend.module.launchers)
+    expect_launches(f"distributed {tag}", counts, {kernel: asked})
+    if set(dist.last_strategy) != {kernel if device == "cuda" else "plain"}:
+        raise AssertionError(f"distributed {tag}: shards served by {dist.last_strategy}")
+
+    # the single-card stencil on the same data, its halo extended as the boundary says
+    single = {n: storage.from_array(padded_host(v, c["boundary"], np), backend="cuda:hopper",
+                                    aligned_index=(HALO, HALO, 0), device=device)
+              for n, v in host.items()}
+    kern(**single, **scalars, domain=domain)
+    err, bits = 0.0, True
+    for n, got in out.items():
+        g = got.assemble()
+        w = single[n].array[HALO:HALO + domain[0], HALO:HALO + domain[1]]
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"distributed {tag}: non-finite values in {n}")
+        bits = bits and same_bits(g, w)
+        err = max(err, float((g.double() - w.double()).abs().max()))
+    if not bits:
+        raise AssertionError(
+            f"distributed {tag}: differs from the single-card stencil (max abs err {err})")
+
+    # the plain version (the torch backend) on the same mesh and data
+    plain = DistributedStencil(run["plain"], mesh, boundary=c["boundary"])
+    pout = plain.apply(**fields, **scalars)
+    for n, got in out.items():
+        if not torch.allclose(got.assemble(), pout[n].assemble(), rtol=RTOL[dtype],
+                              atol=ATOL[dtype]):
+            raise AssertionError(f"distributed {tag}: kernel and plain version differ in {n}")
+    plain_ms = events_ms(lambda: plain.apply(**fields, **scalars), 2) if device == "cuda" else 0.0
+
+    # chained steps on sharded arrays: nothing scattered or gathered
+    step = dist.prepare(**fields, **scalars)
+    arrays = {n: step.sharded(n) for n in host}
+    swap = case["swap"]
+
+    def chain(n):
+        a = dict(arrays)
+        for _ in range(n):
+            dist.apply(**a, **scalars)
+            a = {r: a[swap.get(r, r)] for r in a}
+
+    chain(2)
+    ms = spin_ms(lambda: chain(DIST_CALLS), DIST_CALLS, tag)
+    bound_step = dist.prepare(**arrays, **scalars)
+    exchange_ms = spin_ms(lambda: [bound_step.exchange() for _ in range(DIST_CALLS)],
+                          DIST_CALLS, tag)
+    compute_ms = spin_ms(lambda: [bound_step.compute() for _ in range(DIST_CALLS)],
+                         DIST_CALLS, tag)
+    call_us = host_us(lambda: dist.apply(**arrays, **scalars), DIST_CALLS, torch, device)
+    scatter_us = synced_us(lambda: dist.prepare(**fields, **scalars), 3, torch, device)
+    result = next(iter(out.values()))
+    gather_us = synced_us(lambda: result.assemble(), 3, torch, device)
+
+    itemsize = ITEMSIZE[dtype]
+    slabs = dist.exchange_plan(**fields)
+    slab_bytes = sum(int(np.prod(t["slab"])) for t in slabs) * itemsize
+    nbytes = compulsory_bytes(kern, itemsize, domain) + slab_bytes
+    flops = operations(kern, domain)
+    bound_ms, bound_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                             (flops / PEAK_FLOPS[dtype] * 1e3, "operations"))
+    return {
+        "name": f"{kernel}/distributed_{c['tag']}/{dtype}", "route": "cuda",
+        "entry": "distributed", "source": SOURCE, "replaces": REPLACES[kernel],
+        "launches": counts.get(kernel, 0), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "exchange_ms": exchange_ms, "compute_ms": compute_ms,
+        "four_single_shard_ms": len(mesh.devices) * run["device_ms"],
+        "same_bits_as_single_card": bits, "call_host_us": call_us, "scatter_us": scatter_us,
+        "gather_us": gather_us, "slabs": len(slabs), "slab_bytes": slab_bytes,
+        "boundary": c["boundary"], "domain": list(domain), "mesh": list(mesh.shape),
+    }
+
+
+def shard_step_ms(run, block, storage, device="cuda") -> float:
+    """ms per step that one shard's work holds the card: the single-card
+    stencil chained DIST_CALLS times on a ``block`` with HALO around it in
+    I and J (:func:`spin_ms`), as section 4's ``device_ms`` reads the main
+    path at (NI, NJ, NK)."""
+    import numpy as np
+
+    case = run["case"]
+    shape = (block[0] + 2 * HALO, block[1] + 2 * HALO, block[2])
+    fields = {n: storage.from_array(in_dtype(v, run["dtype"]), backend="cuda:hopper",
+                                    aligned_index=(HALO, HALO, 0), device=device)
+              for n, v in make_host(case, shape, 0, np).items()}
+    kw = dict(swap=case["swap"], domain=tuple(block))
+    run["kern"].chain(DIST_CALLS, **fields, **run["scalars"], **kw)
+    return spin_ms(lambda: run["kern"].chain(DIST_CALLS, **fields, **run["scalars"], **kw),
+                   DIST_CALLS, f"one shard of {case['name']}")
+
+
+def edge_midpoints(n: int, np):
+    """Coordinates of ``periodic_quad_mesh(n)``'s edges: h(i, j) at
+    (i + 1/2, j), then v(i, j) at (i, j + 1/2)."""
+    i, j = np.divmod(np.arange(n * n, dtype=np.float64), n)
+    return np.concatenate([np.stack([i + 0.5, j], 1), np.stack([i, j + 0.5], 1)])
+
+
+def run_distributed_nabla(n: int, single_ms, ndefs, torch, device="cuda") -> dict:
+    """FVM nabla at n × n vertices through ``DistributedUnstructured`` over
+    DIST_SHARDS shards of one device, the edges renumbered by
+    ``spatial_renumbering`` of their midpoints: equal to the single-device
+    embedded nabla (rtol 1e-5, atol 1e-6), ms a call by CUDA events, and
+    the slabs one call moves (none may be a shard's whole block)."""
+    import numpy as np
+
+    from gt4py_tpu_torch.next.mesh_utils import Renumbering, spatial_renumbering
+    from gt4py_tpu_torch.parallel import DistributedUnstructured
+
+    args, provider, out = ndefs.nabla_inputs(n, np.float32, 11, device)
+    ndefs.nabla_x(*args, out=out, offset_provider=provider)
+    nv = n * n
+    t0 = time.perf_counter()
+    dist = DistributedUnstructured(
+        ndefs.nabla_x, offset_provider=provider, sizes={ndefs.Vertex: nv, ndefs.Edge: 2 * nv},
+        mesh=[torch.device(device)] * DIST_SHARDS,
+        renumberings=[Renumbering(ndefs.Edge, spatial_renumbering(edge_midpoints(n, np)))],
+    )
+    plan_s = time.perf_counter() - t0
+    got = dist(*args)
+    g, w = got.asnumpy(), out.asnumpy()
+    err = float(np.abs(g.astype(np.float64) - w).max())
+    if not np.allclose(g, w, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"distributed nabla at {nv} vertices: differs from one device ({err})")
+    owned = {"E2V": nv // DIST_SHARDS, "V2E": 2 * nv // DIST_SHARDS}
+    slabs = dist.last_exchange
+    if not slabs or any(t["slab"][0] >= owned[t["table"]] for t in slabs):
+        raise AssertionError(f"distributed nabla: a shard received a whole block: {slabs}")
+    ms = events_ms(lambda: dist(*args), 5) if device == "cuda" else 0.0
+    return {"vertices": nv, "ms": ms, "single_ms": single_ms, "max_abs_err": err,
+            "same_bits": bool(np.array_equal(g, w)), "plan_s": plan_s, "slabs": len(slabs),
+            "slab_rows": sorted({t["slab"][0] for t in slabs}), "owned": owned}
+
+
+def run_distributed(runs, dex, nablas, ndefs, storage, cuda_backend, torch, smi,
+                    device="cuda") -> list:
+    """Step 11: the distributed path on DIST_SHARDS shards of one card (a
+    2 × 2 mesh of ``[cuda:0] * 4``), each shard at the main path's full
+    width; then the ring FVM nabla and the distributed_hdiff example.
+    Prints each case; returns the rows of the ``kernels`` line."""
+    import numpy as np
+
+    from gt4py_tpu_torch.examples import distributed_hdiff
+    from gt4py_tpu_torch.parallel import CartesianMesh
+
+    t0 = time.perf_counter()
+    devices = [torch.device(device, 0) if device == "cuda" else torch.device(device)]
+    mesh = CartesianMesh(devices * DIST_SHARDS)
+    hosts: dict = {}
+    rows = []
+    print(f"distributed (gt4py_tpu_torch.parallel) on {smi}: DistributedStencil over a "
+          f"{mesh.shape[0]}x{mesh.shape[1]} mesh of {devices[0]} (one shard each of "
+          f"{DIST_SHARDS}), halo exchange by slab copies on the card; each case counted, == the "
+          f"single-card stencil to the bit and == the plain version; device us a step of "
+          f"{DIST_CALLS} chained applies behind a spin kernel (exchange, the shards' kernels), "
+          "beside 4 x the single-shard step of section 4:")
+    for c in distributed_cases(runs):
+        case = c["run"]["case"]
+        key = (case.get("like", case["name"]), c["domain"])
+        if key not in hosts:
+            hosts[key] = make_host(case, c["domain"], 13, np)
+        c["host"] = hosts[key]
+        row = run_distributed_case(c, mesh, storage, cuda_backend, np, torch, device)
+        rows.append(row)
+        print(f"  {row['name']:42s} {row['boundary']:8s} {'x'.join(map(str, row['domain']))}  "
+              f"launches {row['launches']}  same bits {row['same_bits_as_single_card']}  "
+              f"device {row['ms'] * 1e3:8.1f} us a step (exchange {row['exchange_ms'] * 1e3:7.1f}, "
+              f"kernels {row['compute_ms'] * 1e3:7.1f}; 4 x one shard "
+              f"{row['four_single_shard_ms'] * 1e3:7.1f})  warm apply {row['call_host_us']:7.1f} "
+              f"us on the host  scatter {row['scatter_us']:8.1f} us  gather "
+              f"{row['gather_us']:8.1f} us  plain {row['plain_ms']:8.2f} ms  bound "
+              f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}; {row['slabs']} slabs, "
+              f"{row['slab_bytes'] / 1e6:.2f} MB)")
+        del c["host"]
+    hosts.clear()
+
+    nb = run_distributed_nabla(DIST_NABLA, nablas.get(DIST_NABLA * DIST_NABLA), ndefs, torch,
+                               device)
+    print(f"  DistributedUnstructured FVM nabla, {nb['vertices']} vertices over a ring of "
+          f"{DIST_SHARDS} shards (edges by spatial_renumbering, plan {nb['plan_s']:.2f} s): "
+          f"{nb['ms']:.4f} ms a call (one device, step 7d: {nb['single_ms']}) == one device "
+          f"within rtol 1e-5, atol 1e-6 (max abs err {nb['max_abs_err']:.3e}, same bits "
+          f"{nb['same_bits']}); {nb['slabs']} slabs a call of {nb['slab_rows']} rows, owned "
+          f"blocks {nb['owned']}")
+
+    # the distributed_hdiff example: its run counted and held against numpy on the host
+    st, op = dex["st"], dex["op"]
+    variant = bridged_variant(op)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    with contextlib.redirect_stdout(None):
+        (hd, lap), counts, wall = counted(
+            lambda: distributed_hdiff.main("cuda:hopper", devices * DIST_SHARDS,
+                                           distributed_hdiff.BLOCK, (st, op)),
+            cuda_backend, sync)
+        want = distributed_hdiff.main("numpy", [torch.device("cpu")] * DIST_SHARDS,
+                                      distributed_hdiff.BLOCK)
+    asked = {"plane": DIST_SHARDS * len(st._backend.module.launchers)}
+    asked[variant.backend.strategy] = (asked.get(variant.backend.strategy, 0)
+                                       + len(variant.backend.module.launchers))
+    expect_launches("distributed_hdiff", counts, asked)
+    err = agree([np.asarray(hd), lap.asnumpy()], [np.asarray(want[0]), want[1].asnumpy()],
+                "distributed_hdiff")
+    shape = hd.shape
+    ex = {"run": {"kern": st, "plain": dex["plain"], "dtype": "float64", "scalars": {},
+                  "case": {"name": "hdiff", "kernel": "plane",
+                           "fields": ("in_field", "out_field", "coeff"),
+                           "swap": {"in_field": "out_field", "out_field": "in_field"}}},
+          "boundary": "periodic", "domain": shape, "tag": "example_distributed_hdiff"}
+    ex["host"] = make_host(ex["run"]["case"], shape, 0, np)
+    ex["run"]["device_ms"] = shard_step_ms(ex["run"], distributed_hdiff.BLOCK, storage, device)
+    row = run_distributed_case(ex, mesh, storage, cuda_backend, np, torch, device)
+    rows.append(row)
+    print(f"  example distributed_hdiff {'x'.join(map(str, shape))}: wall {wall:.3f} s, launches "
+          f"{counts}, == numpy on the host (max abs err {err:.3e}); its hdiff on sharded arrays "
+          f"{row['ms'] * 1e3:.1f} us a step on the device (4 x one shard of {distributed_hdiff.BLOCK} "
+          f"{row['four_single_shard_ms'] * 1e3:.1f} us), bound {row['bound_ms'] * 1e3:.2f} us")
+    print(f"distributed phase in {time.perf_counter() - t0:.1f} s")
     return rows
 
 if __name__ == "__main__":

@@ -18,10 +18,10 @@ The modules, and the kernel each runs on the card:
 - ``implicit_vertical_diffusion``: ``column``, through the bridge;
 - ``shallow_water``: none (staggered fields run embedded);
 - ``typed_operators``: ``fused_plane`` (its Laplacian on 2-D fields);
-- ``custom_backend``: ``fused_plane`` (a 1-D field).
-
-``examples/distributed_hdiff.py`` is not ported: it needs the
-multi-device package ``parallel/``, which the port does not have yet.
+- ``custom_backend``: ``fused_plane`` (a 1-D field);
+- ``distributed_hdiff``: ``plane`` on every shard of a mesh of devices
+  (``devices``, default four shards on one card, in place of ``device``),
+  and the Laplacian on ``fused_plane``.
 """
 
 

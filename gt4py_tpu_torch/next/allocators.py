@@ -60,10 +60,27 @@ class TorchFieldBufferAllocator:
 
 
 class CPUFieldBufferAllocator(TorchFieldBufferAllocator):
-    """Host buffers (reference StandardCPUFieldBufferAllocator, :191)."""
+    """Host buffers (reference StandardCPUFieldBufferAllocator, :191),
+    ``alignment``-byte aligned by the native allocator (core/native.py)
+    as the JAX package's are."""
 
-    def __init__(self):
+    def __init__(self, alignment: int = 64):
         super().__init__("cpu")
+        self.alignment = alignment
+
+    def allocate(
+        self, shape: Sequence[int], dtype: Any, layout: Optional[Sequence[int]] = None
+    ) -> torch.Tensor:
+        from gt4py_tpu_torch.core.native import aligned_empty
+
+        shape = tuple(int(n) for n in shape)
+        layout = tuple(range(len(shape))) if layout is None else tuple(layout)
+        dtype = torch_dtype(dtype)
+        physical = [shape[i] for i in layout]
+        nbytes = int(np.prod(physical)) * dtype.itemsize
+        raw = torch.from_numpy(aligned_empty((nbytes,), np.uint8, alignment=self.alignment))
+        buf = raw.view(dtype).reshape(physical).zero_()
+        return buf.permute(tuple(np.argsort(layout)))
 
 
 class CUDAFieldBufferAllocator(TorchFieldBufferAllocator):

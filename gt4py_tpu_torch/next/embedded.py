@@ -654,7 +654,7 @@ class Field:
         if isinstance(offset, OffsetIndex):
             provider = _OFFSET_PROVIDER.get()
             mapped = (provider or {}).get(offset.offset.value)
-            if isinstance(mapped, Connectivity):
+            if isinstance(mapped, Connectivity) or hasattr(mapped, "sharded_gather"):
                 # Partial shift: gather only the index-th neighbor column.
                 return self._remap_connectivity(mapped, column=offset.index)
             fo = offset.offset
@@ -856,11 +856,19 @@ class Field:
         table = ops.index(conn.table if column is None else conn.table[:, column], self.ndarray)
         own_start = self.domain[conn.codomain].unit_range.start
         n = self.ndarray.shape[axis]
-        safe_idx = ops.clip(table - own_start, 0, n - 1)
         shape = tuple(self.ndarray.shape)
-        gathered = ops.gather(self.ndarray, axis, safe_idx.reshape(-1)).reshape(
-            shape[:axis] + tuple(table.shape) + shape[axis + 1:]
-        )
+        if hasattr(conn, "sharded_gather"):
+            # One shard's explicit-ghost connectivity (parallel/
+            # unstructured.DistributedUnstructured): its gather takes the
+            # ring neighbours' halo slabs, then indexes the shard's table.
+            if axis != 0:
+                raise ValueError("sharded gathers require the codomain dimension first")
+            gathered = conn.sharded_gather(self.ndarray, column)
+        else:
+            safe_idx = ops.clip(table - own_start, 0, n - 1)
+            gathered = ops.gather(self.ndarray, axis, safe_idx.reshape(-1)).reshape(
+                shape[:axis] + tuple(table.shape) + shape[axis + 1:]
+            )
         # gathered axes: dims[:axis] + (source[, neighbor]) + dims[axis+1:]
         neighbor_ranges = (
             (NamedRange(conn.neighbor_dim, UnitRange(0, conn.table.shape[1])),)

@@ -20,10 +20,12 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from examples import burgers as ref_burgers  # noqa: E402
 from examples import custom_backend as ref_custom  # noqa: E402
+from examples import distributed_hdiff as ref_distributed  # noqa: E402
 from examples import implicit_vertical_diffusion as ref_implicit  # noqa: E402
 from examples import isentropic_diagnostics as ref_isentropic  # noqa: E402
 from examples import lap_cartesian_vs_next as ref_lap  # noqa: E402
@@ -37,6 +39,7 @@ from gt4py_tpu.cartesian import gtscript as ref_gtscript  # noqa: E402
 from gt4py_tpu_torch.examples import (  # noqa: E402
     burgers,
     custom_backend,
+    distributed_hdiff,
     implicit_vertical_diffusion,
     isentropic_diagnostics,
     lap_cartesian_vs_next,
@@ -296,3 +299,44 @@ def test_custom_backend_smooth_on_fused_plane():
     (variant,) = [v for v in shown["op"]._bridge_cache.values() if v is not None]
     assert variant.backend.strategy == "fused_plane"
     assert shown["job"].traced_stage.variant.backend.strategy == "fused_plane"
+
+
+# --- 9. distributed_hdiff -------------------------------------------------------------------------
+
+
+def _ref_distributed(backend):
+    """The JAX example's arrays (its mesh: the eight virtual CPU devices,
+    2 × 4, so a 64 × 128 × 8 domain), recorded from its own ``main``."""
+    import gt4py_tpu.next as ref_next
+    import gt4py_tpu.parallel as ref_parallel
+
+    seen = {}
+
+    class Recording(ref_parallel.DistributedStencil):
+        def apply(self, **kwargs):
+            seen["hdiff"] = out = super().apply(**kwargs)
+            return out
+
+    def zeros(*args, **kwargs):
+        seen["lap"] = field = real_zeros(*args, **kwargs)
+        return field
+
+    real_zeros = ref_next.zeros
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ref_parallel, "DistributedStencil", Recording)
+        mp.setattr(ref_next, "zeros", zeros)
+        _printed(ref_distributed.main)
+    return np.asarray(seen["hdiff"]["out_field"]), seen["lap"].asnumpy()
+
+
+@pytest.mark.parametrize("ref", ["jax"])
+@pytest.mark.parametrize("backend", PORT)
+def test_distributed_hdiff(backend, ref):
+    """Four CPU shards (2 × 2, blocks 32 × 64 × 8: the JAX example's global
+    64 × 128 × 8) equal the JAX example on its eight devices."""
+    cpu4 = [torch.device("cpu")] * 4
+    out, lap = distributed_hdiff.main(backend, cpu4, (32, 64, 8))
+    want_hdiff, want_lap = ref_result("distributed", ref, _ref_distributed)
+    assert out.shape == want_hdiff.shape == (64, 128, 8)
+    assert out.sharding.shard_shape(out.shape) == (32, 64, 8)
+    close([np.asarray(out), lap.asnumpy()], [want_hdiff, want_lap])

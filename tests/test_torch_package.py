@@ -31,7 +31,9 @@ ALLOWED = {
     "cartesian": {"core", "eve", "storage", "config", "instrumentation"},
     "next": {"core", "eve", "storage", "config", "instrumentation", "cartesian"},
     "testing": {"cartesian", "storage", "core", "eve", "config"},
-    "examples": {"cartesian", "next", "storage", "core", "eve", "config", "instrumentation"},
+    "parallel": {"cartesian", "next", "storage", "core", "eve", "config"},
+    "examples": {"cartesian", "next", "storage", "core", "eve", "config", "instrumentation",
+                 "parallel"},
 }
 
 
@@ -104,8 +106,9 @@ def test_field_view_tier_modules_import_no_jax(name):
     assert not bad
 
 
-EXAMPLES = ["burgers", "custom_backend", "implicit_vertical_diffusion", "isentropic_diagnostics",
-            "lap_cartesian_vs_next", "shallow_water", "tridiagonal_solver", "typed_operators"]
+EXAMPLES = ["burgers", "custom_backend", "distributed_hdiff", "implicit_vertical_diffusion",
+            "isentropic_diagnostics", "lap_cartesian_vs_next", "shallow_water",
+            "tridiagonal_solver", "typed_operators"]
 
 
 @pytest.mark.parametrize("name", EXAMPLES)
@@ -159,6 +162,63 @@ def test_retargeted_files_import_no_jax():
         assert not bad, (path, bad)
 
 
+#: the JAX package's modules of gt4py_tpu/parallel/ and core/native.py, each
+#: with its counterpart in the port
+PARALLEL_MODULES = ["parallel/__init__.py", "parallel/mesh.py", "parallel/halo.py",
+                    "parallel/distributed.py", "parallel/next_fields.py",
+                    "parallel/unstructured.py", "core/native.py"]
+
+
+@pytest.mark.parametrize("rel", PARALLEL_MODULES)
+def test_parallel_modules_import_no_jax(rel):
+    """Every module of the JAX package's parallel/ and core/native.py has
+    its counterpart in the port, and it imports no JAX (test_no_forbidden_import
+    covers them too; this pins their names)."""
+    assert os.path.isfile(os.path.join(REPO_ROOT, "gt4py_tpu", rel))
+    path = os.path.join(PKG_ROOT, rel)
+    assert os.path.isfile(path)
+    bad = [m for m in _imports_of(path) if _top(m) in FORBIDDEN]
+    assert not bad
+
+
+#: modules of gt4py_tpu/ whose counterpart has another name in the port
+RENAMED = {
+    "cartesian/backend/jax_backend.py": "cartesian/backend/torch_backend.py",
+    "cartesian/backend/pallas_backend.py": "cartesian/backend/cuda_backend.py",
+    "cartesian/backend/pallas_codegen.py": "cartesian/backend/cuda_codegen.py",
+    "cartesian/backend/pallas_seq.py": "cartesian/backend/cuda_codegen.py",
+    "cartesian/backend/pallas_split.py": "cartesian/backend/cuda_codegen.py",
+}
+
+
+def test_every_jax_package_module_has_its_counterpart():
+    """After the parallel slice, each module of gt4py_tpu/ has a module of
+    the same path in the port (the backends' under the names RENAMED gives)."""
+    ref_root = os.path.join(REPO_ROOT, "gt4py_tpu")
+    missing = []
+    for dirpath, _, files in os.walk(ref_root):
+        for fname in files:
+            if not fname.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(dirpath, fname), ref_root)
+            if not os.path.isfile(os.path.join(PKG_ROOT, RENAMED.get(rel, rel))):
+                missing.append(rel)
+    assert not missing, f"no counterpart in the port: {sorted(missing)}"
+
+
+def test_cartesian_mesh_without_a_card_raises(monkeypatch):
+    """``CartesianMesh()`` lays the mesh over the cards and never falls back
+    to the CPU."""
+    import torch
+
+    from gt4py_tpu_torch.parallel import CartesianMesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="CUDA cards"):
+        CartesianMesh()
+
+
 def test_import_leaves_jax_unloaded():
     code = (
         "import sys\n"
@@ -177,6 +237,8 @@ def test_import_leaves_jax_unloaded():
         "import gt4py_tpu_torch.examples.shallow_water\n"
         "import gt4py_tpu_torch.examples.tridiagonal_solver\n"
         "import gt4py_tpu_torch.examples.typed_operators\n"
+        "import gt4py_tpu_torch.examples.distributed_hdiff\n"
+        "import gt4py_tpu_torch.parallel, gt4py_tpu_torch.core.native\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'gt4py_tpu')]\n"
         "print(','.join(sorted(bad)))\n"
