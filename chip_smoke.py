@@ -149,6 +149,27 @@ swap cycle of the kernels as a CUDA graph.
    numpy on the host. Each case joins the ``kernels`` line
    (``"entry": "distributed"``).
 
+12. Calibration phase (gt4py_tpu_torch/cartesian/backend/calibration.py, the
+   counterpart of bench.py:1325-1570): bench.py's three calibration probes
+   on their hand-written kernels (``calibration.cu``, built in step 1), each
+   instantiated variant at bench.py's sizes (P1 ``probe_walk`` (m, n) =
+   (0, 0), (16, 0), (0, 4) and the card's own (128, 0), (0, 64) over
+   80 × 256 × 128 float32; P2 ``plane_walk5`` over 80 × 256 × 256; P3
+   ``bf16_windows`` n = 0, 1 over 80 × 260 × 260 bfloat16): one launch and a
+   graph chain of 3 (of 1 for (128, 0), whose second application overflows)
+   equal to the plain version on the card to the bit, every compared value
+   finite; then, the probes' counts set to 0, the two-point fit of its µs
+   over graph chains behind a spin kernel, its kernel launching exactly the
+   fit's launches. Prints each variant's µs and spread, its bytes over the
+   µs beside the device copy (and whether it fits the 50 MB L2), the plain
+   version's µs, the bound, ``Tensor.copy_`` beside P3 with no window (timed
+   as the kernel is, by the same fit over graph chains),
+   bench.py's ceilings (chain copy rate, ps an FMA and a division a point,
+   the plane walk's GB/s, the bfloat16 window model) and the main paths'
+   tridiag and vadv (``column``, ``fused_column``) and bfloat16 hdiff
+   (``plane``) device µs from step 4 over each ceiling. Each variant joins
+   the ``kernels`` line (``"entry": "calibration"``).
+
 Prints the card's name and power limit, one JSON line with the kernels, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without a CUDA card it exits 1 and prints no result.
@@ -201,6 +222,9 @@ REPLACES = {
     "column": "gt4py_tpu/cartesian/backend/pallas_seq.py:1130",
     "fused_column": "gt4py_tpu/cartesian/backend/pallas_seq.py:1704",
     "tiled": "gt4py_tpu/cartesian/backend/pallas_codegen.py:818",
+    "probe_walk": "bench.py:1494",
+    "plane_walk5": "bench.py:1414",
+    "bf16_windows": "bench.py:1351",
 }
 SOURCE = "gt4py_tpu_torch/cartesian/backend/cuda_codegen.py"
 #: the H100 SXM's data sheet: device memory rate, and peak rates outside the
@@ -258,6 +282,7 @@ def main(argv) -> int:
     from gt4py_tpu_torch import storage
     from gt4py_tpu_torch.cartesian import gtscript
     from gt4py_tpu_torch.cartesian.backend import cuda_backend, cuda_codegen
+    from gt4py_tpu_torch.cartesian.backend import calibration
     from gt4py_tpu_torch.next import cartesian_bridge as bridge
     from gt4py_tpu_torch.next import program_processors
     from tests import torch_cases as tcases
@@ -323,12 +348,14 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     backends = [r["kern"]._backend for r in runs + registry + halves + sweeps]
     backends += [r["variant"].backend for r in nruns] + examples["backends"] + dex["backends"]
-    cuda_backend.build_libraries([*(b.module.source for b in backends), *fsources])
+    cuda_backend.build_libraries([*(b.module.source for b in backends), *fsources,
+                                  calibration.source()])
     for b in backends:
         b._functions()  # load
+    calibration._functions()
     print(f"built and loaded {len(backends)} stencils ({len(nruns)} bridged field-view "
-          f"variants, {len(examples['backends'])} of the examples) and {len(fsources)} kernels "
-          f"of the feature cases in "
+          f"variants, {len(examples['backends'])} of the examples), {len(fsources)} kernels "
+          f"of the feature cases and the calibration probes in "
           f"{time.perf_counter() - t0:.1f} s")
 
     # -- 2. the main paths, each counted -------------------------------------------
@@ -746,10 +773,10 @@ def main(argv) -> int:
         }
         for run in nruns
     ]
-    kernels += example_rows + dist_rows
-    print(f"bounds of bench.py's unported probes at {NI}x{NJ}x{NK} (bytes over "
-          f"{HBM_BYTES_PER_S / 1e12} TB/s): " + ", ".join(
-              f"{k} {b / 1e6:.1f} MB {ms * 1e3:.1f} us" for k, (b, ms) in probe_bounds().items()))
+    # -- 12. bench.py's calibration probes on their kernels, and the ceilings -----------
+    cal_rows = run_calibration(runs, copy_gbs, calibration, smi, torch)
+
+    kernels += example_rows + dist_rows + cal_rows
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,
@@ -1059,10 +1086,11 @@ def compulsory_bytes(stencil, itemsize: int = 0, domain=(NI, NJ, NK)) -> int:
 
 
 def probe_bounds(ni=NI, nj=NJ, nk=NK, halo=HALO) -> dict:
-    """(bytes, ms) of the bytes bound of bench.py's three calibration probes,
-    not ported yet (the H100 bench, ROADMAP M5), at the main path's size over
-    the H100's 3.35 TB/s: ``_mk_probe`` walks 4 float32 inputs and 1 output
-    over (nk, ni, nj/2) planes (plus its m FMAs or n divisions a point),
+    """(bytes, ms) of the bytes bound of bench.py's three calibration probes
+    (step 12's kernels, gt4py_tpu_torch/cartesian/backend/calibration.py), at
+    the main path's size over the H100's 3.35 TB/s: ``_mk_probe`` walks 4
+    float32 inputs and 1 output over (nk, ni, nj/2) planes (plus its m FMAs
+    or n divisions a point),
     ``_pw_kernel`` computes ``a + b*c - d`` over (nk, ni, nj) float32 planes,
     ``_mk_bf16_probe`` reads and writes bfloat16 over (nk, ni + 2 halo,
     nj + 2 halo)."""
@@ -1394,28 +1422,11 @@ def unringed_ms(run, fields, cuda_backend) -> float:
 
 
 def spin_ms(work, n: int, name: str) -> float:
-    """ms per step that ``work()``, ``n`` steps, holds the card: CUDA
-    events around it, with the stream first held by a spin kernel long
-    enough for the host to queue every launch behind it. Fails if the host
-    was still queuing when the spin ended."""
-    import torch
+    """ms per step that ``work()``, ``n`` steps, holds the card, behind a
+    spin kernel (``instrumentation.profiler.spin_ms``)."""
+    from gt4py_tpu_torch.instrumentation.profiler import spin_ms as behind_spin
 
-    torch.cuda.synchronize()
-    cycles = 100_000_000  # ~50 ms at the H100's clocks
-    for _ in range(4):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        start.record()
-        work()
-        end.record()
-        queued_in_time = not start.query()
-        end.synchronize()
-        if queued_in_time:
-            return start.elapsed_time(end) / n
-        cycles *= 4
-    raise AssertionError(
-        f"{name}: the host did not queue {n} steps within a spin of {cycles // 4} cycles"
-    )
+    return behind_spin(work, n, name)
 
 
 def walked_levels(analyzed, nk: int) -> int:
@@ -2823,6 +2834,158 @@ def run_distributed(runs, dex, nablas, ndefs, storage, cuda_backend, torch, smi,
           f"{row['four_single_shard_ms'] * 1e3:.1f} us), bound {row['bound_ms'] * 1e3:.2f} us")
     print(f"distributed phase in {time.perf_counter() - t0:.1f} s")
     return rows
+
+
+# -- the calibration phase (step 12) ------------------------------------------------
+
+#: step 12: the probes' seed, the plain version's timed calls, and the main
+#: paths of step 4 held against the probes' ceilings, by their ceilings'
+#: labels: tridiag and vadv (``column``), with the switch on
+#: (``fused_column``), and bfloat16 hdiff (``plane``)
+CAL_SEED = 23
+CAL_PLAIN_CALLS = 3
+CAL_WALKS = {
+    "tridiag_float32": ("tridiag", "float32"), "tridiag_float64": ("tridiag", "float64"),
+    "vadv_float32": ("vadv", "float32"), "vadv_float64": ("vadv", "float64"),
+    "tridiag_fused_float32": ("tridiag_fused", "float32"),
+    "tridiag_fused_float64": ("tridiag_fused", "float64"),
+    "vadv_fused_float32": ("vadv_fused", "float32"), "vadv_fused_float64": ("vadv_fused", "float64"),
+    "hdiff_bf16": ("hdiff", "bfloat16"),
+}
+CAL_SOURCE = "gt4py_tpu_torch/cartesian/backend/calibration.cu"
+#: each probe's key in :func:`probe_bounds`
+CAL_BOUNDS = {"probe_walk": "bench.py:1494 _mk_probe", "plane_walk5": "bench.py:1414 _pw_kernel",
+              "bf16_windows": "bench.py:1351 _mk_bf16_probe"}
+
+
+def same_finite_bits(got, want, tag: str) -> float:
+    """Raises unless ``got`` and ``want`` are finite everywhere and equal
+    to the bit; returns their largest difference (0.0)."""
+    import torch
+
+    for t, which in ((got, "the kernel's"), (want, "the plain version's")):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{tag}: {which} output is not finite everywhere, so the "
+                                 "comparison would hold nothing")
+    ints = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    if got.shape != want.shape or not torch.equal(got.view(ints), want.view(ints)):
+        raise AssertionError(f"{tag}: differs from the plain version")
+    return float((got.double() - want.double()).abs().max())
+
+
+def calibration_walks(runs, calibration) -> tuple[dict, dict]:
+    """(walks, walk_us) for ``calibration.ceilings``: each main path of
+    CAL_WALKS with its compulsory bytes and bench.py's operations a point
+    (hdiff none), and its device µs a step from step 4."""
+    by_path = {(r["case"]["name"], r["dtype"]): r for r in runs}
+    walks, walk_us = {}, {}
+    for label, (name, dtype) in CAL_WALKS.items():
+        run = by_path[(name, dtype)]
+        ops = calibration.WALK_OPS.get(name.removesuffix("_fused"), (0, 0))
+        walks[label] = (compulsory_bytes(run["kern"], ITEMSIZE[dtype]), *ops)
+        walk_us[label] = run["device_ms"] * 1e3
+    return walks, walk_us
+
+
+def run_calibration(runs, copy_gbs, calibration, smi, torch, device="cuda",
+                    sizes=(NI, NJ, NK, HALO)) -> list:
+    """Step 12: bench.py's three calibration probes (bench.py:1325-1570) on
+    their hand-written kernels (``calibration.cu``), every instantiated
+    variant at bench.py's sizes (``sizes``): one launch and a graph chain of
+    ``calibration.checked_chain`` applications each finite and equal to the
+    plain version on the card to the bit (not counted), then, the probes'
+    counts set to 0, the two-point fit of its µs (``calibration.fit_us``),
+    the counts read: the probe's kernel launched exactly the fit's launches,
+    no other; where one PyTorch call computes the same function
+    (``calibration.LIBRARY``), that call timed by the same fit. Prints each
+    variant's µs and spread, its bytes over the µs beside the same-run
+    device copy (``copy_gbs``; whether it fits the L2), the ceilings of
+    bench.py's formulas, and step 4's walks over them. Returns the
+    ``kernels`` rows: measured values, and the bound computed from this
+    run's shapes."""
+    t0 = time.perf_counter()
+    ni, nj, nk, halo = sizes
+    bounds = probe_bounds(ni, nj, nk, halo)
+    rows, times, shown = [], {}, []
+    for kind, params in calibration.variants():
+        name = calibration.variant_name(kind, params)
+        size = calibration.shape(kind, ni, nj, nk, halo)
+        inputs = calibration.make_inputs(kind, device=device, seed=CAL_SEED, size=size)
+        checked = calibration.checked_chain(kind, params)
+        once = calibration.apply(kind, inputs, params, None)
+        chained = calibration.Chain(kind, checked, inputs, params).run()
+        err = 0.0
+        for got, n in ((once, 1), (chained, checked)):
+            want = calibration.chain_plain(kind, n, inputs, params)
+            err = max(err, same_finite_bits(got, want, f"calibration {name}, {n} application(s)"))
+        plain_ms = events_ms(lambda: calibration.run_plain(kind, inputs, params),
+                             CAL_PLAIN_CALLS)
+        for wrapper in calibration.WRAPPERS.values():
+            wrapper.launches = 0
+        fit = calibration.fit_us(kind, inputs, params)
+        counts = {k: w.launches for k, w in calibration.WRAPPERS.items()}
+        expect_launches(f"calibration {name}", counts, {kind: fit["launches"]})
+        library = None
+        if (kind, params) in calibration.LIBRARY:
+            library = calibration.fit_us(kind, inputs, params, library=True)
+        times[name] = fit["us"]
+        nbytes = bounds[CAL_BOUNDS[kind]][0]
+        ops = calibration.operations(kind, params, size)
+        bound_ms, bound_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                                 (ops / PEAK_FLOPS["float32"] * 1e3, "operations"))
+        rows.append({
+            "name": f"{kind}/{name}", "route": "cuda", "entry": "calibration",
+            "source": CAL_SOURCE, "replaces": REPLACES[kind],
+            "launches": counts[kind], "max_abs_err": err,
+            "ms": fit["us"] / 1e3, "spread_pct": fit["spread_pct"],
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None if library is None else library["us"] / 1e3,
+        })
+        shown.append({"fit": fit, "library": library, "bytes": nbytes, "checked": checked,
+                      "card_own": kind == "probe_walk" and params in calibration.CARD_PROBES})
+    walks, walk_us = calibration_walks(runs, calibration)
+    ceil = calibration.ceilings(times, ni, nj, nk, halo, walks=walks, walk_us=walk_us)
+    print(f"calibration (bench.py:1325-1570) on {smi}, in {time.perf_counter() - t0:.1f} s: "
+          "each variant finite and == the plain version on the card to the bit (one launch, a "
+          "graph chain of the applications shown); µs a launch, and of the library call where "
+          "there is one, by the two-point fit of graph chains behind a spin kernel (min-fit, the "
+          "median-fit's spread), bytes over µs beside the device copy of 256 MiB "
+          f"({copy_gbs:.1f} GB/s; the H100's L2 holds {calibration.L2_BYTES / 1e6:.0f} MB):")
+    for r, sh in zip(rows, shown):
+        fit, lib, gbs = sh["fit"], sh["library"], sh["bytes"] / sh["fit"]["us"] / 1e3
+        spread = "n/a" if r["spread_pct"] is None else f"{r['spread_pct']:.1f} %"
+        library = "n/a" if lib is None else (
+            f"{lib['us']:.3f} us (copy_, spread "
+            + ("n/a" if lib["spread_pct"] is None else f"{lib['spread_pct']:.1f} %") + ")")
+        print(f"  {r['name']:34s} checked chain {sh['checked']}  launches {r['launches']:5d}  "
+              f"{fit['us']:9.3f} us (spread {spread}, chains {fit['chains'][0]}/"
+              f"{fit['chains'][1]})  {gbs:8.1f} GB/s ({gbs / copy_gbs:.1%} of copy; "
+              f"{sh['bytes'] / 1e6:.2f} MB, "
+              f"{'fits' if sh['bytes'] <= calibration.L2_BYTES else 'exceeds'} the L2)  "
+              f"plain {r['plain_ms'] * 1e3:9.1f} us  bound {r['bound_ms'] * 1e3:.2f} us "
+              f"({r['bound_by']})  library {library}"
+              + ("  (the card's own reading)" if sh["card_own"] else ""))
+    print("  ceilings: " + ", ".join(f"{k} {v:.6g}" for k, v in ceil.items()
+                                     if not k.split("_")[0] in ("tridiag", "vadv", "hdiff")
+                                     or k.startswith("hdiff_bf16_vpu")))
+    print("  the main paths' walks (step 4's device µs) over the ceilings: compulsory bytes over "
+          "the plane walk's rate and over the chain's copy rate, bench.py's operations at the "
+          "probes' costs, the ceiling the larger:")
+    for label in walks:
+        t_w = walk_us[label]
+        parts = [f"device {t_w:8.2f} us", f"bytes {walks[label][0] / 1e6:.2f} MB"]
+        for key in ("planewalk_floor_us", "copy_floor_us", "compute_model_us",
+                    "chain_ceiling_us"):
+            if f"{label}_{key}" in ceil:
+                value = ceil[f"{label}_{key}"]
+                parts.append(f"{key.removesuffix('_us')} {value:.2f} us"
+                             + (f" (device / it {t_w / value:.3f})" if value else ""))
+        if label == "hdiff_bf16" and "hdiff_bf16_vs_vpu_model" in ceil:
+            parts.append(f"bf16 window model {ceil['hdiff_bf16_vpu_model_us']:.2f} us "
+                         f"(device / it {ceil['hdiff_bf16_vs_vpu_model']:.3f})")
+        print(f"    {label:22s} " + "  ".join(parts))
+    return rows
+
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv))

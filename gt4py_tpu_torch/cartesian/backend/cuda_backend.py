@@ -38,6 +38,7 @@ them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -427,6 +428,30 @@ class PreparedLaunch:
         return launched
 
 
+def capture_graph(device, launches: list) -> tuple[torch.cuda.CUDAGraph, int]:
+    """Capture ``launches``, closures called in order that each launch
+    their work on the current stream (ctypes launches on that stream's
+    handle) and return the kernels they launched, into one CUDA graph on a
+    side stream of ``device``. Returns the graph and the kernels one replay
+    launches. A launch's own error propagates, not the capture's."""
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    captured = False
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            per_replay = sum(launch() for launch in launches)
+            captured = True
+        finally:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                if captured:
+                    raise  # else the launch's own error propagates
+    return graph, per_replay
+
+
 class ChainGraph:
     """One swap cycle of a chain, its C prepared launches in order, captured
     into one CUDA graph: the zeroing of filled temporaries, the snapshot
@@ -438,23 +463,10 @@ class ChainGraph:
         self.launches = launches  # the scratch the graph's kernels use
         self.device = launches[0].device
         self.wrapper = launches[0].wrapper
-        self.graph = torch.cuda.CUDAGraph()
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        captured = False
-        with torch.cuda.device(self.device), torch.cuda.stream(stream):
-            self.graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                self.per_replay = sum(
-                    launch(state, scalars, counted=False) for launch, state in zip(launches, states)
-                )
-                captured = True
-            finally:
-                try:
-                    self.graph.capture_end()
-                except RuntimeError:
-                    if captured:
-                        raise  # else the launch's own error propagates
+        self.graph, self.per_replay = capture_graph(self.device, [
+            functools.partial(launch, state, scalars, counted=False)
+            for launch, state in zip(launches, states)
+        ])
 
     def replay(self, times: int) -> None:
         with torch.cuda.device(self.device):

@@ -17,6 +17,9 @@ kernels on one timeline) and a scope is an NVTX range plus a
   (default ``GT4PY_GPU_TRACE_DIR``, else ``<GT_CACHE_ROOT>/torch/traces``).
   It traces the CPU and the card; without a card it raises, unless the
   caller asks for ``activities="cpu"``, a host-only trace.
+- :func:`spin_ms` reads the card time of queued work with CUDA events,
+  the stream first held by a spin kernel so that the host's queuing stays
+  out of the reading.
 """
 
 from __future__ import annotations
@@ -76,3 +79,29 @@ def gpu_trace(
     path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
     prof.export_chrome_trace(path)
     prof.trace_path = path
+
+
+def spin_ms(work, n: int = 1, name: str = "work", cycles: int = 100_000_000,
+            tries: int = 4) -> float:
+    """ms per step that ``work()``, ``n`` steps, holds the card: CUDA
+    events around it, with the stream first held by a spin kernel of
+    ``cycles`` clock cycles (100 M: about 50 ms on an H100) so that the host
+    queues every launch behind it. Where the host was still queuing when
+    the spin ended, the spin is made 4 times longer, ``tries`` times in all,
+    then it raises."""
+    import torch
+
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        work()
+        end.record()
+        queued_in_time = not start.query()
+        end.synchronize()
+        if queued_in_time:
+            return start.elapsed_time(end) / n
+        cycles *= 4
+    raise RuntimeError(f"{name}: the host did not queue {n} steps within a spin of "
+                       f"{cycles // 4} cycles")

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import sys
 import types
 from typing import Any, Callable, Optional, Union
 
@@ -133,25 +134,58 @@ def _rebound(fn: types.FunctionType, namespace: dict) -> types.FunctionType:
     return bound
 
 
+#: top-level packages whose functions keep reading their live globals: the
+#: port's own (its builtins keep their identity for the bridge's tracer),
+#: torch and numpy; the standard library and installed packages too
+#: (:func:`_user_module`)
+_LIVE_PACKAGES = frozenset({"gt4py_tpu_torch", "torch", "numpy"})
+
+
+def _user_module(namespace: dict) -> bool:
+    """Whether ``namespace`` is the globals of a module of the user's own:
+    not of :data:`_LIVE_PACKAGES`, the standard library or a package
+    installed in ``site-packages``."""
+    top = (namespace.get("__name__") or "").split(".")[0]
+    path = namespace.get("__file__") or ""
+    return bool(top) and top not in _LIVE_PACKAGES and top not in sys.stdlib_module_names \
+        and "site-packages" not in path and "dist-packages" not in path
+
+
+def _snapshot(live: dict, snapshots: dict) -> dict:
+    """A copy of the module globals ``live``, made once per module into
+    ``snapshots`` (by the dict's id): its plain functions, and those of user
+    modules (:func:`_user_module`) that it reaches, rebound to their own
+    module's copy."""
+    snap = snapshots.get(id(live))
+    if snap is not None:
+        return snap
+    snap = snapshots[id(live)] = dict(live)
+    for name, value in live.items():
+        if not isinstance(value, types.FunctionType):
+            continue
+        if value.__globals__ is live:
+            snap[name] = _rebound(value, snap)
+        elif _user_module(value.__globals__):
+            snap[name] = _rebound(value, _snapshot(value.__globals__, snapshots))
+    return snap
+
+
 def _pinned(fn: Callable) -> Callable:
-    """``fn`` reading its module's globals as they are now: a variant's
-    module constants are fixed when it is built, as the JAX package's
-    ``jax.jit`` fixes them when it traces (rebinding one later changes no
-    variant already built). The plain functions of the same module that
-    ``fn`` calls read the same snapshot. Limits: a function of another
-    module reads that module's live globals, and a ``global`` statement in
-    ``fn`` or its module's helpers writes into the snapshot, not the
-    module."""
+    """``fn`` reading module globals as they are now: a variant's module
+    constants are fixed when it is built, as the JAX package's ``jax.jit``
+    fixes them when it traces (rebinding one later changes no variant
+    already built). The plain functions of ``fn``'s module, and those of
+    other user modules that its globals reach (imported by name, and what
+    theirs reach in turn), read the same snapshots: one per module, shared
+    by every helper in it. Functions of the port, torch, numpy, the standard
+    library and installed packages stay as they are. Limit: a ``global``
+    statement in ``fn`` or a pinned helper writes into the snapshot, not the
+    module, where the reference's trace writes the module once."""
     if isinstance(fn, functools.partial):
         return functools.partial(_pinned(fn.func), *fn.args, **fn.keywords)
     if not isinstance(fn, types.FunctionType):
         return fn
-    live = fn.__globals__
-    snapshot = dict(live)
-    for name, value in live.items():
-        if isinstance(value, types.FunctionType) and value.__globals__ is live:
-            snapshot[name] = _rebound(value, snapshot)
-    return _rebound(fn, snapshot)
+    return _rebound(fn, _snapshot(fn.__globals__, {}))
 
 
 def _compile_eager(job: CompileJob) -> CompileJob:

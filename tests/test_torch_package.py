@@ -227,6 +227,7 @@ def test_import_leaves_jax_unloaded():
         "import gt4py_tpu_torch.next, gt4py_tpu_torch.next.cartesian_bridge\n"
         "import gt4py_tpu_torch.testing, gt4py_tpu_torch.cartesian.cache_manager\n"
         "import gt4py_tpu_torch.instrumentation.profiler\n"
+        "import gt4py_tpu_torch.cartesian.backend.calibration\n"
         "import gt4py_tpu_torch.next.stages, gt4py_tpu_torch.next.program_processors\n"
         "import gt4py_tpu_torch.next.foast_pretty, gt4py_tpu_torch.next.mesh_utils\n"
         "import tests.torch_cases, tests.torch_feature_defs\n"

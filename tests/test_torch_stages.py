@@ -16,6 +16,7 @@ counts and ``format_compiled``'s report.
 """
 
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -221,6 +222,66 @@ def test_helper_of_the_same_module_reads_the_pinned_constants():
         np.testing.assert_array_equal(out.asnumpy(), 3 * np.arange(8.0))
     finally:
         mod._HELPER_GAIN = old
+
+
+_HELPER_MODULE = """\
+GAIN = 3.0
+
+
+def scale(a):
+    return a * GAIN
+
+
+def scale_twice(a):
+    return scale(a) + scale(a)
+"""
+
+_OPERATOR_MODULE = """\
+import gt4py_tpu_torch.next as gtx
+from {helpers} import scale_twice
+
+
+@gtx.field_operator
+def through_other_module(a):
+    return scale_twice(a)
+"""
+
+
+def test_helper_of_another_module_reads_the_pinned_constants(tmp_path, monkeypatch):
+    """A plain function of another user module, imported by name into the
+    operator's module, reads that module's constants as they were when the
+    variant was built, and so does the helper of the same module it calls
+    (one snapshot a module); the module itself is left as it is."""
+    import importlib
+
+    helpers, operators = "pinned_helpers_mod", "pinned_operator_mod"
+    (tmp_path / f"{helpers}.py").write_text(_HELPER_MODULE)
+    (tmp_path / f"{operators}.py").write_text(_OPERATOR_MODULE.format(helpers=helpers))
+    monkeypatch.syspath_prepend(str(tmp_path))
+    for name in (helpers, operators):
+        monkeypatch.delitem(sys.modules, name, raising=False)
+    helper_mod = importlib.import_module(helpers)
+    op = importlib.import_module(operators).through_other_module.with_backend("torch")
+    out = gtx.zeros({I: 8}, device="cpu")
+    op(_field(), out=out)
+    np.testing.assert_array_equal(out.asnumpy(), 6 * np.arange(8.0))
+    monkeypatch.setattr(helper_mod, "GAIN", 7.0)
+    op(_field(), out=out)
+    np.testing.assert_array_equal(out.asnumpy(), 6 * np.arange(8.0))
+    assert helper_mod.scale(1.0) == 7.0  # the live module reads its own rebinding
+
+
+def test_only_user_modules_are_pinned():
+    """The port's, torch's, numpy's, the standard library's and installed
+    packages' functions keep their live globals (the port's builtins keep
+    their identity for the bridge's tracer)."""
+    import os.path
+
+    from gt4py_tpu_torch.next import backend
+
+    assert backend._user_module(globals())
+    for fn in (gtx.field_operator, torch.where, np.where, os.path.join, pytest.raises):
+        assert not backend._user_module(getattr(fn, "__globals__", {"__name__": fn.__module__}))
 
 
 def test_ptxas_report_parses_the_build_log():
