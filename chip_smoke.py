@@ -160,15 +160,27 @@ swap cycle of the kernels as a CUDA graph.
    equal to the plain version on the card to the bit, every compared value
    finite; then, the probes' counts set to 0, the two-point fit of its µs
    over graph chains behind a spin kernel, its kernel launching exactly the
-   fit's launches. Prints each variant's µs and spread, its bytes over the
-   µs beside the device copy (and whether it fits the 50 MB L2), the plain
-   version's µs, the bound, ``Tensor.copy_`` beside P3 with no window (timed
-   as the kernel is, by the same fit over graph chains),
+   fit's launches. First the L2 yardstick (``calibration.l2_read_rate``:
+   the rate at which the SMs read a buffer that stays in the L2, by the same
+   fit, its result equal to ``torch.amax``). Prints each variant's µs and
+   spread, its bytes over the µs beside the device copy (and whether they
+   fit the card's L2), the plain version's µs, the bound and its share (none
+   where the kernel beats it), ``Tensor.copy_`` beside P3 with no window
+   (timed as the kernel is, by the same fit over graph chains); each
+   kernel's registers, spills and blocks an SM (``ptxas``) and its SASS by
+   class without the division's slow path (``cuobjdump``, which must be
+   there), with its 128-bit global loads and stores, which P1 and P3 must
+   have. The bound's bytes go at the L2 yardstick's rate where they fit the
+   L2 (P1 and P3: a chain keeps them there), else at the device memory's;
+   P1's and P3's bound is ``calibration.instruction_bound``: their FP32 and
+   MUFU instructions a point from that SASS on the card's SMs at its highest
+   SM clock (``nvidia-smi``), or their bytes, whichever takes longer;
    bench.py's ceilings (chain copy rate, ps an FMA and a division a point,
    the plane walk's GB/s, the bfloat16 window model) and the main paths'
    tridiag and vadv (``column``, ``fused_column``) and bfloat16 hdiff
-   (``plane``) device µs from step 4 over each ceiling. Each variant joins
-   the ``kernels`` line (``"entry": "calibration"``).
+   (``plane``) device µs from step 4 over each ceiling, the copy floor of a
+   walk beyond the L2 over the slower of P1's chain copy and the device
+   copy. Each variant joins the ``kernels`` line (``"entry": "calibration"``).
 
 Prints the card's name and power limit, one JSON line with the kernels, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -1442,6 +1454,21 @@ def walked_levels(analyzed, nk: int) -> int:
     return total
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name from its mangled one, with its template's integer
+    arguments where it has them: ``_Z10probe_walkILi0ELi64EEv...`` is
+    ``probe_walk<0, 64>``, ``_Z10gt_plane_06GtParams`` ``gt_plane_0``."""
+    import re
+
+    m = re.match(r"_Z(\d+)(\w+)", mangled)
+    if not m:
+        return mangled
+    n = int(m.group(1))
+    name, rest = m.group(2)[:n], m.group(2)[n:]
+    args = re.match(r"I((?:Li-?\d+E)+)E", rest)
+    return f"{name}<{', '.join(re.findall(r'Li(-?\d+)E', args.group(1)))}>" if args else name
+
+
 def ptxas_report(source: str, cuda_backend) -> dict:
     """kernel -> (registers, spill store bytes), from the ``-Xptxas -v``
     lines of the build log beside the source."""
@@ -1451,9 +1478,9 @@ def ptxas_report(source: str, cuda_backend) -> dict:
     out, kernel = {}, None
     with open(log) as f:
         for line in f:
-            m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+            m = re.search(r"Compiling entry function '(_Z\w+)'", line)
             if m:
-                kernel = m.group(2)[: int(m.group(1))]
+                kernel = kernel_name(m.group(1))
             m = re.search(r"(\d+) bytes spill stores", line)
             if m and kernel:
                 out[kernel] = (out.get(kernel, (0, 0))[0], int(m.group(1)))
@@ -1473,9 +1500,9 @@ def residency(source: str, cuda_backend) -> dict:
     static, kernel = {}, None
     with open(log) as f:
         for line in f:
-            m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+            m = re.search(r"Compiling entry function '(_Z\w+)'", line)
             if m:
-                kernel = m.group(2)[: int(m.group(1))]
+                kernel = kernel_name(m.group(1))
             m = re.search(r"(\d+) bytes smem", line)
             if m and kernel:
                 static[kernel] = int(m.group(1))
@@ -1529,6 +1556,28 @@ def sass_class(op: str) -> str:
     return "int"
 
 
+def sass_functions(source: str, cuda_backend, tool: str) -> dict:
+    """kernel (:func:`kernel_name`) -> (code, labels): the SASS of each
+    kernel of the source's library (``cuobjdump -sass``), code as (address,
+    opcode with its modifiers, operands) and labels as label -> index."""
+    import re
+
+    lib = cuda_backend._paths(source)[1]
+    text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True).stdout
+    out = {}
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        code, labels = [], {}
+        for line in chunk.splitlines():
+            lab = re.match(r"\s*(\.L_x_\d+):", line)
+            if lab:
+                labels[lab.group(1)] = len(code)
+            ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)", line)
+            if ins:
+                code.append((int(ins.group(1), 16), ins.group(2), ins.group(3)))
+        out[kernel_name(chunk.split()[0])] = (code, labels)
+    return out
+
+
 def sass_counts(source: str, cuda_backend, tool: str) -> dict:
     """kernel -> {"static": {class: n}, "loops": {class: n}}: the SASS of
     each kernel of the source's library (``cuobjdump -sass``), and of the
@@ -1537,20 +1586,9 @@ def sass_counts(source: str, cuda_backend, tool: str) -> dict:
     any unrolling)."""
     import re
 
-    lib = cuda_backend._paths(source)[1]
-    text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True).stdout
     out = {}
-    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
-        m = re.match(r"_Z(\d+)(\w+)", chunk)
-        kernel = m.group(2)[: int(m.group(1))] if m else chunk.split()[0]
-        code, labels = [], {}
-        for line in chunk.splitlines():
-            lab = re.match(r"\s*(\.L_x_\d+):", line)
-            if lab:
-                labels[lab.group(1)] = len(code)
-            ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(.*)", line)
-            if ins:
-                code.append((int(ins.group(1), 16), ins.group(2).split(".")[0], ins.group(3)))
+    for kernel, (code, labels) in sass_functions(source, cuda_backend, tool).items():
+        code = [(addr, op.split(".")[0], rest) for addr, op, rest in code]
         where = {addr: n for n, (addr, _, _) in enumerate(code)}
         loops = []
         for n, (addr, op, rest) in enumerate(code):
@@ -2858,6 +2896,81 @@ CAL_BOUNDS = {"probe_walk": "bench.py:1494 _mk_probe", "plane_walk5": "bench.py:
               "bf16_windows": "bench.py:1351 _mk_bf16_probe"}
 
 
+def probe_kernel(kind: str, params: tuple) -> str:
+    """The kernel of a probe variant, as :func:`kernel_name` gives it."""
+    return f"{kind}<{', '.join(str(p) for p in params)}>" if params else kind
+
+
+def main_body(code) -> list:
+    """A kernel's SASS without its subroutines (from the first a ``CALL``
+    reaches to the end, which the compiler places after the kernel's code:
+    an IEEE division's slow path, which runs only for subnormal or huge
+    operands) and without the trap loop that ends it (a branch to itself)."""
+    import re
+
+    targets = [int(t.group(1), 16) for _, op, rest in code if op.split(".")[0] == "CALL"
+               for t in [re.search(r"0x([0-9a-f]+)", rest)] if t]
+    end = min(targets, default=None)
+    body = []
+    for addr, op, rest in code:
+        t = re.search(r"0x([0-9a-f]+)", rest)
+        if end is not None and addr >= end:
+            break
+        if op.split(".")[0] == "BRA" and t and int(t.group(1), 16) == addr:
+            break
+        body.append((addr, op, rest))
+    return body
+
+
+def probe_report(calibration, cuda_backend, tool) -> dict:
+    """(kind, params) -> what the build says of each probe variant's kernel:
+    ``registers``, ``spill`` (bytes of spill stores), ``blocks`` resident on
+    an SM (calibration.cu's CAL_THREADS threads, plane_walk5's CAL_BJ ×
+    CAL_BI as many, no shared memory); and, with ``cuobjdump`` (``tool``;
+    None leaves the SASS out), from its SASS's :func:`main_body`: ``classes`` (its
+    instructions by :func:`sass_class`), ``wide`` (its 128-bit global loads
+    and stores) and, for the vector kernels (``calibration.POINTS_A_THREAD``),
+    ``per_point``: FP32-pipe instructions (opcodes F*, but the F2*
+    conversions) and MUFU instructions a point, what
+    ``calibration.instruction_bound`` takes."""
+    source = calibration.source()
+    ptxas = ptxas_report(source, cuda_backend)
+    sass = sass_functions(source, cuda_backend, tool) if tool else {}
+    threads = calibration.define("CAL_THREADS")
+    out = {}
+    for kind, params in calibration.variants():
+        name = probe_kernel(kind, params)
+        registers, spill = ptxas[name]
+        entry = {"registers": registers, "spill": spill,
+                 "blocks": resident_blocks(registers, threads, 0)}
+        if name in sass:
+            ops = [op for _, op, _ in main_body(sass[name][0]) if op != "NOP"]
+            classes = {}
+            for op in ops:
+                cls = sass_class(op.split(".")[0])
+                classes[cls] = classes.get(cls, 0) + 1
+            entry["classes"] = classes
+            entry["wide"] = {kind_: sum(op.startswith(kind_) and ".128" in op for op in ops)
+                             for kind_ in ("LDG", "STG")}
+            per = calibration.POINTS_A_THREAD.get(kind)
+            if per:
+                entry["per_point"] = {
+                    "fp32": sum(op[0] == "F" and not op.startswith("F2") for op in ops) / per,
+                    "mufu": sum(op.split(".")[0] == "MUFU" for op in ops) / per,
+                }
+        out[(kind, params)] = entry
+    return out
+
+
+def max_sm_clock_mhz() -> float:
+    """The card's highest SM clock, as ``nvidia-smi`` reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    return float(out.split()[0])
+
+
 def same_finite_bits(got, want, tag: str) -> float:
     """Raises unless ``got`` and ``want`` are finite everywhere and equal
     to the bit; returns their largest difference (0.0)."""
@@ -2871,6 +2984,12 @@ def same_finite_bits(got, want, tag: str) -> float:
     if got.shape != want.shape or not torch.equal(got.view(ints), want.view(ints)):
         raise AssertionError(f"{tag}: differs from the plain version")
     return float((got.double() - want.double()).abs().max())
+
+
+def bound_share(bound_us: float, us: float) -> str:
+    """The bound's share of a measured time, or none where the time beats
+    the bound: then it bounds nothing, and no share above 100 % is shown."""
+    return f"{bound_us / us:.0%}" if bound_us <= us else "no share: the kernel beats it"
 
 
 def calibration_walks(runs, calibration) -> tuple[dict, dict]:
@@ -2899,14 +3018,30 @@ def run_calibration(runs, copy_gbs, calibration, smi, torch, device="cuda",
     no other; where one PyTorch call computes the same function
     (``calibration.LIBRARY``), that call timed by the same fit. Prints each
     variant's µs and spread, its bytes over the µs beside the same-run
-    device copy (``copy_gbs``; whether it fits the L2), the ceilings of
-    bench.py's formulas, and step 4's walks over them. Returns the
-    ``kernels`` rows: measured values, and the bound computed from this
-    run's shapes."""
+    device copy (``copy_gbs``; whether it fits the L2), on the card its
+    build (:func:`probe_report`), the ceilings of bench.py's formulas, and
+    step 4's walks over them. Returns the ``kernels`` rows: measured values,
+    and the bound computed from this run's shapes: on the card the bytes at
+    the L2 yardstick's rate where they fit the card's L2, else at the device
+    memory's, and for the vector kernels their instructions from their SASS
+    (``calibration.instruction_bound``), the card's ``cuobjdump`` required;
+    on CPU tensors, a rehearsal, bytes at the device memory's rate or
+    operations at the FMA peak."""
     t0 = time.perf_counter()
     ni, nj, nk, halo = sizes
     bounds = probe_bounds(ni, nj, nk, halo)
     rows, times, shown = [], {}, []
+    report, card = {}, None
+    if torch.device(device).type == "cuda":
+        tool = cuobjdump()
+        if tool is None:
+            raise RuntimeError("calibration: the toolkit has no cuobjdump; the probes' bound "
+                               "and their 128-bit loads and stores are read from their SASS")
+        report = probe_report(calibration, calibration.cuda_backend, tool)
+        card = {"clock": max_sm_clock_mhz(), "l2": calibration.l2_bytes(device),
+                "sms": torch.cuda.get_device_properties(device).multi_processor_count,
+                "l2_read": calibration.l2_read_rate(device)}
+    l2 = card["l2"] if card else calibration.L2_BYTES
     for kind, params in calibration.variants():
         name = calibration.variant_name(kind, params)
         size = calibration.shape(kind, ni, nj, nk, halo)
@@ -2930,9 +3065,21 @@ def run_calibration(runs, copy_gbs, calibration, smi, torch, device="cuda",
             library = calibration.fit_us(kind, inputs, params, library=True)
         times[name] = fit["us"]
         nbytes = bounds[CAL_BOUNDS[kind]][0]
-        ops = calibration.operations(kind, params, size)
-        bound_ms, bound_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                                 (ops / PEAK_FLOPS["float32"] * 1e3, "operations"))
+        in_l2 = card is not None and nbytes <= l2
+        rate = card["l2_read"]["Bps"] if in_l2 else HBM_BYTES_PER_S
+        build = report.get((kind, params), {})
+        if card and kind in calibration.POINTS_A_THREAD:
+            if "per_point" not in build or not all(build["wide"].values()):
+                raise AssertionError(f"calibration {name}: no 128-bit global loads or stores "
+                                     f"in its SASS ({build.get('wide')})")
+            bound_us, bound_by = calibration.instruction_bound(
+                build["per_point"], size[0] * size[1] * size[2], nbytes, card["clock"],
+                card["sms"], rate)
+            bound_ms = bound_us / 1e3
+        else:
+            ops = calibration.operations(kind, params, size)
+            bound_ms, bound_by = max((nbytes / rate * 1e3, "bytes"),
+                                     (ops / PEAK_FLOPS["float32"] * 1e3, "operations"))
         rows.append({
             "name": f"{kind}/{name}", "route": "cuda", "entry": "calibration",
             "source": CAL_SOURCE, "replaces": REPLACES[kind],
@@ -2942,17 +3089,28 @@ def run_calibration(runs, copy_gbs, calibration, smi, torch, device="cuda",
             "library_ms": None if library is None else library["us"] / 1e3,
         })
         shown.append({"fit": fit, "library": library, "bytes": nbytes, "checked": checked,
-                      "card_own": kind == "probe_walk" and params in calibration.CARD_PROBES})
+                      "rate": "the L2 yardstick's" if in_l2 else "the memory's",
+                      "card_own": kind == "probe_walk" and params in calibration.CARD_PROBES,
+                      "build": build})
     walks, walk_us = calibration_walks(runs, calibration)
-    ceil = calibration.ceilings(times, ni, nj, nk, halo, walks=walks, walk_us=walk_us)
+    ceil = calibration.ceilings(times, ni, nj, nk, halo, walks=walks, walk_us=walk_us,
+                                copy_Bps=copy_gbs * 1e9, l2=l2)
     print(f"calibration (bench.py:1325-1570) on {smi}, in {time.perf_counter() - t0:.1f} s: "
           "each variant finite and == the plain version on the card to the bit (one launch, a "
           "graph chain of the applications shown); µs a launch, and of the library call where "
           "there is one, by the two-point fit of graph chains behind a spin kernel (min-fit, the "
           "median-fit's spread), bytes over µs beside the device copy of 256 MiB "
-          f"({copy_gbs:.1f} GB/s; the H100's L2 holds {calibration.L2_BYTES / 1e6:.0f} MB):")
+          f"({copy_gbs:.1f} GB/s; the card's L2 holds {l2 / 1e6:.2f} MB):")
+    if card:
+        yard = card["l2_read"]
+        print(f"  the L2 yardstick (l2_read, {calibration.L2_READ_PASSES} passes a launch over "
+              f"{yard['nbytes'] / 1e6:.2f} MB, every load through the L2 only, the warps' "
+              f"largest == torch.amax): {yard['us']:.3f} us a launch (spread "
+              + ("n/a" if yard["spread_pct"] is None else f"{yard['spread_pct']:.1f} %")
+              + f"), {yard['Bps'] / 1e9:.1f} GB/s, {card['sms']} SMs at {card['clock']:.0f} MHz")
     for r, sh in zip(rows, shown):
         fit, lib, gbs = sh["fit"], sh["library"], sh["bytes"] / sh["fit"]["us"] / 1e3
+        share = bound_share(r["bound_ms"] * 1e3, fit["us"])
         spread = "n/a" if r["spread_pct"] is None else f"{r['spread_pct']:.1f} %"
         library = "n/a" if lib is None else (
             f"{lib['us']:.3f} us (copy_, spread "
@@ -2961,16 +3119,27 @@ def run_calibration(runs, copy_gbs, calibration, smi, torch, device="cuda",
               f"{fit['us']:9.3f} us (spread {spread}, chains {fit['chains'][0]}/"
               f"{fit['chains'][1]})  {gbs:8.1f} GB/s ({gbs / copy_gbs:.1%} of copy; "
               f"{sh['bytes'] / 1e6:.2f} MB, "
-              f"{'fits' if sh['bytes'] <= calibration.L2_BYTES else 'exceeds'} the L2)  "
+              f"{'fits' if sh['bytes'] <= l2 else 'exceeds'} the L2)  "
               f"plain {r['plain_ms'] * 1e3:9.1f} us  bound {r['bound_ms'] * 1e3:.2f} us "
-              f"({r['bound_by']})  library {library}"
+              f"({r['bound_by']}, bytes at {sh['rate']} rate; {share})  library {library}"
               + ("  (the card's own reading)" if sh["card_own"] else ""))
+        build = sh["build"]
+        if build:
+            print(f"    {build['registers']} registers, {build['spill']} B spilled, "
+                  f"{build['blocks']} blocks an SM"
+                  + ("" if "classes" not in build else
+                     "; SASS " + ", ".join(f"{c} {n}" for c, n in build["classes"].items())
+                     + f" (128-bit LDG {build['wide']['LDG']}, STG {build['wide']['STG']})")
+                  + ("" if "per_point" not in build else
+                     f"; a point FP32 {build['per_point']['fp32']:.2f}, MUFU "
+                     f"{build['per_point']['mufu']:.2f} (the bound's instructions)"))
     print("  ceilings: " + ", ".join(f"{k} {v:.6g}" for k, v in ceil.items()
                                      if not k.split("_")[0] in ("tridiag", "vadv", "hdiff")
                                      or k.startswith("hdiff_bf16_vpu")))
     print("  the main paths' walks (step 4's device µs) over the ceilings: compulsory bytes over "
-          "the plane walk's rate and over the chain's copy rate, bench.py's operations at the "
-          "probes' costs, the ceiling the larger:")
+          "the plane walk's rate and over the chain's copy rate (for bytes beyond the L2, over "
+          "the device copy's where it is slower), bench.py's operations at the probes' costs, "
+          "the ceiling the larger:")
     for label in walks:
         t_w = walk_us[label]
         parts = [f"device {t_w:8.2f} us", f"bytes {walks[label][0] / 1e6:.2f} MB"]

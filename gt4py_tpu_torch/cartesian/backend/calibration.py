@@ -16,14 +16,22 @@ jitted ``fori_loop``; here each is a hand-written CUDA C++ kernel
   (nk, ni + 2 halo, nj + 2 halo) planes plus n windows shifted along J with
   wrap-around; the chain carries ``a <- o``.
 
+P2 keeps the column walks' shape (one thread an (i, j) point walking the
+planes), so that it measures what a plain walk costs; P1 and P3 are
+pointwise over the flat tensor (P3 but for its wrap along J), each thread
+one 16-byte vector of every tensor, so that they measure the card.
+
 Each entry point launches its kernel on CUDA tensors and runs its plain
 PyTorch version (``*_plain``, every operation rounded separately) on CPU
 tensors; there is no other path. :class:`Chain` captures n chained launches
 into one CUDA graph (``cuda_backend.capture_graph``), :func:`fit_us` times a
 variant, or the one PyTorch call that computes the same function
 (``LIBRARY``), with the two-point fit of bench.py's ``StepTimer.measure``
-(bench.py:110-160), and :func:`ceilings` computes bench.py's ceilings from
-the fitted times. The module lives beside the ``cuda:hopper`` backend, whose
+(bench.py:110-160), :func:`ceilings` computes bench.py's ceilings from
+the fitted times, :func:`instruction_bound` the least time a probe's
+instructions and bytes allow, and :func:`l2_read_rate` the rate at which the
+SMs read bytes that stay in the L2 (``l2_read``, the yardstick of that
+bound for a probe whose bytes stay there across a chain). The module lives beside the ``cuda:hopper`` backend, whose
 machinery it uses: the kernels are built by ``cuda_backend.load_library``
 with the stencil kernels' flags (``sm_90a``, ``--fmad=false``) into
 ``.gt_cache/torch/cuda/``, and each probe's
@@ -36,6 +44,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import re
 from typing import Optional, Sequence
 
 import numpy as np
@@ -68,6 +77,8 @@ PROBE_WALK = cuda_backend.KernelWrapper("probe_walk")
 PLANE_WALK5 = cuda_backend.KernelWrapper("plane_walk5")
 BF16_WINDOWS_KERNEL = cuda_backend.KernelWrapper("bf16_windows")
 WRAPPERS = {w.name: w for w in (PROBE_WALK, PLANE_WALK5, BF16_WINDOWS_KERNEL)}
+#: the L2 yardstick's launches (no TPU kernel's port, so not in WRAPPERS)
+L2_READ = cuda_backend.KernelWrapper("l2_read")
 
 #: chain lengths of the two-point fit (bench.py fits 202 and 3202 steps of a
 #: jitted loop; a graph's launches need fewer to swamp its fixed cost), and
@@ -87,8 +98,19 @@ FINITE_CHAINS = {("probe_walk", (128, 0)): 1}
 #: the one PyTorch call that computes a variant's function, where there is
 #: one (P3 with no window is a copy): (inputs, out) -> out
 LIBRARY = {("bf16_windows", (0,)): lambda inputs, out: out.copy_(inputs[0])}
-#: the H100's L2 cache: a probe whose bytes fit stays resident across a chain
-L2_BYTES = 50e6
+#: the H100's L2 cache, 50 MiB, where the card does not report its own
+#: (``L2_cache_size``): a probe whose bytes fit can stay there across a chain
+L2_BYTES = 50 * 2**20
+#: the lanes an SM of the H100 issues a clock on its FP32 pipe and on its
+#: MUFU (reciprocal) pipe
+FP32_LANES, MUFU_LANES = 128, 16
+#: the L2 yardstick's passes over its buffer a launch
+L2_READ_PASSES = 8
+#: threads an SM of the H100 holds
+SM_THREADS = 2048
+#: points a thread of the vector kernels owns: P1 one 16-byte vector of
+#: float32, P3 CAL_BF16_VECTORS (4) vectors of 8 bfloat16
+POINTS_A_THREAD = {"probe_walk": 4, "bf16_windows": 32}
 #: bench.py's least operations a point of its walks (bench.py:1537-1545):
 #: (multiplications and additions, divisions)
 WALK_OPS = {"tridiag": (8, 1), "vadv": (29, 1)}
@@ -163,6 +185,25 @@ def operations(kind: str, params: tuple, size: Sequence[int]) -> int:
     return params[0] * points
 
 
+def instruction_bound(per_point: dict, points: int, nbytes: int, clock_mhz: float,
+                      sms: int, bytes_per_s: float) -> tuple[float, str]:
+    """(µs, "bytes" or "operations"): the least time the card takes for
+    ``points`` points of a kernel that issues ``per_point`` instructions a
+    point by pipe (``{"fp32": n, "mufu": m}``, from its SASS) and moves
+    ``nbytes``. Under ``--fmad=false`` every product and sum issues alone
+    and an IEEE division is an ``MUFU.RCP`` with several FP32 instructions,
+    so a count of operations at the FMA peak does not bound it. Each pipe
+    takes its instructions at its lanes an SM a clock (``FP32_LANES``,
+    ``MUFU_LANES``) on ``sms`` SMs at ``clock_mhz``; the pipes run side by
+    side, so the slower one bounds; the bound is the larger of that and the
+    bytes over ``bytes_per_s`` (the device memory's rate, or for bytes that
+    stay in the L2 across a chain the L2's, :func:`l2_read_rate`)."""
+    cycles = points / sms * max(per_point.get("fp32", 0) / FP32_LANES,
+                                per_point.get("mufu", 0) / MUFU_LANES)
+    by_bytes, by_ops = nbytes / bytes_per_s * 1e6, cycles / clock_mhz
+    return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")
+
+
 # -- the plain versions ------------------------------------------------------------
 
 
@@ -205,21 +246,30 @@ def source() -> str:
         return f.read()
 
 
+def define(name: str) -> int:
+    """The value of an integer ``#define`` of calibration.cu."""
+    found = re.search(rf"#define {name} (\d+)", source())
+    if found is None:
+        raise KeyError(f"calibration.cu defines no integer {name}")
+    return int(found.group(1))
+
+
 _FUNCTIONS: dict = {}
 
 
 def _functions() -> dict:
-    """The three launchers, built (once per source hash, on disk) and bound."""
+    """The launchers, built (once per source hash, on disk) and bound."""
     if not _FUNCTIONS:
         lib = cuda_backend.load_library(source())
         ll, ptr, i32 = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
         sizes = [ll, ll, ll, ptr]  # ni, nj, nk, the stream
-        for name, head in (("gt_probe_walk", [i32, i32] + [ptr] * 5),
-                           ("gt_plane_walk5", [ptr] * 5),
-                           ("gt_bf16_windows", [i32, ptr, ptr])):
+        for name, args in (("gt_probe_walk", [i32, i32] + [ptr] * 5 + sizes),
+                           ("gt_plane_walk5", [ptr] * 5 + sizes),
+                           ("gt_bf16_windows", [i32, ptr, ptr] + sizes),
+                           ("gt_l2_read", [ptr, ll, i32, ptr, i32, ptr])):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
-            fn.argtypes = head + sizes
+            fn.argtypes = args
             _FUNCTIONS[name] = fn
     return _FUNCTIONS
 
@@ -291,6 +341,35 @@ def plane_walk5(a, b, c, d, out=None) -> torch.Tensor:
 def bf16_windows(a, n_windows: int = 0, out=None) -> torch.Tensor:
     """P3 (bench.py:1339-1351), as :func:`probe_walk`."""
     return apply("bf16_windows", (a,), (n_windows,), out)
+
+
+def l2_read_blocks(device) -> int:
+    """The L2 yardstick's grid: every SM of the card full (``SM_THREADS``
+    threads in blocks of CAL_THREADS)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return SM_THREADS // define("CAL_THREADS") * sms
+
+
+def l2_read(x: torch.Tensor, out: torch.Tensor, passes: int = L2_READ_PASSES,
+            counted: bool = True) -> torch.Tensor:
+    """The L2 yardstick on a contiguous, 16-byte aligned float32 CUDA
+    tensor ``x`` of a multiple of 4 elements: ``passes`` passes, each
+    warp's largest value into ``out`` (float32, one a warp of
+    :func:`l2_read_blocks` blocks); its largest is ``torch.amax(x)``."""
+    if (x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous()
+            or x.numel() % 4 or x.data_ptr() % 16):
+        raise ValueError("l2_read takes a contiguous, 16-byte aligned float32 CUDA tensor "
+                         "of a multiple of 4 elements")
+    blocks = l2_read_blocks(x.device)
+    warps = blocks * define("CAL_THREADS") // 32
+    if out.dtype != torch.float32 or out.device != x.device or out.numel() < warps:
+        raise ValueError(f"l2_read: out must hold {warps} float32 on {x.device}")
+    with torch.cuda.device(x.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+        L2_READ.launch(_functions()["gt_l2_read"],
+                       (x.data_ptr(), x.numel() // 4, passes, out.data_ptr(), blocks, stream),
+                       counted)
+    return out
 
 
 # -- the chains --------------------------------------------------------------------
@@ -416,11 +495,21 @@ def fit_us(kind: str, inputs: Sequence[torch.Tensor], params: tuple = (),
         return spin_ms(chain.run, name=variant_name(kind, params), cycles=SPIN_CYCLES,
                        tries=SPIN_TRIES)
 
-    timed(lo), timed(hi)  # warm
+    fit = _two_point(lambda: timed(lo), lambda: timed(hi), n_lo, n_hi, trials)
+    return {**fit, "chains": (n_lo, n_hi), "launches": lo.launched + hi.launched}
+
+
+def _two_point(run_lo, run_hi, n_lo: int, n_hi: int, trials: int) -> dict:
+    """bench.py's two-point fit of ms a step from ``run_lo()`` and
+    ``run_hi()``, the ms of chains of ``n_lo`` and ``n_hi`` steps, each
+    warmed once and taken ``trials`` times: ``us`` the min-fit (or the long
+    chain's mean where the fit is not positive or above it), ``spread_pct``
+    the median-fit's distance from it in %."""
+    run_lo(), run_hi()  # warm
     los, his = [], []
     for _ in range(trials):
-        los.append(timed(lo))
-        his.append(timed(hi))
+        los.append(run_lo())
+        his.append(run_hi())
     los.sort(), his.sort()
     est = (his[0] - los[0]) / (n_hi - n_lo)
     med = (his[trials // 2] - los[trials // 2]) / (n_hi - n_lo)
@@ -428,15 +517,54 @@ def fit_us(kind: str, inputs: Sequence[torch.Tensor], params: tuple = (),
     upper = his[0] / n_hi
     if est <= 0 or est > upper:
         est = upper
-    return {"us": est * 1e3, "spread_pct": spread, "chains": (n_lo, n_hi),
-            "launches": lo.launched + hi.launched}
+    return {"us": est * 1e3, "spread_pct": spread}
+
+
+def l2_bytes(device) -> int:
+    """The card's L2 cache in bytes, as it reports it (``L2_BYTES`` where
+    its properties do not say)."""
+    return getattr(torch.cuda.get_device_properties(device), "L2_cache_size", None) or L2_BYTES
+
+
+def l2_read_rate(device="cuda", trials: int = FIT_TRIALS, seed: int = 0) -> dict:
+    """The rate at which the card's SMs read bytes that stay in its L2:
+    :func:`l2_read` over a float32 buffer of one round of its grid (each
+    thread ``CAL_L2_VECTORS`` vectors of 16 bytes: 17.3 MB on 132 SMs, a
+    third of the H100's L2), ``L2_READ_PASSES`` passes a launch, by the
+    two-point fit of graph chains of ``FIT_CHAINS`` launches behind a spin
+    kernel. Raises unless the warps' largest values give the buffer's
+    largest (``torch.amax``, its plain version). ``Bps``: bytes read (and
+    the warps' maxima written) a second; ``nbytes``: the buffer's size."""
+    device = torch.device(device)
+    blocks = l2_read_blocks(device)
+    threads = blocks * define("CAL_THREADS")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand(threads * define("CAL_L2_VECTORS") * 4, generator=gen, device=device)
+    out = torch.empty(threads // 32, device=device)
+    l2_read(x, out)
+    if not torch.equal(out.amax(), x.amax()):
+        raise AssertionError("l2_read: the warps' largest values are not the buffer's largest")
+    n_lo, n_hi = FIT_CHAINS
+    graphs = {n: cuda_backend.capture_graph(device, [
+        functools.partial(l2_read, x, out, counted=False)] * n)[0] for n in (n_lo, n_hi)}
+
+    def timed(n):
+        def replay():
+            graphs[n].replay()
+            L2_READ.launches += n
+        return spin_ms(replay, name="l2_read", cycles=SPIN_CYCLES, tries=SPIN_TRIES)
+
+    fit = _two_point(lambda: timed(n_lo), lambda: timed(n_hi), n_lo, n_hi, trials)
+    moved = L2_READ_PASSES * x.numel() * 4 + out.numel() * 4
+    return {**fit, "Bps": moved / (fit["us"] * 1e-6), "nbytes": x.numel() * 4}
 
 
 # -- the ceilings ------------------------------------------------------------------
 
 
 def ceilings(times: dict, ni: int = NI, nj: int = NJ, nk: int = NK, halo: int = HALO,
-             walks: Optional[dict] = None, walk_us: Optional[dict] = None) -> dict:
+             walks: Optional[dict] = None, walk_us: Optional[dict] = None,
+             copy_Bps: Optional[float] = None, l2: int = L2_BYTES) -> dict:
     """bench.py's ceilings from fitted µs by :func:`variant_name`, with
     bench.py's formulas:
 
@@ -451,7 +579,11 @@ def ceilings(times: dict, ni: int = NI, nj: int = NJ, nk: int = NK, halo: int = 
       sums a point, divisions a point); default bench.py's tridiag and vadv
       with their float32 streams, :1452 and :1537-1545): the plane-walk
       floor (bytes over P2's rate, :1452-1458), the copy floor (bytes over
-      P1's copy rate), the compute model (the operations at the measured
+      P1's copy rate; for a walk whose bytes exceed the L2, ``l2``, the
+      larger of that and its bytes over ``copy_Bps``, a device copy from
+      the device memory measured in the same run: P1's 52.4 MB at bench.py's
+      size stay partly in the L2 across its chain, so its rate is above
+      what a walk streaming from the device memory can take), the compute model (the operations at the measured
       costs a point over ni × nj × nk points) and the ceiling, the larger
       of the copy floor and the compute model (:1546-1566); the port has
       no chain-major J-split, so the bytes are the stencil's compulsory
@@ -493,7 +625,10 @@ def ceilings(times: dict, ni: int = NI, nj: int = NJ, nk: int = NK, halo: int = 
         if pw_rate:
             out[f"{label}_planewalk_floor_us"] = nbytes_ / pw_rate * 1e6
         if copy_rate:
-            out[f"{label}_copy_floor_us"] = nbytes_ / copy_rate * 1e6
+            rate = copy_rate
+            if copy_Bps and nbytes_ > l2:
+                rate = min(rate, copy_Bps)
+            out[f"{label}_copy_floor_us"] = nbytes_ / rate * 1e6
         if t_fma is not None and t_div is not None:
             compute = (fmas * t_fma + divs * t_div) * points * 1e-6
             out[f"{label}_compute_model_us"] = compute

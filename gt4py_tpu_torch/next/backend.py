@@ -36,6 +36,7 @@ Backend instance (``backend=my_backend``)."""
 from __future__ import annotations
 
 import dataclasses
+import dis
 import functools
 import sys
 import types
@@ -153,13 +154,13 @@ def _user_module(namespace: dict) -> bool:
 
 def _snapshot(live: dict, snapshots: dict) -> dict:
     """A copy of the module globals ``live``, made once per module into
-    ``snapshots`` (by the dict's id): its plain functions, and those of user
-    modules (:func:`_user_module`) that it reaches, rebound to their own
-    module's copy."""
-    snap = snapshots.get(id(live))
-    if snap is not None:
-        return snap
-    snap = snapshots[id(live)] = dict(live)
+    ``snapshots`` (by the dict's id, as ``(live, copy)``): its plain
+    functions, and those of user modules (:func:`_user_module`) that it
+    reaches, rebound to their own module's copy."""
+    if id(live) in snapshots:
+        return snapshots[id(live)][1]
+    snap = dict(live)
+    snapshots[id(live)] = (live, snap)
     for name, value in live.items():
         if not isinstance(value, types.FunctionType):
             continue
@@ -170,6 +171,60 @@ def _snapshot(live: dict, snapshots: dict) -> dict:
     return snap
 
 
+def _stored_globals(code: types.CodeType) -> set:
+    """The names ``code``, and the functions and comprehensions nested in
+    it, store or delete by a ``global`` statement."""
+    names = {ins.argval for ins in dis.get_instructions(code)
+             if ins.opname in ("STORE_GLOBAL", "DELETE_GLOBAL")}
+    for const in code.co_consts:
+        if isinstance(const, types.CodeType):
+            names |= _stored_globals(const)
+    return names
+
+
+_UNBOUND = object()
+
+
+def _global_writes(fn: types.FunctionType, snapshots: dict) -> list:
+    """(module globals, snapshot, {name: value in the snapshot now}) of each
+    snapshot that a pinned function (``fn``, or a helper rebound to it)
+    writes by ``global``."""
+    writes = []
+    for live, snap in snapshots.values():
+        names = set()
+        for value in [fn, *snap.values()]:
+            if isinstance(value, types.FunctionType) and value.__globals__ is snap:
+                names |= _stored_globals(value.__code__)
+        if names:
+            writes.append((live, snap, {n: snap.get(n, _UNBOUND) for n in names}))
+    return writes
+
+
+def _write_back(writes: list) -> None:
+    """Rebind (or delete) in each module the names that a pinned function
+    rebound (or deleted) in the module's snapshot."""
+    for live, snap, before in writes:
+        for name, old in before.items():
+            new = snap.get(name, _UNBOUND)
+            if new is old:
+                continue
+            if new is _UNBOUND:
+                live.pop(name, None)
+            else:
+                live[name] = new
+
+
+def _restore(writes: list) -> None:
+    """Put back in each snapshot the values that the names written by
+    ``global`` had when the variant was pinned."""
+    for _, snap, before in writes:
+        for name, old in before.items():
+            if old is _UNBOUND:
+                snap.pop(name, None)
+            else:
+                snap[name] = old
+
+
 def _pinned(fn: Callable) -> Callable:
     """``fn`` reading module globals as they are now: a variant's module
     constants are fixed when it is built, as the JAX package's ``jax.jit``
@@ -178,14 +233,35 @@ def _pinned(fn: Callable) -> Callable:
     other user modules that its globals reach (imported by name, and what
     theirs reach in turn), read the same snapshots: one per module, shared
     by every helper in it. Functions of the port, torch, numpy, the standard
-    library and installed packages stay as they are. Limit: a ``global``
-    statement in ``fn`` or a pinned helper writes into the snapshot, not the
-    module, where the reference's trace writes the module once."""
+    library and installed packages stay as they are. What a pinned function
+    writes by ``global`` lands in its snapshot. After the first run of the
+    variant each such name is written back to its module, as the
+    reference's trace writes the module once; every later run starts from
+    the snapshot as it was pinned, so it computes what the first run did,
+    as the reference's compiled trace does, and leaves the module as it
+    is."""
     if isinstance(fn, functools.partial):
         return functools.partial(_pinned(fn.func), *fn.args, **fn.keywords)
     if not isinstance(fn, types.FunctionType):
         return fn
-    return _rebound(fn, _snapshot(fn.__globals__, {}))
+    snapshots: dict = {}
+    pinned = _rebound(fn, _snapshot(fn.__globals__, snapshots))
+    writes = _global_writes(pinned, snapshots)
+    if not writes:
+        return pinned
+    ran = []
+
+    def run_as_the_first(*args, **kwargs):
+        if ran:
+            _restore(writes)
+        try:
+            return pinned(*args, **kwargs)
+        finally:
+            if not ran:
+                ran.append(True)
+                _write_back(writes)
+
+    return functools.update_wrapper(run_as_the_first, pinned)
 
 
 def _compile_eager(job: CompileJob) -> CompileJob:

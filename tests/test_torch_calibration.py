@@ -288,6 +288,41 @@ def test_operations():
     assert cal.operations("bf16_windows", (1,), (2, 3, 4)) == 24
 
 
+def test_instruction_bound():
+    """The least time of P1's card-own variants from their SASS counts a
+    point, worked by hand: (128, 0) issues 259 FP32 instructions a point
+    (two a product and sum, three for ``o``), 128 lanes an SM a clock;
+    (0, 64) 64 MUFU.RCP a point, 16 lanes; each at 1980 MHz on 132 SMs;
+    the bytes bound, at the rate given, where the instructions take less."""
+    points, nbytes = 80 * 256 * 128, 5 * 80 * 256 * 128 * 4
+    card = (1980.0, 132, 3.35e12)
+    us, by = cal.instruction_bound({"fp32": 259, "mufu": 0}, points, nbytes, *card)
+    assert by == "operations" and us == pytest.approx(points / 132 * 259 / 128 / 1980.0)
+    assert us == pytest.approx(20.295, abs=1e-3)
+    us, by = cal.instruction_bound({"fp32": 451, "mufu": 64}, points, nbytes, *card)
+    assert by == "operations" and us == pytest.approx(points / 132 * 64 / 16 / 1980.0)
+    us, by = cal.instruction_bound({"fp32": 3}, points, nbytes, *card)
+    assert by == "bytes" and us == pytest.approx(nbytes / 3.35e12 * 1e6)
+    # bytes that stay in the L2, at its rate (twice the memory's here): half the time
+    l2_us, by = cal.instruction_bound({"fp32": 3}, points, nbytes, 1980.0, 132, 6.7e12)
+    assert by == "bytes" and l2_us == pytest.approx(us / 2)
+    assert cal.instruction_bound({}, points, 0, *card) == (0.0, "bytes")
+    # half the SMs, half the clock: four times as long
+    slow, _ = cal.instruction_bound({"mufu": 64}, points, 0, 990.0, 66, 3.35e12)
+    assert slow == pytest.approx(4 * cal.instruction_bound({"mufu": 64}, points, 0, *card)[0])
+
+
+def test_points_a_thread_match_the_source():
+    """``POINTS_A_THREAD`` (what the instruction bound divides a thread's
+    SASS by) is what the kernels own: P1 a float4, P3 CAL_BF16_VECTORS
+    vectors of 8."""
+    src = cal.source()
+    vectors = int(re.search(r"#define CAL_BF16_VECTORS (\d+)", src).group(1))
+    assert cal.POINTS_A_THREAD == {"probe_walk": 4, "bf16_windows": 8 * vectors}
+    assert "* CAL_THREADS + threadIdx.x) * 4;" in src
+    assert "cal_blocks(total, 4)" in src and "cal_blocks(total, 8 * CAL_BF16_VECTORS)" in src
+
+
 # -- the CUDA source and its build ---------------------------------------------------
 
 
@@ -301,13 +336,23 @@ def test_source_instantiates_the_variants():
     assert tuple(int(v) for v in re.findall(r"X\((\d+)\)", windows)) == cal.BF16_WINDOWS
     for launcher in ("gt_probe_walk", "gt_plane_walk5", "gt_bf16_windows"):
         assert f'extern "C" int {launcher}(' in src
-    assert src.count('extern "C"') == 3
+    assert src.count('extern "C"') == 4  # the three probes and the L2 yardstick
+
+
+def _kernel_body(code, name):
+    """The text of the kernel ``name`` in the source, from its signature to
+    the next kernel's."""
+    start = code.index(f"\n{name}(")
+    ends = [code.find(m, start + 1) for m in ("__global__", "static dim3", "// Element e")]
+    return code[start:min(e for e in ends if e > 0)]
 
 
 def test_source_rounds_and_contracts_as_the_plain_version():
     """No fused multiply-add in the source (and ``--fmad=false`` forbids the
     compiler's); the gain literal is np.float32(1.0000001); every bfloat16
-    add is rounded by ``__float2bfloat16_rn``; the column walk's block."""
+    add is rounded by ``__float2bfloat16_rn``; ``plane_walk5`` keeps the
+    column walk's block, P1 and P3 take 16-byte vectors of their tensors,
+    P1 issuing its loads ahead of its arithmetic."""
     src = cal.source()
     code = "\n".join(line.split("//")[0] for line in src.splitlines())
     assert not re.search(r"\b(__)?fmaf?\b|__fma_rn|__fmaf_rn", code)
@@ -316,15 +361,29 @@ def test_source_rounds_and_contracts_as_the_plain_version():
     assert float(np.float32(gain)) == 1.0 + 2.0 ** -23
     adds = re.findall(r"[^\n]*\+ __bfloat162float\([^\n]*", code)
     assert adds and all("__float2bfloat16_rn(__bfloat162float(x) +" in a for a in adds)
-    assert "2.0f" in code and "/ (acc[(s + 1) % 4] + 2.0f)" in code
+    assert "2.0f" in code and "/ (acc[e][(s + 1) % 4] + 2.0f)" in code
     assert re.search(r"#define CAL_BJ (\d+)", src).group(1) == str(cuda_codegen.COL_BJ)
     assert re.search(r"#define CAL_BI (\d+)", src).group(1) == str(cuda_codegen.COL_BI)
     assert f"#define CAL_NOTHING_LAUNCHED ({cuda_codegen.NOTHING_LAUNCHED})" in src
+    walk5, p1, p3 = (_kernel_body(code, k) for k in ("plane_walk5", "probe_walk", "bf16_windows"))
+    # the walk: one thread an (i, j) point, CAL_BJ x CAL_BI blocks, the planes in a loop
+    assert "__launch_bounds__(CAL_BJ * CAL_BI)" in code.split("\nplane_walk5(")[0][-60:]
+    assert "k < nk" in walk5 and "blockIdx.y * CAL_BI" in walk5
+    # P1: a 128-bit load of each input, then the arithmetic, a 128-bit store
+    assert "ld.global.nc.v4.f32" in code and p1.count("cal_load4(") == 1
+    assert "float4" in p1 and "reinterpret_cast<float4*>(o + p)" in p1
+    loads, first_op = p1.index("cal_load4("), p1.index("* 1.0000001f")
+    assert loads < p1.index("cal_load(") < first_op < p1.index("/ (acc[e]")
+    # P3: 16-byte vectors in and out, the next lane's through a shuffle
+    assert "__ldg(reinterpret_cast<const uint4*>(a + p))" in p3
+    assert "reinterpret_cast<uint4*>(o + p) = out" in p3 and "__shfl_down_sync" in p3
+    assert "k < nk" not in p1 + p3
 
 
 def test_build_takes_the_stencil_kernels_flags(monkeypatch):
     """The source goes to ``cuda_backend.load_library`` (nvcc with
-    NVCC_FLAGS: sm_90a, --fmad=false) and its three launchers are bound."""
+    NVCC_FLAGS: sm_90a, --fmad=false) and its four launchers (the three
+    probes', the L2 yardstick's) are bound."""
     cmd = cuda_backend.build_command("p.cu", "p.so")
     assert "--fmad=false" in cmd and "arch=compute_90a,code=sm_90a" in cmd
     assert "-O3" in cmd and not any("fast" in c for c in cmd)
@@ -340,9 +399,10 @@ def test_build_takes_the_stencil_kernels_flags(monkeypatch):
     monkeypatch.setattr(cuda_backend, "load_library",
                         lambda source: (seen.append(source), Lib())[1])
     fns = cal._functions()
-    assert seen == [cal.source(), "gt_probe_walk", "gt_plane_walk5", "gt_bf16_windows"]
+    assert seen == [cal.source(), "gt_probe_walk", "gt_plane_walk5", "gt_bf16_windows",
+                    "gt_l2_read"]
     assert len(fns["gt_probe_walk"].argtypes) == 11 and len(fns["gt_plane_walk5"].argtypes) == 9
-    assert len(fns["gt_bf16_windows"].argtypes) == 7
+    assert len(fns["gt_bf16_windows"].argtypes) == 7 and len(fns["gt_l2_read"].argtypes) == 6
 
 
 def test_a_failed_build_raises(monkeypatch, tmp_path):
@@ -446,6 +506,39 @@ def test_ceilings_are_bench_py_formulas():
     assert got["tridiag_chain_ceiling_us"] == got["tridiag_copy_floor_us"]
     heavy = cal.ceilings(times, walks={"heavy": (1000, 100, 10)})
     assert heavy["heavy_chain_ceiling_us"] == heavy["heavy_compute_model_us"]
+
+
+def test_ceilings_take_the_device_copy_for_walks_beyond_the_l2():
+    """A walk whose bytes exceed the L2 is held against the larger of its
+    copy floors: over P1's chain copy rate (whose bytes stay in the L2 in
+    part) and over the device copy's; a walk that fits keeps P1's."""
+    times = {"probe_walk_m0_n0": 15.0, "probe_walk_m16_n0": 15.5, "probe_walk_m0_n4": 16.0}
+    chain_rate = 5 * 80 * 256 * 128 * 4 / 15e-6
+    walks = {"big": (300e6, 8, 1), "small": (10e6, 8, 1)}
+    got = cal.ceilings(times, walks=walks, copy_Bps=3.0e12)
+    assert chain_rate > 3.0e12
+    assert got["big_copy_floor_us"] == pytest.approx(300e6 / 3.0e12 * 1e6)
+    assert got["small_copy_floor_us"] == pytest.approx(10e6 / chain_rate * 1e6)
+    # a device copy faster than the chain's does not lower the floor
+    faster = cal.ceilings(times, walks=walks, copy_Bps=2 * chain_rate)
+    assert faster["big_copy_floor_us"] == pytest.approx(300e6 / chain_rate * 1e6)
+    # without the device copy, P1's alone, as bench.py
+    assert cal.ceilings(times, walks=walks)["big_copy_floor_us"] == faster["big_copy_floor_us"]
+    assert cal.ceilings(times, walks=walks, copy_Bps=3.0e12, l2=400e6)["big_copy_floor_us"] \
+        == faster["big_copy_floor_us"]
+
+
+def test_l2_read_takes_only_cuda_tensors():
+    """The L2 yardstick runs only on the card (it has no plain version of
+    its per-warp output) and refuses anything else."""
+    with pytest.raises(ValueError, match="CUDA"):
+        cal.l2_read(torch.zeros(64), torch.zeros(64))
+
+
+def test_defines_are_read_from_the_source():
+    assert cal.define("CAL_THREADS") == 256 and cal.define("CAL_L2_VECTORS") == 4
+    with pytest.raises(KeyError):
+        cal.define("CAL_NO_SUCH_DEFINE")
 
 
 def test_ceilings_clip_a_negative_cost_and_skip_what_was_not_timed():
@@ -552,3 +645,89 @@ def test_fit_on_card():
     copy = cal.fit_us("bf16_windows", inputs, (0,), trials=3, library=True)
     assert copy["us"] > 0 and copy["launches"] == 0
     assert cal.WRAPPERS["bf16_windows"].launches == before
+
+
+@pytest.mark.cuda
+def test_l2_read_on_card():
+    """The L2 yardstick: the warps' largest values give the buffer's
+    largest, its launches are counted on its own wrapper and on no probe's,
+    and its rate is positive."""
+    _need_card()
+    probes = {k: w.launches for k, w in cal.WRAPPERS.items()}
+    before = cal.L2_READ.launches
+    got = cal.l2_read_rate(trials=3)
+    assert got["Bps"] > 0 and got["nbytes"] < cal.l2_bytes("cuda")
+    assert cal.L2_READ.launches == before + 1 + (3 + 1) * sum(cal.FIT_CHAINS)
+    assert {k: w.launches for k, w in cal.WRAPPERS.items()} == probes
+    x = torch.rand(cal.l2_read_blocks("cuda") * 256 * 4 + 12, device="cuda")
+    out = torch.empty(cal.l2_read_blocks("cuda") * 8, device="cuda")
+    assert torch.equal(cal.l2_read(x, out, passes=2).amax(), x.amax())
+
+
+#: ragged sizes of the vector kernels: (K, I, J) with a row length that is
+#: not a multiple of the vector, a total with a tail, I or J of 1, rows
+#: shorter than a vector, and several blocks
+RAGGED = {
+    "probe_walk": [(3, 5, 7), (2, 1, 13), (5, 7, 1), (1, 1, 1), (7, 37, 131)],
+    "bf16_windows": [(3, 5, 13), (2, 1, 9), (4, 3, 1), (2, 3, 2), (7, 37, 261)],
+}
+RAGGED_CASES = [
+    (kind, params, size)
+    for kind, params in VARIANTS if kind in RAGGED
+    for size in RAGGED[kind] if kind != "bf16_windows" or params[0] < size[2]
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,params,size", RAGGED_CASES, ids=lambda v: str(v))
+def test_kernel_equals_plain_on_card_at_ragged_sizes(kind, params, size):
+    """The 16-byte vector kernels at ragged sizes, where the last vector is
+    partial and rows start inside a vector: one launch and a graph chain of
+    ``checked_chain``, each finite and equal to the plain version to the
+    bit."""
+    _need_card()
+    inputs = cal.make_inputs(kind, seed=10, size=size)
+    got = cal.apply(kind, inputs, params, None)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _card_same_bits(got, cal.run_plain(kind, inputs, params))
+    n = cal.checked_chain(kind, params)
+    out = cal.Chain(kind, n, inputs, params).run()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert _card_same_bits(out, cal.chain_plain(kind, n, inputs, params))
+
+
+def _offset_view(t, by):
+    """A contiguous copy of ``t`` starting ``by`` elements into a larger
+    buffer: its base is not 16-byte aligned."""
+    buf = torch.empty(t.numel() + by, dtype=t.dtype, device=t.device)
+    view = buf[by:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,params", [v for v in VARIANTS if v[0] in RAGGED],
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("moved", ["inputs", "out", "both"])
+def test_kernel_takes_unaligned_views_on_card(kind, params, moved):
+    """An input or output that is an offset view, its base not 16-byte
+    aligned: the kernel serves it with scalar loads and stores, equal to the
+    plain version to the bit."""
+    _need_card()
+    size = (3, 5, 13)
+    inputs = cal.make_inputs(kind, seed=12, size=size)
+    if moved != "out":
+        inputs = tuple(_offset_view(t, 1 + q % 3) for q, t in enumerate(inputs))
+    out = torch.empty(size, dtype=cal.dtype(kind), device=inputs[0].device)
+    if moved != "inputs":
+        out = _offset_view(out, 1)
+    wrapper = cal.WRAPPERS[kind]
+    before = wrapper.launches
+    assert cal.apply(kind, inputs, params, out) is out
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert bool(torch.isfinite(out).all())
+    assert _card_same_bits(out, cal.run_plain(kind, inputs, params))

@@ -271,6 +271,84 @@ def test_helper_of_another_module_reads_the_pinned_constants(tmp_path, monkeypat
     assert helper_mod.scale(1.0) == 7.0  # the live module reads its own rebinding
 
 
+_GLOBAL_WRITER_MODULE = """\
+import numpy as np
+import {package}.next as gtx
+
+I = gtx.Dimension("I")
+n_built = 0
+
+
+def count_build(a):
+    global n_built
+    n_built += 1
+    return a * n_built
+
+
+@gtx.field_operator
+def counted(a: gtx.Field[gtx.Dims[I], np.float64]) -> gtx.Field[gtx.Dims[I], np.float64]:
+    return count_build(a) * 2.0
+"""
+
+
+def _global_writers(tmp_path, monkeypatch) -> tuple:
+    """The JAX package's and the port's copies of _GLOBAL_WRITER_MODULE,
+    imported fresh, each with ``counted`` on its backend (``jax``,
+    ``torch``) as ``op``: one operator, whose variants every call reuses."""
+    import importlib
+
+    monkeypatch.syspath_prepend(str(tmp_path))
+    mods = []
+    for package in ("gt4py_tpu", "gt4py_tpu_torch"):
+        name = f"global_writer_{package}"
+        (tmp_path / f"{name}.py").write_text(_GLOBAL_WRITER_MODULE.format(package=package))
+        monkeypatch.delitem(sys.modules, name, raising=False)
+        mods.append(importlib.import_module(name))
+    ref, port = mods
+    ref.op, port.op = ref.counted.with_backend("jax"), port.counted.with_backend("torch")
+    return ref, port
+
+
+def _call_both(ref, port, size: int) -> np.ndarray:
+    """One call of each ``op`` at ``size``; their outputs must be equal."""
+    values = np.arange(float(size))
+    ref_out = ref.gtx.zeros({ref.I: size})
+    ref.op(ref.gtx.as_field([ref.I], values), out=ref_out)
+    port_out = port.gtx.zeros({port.I: size}, device="cpu")
+    port.op(port.gtx.as_field([port.I], values, device="cpu"), out=port_out)
+    np.testing.assert_array_equal(port_out.asnumpy(), np.asarray(ref_out.ndarray))
+    return port_out.asnumpy()
+
+
+def test_global_write_of_a_helper_reaches_the_module_once(tmp_path, monkeypatch):
+    """A plain helper of the operator's module that writes a module global
+    by ``global`` and returns a value that reads it: the JAX package's
+    ``jax`` backend runs it in its trace, at the first call of a shape, so
+    it writes the module once and every call computes what the trace did;
+    the port's ``torch`` backend writes the helper's write back to the
+    module after the variant's first run, and runs each later call from the
+    snapshot as it was pinned. Two calls at one shape: the outputs and the
+    module's value match after each."""
+    ref, port = _global_writers(tmp_path, monkeypatch)
+    for call in range(2):
+        out = _call_both(ref, port, 6)
+        np.testing.assert_array_equal(out, 2.0 * np.arange(6.0))
+        assert port.n_built == ref.n_built == 1, call
+
+
+def test_global_write_of_a_helper_at_a_new_shape(tmp_path, monkeypatch):
+    """A second shape is a second variant in both packages: it reads the
+    module as the first variant left it (1), writes 2 back, and keeps
+    computing with 2; the first shape keeps computing with 1."""
+    ref, port = _global_writers(tmp_path, monkeypatch)
+    _call_both(ref, port, 6)
+    for call in range(2):
+        np.testing.assert_array_equal(_call_both(ref, port, 5), 4.0 * np.arange(5.0))
+        assert port.n_built == ref.n_built == 2, call
+    np.testing.assert_array_equal(_call_both(ref, port, 6), 2.0 * np.arange(6.0))
+    assert port.n_built == ref.n_built == 2
+
+
 def test_only_user_modules_are_pinned():
     """The port's, torch's, numpy's, the standard library's and installed
     packages' functions keep their live globals (the port's builtins keep
