@@ -182,6 +182,16 @@ swap cycle of the kernels as a CUDA graph.
    walk beyond the L2 over the slower of P1's chain copy and the device
    copy. Each variant joins the ``kernels`` line (``"entry": "calibration"``).
 
+13. Bench phase: ``python3 bench_torch.py`` (bench.py's measuring program
+   on the port's kernels) as a subprocess within ``BENCH_TIMEOUT`` seconds,
+   its one JSON line parsed and printed with its progress lines: bench.py's
+   top-level keys, ``device`` the card's name, every key of
+   ``bench_torch.DETAIL_KEYS`` present and finite, every
+   ``measurement_spread_pct`` under 5 %, on an H100 SXM5 (``SXM5``)
+   ``peak_hbm_GBps`` within 10 % of 3352, and ``hdiff_us_per_step`` within
+   ±10 % of step 4's device µs for hdiff float32 plus its step − device
+   remainder (the fit of chain(20) and chain(50)).
+
 Prints the card's name and power limit, one JSON line with the kernels, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without a CUDA card it exits 1 and prints no result.
@@ -198,6 +208,17 @@ import os
 import subprocess
 import sys
 import time
+
+import bench_torch
+from gt4py_tpu_torch.instrumentation.profiler import spin_ms
+from gt4py_tpu_torch.instrumentation.timing import (
+    StepTimer,
+    card_line,
+    copy_bandwidth,
+    events_ms,
+    max_sm_clock_mhz,
+    refill,
+)
 
 NI, NJ, NK, HALO = 256, 256, 80, 2
 CHAIN_STEPS = 10
@@ -275,6 +296,14 @@ DIST_DOMAIN = (2 * NI, 2 * NJ, NK)
 DIST_UNEVEN = (2 * NI - 2, 2 * NJ - 6, NK)
 DIST_NABLA = 1024
 DIST_CALLS = 20
+#: step 13, bench_torch.py: its time limit (s); the spread every reading must
+#: stay under (%); the H100 SXM5, whose device-memory peak must read within
+#: 10 % of 2619 MHz × 5120 bits × 2 (GB/s); the share by which the headline
+#: hdiff may differ from step 4's device µs, beside the step − device remainder
+BENCH_TIMEOUT = 600
+BENCH_SPREAD_PCT = 5.0
+SXM5, SXM5_PEAK_GBPS = "NVIDIA H100 80GB HBM3", 3352.0
+BENCH_HDIFF_SHARE = 0.10
 #: an example on the card against the numpy backend: float64 rtol 1e-12; the
 #: float32 solver within ORACLE_TOL, as (rtol, atol)
 EX_TOL = {"float64": RTOL["float64"], "float32": ORACLE_TOL["float32"]}
@@ -302,10 +331,7 @@ def main(argv) -> int:
     from tests import torch_next_defs as ndefs
     from tests import torch_stencil_defs as defs
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     card = torch.cuda.get_device_name(0)
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {card}")
@@ -452,10 +478,10 @@ def main(argv) -> int:
     for run in runs:
         case = run["case"]
         fields = card_fields(run["host"], origin, case, storage)
-        p1 = time_steps(run["plain"], fields, run, 3)
-        k1 = time_steps(run["kern"], fields, run, 20)
-        k2 = time_steps(run["kern"], fields, run, 20)
-        p2 = time_steps(run["plain"], fields, run, 3)
+        p1 = StepTimer.once(chain_runs(run["plain"], fields, run), 3)
+        k1 = StepTimer.once(chain_runs(run["kern"], fields, run), 20)
+        k2 = StepTimer.once(chain_runs(run["kern"], fields, run), 20)
+        p2 = StepTimer.once(chain_runs(run["plain"], fields, run), 3)
         dev = device_ms(run, card_fields(run["host"], origin, case, storage), 20)
         run["ms"], run["plain_ms"] = (k1 + k2) / 2, (p1 + p2) / 2
         run["device_ms"] = dev
@@ -788,6 +814,20 @@ def main(argv) -> int:
     # -- 12. bench.py's calibration probes on their kernels, and the ceilings -----------
     cal_rows = run_calibration(runs, copy_gbs, calibration, smi, torch)
 
+    # -- 13. bench_torch.py, bench.py's measuring program on the port ------------------
+    hdiff32 = by_path[("hdiff", "float32")]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    line, progress = run_bench(root)
+    print(f"bench_torch.py on {smi} ({time.perf_counter() - t0:.1f} s, its progress lines, then "
+          "its line):")
+    for text in progress:
+        print("  " + text)
+    print("  " + json.dumps(line))
+    checked = check_bench_line(line, card, hdiff32["device_ms"] * 1e3,
+                               (hdiff32["slope_ms"] - hdiff32["device_ms"]) * 1e3)
+    print(f"  bench line checked: {checked}")
+
     kernels += example_rows + dist_rows + cal_rows
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
@@ -795,6 +835,61 @@ def main(argv) -> int:
         "device": {"platform": "gpu", "kind": card, "count": torch.cuda.device_count()},
     }))
     return 0
+
+
+def run_bench(root: str, env=None) -> tuple[dict, list]:
+    """``python3 bench_torch.py`` in ``root`` as a subprocess within
+    ``BENCH_TIMEOUT`` seconds, in ``env`` (None: this process's
+    environment): its one line of standard output as JSON, and its lines of
+    standard error (progress). Raises where it exits non-zero or prints
+    other than one line."""
+    proc = subprocess.run([sys.executable, os.path.join(root, "bench_torch.py")], cwd=root,
+                          env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench_torch.py exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench_torch.py printed {len(lines)} lines, not one")
+    return json.loads(lines[0]), proc.stderr.splitlines()
+
+
+def check_bench_line(line: dict, card: str, hdiff_device_us: float, remainder_us: float) -> str:
+    """Raise unless bench_torch.py's ``line`` has bench.py's top-level keys,
+    names ``card``, holds every key of ``bench_torch.DETAIL_KEYS`` finite,
+    every spread under ``BENCH_SPREAD_PCT``, on ``SXM5`` a device-memory
+    peak within 10 % of ``SXM5_PEAK_GBPS``, and a headline hdiff within
+    ``BENCH_HDIFF_SHARE`` of ``hdiff_device_us`` plus ``|remainder_us|``;
+    returns what was checked."""
+    top = {"metric", "value", "unit", "vs_baseline", "device", "peak_hbm_GBps", "details"}
+    if set(line) != top or line["metric"] != "hdiff_256x256x80_f32_throughput":
+        raise AssertionError(f"bench line: keys {sorted(line)}, metric {line.get('metric')}")
+    if line["device"] != card:
+        raise AssertionError(f"bench line: device {line['device']!r}, not {card!r}")
+    details = line["details"]
+    missing = [k for k in bench_torch.DETAIL_KEYS if k not in details]
+    bad = [k for k in bench_torch.DETAIL_KEYS if k in details
+           and not bench_torch.finite_values(details[k])]
+    if missing or bad or not bench_torch.finite_values(
+            {k: line[k] for k in ("value", "vs_baseline", "peak_hbm_GBps")}):
+        raise AssertionError(f"bench line: missing {missing}, not finite {bad}")
+    spreads = details["measurement_spread_pct"]
+    wide = {k: v for k, v in spreads.items() if not abs(v) < BENCH_SPREAD_PCT}
+    if wide:
+        raise AssertionError(f"bench line: spreads of {BENCH_SPREAD_PCT} % or more: {wide}")
+    peak = line["peak_hbm_GBps"]
+    if card == SXM5 and not abs(peak - SXM5_PEAK_GBPS) <= 0.1 * SXM5_PEAK_GBPS:
+        raise AssertionError(f"bench line: peak {peak} GB/s on {card}, not within 10 % of "
+                             f"{SXM5_PEAK_GBPS}")
+    us = details["hdiff_us_per_step"]
+    allowed = BENCH_HDIFF_SHARE * hdiff_device_us + abs(remainder_us)
+    if not abs(us - hdiff_device_us) <= allowed:
+        raise AssertionError(f"bench line: hdiff {us} us a step against step 4's device "
+                             f"{hdiff_device_us} us (allowed ±{allowed} us)")
+    return (f"{len(bench_torch.DETAIL_KEYS)} keys finite, {len(spreads)} spreads within "
+            f"{max(abs(v) for v in spreads.values()):.2f} %, peak {peak:.1f} GB/s"
+            + (f" (SXM5: {SXM5_PEAK_GBPS} ± 10 %)" if card == SXM5 else "")
+            + f", hdiff {us:.2f} us a step against step 4's device {hdiff_device_us:.2f} us "
+            f"(remainder {remainder_us:.2f} us, allowed ±{allowed:.2f})")
 
 
 def path_cases(defs) -> list:
@@ -1039,42 +1134,27 @@ def check_oracle(run, defs, np, storage) -> None:
         )
 
 
-def time_steps(stencil, fields, run, n: int) -> float:
-    """ms per step of ``stencil.chain`` (host and device, as a model loop
-    sees it), after a warm-up chain as long (which captures the graph), from
-    the inputs again (:func:`refill`)."""
-    import torch
-
+def chain_runs(stencil, fields, run):
+    """``make_chained`` of ``StepTimer``: ``n`` steps of ``stencil.chain``
+    (host and device, as a model loop sees it), the inputs copied back
+    before each run (:func:`refill`)."""
     kw = dict(swap=run["case"]["swap"], domain=(NI, NJ, NK))
-    stencil.chain(n, **fields, **run["scalars"], **kw)
-    refill(fields, run["host"])
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    stencil.chain(n, **fields, **run["scalars"], **kw)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
 
+    def make(n):
+        return (lambda: stencil.chain(n, **fields, **run["scalars"], **kw),
+                lambda: refill(fields, run["host"]))
 
-def refill(fields, host) -> None:
-    """Copy the host inputs into the fields again. A timed chain starts from
-    them: tridiag's ping-pong shrinks its values geometrically, into
-    float32's subnormals within a few tens of steps, where its divisions
-    slow down."""
-    import torch
-
-    for n, v in host.items():
-        fields[n].array.copy_(v if isinstance(v, torch.Tensor) else torch.from_numpy(v))
+    return make
 
 
 def chain_fit(stencil, fields, run) -> tuple[float, float]:
-    """(ms a step, ms a chain call) of the kernel's ``chain``: the two-point
-    fit of chain(20) and chain(50) by CUDA events (bench.py:12-22), which
-    splits what every step costs from what each call adds once."""
-    t20, t50 = (time_steps(stencil, fields, run, n) * n for n in (20, 50))
-    slope = (t50 - t20) / 30
-    return slope, t20 - 20 * slope
+    """(ms a step, ms a chain call) of the kernel's ``chain``: bench.py's
+    two-point fit of chain(20) and chain(50) by CUDA events
+    (``StepTimer.measure``), which splits what every step costs from what
+    each call adds once (the fit's intercept)."""
+    timer, label = StepTimer(), f"{run['case']['name']} {run['dtype']}"
+    slope = timer.measure(chain_runs(stencil, fields, run), label, n_lo=20, n_hi=50)
+    return slope, timer.intercept_ms[label]
 
 
 def compulsory_bytes(stencil, itemsize: int = 0, domain=(NI, NJ, NK)) -> int:
@@ -1390,17 +1470,6 @@ def run_registry_stencil(reg, defs, storage, cuda_backend, np, torch) -> None:
                 raise AssertionError(f"registry {reg['name']}: kernel disagrees with {ref} in {n}")
 
 
-def copy_bandwidth() -> float:
-    """Bytes/s (read + write) of a device-to-device copy of 256 MiB, five
-    times the H100's 50 MB L2: the sustainable bandwidth, measured in the
-    same run as the kernels, that their compulsory bytes are held against."""
-    import torch
-
-    src = torch.rand(64 * 1024 * 1024, device="cuda")
-    dst = torch.empty_like(src)
-    return 2 * src.numel() * src.element_size() / (events_ms(lambda: dst.copy_(src), 20) * 1e-3)
-
-
 def device_ms(run, fields, n: int) -> float:
     """ms per step that ``chain(n)`` from the main path's inputs holds the
     card (:func:`spin_ms`): the stencil's device work (kernels and the
@@ -1431,14 +1500,6 @@ def unringed_ms(run, fields, cuda_backend) -> float:
         cuda_backend.overlapping = saved
         backend._launches.clear()
         backend._chains.clear()
-
-
-def spin_ms(work, n: int, name: str) -> float:
-    """ms per step that ``work()``, ``n`` steps, holds the card, behind a
-    spin kernel (``instrumentation.profiler.spin_ms``)."""
-    from gt4py_tpu_torch.instrumentation.profiler import spin_ms as behind_spin
-
-    return behind_spin(work, n, name)
 
 
 def walked_levels(analyzed, nk: int) -> int:
@@ -2343,22 +2404,6 @@ def replay_ms(rec, n: int, tag: str) -> float:
     return spin_ms(lambda: [rec.target(*args, **kwargs) for _ in range(n)], n, tag)
 
 
-def events_ms(work, n: int) -> float:
-    """ms a call of ``work()``, ``n`` calls between two CUDA events after
-    one call to warm it (host included)."""
-    import torch
-
-    work()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        work()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
-
-
 def example_row(tag, kernel, rec, plain, domain, dtype, asked, err, as_st=None) -> dict:
     """One stencil or operator of an example as a line of the ``kernels``
     JSON: the launches its calls made in the example's run (raises unless
@@ -2962,15 +3007,6 @@ def probe_report(calibration, cuda_backend, tool) -> dict:
     return out
 
 
-def max_sm_clock_mhz() -> float:
-    """The card's highest SM clock, as ``nvidia-smi`` reads it."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True,
-    ).stdout
-    return float(out.split()[0])
-
-
 def same_finite_bits(got, want, tag: str) -> float:
     """Raises unless ``got`` and ``want`` are finite everywhere and equal
     to the bit; returns their largest difference (0.0)."""
@@ -3106,15 +3142,13 @@ def run_calibration(runs, copy_gbs, calibration, smi, torch, device="cuda",
         print(f"  the L2 yardstick (l2_read, {calibration.L2_READ_PASSES} passes a launch over "
               f"{yard['nbytes'] / 1e6:.2f} MB, every load through the L2 only, the warps' "
               f"largest == torch.amax): {yard['us']:.3f} us a launch (spread "
-              + ("n/a" if yard["spread_pct"] is None else f"{yard['spread_pct']:.1f} %")
-              + f"), {yard['Bps'] / 1e9:.1f} GB/s, {card['sms']} SMs at {card['clock']:.0f} MHz")
+              f"{yard['spread_pct']:.1f} %), {yard['Bps'] / 1e9:.1f} GB/s, {card['sms']} SMs at {card['clock']:.0f} MHz")
     for r, sh in zip(rows, shown):
         fit, lib, gbs = sh["fit"], sh["library"], sh["bytes"] / sh["fit"]["us"] / 1e3
         share = bound_share(r["bound_ms"] * 1e3, fit["us"])
-        spread = "n/a" if r["spread_pct"] is None else f"{r['spread_pct']:.1f} %"
+        spread = f"{r['spread_pct']:.1f} %"
         library = "n/a" if lib is None else (
-            f"{lib['us']:.3f} us (copy_, spread "
-            + ("n/a" if lib["spread_pct"] is None else f"{lib['spread_pct']:.1f} %") + ")")
+            f"{lib['us']:.3f} us (copy_, spread {lib['spread_pct']:.1f} %)")
         print(f"  {r['name']:34s} checked chain {sh['checked']}  launches {r['launches']:5d}  "
               f"{fit['us']:9.3f} us (spread {spread}, chains {fit['chains'][0]}/"
               f"{fit['chains'][1]})  {gbs:8.1f} GB/s ({gbs / copy_gbs:.1%} of copy; "

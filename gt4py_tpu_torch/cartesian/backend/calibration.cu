@@ -406,3 +406,10 @@ extern "C" int gt_l2_read(const void* in, long long n4, int passes, void* out, i
                                                              (float*)out);
   return (int)cudaGetLastError();
 }
+
+// The card's own properties for the roofline (no kernel): one
+// cudaDeviceGetAttribute, e.g. 36 (cudaDevAttrMemoryClockRate, kHz) and 37
+// (cudaDevAttrGlobalMemoryBusWidth, bits); returns the CUDA error.
+extern "C" int gt_device_attribute(int attribute, int device, int* value) {
+  return (int)cudaDeviceGetAttribute(value, (cudaDeviceAttr)attribute, device);
+}

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from gt4py_tpu_torch.cartesian.backend import cuda_backend
-from gt4py_tpu_torch.instrumentation.profiler import spin_ms
+from gt4py_tpu_torch.instrumentation.timing import StepTimer
 
 #: bench.py's sizes (bench.py:180-181), the main path's
 NI, NJ, NK, HALO = 256, 256, 80, 2
@@ -106,6 +106,8 @@ L2_BYTES = 50 * 2**20
 FP32_LANES, MUFU_LANES = 128, 16
 #: the L2 yardstick's passes over its buffer a launch
 L2_READ_PASSES = 8
+#: ``cudaDeviceGetAttribute``'s memory clock (kHz) and bus width (bits)
+MEMORY_CLOCK_ATTRIBUTE, BUS_WIDTH_ATTRIBUTE = 36, 37
 #: threads an SM of the H100 holds
 SM_THREADS = 2048
 #: points a thread of the vector kernels owns: P1 one 16-byte vector of
@@ -266,7 +268,8 @@ def _functions() -> dict:
         for name, args in (("gt_probe_walk", [i32, i32] + [ptr] * 5 + sizes),
                            ("gt_plane_walk5", [ptr] * 5 + sizes),
                            ("gt_bf16_windows", [i32, ptr, ptr] + sizes),
-                           ("gt_l2_read", [ptr, ll, i32, ptr, i32, ptr])):
+                           ("gt_l2_read", [ptr, ll, i32, ptr, i32, ptr]),
+                           ("gt_device_attribute", [i32, i32, ctypes.POINTER(i32)])):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
             fn.argtypes = args
@@ -478,46 +481,28 @@ def fit_chains(kind: str, params: tuple) -> tuple[int, int]:
 
 
 def fit_us(kind: str, inputs: Sequence[torch.Tensor], params: tuple = (),
-           trials: int = FIT_TRIALS, library: bool = False) -> dict:
+           trials: int = FIT_TRIALS, library: bool = False,
+           timer: Optional[StepTimer] = None) -> dict:
     """µs of one application (with ``library``, of the variant's PyTorch
-    call, timed the same way): the two-point fit of bench.py's
-    ``StepTimer.measure`` (bench.py:110-160) over graph chains of
-    :func:`fit_chains` applications, each trial from the inputs
-    (:meth:`Chain.reset`) and timed behind a spin kernel. ``us`` is the
-    min-fit, ``spread_pct`` the median-fit's distance from it in %; where the
-    min-fit is not positive or above the long chain's mean, ``us`` is that
-    mean, as in bench.py. ``launches``: the probe kernels launched here."""
+    call, timed the same way): bench.py's two-point fit
+    (``instrumentation.timing.StepTimer``, bench.py:110-160) over graph
+    chains of :func:`fit_chains` applications, each trial from the inputs
+    (:meth:`Chain.reset`) and timed behind a spin kernel, on ``timer`` (a
+    new one where None) under the variant's name. ``us`` is the min-fit,
+    ``spread_pct`` the median-fit's distance from it in %; a fit that is
+    not positive raises. ``launches``: the probe kernels launched here."""
     n_lo, n_hi = fit_chains(kind, params)
-    lo, hi = (Chain(kind, n, inputs, params, library) for n in (n_lo, n_hi))
+    chains = {}
 
-    def timed(chain):
-        chain.reset()
-        return spin_ms(chain.run, name=variant_name(kind, params), cycles=SPIN_CYCLES,
-                       tries=SPIN_TRIES)
+    def make(n):
+        chains[n] = chain = Chain(kind, n, inputs, params, library)
+        return chain.run, chain.reset
 
-    fit = _two_point(lambda: timed(lo), lambda: timed(hi), n_lo, n_hi, trials)
-    return {**fit, "chains": (n_lo, n_hi), "launches": lo.launched + hi.launched}
-
-
-def _two_point(run_lo, run_hi, n_lo: int, n_hi: int, trials: int) -> dict:
-    """bench.py's two-point fit of ms a step from ``run_lo()`` and
-    ``run_hi()``, the ms of chains of ``n_lo`` and ``n_hi`` steps, each
-    warmed once and taken ``trials`` times: ``us`` the min-fit (or the long
-    chain's mean where the fit is not positive or above it), ``spread_pct``
-    the median-fit's distance from it in %."""
-    run_lo(), run_hi()  # warm
-    los, his = [], []
-    for _ in range(trials):
-        los.append(run_lo())
-        his.append(run_hi())
-    los.sort(), his.sort()
-    est = (his[0] - los[0]) / (n_hi - n_lo)
-    med = (his[trials // 2] - los[trials // 2]) / (n_hi - n_lo)
-    spread = (med - est) / est * 100 if est > 0 else None
-    upper = his[0] / n_hi
-    if est <= 0 or est > upper:
-        est = upper
-    return {"us": est * 1e3, "spread_pct": spread}
+    timer = timer or StepTimer()
+    label = variant_name(kind, params) + ("_library" if library else "")
+    ms = timer.measure(make, label, n_lo, n_hi, trials, spin=(SPIN_CYCLES, SPIN_TRIES))
+    return {"us": ms * 1e3, "spread_pct": timer.spread_pct[label], "chains": (n_lo, n_hi),
+            "launches": sum(c.launched for c in chains.values())}
 
 
 def l2_bytes(device) -> int:
@@ -548,15 +533,38 @@ def l2_read_rate(device="cuda", trials: int = FIT_TRIALS, seed: int = 0) -> dict
     graphs = {n: cuda_backend.capture_graph(device, [
         functools.partial(l2_read, x, out, counted=False)] * n)[0] for n in (n_lo, n_hi)}
 
-    def timed(n):
+    def make(n):
         def replay():
             graphs[n].replay()
             L2_READ.launches += n
-        return spin_ms(replay, name="l2_read", cycles=SPIN_CYCLES, tries=SPIN_TRIES)
+        return replay, None
 
-    fit = _two_point(lambda: timed(n_lo), lambda: timed(n_hi), n_lo, n_hi, trials)
+    timer = StepTimer()
+    ms = timer.measure(make, "l2_read", n_lo, n_hi, trials, spin=(SPIN_CYCLES, SPIN_TRIES))
     moved = L2_READ_PASSES * x.numel() * 4 + out.numel() * 4
-    return {**fit, "Bps": moved / (fit["us"] * 1e-6), "nbytes": x.numel() * 4}
+    return {"us": ms * 1e3, "spread_pct": timer.spread_pct["l2_read"],
+            "Bps": moved / (ms * 1e-3), "nbytes": x.numel() * 4}
+
+
+def device_attribute(attribute: int, device="cuda") -> int:
+    """``cudaDeviceGetAttribute(attribute)`` of ``device``, through the
+    probes' library (``gt_device_attribute``)."""
+    device = torch.device(device)
+    value = ctypes.c_int()
+    err = _functions()["gt_device_attribute"](attribute, device.index or 0, ctypes.byref(value))
+    if err:
+        raise RuntimeError(f"cudaDeviceGetAttribute({attribute}) failed with CUDA error {err}")
+    return value.value
+
+
+def peak_memory_Bps(device="cuda") -> float:
+    """The card's device-memory peak in bytes/s, from the card itself: its
+    memory clock (``MEMORY_CLOCK_ATTRIBUTE``, kHz) times its bus width
+    (``BUS_WIDTH_ATTRIBUTE``, bits) times 2 (double data rate); an H100 SXM5
+    reports 2619 MHz and 5120 bits, 3352 GB/s."""
+    khz = device_attribute(MEMORY_CLOCK_ATTRIBUTE, device)
+    bits = device_attribute(BUS_WIDTH_ATTRIBUTE, device)
+    return 2.0 * khz * 1e3 * bits / 8
 
 
 # -- the ceilings ------------------------------------------------------------------

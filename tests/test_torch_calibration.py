@@ -336,7 +336,9 @@ def test_source_instantiates_the_variants():
     assert tuple(int(v) for v in re.findall(r"X\((\d+)\)", windows)) == cal.BF16_WINDOWS
     for launcher in ("gt_probe_walk", "gt_plane_walk5", "gt_bf16_windows"):
         assert f'extern "C" int {launcher}(' in src
-    assert src.count('extern "C"') == 4  # the three probes and the L2 yardstick
+    assert 'extern "C" int gt_device_attribute(' in src
+    # the three probes, the L2 yardstick and the card's attribute read
+    assert src.count('extern "C"') == 5
 
 
 def _kernel_body(code, name):
@@ -383,7 +385,7 @@ def test_source_rounds_and_contracts_as_the_plain_version():
 def test_build_takes_the_stencil_kernels_flags(monkeypatch):
     """The source goes to ``cuda_backend.load_library`` (nvcc with
     NVCC_FLAGS: sm_90a, --fmad=false) and its four launchers (the three
-    probes', the L2 yardstick's) are bound."""
+    probes', the L2 yardstick's) and the card's attribute read are bound."""
     cmd = cuda_backend.build_command("p.cu", "p.so")
     assert "--fmad=false" in cmd and "arch=compute_90a,code=sm_90a" in cmd
     assert "-O3" in cmd and not any("fast" in c for c in cmd)
@@ -400,9 +402,10 @@ def test_build_takes_the_stencil_kernels_flags(monkeypatch):
                         lambda source: (seen.append(source), Lib())[1])
     fns = cal._functions()
     assert seen == [cal.source(), "gt_probe_walk", "gt_plane_walk5", "gt_bf16_windows",
-                    "gt_l2_read"]
+                    "gt_l2_read", "gt_device_attribute"]
     assert len(fns["gt_probe_walk"].argtypes) == 11 and len(fns["gt_plane_walk5"].argtypes) == 9
     assert len(fns["gt_bf16_windows"].argtypes) == 7 and len(fns["gt_l2_read"].argtypes) == 6
+    assert len(fns["gt_device_attribute"].argtypes) == 3
 
 
 def test_a_failed_build_raises(monkeypatch, tmp_path):

@@ -73,6 +73,14 @@ def test_chip_smoke_imports_no_jax():
     assert not bad
 
 
+def test_bench_torch_imports_no_jax():
+    """bench_torch.py, bench.py's measuring program on the card, imports
+    nothing of JAX, nor gt4py_tpu, nor bench.py."""
+    path = os.path.join(REPO_ROOT, "bench_torch.py")
+    bad = [m for m in _imports_of(path) if _top(m) in FORBIDDEN + ("bench",)]
+    assert not bad
+
+
 def test_stencil_defs_helper_imports_no_jax():
     path = os.path.join(REPO_ROOT, "tests", "torch_stencil_defs.py")
     bad = [m for m in _imports_of(path) if _top(m) in FORBIDDEN]

@@ -10,6 +10,11 @@ own Dimension and operator classes, so they cannot be reused):
   carry;
 - ``next_vadv`` (test_cartesian_bridge.py:342-378): two scans with I- and
   K-shifted arguments and boundary selection through a K index field;
+- ``next_tridiag`` and ``next_vadv_op(nk)``, bench.py's field-view scans
+  (bench.py:1035-1048, :1127-1153): the same solves written as bench.py
+  writes them, with no annotations and with ``concat_where`` boundaries;
+- ``copy_op``, ``cumsum``, ``dbl``, ``inc`` and ``pipeline``, the operators
+  whose call overhead benchmarks/benchmark_program_call.py times;
 - smaller operators for the parity tests: a scan on its own
   (``weighted_cumsum``), a program calling two operators (``lap_twice``),
   a tuple return, the builtins, and unstructured ones over the toy mesh of
@@ -21,6 +26,8 @@ own Dimension and operator classes, so they cannot be reused):
 ``REPLACES`` the TPU kernel it stands for. Operators are declared on the
 ``torch`` backend; ``op.with_backend("cuda:hopper")`` bridges them.
 """
+
+import functools
 
 import numpy as np
 
@@ -126,6 +133,65 @@ def next_vadv(utens_stage, u_stage, wcon, u_pos, utens, kidx, klast: int, dtr: f
     return _vadv_bwd(ccol, dcol, u_pos, kidx, klast, dtr)[1]
 
 
+@gtx.scan_operator(axis=KDim, forward=True, init=(0.0, 0.0))
+def _bench_tri_fwd(carry, a, b, c, d):
+    cp_prev, dp_prev = carry
+    denom = b - a * cp_prev
+    return (c / denom, (d - a * dp_prev) / denom)
+
+
+@gtx.scan_operator(axis=KDim, forward=False, init=0.0)
+def _bench_tri_bwd(x_kp1, cp, dp):
+    return dp - cp * x_kp1
+
+
+@gtx.field_operator
+def next_tridiag(a, b, c, d):
+    """bench.py's field-view tridiagonal solve (bench.py:1035-1048): two
+    scans with no annotations, the carry's type taken from the fields."""
+    cp, dp = _bench_tri_fwd(a, b, c, d)
+    return _bench_tri_bwd(cp, dp)
+
+
+@functools.cache
+def next_vadv_op(nk: int):
+    """bench.py's field-view vadv over ``nk`` levels (bench.py:1127-1153):
+    the vertical boundary coefficients by ``concat_where`` over K sections,
+    no K index field; ``nk`` is closed over as bench.py closes over its
+    ``NKC``."""
+    nkc = nk
+
+    @gtx.scan_operator(axis=KDim, forward=True, init=(0.0, 0.0))
+    def _b_vadv_fwd(carry, acol, bcol, ccol, dcol):
+        ccol_m1, dcol_m1 = carry
+        divided = 1.0 / (bcol - ccol_m1 * acol)
+        return (ccol * divided, (dcol - dcol_m1 * acol) * divided)
+
+    @gtx.scan_operator(axis=KDim, forward=False, init=(0.0, 0.0))
+    def _b_vadv_bwd(carry, ccol, dcol, upos, dtr):
+        data_p1, _ = carry
+        data = dcol - ccol * data_p1
+        return (data, dtr * (data - upos))
+
+    @gtx.field_operator
+    def next_vadv_op(utens_stage, u_stage, wcon, u_pos, utens, dtr):
+        gav = -0.25 * (wcon(Ioff[1]) + wcon)
+        gcv = 0.25 * (wcon(Ioff[1])(Koff[1]) + wcon(Koff[1]))
+        as_ = concat_where(KDim == 0, 0.0, gav * BET_M)
+        acol = concat_where(KDim == 0, 0.0, gav * BET_P)
+        cs = concat_where(KDim == nkc - 1, 0.0, gcv * BET_M)
+        ccol = concat_where(KDim == nkc - 1, 0.0, gcv * BET_P)
+        bcol = dtr - acol - ccol
+        dm1 = concat_where(KDim == 0, 0.0, u_stage(Koff[-1]) - u_stage)
+        dp1 = concat_where(KDim == nkc - 1, 0.0, u_stage(Koff[1]) - u_stage)
+        corr = (0.0 - as_) * dm1 - cs * dp1
+        dcol = dtr * u_pos + utens + utens_stage + corr
+        cc, dd = _b_vadv_fwd(acol, bcol, ccol, dcol)
+        return _b_vadv_bwd(cc, dd, u_pos, dtr)[1]
+
+    return next_vadv_op
+
+
 @gtx.scan_operator(axis=KDim, forward=True, init=0.0)
 def weighted_cumsum(carry: float, a: float, w: float) -> float:
     return carry * w + a
@@ -144,6 +210,39 @@ lap_hopper = lap.with_backend("cuda:hopper")
 def lap_twice_hopper(phi, tmp, out):
     lap_hopper(phi, out=tmp)
     lap_hopper(tmp, out=out)
+
+
+# --- the call-overhead operators (benchmarks/benchmark_program_call.py:73-120) ---
+
+CallI = Dimension("I")
+CallIb = Dimension("Ib")
+CallKb = Dimension("Kb", kind=DimensionKind.VERTICAL)
+
+
+@gtx.field_operator
+def copy_op(a):
+    return a
+
+
+@gtx.scan_operator(axis=CallKb, forward=True, init=0.0)
+def cumsum(c, x):
+    return c + x
+
+
+@gtx.field_operator
+def dbl(a):
+    return a * 2.0
+
+
+@gtx.field_operator
+def inc(a):
+    return a + 1.0
+
+
+@gtx.program
+def pipeline(a, tmp, out):
+    dbl(a, out=tmp)
+    inc(tmp, out=out)
 
 
 @gtx.field_operator
@@ -304,15 +403,23 @@ def nabla_x(pp, s_x, sign, vol):
     return neighbor_sum(zavg(V2E) * sign, axis=V2EDim) / vol
 
 
-def nabla_inputs(n: int, dtype, seed: int, device=None):
+def nabla_inputs(n: int, dtype, seed: int, device=None, renumber: bool = False):
     """``nabla_x``'s arguments, offset provider and out field on the periodic
     ``n`` × ``n`` quad mesh of ``mesh_utils.periodic_quad_mesh`` (the
     bench's 65k row at n = 256, its 1M row at n = 1024): uniform vertex
-    values and edge lengths, volumes in [0.5, 1.5)."""
+    values and edge lengths, volumes in [0.5, 1.5). ``renumber``: the
+    irregular twin of bench.py:754-765, vertices and edges renumbered by
+    random permutations (seeds 3 and 4), so that no shift structure is
+    left."""
     from gt4py_tpu_torch.next.mesh_utils import periodic_quad_mesh
 
     e2v, v2e, signs = periodic_quad_mesh(n)
     nv = n * n
+    if renumber:
+        perm_v = np.random.default_rng(3).permutation(nv)
+        perm_e = np.random.default_rng(4).permutation(2 * nv)
+        inv_v, inv_e = np.argsort(perm_v), np.argsort(perm_e)
+        e2v, v2e, signs = perm_v[e2v][inv_e], perm_e[v2e][inv_v], signs[inv_v]
     rng = np.random.default_rng(seed)
     provider = {
         "E2V": gtx.as_connectivity([Edge, E2VDim], Vertex, e2v, device=device),

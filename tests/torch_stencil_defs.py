@@ -7,7 +7,9 @@ imports no JAX, so it also serves on a machine without it. The
 ``*_generic`` variants take their dtype from the ``dtypes={"dt": ...}``
 build option, for float32 runs; the generic hdiff is bench.py's ``hdiff32``
 (float literals, so that with ``literal_float_precision=32`` it computes in
-float32 throughout). Two full-width dycore-style stencils of the port's own,
+float32 throughout); ``tridiagonal_solver_temporaries``, ``copy_generic`` and
+``laplacian_generic`` are bench.py's ``tri32``, ``copy48`` and ``lap48``, the
+stencils of bench_torch.py's rows. Two full-width dycore-style stencils of the port's own,
 ``hdiff_sponge`` and ``smoothed_column_sum``, and three column walks at the
 edges of the column kernels' prefetch ring and registers
 (``read_ahead_sweep``, ``restarted_temporary``, ``narrow_offset_read``)
@@ -509,6 +511,42 @@ def tridiagonal_solver_generic(
             out = rhs
         with interval(0, -1):
             out = rhs - sup * out[0, 0, 1]
+
+
+def tridiagonal_solver_temporaries(
+    inf: "gtscript.Field['dt']",
+    diag: "gtscript.Field['dt']",
+    sup: "gtscript.Field['dt']",
+    rhs: "gtscript.Field['dt']",
+    out: "gtscript.Field['dt']",
+):
+    """bench.py's ``tri32`` (bench.py:462-479): the Thomas algorithm with the
+    modified coefficients in temporaries, so that it reads four fields and
+    writes one."""
+    with computation(FORWARD):
+        with interval(0, 1):
+            cp = sup / diag
+            dp = rhs / diag
+        with interval(1, None):
+            cp = sup / (diag - cp[0, 0, -1] * inf)
+            dp = (rhs - inf * dp[0, 0, -1]) / (diag - cp[0, 0, -1] * inf)
+    with computation(BACKWARD):
+        with interval(-1, None):
+            out = dp
+        with interval(0, -1):
+            out = dp - cp * out[0, 0, 1]
+
+
+def copy_generic(src: "gtscript.Field['dt']", dst: "gtscript.Field['dt']"):
+    """bench.py's ``copy48`` (bench.py:1580-1582)."""
+    with computation(PARALLEL), interval(...):
+        dst = src[0, 0, 0]
+
+
+def laplacian_generic(src: "gtscript.Field['dt']", dst: "gtscript.Field['dt']"):
+    """bench.py's ``lap48`` (bench.py:1584-1588)."""
+    with computation(PARALLEL), interval(...):
+        dst = -4.0 * src[0, 0, 0] + (src[1, 0, 0] + src[-1, 0, 0] + src[0, 1, 0] + src[0, -1, 0])
 
 
 # --- the rest of the registry of tests/cartesian_tests/stencil_defs.py ----------
