@@ -31,10 +31,13 @@ line of each), each computed by the port's kernels:
   1,048,576 vertices: the embedded ``torch`` field view (no kernel, as in
   the JAX package), each step one call from the same inputs, a chain's
   calls captured into one CUDA graph as bench.py chains them in one jitted
-  loop. These rows are DEVICE ONLY: the host's Python is left out, and no
-  entry point of the port offers that graph, so a user's call costs more;
-  what it costs, a warm call from the host, is the added key
-  ``fvm_nabla_host_call_us`` (by row). The irregular row's gather ceiling
+  loop (inside that capture each call runs inline, as the JAX package's
+  operators run inside an enclosing jit). These rows are DEVICE ONLY.
+  A user's warm call from the host, the added key
+  ``fvm_nabla_host_call_us`` (by row), is one replay of the operator's own
+  CUDA graph, captured at its second call (its first runs eagerly,
+  next/otf.py): the device work of one step plus the host's key and
+  launch. The irregular row's gather ceiling
   is the rows it gathers at the card's gather rate, read in this run from
   ``torch.index_select`` of as many rows;
 - the streaming triads in f32 and bf16 (plain torch ops, as bench.py's XLA
@@ -153,8 +156,9 @@ LEFT_OUT = {
 ADDED = {
     "program_call_overhead": "benchmarks/benchmark_program_call.py's eight keys",
     "device_copy_GBps": "the same run's 256 MiB device copy, beside the triad",
-    "fvm_nabla_host_call_us": "a warm call of each FVM nabla row from the host: the rows time "
-                              "a CUDA graph of calls, device only, which no entry point offers",
+    "fvm_nabla_host_call_us": "a warm call of each FVM nabla row from the host through the "
+                              "entry point, one replay of the operator's CUDA graph; the rows "
+                              "time a CUDA graph of chained calls, device only",
     "host_spread_pct": "the spreads of the readings of calls from the host "
                        "(fvm_nabla_host_call_us, program_call_overhead), apart from "
                        "measurement_spread_pct and its 5 % gate: on the card's shared host "
@@ -656,14 +660,15 @@ class Bench:
     def time_nabla(self, n: int, label: str, renumber: bool = False) -> tuple[float, float]:
         """(seconds a step, seconds a call from the host) of ``nabla_x`` on
         the card (the ``torch`` backend). The step is device only: a chain
-        of calls captured into one CUDA graph, as bench.py chains them in
-        one jitted loop (bench.py:701-718), so that a step is the operator's
-        device work and not the host's Python, which the fit of two chains
-        of host calls could not separate within the spread. No entry point
-        of the port offers that graph: what a user's call costs is the
-        second number, the median of ``TRIALS`` readings of ``HOST_CALLS``
-        warm calls by CUDA events (host and device), its spread in
-        ``host_spread_pct``. No
+        of calls captured into one CUDA graph (each call inline within the
+        capture), as bench.py chains them in one jitted loop
+        (bench.py:701-718), so that a step is the operator's device work
+        and not the host's, which the fit of two chains of host calls could
+        not separate within the spread. What a user's call costs is the
+        second number: a warm call through the entry point, one replay of
+        the operator's own graph, the median of ``TRIALS`` readings of
+        ``HOST_CALLS`` warm calls by CUDA events (host and device), its
+        spread in ``host_spread_pct``. No
         step's result feeds the next: bench.py's carry keeps XLA from
         eliding steps, which a graph's replay does not do, and carried, the
         values of this derivative grow from step to step towards float32's

@@ -192,6 +192,28 @@ swap cycle of the kernels as a CUDA graph.
    ±10 % of step 4's device µs for hdiff float32 plus its step − device
    remainder (the fit of chain(20) and chain(50)).
 
+14. Field-view graph phase (gt4py_tpu_torch/next/otf.py, the counterpart of
+   the JAX package's jit): every case of tests/torch_feature_defs.py that
+   raises nothing runs on ``torch`` with card fields, its graph counts set
+   to 0 just before, each call made twice so that its second captures
+   (``torch_feature_defs.second_calls``); its result must equal the same case run eagerly on the
+   card (every call inline) to the bit and ``numpy`` on the host as in 7b,
+   and its outcome (captured, refused by a named reason, no graph call)
+   must be the case's pin (``torch_feature_defs.graph_outcome``). Then, in
+   float32, eager (``enable_jit=False``) against the graph for the FVM
+   nabla at 65,536 vertices, its irregular twin and 1,048,576, next_hdiff,
+   next_vadv and next_tridiag (through their scan operators) at
+   256×256×80, and ``lap_twice``, a program of two operators: each first
+   call's host ms and the graph's second (its capture), the graph equal to the eager call to the bit, a warm
+   graph call one replay (counted) and, in a trace, one graph launch and
+   no kernel launch, copy or fill beside it; a warm call's host µs of each
+   by CUDA events (the median of 5 readings, its spread), eager, graph,
+   graph, eager; one call into a fresh out field of each (the graph's
+   is a key's first call, run eagerly); ``lap_twice_mixed``, a ``torch``
+   program with a bridged ``cuda:hopper`` lap in its graph, its kernel
+   counted at each call; and the graph pools' bytes, after the pairs and
+   across 24 variant keys of next_hdiff.
+
 Prints the card's name and power limit, one JSON line with the kernels, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without a CUDA card it exits 1 and prints no result.
@@ -325,7 +347,7 @@ def main(argv) -> int:
     from gt4py_tpu_torch.cartesian.backend import cuda_backend, cuda_codegen
     from gt4py_tpu_torch.cartesian.backend import calibration
     from gt4py_tpu_torch.next import cartesian_bridge as bridge
-    from gt4py_tpu_torch.next import program_processors
+    from gt4py_tpu_torch.next import otf, program_processors
     from tests import torch_cases as tcases
     from tests import torch_feature_defs as fdefs
     from tests import torch_next_defs as ndefs
@@ -827,6 +849,10 @@ def main(argv) -> int:
     checked = check_bench_line(line, card, hdiff32["device_ms"] * 1e3,
                                (hdiff32["slope_ms"] - hdiff32["device_ms"]) * 1e3)
     print(f"  bench line checked: {checked}")
+
+    # -- 14. the field-view graphs: each torch call with card tensors one replay ------
+    graph = run_graph_phase(fdefs, tcases, ndefs, otf, smi, torch)
+    print_graph_phase(graph)
 
     kernels += example_rows + dist_rows + cal_rows
     print(json.dumps({"kernels": kernels}))
@@ -2917,6 +2943,383 @@ def run_distributed(runs, dex, nablas, ndefs, storage, cuda_backend, torch, smi,
           f"{row['four_single_shard_ms'] * 1e3:.1f} us), bound {row['bound_ms'] * 1e3:.2f} us")
     print(f"distributed phase in {time.perf_counter() - t0:.1f} s")
     return rows
+
+
+# -- the field-view graph phase (step 14) ---------------------------------------------
+
+#: step 14: the most warm calls a host reading times (CUDA events), the host
+#: seconds an eager reading aims at (fewer calls where an eager call is
+#: long, as next_vadv's at full width), and the readings of each (their median
+#: is kept, their spread beside it)
+GRAPH_CALLS = 200
+GRAPH_READING_S = 0.2
+GRAPH_TRIALS = 5
+#: the FVM nabla's meshes: 65,536 vertices, its irregular twin, 1,048,576
+GRAPH_NABLAS = ((256, False), (256, True), (1024, False))
+#: a name in the trace of a warm call that is device work other than a graph
+#: replay (a kernel launch, a copy, a fill)
+LAUNCH_NAMES = ("LaunchKernel", "Memcpy", "Memset", "LaunchCooperativeKernel")
+
+
+def reset_graph_counts(otf) -> None:
+    for counter in otf.COUNTERS:
+        counter.clear()
+
+
+def graph_counts(otf) -> tuple:
+    """(first calls run eagerly, graphs captured, replays, refusals by
+    reason) since the reset."""
+    return (sum(otf.graphs_first_calls.values()), sum(otf.graphs_captured.values()),
+            sum(otf.graphs_replayed.values()), dict(otf.graphs_refused))
+
+
+def same_output_bits(got, want) -> bool:
+    """Two output lists (:func:`output_arrays`) equal to the bit."""
+    import numpy as np
+
+    bits = lambda a: np.ascontiguousarray(a).view(np.uint8)  # noqa: E731
+    return len(got) == len(want) and all(
+        a.dtype == b.dtype and a.shape == b.shape and np.array_equal(bits(a), bits(b))
+        for a, b in zip(got, want))
+
+
+def graph_outcome(captured: int, refused: dict) -> str:
+    """A feature case's pin (``torch_feature_defs.graph_outcome``'s terms):
+    ``"captured"`` where its calls were served by graphs and none refused,
+    else the reasons refused, else ``"no graph call"``."""
+    if refused:
+        return "refused: " + ", ".join(sorted(refused))
+    return "captured" if captured else "no graph call"
+
+
+def run_graph_case(name, fdefs, tcases, otf, torch, check_pin: bool = True) -> dict:
+    """One feature case on ``torch`` with card fields, its counts set to 0
+    just before, every call made twice (``fdefs.second_calls``: a key's
+    first call runs eagerly, its second captures): the graph run equal to
+    the same case run eagerly on the card (every call inline: no graph) to
+    the bit, and to ``numpy`` on the host within the tolerances of step
+    7b; its outcome held to the case's pin in ``fdefs.CAPTURED``, every
+    key it ran captured."""
+    with tcases.on_device("cpu"):
+        want = output_arrays(fdefs.run_case(name, "numpy"))
+    with tcases.on_device("cuda"):
+        with otf.inline_calls():
+            eager = output_arrays(fdefs.run_case(name, "torch"))
+        reset_graph_counts(otf)
+        with fdefs.second_calls(otf):
+            got = output_arrays(fdefs.run_case(name, "torch"))
+        torch.cuda.synchronize()
+    first, captured, replayed, refused = graph_counts(otf)
+    outcome = graph_outcome(captured, refused)
+    if check_pin and outcome != fdefs.graph_outcome(name):
+        raise AssertionError(f"{name}: {outcome}, pinned {fdefs.graph_outcome(name)}")
+    if captured != first:
+        raise AssertionError(f"{name}: {first} keys ran, {captured} captured")
+    if not same_output_bits(got, eager):
+        raise AssertionError(f"{name}: the graph's result differs from the eager run's")
+    tol = {"float64": RTOL["float64"], "float32": RTOL["float32"], "float16": RTOL["float16"]}
+    return {"outcome": outcome, "captured": captured, "replayed": replayed,
+            "err": same_within(got, want, tol)}
+
+
+def warm_call_work(call, torch) -> dict:
+    """The CUDA API calls of one warm call, by name, from a trace of it
+    (``instrumentation.gpu_trace``), after two calls to warm."""
+    from gt4py_tpu_torch.instrumentation import gpu_trace
+
+    call()
+    call()
+    torch.cuda.synchronize()
+    with gpu_trace() as prof:
+        with torch.profiler.record_function("gt_warm_call"):
+            call()
+        torch.cuda.synchronize()
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    span = next(e for e in events if e.get("cat") == "user_annotation"
+                and e.get("name") == "gt_warm_call")
+    names: dict = {}
+    for e in events:
+        if str(e.get("cat")).startswith("cuda_") and \
+                span["ts"] <= e.get("ts", -1) <= span["ts"] + span["dur"]:
+            names[e["name"]] = names.get(e["name"], 0) + 1
+    return names
+
+
+def check_replay_only(tag: str, names: dict) -> None:
+    """Raise unless ``names`` (:func:`warm_call_work`) hold one graph launch
+    and no other device work."""
+    replays = sum(n for name, n in names.items() if "GraphLaunch" in name)
+    other = {name: n for name, n in names.items()
+             if "GraphLaunch" not in name and any(w in name for w in LAUNCH_NAMES)}
+    if replays != 1 or other:
+        raise AssertionError(f"{tag}: a warm call ran {names}, not one graph launch")
+
+
+class Inline:
+    """A program run eagerly, its operators inline (``otf.inline_calls``):
+    the eager side of a program's pair."""
+
+    def __init__(self, prog, otf):
+        self.prog, self.otf = prog, otf
+
+    def __call__(self, *args, **kwargs):
+        with self.otf.inline_calls():
+            self.prog(*args, **kwargs)
+
+
+def eager_of(op, otf):
+    """``op`` run eagerly on the card: an operator with ``enable_jit=False``
+    (one refusal a call), a program within ``otf.inline_calls()``."""
+    if hasattr(op, "with_compilation_options"):
+        return op.with_compilation_options(enable_jit=False), {otf.REFUSED_OPTIONS: 1}
+    return Inline(op, otf), {}
+
+
+def synced_ms(call, torch) -> float:
+    """Host ms of one call, the card idle before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def graph_pair(tag: str, op, outs, call_of, make_out, otf, torch, timer) -> dict:
+    """A field operator or program, eager (:func:`eager_of`) against the
+    graph (``op`` as it is, on ``torch``), on the same card inputs, each
+    writing its own out fields ``outs`` (eager, graph): the first call's
+    host ms of each (synchronised; the graph's is its key's first call, run
+    eagerly), the graph's second call's (its capture and one replay), the
+    graph's result equal to the eager one to the bit, its warm call one
+    replay (counted, and in a trace nothing else), then a warm call's host
+    µs of each (:data:`GRAPH_TRIALS` readings of ``n`` calls by CUDA
+    events, ``n`` up to :data:`GRAPH_CALLS` so that an eager reading takes
+    about :data:`GRAPH_READING_S`; their median and spread), eager, graph,
+    graph, eager; last, one call of each into a fresh out field
+    (``make_out()``), synchronised: the graph's is a key's first call, run
+    eagerly (a loop that allocates its out fields every call), the eager
+    one's a warm call. ``call_of(op, out)`` makes the call."""
+    eager, refused = eager_of(op, otf)
+    calls = {"eager": call_of(eager, outs[0]), "graph": call_of(op, outs[1])}
+    expected = {"eager": (0, 0, 0, refused), "graph": (1, 0, 0, {})}
+    first = {}
+    for mode in ("eager", "graph"):
+        reset_graph_counts(otf)
+        first[mode] = synced_ms(calls[mode], torch)
+        if graph_counts(otf) != expected[mode]:
+            raise AssertionError(f"{tag} {mode}: first call counted {graph_counts(otf)}, "
+                                 f"not {expected[mode]}")
+    reset_graph_counts(otf)
+    capture_ms = synced_ms(calls["graph"], torch)
+    if graph_counts(otf) != (0, 1, 1, {}):
+        raise AssertionError(f"{tag}: second call counted {graph_counts(otf)}, not a capture")
+    if not same_output_bits(output_arrays(outs[1]), output_arrays(outs[0])):
+        raise AssertionError(f"{tag}: the graph's result differs from the eager run's")
+    check_replay_only(tag, warm_call_work(calls["graph"], torch))
+    eager_s = events_ms(calls["eager"], 1) * 1e-3
+    n = max(2, min(GRAPH_CALLS, int(GRAPH_READING_S / eager_s)))
+    reset_graph_counts(otf)
+    us, spread = {}, {}
+    for mode in ("eager", "graph", "graph", "eager"):
+        label = f"{tag} {mode}"
+        value = timer.repeat(lambda: events_ms(calls[mode], n), label, trials=GRAPH_TRIALS) * 1e3
+        us.setdefault(mode, []).append(value)
+        spread.setdefault(mode, []).append(timer.spread_pct[label])
+    replays = graph_counts(otf)[:3]
+    expected_replays = (0, 0, 2 * (GRAPH_TRIALS + 1) * (n + 1))
+    if replays != expected_replays:
+        raise AssertionError(f"{tag}: the timed graph calls counted {replays}, "
+                             f"not {expected_replays}")
+    fresh = {mode: synced_ms(call_of(made, make_out()), torch)
+             for mode, made in (("eager", eager), ("graph", op))}
+    if graph_counts(otf)[:2] != (1, 0):
+        raise AssertionError(f"{tag}: a fresh out field's call was not run eagerly")
+    return {"tag": tag, "first_ms": first, "capture_ms": capture_ms, "fresh_ms": fresh,
+            "calls": n, "us": us, "spread": spread}
+
+
+def graph_pairs(ndefs, otf, torch, device="cuda", shape=(NI, NJ, NK)) -> list:
+    """Step 14's pairs (:func:`graph_pair`): the FVM nabla on
+    :data:`GRAPH_NABLAS`, ``next_hdiff``, ``next_vadv`` and ``next_tridiag``
+    (the last two through their scan operators) at ``shape`` in float32,
+    and ``lap_twice``, a program of two operators, at the same size."""
+    import numpy as np
+
+    from gt4py_tpu_torch.instrumentation.timing import StepTimer
+
+    timer = StepTimer()
+    f32 = np.dtype(np.float32)
+    pairs = []
+    for n, renumber in GRAPH_NABLAS:
+        args, provider, out = ndefs.nabla_inputs(n, f32, 11, device, renumber)
+        make_out = lambda n=n, r=renumber: ndefs.nabla_inputs(n, f32, 11, device, r)[2]  # noqa: E731
+        pairs.append(graph_pair(
+            f"nabla {n * n}{' irregular' if renumber else ''}", ndefs.nabla_x, (out, make_out()),
+            lambda op, o, a=args, p=provider: lambda: op(*a, out=o, offset_provider=p),
+            make_out, otf, torch, timer))
+    for name, like in (("next_hdiff", "hdiff_op"), ("next_vadv", "next_vadv"),
+                       ("next_tridiag", "solve_tridiag")):
+        args, kwargs, out = ndefs.inputs(like, *shape, f32, 7, device)
+        make_out = lambda like=like: ndefs.inputs(like, *shape, f32, 7, device)[2]  # noqa: E731
+        pairs.append(graph_pair(
+            name, getattr(ndefs, name), (out, make_out()),
+            lambda op, o, a=args, k=kwargs: lambda: op(*a, out=o, offset_provider=ndefs.PROV_K,
+                                                       **k),
+            make_out, otf, torch, timer))
+    (phi,), _, _ = ndefs.inputs("lap", *shape, f32, 7, device)
+    ni, nj, nk = shape
+    gtx = ndefs.gtx
+
+    def make_pair():
+        return (gtx.zeros({ndefs.IDim: (1, ni + 3), ndefs.JDim: (1, nj + 3), ndefs.KDim: nk},
+                          f32, device=device),
+                gtx.zeros({ndefs.IDim: (2, ni + 2), ndefs.JDim: (2, nj + 2), ndefs.KDim: nk},
+                          f32, device=device))
+
+    pairs.append(graph_pair(
+        "lap_twice (program)", ndefs.lap_twice, (make_pair(), make_pair()),
+        lambda prog, o: lambda: prog(phi, *o, offset_provider=ndefs.PROV),
+        make_pair, otf, torch, timer))
+    return pairs
+
+
+def bridged_program(ndefs, otf, torch, device="cuda", shape=(NI, NJ, NK)) -> dict:
+    """``lap_twice_mixed`` (a ``cuda:hopper`` lap, then a ``torch`` one) as a
+    ``torch`` program at ``shape`` in float32, three calls (eager, capture,
+    replay): the bridged lap's Hopper kernel launched at each, counted by
+    its wrapper (at the replays by the graph), and the result equal to the
+    program run eagerly (``otf.inline_calls``) to the bit."""
+    import numpy as np
+
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+
+    f32 = np.dtype(np.float32)
+    (phi,), _, _ = ndefs.inputs("lap", *shape, f32, 7, device)
+    ni, nj, nk = shape
+    gtx = ndefs.gtx
+
+    def fields():
+        return (gtx.zeros({ndefs.IDim: (1, ni + 3), ndefs.JDim: (1, nj + 3), ndefs.KDim: nk},
+                          f32, device=device),
+                gtx.zeros({ndefs.IDim: (2, ni + 2), ndefs.JDim: (2, nj + 2), ndefs.KDim: nk},
+                          f32, device=device))
+
+    prog = ndefs.lap_twice_mixed.with_backend("torch")
+    want, got = fields(), fields()
+    Inline(prog, otf)(phi, *want, offset_provider=ndefs.PROV)
+    before = {n: w.launches for n, w in cuda_backend.WRAPPERS.items()}
+    reset_graph_counts(otf)
+    for _ in range(3):
+        prog(phi, *got, offset_provider=ndefs.PROV)
+    torch.cuda.synchronize()
+    launched = {n: w.launches - before[n] for n, w in cuda_backend.WRAPPERS.items()
+                if w.launches != before[n]}
+    counts = graph_counts(otf)
+    if list(launched.values()) != [3] or counts != (1, 1, 2, {}):
+        raise AssertionError(f"lap_twice_mixed: kernels {launched}, graph counts {counts}, "
+                             f"not one kernel at each of 3 calls, one capture, two replays")
+    if not same_output_bits(output_arrays(got), output_arrays(want)):
+        raise AssertionError("lap_twice_mixed: the graph's result differs from the eager run's")
+    return {"launched": launched, "counts": counts}
+
+
+#: step 14's run of many variant keys: next_hdiff at full width into this many
+#: out fields, each called three times (eager, capture, replay)
+POOL_VARIANTS = 24
+
+
+def pool_bytes_across_variants(ndefs, otf, torch, device="cuda", shape=(NI, NJ, NK)) -> dict:
+    """The graph pool's bytes across a run of :data:`POOL_VARIANTS` variant
+    keys of one operator (next_hdiff, float32, one out field each, three
+    times the operator's bound), on a stream of its own, so on a pool of its
+    own (``otf.graph_pool_bytes`` less the other pools' bytes before the
+    run): after the first capture, the most after any capture, at the end
+    with the operator alive, and after it dies; beside them the caching
+    allocator's reserved bytes, before the run and after the operator dies
+    (``empty_cache`` first)."""
+    import gc
+
+    import numpy as np
+
+    f32 = np.dtype(np.float32)
+    args, kwargs, _ = ndefs.inputs("hdiff_op", *shape, f32, 7, device)
+    outs = [ndefs.inputs("hdiff_op", *shape, f32, 7, device)[2] for _ in range(POOL_VARIANTS)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved_before = torch.cuda.memory_reserved()
+    others = otf.graph_pool_bytes()
+    op = ndefs.next_hdiff.with_backend("torch")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    readings = []
+    with torch.cuda.stream(stream):
+        for out in outs:
+            for _ in range(3):
+                op(*args, out=out, offset_provider=ndefs.PROV_K, **kwargs)
+            readings.append(otf.graph_pool_bytes() - others)
+    torch.cuda.synchronize()
+    graphs = len(op._graphs)
+    del op
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"variants": POOL_VARIANTS, "graphs_kept": graphs, "others": others,
+            "first": readings[0], "most": max(readings), "alive": readings[-1],
+            "dead": otf.graph_pool_bytes() - others, "reserved_before": reserved_before,
+            "reserved_after": torch.cuda.memory_reserved()}
+
+
+def run_graph_phase(fdefs, tcases, ndefs, otf, smi, torch) -> dict:
+    """Step 14: every feature case (:func:`run_graph_case`), then the pairs
+    (:func:`graph_pairs`), and the graph pools' bytes."""
+    t0 = time.perf_counter()
+    cases = {name: run_graph_case(name, fdefs, tcases, otf, torch)
+             for name in fdefs.CASES if name not in fdefs.RAISES}
+    cases_s = time.perf_counter() - t0
+    pairs = graph_pairs(ndefs, otf, torch)
+    torch.cuda.synchronize()
+    pool_bytes = otf.graph_pool_bytes()
+    return {"cases": cases, "cases_s": cases_s, "pairs": pairs, "pool_bytes": pool_bytes,
+            "bridged": bridged_program(ndefs, otf, torch),
+            "pool_run": pool_bytes_across_variants(ndefs, otf, torch), "smi": smi}
+
+
+def print_graph_phase(graph: dict) -> None:
+    cases = graph["cases"]
+    by_outcome: dict = {}
+    for result in cases.values():
+        by_outcome[result["outcome"]] = by_outcome.get(result["outcome"], 0) + 1
+    print(f"field-view graphs on {graph['smi']}: {len(cases)} feature cases on torch with card "
+          f"fields in {graph['cases_s']:.1f} s, each == its eager run on the card to the bit and "
+          f"== numpy on the host (largest abs err {max(r['err'] for r in cases.values()):.3e}), "
+          f"each held to its pin: {dict(sorted(by_outcome.items()))}; "
+          f"{sum(r['captured'] for r in cases.values())} graphs captured, "
+          f"{sum(r['replayed'] for r in cases.values())} replays")
+    print(f"  eager (enable_jit=False; a program within inline_calls) against the graph, "
+          f"float32, == to the bit, a warm graph call one replay and nothing else (traced); "
+          f"first call ms (synchronised; the graph's runs eagerly), the graph's second call "
+          f"(its capture and a replay); a warm call's host us by CUDA events, the median of "
+          f"{GRAPH_TRIALS} readings (spread %), eager, graph, graph, eager:")
+    for p in graph["pairs"]:
+        print(f"  {p['tag']:22s} first call eager {p['first_ms']['eager']:.3f} ms, graph "
+              f"{p['first_ms']['graph']:.3f} ms, capture {p['capture_ms']:.3f} ms; fresh out "
+              f"field eager (warm) {p['fresh_ms']['eager']:.3f} ms, graph (a first call, eager) "
+              f"{p['fresh_ms']['graph']:.3f} ms; "
+              f"warm us ({p['calls']} calls a reading) eager "
+              + ", ".join(f"{u:.2f} ({s:.2f})" for u, s in zip(p["us"]["eager"], p["spread"]["eager"]))
+              + "; graph "
+              + ", ".join(f"{u:.2f} ({s:.2f})" for u, s in zip(p["us"]["graph"], p["spread"]["graph"])))
+    print(f"  lap_twice_mixed (a cuda:hopper lap in a torch program's graph), three calls: "
+          f"kernels {graph['bridged']['launched']}, graph counts (first calls, captures, "
+          f"replays, refusals) {graph['bridged']['counts']}, == the eager run to the bit")
+    run = graph["pool_run"]
+    print(f"  graph pools: {graph['pool_bytes']} bytes after the pairs (their module-level "
+          f"operators' graphs); next_hdiff over {run['variants']} variant keys on a stream and "
+          f"pool of its own ({run['graphs_kept']} graphs kept): {run['first']} bytes after the "
+          f"first capture, at most {run['most']}, {run['alive']} at the end, {run['dead']} once "
+          f"the operator died (other pools {run['others']}); reserved {run['reserved_before']} "
+          f"bytes before, {run['reserved_after']} after")
 
 
 # -- the calibration phase (step 12) ------------------------------------------------

@@ -37,6 +37,8 @@ them.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -91,6 +93,24 @@ class CudaBuildError(RuntimeError):
 nvcc_runs = 0
 
 
+#: the launches this thread records instead of counting (:func:`recording_launches`)
+_RECORDING = threading.local()
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within the block (a CUDA graph's capture on this thread), a counted
+    launch adds to the yielded Counter, by wrapper, not to the wrapper's
+    ``launches``: the graph adds them at each replay, where the kernels
+    run."""
+    outer = getattr(_RECORDING, "counts", None)
+    _RECORDING.counts = counts = collections.Counter()
+    try:
+        yield counts
+    finally:
+        _RECORDING.counts = outer
+
+
 class KernelWrapper:
     """One hand-written kernel skeleton. ``launches`` counts its kernel
     launches; it grows only where a kernel is launched."""
@@ -104,7 +124,8 @@ class KernelWrapper:
         too), or none on an empty grid, or returns the CUDA error that
         refused the launch, which raises here. Returns the kernels
         launched; ``counted``: add them to ``launches`` (a launch captured
-        into a CUDA graph is counted at each replay instead)."""
+        into a CUDA graph is counted at each replay instead: ``counted``
+        False, or recorded, :func:`recording_launches`)."""
         rc = fn(*args)
         if rc == NOTHING_LAUNCHED:
             return 0
@@ -113,7 +134,11 @@ class KernelWrapper:
                 f"{self.name} kernel launch failed: CUDA error {rc}"
             )
         if counted:
-            self.launches += 1
+            recording = getattr(_RECORDING, "counts", None)
+            if recording is None:
+                self.launches += 1
+            else:
+                recording[self] += 1
         return 1
 
 
@@ -428,18 +453,23 @@ class PreparedLaunch:
         return launched
 
 
-def capture_graph(device, launches: list) -> tuple[torch.cuda.CUDAGraph, int]:
+def capture_graph(device, launches: list, pool=None,
+                  stream=None) -> tuple[torch.cuda.CUDAGraph, int]:
     """Capture ``launches``, closures called in order that each launch
     their work on the current stream (ctypes launches on that stream's
     handle) and return the kernels they launched, into one CUDA graph on a
-    side stream of ``device``. Returns the graph and the kernels one replay
+    side stream of ``device`` (``stream``; None: a new one), its memory
+    from ``pool`` (a ``torch.cuda.graph_pool_handle()``; None: a pool of
+    its own). Graphs that share a pool share its free memory only where
+    they are captured on one side stream: the caching allocator keeps each
+    stream's blocks apart. Returns the graph and the kernels one replay
     launches. A launch's own error propagates, not the capture's."""
     graph = torch.cuda.CUDAGraph()
-    stream = torch.cuda.Stream(device)
+    stream = torch.cuda.Stream(device) if stream is None else stream
     stream.wait_stream(torch.cuda.current_stream(device))
     captured = False
     with torch.cuda.device(device), torch.cuda.stream(stream):
-        graph.capture_begin(capture_error_mode="thread_local")
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
         try:
             per_replay = sum(launch() for launch in launches)
             captured = True

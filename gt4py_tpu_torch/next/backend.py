@@ -13,8 +13,11 @@ Four backends are registered:
 
 - ``torch`` (kind ``eager``), the counterpart of the JAX package's ``jax``
   and ``embedded``: the FOAST-compiled definition runs on embedded torch
-  Fields, on whatever device they live on. Its executable is the
-  specialized definition itself: there is no jit to build.
+  Fields, on whatever device they live on. Its compile step
+  (:func:`_compile_graph`, the counterpart of ``_compile_jit``) makes a
+  ``GraphExecutable``: on CPU tensors it runs eagerly; a call with card
+  tensors is captured once into a CUDA graph, the write-back into ``out``
+  included, and replayed on every warm call (next/otf.py).
 - ``cuda:hopper`` (kind ``pallas``), the counterpart of ``tpu:pallas``:
   an operator whose offsets are all cartesian goes through the cartesian
   bridge onto the port's Hopper kernels; what the bridge does not take runs
@@ -271,6 +274,20 @@ def _compile_eager(job: CompileJob) -> CompileJob:
     return job
 
 
+def _compile_graph(job: CompileJob) -> CompileJob:
+    """The ``torch`` backend's compile step, the counterpart of the JAX
+    package's ``_compile_jit``: the pinned specialized function as a
+    ``GraphExecutable``. Called, it runs eagerly, as :func:`_compile_eager`'s
+    executable does (CPU tensors: nothing is captured); the operator
+    captures a call of it with card tensors into a CUDA graph
+    (``otf.GraphCache``). An executable of another compile step is run
+    eagerly on the card, the refusal counted (``otf.REFUSED_COMPILE_STEP``)."""
+    from gt4py_tpu_torch.next.otf import GraphExecutable
+
+    job.executable = GraphExecutable(_pinned(job.fn))
+    return job
+
+
 #: the cartesian backend the ahead-of-time stages build for
 AOT_CARTESIAN = "cuda:hopper"
 
@@ -444,7 +461,7 @@ def register(backend: Backend) -> Backend:
     return backend
 
 
-register(Backend(name="torch", kind="eager"))
+register(Backend(name="torch", kind="eager", transforms=Transforms(compile=_compile_graph)))
 register(Backend(name="cuda:hopper", kind="pallas"))
 register(
     Backend(

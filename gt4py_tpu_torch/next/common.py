@@ -640,6 +640,11 @@ class Connectivity:
         self.codomain = codomain
         self.skip_value = skip_value
 
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state.pop("_gt_index", None)  # the embedded gathers' cast tables, by device
+        return state
+
     @property
     def source_dim(self) -> Dimension:
         return self.domain_dims[0]

@@ -8,9 +8,20 @@ Counterpart of gt4py_tpu/next/decorators.py (role of the reference's
 the cartesian bridge onto the port's Hopper kernels, falling back to
 embedded execution for what the bridge does not take;
 ``"cuda:hopper:aot"`` builds the bridge's variant through explicit
-trace, lower and compile stages first (next/backend.py). There is no jit:
-the JAX package's fused write-back and whole-program jit are XLA's.
-Results are written in place into the ``out`` field's tensor.
+trace, lower and compile stages first (next/backend.py). Results are
+written in place into the ``out`` field's tensor.
+
+On the ``torch`` backend a call whose tensors lie on a card is the
+counterpart of the JAX package's jitted call: its variant is captured
+once into a CUDA graph, the write-back into ``out`` included (the JAX
+package's fused write-back, gt4py_tpu/next/decorators.py:111-115), and
+every warm call is one replay (next/otf.py); a key's first call runs
+eagerly, its second captures. A scan's level loop and a program's
+operators are captured whole, the operators inside a program running
+inline, as under the JAX package's whole-program jit (a bridged
+``cuda:hopper`` operator's Hopper kernels captured with them). On CPU
+tensors, within an enclosing capture and where refused (counted by reason
+in ``otf.graphs_refused``), calls run eagerly.
 
 ``backend="numpy"`` is the oracle (gt4py_tpu/next/decorators.py:509-516,
 765-767): the raw definition runs on NumPy-backed Fields, views of the
@@ -32,6 +43,7 @@ import torch.utils._pytree as pytree
 
 from gt4py_tpu_torch.core.definitions import promote_types
 from gt4py_tpu_torch.core.ndarray_utils import torch_dtype
+from gt4py_tpu_torch.next import otf
 from gt4py_tpu_torch.next.common import Dimension, Domain, NamedRange
 from gt4py_tpu_torch.next.embedded import (
     Bf16Array,
@@ -40,9 +52,11 @@ from gt4py_tpu_torch.next.embedded import (
     _type_of,
     as_numpy_array,
     as_numpy_field,
+    current_offset_provider,
     in_numpy_mode,
     numpy_mode,
     offset_provider_context,
+    to_device,
 )
 
 
@@ -127,6 +141,7 @@ def _write_out(result: Any, out: Any, domain: Optional[Domain]) -> None:
         value = as_numpy_array(value)
         dest[...] = value.copy() if np.may_share_memory(value, dest) else value
         return
+    value = to_device(value, dest.device)
     if shares_memory(value, dest):
         value = value.clone()
     dest.copy_(value)
@@ -179,6 +194,14 @@ def _first_field(out: Any) -> Optional[Field]:
     return out if isinstance(out, Field) else None
 
 
+def _graphs(owner: Any, kind: str) -> "otf.GraphCache":
+    """The CUDA graphs of an operator, scan or program (made at first use)."""
+    graphs = owner.__dict__.get("_graphs")
+    if graphs is None:
+        graphs = owner.__dict__["_graphs"] = otf.GraphCache(kind)
+    return graphs
+
+
 def _make_domain(domain: Any):
     """``domain=`` as a Domain, or a tuple of them for tuple outputs
     (reference test_multiple_output_domains.py:
@@ -222,6 +245,7 @@ class FieldOperator:
         state.pop("_foast_cache", None)
         state.pop("_bridge_cache", None)
         state.pop("_aot_jobs", None)
+        state.pop("_graphs", None)
         return state
 
     def __setstate__(self, state):
@@ -438,16 +462,50 @@ class FieldOperator:
                         return
                     result = exec_definition(self)(*args, **kwargs)
                 elif kind == "eager":
-                    dynamic = {
-                        k: v
-                        for k, v in kwargs.items()
-                        if k not in self.options.static_params
-                    }
-                    ex = self._pool.lookup(args, kwargs, offset_provider)
-                    result = ex(*args, **dynamic)
+                    self._call_torch(args, kwargs, out, dom, offset_provider)
+                    return
                 else:
                     result = exec_definition(self)(*args, **kwargs)
                 _write_out(result, out, dom)
+
+    def _eager(self, args, kwargs, dynamic, offset_provider):
+        """The definition's result, run eagerly: by the pooled executable,
+        or with ``enable_jit=False`` by the definition itself, the pool left
+        empty (the JAX package's eager path)."""
+        if not self.options.enable_jit:
+            from gt4py_tpu_torch.next.foast import exec_definition
+
+            return exec_definition(self)(*args, **kwargs)
+        return self._pool.lookup(args, kwargs, offset_provider)(*args, **dynamic)
+
+    def _call_torch(self, args, kwargs, out, dom, offset_provider) -> None:
+        """A call on the ``torch`` backend, the counterpart of the JAX
+        package's jitted call with its fused write-back
+        (gt4py_tpu/next/decorators.py:533-565). With card tensors: one
+        replay of the CUDA graph of the call's variant key, captured at the
+        key's second call from the pooled ``GraphExecutable`` and the
+        write-back into ``out`` (its first call runs them eagerly,
+        ``otf.GraphCache.run``). On CPU tensors, inline within an
+        enclosing capture, and where refused (counted): the definition
+        eagerly, then the write-back."""
+        dynamic = {k: v for k, v in kwargs.items() if k not in self.options.static_params}
+        key, device, refusal, keeps = otf.graph_key((args, kwargs, out, dom),
+                                                    current_offset_provider())
+        if device is not None and not otf.inline(device):
+            if not self.options.enable_jit:
+                refusal = otf.REFUSED_OPTIONS
+            if refusal is None:
+                graphs = _graphs(self, "field_operator")
+                if graphs.replay(key, device):
+                    return
+                ex = self._pool.lookup(args, kwargs, offset_provider)
+                if isinstance(ex, otf.GraphExecutable):
+                    graphs.run(key, device, keeps,
+                               lambda: _write_out(ex(*args, **dynamic), out, dom))
+                    return
+                refusal = otf.REFUSED_COMPILE_STEP
+            otf.refuse(refusal)
+        _write_out(self._eager(args, kwargs, dynamic, offset_provider), out, dom)
 
     def __get__(self, obj, objtype=None):
         return self
@@ -537,6 +595,7 @@ class ScanOperator:
         state = self.__dict__.copy()
         state.pop("_foast_cache", None)  # generated functions do not pickle
         state.pop("_bridge_cache", None)
+        state.pop("_graphs", None)
         return state
 
     def __call__(
@@ -588,14 +647,27 @@ class ScanOperator:
                     return None
         with offset_provider_context(offset_provider):
             first = _first_field(out)
-            result = self._apply(
-                args, kwargs,
+            apply = functools.partial(
+                self._apply, args, kwargs,
                 out_domain=first.domain if first is not None else None,
                 device=first.device if first is not None else None,
             )
-        if out is None:
-            return result
-        _write_out(result, out, dom)
+            if out is None:
+                return apply()
+            if kind == "eager":
+                # the pooled jitted scan's counterpart (gt4py_tpu/next/
+                # decorators.py:711-741): the level loop and its write-back,
+                # one CUDA graph per variant key
+                key, device, refusal, keeps = otf.graph_key((args, kwargs, out, dom),
+                                                            current_offset_provider())
+                if device is not None and not otf.inline(device):
+                    if refusal is None:
+                        graphs = _graphs(self, "scan_operator")
+                        if not graphs.replay(key, device):
+                            graphs.run(key, device, keeps, lambda: _write_out(apply(), out, dom))
+                        return None
+                    otf.refuse(refusal)
+            _write_out(apply(), out, dom)
         return None
 
     def _aligned(self, args, out_domain: Optional[Domain], wrap: Callable):
@@ -827,8 +899,12 @@ def _validate_scan_signature(fn: Callable, init: Any) -> None:
 @dataclasses.dataclass
 class Program:
     """Declarative program: a function whose body calls field operators
-    with ``out=`` arguments (reference decorator.py:226). The body executes
-    eagerly for every backend; each operator dispatches on its own."""
+    with ``out=`` arguments (reference decorator.py:226). On the ``torch``
+    backend with card tensors the whole body is one CUDA graph, the
+    operators in it inline (the JAX package's whole-program jit,
+    gt4py_tpu/next/decorators.py:1045-1159); within ``otf.inline_calls()``
+    it runs eagerly, its operators inline. Otherwise the body executes
+    eagerly and each operator dispatches on its own."""
 
     definition: Callable
     backend: Optional[str] = "torch"
@@ -889,13 +965,32 @@ class Program:
                 exec_program(self)(*np_args, **np_kwargs)
             _write_back_bf16((args, kwargs), (np_args, np_kwargs))
             return
+        definition = exec_program(self)
         with offset_provider_context(offset_provider):
-            exec_program(self)(*args, **kwargs)
+            if backend_kind(self.backend) == "eager":
+                key, device, refusal, keeps = otf.graph_key((args, kwargs),
+                                                            current_offset_provider())
+                if device is not None and not otf.inline(device):
+                    if refusal is None:
+                        graphs = _graphs(self, "program")
+                        if not graphs.replay(key, device):
+                            graphs.run(key, device, keeps,
+                                       lambda: _run_inline(definition, args, kwargs))
+                        return
+                    otf.refuse(refusal)
+            definition(*args, **kwargs)
 
     def __getstate__(self):
         state = self.__dict__.copy()
         state.pop("_past_cache", None)  # generated functions do not pickle
+        state.pop("_graphs", None)
         return state
+
+
+def _run_inline(definition: Callable, args: tuple, kwargs: dict) -> None:
+    """A program's body with its operators inline (no graph of their own)."""
+    with otf.inline_calls():
+        definition(*args, **kwargs)
 
 
 def program(definition: Optional[Callable] = None, *, backend: str | None = "torch"):

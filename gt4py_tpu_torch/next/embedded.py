@@ -183,19 +183,46 @@ def _is_operand(value: Any) -> bool:
     return isinstance(value, (Field, torch.Tensor, np.ndarray, np.generic, int, float))
 
 
+def _one_value(t: torch.Tensor) -> bool:
+    """Whether ``t`` holds one value: one element, or one expanded."""
+    return t.numel() == 1 or (t.numel() > 0 and not any(t.stride()))
+
+
+def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``. A host tensor of one value (a broadcast scalar)
+    becomes a fill on the device, its value read on the host: no copy from
+    the host, which a CUDA graph's capture refuses (it synchronises)."""
+    if t.device == device:
+        return t
+    if t.device.type == "cpu" and _one_value(t):
+        return torch.full(t.shape, t[(0,) * t.dim()].item(), dtype=t.dtype, device=device)
+    return t.to(device)
+
+
 def _same_device(a: Any, b: Any) -> tuple:
-    """Move a one-element tensor (a broadcast scalar) to the other
-    operand's device; tensors of several elements must share one."""
+    """Move a tensor of one value (a broadcast scalar) to the other
+    operand's device, a host one first (:func:`to_device`); tensors of
+    several values must share one."""
     if (
         isinstance(a, torch.Tensor)
         and isinstance(b, torch.Tensor)
         and a.device != b.device
     ):
-        if a.numel() == 1:
-            a = a.to(b.device)
-        elif b.numel() == 1:
-            b = b.to(a.device)
+        if _one_value(a) and (a.device.type == "cpu" or not _one_value(b)):
+            a = to_device(a, b.device)
+        elif _one_value(b):
+            b = to_device(b, a.device)
     return a, b
+
+
+def scalar_tensor(v: Any, dtype: torch.dtype, device: Optional[torch.device]) -> torch.Tensor:
+    """The number ``v`` as a 0-d tensor of ``dtype`` on ``device``, converted
+    on the host as ``torch.as_tensor`` converts it (overflow to inf
+    included) and written on a card by a fill: no copy from the host."""
+    t = torch.as_tensor(v, dtype=dtype)
+    if device is None or device.type == "cpu":
+        return t
+    return torch.full((), t.item(), dtype=dtype, device=device)
 
 
 def _as_tensor(v: Any, dtype: torch.dtype, like: Any) -> torch.Tensor:
@@ -203,8 +230,7 @@ def _as_tensor(v: Any, dtype: torch.dtype, like: Any) -> torch.Tensor:
     functions that take no Python number)."""
     if isinstance(v, torch.Tensor):
         return v
-    device = like.device if isinstance(like, torch.Tensor) else None
-    return torch.as_tensor(v, dtype=dtype, device=device)
+    return scalar_tensor(v, dtype, like.device if isinstance(like, torch.Tensor) else None)
 
 
 # -- bfloat16 on NumPy --------------------------------------------------------------
@@ -293,6 +319,25 @@ def _np_weak(value: Any, weak: bool, other: Any, other_weak: bool) -> Any:
     return _np_cast(value, np.result_type(other, _stand_in(value)))
 
 
+def device_index(conn, device: torch.device) -> torch.Tensor:
+    """``conn.table`` as int64 indices on ``device``, cast once and kept on
+    the connectivity, by device, with the table it was cast from, for as
+    long as ``conn.table`` is that tensor, unmodified (its version
+    counter): a rebound or rewritten table is cast anew. A cast made while
+    a CUDA graph captures is not kept (what a capture allocates must not
+    outlive it). A CUDA graph that reads an index keeps it alive
+    (``otf.Graph``)."""
+    table = conn.table
+    cache = conn.__dict__.setdefault("_gt_index", {})
+    hit = cache.get(device)
+    if hit is not None and hit[0] is table and hit[1] == table._version:
+        return hit[2]
+    idx = table.to(device).to(torch.int64)
+    if device.type == "cpu" or not torch.cuda.is_current_stream_capturing():
+        cache[device] = (table, table._version, idx)
+    return idx
+
+
 class _TorchOps:
     """A Field's array operations on torch tensors, with the JAX package's
     promotion (:func:`_promoted`)."""
@@ -311,6 +356,9 @@ class _TorchOps:
     def select(self, cond: Any, a: Any, b: Any, wa: bool, wb: bool) -> tuple:
         """``(where(cond, a, b), weak)``, the branches promoted."""
         a, b = _same_device(a, b)
+        if isinstance(cond, torch.Tensor):
+            cond, a = _same_device(cond, a)
+            cond, b = _same_device(cond, b)
         (a, b), tdt, weak = _promoted((a, b), (wa, wb))
         like = cond if isinstance(cond, torch.Tensor) else (a if isinstance(a, torch.Tensor) else b)
         a, b = _as_tensor(a, tdt, like), _as_tensor(b, tdt, like)
@@ -326,9 +374,11 @@ class _TorchOps:
     def gather(self, arr, axis: int, idx):
         return torch.index_select(arr, axis, idx)
 
-    def index(self, table, like):
-        """A connectivity's table as indices beside ``like``."""
-        return table.to(like.device).to(torch.int64)
+    def index(self, conn, column: Optional[int], like):
+        """A connectivity's table (its ``column``-th column, a view) as int64
+        indices on ``like``'s device (:func:`device_index`)."""
+        idx = device_index(conn, like.device)
+        return idx if column is None else idx[:, column]
 
     def arange(self, n: int, like):
         return torch.arange(n, device=like.device)
@@ -355,7 +405,7 @@ class _TorchOps:
         return torch.where(cond, a, b)
 
     def scalar(self, value: Any, dtype: np.dtype, like):
-        return torch.as_tensor(value, dtype=torch_dtype(dtype), device=like.device)
+        return scalar_tensor(value, torch_dtype(dtype), like.device)
 
     def full(self, shape, value: Any, dtype, like):
         value = value.item() if isinstance(value, np.generic) else value
@@ -420,7 +470,8 @@ class _NumpyOps:
     def gather(self, arr, axis: int, idx):
         return _keep_bf16(arr, np.take(arr.view(np.ndarray), idx, axis=axis))
 
-    def index(self, table, like):
+    def index(self, conn, column: Optional[int], like):
+        table = conn.table if column is None else conn.table[:, column]
         return asnumpy(table).astype(np.int64)
 
     def arange(self, n: int, like):
@@ -853,7 +904,7 @@ class Field:
             )
         axis = self.domain.index(conn.codomain)
         ops = self.ops
-        table = ops.index(conn.table if column is None else conn.table[:, column], self.ndarray)
+        table = ops.index(conn, column, self.ndarray)
         own_start = self.domain[conn.codomain].unit_range.start
         n = self.ndarray.shape[axis]
         shape = tuple(self.ndarray.shape)

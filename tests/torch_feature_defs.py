@@ -22,6 +22,7 @@ test asserts an error to the error's class name and the pattern its
 message matches.
 """
 
+import contextlib
 import enum
 import functools
 import importlib.util
@@ -109,6 +110,75 @@ BRIDGED_ONTO = {
         "solve_triag", "where_k_offset",
     ),
 }
+
+
+#: the cases that raise nothing and whose ``torch`` run with card fields is not
+#: served by CUDA graphs (each call made twice, :func:`second_calls`), with the
+#: outcome (chip_smoke.py step 14, tests/test_torch_graph_jit.py):
+#: ``"refused: <reasons>"`` (``otf.REFUSALS``) or ``"no graph call"``; every
+#: other such case is in ``CAPTURED``
+NOT_CAPTURED = {
+    # constant folding raises ZeroDivisionError while the variant is built,
+    # which the test accepts: no call reaches a capture
+    "infinity_literal": "no graph call",
+    "nan_literal": "no graph call",
+}
+
+
+@contextlib.contextmanager
+def second_calls(otf):
+    """Within the block, the first call of each CUDA-graph variant key
+    (which runs eagerly) is made again at once, the contents of its
+    tensors put back in between: the key's second call captures, and its
+    replay is the call's result. So every graph call of a case is captured
+    while each call has the effect of one."""
+    trees: list = []
+    graph_key, run = otf.graph_key, otf.GraphCache.run
+
+    def keyed(tree, provider):
+        trees[:] = [tree]
+        return graph_key(tree, provider)
+
+    def twice(cache, key, device, keeps, body):
+        if (key, otf._stream(device).cuda_stream) in cache._graphs:
+            return run(cache, key, device, keeps, body)
+        tensors = _tensors(trees[0])
+        saved = [t.clone() for t in tensors]
+        run(cache, key, device, keeps, body)
+        for t, s in zip(tensors, saved):
+            t.copy_(s)
+        return run(cache, key, device, keeps, body)
+
+    otf.graph_key, otf.GraphCache.run = keyed, twice
+    try:
+        yield
+    finally:
+        otf.graph_key, otf.GraphCache.run = graph_key, run
+
+
+def _tensors(tree) -> list:
+    """The tensors of a call's arguments: each Field's data and mask, in
+    tuples, lists, dicts and named collections too."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if hasattr(tree, "ndarray") and hasattr(tree, "domain"):  # a Field
+        return [t for t in (tree.ndarray, tree.mask) if isinstance(t, torch.Tensor)]
+    if isinstance(tree, dict):
+        tree = tree.values()
+    elif hasattr(type(tree), "__named_collection_fields__"):
+        tree = [getattr(tree, n) for n in type(tree).__named_collection_fields__]
+    elif not isinstance(tree, (tuple, list)):
+        return []
+    return [t for x in tree for t in _tensors(x)]
+
+
+def graph_outcome(name: str) -> str:
+    """Case ``name``'s pinned outcome on ``torch`` with card fields:
+    ``"captured"`` (its calls served by graphs, none refused) or its entry
+    in ``NOT_CAPTURED``."""
+    return NOT_CAPTURED.get(name, "captured")
 
 
 def bridged_kernels(name: str) -> set:
@@ -2194,3 +2264,8 @@ def conditional_shifted(case):
     cases.verify(case, conditional_shifted, mask, a, b, out=out,
                  ref=np.where(mask.asnumpy(), a.asnumpy(), b.asnumpy())[1:])
     return out
+
+
+#: the cases whose every ``torch`` call with card fields is one CUDA graph
+#: replay (captured at its first call)
+CAPTURED = tuple(n for n in CASES if n not in RAISES and n not in NOT_CAPTURED)

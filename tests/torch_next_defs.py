@@ -212,6 +212,12 @@ def lap_twice_hopper(phi, tmp, out):
     lap_hopper(tmp, out=out)
 
 
+@gtx.program
+def lap_twice_mixed(phi, tmp, out):
+    lap_hopper(phi, out=tmp)
+    lap(tmp, out=out)
+
+
 # --- the call-overhead operators (benchmarks/benchmark_program_call.py:73-120) ---
 
 CallI = Dimension("I")
