@@ -62,6 +62,7 @@ from gt4py_tpu_torch.cartesian.backend.cuda_codegen import (
 from gt4py_tpu_torch.cartesian.backend.torch_backend import call_device, run_plain
 from gt4py_tpu_torch.cartesian.definitions import AccessKind
 from gt4py_tpu_torch.core.ndarray_utils import numpy_dtype, torch_dtype
+from gt4py_tpu_torch.instrumentation.spans import NO_SPAN, Span, span
 
 #: ``--fmad=false`` keeps a*b+c as a rounded product and a rounded sum, as
 #: the eager plain version computes it (the role of -ffp-contract=off in
@@ -180,39 +181,42 @@ def _paths(source: str) -> tuple[str, str, str]:
 def build_libraries(sources) -> None:
     """Compile every source whose library is not on disk yet: one ``nvcc``
     per source, all started together, so a cold start waits for the
-    slowest build rather than for their sum."""
+    slowest build rather than for their sum. A build span
+    (``gt4py.build.nvcc``, attribute ``nvcc_runs``: the processes started)."""
     global nvcc_runs
     started = []
-    try:
-        for source in dict.fromkeys(sources):
-            _, so_path, cu_path = _paths(source)
-            if os.path.isfile(so_path):
-                continue
-            tmp = so_path + f".tmp{os.getpid()}"
-            with open(cu_path, "w") as f:
-                f.write(source)
-            log = open(cu_path + ".log", "w+")
-            nvcc_runs += 1
-            started.append(
-                (subprocess.Popen(build_command(cu_path, tmp), stdout=log, stderr=log),
-                 log, cu_path, tmp, so_path)
-            )
-    except OSError as exc:
-        raise CudaBuildError(f"nvcc unavailable: {exc}") from exc
-    finally:
-        failures = []
-        for proc, log, cu_path, tmp, so_path in started:
-            try:
-                rc = proc.wait(timeout=600)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                rc = "timeout"
-            log.seek(0)
-            if rc == 0:
-                os.replace(tmp, so_path)
-            else:
-                failures.append(f"nvcc failed ({rc}) for {cu_path}:\n{log.read()}")
-            log.close()
+    with Span("gt4py.build.nvcc", always=True) as build_span:
+        try:
+            for source in dict.fromkeys(sources):
+                _, so_path, cu_path = _paths(source)
+                if os.path.isfile(so_path):
+                    continue
+                tmp = so_path + f".tmp{os.getpid()}"
+                with open(cu_path, "w") as f:
+                    f.write(source)
+                log = open(cu_path + ".log", "w+")
+                nvcc_runs += 1
+                started.append(
+                    (subprocess.Popen(build_command(cu_path, tmp), stdout=log, stderr=log),
+                     log, cu_path, tmp, so_path)
+                )
+        except OSError as exc:
+            raise CudaBuildError(f"nvcc unavailable: {exc}") from exc
+        finally:
+            build_span.set("nvcc_runs", len(started))
+            failures = []
+            for proc, log, cu_path, tmp, so_path in started:
+                try:
+                    rc = proc.wait(timeout=600)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    rc = "timeout"
+                log.seek(0)
+                if rc == 0:
+                    os.replace(tmp, so_path)
+                else:
+                    failures.append(f"nvcc failed ({rc}) for {cu_path}:\n{log.read()}")
+                log.close()
     if failures:
         raise CudaBuildError("\n".join(failures))
 
@@ -225,7 +229,8 @@ def load_library(source: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         build_libraries([source])
-        lib = ctypes.CDLL(so_path)
+        with Span("gt4py.build.load", always=True):
+            lib = ctypes.CDLL(so_path)
         _LIB_CACHE[key] = lib
         return lib
 
@@ -429,26 +434,29 @@ class PreparedLaunch:
         """Launch once on ``arrays`` (the buffers this launch was prepared
         for); returns the kernels launched. ``counted``: add them to the
         kernel's wrapper (a graph capture counts at its replays instead)."""
-        for name, kind, slot in self.scalar_slots:
-            value = scalars.get(name)
-            if value is None:
-                continue
-            if kind == "f":
-                self.fsc[slot] = float(value)
-            else:
-                self.isc[slot] = int(np.asarray(value))
-        launched = 0
-        with torch.cuda.device(self.device):
-            stream = ctypes.c_void_p(torch.cuda.current_stream(self.device).cuda_stream)
-            args = (self.ptrs, self.shapes, self.strides, self.orig, self.fsc, self.isc,
-                    *self.sizes, stream, self.noalias)
-            for buf in self.fills:
-                buf.zero_()
-            for fn, cooperative, name in self.fns:
-                for snap, field in self.snapshots.get(name, ()):
-                    snap.copy_(arrays[field])
-                extra = (self.flags.data_ptr(),) if cooperative else ()
-                launched += self.wrapper.launch(fn, args + extra, counted)
+        # a launch outside a capture (which launches nothing) is a span
+        with (span("gt4py.backend.launch") if counted else NO_SPAN) as launch_span:
+            for name, kind, slot in self.scalar_slots:
+                value = scalars.get(name)
+                if value is None:
+                    continue
+                if kind == "f":
+                    self.fsc[slot] = float(value)
+                else:
+                    self.isc[slot] = int(np.asarray(value))
+            launched = 0
+            with torch.cuda.device(self.device):
+                stream = ctypes.c_void_p(torch.cuda.current_stream(self.device).cuda_stream)
+                args = (self.ptrs, self.shapes, self.strides, self.orig, self.fsc, self.isc,
+                        *self.sizes, stream, self.noalias)
+                for buf in self.fills:
+                    buf.zero_()
+                for fn, cooperative, name in self.fns:
+                    for snap, field in self.snapshots.get(name, ()):
+                        snap.copy_(arrays[field])
+                    extra = (self.flags.data_ptr(),) if cooperative else ()
+                    launched += self.wrapper.launch(fn, args + extra, counted)
+            launch_span.set("launches", launched)
         self.ran = True
         return launched
 
@@ -468,7 +476,8 @@ def capture_graph(device, launches: list, pool=None,
     stream = torch.cuda.Stream(device) if stream is None else stream
     stream.wait_stream(torch.cuda.current_stream(device))
     captured = False
-    with torch.cuda.device(device), torch.cuda.stream(stream):
+    with span("gt4py.backend.capture") as capture_span, torch.cuda.device(device), \
+            torch.cuda.stream(stream):
         graph.capture_begin(pool=pool, capture_error_mode="thread_local")
         try:
             per_replay = sum(launch() for launch in launches)
@@ -479,6 +488,7 @@ def capture_graph(device, launches: list, pool=None,
             except RuntimeError:
                 if captured:
                     raise  # else the launch's own error propagates
+        capture_span.set("launches", per_replay)
     return graph, per_replay
 
 
@@ -499,7 +509,9 @@ class ChainGraph:
         ])
 
     def replay(self, times: int) -> None:
-        with torch.cuda.device(self.device):
+        with span("gt4py.backend.replay") as replay_span, torch.cuda.device(self.device):
+            replay_span.set("replays", times)
+            replay_span.set("launches", self.per_replay * times)
             for _ in range(times):
                 self.graph.replay()
         self.wrapper.launches += self.per_replay * times
@@ -558,12 +570,13 @@ class CudaHopperBackend(Backend):
         return self._run(arrays, scalars, domain, origins, cache_key)
 
     def _run(self, arrays, scalars, domain, origins, cache_key) -> dict[str, Any]:
-        if not self._on_card(arrays):
-            self.last_strategy = "plain"
-            return run_plain(self.analyzed, arrays, scalars, domain, origins)
-        self.prepared(arrays, domain, origins, cache_key)(arrays, scalars)
-        self.last_strategy = self.module.strategy
-        return {n: arrays[n] for n in self.written if n in arrays}
+        with span("gt4py.backend.run"):
+            if not self._on_card(arrays):
+                self.last_strategy = "plain"
+                return run_plain(self.analyzed, arrays, scalars, domain, origins)
+            self.prepared(arrays, domain, origins, cache_key)(arrays, scalars)
+            self.last_strategy = self.module.strategy
+            return {n: arrays[n] for n in self.written if n in arrays}
 
     def _on_card(self, arrays) -> bool:
         """True for CUDA tensors, which the kernels serve or the stencil
@@ -588,31 +601,34 @@ class CudaHopperBackend(Backend):
         lagged sweeps' cooperative launch and its ``cudaMemsetAsync`` are
         captured too (CUDA 12 on the H100). CPU tensors: the plain version,
         step by step."""
-        if not self._on_card(own):
-            return super().run_steps(own, plan, scalars, domain, origins, n_steps)
-        cycle = len(plan)
-        states = [{r: own[a[r]] for r in own} for a in plan]
-        chain = self._chain(own, plan, states, domain, origins, cache_key)
-        launches = chain.launches
-        self.last_strategy = self.module.strategy
-        step = replays = 0
-        values = tuple(sorted((n, np.asarray(v).item()) for n, v in scalars.items()))
-        graph = chain.graphs.get(values)
-        if graph is None:
-            if not all(launch.ran for launch in launches):
-                while step < min(n_steps, cycle):
-                    launches[step](states[step], scalars)
-                    step += 1
-            if n_steps - step >= cycle:
-                graph = ChainGraph(launches, states, scalars)
-                _bounded_put(chain.graphs, values, graph)
-        if graph is not None:
-            replays = (n_steps - step) // cycle
-            graph.replay(replays)
-            step += replays * cycle
-        for s in range(step, n_steps):
-            launches[s % cycle](states[s % cycle], scalars)
-        self.last_chain_mode = "graph" if replays else "launches"
+        with span("gt4py.backend.run_steps") as backend_span:
+            backend_span.set("captured", 0)
+            if not self._on_card(own):
+                return super().run_steps(own, plan, scalars, domain, origins, n_steps)
+            cycle = len(plan)
+            states = [{r: own[a[r]] for r in own} for a in plan]
+            chain = self._chain(own, plan, states, domain, origins, cache_key)
+            launches = chain.launches
+            self.last_strategy = self.module.strategy
+            step = replays = 0
+            values = tuple(sorted((n, np.asarray(v).item()) for n, v in scalars.items()))
+            graph = chain.graphs.get(values)
+            if graph is None:
+                if not all(launch.ran for launch in launches):
+                    while step < min(n_steps, cycle):
+                        launches[step](states[step], scalars)
+                        step += 1
+                if n_steps - step >= cycle:
+                    graph = ChainGraph(launches, states, scalars)
+                    backend_span.set("captured", 1)
+                    _bounded_put(chain.graphs, values, graph)
+            if graph is not None:
+                replays = (n_steps - step) // cycle
+                graph.replay(replays)
+                step += replays * cycle
+            for s in range(step, n_steps):
+                launches[s % cycle](states[s % cycle], scalars)
+            self.last_chain_mode = "graph" if replays else "launches"
 
     def _chain(self, own, plan, states, domain, origins, cache_key) -> Chain:
         """The cached :class:`Chain` of these buffers and swap cycle."""

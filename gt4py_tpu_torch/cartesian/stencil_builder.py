@@ -22,6 +22,7 @@ import time
 from typing import Any, Callable, Optional
 
 from gt4py_tpu_torch.cartesian.caching import stencil_fingerprint
+from gt4py_tpu_torch.instrumentation.spans import Span
 
 
 _MEMO: dict[str, Any] = {}  # fingerprint -> StencilObject (in-process)
@@ -68,6 +69,9 @@ class StencilBuilder:
         self._analyzed = None
         self._backend_obj = None
         self._fingerprint: Optional[str] = None
+        #: the build spans of the front end and the code generator
+        self._front_end: Optional[Span] = None
+        self._codegen: Optional[Span] = None
 
     # -- chainable setters -------------------------------------------------
 
@@ -108,7 +112,9 @@ class StencilBuilder:
         if self._analyzed is None:
             from gt4py_tpu_torch.cartesian.passes import analyze
 
-            self._analyzed = analyze(self.definition, self.options)
+            with Span("gt4py.build.front_end", always=True, stencil=self.name) as phase:
+                self._analyzed = analyze(self.definition, self.options)
+            self._front_end = phase
         return self._analyzed
 
     @property
@@ -120,8 +126,16 @@ class StencilBuilder:
     @property
     def backend_obj(self):
         if self._backend_obj is None:
-            self._backend_obj = self.backend_cls(self.gtir, self.options)
+            analyzed = self.gtir
+            # the backend generates its code (cuda:hopper: cuda_codegen.generate)
+            with Span("gt4py.build.codegen", always=True, stencil=self.name) as phase:
+                self._backend_obj = self.backend_cls(analyzed, self.options)
+            self._codegen = phase
         return self._backend_obj
+
+    @property
+    def name(self) -> str:
+        return getattr(self.definition, "__name__", "<stencil>")
 
     # -- build-data record (reference build_data / backend caching) --------
 
@@ -137,7 +151,7 @@ class StencilBuilder:
     def _record_build(self, *, parse_time: float, module_time: float) -> None:
         record = {
             "status": "done",
-            "name": getattr(self.definition, "__name__", "<stencil>"),
+            "name": self.name,
             "backend": self.options.get("backend"),
             "fingerprint": self.stencil_id,
             "parse_time": parse_time,
@@ -183,22 +197,22 @@ class StencilBuilder:
             )
 
         analyzed = self.gtir
-        parse_done = time.perf_counter()
-
         backend = self.backend_obj
         strategy = getattr(backend, "last_strategy", None)
         if strategy is not None:
             self.with_backend_data(kernel_strategy=strategy)
         obj = StencilObject(analyzed, backend, self.options, self.definition)
-        module_done = time.perf_counter()
+        module_done = time.perf_counter_ns()
 
+        # from the build spans: the front end, the code generator, and the
+        # module (the code generator and the StencilObject's assembly)
+        parse_time = self._front_end.seconds
+        module_time = (module_done - self._codegen.start) / 1e9
         if build_info is not None:
-            build_info["parse_time"] = parse_done - start
-            build_info["module_time"] = module_done - parse_done
-            build_info["codegen_time"] = 0.0
+            build_info["parse_time"] = parse_time
+            build_info["module_time"] = module_time
+            build_info["codegen_time"] = self._codegen.seconds
 
-        self._record_build(
-            parse_time=parse_done - start, module_time=module_done - parse_done
-        )
+        self._record_build(parse_time=parse_time, module_time=module_time)
         _MEMO[self.stencil_id] = obj
         return obj

@@ -28,6 +28,7 @@ from gt4py_tpu_torch.cartesian.backend.base import as_tensor
 from gt4py_tpu_torch.cartesian.definitions import AccessKind, FieldInfo
 from gt4py_tpu_torch.core.definitions import bfloat16
 from gt4py_tpu_torch.core.ndarray_utils import numpy_dtype
+from gt4py_tpu_torch.instrumentation.spans import span
 from gt4py_tpu_torch.storage.storage import Storage
 
 
@@ -373,44 +374,46 @@ class StencilObject:
         validate_args: bool = True,
         exec_info: Optional[dict] = None,
     ) -> None:
-        if exec_info is not None:
-            exec_info["call_run_start_time"] = time.perf_counter()
+        # the call's root span: the stencil_call hooks and the "compute" metric
+        with span("gt4py.call", source=self.name, metric="compute", hook=self):
+            if exec_info is not None:
+                exec_info["call_run_start_time"] = time.perf_counter()
 
-        arg_infos = {
-            name: (_arg_info(v) if v is not None else None)
-            for name, v in field_args.items()
-        }
-        used_infos = {
-            n: i
-            for n, i in arg_infos.items()
-            if self.field_info[n].access != AccessKind.NONE and i is not None
-        }
+            arg_infos = {
+                name: (_arg_info(v) if v is not None else None)
+                for name, v in field_args.items()
+            }
+            used_infos = {
+                n: i
+                for n, i in arg_infos.items()
+                if self.field_info[n].access != AccessKind.NONE and i is not None
+            }
 
-        key = self._call_key(used_infos, param_args, origin, domain)
-        cached = self._validation_cache.get(key) if key is not None else None
-        if cached is not None:
-            origins, domain_t = cached
-        else:
-            origins = self._normalize_origins(used_infos, origin)
-            domain_t = (
-                self._get_max_domain(used_infos, origins)
-                if domain is None
-                else domain
+            key = self._call_key(used_infos, param_args, origin, domain)
+            cached = self._validation_cache.get(key) if key is not None else None
+            if cached is not None:
+                origins, domain_t = cached
+            else:
+                origins = self._normalize_origins(used_infos, origin)
+                domain_t = (
+                    self._get_max_domain(used_infos, origins)
+                    if domain is None
+                    else domain
+                )
+                domain_t = tuple(int(d) for d in domain_t)
+                if validate_args:
+                    self._validate_args(used_infos, param_args, domain_t, origins)
+                    if key is not None:
+                        if len(self._validation_cache) >= 64:
+                            self._validation_cache.clear()
+                        self._validation_cache[key] = (origins, domain_t)
+
+            self._run_backend(
+                used_infos, param_args, domain_t, origins, exec_info, cache_key=key
             )
-            domain_t = tuple(int(d) for d in domain_t)
-            if validate_args:
-                self._validate_args(used_infos, param_args, domain_t, origins)
-                if key is not None:
-                    if len(self._validation_cache) >= 64:
-                        self._validation_cache.clear()
-                    self._validation_cache[key] = (origins, domain_t)
 
-        self._run_backend(
-            used_infos, param_args, domain_t, origins, exec_info, cache_key=key
-        )
-
-        if exec_info is not None:
-            exec_info["call_run_end_time"] = time.perf_counter()
+            if exec_info is not None:
+                exec_info["call_run_end_time"] = time.perf_counter()
 
     @staticmethod
     def _call_key(used_infos, param_args, origin, domain):
@@ -465,22 +468,11 @@ class StencilObject:
             scalars[name] = _scalar(value, pinfo.dtype)
         origins3 = self._origins3(used_infos, origins)
 
-        from gt4py_tpu_torch.instrumentation import MetricsCollector, metrics_level
-        from gt4py_tpu_torch.instrumentation.hooks import stencil_call
-
         if exec_info is not None:
             exec_info["run_start_time"] = time.perf_counter()
-        # Hot path: with no registered call hooks and metrics off (the
-        # defaults), skip both context managers entirely (~8 us/call).
-        if not stencil_call.factories and not metrics_level():
-            results = self._backend.run_from_infos(
-                used_infos, scalars, domain, origins3, cache_key=cache_key
-            )
-        else:
-            with stencil_call.wrap(self), MetricsCollector(self.name, "compute"):
-                results = self._backend.run_from_infos(
-                    used_infos, scalars, domain, origins3, cache_key=cache_key
-                )
+        results = self._backend.run_from_infos(
+            used_infos, scalars, domain, origins3, cache_key=cache_key
+        )
         if exec_info is not None:
             exec_info["run_end_time"] = time.perf_counter()
             exec_info["kernel_strategy"] = self._backend.last_strategy
@@ -554,60 +546,63 @@ class StencilObject:
         Scalar parameters are fixed across steps. Reference analog:
         ``FrozenStencil`` (stencil_object.py:95) removes validation from
         each call; ``chain`` removes the calls themselves."""
-        if exec_info is not None:
-            exec_info["call_start_time"] = time.perf_counter()
-        n_steps = int(n_steps)
-        if n_steps < 0:
-            raise ValueError(f"n_steps must be >= 0, got {n_steps}")
-        swap = dict(swap or {})
-        field_args, param_args = self._bind_arguments(args, kwargs)
+        # the chain's root span: the runtime's share of the call is its self time
+        with span("gt4py.chain", source=self.name, metric="chain") as call_span:
+            if exec_info is not None:
+                exec_info["call_start_time"] = time.perf_counter()
+            n_steps = int(n_steps)
+            call_span.set("steps", n_steps)
+            if n_steps < 0:
+                raise ValueError(f"n_steps must be >= 0, got {n_steps}")
+            swap = dict(swap or {})
+            field_args, param_args = self._bind_arguments(args, kwargs)
 
-        arg_infos = {
-            name: (_arg_info(v) if v is not None else None)
-            for name, v in field_args.items()
-        }
-        used_infos = {
-            n: i
-            for n, i in arg_infos.items()
-            if self.field_info[n].access != AccessKind.NONE and i is not None
-        }
-        # The call key and the swap find a validated chain's origins and
-        # domain, as __call__'s validation cache does.
-        key = self._call_key(used_infos, param_args, origin, domain)
-        if key is not None:
-            key = (key, tuple(sorted(swap.items())))
-        cached = self._chain_cache.get(key) if key is not None else None
-        if cached is not None:
-            origins3, domain_t = cached
-        else:
-            origins3, domain_t = self._check_chain(
-                used_infos, param_args, origin, domain, swap, validate_args
+            arg_infos = {
+                name: (_arg_info(v) if v is not None else None)
+                for name, v in field_args.items()
+            }
+            used_infos = {
+                n: i
+                for n, i in arg_infos.items()
+                if self.field_info[n].access != AccessKind.NONE and i is not None
+            }
+            # The call key and the swap find a validated chain's origins and
+            # domain, as __call__'s validation cache does.
+            key = self._call_key(used_infos, param_args, origin, domain)
+            if key is not None:
+                key = (key, tuple(sorted(swap.items())))
+            cached = self._chain_cache.get(key) if key is not None else None
+            if cached is not None:
+                origins3, domain_t = cached
+            else:
+                origins3, domain_t = self._check_chain(
+                    used_infos, param_args, origin, domain, swap, validate_args
+                )
+                if validate_args and key is not None:
+                    if len(self._chain_cache) >= 64:
+                        self._chain_cache.clear()
+                    self._chain_cache[key] = (origins3, domain_t)
+
+            scalars = {}
+            for name, pinfo in self.parameter_info.items():
+                if pinfo.access == AccessKind.NONE:
+                    continue
+                scalars[name] = _scalar(param_args.get(name), pinfo.dtype)
+
+            if n_steps == 0:
+                return
+            if exec_info is not None:
+                exec_info["run_start_time"] = time.perf_counter()
+            results = self._backend.run_chained_from_infos(
+                used_infos, scalars, domain_t, origins3, n_steps, swap, cache_key=key
             )
-            if validate_args and key is not None:
-                if len(self._chain_cache) >= 64:
-                    self._chain_cache.clear()
-                self._chain_cache[key] = (origins3, domain_t)
-
-        scalars = {}
-        for name, pinfo in self.parameter_info.items():
-            if pinfo.access == AccessKind.NONE:
-                continue
-            scalars[name] = _scalar(param_args.get(name), pinfo.dtype)
-
-        if n_steps == 0:
-            return
-        if exec_info is not None:
-            exec_info["run_start_time"] = time.perf_counter()
-        results = self._backend.run_chained_from_infos(
-            used_infos, scalars, domain_t, origins3, n_steps, swap, cache_key=key
-        )
-        if exec_info is not None:
-            exec_info["run_end_time"] = time.perf_counter()
-            exec_info["kernel_strategy"] = self._backend.last_strategy
-            exec_info["chain_mode"] = self._backend.last_chain_mode
-        self._write_back(results, used_infos)
-        if exec_info is not None:
-            exec_info["call_run_end_time"] = time.perf_counter()
+            if exec_info is not None:
+                exec_info["run_end_time"] = time.perf_counter()
+                exec_info["kernel_strategy"] = self._backend.last_strategy
+                exec_info["chain_mode"] = self._backend.last_chain_mode
+            self._write_back(results, used_infos)
+            if exec_info is not None:
+                exec_info["call_run_end_time"] = time.perf_counter()
 
     def _check_chain(self, used_infos, param_args, origin, domain, swap, validate_args):
         """A chain's origins over (I, J, K) and domain, its arguments

@@ -3,8 +3,12 @@
 Copied from gt4py_tpu/config.py; imports renamed. Only the settings that
 the port reads are kept: the build and cache settings, and the debug
 flags that ``next/errors.py`` reads. The JAX package's JIT and Pallas
-switches have no counterpart. Values are read once at import; tests may
-monkeypatch module attributes directly.
+switches have no counterpart, nor has its trace-marker switch
+(``GT4PY_ADD_TPU_TRACE_MARKERS``): the port's spans
+(instrumentation/spans.py) are switched by ``torch.profiler`` itself,
+recorded in a profile and NVTX ranges under
+``torch.autograd.profiler.emit_nvtx``. Values are read once at import;
+tests may monkeypatch module attributes directly.
 
 Environment variables honored (reference names kept where meaningful):
 
@@ -14,7 +18,8 @@ Environment variables honored (reference names kept where meaningful):
 - ``GT4PY_DEBUG``             verbose exceptions + debug artifacts
 - ``GT4PY_VERBOSE_EXCEPTIONS``
 - ``GT4PY_BUILD_CACHE_LIFETIME``  ``session`` | ``persistent``
-- ``GT4PY_COLLECT_METRICS_LEVEL`` (instrumentation/metrics.py)
+- ``GT4PY_COLLECT_METRICS_LEVEL`` (instrumentation/metrics.py): spans feed
+                              the metrics at this level or above
 - ``GT4PY_DUMP_METRICS_AT_EXIT``
 - ``GT4PY_CUDA_FUSE_STAGES``  ``1`` runs every vertical loop of a sequential
                               stencil of K4's class in one ``fused_column``
@@ -23,10 +28,6 @@ Environment variables honored (reference names kept where meaningful):
                               (pallas_seq.py:302-312). Read when a stencil is
                               built (:func:`fuse_stages`), and part of its
                               fingerprint.
-- ``GT4PY_ADD_GPU_TRACE_MARKERS``  ``1`` makes ``instrumentation.named_scope``
-                              open NVTX and ``record_function`` ranges
-                              (default off: a no-op); the JAX package's
-                              ``GT4PY_ADD_TPU_TRACE_MARKERS``
 - ``GT4PY_GPU_TRACE_DIR``     where ``instrumentation.gpu_trace`` writes its
                               Chrome traces (default ``<CACHE_ROOT>/traces``)
 """
@@ -73,10 +74,6 @@ CACHE_ROOT: str = os.path.join(
 
 #: Per-project cache directory name (reference GT_CACHE_DIR_NAME).
 CACHE_DIR_NAME: str = os.environ.get("GT_CACHE_DIR_NAME", "gt4py_tpu_torch")
-
-#: NVTX/record_function ranges of instrumentation.named_scope (reference
-#: GT4PY_ADD_GPU_TRACE_MARKERS, next/config.py:150).
-ADD_GPU_TRACE_MARKERS: bool = env_flag_to_bool("GT4PY_ADD_GPU_TRACE_MARKERS", False)
 
 #: Directory of instrumentation.gpu_trace's Chrome traces.
 GPU_TRACE_DIR: str = os.environ.get("GT4PY_GPU_TRACE_DIR", os.path.join(CACHE_ROOT, "traces"))

@@ -1,8 +1,11 @@
 """Hook machinery: extensible event and context hooks around program calls
+(reference: src/gt4py/next/instrumentation/hook_machinery.py:54,153,167).
 
-Copied from gt4py_tpu/instrumentation/hooks.py; imports renamed.
-and compile events (reference:
-src/gt4py/next/instrumentation/hook_machinery.py:54,153,167).
+Copied from gt4py_tpu/instrumentation/hooks.py; imports renamed. The JAX
+package's compile events (``stencil_compile_start``/``_end``), which
+nothing fires, are left out: the build's phases are spans (spans.py).
+``stencil_call`` wraps each call of a stencil or field operator: the
+runtime's root span runs its hooks (``hook=``).
 """
 
 from __future__ import annotations
@@ -74,8 +77,5 @@ def register_context_hook(name: str):
     return context_hook(name).register
 
 
-# Standard hook points (reference: ffront/decorator.py:62-83,
-# otf/compiled_program.py:89-162).
-stencil_compile_start = event_hook("stencil_compile_start")
-stencil_compile_end = event_hook("stencil_compile_end")
+# Standard hook point (reference: ffront/decorator.py:62-83).
 stencil_call = context_hook("stencil_call")

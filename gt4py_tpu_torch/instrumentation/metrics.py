@@ -5,8 +5,9 @@ Copied from gt4py_tpu/instrumentation/metrics.py; imports renamed.
 Same design as the reference's ``gt4py.next.instrumentation.metrics``
 (src/gt4py/next/instrumentation/metrics.py:46-50,70,240,351):
 collection levels (DISABLED/PERFORMANCE/INFO/VERBOSE), a ``Metric`` sample
-model keyed by (program, metric name), collector context managers, and
-table/JSON dumps at exit. Env vars: ``GT4PY_COLLECT_METRICS_LEVEL`` (int),
+model keyed by (program, metric name), and table/JSON dumps at exit. The
+samples come from spans (spans.py: ``MetricsCollector``, and the port's own
+spans, each feeding the metric it names). Env vars: ``GT4PY_COLLECT_METRICS_LEVEL`` (int),
 ``GT4PY_DUMP_METRICS_AT_EXIT`` ("table"/"json:<path>").
 """
 
@@ -17,8 +18,6 @@ import enum
 import json
 import os
 import statistics
-import time
-from contextlib import contextmanager
 from typing import Optional
 
 
@@ -90,37 +89,6 @@ def get_metric(source: str, name: str) -> Metric:
 
 def all_metrics() -> list[Metric]:
     return list(_metrics.values())
-
-
-class MetricsCollector:
-    """Context manager recording wall time of a block
-    (reference metrics.py:240)."""
-
-    def __init__(
-        self,
-        source: str,
-        name: str,
-        level: MetricCollectionLevel = MetricCollectionLevel.PERFORMANCE,
-    ):
-        self.metric = get_metric(source, name)
-        self.level = level
-        self._start: Optional[float] = None
-
-    def __enter__(self):
-        if _level >= self.level:
-            self._start = time.perf_counter()
-        return self
-
-    def __exit__(self, *args):
-        if self._start is not None:
-            self.metric.add(time.perf_counter() - self._start)
-        return False
-
-
-@contextmanager
-def collect_metrics(source: str, name: str, level=MetricCollectionLevel.PERFORMANCE):
-    with MetricsCollector(source, name, level):
-        yield
 
 
 def dump_metrics_table() -> str:

@@ -5,13 +5,14 @@ package ``jax.profiler`` traces and ``jax.named_scope`` annotations; here,
 as in the reference's GPU profiler (CUDA events + NVTX ranges,
 src/gt4py/next/instrumentation/gpu_profiler.py:48-233), the trace is
 ``torch.profiler``'s (CUPTI: host calls, CUDA runtime calls and device
-kernels on one timeline) and a scope is an NVTX range plus a
-``record_function`` range.
+kernels on one timeline) and a scope is a span (spans.py): a
+``record_function`` range while a profile records, an NVTX range under
+``torch.autograd.profiler.emit_nvtx``.
 
-- :func:`named_scope` annotates the enclosed work in traces; it is a no-op
-  unless ``GT4PY_ADD_GPU_TRACE_MARKERS`` is on (config.py; the JAX
-  package's switch is ``GT4PY_ADD_TPU_TRACE_MARKERS``). Like the JAX
-  package, the port places no scope in its own runtime.
+- :func:`named_scope` (spans.py) annotates the enclosed work in traces; the
+  profiler's own state switches it, where the JAX package reads
+  ``GT4PY_ADD_TPU_TRACE_MARKERS``. Unlike the JAX package, the port's
+  runtime, backend and build open spans of their own (``gt4py.*``).
 - :func:`gpu_trace` captures a trace of the enclosed block and writes it as
   a Chrome trace (``chrome://tracing``, Perfetto) into ``log_dir``
   (default ``GT4PY_GPU_TRACE_DIR``, else ``<GT_CACHE_ROOT>/torch/traces``).
@@ -30,23 +31,6 @@ import time
 from typing import Iterator, Optional, Sequence, Union
 
 from gt4py_tpu_torch import config
-
-
-@contextlib.contextmanager
-def named_scope(name: str) -> Iterator[None]:
-    """Annotate the enclosed work in profiler traces (an NVTX range where
-    there is a card, and a ``record_function`` range); a no-op unless
-    trace markers are on."""
-    if not config.ADD_GPU_TRACE_MARKERS:
-        yield
-        return
-    import torch
-
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(torch.profiler.record_function(name))
-        if torch.cuda.is_available():
-            stack.enter_context(torch.cuda.nvtx.range(name))
-        yield
 
 
 @contextlib.contextmanager

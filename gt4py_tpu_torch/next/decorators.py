@@ -432,15 +432,15 @@ class FieldOperator:
             op_name = getattr(self.definition, "__name__", "field_operator")
             check_call_args(self.type_info, args, kwargs, name=op_name)
             check_out_arg(self.type_info, out, name=op_name)
-        from gt4py_tpu_torch.instrumentation.hooks import stencil_call
-        from gt4py_tpu_torch.instrumentation.metrics import MetricsCollector
+        from gt4py_tpu_torch.instrumentation.spans import span
         from gt4py_tpu_torch.next.backend import backend_kind
 
         dom = _make_domain(domain)
         name = getattr(self.definition, "__name__", "field_operator")
-        # Hook point + leveled metrics around the program call (reference
-        # ffront/decorator.py:62-83, instrumentation/metrics.py:240).
-        with stencil_call.wrap(name), MetricsCollector(name, "total"):
+        # The call's root span: the stencil_call hooks and the leveled
+        # "total" metric (reference ffront/decorator.py:62-83,
+        # instrumentation/metrics.py:240).
+        with span("gt4py.next.call", source=name, metric="total", hook=name):
             with offset_provider_context(offset_provider):
                 kind = backend_kind(self.backend)
                 if kind == "numpy" or in_numpy_mode():

@@ -540,27 +540,36 @@ def test_cache_manager_lists_and_cleans_the_c_cache(tmp_path, monkeypatch):
     assert cache_manager.cache_info(root)["subsystems"] == {}
 
 
-def test_profiler_host_trace(tmp_path, monkeypatch):
+def test_profiler_host_trace(tmp_path):
     """``gpu_trace(activities="cpu")`` traces the host only and writes a
-    Chrome trace; ``named_scope`` shows in it once markers are on."""
-    from gt4py_tpu_torch import config
-    from gt4py_tpu_torch.instrumentation import gpu_trace, named_scope
+    Chrome trace; ``named_scope`` and the runtime's own span show in it.
+    Outside a profile nothing is recorded: ``named_scope`` is the shared
+    no-op and the call keeps no span."""
+    from gt4py_tpu_torch.instrumentation import (
+        NO_SPAN,
+        clear_spans,
+        gpu_trace,
+        named_scope,
+        spans,
+    )
 
     st = gtscript.stencil(backend="numpy", definition=_plus1)
     a, b = np.zeros((2, 2, 2)), np.zeros((2, 2, 2))
-    monkeypatch.setattr(config, "ADD_GPU_TRACE_MARKERS", True)
     with gpu_trace(str(tmp_path), activities="cpu") as prof:
         with named_scope("gt4py_numpy_call"):
             st(inp=a, out=b)
     assert os.path.dirname(prof.trace_path) == str(tmp_path)
     with open(prof.trace_path) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert "gt4py_numpy_call" in names
+    assert {"gt4py_numpy_call", "gt4py.call"} <= names
     np.testing.assert_array_equal(b, 1.0)
-    monkeypatch.setattr(config, "ADD_GPU_TRACE_MARKERS", False)
+    clear_spans()
+    with named_scope("unmarked") as scope:
+        st(inp=a, out=b)
+    assert scope is NO_SPAN
+    assert spans() == []
     with gpu_trace(str(tmp_path / "off"), activities="cpu") as prof:
-        with named_scope("unmarked"):
-            st(inp=a, out=b)
+        pass
     with open(prof.trace_path) as f:
         assert "unmarked" not in {e.get("name") for e in json.load(f)["traceEvents"]}
 
