@@ -21,7 +21,10 @@ swap cycle of the kernels as a CUDA graph.
 2. For each path: sets the launch counts to 0, runs the stencil once and as
    ``chain(10)``, reads the counts: its kernel must have launched exactly
    1 + 10 × its launchers' count (a graph replay adds the launches it
-   repeats). Every one of the five kernels must have launched on some path.
+   repeats), less one a call for each on-chip pair the shape takes (vadv on
+   ``column``: one launch a call, which ``COLUMN.on_chip`` must count; two
+   where the rule keeps the two kernels). Every one of the five kernels
+   must have launched on some path.
 3. Holds every result against the plain version (the ``torch`` backend on the
    same card, same inputs; the half types on one application) and, on a
    small input, against the NumPy oracle. Then the graph chain: on every
@@ -427,7 +430,7 @@ def main(argv) -> int:
     for run in runs:
         case, fields = run["case"], run["main"]
         for wrapper in cuda_backend.WRAPPERS.values():
-            wrapper.launches = 0
+            wrapper.launches = wrapper.on_chip = 0
         info: dict = {}
         run["kern"](**fields, **run["scalars"], domain=domain, exec_info=info)
         if info["kernel_strategy"] != case["kernel"]:
@@ -438,8 +441,11 @@ def main(argv) -> int:
         torch.cuda.synchronize()
         counts = {k: w.launches for k, w in cuda_backend.WRAPPERS.items()}
         run["launches"] = counts[case["kernel"]]
-        print(f"launches on the {case['name']} {run['dtype']} path: {counts}")
-        expected = (1 + CHAIN_STEPS) * len(run["kern"]._backend.module.launchers)
+        on_chip = cuda_backend.COLUMN.on_chip
+        print(f"launches on the {case['name']} {run['dtype']} path: {counts}, "
+              f"{on_chip} of them on-chip pairs")
+        expected = launches_asked(run["kern"]._backend.module, 1 + CHAIN_STEPS, NK, case["name"],
+                                  on_chip)
         if run["launches"] != expected or sum(counts.values()) != expected:
             raise AssertionError(
                 f"{case['name']}: {counts}, not {expected} launches of {case['kernel']} "
@@ -1577,10 +1583,11 @@ def ptxas_report(source: str, cuda_backend) -> dict:
     return out
 
 
-def residency(source: str, cuda_backend) -> dict:
+def residency(source: str, cuda_backend, on_chip=None, nk: int = NK) -> dict:
     """kernel -> blocks resident on an SM (:func:`resident_blocks`), from
     its registers and static shared memory in the build log and its
-    threads and dynamic shared memory in the source."""
+    threads and dynamic shared memory in the source (an on-chip pair's,
+    ``on_chip``'s, at ``nk`` levels)."""
     import re
 
     log = cuda_backend._paths(source)[2] + ".log"
@@ -1593,8 +1600,9 @@ def residency(source: str, cuda_backend) -> dict:
             m = re.search(r"(\d+) bytes smem", line)
             if m and kernel:
                 static[kernel] = int(m.group(1))
-    threads = {k: int(n) for n, k in re.findall(r"__launch_bounds__\((\d+)\) (\w+)\(", source)}
+    threads = {k: int(n) for n, k in re.findall(r"__launch_bounds__\((\d+)(?:, \d+)?\) (\w+)\(", source)}
     dynamic = {k: int(n) for k, n in re.findall(r"(\w+)<<<grid, block, (\d+),", source)}
+    dynamic.update({oc.kernel: oc.shared_bytes(nk) for oc in (on_chip or {}).values()})
     dynamic.update(re.findall(r"cudaLaunchCooperativeKernel\(\(const void\*\)(\w+),.*?gt_args, (\d+),", source))
     return {
         k: resident_blocks(r, threads.get(k, 256), static.get(k, 0) + int(dynamic.get(k, 0)))
@@ -1707,7 +1715,7 @@ def walk_report(run, cuda_backend) -> str:
     module = run["kern"]._backend.module
     levels = walked_levels(run["kern"]._backend.analyzed, NK) or NK
     ptxas = ptxas_report(module.source, cuda_backend)
-    blocks = residency(module.source, cuda_backend)
+    blocks = residency(module.source, cuda_backend, module.on_chip)
     return (
         f"{run['case']['name']:22s} {run['dtype']:8s} {levels} levels, "
         f"{run['device_ms'] * 1e3 / levels:.3f} us per level; ring bytes "
@@ -1790,12 +1798,13 @@ def run_next_main_path(run, ndefs, cuda_backend, torch) -> None:
 
     args, kwargs, out = ndefs.inputs(run["case"]["op"], NI, NJ, NK, np.dtype(run["dtype"]), 7)
     for wrapper in cuda_backend.WRAPPERS.values():
-        wrapper.launches = 0
+        wrapper.launches = wrapper.on_chip = 0
     run["op"](*args, out=out, offset_provider=ndefs.PROV_K, **kwargs)
     torch.cuda.synchronize()
     counts = {k: w.launches for k, w in cuda_backend.WRAPPERS.items()}
     variant = bridged_variant(run["op"])
-    expected = len(variant.backend.module.launchers)
+    expected = launches_asked(variant.backend.module, 1, NK, next_tag(run),
+                              cuda_backend.COLUMN.on_chip)
     if variant is not run["variant"] or variant.backend.last_strategy != run["kernel"]:
         raise AssertionError(f"{next_tag(run)} {run['dtype']}: not served by the bridged "
                              f"{run['kernel']} variant ({variant.backend.last_strategy})")
@@ -2051,7 +2060,8 @@ def run_aot(name, ndefs, cuda_backend, bridge, torch, device="cuda", shape=(NI, 
     """``name`` in float32 at full width through ``cuda:hopper:aot``:
     ``compile()`` runs the stages (each one's seconds recorded); the first
     call after it must build no variant, run no ``nvcc`` and launch exactly
-    the lowered kernel's launchers; its result must equal ``cuda:hopper``'s
+    the lowered kernel's launchers (an on-chip pair as one, counted as
+    such); its result must equal ``cuda:hopper``'s
     to the bit. ``device="cpu"`` rehearses it on the plain version (nothing
     is built there)."""
     import numpy as np
@@ -2083,7 +2093,7 @@ def run_aot(name, ndefs, cuda_backend, bridge, torch, device="cuda", shape=(NI, 
     if job.compiled_stage is None or (on_card and job.compiled_stage.library is None):
         raise AssertionError(f"{name}: cuda:hopper:aot built no library ({job.unsupported})")
     for wrapper in cuda_backend.WRAPPERS.values():
-        wrapper.launches = 0
+        wrapper.launches = wrapper.on_chip = 0
     built, runs = bridge.variants_built, cuda_backend.nvcc_runs
     op(*args, out=out, offset_provider=ndefs.PROV_K, **kwargs)
     if on_card:
@@ -2091,7 +2101,8 @@ def run_aot(name, ndefs, cuda_backend, bridge, torch, device="cuda", shape=(NI, 
     builds = (bridge.variants_built - built, cuda_backend.nvcc_runs - runs)
     counts = {k: w.launches for k, w in cuda_backend.WRAPPERS.items() if w.launches}
     kernel = job.lowered_stage.strategy
-    expected = {kernel: len(job.lowered_stage.module.launchers)} if on_card else {}
+    expected = {kernel: launches_asked(job.lowered_stage.module, 1, shape[2], f"{name} aot",
+                                       cuda_backend.COLUMN.on_chip)} if on_card else {}
     if builds != (0, 0) or counts != expected:
         raise AssertionError(f"{name} aot: first call built {builds} (variants, nvcc), "
                              f"launched {counts}, not {expected}")
@@ -2360,6 +2371,21 @@ class Recorder:
         return getattr(self.target, name)
 
 
+def launches_asked(module, calls: int, nk: int, tag: str, on_chip=None) -> int:
+    """The kernel launches ``calls`` calls of ``module``'s stencil on ``nk``
+    levels, on buffers that do not overlap, ask for: one a launcher, one
+    fewer for each on-chip pair the rule takes at that shape, whose launch
+    serves two loops. ``on_chip``: what ``cuda_backend.COLUMN.on_chip``
+    counted over the calls on a card, which must be those pairs (None: no
+    card, nothing counted)."""
+    asked = calls * module.kernels_per_call(nk, True)
+    pairs = calls * len(module.launchers) - asked
+    if on_chip is not None and on_chip != pairs:
+        raise AssertionError(f"{tag}: {on_chip} on-chip pairs over {calls} calls at {nk} "
+                             f"levels, not {pairs}")
+    return asked
+
+
 def launchers(obj) -> int:
     """Launches one call of a stencil (or a bridged operator's variant) asks of its kernel."""
     backend = obj._backend if hasattr(obj, "_backend") else bridged_variant(obj).backend
@@ -2410,7 +2436,7 @@ def counted(work, cuda_backend, sync):
     """(``work()``'s value, the launches it made by kernel, its wall
     seconds to ``sync()``): the counts set to 0 just before, read just after."""
     for wrapper in cuda_backend.WRAPPERS.values():
-        wrapper.launches = 0
+        wrapper.launches = wrapper.on_chip = 0
     t0 = time.perf_counter()
     value = work()
     sync()
@@ -2724,7 +2750,8 @@ def run_distributed_case(c, mesh, storage, cuda_backend, np, torch, device="cuda
         torch.cuda.synchronize()
     out, counts, _ = counted(lambda: dist.apply(**fields, **scalars), cuda_backend,
                              torch.cuda.synchronize if device == "cuda" else (lambda: None))
-    asked = len(mesh.devices) * len(kern._backend.module.launchers)
+    asked = launches_asked(kern._backend.module, len(mesh.devices), domain[2], f"distributed {tag}",
+                           cuda_backend.COLUMN.on_chip if device == "cuda" else None)
     expect_launches(f"distributed {tag}", counts, {kernel: asked})
     if set(dist.last_strategy) != {kernel if device == "cuda" else "plain"}:
         raise AssertionError(f"distributed {tag}: shards served by {dist.last_strategy}")

@@ -32,7 +32,8 @@ the counterpart of the jitted ``fori_loop`` of pallas_backend.py:232-378).
 Each skeleton has one :class:`KernelWrapper` (``PLANE``, ``FUSED_PLANE``,
 ``COLUMN``, ``FUSED_COLUMN``, ``TILED``) whose ``launches`` counts the
 launches of its kernels, so a run can show that its main path went through
-them.
+them; ``COLUMN.on_chip`` counts those among them that ran a FORWARD and a
+BACKWARD loop in one launch (``cuda_codegen.OnChip``).
 """
 
 from __future__ import annotations
@@ -98,14 +99,22 @@ nvcc_runs = 0
 _RECORDING = threading.local()
 
 
+class LaunchCounts(collections.Counter):
+    """Launches by wrapper, and (``on_chip``) the on-chip pairs among them."""
+
+    def __init__(self):
+        super().__init__()
+        self.on_chip = collections.Counter()
+
+
 @contextlib.contextmanager
 def recording_launches():
     """Within the block (a CUDA graph's capture on this thread), a counted
-    launch adds to the yielded Counter, by wrapper, not to the wrapper's
-    ``launches``: the graph adds them at each replay, where the kernels
-    run."""
+    launch adds to the yielded :class:`LaunchCounts`, by wrapper, not to the
+    wrapper's ``launches`` and ``on_chip``: the graph adds them at each
+    replay, where the kernels run."""
     outer = getattr(_RECORDING, "counts", None)
-    _RECORDING.counts = counts = collections.Counter()
+    _RECORDING.counts = counts = LaunchCounts()
     try:
         yield counts
     finally:
@@ -114,19 +123,23 @@ def recording_launches():
 
 class KernelWrapper:
     """One hand-written kernel skeleton. ``launches`` counts its kernel
-    launches; it grows only where a kernel is launched."""
+    launches; it grows only where a kernel is launched. ``on_chip`` counts
+    the launches among them that served two loops at once (``column``'s
+    on-chip pair)."""
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
+        self.on_chip = 0
 
-    def launch(self, fn, args, counted: bool = True) -> int:
+    def launch(self, fn, args, counted: bool = True, on_chip: bool = False) -> int:
         """Call one launcher: it launches one kernel (a cooperative one
         too), or none on an empty grid, or returns the CUDA error that
         refused the launch, which raises here. Returns the kernels
-        launched; ``counted``: add them to ``launches`` (a launch captured
-        into a CUDA graph is counted at each replay instead: ``counted``
-        False, or recorded, :func:`recording_launches`)."""
+        launched; ``counted``: add them to ``launches``, and to ``on_chip``
+        where the launcher serves a pair (a launch captured into a CUDA
+        graph is counted at each replay instead: ``counted`` False, or
+        recorded, :func:`recording_launches`)."""
         rc = fn(*args)
         if rc == NOTHING_LAUNCHED:
             return 0
@@ -138,8 +151,10 @@ class KernelWrapper:
             recording = getattr(_RECORDING, "counts", None)
             if recording is None:
                 self.launches += 1
+                self.on_chip += on_chip
             else:
                 recording[self] += 1
+                recording.on_chip[self] += on_chip
         return 1
 
 
@@ -347,9 +362,19 @@ class PreparedLaunch:
                 f"stencil '{name}': the {mod.strategy} kernel's carries need "
                 f"at least {mod.min_nk} levels, not {nk}"
             )
-        hazard = alias_hazard(mod, overlapping(arrays))
+        pairs = overlapping(arrays)
+        hazard = alias_hazard(mod, pairs)
         if hazard is not None:
             raise CudaUnsupported(f"stencil '{name}': {hazard}")
+        self.noalias = int(not pairs)
+        #: the launchers that serve a pair of loops in one launch here, and
+        #: the temporaries that then live in shared memory (no buffer)
+        self.on_chip = frozenset(
+            launcher for launcher, oc in mod.on_chip.items() if oc.serves(nk, self.noalias)
+        )
+        on_chip_only = {c for launcher in self.on_chip for c in mod.on_chip[launcher].cross}
+        #: the kernels a call launches where its grids are not empty
+        self.kernels = mod.kernels_per_call(nk, self.noalias)
         nslots = max(len(mod.slots), 1)
         self.ptrs = (ctypes.c_void_p * nslots)()
         self.shapes = (_LL * max(mod.n_shape_slots, 1))()
@@ -375,6 +400,8 @@ class PreparedLaunch:
                     if m.snapshot_of in fields:
                         self.snapshots.setdefault(launcher, []).append((t, m.snapshot_of))
             elif m.is_temp:
+                if m.name in on_chip_only:
+                    continue  # never dereferenced
                 e = m.extent
                 # (K, I, J) with J contiguous
                 shape = (nk + e.k[1] - e.k[0], ni + e.i[1] - e.i[0], nj + e.j[1] - e.j[0])
@@ -415,7 +442,6 @@ class PreparedLaunch:
         self.isc = (_LL * max(len(mod.scalars) - n_f, 1))()
         self.scalar_slots = [(n, kind, slot) for n, kind, slot, _ in mod.scalars]
         self.sizes = (ni, nj, nk)
-        self.noalias = int(not overlapping(arrays))
         self.wrapper = WRAPPERS[mod.strategy]
         self.fns = backend._functions()
         # the tiles' level counters; each cooperative launch zeroes them first
@@ -429,6 +455,8 @@ class PreparedLaunch:
         )
         #: launched at least once (a capture needs each kernel run before)
         self.ran = False
+        #: the on-chip pairs the last call launched
+        self.last_on_chip = 0
 
     def __call__(self, arrays, scalars, counted: bool = True) -> int:
         """Launch once on ``arrays`` (the buffers this launch was prepared
@@ -444,7 +472,7 @@ class PreparedLaunch:
                     self.fsc[slot] = float(value)
                 else:
                     self.isc[slot] = int(np.asarray(value))
-            launched = 0
+            launched = on_chip = 0
             with torch.cuda.device(self.device):
                 stream = ctypes.c_void_p(torch.cuda.current_stream(self.device).cuda_stream)
                 args = (self.ptrs, self.shapes, self.strides, self.orig, self.fsc, self.isc,
@@ -455,14 +483,19 @@ class PreparedLaunch:
                     for snap, field in self.snapshots.get(name, ()):
                         snap.copy_(arrays[field])
                     extra = (self.flags.data_ptr(),) if cooperative else ()
-                    launched += self.wrapper.launch(fn, args + extra, counted)
+                    pair = name in self.on_chip
+                    got = self.wrapper.launch(fn, args + extra, counted, on_chip=pair)
+                    launched += got
+                    on_chip += got if pair else 0
             launch_span.set("launches", launched)
+            launch_span.set("on_chip", on_chip)
         self.ran = True
+        self.last_on_chip = on_chip
         return launched
 
 
-def capture_graph(device, launches: list, pool=None,
-                  stream=None) -> tuple[torch.cuda.CUDAGraph, int]:
+def capture_graph(device, launches: list, pool=None, stream=None,
+                  on_chip=None) -> tuple[torch.cuda.CUDAGraph, int]:
     """Capture ``launches``, closures called in order that each launch
     their work on the current stream (ctypes launches on that stream's
     handle) and return the kernels they launched, into one CUDA graph on a
@@ -471,7 +504,9 @@ def capture_graph(device, launches: list, pool=None,
     its own). Graphs that share a pool share its free memory only where
     they are captured on one side stream: the caching allocator keeps each
     stream's blocks apart. Returns the graph and the kernels one replay
-    launches. A launch's own error propagates, not the capture's."""
+    launches. A launch's own error propagates, not the capture's.
+    ``on_chip``: called after the launches, the on-chip pairs among them
+    (the capture span's ``on_chip``)."""
     graph = torch.cuda.CUDAGraph()
     stream = torch.cuda.Stream(device) if stream is None else stream
     stream.wait_stream(torch.cuda.current_stream(device))
@@ -489,6 +524,7 @@ def capture_graph(device, launches: list, pool=None,
                 if captured:
                     raise  # else the launch's own error propagates
         capture_span.set("launches", per_replay)
+        capture_span.set("on_chip", on_chip() if on_chip is not None else 0)
     return graph, per_replay
 
 
@@ -497,7 +533,7 @@ class ChainGraph:
     into one CUDA graph: the zeroing of filled temporaries, the snapshot
     copies and the kernels, with the scalars baked into the kernels'
     parameters at capture. A replay repeats the cycle on the current stream
-    and adds its launches to the kernel's wrapper."""
+    and adds its launches, and its on-chip pairs, to the kernel's wrapper."""
 
     def __init__(self, launches: list[PreparedLaunch], states: list[dict], scalars):
         self.launches = launches  # the scratch the graph's kernels use
@@ -506,15 +542,18 @@ class ChainGraph:
         self.graph, self.per_replay = capture_graph(self.device, [
             functools.partial(launch, state, scalars, counted=False)
             for launch, state in zip(launches, states)
-        ])
+        ], on_chip=lambda: sum(launch.last_on_chip for launch in launches))
+        self.on_chip = sum(launch.last_on_chip for launch in launches)
 
     def replay(self, times: int) -> None:
         with span("gt4py.backend.replay") as replay_span, torch.cuda.device(self.device):
             replay_span.set("replays", times)
             replay_span.set("launches", self.per_replay * times)
+            replay_span.set("on_chip", self.on_chip * times)
             for _ in range(times):
                 self.graph.replay()
         self.wrapper.launches += self.per_replay * times
+        self.wrapper.on_chip += self.on_chip * times
 
 
 class Chain:
@@ -574,8 +613,10 @@ class CudaHopperBackend(Backend):
             if not self._on_card(arrays):
                 self.last_strategy = "plain"
                 return run_plain(self.analyzed, arrays, scalars, domain, origins)
-            self.prepared(arrays, domain, origins, cache_key)(arrays, scalars)
+            launch = self.prepared(arrays, domain, origins, cache_key)
+            launch(arrays, scalars)
             self.last_strategy = self.module.strategy
+            self.last_kernels = launch.kernels
             return {n: arrays[n] for n in self.written if n in arrays}
 
     def _on_card(self, arrays) -> bool:

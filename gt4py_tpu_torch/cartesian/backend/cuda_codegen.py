@@ -121,8 +121,9 @@ beside them, ``while``, variable and absolute K.
     (below); a later loop that reads it reads a (K, I, J) buffer the walk
     stores it to, zero-filled only where that loop could read a level the
     walk does not set in full (vadv: 9 of its 11 temporaries are registers
-    only, ``ccol`` and ``dcol`` keep an unfilled buffer). Every other
-    temporary is a (K, I, J) buffer the wrapper allocates zero-filled.
+    only, ``ccol`` and ``dcol`` keep an unfilled buffer, which the on-chip
+    pair below replaces with shared memory). Every other temporary is a
+    (K, I, J) buffer the wrapper allocates zero-filled.
     The ``__restrict__`` variant (below) lets the compiler forward stored
     values instead of reloading them, and prefetches each walk's levels:
     K3 streams every (field, K offset) as its own plane and Pallas fetches
@@ -140,13 +141,37 @@ beside them, ``while``, variable and absolute K.
     variant loads directly, since a prefetched value could predate a write
     through another name.
     Bound on the H100: the compulsory bytes (vadv: five fields read, one
-    written, 125.8 MB a step in float32 at 256×256×80, 37.6 µs at 3.35 TB/s)
-    and the dependent K chain, 80 levels a walk per thread. Without the
-    ring each level waited for its own loads (by estimate about 8 KB in
-    flight per SM, half what hides the memory latency); with it the copies of
-    the next levels are in flight while a level computes. What it reached,
-    per level and against the bound, is in PERF.md (NVIDIA H100 80GB HBM3,
-    700 W).
+    written, 125.3 MB a step in float32 over its 255×256×80 domain, 37.4 µs
+    at 3.35 TB/s) and the dependent K chain, 80 levels a walk per thread.
+    Without the ring each level waited for its own loads (by estimate about
+    8 KB in flight per SM, half what hides the memory latency); with it the
+    copies of the next levels are in flight while a level computes, and the
+    two walks reach 2.7-2.9 TB/s, about the card's copy rate. What was left
+    was bytes: the FORWARD walk stored ``ccol`` and ``dcol`` to device
+    memory and the BACKWARD one read them back with ``u_pos`` again, 231 MB
+    a step in all.
+    So a FORWARD loop and the BACKWARD loop after it run in ONE launch where
+    every value the second reads from the first is a temporary the first
+    keeps in a register, read at the thread's own column (vadv's ``ccol``
+    and ``dcol``; :meth:`_Generator._plan_on_chip`): ``gt_column_<n>_<n +
+    1>_r``, a third kernel beside the two, in the ``__restrict__`` path only.
+    One thread walks its column FORWARD, then BACKWARD, with the registers,
+    carries and rings of the two kernels; a cross value goes to the
+    thread's element of a slab of dynamic shared memory, [k][value][thread],
+    where the BACKWARD walk reads it back. The slab takes nk levels of every
+    column of the block, so it holds fewer columns on an SM than the two
+    kernels keep resident: blocks of 64 columns and deeper rings
+    (``ON_CHIP_ROWS``, ``ON_CHIP_RING_LEVELS``). The launcher of the FORWARD
+    loop takes the pair from the shape (``OnChip.serves``: no overlap, and
+    nk small enough that the resident columns times the streams' item size
+    reach ``ON_CHIP_RESIDENT_BYTES``), and the BACKWARD loop's launcher then
+    launches nothing; taller domains, and tridiag, whose cross values are
+    API fields that must reach device memory anyway, keep the two launches.
+    vadv then moves the compulsory bytes plus ``u_pos`` read again (from
+    L2 where it is still there; keeping it in the slab instead left fewer
+    columns resident and lost), bounded by how many columns the slab leaves
+    resident: float32 at 256×256×80 went from 84 to 66 µs a step, float64
+    from 152 to 118 (PERF.md; NVIDIA H100 80GB HBM3, 700 W).
 
 ``fused_column`` — replaces K4, ``pallas_seq._build_fused_call``
 (pallas_seq.py:1490, ``pallas_call`` at :1704). Only with the stage-fusion
@@ -349,6 +374,31 @@ FC_THREADS = 256
 #: tridiag on both kernels in float32 and float64 (PERF.md): 4 beat 2, 8
 #: and 16 on the sum of the eight cells, and in six of them
 RING_LEVELS = 4
+#: column: a FORWARD loop and the BACKWARD loop after it in one launch, the
+#: values the second reads from the first in a shared-memory slab
+#: (:meth:`_Generator._plan_on_chip`). Its block: 32 columns along J by
+#: ON_CHIP_ROWS along I; the depths of its FORWARD and BACKWARD walks' rings
+#: (the slab leaves fewer columns resident than ``column``'s two kernels do,
+#: so each column keeps more levels in flight). Measured on the H100 for
+#: vadv float32 at 256×256×80 (PERF.md; µs a step, chains of 200, the two
+#: kernels 83.8-84.0): 2 rows with depths (8, 16) 64.6-65.1, (8, 8)
+#: 64.5-65.0, (8, 24) 68.3, (6, 16) 66.3-66.5, (9, 8) 65.9-67.4; 4 rows
+#: (8, 16) 64.9-65.3, (6, 16) 66.4-66.7, (4, 16) 73.2-73.4; 1 row (8, 16)
+#: 65.2; 8 rows (6, 16) 66.3-66.9
+ON_CHIP_ROWS = 2
+ON_CHIP_RING_LEVELS = (8, 8)
+#: the launcher takes the one-launch pair only where its slab and ring leave
+#: enough columns resident on an SM that a level of them, at the item size
+#: of the fields the walks stream, is at least this many bytes, and the two
+#: ``column`` kernels otherwise. Measured on the H100 (PERF.md; vadv at
+#: 256×256×nk, µs a step, pair against the two kernels; resident columns ×
+#: item size): float32 nk 80, 256 × 4 B: 66.3 against 85.4; nk 100, 192 ×
+#: 4: 101.6 against 106.1; nk 120, 192 × 4: 119.7 against 125.2; nk 160, 128
+#: × 4: 191-194 against 165-167; float64 nk 60, 128 × 8: 88.6 against
+#: 113.7; nk 80, 128 × 8: 117.9 against 152.1; nk 100, 64 × 8: 243.1
+#: against 190.8; nk 160, 64 × 8: 385 against 307. At 512 bytes the pair
+#: lost in every cell measured, at 768 and above in none
+ON_CHIP_RESIDENT_BYTES = 768
 #: the most dynamic shared memory a ring may take per block: two blocks of
 #: a 256×256 grid on each SM (228 KB, 1 KB of it reserved per block), so
 #: that every block is resident at once. A walk whose streams would take
@@ -627,6 +677,30 @@ class FieldMeta:
         return sum(self.axes) + len(self.data_dims)
 
 
+@dataclasses.dataclass(frozen=True)
+class OnChip:
+    """column: a FORWARD loop's launcher that also serves the BACKWARD loop
+    after it, in one launch of ``kernel``, for arguments that do not
+    overlap and a domain of at most ``max_nk`` levels (:meth:`serves`). The
+    values the BACKWARD walk reads from the FORWARD one (``cross``) then live
+    in the block's shared memory, never in device memory: a slab of
+    ``level_bytes`` a level, after ``ring_bytes`` of prefetch ring. The
+    BACKWARD loop's own launcher launches nothing then."""
+
+    kernel: str
+    cross: tuple[str, ...]
+    ring_bytes: int
+    level_bytes: int
+    max_nk: int
+
+    def serves(self, nk: int, noalias: bool) -> bool:
+        return bool(noalias) and nk <= self.max_nk
+
+    def shared_bytes(self, nk: int) -> int:
+        """Dynamic shared memory of a block at ``nk`` levels."""
+        return self.ring_bytes + nk * self.level_bytes
+
+
 @dataclasses.dataclass
 class KernelModule:
     """Generated source plus what the launching wrapper needs."""
@@ -675,6 +749,15 @@ class KernelModule:
     #: extents, ring planes by their footprints); the wrapper refuses a
     #: field whose strides carry them beyond 32 bits
     offset_span: tuple[int, int] = (0, 0)
+    #: column: FORWARD loops' launchers that also serve the BACKWARD loop
+    #: after them in one launch, where the shape lets them
+    on_chip: dict[str, OnChip] = dataclasses.field(default_factory=dict)
+
+    def kernels_per_call(self, nk: int, noalias: bool) -> int:
+        """The kernels a call launches on a domain of ``nk`` levels whose
+        grids are not empty: one a launcher, less one for each on-chip pair
+        that serves the shape."""
+        return len(self.launchers) - sum(oc.serves(nk, noalias) for oc in self.on_chip.values())
 
     def tiles(self, ni: int, nj: int) -> int:
         """Tiles of a tiled kernel's grid over an ni × nj domain."""
@@ -830,10 +913,12 @@ class _Ring:
     backward: bool
     reads: dict[int, frozenset]
     slot_bytes: int
+    #: how far it runs ahead: at level k the copies of k + levels - 1 start
+    levels: int = RING_LEVELS
 
     @property
     def slots(self) -> int:
-        return RING_LEVELS + self.back
+        return self.levels + self.back
 
     @property
     def bytes(self) -> int:
@@ -1035,9 +1120,20 @@ class _Generator:
         self.ring: Optional[_Ring] = None
         self.ring_reads: frozenset = frozenset()
         self.ring_bytes: dict[str, int] = {}
+        #: column: the pairs of loops one launch may serve (FORWARD loop ->
+        #: the values kept in the slab, :meth:`_plan_on_chip`), those it does
+        #: (-> their OnChip), and, while one is emitted, its slab: value ->
+        #: its byte offset in a level, and a level's bytes
+        self.pairs: dict[int, tuple[str, ...]] = {}
+        self.on_chip: dict[int, OnChip] = {}
+        self.slab: dict[str, int] = {}
+        self.slab_level = 0
+        #: column: FORWARD loop -> the pair kernel's arguments and columns
+        self.on_chip_launch: dict[int, tuple[str, Extent]] = {}
         self.strategy = self._choose()
         if self.strategy == "column":
             self.held, self.fill, _ = self._plan_held(fused=False)
+            self.pairs = self._plan_on_chip()
         for meta in self.fields.values():  # global (K, I, J) buffers
             h = self.held.get(meta.name)
             if meta.is_temp and (
@@ -1201,6 +1297,8 @@ class _Generator:
                 if self.strategy == "plane":
                     self._emit_plane_kernel(n, vloop)
                 elif self.strategy == "column":
+                    if n in self.pairs:
+                        self._emit_on_chip_kernel(n)
                     self._emit_column_kernel(n, vloop)
                 else:
                     self._emit_tiled_kernel(n, vloop)
@@ -1231,6 +1329,7 @@ class _Generator:
             tile=(TL_TI, TL_TJ),
             snapshots={f"gt_launch_{n}": tuple(sorted(v)) for n, v in self.snapshots.items()},
             offset_span=self.offset_span,
+            on_chip={f"gt_launch_{n}": oc for n, oc in self.on_chip.items()},
         )
 
     def _unit_axes(self) -> dict[str, str]:
@@ -1287,7 +1386,7 @@ class _Generator:
 
     def _emit_launcher(
         self, n: int, kernel: str, grid: str, block: str, noalias_call: str = "",
-        smem: int = 0, cooperative: bool = False, noalias_smem: int = 0,
+        smem: int = 0, cooperative: bool = False, noalias_smem: int = 0, on_chip: bool = False,
     ) -> None:
         """``noalias`` (set by the wrapper when no two field buffers
         overlap) selects ``noalias_call``, the ``__restrict__`` variant
@@ -1296,7 +1395,8 @@ class _Generator:
         kernel is first allowed them with ``cudaFuncSetAttribute``.
         ``cooperative``: one ``cudaLaunchCooperativeKernel`` of as many
         blocks as are resident at once, at most one per tile of ``grid``,
-        after zeroing the tiles' level counters ``flags``."""
+        after zeroing the tiles' level counters ``flags``. ``on_chip``: first
+        the branch of :meth:`_emit_on_chip_launch`."""
         self.emit(
             f'extern "C" int gt_launch_{n}(void* const* fields, const long long* shapes,'
         )
@@ -1309,6 +1409,8 @@ class _Generator:
         self.indent += 1
         self.emit("GtParams p;")
         self.emit("gt_fill(p, fields, shapes, strides, origins, fscalars, iscalars, ni, nj, nk);")
+        if on_chip:
+            self._emit_on_chip_launch(n)
         self.emit(f"const dim3 grid({grid});")
         self.emit(f"const dim3 block({block});")
         self.emit(
@@ -1360,7 +1462,18 @@ class _Generator:
         self.indent -= 1
         self.emit("}")
 
-    def _emit_smem_allowance(self, kernel: str, smem: int) -> None:
+    def _restrict_args(self, names: set[str], written: set[str]) -> tuple[str, str]:
+        """A ``__restrict__`` variant's pointer parameters for the launch
+        slots of ``names`` (read-only ones ``const``), and the launcher's
+        arguments for them."""
+        used = [m for m in self.slots if m.name in names]
+        const = {m.name: "" if m.name in written else "const " for m in used}
+        return (
+            ", ".join(f"{const[m.name]}char* __restrict__ {m.var}" for m in used),
+            ", ".join(f"({const[m.name]}char*)fields[{m.index}]" for m in used),
+        )
+
+    def _emit_smem_allowance(self, kernel: str, smem) -> None:
         """Allow ``kernel`` more than 48 KB of dynamic shared memory."""
         self.emit(
             f"const cudaError_t gt_e = cudaFuncSetAttribute({kernel}, "
@@ -1476,13 +1589,7 @@ class _Generator:
         plan, ring = self.plane_plans[n], self.tile_rings.get(n, [])
         block = self._plane_block()
         kernel = f"gt_plane_{n}"
-        used = [m for m in self.slots if m.name in names]
-        params = ", ".join(
-            f"{'const ' if m.name not in written else ''}char* __restrict__ {m.var}" for m in used
-        )
-        args = ", ".join(
-            f"({'const ' if m.name not in written else ''}char*)fields[{m.index}]" for m in used
-        )
+        params, args = self._restrict_args(names, written)
         self._emit_plane_variant(kernel, items, plan, [], "", block)
         self.noalias, self.read_only = True, names - written
         self._emit_plane_variant(kernel + "_r", items, plan, ring, params, block)
@@ -1674,15 +1781,7 @@ class _Generator:
         for s in stmts:
             union = union.union(self.analyzed.stmt_extents[s])
         kernel = f"gt_column_{n}"
-        used = [m for m in self.slots if m.name in names]
-        params = ", ".join(
-            f"{'const ' if m.name not in written else ''}char* __restrict__ {m.var}"
-            for m in used
-        )
-        args = ", ".join(
-            f"({'const ' if m.name not in written else ''}char*)fields[{m.index}]"
-            for m in used
-        )
+        params, args = self._restrict_args(names, written)
         ring = self._plan_ring(n, union, COL_BJ * COL_BI)
         smem = ring.bytes if ring else 0
         self._emit_column_variant(kernel, n, vloop, names, union, "", None)
@@ -1704,6 +1803,7 @@ class _Generator:
                 f"(p{', ' if args else ''}{args})"
             ),
             noalias_smem=smem,
+            on_chip=True,
         )
 
     def _emit_column_variant(self, kernel, n, vloop, names, union, params: str, ring) -> None:
@@ -1738,6 +1838,107 @@ class _Generator:
         self.emit("}")
         self.emit()
 
+    def _emit_on_chip_kernel(self, n: int) -> None:
+        """``gt_column_<n>_<n + 1>_r``: loop ``n``'s FORWARD walk and loop
+        ``n + 1``'s BACKWARD walk, back to back in one thread per column of
+        the two loops' statement extents, each statement guarded by its own.
+        Each walk is ``column``'s, with its registers, carries and prefetch
+        ring (the two rings share one region, as ``fused_column``'s walks
+        do, ``ON_CHIP_RING_LEVELS`` deep); where ``column`` stores a cross
+        value to its (K, I, J) buffer and the BACKWARD kernel reads it back,
+        this one stores it to the thread's element of a slab of dynamic
+        shared memory after the ring, laid out [k][value][thread] so that a
+        warp's 32 threads hit 32 banks, and reads it back from there. The
+        slab takes nk levels, so the launcher chooses this kernel from nk
+        (:class:`OnChip`); a pair whose slab would not fit one level is
+        left to the two kernels."""
+        loops = self.stencil.vertical_loops
+        cross = self.pairs[n]
+        items = self._items([n, n + 1])
+        names = {a.name for it in items for a in it.reads + it.writes} - set(cross)
+        written = {w.name for it in items for w in it.writes}
+        union = Extent.zeros()
+        for it in items:
+            union = union.union(it.ext)
+        threads = 32 * ON_CHIP_ROWS
+        rings = self._shared_rings(
+            [(n + d, ON_CHIP_RING_LEVELS[d], frozenset(cross)) for d in (0, 1)], union, threads
+        )
+        ring_bytes = max((r.bytes for r in rings if r), default=0)
+        metas = sorted((self.fields[c] for c in cross), key=lambda m: -m.dtype.itemsize)
+        self.slab, offset = {}, 0
+        for m in metas:
+            self.slab[m.name] = offset
+            offset += threads * m.dtype.itemsize
+        self.slab_level = offset
+        # the largest nk whose slab leaves ON_CHIP_RESIDENT_BYTES resident
+        item = max(
+            (st.meta.dtype.itemsize for r in rings if r for st in r.streams),
+            default=metas[0].dtype.itemsize,
+        )
+        blocks = -(-ON_CHIP_RESIDENT_BYTES // (threads * item))
+        per_block = min(SHARED_BYTES_LIMIT, SM_SHARED_BYTES // blocks - BLOCK_RESERVED_BYTES)
+        max_nk = (per_block - ring_bytes) // offset
+        if max_nk < 1:
+            self.slab = {}
+            return
+        kernel = f"gt_column_{n}_{n + 1}_r"
+        params, args = self._restrict_args(names, written)
+        self.read_only = names - written
+        self.emit(f"__global__ void __launch_bounds__({threads}, 1) {kernel}(const GtParams p, {params}) {{")
+        self.indent += 1
+        self._emit_locals(names, pointers=False)
+        self.emit(f"const long long j = ({union.j[0]}) + (long long)blockIdx.x * 32 + threadIdx.x;")
+        self.emit(
+            f"const long long i = ({union.i[0]}) + (long long)blockIdx.y * {ON_CHIP_ROWS} + threadIdx.y;"
+        )
+        self.emit(f"if (i >= ni + ({union.i[1]}) || j >= nj + ({union.j[1]})) return;")
+        self.point_base = {}
+        self._emit_registers(h for h in self.held.values() if h.writer in (n, n + 1))
+        self._emit_ring_memory()
+        self.emit(f"unsigned char* const gt_slab = gt_smem + {ring_bytes};")
+        sid = sum(len(v.sections) for v in loops[:n])
+        sid = self._emit_walk(n, loops[n], union, sid, rings[0])
+        self._emit_walk(n + 1, loops[n + 1], union, sid, rings[1])
+        self.indent -= 1
+        self.emit("}")
+        self.emit()
+        self.read_only = set()
+        self.slab = {}
+        if ring_bytes:
+            self.ring_bytes[kernel] = ring_bytes
+        self.on_chip[n] = OnChip(
+            kernel=kernel, cross=cross, ring_bytes=ring_bytes,
+            level_bytes=self.slab_level, max_nk=max_nk,
+        )
+        self.on_chip_launch[n] = (args, union)
+
+    def _emit_on_chip_launch(self, n: int) -> None:
+        """The launcher's branch into :meth:`_emit_on_chip_kernel`'s kernel
+        (loop ``n``'s launcher) or past the launch it took over (loop
+        ``n + 1``'s), where :meth:`OnChip.serves` the shape."""
+        oc = self.on_chip.get(n)
+        if oc is not None:
+            args, union = self.on_chip_launch[n]
+            with self._block(f"if (noalias && nk <= {oc.max_nk})"):
+                self.emit(
+                    f"const dim3 gt_grid((unsigned)((nj + ({union.j[1] - union.j[0]}) + 31) / 32), "
+                    f"(unsigned)((ni + ({union.i[1] - union.i[0]}) + {ON_CHIP_ROWS - 1}) / "
+                    f"{ON_CHIP_ROWS}), 1u);"
+                )
+                self.emit(f"if (gt_grid.x == 0 || gt_grid.y == 0) return {NOTHING_LAUNCHED};")
+                self.emit(f"const int gt_smem = {oc.ring_bytes} + (int)nk * {oc.level_bytes};")
+                with self._block(f"if (gt_smem > {SHARED_BYTES_MAX})"):
+                    self._emit_smem_allowance(oc.kernel, "gt_smem")
+                self.emit(
+                    f"{oc.kernel}<<<gt_grid, dim3(32, {ON_CHIP_ROWS}), gt_smem, "
+                    f"(cudaStream_t)stream>>>(p, {args});"
+                )
+                self.emit("return (int)cudaGetLastError();")
+        oc = self.on_chip.get(n - 1)
+        if oc is not None:
+            self.emit(f"if (noalias && nk <= {oc.max_nk}) return {NOTHING_LAUNCHED};")
+
     def _emit_registers(self, held) -> None:
         """Declare held temporaries' registers and their carries, at 0."""
         for h in held:
@@ -1770,8 +1971,8 @@ class _Generator:
             with self._block(head):
                 if ring:
                     self.emit(f"const int gt_p = (int)({'gt_w0 - k' if backward else 'k - gt_w0'});")
-                    self.emit(f"gt_fetch(gt_p + {RING_LEVELS - 1});")
-                    self.emit(f"gt_cp_wait<{RING_LEVELS - 1 - ring.ahead}>();")
+                    self.emit(f"gt_fetch(gt_p + {ring.levels - 1});")
+                    self.emit(f"gt_cp_wait<{ring.levels - 1 - ring.ahead}>();")
                 for h in self.held.values():
                     if h.writer != n:
                         continue
@@ -1807,7 +2008,10 @@ class _Generator:
 
     # -- the prefetch ring (column and fused_column, __restrict__ variants) ------
 
-    def _plan_ring(self, n: int, union: Extent, threads: int, pitch: int = 0) -> Optional[_Ring]:
+    def _plan_ring(
+        self, n: int, union: Extent, threads: int, pitch: int = 0, levels: int = RING_LEVELS,
+        slab: frozenset = frozenset(),
+    ) -> Optional[_Ring]:
         """The Hopper counterpart of K3's pipelined plane streams
         (``spec_keys``, pallas_seq.py:1097-1134): each (field, horizontal
         offset) that loop ``n``'s FORWARD or BACKWARD walk reads is one
@@ -1824,9 +2028,11 @@ class _Generator:
         horizontal offset in a horizontal region (its address may lie
         outside the allocation), tables, data dimensions and
         lower-dimensional fields, and half fields (``cp.async`` copies 4, 8
-        or 16 bytes, never 2). Streams are ringed in the order the walk
-        first reads them as long as the ring stays within
-        ``RING_BYTES_MAX``; the reads of the others stay direct loads too.
+        or 16 bytes, never 2), and what the walk reads from the on-chip
+        slab (``slab``: the cross values of :meth:`_plan_on_chip`). Streams
+        are ringed in the order the walk first reads them as long as the
+        ring stays within ``RING_BYTES_MAX``; the reads of the others stay
+        direct loads too. ``levels`` replaces ``RING_LEVELS`` as the depth.
         A thread's element of a stream lies ``pitch`` bytes after the one
         before it (0: the stream's item size). None where the walk has no
         stream, is PARALLEL, or its sections do not run back to back;
@@ -1870,8 +2076,9 @@ class _Generator:
                         or r.abs_k is not None
                         or r.data_index
                         or (h is not None and h.writer == n)
+                        or r.name in slab
                         or ((di or dj) and it.stmt.horizontal_masks)
-                        or abs(q) >= RING_LEVELS
+                        or abs(q) >= levels
                         or (
                             r.name in written
                             and not (r.name in level_writes and dk == 0 and r.name not in before)
@@ -1892,7 +2099,7 @@ class _Generator:
 
         def size(keys: list) -> int:
             back = max(0, max(-q for key in keys for q in reach[key]))
-            return (RING_LEVELS + back) * threads * sum(
+            return (levels + back) * threads * sum(
                 pitch or streams[key].meta.dtype.itemsize for key in keys
             )
 
@@ -1923,7 +2130,23 @@ class _Generator:
                 for stmt, reads in served.items()
             },
             slot_bytes=offset,
+            levels=levels,
         )
+
+    def _shared_rings(self, walks, union: Extent, threads: int) -> list:
+        """The rings of walks (loop, depth, slab names) that one thread runs
+        back to back in one region of shared memory with no barrier between
+        them: a thread's elements must lie at the same bytes in every walk,
+        so where the walks mix 4- and 8-byte streams every stream takes the
+        larger pitch."""
+        rings = [self._plan_ring(n, union, threads, levels=lv, slab=sl) for n, lv, sl in walks]
+        sizes = {st.meta.dtype.itemsize for r in rings if r for st in r.streams}
+        if len(sizes) > 1:
+            rings = [
+                self._plan_ring(n, union, threads, pitch=max(sizes), levels=lv, slab=sl)
+                for n, lv, sl in walks
+            ]
+        return rings
 
     def _emit_ring_memory(self) -> None:
         """The ring's shared address ``gt_sm`` and the thread's index in
@@ -1972,7 +2195,7 @@ class _Generator:
         self.emit("gt_cp_commit();")
         self.indent -= 1
         self.emit("};")
-        self.emit(f"for (int gt_f = {-ring.back}; gt_f < {RING_LEVELS - 1}; ++gt_f) gt_fetch(gt_f);")
+        self.emit(f"for (int gt_f = {-ring.back}; gt_f < {ring.levels - 1}; ++gt_f) gt_fetch(gt_f);")
 
     def _ring_access(self, node: gtir.FieldAccess) -> str:
         """A read the ring serves: its stream's slot of level k + dk."""
@@ -2171,6 +2394,66 @@ class _Generator:
         )
         return tall if read_set else None
 
+    def _plan_on_chip(self) -> dict[int, tuple[str, ...]]:
+        """column: the FORWARD loops whose walk and the BACKWARD walk of the
+        loop after them one thread may run back to back in one launch
+        (:meth:`_emit_on_chip_kernel`), each with the values the BACKWARD
+        loop reads from the FORWARD one, which the launch keeps in shared
+        memory. A pair qualifies where
+        - every value the BACKWARD loop reads from the FORWARD one is a
+          temporary the FORWARD loop keeps in a register (``cross``), whose
+          buffer is not zero-filled (every read finds a level the walk set),
+          read by no other loop, at the thread's own column and constant K
+          offsets within the K range; an API field (tridiag's ``sup`` and
+          ``rhs``) keeps the two launches;
+        - K4's other conditions hold over the two loops, as
+          :meth:`_plan_fused_column` checks them: 3-D fields without data
+          dimensions and no tables, no ``while``, no offset write, no name
+          written in both, no variable or absolute K, sections covering the
+          K range back to back, and no read at a horizontal offset of what
+          either writes: a column must not need another column's value,
+          since the blocks no longer wait for each other between the walks."""
+        loops = self.stencil.vertical_loops
+        items = self._items(range(len(loops)))
+        pairs = {}
+        for n in range(len(loops) - 1):
+            if (loops[n].loop_order, loops[n + 1].loop_order) != (
+                gtir.LoopOrder.FORWARD, gtir.LoopOrder.BACKWARD
+            ) or not (self._walk(loops[n])[1] and self._walk(loops[n + 1])[1]):
+                continue
+            pair = [it for it in items if it.loop in (n, n + 1)]
+            writer: dict[str, int] = {}
+            ok = True
+            for it in pair:
+                ok = ok and isinstance(it.stmt, gtir.Assign)
+                for w in it.writes:
+                    ok = ok and w.offset == (0, 0, 0) and w.koffset is None
+                    ok = ok and writer.setdefault(w.name, it.loop) == it.loop
+            for it in pair:
+                for a in it.reads + it.writes:
+                    m = self._meta(a.name)
+                    ok = ok and (m.is_temp or (m.axes == (True, True, True) and not m.data_dims))
+                for r in it.reads:
+                    ok = ok and r.koffset is None and r.abs_k is None
+                    ok = ok and not (r.name in writer and (r.offset[0] or r.offset[1]))
+            cross = sorted({
+                r.name for it in pair if it.loop == n + 1 for r in it.reads
+                if writer.get(r.name) == n
+            })
+            for name in cross:
+                h = self.held.get(name)
+                ok = ok and (
+                    h is not None and h.writer == n and h.cross and not self.fill[name]
+                    and self.fields[name].extent.k == (0, 0)
+                    and not any(
+                        it.loop > n + 1 and any(a.name == name for a in it.reads)
+                        for it in items
+                    )
+                )
+            if ok and cross:
+                pairs[n] = tuple(cross)
+        return pairs
+
     def _plan_fused_column(self) -> tuple[dict[str, _Held], dict[str, bool], int]:
         """K4's class among the stencils ``column`` serves: the conditions of
         ``pallas_seq.build_staged_fn`` (:302-333, :1505-1520), and no read of
@@ -2290,24 +2573,10 @@ class _Generator:
         for it in items:
             union = union.union(it.ext)
         kernel = "gt_fused_column_0"
-        used = [m for m in self.slots if m.name in names]
-        params = ", ".join(
-            f"{'const ' if m.name not in written else ''}char* __restrict__ {m.var}"
-            for m in used
-        )
-        args = ", ".join(
-            f"({'const ' if m.name not in written else ''}char*)fields[{m.index}]" for m in used
-        )
+        params, args = self._restrict_args(names, written)
         loops = self.stencil.vertical_loops
-        rings = [self._plan_ring(n, union, FC_THREADS) for n in range(len(loops))]
-        sizes = {s.meta.dtype.itemsize for r in rings if r for s in r.streams}
-        if len(sizes) > 1:
-            # the walks reuse one region without a barrier between them, so
-            # a thread's elements must lie at the same bytes in every walk:
-            # one pitch for all streams
-            rings = [
-                self._plan_ring(n, union, FC_THREADS, pitch=max(sizes)) for n in range(len(loops))
-            ]
+        rings = self._shared_rings([(n, RING_LEVELS, frozenset()) for n in range(len(loops))],
+                                   union, FC_THREADS)
         self._emit_fused_column_variant(kernel, names, union, "", [None] * len(loops))
         self.read_only = names - written
         self._emit_fused_column_variant(kernel + "_r", names, union, params, rings)
@@ -2372,12 +2641,24 @@ class _Generator:
 
     def _held_access(self, node: gtir.FieldAccess) -> Optional[str]:
         """column and fused_column: a temporary's register in the loop that
-        writes it, or None where a later loop reads it from device memory."""
+        writes it, its slab element in the BACKWARD walk of an on-chip pair,
+        or None where a later loop reads it from device memory."""
         h = self.held[node.name]
-        if self.loop != h.writer:
-            return None
         dk = node.offset[2]
+        if self.loop != h.writer:
+            if node.name in self.slab:
+                return self._slab_element(node.name, f"gt_clampk(k + ({dk}), nk)" if dk else "k")
+            return None
         return f"{h.meta.var}_r{abs(dk)}" if dk else f"{h.meta.var}_r"
+
+    def _slab_element(self, name: str, level: str) -> str:
+        """The thread's element of ``name`` at level ``level`` of the slab
+        (:meth:`_emit_on_chip_kernel`)."""
+        m = self.fields[name]
+        return (
+            f"(*({_ctype(m.dtype)}*)(gt_slab + (unsigned)({level}) * {self.slab_level}u + "
+            f"{self.slab[name]}u + gt_tid * {m.dtype.itemsize}u))"
+        )
 
     def _emit_held_assign(self, stmt: gtir.Assign, h: _Held) -> None:
         """column and fused_column: a temporary's write, to its register
@@ -2385,7 +2666,9 @@ class _Generator:
         t = stmt.target
         ct, v = _ctype(h.meta.dtype), h.meta.var
         stores = [f"{v}_r = gt_v;"]
-        if h.cross:
+        if t.name in self.slab:
+            stores.append(f"{self._slab_element(t.name, 'k')} = gt_v;")
+        elif h.cross:
             stores.append(self._global_store(t, "gt_v"))
         body = f"{{ const {ct} gt_v = {self._expr(stmt.value)}; {' '.join(stores)} }}"
         self.emit(body if stmt.mask is None else f"if ({self._expr(stmt.mask)}) {body}")

@@ -53,7 +53,7 @@ variant_log: Optional[list] = None
 #: kernel -> the bridged calls run on a variant it serves since the counter
 #: was cleared (on CPU tensors the calls run its plain version)
 calls_served: collections.Counter = collections.Counter()
-#: kernel -> the launchers the bridge's calls on the card asked of it since
+#: kernel -> the launches the bridge's calls on the card asked of it since
 #: the counter was cleared (what ``cuda_backend.WRAPPERS`` must count)
 launchers_served: collections.Counter = collections.Counter()
 
@@ -1121,7 +1121,7 @@ def execute(variant: BridgeVariant, field_args, scalar_args, out):
     if module is not None:
         calls_served[module.strategy] += 1
         if getattr(variant.backend, "last_strategy", None) == module.strategy:
-            launchers_served[module.strategy] += len(module.launchers)
+            launchers_served[module.strategy] += variant.backend.last_kernels
 
 
 def bind_arguments(definition, args, kwargs, carry: bool = False) -> tuple[dict, dict]:

@@ -442,20 +442,24 @@ def _pool(device: torch.device, stream) -> _Pool:
 class Graph:
     """A captured CUDA graph, its pool, the tensors it reads that are not
     the caller's (kept alive with it) and the Hopper kernels each replay
-    launches, by wrapper (added to each wrapper's count at every replay)."""
+    launches, by wrapper, and the on-chip pairs among them (added to each
+    wrapper's counts at every replay)."""
 
-    __slots__ = ("graph", "pool", "keeps", "launches")
+    __slots__ = ("graph", "pool", "keeps", "launches", "on_chip")
 
-    def __init__(self, graph, pool: _Pool, keeps: list, launches: dict):
+    def __init__(self, graph, pool: _Pool, keeps: list, launches):
         self.graph = graph
         self.pool = pool
         self.keeps = keeps
         self.launches = tuple(launches.items())
+        self.on_chip = tuple(launches.on_chip.items())
 
     def replay(self) -> None:
         self.graph.replay()
         for wrapper, n in self.launches:
             wrapper.launches += n
+        for wrapper, n in self.on_chip:
+            wrapper.on_chip += n
 
     def retire(self) -> None:
         self.pool.leave()
@@ -476,7 +480,8 @@ def capture(device: torch.device, stream, body: Callable[[], Any], keeps: list) 
     try:
         with recording_launches() as launches:
             graph, _ = capture_graph(device, [lambda: body() or 0], pool=pool.handle,
-                                     stream=pool.side)
+                                     stream=pool.side,
+                                     on_chip=lambda: sum(launches.on_chip.values()))
     except BaseException:
         if not pool.graphs:  # the failed graph, destroyed, took the pool with it
             _POOLS.pop(pool.key, None)

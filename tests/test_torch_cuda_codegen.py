@@ -1128,7 +1128,9 @@ def test_column_keeps_vadv_temporaries_in_registers(monkeypatch):
     """vadv on column: the 9 loop-local temporaries and datacol are
     registers, ccol and dcol also keep a buffer for the BACKWARD loop,
     written before it is read: the wrapper allocates no zero-filled
-    temporary, and column serves every K the stencil takes."""
+    temporary, and column serves every K the stencil takes. The buffers are
+    allocated on a shape that the on-chip pair does not serve (taller than
+    its bound)."""
     gen, module = _column_generator("vertical_advection_dycore")
     assert module.strategy == "column" and module.min_nk == 0
     assert set(gen.held) == {t.name for t in gen.stencil.temporaries}
@@ -1143,14 +1145,15 @@ def test_column_keeps_vadv_temporaries_in_registers(monkeypatch):
     # the wrapper: buffers for ccol and dcol, none of them zero-filled
     backend = cuda_backend.CudaHopperBackend(gen.analyzed, {})
     backend._fns = []  # nothing to build or launch here
-    arrays = {n: torch.zeros(5, 4, 6, dtype=torch.float64) for n in backend.analyzed.field_infos}
+    nk = module.on_chip["gt_launch_0"].max_nk + 1
+    arrays = {n: torch.zeros(5, 4, nk, dtype=torch.float64) for n in backend.analyzed.field_infos}
     calls = []
     for fn in ("zeros", "empty"):
         real = getattr(torch, fn)
         monkeypatch.setattr(
             torch, fn, lambda *a, _fn=fn, _real=real, **k: calls.append(_fn) or _real(*a, **k)
         )
-    backend.prepared(arrays, (4, 4, 6), {})
+    backend.prepared(arrays, (4, 4, nk), {})
     assert calls == ["empty", "empty"]
 
 
@@ -1240,19 +1243,262 @@ def _bodies(source):
 @pytest.mark.parametrize("name", ["vertical_advection_dycore", "tridiagonal_solver"])
 def test_ring_only_in_restrict_variants(name, fuse, monkeypatch):
     """The prefetch ring is in the __restrict__ variants and nowhere else;
-    the plain-pointer variants load what they read directly, as before."""
+    the plain-pointer variants load what they read directly, as before.
+    vadv's on-chip pair (a third ``_r`` kernel, off with the switch on)
+    rings both its walks."""
     monkeypatch.setenv("GT4PY_CUDA_FUSE_STAGES", "1" if fuse else "0")
     module = _registry_backend(name).module
     bodies = _bodies(module.source)
     ringed = {k for k in bodies if k.endswith("_r")}
-    assert set(module.ring_bytes) == ringed and len(ringed) == (1 if fuse else 2)
+    pairs = {oc.kernel for oc in module.on_chip.values()}
+    assert len(pairs) == (name == "vertical_advection_dycore" and not fuse)
+    assert set(module.ring_bytes) == ringed and len(ringed) == (1 if fuse else 2 + len(pairs))
     for kernel, body in bodies.items():
         ring = kernel in ringed
         for mark in ("gt_smem", "gt_fetch(", "gt_cp_async", "gt_cp_wait<", "gt_lds_"):
             assert (mark in body) == ring, (kernel, mark)
         # two blocks per SM: ptxas gives a ringed kernel the registers it needs
-        assert (f"__launch_bounds__(256, 2) {kernel}(" in module.source) == ring
+        assert (f"__launch_bounds__(256, 2) {kernel}(" in module.source) == (
+            ring and kernel not in pairs)
     assert "cp.async" in module.source and "asm volatile" in module.source
+
+
+def _vadv_generic(dtype, **options):
+    prec = 8 * np.dtype(dtype).itemsize
+    return _backend(
+        defs.vertical_advection_dycore_generic, dtypes={"vadv_dt": dtype},
+        externals=defs.VADV_EXTERNALS, literal_float_precision=prec,
+        literal_int_precision=prec, **options,
+    )
+
+
+def test_on_chip_pair_of_vadv_only_in_the_restrict_path():
+    """vadv's FORWARD and BACKWARD walks in one kernel, ``gt_column_0_1_r``
+    (named ``gt_column*``, so a trace counts it with the column kernels):
+    loop 0's launcher launches it under the no-overlap check and the rule's
+    bound on nk, and loop 1's launcher then launches nothing. It keeps ccol
+    and dcol in the slab (no pointer to their buffers, no store to device
+    memory); the plain-pointer kernels keep their buffers as before."""
+    module = _registry_backend("vertical_advection_dycore").module
+    oc = module.on_chip["gt_launch_0"]
+    assert list(module.on_chip) == ["gt_launch_0"]
+    assert (oc.kernel, oc.cross) == ("gt_column_0_1_r", ("ccol", "dcol"))
+    assert oc.kernel.startswith("gt_column")
+    bodies = _bodies(module.source)
+    assert set(bodies) == {"gt_column_0", "gt_column_0_r", "gt_column_0_1_r", "gt_column_1",
+                           "gt_column_1_r"}
+    first = module.source.split('extern "C" int gt_launch_0(')[1].split('extern "C"')[0]
+    second = module.source.split('extern "C" int gt_launch_1(')[1].split('extern "C"')[0]
+    rule = f"if (noalias && nk <= {oc.max_nk})"
+    assert rule in first and first.index(rule) < first.index(f"{oc.kernel}<<<")
+    assert f"{rule} return {cuda_codegen.NOTHING_LAUNCHED};" in second
+    assert oc.kernel not in second
+    slots = {m.name: m.var for m in module.slots}
+    head = module.source.split(f"{oc.kernel}(const GtParams p")[1].split(") {")[0]
+    for name in oc.cross:
+        assert f" {slots[name]}" not in head and f"{slots[name]}_s" not in bodies[oc.kernel]
+        assert f" {slots[name]}" in module.source.split("gt_column_0_r(const GtParams p")[1].split(") {")[0]
+    assert bodies[oc.kernel].count("(*(double*)(gt_slab + (unsigned)(k) * ") >= 4
+    for kernel in ("gt_column_0", "gt_column_0_r", "gt_column_1", "gt_column_1_r"):
+        assert "gt_slab" not in bodies[kernel]
+    assert f"__launch_bounds__({32 * cuda_codegen.ON_CHIP_ROWS}, 1) {oc.kernel}(" in module.source
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_on_chip_slab_bytes(dtype):
+    """The slab holds nk levels of ccol and dcol for every column of the
+    block, [k][value][thread], after the ring: nk × columns × 2 × item size;
+    the launcher asks for the ring's bytes and that, and allows them above
+    48 KB."""
+    module = _vadv_generic(dtype).module
+    oc = module.on_chip["gt_launch_0"]
+    columns = 32 * cuda_codegen.ON_CHIP_ROWS
+    item = np.dtype(dtype).itemsize
+    for nk in (1, 80, oc.max_nk):
+        assert nk * oc.level_bytes == nk * columns * 2 * item
+        assert oc.shared_bytes(nk) == oc.ring_bytes + nk * columns * 2 * item
+    assert oc.ring_bytes == module.ring_bytes[oc.kernel]
+    launcher = module.source.split('extern "C" int gt_launch_0(')[1]
+    assert f"const int gt_smem = {oc.ring_bytes} + (int)nk * {oc.level_bytes};" in launcher
+    assert f"cudaFuncSetAttribute({oc.kernel}, cudaFuncAttributeMaxDynamicSharedMemorySize, gt_smem)" in launcher
+    body = _bodies(module.source)[oc.kernel]
+    assert f"unsigned char* const gt_slab = gt_smem + {oc.ring_bytes};" in body
+    ct = "float" if dtype == np.float32 else "double"
+    for offset in (0, columns * item):  # ccol, then dcol
+        assert f"(*({ct}*)(gt_slab + (unsigned)(k) * {oc.level_bytes}u + {offset}u + gt_tid * {item}u))" in body
+
+
+def _resident_bytes(oc, nk, item):
+    """What the rule counts at ``nk`` levels: the columns the block's shared
+    memory leaves resident on an SM, times the streams' item size."""
+    blocks = cuda_codegen.SM_SHARED_BYTES // (oc.shared_bytes(nk) + cuda_codegen.BLOCK_RESERVED_BYTES)
+    return blocks * 32 * cuda_codegen.ON_CHIP_ROWS * item
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_on_chip_bound_follows_the_rule(dtype):
+    """The launcher takes the pair up to the largest nk at which slab and
+    ring fit a block and leave ``ON_CHIP_RESIDENT_BYTES`` resident, and the
+    two launches above it (a tall nk) or for overlapping arguments; vadv at
+    the benchmark's 80 levels takes it in float32 and float64."""
+    module = _vadv_generic(dtype).module
+    oc = module.on_chip["gt_launch_0"]
+    item = np.dtype(dtype).itemsize
+    assert oc.shared_bytes(oc.max_nk) <= cuda_codegen.SHARED_BYTES_LIMIT
+    assert _resident_bytes(oc, oc.max_nk, item) >= cuda_codegen.ON_CHIP_RESIDENT_BYTES
+    assert _resident_bytes(oc, oc.max_nk + 1, item) < cuda_codegen.ON_CHIP_RESIDENT_BYTES
+    assert oc.serves(80, True) and oc.serves(oc.max_nk, True)
+    assert not oc.serves(oc.max_nk + 1, True) and not oc.serves(160, True)
+    assert not oc.serves(80, False)
+    assert module.kernels_per_call(80, True) == 1
+    assert module.kernels_per_call(oc.max_nk + 1, True) == module.kernels_per_call(80, False) == 2
+
+
+def test_on_chip_bound_takes_the_two_launches_for_float64_where_the_rule_says_so():
+    """float64 doubles the slab: at 100 levels the block leaves 64 columns
+    resident, 512 bytes a level, and the launcher keeps the two kernels,
+    where float32 still takes the pair."""
+    f64 = _vadv_generic(np.float64).module.on_chip["gt_launch_0"]
+    f32 = _vadv_generic(np.float32).module.on_chip["gt_launch_0"]
+    assert _resident_bytes(f64, 100, 8) == 512 < cuda_codegen.ON_CHIP_RESIDENT_BYTES
+    assert not f64.serves(100, True) and f32.serves(100, True)
+
+
+def _pair_with_temporary(inp: F64, out: F64):
+    with computation(FORWARD):
+        with interval(0, 1):
+            acc = inp
+        with interval(1, None):
+            acc = inp + 0.5 * acc[0, 0, -1]
+    with computation(BACKWARD):
+        with interval(-1, None):
+            out = acc
+        with interval(0, -1):
+            out = acc + 0.25 * out[0, 0, 1]
+
+
+def _pair_reads_a_neighbour_the_backward_loop_writes(inp: F64, out: F64):
+    with computation(FORWARD), interval(...):
+        acc = inp + out[1, 0, 0]
+    with computation(BACKWARD), interval(...):
+        out = acc
+
+
+def _pair_value_read_by_a_later_loop(inp: F64, out: F64, out2: F64):
+    with computation(FORWARD), interval(...):
+        acc = inp * 2.0
+    with computation(BACKWARD), interval(...):
+        out = acc
+    with computation(PARALLEL), interval(...):
+        out2 = acc + 1.0
+
+
+def _pair_with_a_k_field(inp: F64, w: FK, out: F64):
+    with computation(FORWARD), interval(...):
+        acc = inp * w
+    with computation(BACKWARD), interval(...):
+        out = acc
+
+
+def _pair_with_a_while(inp: F64, out: F64):
+    with computation(FORWARD), interval(...):
+        acc = inp
+        while acc < 0.5:
+            acc = acc * 2.0 + 0.125
+    with computation(BACKWARD), interval(...):
+        out = acc
+
+
+def test_on_chip_pair_serves_a_forward_backward_temporary():
+    """A FORWARD loop whose register a BACKWARD loop reads at its own
+    column takes the pair, as vadv does."""
+    module = _backend(_pair_with_temporary).module
+    assert module.strategy == "column"
+    assert {k: oc.cross for k, oc in module.on_chip.items()} == {"gt_launch_0": ("acc",)}
+
+
+@pytest.mark.parametrize(
+    "definition",
+    [
+        defs.REGISTRY["tridiagonal_solver"]["definition"],  # API fields cross
+        _temporary_at_an_offset_later,  # read at a horizontal offset, zero-filled
+        _pair_reads_a_neighbour_the_backward_loop_writes,
+        _pair_value_read_by_a_later_loop,
+        _pair_with_a_k_field,
+        _pair_with_a_while,
+    ],
+)
+def test_on_chip_pair_declined(definition):
+    """Two launches where a BACKWARD loop reads an API field the FORWARD
+    one wrote, a value at another column or one a later loop reads too, or
+    K4's other conditions fail (a lower-dimensional field, a while)."""
+    module = _backend(definition).module
+    assert module.strategy == "column" and module.on_chip == {}
+    assert "gt_slab" not in module.source
+
+
+@pytest.mark.parametrize("name", sorted(defs.REGISTRY))
+def test_on_chip_pair_only_for_vadv_in_the_registry(name):
+    """Of the registry, only vadv takes the pair: single-loop stencils,
+    PARALLEL loops, tridiag and read_ahead_sweep keep their launches."""
+    module = _registry_backend(name).module
+    assert (module.on_chip != {}) == (name == "vertical_advection_dycore")
+
+
+def test_on_chip_pair_not_with_the_fusion_switch(fuse_stages):
+    """fused_column (the switch on) is one launch already and unchanged."""
+    module = _registry_backend("vertical_advection_dycore").module
+    assert module.strategy == "fused_column" and module.on_chip == {}
+    assert "gt_slab" not in module.source
+
+
+def test_prepared_launch_allocates_no_buffer_the_pair_keeps_on_chip(monkeypatch):
+    """On a shape the pair serves, ``prepared`` allocates no ccol or dcol
+    buffer (their pointers stay null: the pair never reads them) and counts
+    one kernel a call; with overlapping arguments (the plain-pointer
+    kernels) it allocates both and counts two."""
+    backend = _cpu_backend("vertical_advection_dycore")
+    names = [n for n, i in backend.analyzed.field_infos.items() if i is not None]
+    arrays = {n: torch.zeros(5, 4, 6, dtype=torch.float64) for n in names}
+    temps = [m for m in backend.module.slots if m.is_temp]
+    calls = []
+    real = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: calls.append(a) or real(*a, **k))
+    launch = backend.prepared(arrays, (4, 4, 6), {})
+    assert calls == [] and backend._scratch == {}
+    assert launch.on_chip == {"gt_launch_0"} and launch.kernels == 1
+    assert [launch.ptrs[m.index] for m in temps] == [None, None]
+    monkeypatch.setattr(cuda_backend, "overlapping", lambda arrays: [("", "")])
+    other = {n: torch.zeros(5, 4, 6, dtype=torch.float64) for n in names}
+    launch = backend.prepared(other, (4, 4, 6), {})
+    assert len(calls) == 2 and len(backend._scratch) == 2
+    assert launch.on_chip == frozenset() and launch.kernels == 2
+
+
+def test_wrapper_counts_on_chip_pairs():
+    """``on_chip`` counts the pair's launches among ``launches``, where they
+    run: a recording (a capture) keeps them apart, a field-view graph adds
+    them at each replay, and an empty grid counts neither."""
+    from gt4py_tpu_torch.next import otf
+
+    wrapper = cuda_backend.KernelWrapper("probe")
+    wrapper.launch(lambda *a: 0, (), on_chip=True)
+    wrapper.launch(lambda *a: 0, ())
+    wrapper.launch(lambda *a: cuda_codegen.NOTHING_LAUNCHED, (), on_chip=True)
+    assert (wrapper.launches, wrapper.on_chip) == (2, 1)
+    with cuda_backend.recording_launches() as counts:
+        wrapper.launch(lambda *a: 0, (), on_chip=True)
+    assert (wrapper.launches, wrapper.on_chip) == (2, 1)
+    assert (counts[wrapper], counts.on_chip[wrapper]) == (1, 1)
+
+    class FakeGraph:
+        def replay(self):
+            pass
+
+    graph = otf.Graph(FakeGraph(), None, [], counts)
+    graph.replay()
+    graph.replay()
+    assert (wrapper.launches, wrapper.on_chip) == (4, 3)
 
 
 def test_ring_nowhere_but_the_column_walks():
@@ -1349,10 +1595,14 @@ def test_ring_shared_memory_per_block(dtype):
     threads = cuda_codegen.COL_BJ * cuda_codegen.COL_BI
     levels = cuda_codegen.RING_LEVELS
     # the BACKWARD walk streams u_pos and the buffers of ccol and dcol,
-    # which type inference makes float64 in either case
+    # which type inference makes float64 in either case; the on-chip pair's
+    # walks share one region, and its BACKWARD walk streams u_pos alone
+    up, down = cuda_codegen.ON_CHIP_RING_LEVELS
+    pair = cuda_codegen.ON_CHIP_ROWS * 32
     assert module.ring_bytes == {
         "gt_column_0_r": (levels + 1) * 6 * size * threads,
         "gt_column_1_r": levels * (size + 2 * 8) * threads,
+        "gt_column_0_1_r": max((up + 1) * 6 * size * pair, down * size * pair),
     }
     for n in range(2):
         kernel = f"gt_column_{n}_r"
@@ -1763,9 +2013,10 @@ def test_prepared_launches_share_their_scratch():
     launch, not allocated zero-filled."""
     backend = _cpu_backend("vertical_advection_dycore")
     names = [n for n, i in backend.analyzed.field_infos.items() if i is not None]
-    a = {n: torch.zeros(5, 4, 6, dtype=torch.float64) for n in names}
-    b = {n: torch.zeros(5, 4, 6, dtype=torch.float64) for n in names}
-    pa, pb = backend.prepared(a, (4, 4, 6), {}), backend.prepared(b, (4, 4, 6), {})
+    nk = backend.module.on_chip["gt_launch_0"].max_nk + 1  # the pair keeps no buffer
+    a = {n: torch.zeros(5, 4, nk, dtype=torch.float64) for n in names}
+    b = {n: torch.zeros(5, 4, nk, dtype=torch.float64) for n in names}
+    pa, pb = backend.prepared(a, (4, 4, nk), {}), backend.prepared(b, (4, 4, nk), {})
     assert pa is not pb
     temps = [m for m in backend.module.slots if m.is_temp]
     assert [pa.ptrs[m.index] for m in temps] == [pb.ptrs[m.index] for m in temps]
@@ -1915,7 +2166,8 @@ def test_column_walk_matches_plain_on_card(name, fuse, depth, variant, monkeypat
     the __restrict__ variant (with its ring) and in the plain-pointer one,
     which the wrapper takes when it sees overlapping arguments (here it is
     told so, and the stencil is built anew, so that no launch prepared
-    before is found); each launch is counted."""
+    before is found); each launch is counted (vadv's on-chip pair, where
+    the shape takes it, as one)."""
     _need_card()
     monkeypatch.setenv("GT4PY_CUDA_FUSE_STAGES", "1" if fuse else "0")
     if variant == "plain":
@@ -1928,7 +2180,7 @@ def test_column_walk_matches_plain_on_card(name, fuse, depth, variant, monkeypat
     nk = max(entry["min_k"], 2) if depth == "short" else 4 * cuda_codegen.RING_LEVELS + 5
     host = defs.make_inputs(kern.field_info, (25, 23, nk), np.random.default_rng(8))
     wrapper = cuda_backend.WRAPPERS["fused_column" if fuse else "column"]
-    launches = 1 if fuse else len(kern._backend.analyzed.stencil.vertical_loops)
+    launches = 1 if fuse else kern._backend.module.kernels_per_call(nk, variant == "restrict")
     out = {}
     for tag, st in (("kernel", kern), ("plain", plain)):
         fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
@@ -1968,10 +2220,105 @@ def test_vadv_float32_fields_float64_temporaries_on_card(fuse, monkeypatch):
         wrapper.launches = 0
         st(**fields, dtr_stage=np.float32(0.15), origin=(2, 2, 0), domain=(256, 256, nk))
         torch.cuda.synchronize()
-        assert wrapper.launches == ((1 if fuse else 2) if tag == "kernel" else 0)
+        launches = 1 if fuse else kern._backend.module.kernels_per_call(nk, True)
+        assert wrapper.launches == (launches if tag == "kernel" else 0)
         out[tag] = {n: np.asarray(v) for n, v in fields.items()}
     for n in host:
         _assert_same(out["kernel"][n], out["plain"][n], n)
+
+
+def _vadv_pair_and_two(dtype, monkeypatch):
+    """vadv in ``dtype`` on the card with the on-chip pair, the same stencil
+    with the pair's bound at 0 levels (the two column kernels, built anew),
+    and the plain version."""
+    pair = gtscript.stencil(backend="cuda:hopper", rebuild=True, **_vadv_options(dtype))
+    with monkeypatch.context() as m:
+        m.setattr(cuda_codegen, "ON_CHIP_RESIDENT_BYTES", 1 << 40)
+        two = gtscript.stencil(backend="cuda:hopper", rebuild=True, **_vadv_options(dtype))
+    assert pair._backend.module.on_chip and not two._backend.module.on_chip
+    plain = gtscript.stencil(backend="torch", **_vadv_options(dtype))
+    return pair, two, plain
+
+
+def _vadv_options(dtype):
+    prec = 8 * np.dtype(dtype).itemsize
+    return dict(definition=defs.vertical_advection_dycore_generic, externals=defs.VADV_EXTERNALS,
+                dtypes={"vadv_dt": dtype}, literal_float_precision=prec,
+                literal_int_precision=prec)
+
+
+def _vadv_host(st, shape, seed):
+    host = defs.make_inputs(st.field_info, shape, np.random.default_rng(seed))
+    host["wcon"] = (0.1 * host["wcon"]).astype(host["wcon"].dtype)
+    return host
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shape", ["full", "ragged", "at_bound", "above_bound"])
+def test_on_chip_pair_equals_the_two_launches_on_card(dtype, shape, monkeypatch):
+    """vadv on the pair (one launch, counted as one and as ``on_chip``)
+    equals the two column kernels and the plain version to the bit: at
+    256×256×80, on a domain that fills no block (36×44×23), and at the
+    rule's bound and one level above it, where the launcher takes the two
+    kernels (no ``on_chip``)."""
+    _need_card()
+    pair, two, plain = _vadv_pair_and_two(dtype, monkeypatch)
+    oc = pair._backend.module.on_chip["gt_launch_0"]
+    nk = {"full": 80, "ragged": 23, "at_bound": oc.max_nk, "above_bound": oc.max_nk + 1}[shape]
+    ni, nj = (256, 256) if shape == "full" else (37, 45)
+    host = _vadv_host(pair, (ni, nj, nk), 9)
+    scalar = np.dtype(dtype).type(0.15)
+    served = shape != "above_bound"
+    out = {}
+    for tag, st in (("pair", pair), ("two", two), ("plain", plain)):
+        fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+        cuda_backend.COLUMN.launches = cuda_backend.COLUMN.on_chip = 0
+        st(**fields, dtr_stage=scalar, domain=(ni - 1, nj, nk))
+        torch.cuda.synchronize()
+        counts = (cuda_backend.COLUMN.launches, cuda_backend.COLUMN.on_chip)
+        assert counts == {"pair": (1, 1) if served else (2, 0), "two": (2, 0), "plain": (0, 0)}[tag]
+        out[tag] = {n: np.asarray(v) for n, v in fields.items()}
+    for n in host:
+        for other in ("two", "plain"):
+            got, want = (np.ascontiguousarray(out[t][n]).view(np.uint8) for t in ("pair", other))
+            assert np.array_equal(got, want), (n, other)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_on_chip_pair_chain_as_a_graph_on_card(dtype, monkeypatch):
+    """``chain(20)`` of vadv at 256×256×80 captured into a CUDA graph: 20
+    launches of the pair, each counted as ``on_chip``, by the replays and
+    their spans; the result equals 20 calls of the two column kernels to
+    the bit."""
+    from gt4py_tpu_torch.instrumentation import clear_spans, spans
+
+    _need_card()
+    pair, two, _ = _vadv_pair_and_two(dtype, monkeypatch)
+    host = _vadv_host(pair, (256, 256, 80), 11)
+    scalar = np.dtype(dtype).type(0.15)
+    chained = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+    cur = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
+    cuda_backend.COLUMN.launches = cuda_backend.COLUMN.on_chip = 0
+    info = {}
+    clear_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        pair.chain(20, **chained, dtr_stage=scalar, domain=(255, 256, 80), exec_info=info)
+        torch.cuda.synchronize()
+    assert info["chain_mode"] == "graph"
+    assert (cuda_backend.COLUMN.launches, cuda_backend.COLUMN.on_chip) == (20, 20)
+    records = [r for r in spans() if r.name in ("gt4py.backend.replay", "gt4py.backend.launch",
+                                                 "gt4py.backend.capture")]
+    ran = [r for r in records if r.name != "gt4py.backend.capture"]
+    assert sum(r.attrs["on_chip"] for r in ran) == sum(r.attrs["launches"] for r in ran) == 20
+    assert all(r.attrs["on_chip"] == r.attrs["launches"] == 1 for r in records
+               if r.name == "gt4py.backend.capture")
+    for _ in range(20):
+        two(**cur, dtr_stage=scalar, domain=(255, 256, 80))
+    torch.cuda.synchronize()
+    for n in host:
+        assert _same_bits(chained[n].array, cur[n].array), n
 
 
 @pytest.mark.cuda
@@ -2426,7 +2773,7 @@ def test_graph_chain_of_a_main_path_is_its_calls_on_card(path, dtype, n_steps):
         cur = {r: cur[case["swap"].get(r, r)] for r in cur}
     torch.cuda.synchronize()
     assert chain_launches == cuda_backend.WRAPPERS[case["kernel"]].launches == (
-        n_steps * len(st._backend.module.launchers)
+        n_steps * st._backend.module.kernels_per_call(16, True)
     )
     for r in chained:
         assert _same_bits(chained[r].array, cur[r].array), r

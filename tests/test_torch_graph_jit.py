@@ -424,7 +424,7 @@ def _pool_stand_ins(monkeypatch, fail=False) -> list:
     monkeypatch.setattr(torch.cuda, "Stream", lambda device: _FakeStream())
     captures = []
 
-    def capture_graph(device, launches, pool=None, stream=None):
+    def capture_graph(device, launches, pool=None, stream=None, on_chip=None):
         captures.append((pool, stream))
         if fail:
             raise RuntimeError("the body's own error")

@@ -420,14 +420,17 @@ def test_aot_first_call_on_card_builds_nothing_and_launches_its_kernel(name):
     assert job.compiled_stage.library is not None
     assert job.compiled_stage.cost_analysis()
     for w in cuda_backend.WRAPPERS.values():
-        w.launches = 0
+        w.launches = w.on_chip = 0
     built, runs = bridge.variants_built, cuda_backend.nvcc_runs
     op(*args, out=out, offset_provider=defs.PROV_K, **kwargs)
     torch.cuda.synchronize()
     assert (bridge.variants_built, cuda_backend.nvcc_runs) == (built, runs)
     kernel = job.lowered_stage.strategy
+    module = job.lowered_stage.module
     launches = {k: w.launches for k, w in cuda_backend.WRAPPERS.items() if w.launches}
-    assert launches == {kernel: len(job.lowered_stage.module.launchers)}
+    # solve_tridiag's scans run as one on-chip pair (counted as one launch)
+    assert launches == {kernel: module.kernels_per_call(16, True)}
+    assert cuda_backend.COLUMN.on_chip == len(module.launchers) - module.kernels_per_call(16, True)
     getattr(defs, name).with_backend("cuda:hopper")(
         *args, out=want, offset_provider=defs.PROV_K, **kwargs)
     assert torch.equal(out.ndarray, want.ndarray)
