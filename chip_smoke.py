@@ -24,7 +24,8 @@ swap cycle of the kernels as a CUDA graph.
    repeats), less one a call for each on-chip pair the shape takes (vadv on
    ``column``: one launch a call, which ``COLUMN.on_chip`` must count; two
    where the rule keeps the two kernels). Every one of the five kernels
-   must have launched on some path.
+   must have launched on some path (the field view's ``neighbor`` kernel
+   launches in step 7d).
 3. Holds every result against the plain version (the ``torch`` backend on the
    same card, same inputs; the half types on one application) and, on a
    small input, against the NumPy oracle. Then the graph chain: on every
@@ -97,7 +98,12 @@ swap cycle of the kernels as a CUDA graph.
    ``format_compiled``'s SASS by class where the toolkit has ``cuobjdump``.
    7d. FVM nabla (bench.py:687-689) in float32 on ``periodic_quad_mesh(256)``
    and ``(1024)`` (65,536 and 1,048,576 vertices): the ``torch`` backend on
-   card fields against ``numpy`` on the host, ms a call by CUDA events.
+   card fields against ``numpy`` on the host, ms a call by CUDA events. Then
+   the benchmark's FVM nabla (perfbench/programs/fvm_pnabla.py: both
+   components, 137 levels) at the same meshes both ways, the ``torch``
+   backend and ``cuda:hopper`` (the generated gather-reduce kernel), each
+   against the plain reference (perfbench/reference/fvm_pnabla.py), µs a
+   call by CUDA events.
 
 8. Oracle phases, on the card's host: the port's ``numpy`` backend
    (the exact oracle, NumPy on CPU tensors) holds every registry build of
@@ -452,7 +458,8 @@ def main(argv) -> int:
                 f"(one call and chain({CHAIN_STEPS}))"
             )
         served |= {k for k, n in counts.items() if n}
-    missing = set(cuda_backend.WRAPPERS) - served
+    # the field view's unstructured kernels: step 7d's
+    missing = set(cuda_backend.WRAPPERS) - served - {cuda_backend.NEIGHBOR.name}
     if missing:
         raise AssertionError(f"kernels never launched on a main path: {sorted(missing)}")
 
@@ -719,6 +726,15 @@ def main(argv) -> int:
         print(f"  {nb['vertices']:8d} vertices  {nb['ms']:.4f} ms  "
               f"({nb['vertices'] / nb['ms'] / 1e3:.1f} Mvertices/s)  numpy {nb['numpy_ms']:.1f} "
               f"ms  max abs err {nb['max_abs_err']:.3e}")
+    pnablas = [run_pnabla(n, nk, torch) for n, nk in PNABLA]
+    print(f"FVM nabla of perfbench's fvm_pnabla_1m_l137_f32 (pnabla: both components, every "
+          f"level), float32, both ways, each against perfbench/reference/fvm_pnabla.py, on "
+          f"{smi}; us a call by CUDA events over 20 warm calls:")
+    for pb in pnablas:
+        for way in ("torch", "cuda:hopper"):
+            print(f"  {pb['vertices']:8d} vertices x {pb['levels']} levels  {way:12s} "
+                  f"{pb[way]['us']:10.2f} us  max rel err {pb[way]['rel_err']:.3e}  "
+                  f"gt_neighbor launches {pb[way]['launches']}")
 
     # -- 8. the oracles on the host: debug, and numpy and cpu:c at full width ----------
     t0 = time.perf_counter()
@@ -2167,6 +2183,68 @@ def run_nabla(n: int, ndefs, torch, device="cuda") -> dict:
     if not np.allclose(got, want, rtol=1e-5, atol=1e-6):
         raise AssertionError(f"nabla at {n * n} vertices: card and numpy differ ({err})")
     return {"vertices": n * n, "ms": ms, "numpy_ms": numpy_ms, "max_abs_err": err}
+
+
+#: step 7d's FVM nabla of the benchmark's configuration: (mesh n, levels)
+PNABLA = ((256, 137), (1024, 137))
+
+
+def run_pnabla(n: int, nk: int, torch, device="cuda") -> dict:
+    """The FVM nabla of perfbench's ``fvm_pnabla`` program (both components,
+    ``nk`` levels, K innermost) on the periodic n × n mesh, float32, both
+    ways: the ``torch`` backend (embedded operations in a CUDA graph) and
+    ``cuda:hopper`` (the generated gather-reduce kernel), each against the
+    plain reference (perfbench/reference/fvm_pnabla.py) from the same
+    ``pp``: the largest gap of the two components relative to the
+    reference's largest magnitude (within 1e-6: four-term sums in another
+    order), µs a call by CUDA events over 20 warm calls (``device="cpu"``:
+    the host clock, a rehearsal), and the ``neighbor`` kernel's launches."""
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+    from perfbench import spec
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    program = spec.load_module(root, "programs", "fvm_pnabla")
+    reference = spec.load_module(root, "reference", "fvm_pnabla")
+    config = spec.load_json(os.path.join(root, "perfbench", "configs",
+                                         "fvm_pnabla_1m_l137_f32.json"))
+    config.update(mesh_n=n, columns=n * n, edges=2 * n * n, levels=nk)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    pp = torch.rand((n * n, nk), generator=gen, device=device)
+    want = reference.step({"pp": pp}, config)
+    out = {"vertices": n * n, "levels": nk}
+    for way in ("torch", "cuda:hopper"):
+        state = {"pp": pp, "pnabla_M": torch.zeros_like(pp), "pnabla_P": torch.zeros_like(pp)}
+        args, outs, provider = program.operands(config, state)
+        op = program.pnabla.with_backend(way)
+        call = lambda: op(*args, out=outs, offset_provider=provider)  # noqa: E731
+        launches = cuda_backend.NEIGHBOR.launches
+        for _ in range(3):
+            call()
+        calls = 20
+        if device == "cuda":
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                call()
+            end.record()
+            end.synchronize()
+            us = start.elapsed_time(end) / calls * 1e3
+        else:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                call()
+            us = (time.perf_counter() - t0) / calls * 1e6
+        err = max(float((state[r].double() - w.double()).abs().max() / w.double().abs().max())
+                  for r, w in want.items())
+        if err > 1e-6:
+            raise AssertionError(f"pnabla at {n * n} x {nk} on {way}: max rel err {err}")
+        launched = cuda_backend.NEIGHBOR.launches - launches
+        if launched != (3 + calls if way == "cuda:hopper" and device == "cuda" else 0):
+            raise AssertionError(f"pnabla on {way}: {launched} launches of the neighbor kernel")
+        out[way] = {"us": us, "rel_err": err, "launches": launched}
+    return out
 
 
 # -- the oracle and profiler phases ----------------------------------------------

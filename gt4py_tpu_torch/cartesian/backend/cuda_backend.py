@@ -30,9 +30,10 @@ swap cycle of them into a CUDA graph and replays it (:class:`ChainGraph`,
 the counterpart of the jitted ``fori_loop`` of pallas_backend.py:232-378).
 
 Each skeleton has one :class:`KernelWrapper` (``PLANE``, ``FUSED_PLANE``,
-``COLUMN``, ``FUSED_COLUMN``, ``TILED``) whose ``launches`` counts the
-launches of its kernels, so a run can show that its main path went through
-them; ``COLUMN.on_chip`` counts those among them that ran a FORWARD and a
+``COLUMN``, ``FUSED_COLUMN``, ``TILED``; ``NEIGHBOR`` for the field view's
+unstructured kernels, built through the same cache) whose ``launches``
+counts the launches of its kernels, so a run can show that its main path
+went through them; ``COLUMN.on_chip`` counts those among them that ran a FORWARD and a
 BACKWARD loop in one launch (``cuda_codegen.OnChip``).
 """
 
@@ -163,7 +164,9 @@ FUSED_PLANE = KernelWrapper("fused_plane")
 COLUMN = KernelWrapper("column")
 FUSED_COLUMN = KernelWrapper("fused_column")
 TILED = KernelWrapper("tiled")
-WRAPPERS = {w.name: w for w in (PLANE, FUSED_PLANE, COLUMN, FUSED_COLUMN, TILED)}
+#: the field view's generated gather-reduce kernels (next/unstructured_codegen.py)
+NEIGHBOR = KernelWrapper("neighbor")
+WRAPPERS = {w.name: w for w in (PLANE, FUSED_PLANE, COLUMN, FUSED_COLUMN, TILED, NEIGHBOR)}
 
 
 def nvcc_path() -> str:

@@ -20,15 +20,20 @@ Four backends are registered:
   included, and replayed on every warm call (next/otf.py).
 - ``cuda:hopper`` (kind ``pallas``), the counterpart of ``tpu:pallas``:
   an operator whose offsets are all cartesian goes through the cartesian
-  bridge onto the port's Hopper kernels; what the bridge does not take runs
-  embedded, as in the JAX package's decorators.
+  bridge onto the port's Hopper kernels; one that shifts through
+  connectivities, onto a generated gather-reduce kernel
+  (next/unstructured_codegen.py); what neither takes runs embedded, as in
+  the JAX package's decorators.
 - ``cuda:hopper:aot`` (kind ``aot``), the counterpart of ``jax:aot``: the
   explicit stages — trace (the bridge's variant of the argument
   signature), lower (its generated CUDA C++), compile (``nvcc`` and load,
   on card tensors) — run at ``FieldOperator.compile(...)`` or at the first
   call, before any launch; the executable then runs the prebuilt variant.
   For an operator the bridge refuses, the job stops after the typed stage
-  with the reason (``CompileJob.unsupported``) and the executable runs
+  with the reason (``CompileJob.unsupported``); one it refuses for its
+  connectivities is lowered to the generated gather-reduce kernel instead
+  (``CompileJob.unstructured``, next/unstructured_codegen.py), and what
+  that lowering declines too (its reason added to ``unsupported``) runs
   embedded, as ``cuda:hopper`` falls through.
 - ``numpy`` (kind ``numpy``), the oracle: the raw definition on NumPy
   Fields (next/decorators.py).
@@ -83,6 +88,9 @@ class CompileJob:
     domain: Any = None
     offset_provider: Optional[dict] = None
     unsupported: Optional[str] = None
+    #: what the bridge refused for connectivities, lowered to the generated
+    #: gather-reduce kernel (``unstructured_codegen.NeighborProgram``)
+    unstructured: Optional[Any] = None
 
 
 def _validate(job: CompileJob) -> CompileJob:
@@ -314,10 +322,26 @@ def _trace(job: CompileJob) -> CompileJob:
         )
     except bridge.BridgeUnsupported as exc:
         job.unsupported = str(exc)
+        if job.domain is None:
+            _lower_unstructured(job, definition, kwargs)
         return job
     assert job.typed_stage is not None
     job.traced_stage = stages.TracedProgram(job.typed_stage, traced[0], variant, key)
     return job
+
+
+def _lower_unstructured(job: CompileJob, definition: Callable, kwargs: dict) -> None:
+    """Where the bridge refused: the operator lowered to the generated
+    gather-reduce kernel (``job.unstructured``), or the lowering's reason
+    added to the bridge's in ``job.unsupported``."""
+    from gt4py_tpu_torch.next import unstructured_codegen
+
+    try:
+        job.unstructured = unstructured_codegen.lower(
+            getattr(definition, "__wrapped__", definition), job.args, kwargs, job.out,
+            job.offset_provider, name=job.definition_stage.name)
+    except unstructured_codegen.Declined as exc:
+        job.unsupported = f"{job.unsupported}; {exc}"
 
 
 def _lower(job: CompileJob) -> CompileJob:
@@ -348,6 +372,8 @@ def _compile_aot(job: CompileJob) -> CompileJob:
     lowers and builds nothing. Without a lowered stage (the bridge refused)
     the executable is the specialized definition, run embedded, as the
     default compile step makes it."""
+    if job.lowered_stage is None and job.unstructured is not None:
+        return _compile_unstructured(job)
     if job.lowered_stage is None:
         return _compile_eager(job)
     from gt4py_tpu_torch.cartesian.backend import cuda_backend
@@ -372,6 +398,33 @@ def _compile_aot(job: CompileJob) -> CompileJob:
         bridge.execute(variant, fields, scalars, out)
 
     job.compiled_stage = stages.CompiledProgram(job.lowered_stage, executable, library, log)
+    job.executable = executable
+    return job
+
+
+def _compile_unstructured(job: CompileJob) -> CompileJob:
+    """The unstructured program's kernel built where the arguments live on
+    a card; the executable takes the operator's arguments and ``out=`` and
+    runs them as an operator's call does (``unstructured_codegen.try_call``:
+    graph replays on a card, the plain version on CPU tensors), the
+    program serving its own variant key and arguments of another key
+    lowered anew."""
+    from gt4py_tpu_torch.next import unstructured_codegen
+
+    program = job.unstructured
+    if _on_card(job):
+        program.launcher()
+    definition = getattr(job.definition_stage.definition, "__wrapped__",
+                         job.definition_stage.definition)
+    statics = dict(job.definition_stage.static_args)
+    calls = types.SimpleNamespace(definition=definition, _neighbor_cache={program.key: program})
+
+    def executable(*args: Any, out: Any, **kwargs: Any) -> None:
+        if not unstructured_codegen.try_call(calls, args, {**statics, **kwargs}, out, None,
+                                             job.offset_provider):
+            raise ValueError(f"{program.name}: declined for these arguments "
+                             f"(unstructured_codegen.declined)")
+
     job.executable = executable
     return job
 

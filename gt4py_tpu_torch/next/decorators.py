@@ -5,8 +5,10 @@ Counterpart of gt4py_tpu/next/decorators.py (role of the reference's
 749,825,515). The definition executes eagerly on embedded torch Fields
 (``backend="torch"``, the default, through the compiled-programs pool;
 ``backend=None`` without it), or, with ``backend="cuda:hopper"``, through
-the cartesian bridge onto the port's Hopper kernels, falling back to
-embedded execution for what the bridge does not take;
+the cartesian bridge onto the port's Hopper kernels, an unstructured
+operator onto its generated gather-reduce kernel
+(next/unstructured_codegen.py), falling back to embedded execution for
+what neither takes;
 ``"cuda:hopper:aot"`` builds the bridge's variant through explicit
 trace, lower and compile stages first (next/backend.py). Results are
 written in place into the ``out`` field's tensor.
@@ -368,6 +370,16 @@ class FieldOperator:
             raise BridgeUnsupported(job.unsupported)
         return job.traced_stage.variant
 
+    def _aot_neighbor(self, args, kwargs, out, offset_provider):
+        """The unstructured program of an ahead-of-time call, made by the
+        stages (:meth:`_aot_job`: the trace lowers what the bridge refuses)."""
+        from gt4py_tpu_torch.next.unstructured_codegen import Declined
+
+        job = self._aot_job(args, kwargs, out, None, offset_provider)
+        if job.unstructured is None:
+            raise Declined(job.unsupported or "")
+        return job.unstructured
+
     def compiled_job(self, *args, out: Any = None, offset_provider: Optional[dict] = None,
                      domain: Any = None, **kwargs):
         """The CompileJob of the ``cuda:hopper:aot`` variant for these
@@ -449,9 +461,11 @@ class FieldOperator:
                     return
                 if kind in ("pallas", "aot"):
                     # Structured (cartesian-offset) operators execute on the
-                    # cartesian Hopper kernels; unstructured signatures fall
+                    # cartesian Hopper kernels, unstructured ones on the
+                    # generated gather-reduce kernel; what neither takes falls
                     # through to embedded. The ahead-of-time kind makes its
                     # variants through its stages.
+                    from gt4py_tpu_torch.next import unstructured_codegen
                     from gt4py_tpu_torch.next.backend import cartesian_backend
                     from gt4py_tpu_torch.next.cartesian_bridge import try_call
 
@@ -459,6 +473,13 @@ class FieldOperator:
                         self._aot_variant, args, kwargs, out, offset_provider)
                     if dom is None and try_call(self, args, kwargs, out, offset_provider,
                                                 cartesian_backend(self.backend), make):
+                        return
+                    # what the bridge refuses for connectivities: the generated
+                    # gather-reduce kernel (next/unstructured_codegen.py)
+                    make = None if kind == "pallas" else functools.partial(
+                        self._aot_neighbor, args, kwargs, out, offset_provider)
+                    if unstructured_codegen.try_call(self, args, kwargs, out, dom,
+                                                     offset_provider, make):
                         return
                     result = exec_definition(self)(*args, **kwargs)
                 elif kind == "eager":

@@ -454,6 +454,11 @@ class Graph:
         self.launches = tuple(launches.items())
         self.on_chip = tuple(launches.on_chip.items())
 
+    @property
+    def per_replay(self) -> int:
+        """The Hopper kernels a replay launches."""
+        return sum(n for _, n in self.launches)
+
     def replay(self) -> None:
         self.graph.replay()
         for wrapper, n in self.launches:
@@ -524,18 +529,28 @@ class GraphCache:
                 graph.retire()
                 _RETIRED.append(graph)
 
-    def replay(self, key: Any, device: torch.device) -> bool:
-        """Replay the graph of ``key`` on the current stream; False where
-        there is none (:meth:`run` serves the call)."""
+    def find(self, key: Any, device: torch.device) -> Optional[Graph]:
+        """The graph of ``key`` on the current stream, now the most recently
+        used, or None where there is none."""
         if _RETIRED:
             _RETIRED.clear()
         k = (key, _stream(device).cuda_stream)
         graph = self._graphs.get(k)
-        if graph is None:
-            return False
-        self._graphs.move_to_end(k)
+        if graph is not None:
+            self._graphs.move_to_end(k)
+        return graph
+
+    def replay_graph(self, graph: Graph) -> None:
         graph.replay()
         _count(graphs_replayed, self.kind)
+
+    def replay(self, key: Any, device: torch.device) -> bool:
+        """Replay the graph of ``key`` on the current stream; False where
+        there is none (:meth:`run` serves the call)."""
+        graph = self.find(key, device)
+        if graph is None:
+            return False
+        self.replay_graph(graph)
         return True
 
     def run(self, key: Any, device: torch.device, keeps: list, body: Callable[[], Any]) -> None:
