@@ -88,7 +88,9 @@ swap cycle of the kernels as a CUDA graph.
    fields, against ``numpy`` on the host; its bridged kernels were built in
    step 1. Around each ``cuda:hopper`` run the launch counts are set to 0
    and read: each kernel must have launched exactly the launchers the
-   bridge's calls asked of it (``cartesian_bridge.launchers_served``).
+   bridge's calls asked of it (``cartesian_bridge.launchers_served``), and
+   ``neighbor`` once a call the unstructured lowering served
+   (``unstructured_codegen.calls_served``).
    Prints how many cases were bridged, by kernel, and how many ran
    embedded.
    7c. ``cuda:hopper:aot``: next_hdiff and next_tridiag in float32 at full
@@ -1617,7 +1619,9 @@ def residency(source: str, cuda_backend, on_chip=None, nk: int = NK) -> dict:
             if m and kernel:
                 static[kernel] = int(m.group(1))
     threads = {k: int(n) for n, k in re.findall(r"__launch_bounds__\((\d+)(?:, \d+)?\) (\w+)\(", source)}
-    dynamic = {k: int(n) for k, n in re.findall(r"(\w+)<<<grid, block, (\d+),", source)}
+    dynamic = {
+        k: int(n) for k, n in re.findall(r"(\w+)<<<[^\n]*?, (\d+), \(cudaStream_t\)stream>>>", source)
+    }
     dynamic.update({oc.kernel: oc.shared_bytes(nk) for oc in (on_chip or {}).values()})
     dynamic.update(re.findall(r"cudaLaunchCooperativeKernel\(\(const void\*\)(\w+),.*?gt_args, (\d+),", source))
     return {
@@ -2035,10 +2039,13 @@ def run_feature_case(name, fdefs, tcases, bridge, cuda_backend, torch) -> dict:
     """One feature case on ``numpy`` (host fields), ``torch`` and
     ``cuda:hopper`` (card fields), the launch counts set to 0 just before
     the ``cuda:hopper`` run: every kernel it launched must have launched
-    exactly the launchers the bridge's calls asked of it, and the kernels
-    must be those ``BRIDGED_ONTO`` pins for the case. Returns the
+    exactly the launchers the bridge's calls asked of it (``neighbor``:
+    once a call the unstructured lowering served), and the kernels must
+    be those ``BRIDGED_ONTO`` pins for the case. Returns the
     kernels launched, the largest error against ``numpy`` and, for a case
     whose test asserts an error, that all three raised it."""
+    from gt4py_tpu_torch.next import unstructured_codegen
+
     if name in fdefs.RAISES:
         cls = fdefs.RAISES[name][0]
         for backend, device in (("numpy", "cpu"), ("torch", "cuda"), ("cuda:hopper", "cuda")):
@@ -2058,12 +2065,14 @@ def run_feature_case(name, fdefs, tcases, bridge, cuda_backend, torch) -> dict:
         for wrapper in cuda_backend.WRAPPERS.values():
             wrapper.launches = 0
         bridge.launchers_served.clear()
+        unstructured_codegen.calls_served.clear()
         got = output_arrays(fdefs.run_case(name, "cuda:hopper"))
         torch.cuda.synchronize()
     counts = {k: w.launches for k, w in cuda_backend.WRAPPERS.items() if w.launches}
-    if counts != dict(bridge.launchers_served):
-        raise AssertionError(f"{name}: launched {counts}, the bridge asked for "
-                             f"{dict(bridge.launchers_served)}")
+    asked = dict(bridge.launchers_served) | dict(unstructured_codegen.calls_served)
+    if counts != asked:
+        raise AssertionError(f"{name}: launched {counts}, the bridge and the unstructured "
+                             f"lowering asked for {asked}")
     if set(counts) != fdefs.bridged_kernels(name):
         raise AssertionError(f"{name}: ran on {sorted(counts) or 'embedded'}, not on "
                              f"{sorted(fdefs.bridged_kernels(name)) or 'embedded'}")

@@ -34,7 +34,9 @@ Each skeleton has one :class:`KernelWrapper` (``PLANE``, ``FUSED_PLANE``,
 unstructured kernels, built through the same cache) whose ``launches``
 counts the launches of its kernels, so a run can show that its main path
 went through them; ``COLUMN.on_chip`` counts those among them that ran a FORWARD and a
-BACKWARD loop in one launch (``cuda_codegen.OnChip``).
+BACKWARD loop in one launch (``cuda_codegen.OnChip``), and ``PLANE.patched``
+those whose fields all took the register patches' vector path
+(``cuda_codegen.PatchLayout``).
 """
 
 from __future__ import annotations
@@ -101,19 +103,21 @@ _RECORDING = threading.local()
 
 
 class LaunchCounts(collections.Counter):
-    """Launches by wrapper, and (``on_chip``) the on-chip pairs among them."""
+    """Launches by wrapper, and the on-chip pairs (``on_chip``) and the
+    patched launches (``patched``) among them."""
 
     def __init__(self):
         super().__init__()
         self.on_chip = collections.Counter()
+        self.patched = collections.Counter()
 
 
 @contextlib.contextmanager
 def recording_launches():
     """Within the block (a CUDA graph's capture on this thread), a counted
     launch adds to the yielded :class:`LaunchCounts`, by wrapper, not to the
-    wrapper's ``launches`` and ``on_chip``: the graph adds them at each
-    replay, where the kernels run."""
+    wrapper's ``launches``, ``on_chip`` and ``patched``: the graph adds them
+    at each replay, where the kernels run."""
     outer = getattr(_RECORDING, "counts", None)
     _RECORDING.counts = counts = LaunchCounts()
     try:
@@ -126,21 +130,26 @@ class KernelWrapper:
     """One hand-written kernel skeleton. ``launches`` counts its kernel
     launches; it grows only where a kernel is launched. ``on_chip`` counts
     the launches among them that served two loops at once (``column``'s
-    on-chip pair)."""
+    on-chip pair), ``patched`` those of ``plane``'s register patches in
+    which every field took its vector path."""
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
         self.on_chip = 0
+        self.patched = 0
 
-    def launch(self, fn, args, counted: bool = True, on_chip: bool = False) -> int:
+    def launch(
+        self, fn, args, counted: bool = True, on_chip: bool = False, patched: bool = False
+    ) -> int:
         """Call one launcher: it launches one kernel (a cooperative one
         too), or none on an empty grid, or returns the CUDA error that
         refused the launch, which raises here. Returns the kernels
         launched; ``counted``: add them to ``launches``, and to ``on_chip``
-        where the launcher serves a pair (a launch captured into a CUDA
-        graph is counted at each replay instead: ``counted`` False, or
-        recorded, :func:`recording_launches`)."""
+        where the launcher serves a pair, to ``patched`` where it runs
+        patches on vectors alone (a launch captured into a CUDA graph is
+        counted at each replay instead: ``counted`` False, or recorded,
+        :func:`recording_launches`)."""
         rc = fn(*args)
         if rc == NOTHING_LAUNCHED:
             return 0
@@ -153,9 +162,11 @@ class KernelWrapper:
             if recording is None:
                 self.launches += 1
                 self.on_chip += on_chip
+                self.patched += patched
             else:
                 recording[self] += 1
                 recording.on_chip[self] += on_chip
+                recording.patched[self] += patched
         return 1
 
 
@@ -388,6 +399,7 @@ class PreparedLaunch:
         #: launcher -> [(snapshot, the API field it copies)]
         self.snapshots: dict[str, list[tuple[torch.Tensor, str]]] = {}
         placed: dict[str, tuple] = {}  # slot -> its tensor ((I, J, K) view), origin
+        layouts: dict[str, tuple] = {}  # 3-D field -> (its origin's address, byte strides)
         for m in mod.slots:
             if m.snapshot_of is not None:
                 # the symbol's values before a launch whose shared planes a
@@ -440,6 +452,21 @@ class PreparedLaunch:
                 self.strides[m.shape_off + d] = t.stride(d) * item
             for ax in range(3):
                 self.orig[m.index * 3 + ax] = int(o[ax])
+            if not m.is_temp and t.ndim == 3:
+                strides = tuple(self.strides[m.shape_off + d] for d in range(3))
+                layouts[m.name] = (t.data_ptr() + sum(int(x) * y for x, y in zip(o, strides)), strides)
+        #: launcher -> its ``noalias`` argument (plane: the word of its
+        #: register patches, PatchLayout.word), and the launchers whose
+        #: fields all take the patches' vector path
+        self.words = {
+            launcher: mod.patches[launcher].word(self.noalias, layouts)
+            if launcher in mod.patches else self.noalias
+            for launcher in mod.launchers
+        }
+        self.patched = frozenset(
+            launcher for launcher, layout in mod.patches.items()
+            if layout.patched(self.words[launcher])
+        )
         n_f = sum(1 for sc in mod.scalars if sc[1] == "f")
         self.fsc = (ctypes.c_double * max(n_f, 1))()
         self.isc = (_LL * max(len(mod.scalars) - n_f, 1))()
@@ -458,8 +485,9 @@ class PreparedLaunch:
         )
         #: launched at least once (a capture needs each kernel run before)
         self.ran = False
-        #: the on-chip pairs the last call launched
+        #: the on-chip pairs, and the patched launches, the last call launched
         self.last_on_chip = 0
+        self.last_patched = 0
 
     def __call__(self, arrays, scalars, counted: bool = True) -> int:
         """Launch once on ``arrays`` (the buffers this launch was prepared
@@ -475,25 +503,31 @@ class PreparedLaunch:
                     self.fsc[slot] = float(value)
                 else:
                     self.isc[slot] = int(np.asarray(value))
-            launched = on_chip = 0
+            launched = on_chip = patched = 0
             with torch.cuda.device(self.device):
                 stream = ctypes.c_void_p(torch.cuda.current_stream(self.device).cuda_stream)
                 args = (self.ptrs, self.shapes, self.strides, self.orig, self.fsc, self.isc,
-                        *self.sizes, stream, self.noalias)
+                        *self.sizes, stream)
                 for buf in self.fills:
                     buf.zero_()
                 for fn, cooperative, name in self.fns:
                     for snap, field in self.snapshots.get(name, ()):
                         snap.copy_(arrays[field])
                     extra = (self.flags.data_ptr(),) if cooperative else ()
-                    pair = name in self.on_chip
-                    got = self.wrapper.launch(fn, args + extra, counted, on_chip=pair)
+                    pair, vectors = name in self.on_chip, name in self.patched
+                    got = self.wrapper.launch(
+                        fn, args + (self.words[name],) + extra, counted, on_chip=pair,
+                        patched=vectors,
+                    )
                     launched += got
                     on_chip += got if pair else 0
+                    patched += got if vectors else 0
             launch_span.set("launches", launched)
             launch_span.set("on_chip", on_chip)
+            launch_span.set("patched", patched)
         self.ran = True
         self.last_on_chip = on_chip
+        self.last_patched = patched
         return launched
 
 
@@ -536,7 +570,8 @@ class ChainGraph:
     into one CUDA graph: the zeroing of filled temporaries, the snapshot
     copies and the kernels, with the scalars baked into the kernels'
     parameters at capture. A replay repeats the cycle on the current stream
-    and adds its launches, and its on-chip pairs, to the kernel's wrapper."""
+    and adds its launches, and its on-chip pairs and patched launches, to
+    the kernel's wrapper."""
 
     def __init__(self, launches: list[PreparedLaunch], states: list[dict], scalars):
         self.launches = launches  # the scratch the graph's kernels use
@@ -547,16 +582,19 @@ class ChainGraph:
             for launch, state in zip(launches, states)
         ], on_chip=lambda: sum(launch.last_on_chip for launch in launches))
         self.on_chip = sum(launch.last_on_chip for launch in launches)
+        self.patched = sum(launch.last_patched for launch in launches)
 
     def replay(self, times: int) -> None:
         with span("gt4py.backend.replay") as replay_span, torch.cuda.device(self.device):
             replay_span.set("replays", times)
             replay_span.set("launches", self.per_replay * times)
             replay_span.set("on_chip", self.on_chip * times)
+            replay_span.set("patched", self.patched * times)
             for _ in range(times):
                 self.graph.replay()
         self.wrapper.launches += self.per_replay * times
         self.wrapper.on_chip += self.on_chip * times
+        self.wrapper.patched += self.patched * times
 
 
 class Chain:

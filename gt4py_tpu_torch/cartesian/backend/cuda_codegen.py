@@ -24,34 +24,78 @@ temporaries stay inside one loop.
     right) and pays its setup once a walk. K1 splits each field into a
     128-lane main block and a J-halo strip only because of the TPU's
     128-lane padding (pallas_split.py:1-29); here J is simply the contiguous
-    axis (storage/layout.py). A block is one row of threads along J as wide
-    as the widest statement's columns, and as many rows as bring it near
-    ``PL_THREADS``; each thread takes one column of a statement's tile,
-    widened by the statement's extent (``analyzed.stmt_extents``), and walks
-    its rows of I, so the halo is recomputed at tile edges. Each field's
-    address at the tile's corner is computed once a block in 64 bits, at
-    each level once a level, and a point's offset from it is a 32-bit
-    integer (the wrapper refuses a field whose strides would carry it
-    beyond; ``KernelModule.offset_span``). Temporaries live in shared
-    memory, one (PL_TI + ext_i) × (PL_TJ + ext_j) plane each, zero-filled
-    only at the levels of a section whose first access to it is not an
-    unconditional write of the whole plane (hdiff: none). Statements run in
-    program order with a barrier only where :meth:`_Generator._hazard`
-    finds a plane shared, and one that turns each level over. API fields
-    are written only at domain points of the block's own tile. Two
-    variants, as ``fused_plane``'s: ``gt_plane_<n>_r``, launched when no two
-    field buffers overlap, prefetches the 3-D fields it reads through a
-    ``cp.async`` ring of planes over their reads' footprints (the tile ring
-    below, at most ``PL_RING_LEVELS`` deep), and the plain one loads them
-    directly. Bound on the H100: bytes. hdiff reads two fields and writes
-    one, three 21 MB float32 streams at 256×256×80 — more than the 50 MB
-    L2 — so a step moves ≈ 63 MB through device memory, 18.8 µs at
+    axis (storage/layout.py). Each statement runs over the tile widened by
+    its extent (``analyzed.stmt_extents``), so the halo is recomputed at
+    tile edges. Each field's address at the tile's corner is computed once
+    a block in 64 bits, at each level once a level, and offsets from it are
+    32-bit integers (the wrapper refuses a field whose strides would carry
+    them beyond; ``KernelModule.offset_span``). Temporaries live in shared
+    memory, one plane each, zero-filled only at the levels of a section
+    whose first access to it is not an unconditional write of the whole
+    plane (hdiff: none). Statements run in program order with a barrier
+    only where :meth:`_Generator._hazard` finds a plane shared, and one that
+    turns each level over. API fields are written only at domain points of
+    the block's own tile. Two variants. ``gt_plane_<n>``, for arguments
+    that may overlap, is a row of threads along J as wide as the widest
+    statement's columns; each thread takes one column of a statement and
+    walks its rows of I, one point at a time, loading the fields directly.
+    ``gt_plane_<n>_r``, launched when no two field buffers overlap,
+    computes register patches (:meth:`_Generator._emit_patch_variant`):
+    a thread evaluates a statement over a patch of ``PL_PATCH_WIDTH`` (2)
+    consecutive J points, a vector of each field (8 bytes of float32, 16
+    of float64, 4 of a half type), by ``PL_PATCH_ROWS`` (2) rows of I, at
+    most 16 bytes of the loop's widest field (float64: one row); wider
+    patches, a whole 16-byte vector of float32 or float16 a row, measured
+    slower (their registers and the threads they leave idle). It loads each
+    element the statement's reads touch once into registers (a row's whole
+    vectors as vectors, the centre row's neighbours one by one), evaluates
+    the statement's expression at each point, in the plain version's
+    order of operations, and stores whole vectors. Its tiles start on the
+    storage's vectors, not on the domain's columns: the domain's first
+    column may lie inside a vector (the benchmark's halo of 2 puts it 8
+    bytes past one), so the launcher shifts the tiles along J by the field's
+    shift (``PatchLayout.word``: the element's address, over its size,
+    modulo the vector), and the tiles at the domain's two edges overhang
+    it, their points beyond it masked. A field whose J stride is not its
+    item size, whose row or level pitch is not whole vectors, or whose
+    vectors start elsewhere moves element by element in the patches (the
+    wrapper decides from the buffers it observes and says so in the word;
+    ``PLANE.patched`` counts the launches where no field does); a half
+    field so sends the launch to ``gt_plane_<n>``, which reads it faster
+    (on 259×259 storages, an odd row pitch: float16 50 µs a step there
+    against 64.5 in the patches; float32 82 against 37, float64 101
+    against 60, so those stay in the patches). Each
+    statement runs over its extent rounded out to whole patches; the
+    temporaries' planes span what the patches read, a temporary only one
+    unmasked statement writes is stored as whole vectors (its points beyond
+    the extent are points no read finds), any other store goes point by
+    point. The 3-D fields the loop reads are prefetched through a
+    ``cp.async`` ring of planes over their reads' footprints rounded out to
+    whole vectors (the tile ring below, at most ``PL_RING_LEVELS`` deep):
+    one ``cp.async`` a vector, element copies for a field off the vectors
+    or a vector cut by the valid points' edge (a half element by a load and
+    a store: ``cp.async`` has no 2-byte copy), which elements a thread
+    copies worked out once a block.
+    A tile inside the domain (``gt_inner``) takes no guard on its stores
+    and direct loads. Bound on the H100: bytes. hdiff reads two fields and
+    writes one, three 21 MB float32 streams at 256×256×80 — more than the
+    50 MB L2 — so a step moves ≈ 63 MB through device memory, 18.8 µs at
     3.35 TB/s. The first version, one K plane a block, 64-bit index
     arithmetic at every point and every temporary zero-filled behind a
-    barrier, took 51.4 µs (PERF.md; NVIDIA H100 80GB HBM3, 700 W). This
-    one is faster but still far from the bound, and float16, with half
-    the bytes, takes about as long: the work of a level on the SM, not
-    memory, holds it (times, SASS counts and the tuning in PERF.md).
+    barrier, took 51.4 µs, and the one point a thread after it 44 µs, its
+    time following the instructions of a level (4,400 warp instructions a
+    block-level), not the bytes (float16, with half the bytes, took as
+    long). The patches cut the SASS instructions a point in a level's loops
+    2.1-2.4× (127.5 → 54-60 in float32) and a step by a third or more:
+    float32 44.3-44.9 → 29.6-29.7 µs, float16 48.3-49.3 → 28.6-29.1,
+    bfloat16 50.4-51.0 → 28.7-29.4; float64, whose twice the bytes its
+    ring moves hold it, stays at 57.5-57.9 (57.6-58.5 before), and on an
+    odd row pitch is 4.5-7 % slower than before (59.8-60.6 against
+    56.2-57.5). What holds float32 now is latency more
+    than the instruction rate: with the copies taken out, the statements take 24.7 µs a
+    step; with the statements taken out, the copies 31.5 at two blocks an
+    SM, so ``PL_PATCH_BLOCKS`` keeps four (PERF.md §6; NVIDIA H100
+    80GB HBM3, 700 W).
 
 ``fused_plane`` — replaces K2, ``pallas_codegen.build_plane_fn``
 (pallas_codegen.py:1829, kernel :1887, ``pallas_call`` :1992). It serves
@@ -303,8 +347,9 @@ float16 and bfloat16 fields are stored half and computed in float32, as
 K1 computes them (pallas_split.py:129-156): a half element is loaded with
 ``__half2float`` or ``__bfloat162float`` and stored with
 ``__float2half_rn`` or ``__float2bfloat16_rn``; temporaries, literals,
-casts and math calls of a half type are float ones; a half field is never
-ringed (``cp.async`` copies 4, 8 or 16 bytes).
+casts and math calls of a half type are float ones; a half field is
+ringed only by plane's register patches, in whole vectors of 2 or more
+elements (``cp.async`` copies 4, 8 or 16 bytes).
 Constructs no skeleton can serve raise :class:`CudaUnsupported` with the
 reason; there is no silent fallback.
 """
@@ -334,13 +379,27 @@ PLANE_THREADS = 256
 #: times (PERF.md, a mode of chip_smoke.py since removed): 16 × 64 over 8 ×
 #: 64, 32 × 64, 16 × 32, 8 × 128 and 32 × 32; 4 levels over 1, 2, 8 and 16;
 #: 256 threads over 128 and 512; no register cap over 5, 6 or 8 blocks an
-#: SM
+#: SM. The register patches (``_r``, float32 µs a step) kept them:
+#: 16 × 64 over 32 × 64 (29.98 against 36.28), 4 levels over 2 and 8
+#: (32.21, 33.63), 256 threads over 512 (39.64)
 PL_TI, PL_TJ = 16, 64
 PL_TK = 4
 PL_THREADS = 256
-#: plane, ``_r`` variant: the most levels its input ring holds (2 over 3
-#: and 4, measured as above)
-PL_RING_LEVELS = 2
+#: plane, ``_r`` variant (register patches), tuned on the card for hdiff at
+#: 256×256×80 in float32, float64, float16 and bfloat16 (PERF.md §6;
+#: device µs a step, float32 / float64 / float16): a thread's patch,
+#: PL_PATCH_WIDTH J points by PL_PATCH_ROWS rows of I, at most 16 bytes of
+#: the loop's widest field (float64: 2 × 1), 2 × 2 (29.98 / 57.23 / 32.55)
+#: over 4 × 1, one 16-byte float32 vector (37.84 / - / 43.83), 8 × 1 (- /
+#: - / 54.43), 2 × 1 (31.40 / 57.23 / 38.08) and 2 × 4 (45.95 / - / 36.50);
+#: PL_PATCH_BLOCKS blocks an SM, to which ``__launch_bounds__`` holds the
+#: registers: 4 (63 registers) over none (91, 2 blocks: 45.11 / 58.89),
+#: 5 and 6 (float64 spills); the most levels the input ring holds, 3 over
+#: 2 and 4 (float64 keeps 2 by ``TILE_RESIDENT_THREADS``)
+PL_PATCH_WIDTH = 2
+PL_PATCH_ROWS = 2
+PL_PATCH_BLOCKS = 4
+PL_RING_LEVELS = 3
 #: column-kernel block: (32 along J) × (8 along I) columns
 COL_BJ, COL_BI = 32, 8
 #: shared memory a kernel takes without ``cudaFuncSetAttribute``, and the
@@ -574,6 +633,44 @@ GT_LDS(int64_t, "b64", "l")
 GT_LDS(uint64_t, "b64", "l")
 """
 
+#: plane's ``_r`` kernels (register patches): two floats rounded to float16
+#: or bfloat16 and packed into the 32 bits of a vector store, by half type
+#: (a source holds the ones its fields need), and (with an input ring) a
+#: 16-byte ``cp.async``, the ring's vector copy
+_PACK_PRELUDE = {
+    np.dtype(np.float16): r"""GT_D unsigned gt_pack_h(float a, float b) {
+    return (unsigned)__half_as_ushort(__float2half_rn(a))
+        | ((unsigned)__half_as_ushort(__float2half_rn(b)) << 16);
+}
+""",
+    bfloat16: r"""GT_D unsigned gt_pack_bf(float a, float b) {
+    return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(a))
+        | ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(b)) << 16);
+}
+""",
+}
+_RING16_PRELUDE = r"""GT_D void gt_cp_async16(unsigned dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(dst), "l"(src));
+}
+"""
+
+#: plane's ``_r`` kernels: the C vector type moving ``n`` elements of a C
+#: type at once, by (C type, n); a half element moves as its 16 bits
+_VECTORS = {
+    ("float", 4): "float4", ("float", 2): "float2", ("double", 2): "double2",
+    ("int32_t", 4): "int4", ("int32_t", 2): "int2",
+    ("uint32_t", 4): "uint4", ("uint32_t", 2): "uint2",
+    ("int64_t", 2): "longlong2", ("uint64_t", 2): "ulonglong2",
+    ("unsigned short", 8): "uint4", ("unsigned short", 4): "uint2",
+    ("unsigned short", 2): "unsigned",
+}
+#: the launcher's ``noalias`` word for a plane ``_r`` kernel
+#: (:meth:`PatchLayout.word`): bit 0 the no-overlap flag, then the patch
+#: grid's shift, then one bit a field for its vector path
+PATCH_SHIFT_BITS = 3
+PATCH_MASK_AT = 1 + PATCH_SHIFT_BITS
+PATCH_MASK_FIELDS = 31 - PATCH_MASK_AT
+
 #: cooperative tiled loops: a tile's level counter, published with release
 #: semantics after the tile's stores and polled with acquire semantics by
 #: the blocks whose reads reach the tile
@@ -636,6 +733,73 @@ def _load(m: "FieldMeta", addr: str, load: str = "", const: bool = False) -> str
     if load:
         return f"{load}((const {st}*)({addr}))"
     return f"(*({'const ' if const else ''}{st}*)({addr}))"
+
+
+def _raw(dtype: Any) -> str:
+    """The C type that moves an element of ``dtype`` as it lies in device
+    memory: a half element as its 16 bits."""
+    return "unsigned short" if _np_dtype(dtype) in _HALF_TYPES else _stype(dtype)
+
+
+def _chunks(ct: str, size: int, width: int) -> tuple[Optional[str], int]:
+    """A row of ``width`` elements of C type ``ct`` (``size`` bytes each) as
+    vectors: (the vector type, the elements in one), at most 16 bytes a
+    vector; (None, 1) where the row moves element by element."""
+    n = min(width, 16 // size)
+    vt = _VECTORS.get((ct, n))
+    return (vt, n) if vt and width >= 2 else (None, 1)
+
+
+def patch_shift(width: int, itemsize: int, address: int, strides) -> Optional[int]:
+    """plane's ``_r`` kernel: how many elements past a boundary of ``width``
+    elements (one vector) a field's element at the domain's origin lies,
+    ``address`` its byte address; None where the field keeps the per-point
+    path: a J stride that is not the item size, or row or level pitches
+    (``strides``: bytes along I, J, K) that are not whole vectors."""
+    si, sj, sk = strides
+    vector = width * itemsize
+    if width < 2 or sj != itemsize or address % itemsize or si % vector or sk % vector:
+        return None
+    return address % vector // itemsize
+
+
+@dataclasses.dataclass(frozen=True)
+class PatchLayout:
+    """plane's ``_r`` kernel of one loop: a thread computes patches of
+    ``width`` J points, a vector of each field, by one or more rows of I
+    (:meth:`_Generator._plan_patch`). ``fields`` (name, item size): the
+    fields with a vector path, in the order of the launcher's mask."""
+
+    width: int
+    fields: tuple[tuple[str, int], ...]
+
+    def word(self, noalias: int, layouts: dict) -> int:
+        """The launcher's ``noalias`` argument: 0 (the plain-pointer
+        kernel) where the buffers overlap or a half field is off the
+        tiles' vectors (element by element, the patches read it slower
+        than that kernel), else bit 0, the shift of the tiles along J (the
+        first field's with a vector path, so that its tiles start on
+        vectors), and a bit for each field whose vectors start there too.
+        ``layouts``: field -> (the byte address of its element at the
+        domain's origin, its byte strides along I, J, K)."""
+        if not noalias:
+            return 0
+        shifts = [
+            patch_shift(self.width, size, *layouts[name]) if name in layouts else None
+            for name, size in self.fields
+        ]
+        s = next((x for x in shifts if x is not None), 0)
+        on = [x is not None and x == s for x in shifts]
+        if any(size == 2 and name in layouts and not ok
+               for (name, size), ok in zip(self.fields, on)):
+            return 0
+        mask = sum(1 << b for b, ok in enumerate(on) if ok)
+        return 1 | s << 1 | mask << PATCH_MASK_AT
+
+    def patched(self, word: int) -> bool:
+        """Every field of the launch takes its vector path."""
+        every = (1 << len(self.fields)) - 1
+        return bool(word & 1) and bool(self.fields) and (word >> PATCH_MASK_AT) & every == every
 
 
 def _column_passes(cols: int, threads: int) -> list[tuple[int, str]]:
@@ -752,6 +916,9 @@ class KernelModule:
     #: column: FORWARD loops' launchers that also serve the BACKWARD loop
     #: after them in one launch, where the shape lets them
     on_chip: dict[str, OnChip] = dataclasses.field(default_factory=dict)
+    #: plane: each launcher's register patches (its ``_r`` kernel), from
+    #: which the wrapper makes the launcher's ``noalias`` word
+    patches: dict[str, PatchLayout] = dataclasses.field(default_factory=dict)
 
     def kernels_per_call(self, nk: int, noalias: bool) -> int:
         """The kernels a call launches on a domain of ``nk`` levels whose
@@ -853,6 +1020,10 @@ class _Buffer:
     #: kind "input" (a ringed input's planes): the reads it serves, per
     #: statement (``id``), as (name, offset)
     serves: dict = dataclasses.field(default_factory=dict)
+    #: plane's ``_r`` variant, kind "input": the footprint of the reads it
+    #: serves, which the block copies (rounded out to whole vectors); its
+    #: plane (``fp``) also spans what the patches read beyond it
+    fill: Optional[Extent] = None
 
     @property
     def plane(self) -> int:
@@ -865,10 +1036,35 @@ class _Buffer:
         return self.plane * self.nd * self.ring
 
     @property
+    def size(self) -> int:
+        """An element's bytes: the compute type's, a ring's raw ones (a
+        half field's 2, in plane's ``_r`` variant)."""
+        return (self.meta.dtype if self.kind == "input" else _compute(self.meta.dtype)).itemsize
+
+    @property
     def bytes(self) -> int:
-        """Its bytes of dynamic shared memory, 16-byte aligned: elements of
-        the compute type, raw elements for a ring (never a half field)."""
-        return -(-self.elements * _compute(self.meta.dtype).itemsize // 16) * 16
+        """Its bytes of dynamic shared memory, 16-byte aligned."""
+        return -(-self.elements * self.size // 16) * 16
+
+
+@dataclasses.dataclass
+class _PatchPlan:
+    """plane's ``_r`` kernel of one loop. A thread computes a statement
+    over patches of ``width`` J points by ``rows`` rows of I, over
+    ``regions[id(stmt)]``: (first row, end row, first column, end column)
+    from the tile's corner, the statement's extent rounded out to whole
+    patches (its columns to whole vectors of the storage: the tiles start on
+    them). ``planes``: the temporaries' shared planes, ``ring``: the input
+    ring's, each spanning what the patches touch; ``fields``: the API
+    fields with a vector path, in the launcher's mask order."""
+
+    width: int
+    rows: int
+    regions: dict
+    planes: list
+    ring: list
+    fields: list
+    bytes: int = 0
 
 
 @dataclasses.dataclass
@@ -1075,6 +1271,11 @@ class _Generator:
         #: plane: each loop's shared planes (its temporaries), their bytes,
         #: and the reach of the point offsets (KernelModule.offset_span)
         self.plane_plans: list[list[_Buffer]] = []
+        #: plane: each loop's ``_r`` kernel (register patches), and while one
+        #: of its statements is emitted, the patch point (row, column) whose
+        #: reads are registers
+        self.patch_plans: list[_PatchPlan] = []
+        self.patch_point: Optional[tuple[int, int]] = None
         #: fused_plane and tiled: kernel index -> the symbols whose shared
         #: planes it loads from a snapshot of their values before the
         #: launch (:meth:`_load_hazard`), and each one's snapshot slot
@@ -1172,6 +1373,7 @@ class _Generator:
             try:
                 self._check_plane_class()
                 self.plane_plans = [self._plan_plane(n) for n in range(len(loops))]
+                self.patch_plans = [self._plan_patch(n) for n in range(len(loops))]
                 return "plane"
             except CudaUnsupported as exc:
                 reasons.append(f"plane: {exc}")
@@ -1309,6 +1511,10 @@ class _Generator:
         )
         if self.cooperative:
             head.insert(2, _FLAG_PRELUDE)
+        if self.patch_plans:
+            halves = {_np_dtype(m.dtype) for m in self.slots} & set(_PACK_PRELUDE)
+            head.insert(2, "".join(_PACK_PRELUDE[h] for h in sorted(halves, key=str))
+                        + (_RING16_PRELUDE if self.ring_bytes else ""))
         if self.ring_bytes:
             head.insert(2, _RING_PRELUDE)
         # NOTE: name-free source: the library cache is keyed by its hash, so
@@ -1330,6 +1536,12 @@ class _Generator:
             snapshots={f"gt_launch_{n}": tuple(sorted(v)) for n, v in self.snapshots.items()},
             offset_span=self.offset_span,
             on_chip={f"gt_launch_{n}": oc for n, oc in self.on_chip.items()},
+            patches={
+                f"gt_launch_{n}": PatchLayout(
+                    plan.width, tuple((m.name, m.dtype.itemsize) for m in plan.fields)
+                )
+                for n, plan in enumerate(self.patch_plans)
+            },
         )
 
     def _unit_axes(self) -> dict[str, str]:
@@ -1540,11 +1752,11 @@ class _Generator:
                         )
 
     def _plan_plane(self, n: int) -> list[_Buffer]:
-        """K1's class, loop ``n``: each temporary a shared plane over its
-        footprint, zero-filled at the levels of each section whose first
-        access to it is not an unconditional write of the whole plane (the
-        plain version's zero-filled temporary: a level the section does not
-        set reads 0), and the ``_r`` variant's input ring after them."""
+        """K1's class, loop ``n``, plain-pointer variant: each temporary a
+        shared plane over its footprint, zero-filled at the levels of each
+        section whose first access to it is not an unconditional write of
+        the whole plane (the plain version's zero-filled temporary: a level
+        the section does not set reads 0)."""
         items = self._items([n])
         buffers = []
         for m in self.fields.values():
@@ -1561,12 +1773,93 @@ class _Generator:
             b.init = frozenset(init)
             buffers.append(b)
         self.plane_bytes[n] = self._layout(buffers, "plane")
-        bj, bi = self._plane_block()
-        self.tile_rings[n] = self._plan_tile_ring(
-            items, buffers, (PL_TI, PL_TJ), bj * bi, self.plane_bytes[n], fused=True,
-            levels=PL_RING_LEVELS,
-        )
         return buffers
+
+    def _plan_patch(self, n: int) -> _PatchPlan:
+        """K1's class, loop ``n``, ``_r`` variant (register patches). A
+        patch is ``PL_PATCH_WIDTH`` J points (a vector of the storage) by
+        ``PL_PATCH_ROWS`` rows, at most 16 bytes of the loop's widest API
+        field with a vector path (float16 and bfloat16, and 4- and 8-byte
+        types: :data:`_VECTORS`); one point where it has none. Each
+        statement runs over its extent rounded out to whole patches, so a
+        patch reads beyond the footprint by up to a patch less one point:
+        the temporaries' planes and the input ring's span that too. The ring
+        is :meth:`_plan_tile_ring`'s, half fields included (they move as
+        vectors), each plane copied over its footprint rounded out to whole
+        vectors."""
+        items = self._items([n])
+        names = {a.name for it in items for a in it.reads + it.writes}
+        api = [m for m in self.slots if m.name in names]
+        vector = [m for m in api if _chunks(_raw(m.dtype), m.dtype.itemsize, 2)[0]]
+        widest = max((m.dtype.itemsize for m in vector), default=16)
+        width = min(PL_PATCH_WIDTH, 16 // widest)
+        rows = max(1, min(PL_PATCH_ROWS, 16 // (width * widest)))
+        fields = [
+            m for m in vector if _chunks(_raw(m.dtype), m.dtype.itemsize, width)[0]
+        ][:PATCH_MASK_FIELDS]
+        regions = {}
+        for it in items:
+            e = it.ext
+            regions[id(it.stmt)] = (
+                e.i[0], e.i[0] + -(-(PL_TI + e.i[1] - e.i[0]) // rows) * rows,
+                e.j[0] // width * width, -(-(PL_TJ + e.j[1]) // width) * width,
+            )
+
+        def span(boxes) -> Extent:
+            """The tile-relative extent of a plane over these boxes, its
+            columns rounded out to whole vectors."""
+            r0, r1 = min(b[0] for b in boxes), max(b[1] for b in boxes)
+            c0, c1 = min(b[2] for b in boxes), max(b[3] for b in boxes)
+            return Extent(
+                i=(r0, r1 - PL_TI),
+                j=(c0 // width * width, -(-c1 // width) * width - PL_TJ),
+            )
+
+        def touched(name: str, served=None) -> list:
+            """The boxes of ``name``'s plane the patches write and read
+            (``served``: the reads the ring serves, per statement)."""
+            boxes = []
+            for it in items:
+                r0, r1, c0, c1 = regions[id(it.stmt)]
+                if served is None and it.writes_name(name):
+                    boxes.append((r0, r1, c0, c1))
+                offsets = (
+                    [r.offset for r in it.reads if r.name == name] if served is None
+                    else [off for _, off in served.get(id(it.stmt), ())]
+                )
+                boxes += [(r0 + di, r1 + di, c0 + dj, c1 + dj) for di, dj, _ in offsets]
+            return boxes
+
+        def sized(b: _Buffer) -> _Buffer:
+            b.rows = PL_TI + b.fp.i[1] - b.fp.i[0]
+            b.cols = PL_TJ + b.fp.j[1] - b.fp.j[0]
+            return b
+
+        planes = [
+            sized(dataclasses.replace(b, fp=span(touched(b.meta.name))))
+            for b in self.plane_plans[n]
+        ]
+        base = self._layout(planes, "plane")
+        ring = self._plan_tile_ring(
+            items, planes, (PL_TI, PL_TJ), PL_THREADS, base, fused=True,
+            levels=PL_RING_LEVELS, half=True,
+        )
+        for b in ring:
+            b.fill = b.fp
+            fill = (b.fp.i[0], PL_TI + b.fp.i[1], b.fp.j[0], PL_TJ + b.fp.j[1])
+            b.fp = span([fill] + touched(b.meta.name, b.serves))
+            sized(b)
+        while ring and base + sum(b.bytes for b in ring) > SHARED_BYTES_LIMIT:
+            ring.pop()  # the widened planes outgrew the card: load the last directly
+        offset = base
+        for b in ring:
+            b.offset = offset
+            offset += b.bytes
+        self.tile_rings[n] = ring
+        return _PatchPlan(
+            width=width, rows=rows, regions=regions, planes=planes, ring=ring,
+            fields=fields, bytes=offset,
+        )
 
     @staticmethod
     def _plane_block() -> tuple[int, int]:
@@ -1577,32 +1870,37 @@ class _Generator:
         return PL_TJ, max(1, PL_THREADS // PL_TJ)
 
     def _emit_plane_kernel(self, n: int, vloop: gtir.VerticalLoop) -> None:
-        """Two variants of one skeleton, as ``column``'s: ``gt_plane_<n>``
-        with plain pointers, for any arguments, and ``gt_plane_<n>_r``
+        """Two variants of one skeleton: ``gt_plane_<n>`` with plain
+        pointers, for any arguments, one point a thread, and
+        ``gt_plane_<n>_r`` (:meth:`_emit_patch_variant`), register patches,
         taking the fields as ``__restrict__`` parameters (read-only ones
-        ``const``) and prefetching its input planes through the tile ring
-        (:meth:`_plan_tile_ring`), for arguments whose buffers do not
-        overlap. Both walk ``PL_TK`` levels of one tile a block."""
+        ``const``) and prefetching its input planes through the tile ring,
+        for arguments whose buffers do not overlap. Both walk ``PL_TK``
+        levels of one tile a block. The launcher's ``noalias`` word
+        (:meth:`PatchLayout.word`) also carries the ``_r`` kernel's shift of
+        the tiles along J and the fields that take their vector path."""
         items = self._items([n])
         names = {a.name for it in items for a in it.reads + it.writes}
         written = {w.name for it in items for w in it.writes}
-        plan, ring = self.plane_plans[n], self.tile_rings.get(n, [])
+        patch = self.patch_plans[n]
         block = self._plane_block()
         kernel = f"gt_plane_{n}"
         params, args = self._restrict_args(names, written)
-        self._emit_plane_variant(kernel, items, plan, [], "", block)
+        self._emit_plane_variant(kernel, items, self.plane_plans[n], block)
         self.noalias, self.read_only = True, names - written
-        self._emit_plane_variant(kernel + "_r", items, plan, ring, params, block)
+        self._emit_patch_variant(kernel + "_r", items, patch, params)
         self.noalias, self.read_only = False, set()
         smem = self.plane_bytes[n]
-        smem_r = ring[-1].offset + ring[-1].bytes if ring else smem
-        if ring:
-            self.ring_bytes[kernel + "_r"] = smem_r - smem
-        reach = [(it.ext.i, it.ext.j) for it in items] + [(b.fp.i, b.fp.j) for b in ring]
+        if patch.ring:
+            self.ring_bytes[kernel + "_r"] = sum(b.bytes for b in patch.ring)
+        reach = [(it.ext.i, it.ext.j) for it in items] + [
+            (b.fp.i, b.fp.j) for b in patch.planes + patch.ring
+        ] + [((r0, r1 - PL_TI), (c0, c1 - PL_TJ)) for r0, r1, c0, c1 in patch.regions.values()]
         self.offset_span = (
             max([self.offset_span[0]] + [max(-i[0], PL_TI + i[1]) for i, _ in reach]),
             max([self.offset_span[1]] + [max(-j[0], PL_TJ + j[1]) for _, j in reach]),
         )
+        shift = f"(noalias >> 1) & {(1 << PATCH_SHIFT_BITS) - 1}"
         self._emit_launcher(
             n,
             kernel,
@@ -1611,51 +1909,44 @@ class _Generator:
             f"{block[0]}, {block[1]}",
             smem=smem,
             noalias_call=(
-                f"{kernel}_r<<<grid, block, {smem_r}, (cudaStream_t)stream>>>"
-                f"(p{', ' if args else ''}{args})"
+                f"{kernel}_r<<<dim3((unsigned)((nj + ({shift}) + {PL_TJ - 1}) / {PL_TJ}), "
+                f"grid.y, grid.z), dim3({PL_THREADS}), {patch.bytes}, (cudaStream_t)stream>>>"
+                f"(p{', ' if args else ''}{args}, {shift}, (unsigned)noalias >> {PATCH_MASK_AT})"
             ),
-            noalias_smem=smem_r,
+            noalias_smem=patch.bytes,
         )
 
     def _emit_plane_variant(
-        self, kernel: str, items: list[_Item], plan: list[_Buffer], ring: list[_Buffer],
-        params: str, block: tuple[int, int],
+        self, kernel: str, items: list[_Item], plan: list[_Buffer], block: tuple[int, int],
     ) -> None:
-        """One block: its tile's corner (i0, j0) and each field's address
-        there, computed once in 64 bits; per level each field's address at
-        the level; per point a 32-bit offset from it. Statements in program
-        order over the tile widened by their extents, with barriers where
-        :meth:`_hazard` places them and one that turns each level over where
-        the block shares a plane."""
+        """``gt_plane_<n>``, for arguments that may overlap. One block: its
+        tile's corner (i0, j0) and each field's address there, computed once
+        in 64 bits; per level each field's address at the level; per point a
+        32-bit offset from it. Statements in program order over the tile
+        widened by their extents, with barriers where :meth:`_hazard` places
+        them and one that turns each level over where the block shares a
+        plane."""
         bj, bi = block
         names = {a.name for it in items for a in it.reads + it.writes}
         fields = [m for m in self.slots if m.name in names]
-        self.buffers = {b.meta.name: b for b in plan + ring}
-        extra = f", {params}" if params else ""
-        self.emit(
-            f"__global__ void __launch_bounds__({bj * bi}) {kernel}(const GtParams p{extra}) {{"
-        )
+        self.buffers = {b.meta.name: b for b in plan}
+        self.emit(f"__global__ void __launch_bounds__({bj * bi}) {kernel}(const GtParams p) {{")
         self.indent += 1
-        self._emit_locals(names, pointers=not params, narrow=True)
+        self._emit_locals(names, narrow=True)
         self.emit(f"const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * {bj} + tx;")
         self.emit(f"const int i0 = blockIdx.y * {PL_TI}, j0 = blockIdx.x * {PL_TJ};")
         self.emit(f"const long long kb0 = (long long)blockIdx.z * {PL_TK};")
         self.emit(f"const long long kb1 = kb0 + {PL_TK} < nk ? kb0 + {PL_TK} : nk;")
         for m in fields:
-            v, const = m.var, "const " if m.name in self.read_only else ""
-            self.emit(f"{const}char* const {v}_t = {v} + ({v}_oi + i0) * {v}_si + ({v}_oj + j0) * {v}_sj;")
+            v = m.var
+            self.emit(f"char* const {v}_t = {v} + ({v}_oi + i0) * {v}_si + ({v}_oj + j0) * {v}_sj;")
             self.emit(f"const int {v}_si4 = (int){v}_si, {v}_sj4 = (int){v}_sj;")
-        self._emit_buffer_pointers(plan + ring)
-        span = (
-            self._emit_tile_ring_setup(ring, bj * bi, "kb0", "kb1 - kb0", False, block=block)
-            if ring else (0, 0)
-        )
+        self._emit_buffer_pointers(plan)
         with self._block("for (long long k = kb0; k < kb1; ++k)"):
-            if plan or ring:
-                self._emit_level_start(ring, span, "k - gt_w0")
+            if plan:
+                self.emit("__syncthreads();")  # no thread still reads the planes
             for m in fields:
-                v, const = m.var, "const " if m.name in self.read_only else ""
-                self.emit(f"{const}char* const {v}_k = {v}_t + ({v}_ok + k) * {v}_sk;")
+                self.emit(f"char* const {m.var}_k = {m.var}_t + ({m.var}_ok + k) * {m.var}_sk;")
             since: list = []
             for sid in sorted({it.section for it in items}):
                 sec = [it for it in items if it.section == sid]
@@ -1672,8 +1963,6 @@ class _Generator:
                 # a barrier inside the section may not run: the section's
                 # statements stay pending for the next
                 since += sec
-        if ring:
-            self.emit("gt_cp_wait_all();")
         self.indent -= 1
         self.emit("}")
         self.emit()
@@ -1688,16 +1977,9 @@ class _Generator:
         bj, bi = block
         ext = it.ext
         rows, cols = PL_TI + ext.i[1] - ext.i[0], PL_TJ + ext.j[1] - ext.j[0]
-        self.ring_reads = frozenset(
-            read
-            for b in self.buffers.values()
-            if b.kind == "input"
-            for read in b.serves.get(id(it.stmt), ())
-        )
         for c0, cond in _column_passes(cols, bj):
             with self._block(cond):
                 self._emit_plane_point(it, f"tx + ({c0 + ext.j[0]})", rows, bi)
-        self.ring_reads = frozenset()
 
     def _emit_plane_point(self, it: _Item, dj: str, rows: int, bi: int) -> None:
         """:meth:`_emit_plane_item`'s rows of one column pass: ``dj`` the
@@ -1716,25 +1998,525 @@ class _Generator:
                             f"const int {m.var}_x = (gt_di - ({b.fp.i[0]})) * {b.cols}"
                             f" + (gt_dj - ({b.fp.j[0]}));"
                         )
-                    # a ringed field's address too, for its reads the
-                    # ring does not serve and for its stores
-                    if not m.is_temp and (
-                        b is None
-                        or it.writes_name(name)
-                        or any(
-                            r.name == name and (name, r.offset) not in self.ring_reads
-                            for r in it.reads
-                        )
-                    ):
-                        const = "const " if name in self.read_only else ""
+                    if not m.is_temp:
                         self.emit(
-                            f"{const}char* const {m.var}_b = {m.var}_k + "
+                            f"char* const {m.var}_b = {m.var}_k + "
                             f"(gt_di * {m.var}_si4 + gt_dj * {m.var}_sj4);"
                         )
                         self.point_base[name] = f"{m.var}_b"
                 self.item = it
                 self._emit_stmt(it.stmt)
                 self.item = None
+
+    # -- the plane kernel's register patches (``_r``) --------------------------
+
+    def _emit_patch_variant(
+        self, kernel: str, items: list[_Item], plan: _PatchPlan, params: str
+    ) -> None:
+        """``gt_plane_<n>_r``: a block of ``PL_THREADS`` walks ``PL_TK``
+        levels of a PL_TI × PL_TJ tile whose columns start on whole vectors
+        of the storage: tile ``x`` starts ``gt_s`` columns before column
+        ``x * PL_TJ`` of the domain (the launcher's shift), so the tiles at
+        the domain's two edges overhang it. ``gt_vec`` says which fields
+        lie on those vectors too (bit ``b``: ``plan.fields[b]``); the
+        others move element by element (never a half field: such a launch
+        runs ``gt_plane_<n>``, :meth:`PatchLayout.word`). Each statement runs over patches
+        (:meth:`_emit_patch_item`); ``gt_inner``: the tile's patches read
+        and write no point beyond the fields' valid points, so they store
+        whole vectors and load direct ones unguarded."""
+        names = {a.name for it in items for a in it.reads + it.writes}
+        fields = [m for m in self.slots if m.name in names]
+        self.buffers = {b.meta.name: b for b in plan.planes + plan.ring}
+        self.emit(
+            f"__global__ void __launch_bounds__({PL_THREADS}, {PL_PATCH_BLOCKS}) {kernel}("
+            f"const GtParams p, {params}{', ' if params else ''}const int gt_s, const unsigned gt_vec) {{"
+        )
+        self.indent += 1
+        self._emit_locals(names, pointers=not params, narrow=True)
+        self.emit("const int tid = threadIdx.x;")
+        self.emit(f"const int i0 = blockIdx.y * {PL_TI}, j0 = blockIdx.x * {PL_TJ} - gt_s;")
+        self.emit(f"const long long kb0 = (long long)blockIdx.z * {PL_TK};")
+        self.emit(f"const long long kb1 = kb0 + {PL_TK} < nk ? kb0 + {PL_TK} : nk;")
+        for m in fields:
+            v, const = m.var, "const " if m.name in self.read_only else ""
+            self.emit(f"{const}char* const {v}_t = {v} + ({v}_oi + i0) * {v}_si + ({v}_oj + j0) * {v}_sj;")
+            self.emit(f"const int {v}_si4 = (int){v}_si, {v}_sj4 = (int){v}_sj;")
+        for b, m in enumerate(plan.fields):
+            self.emit(f"const bool {m.var}_v = (gt_vec >> {b}) & 1u;")
+        self.emit(f"const bool gt_inner = {self._patch_inner(items, plan)};")
+        self.emit("(void)gt_inner;")
+        self._emit_buffer_pointers(plan.planes + plan.ring)
+        span = self._emit_patch_ring_setup(plan) if plan.ring else (0, 0)
+        # the fields the patches store or load from device memory
+        direct = {w.name for it in items for w in it.writes} | {
+            r.name for it in items for r in it.reads if r.name not in self.buffers or (
+                self.buffers[r.name].kind == "input"
+                and (r.name, r.offset) not in self.buffers[r.name].serves.get(id(it.stmt), ())
+            )
+        }
+        with self._block("for (long long k = kb0; k < kb1; ++k)"):
+            if plan.planes or plan.ring:
+                self._emit_level_start(plan.ring, span, "k - gt_w0")
+            for b in plan.ring:
+                self.emit(
+                    f"const {_raw(b.meta.dtype)}* const {b.meta.var}_l = {b.meta.var}_s + "
+                    f"gt_slot(k, {b.ring}) * {b.plane};"
+                )
+            for m in fields:
+                if m.name in direct:
+                    v, const = m.var, "const " if m.name in self.read_only else ""
+                    self.emit(f"{const}char* const {v}_k = {v}_t + ({v}_ok + k) * {v}_sk;")
+            since: list = []
+            for sid in sorted({it.section for it in items}):
+                sec = [it for it in items if it.section == sid]
+                lo, hi = self._k_bound(sec[0].interval.start), self._k_bound(sec[0].interval.end)
+                with self._block(f"if (k >= {lo} && k < {hi})"):
+                    fills = [b for b in plan.planes if sid in b.init]
+                    for b in fills:
+                        ct = _ctype(b.meta.dtype)
+                        with self._block(f"for (int q = tid; q < {b.plane}; q += {PL_THREADS})"):
+                            self.emit(f"{b.meta.var}_s[q] = ({ct})0;")
+                    if fills:
+                        self.emit("__syncthreads();")
+                    self._emit_statements(sec, None, PL_THREADS, [] if fills else since, patch=plan)
+                since += sec
+        if plan.ring:
+            self.emit("gt_cp_wait_all();")
+        self.indent -= 1
+        self.emit("}")
+        self.emit()
+        self.buffers = {}
+
+    def _patch_inner(self, items: list[_Item], plan: _PatchPlan) -> str:
+        """The condition under which a tile's patches touch no point beyond
+        the fields' valid ones: the tile lies inside the domain (API fields
+        are written only by statements of zero extent, whose patches cover
+        the tile), and every direct load of every patch lies inside its
+        field's footprint."""
+        terms = [f"i0 + {PL_TI} <= ni", "j0 >= 0", f"j0 + {PL_TJ} <= nj"]
+        for m in self.slots:
+            boxes = []
+            for it in items:
+                r0, r1, c0, c1 = plan.regions[id(it.stmt)]
+                b = self.buffers.get(m.name)
+                served = b.serves.get(id(it.stmt), ()) if b is not None else ()
+                boxes += [
+                    (r0 + r.offset[0], r1 + r.offset[0], c0 + r.offset[1], c1 + r.offset[1])
+                    for r in it.reads
+                    if r.name == m.name and (m.name, r.offset) not in served
+                ]
+            if not boxes:
+                continue
+            fp = self._footprint(items, m.name)
+            terms += [
+                f"i0 + ({min(x[0] for x in boxes)}) >= ({fp.i[0]})",
+                f"i0 + ({max(x[1] for x in boxes)}) <= ni + ({fp.i[1]})",
+                f"j0 + ({min(x[2] for x in boxes)}) >= ({fp.j[0]})",
+                f"j0 + ({max(x[3] for x in boxes)}) <= nj + ({fp.j[1]})",
+            ]
+        return " && ".join(terms)
+
+    def _vector_flag(self, m: FieldMeta, plan: _PatchPlan) -> str:
+        """The block's flag: ``m`` lies on the tiles' vectors."""
+        return f"{m.var}_v" if any(f.name == m.name for f in plan.fields) else "false"
+
+    def _emit_patch_ring_setup(self, plan: _PatchPlan) -> tuple[int, int]:
+        """The input ring of the ``_r`` kernel: each plane's copies over its
+        footprint rounded out to whole vectors, ``n`` vectors along J by its
+        rows, spread over the block's threads; a thread's share is fixed, so
+        each copy's offsets, and which of its elements lie inside the
+        field's valid points, are worked out once a block (``<f>_o<m>``,
+        ``<f>_d<m>``, ``<f>_f<m>``: bit ``w`` a whole vector of a field on
+        the tiles' vectors, else a bit a valid element). At a level a whole
+        vector is one ``cp.async``; the rest (a field off them, or a vector
+        cut by the edge of the valid points) copy their valid elements one
+        by one (a half element with a plain load and store: ``cp.async``
+        copies no 2 bytes). Returns (how far ahead the reads reach, the
+        depth), as :meth:`_emit_tile_ring_setup`."""
+        ring, w, T = plan.ring, plan.width, PL_THREADS
+        back, ahead = self._ring_span(ring, False)
+        depth = ring[0].ring - back
+        self.emit("const unsigned gt_sm = (unsigned)__cvta_generic_to_shared(gt_smem);")
+        self.emit("const long long gt_w0 = kb0, gt_wn = kb1 - kb0;")
+        copies = []  # (buffer, its copies: rows, vectors a row, first row, first column)
+        for b in ring:
+            f = b.fill
+            c0, c1 = f.j[0] // w * w, -(-(PL_TJ + f.j[1]) // w) * w
+            r0, r1 = f.i[0], PL_TI + f.i[1]
+            copies.append((b, r1 - r0, (c1 - c0) // w, r0, c0))
+        for b, nr, nv, r0, c0 in copies:
+            v, size = b.meta.var, b.meta.dtype.itemsize
+            f = b.fill
+            for q in range(-(-nr * nv // T)):
+                self.emit(f"int {v}_o{q}; unsigned {v}_d{q}, {v}_f{q};")
+                with self._block(""):
+                    self.emit(f"const int gt_q = tid + {q * T};")
+                    self.emit(f"const int gt_r = gt_q / {nv} + ({r0}), gt_c = gt_q % {nv} * {w} + ({c0});")
+                    self.emit(f"{v}_o{q} = gt_r * {v}_si4 + gt_c * {v}_sj4;")
+                    self.emit(
+                        f"{v}_d{q} = (unsigned)(((gt_r - ({b.fp.i[0]})) * {b.cols} + "
+                        f"(gt_c - ({b.fp.j[0]}))) * {size});"
+                    )
+                    self.emit(
+                        f"const bool gt_row = gt_q < {nr * nv} && i0 + gt_r >= ({f.i[0]}) && "
+                        f"i0 + gt_r < ni + ({f.i[1]});"
+                    )
+                    self.emit(f"const int gt_lo = max(0, ({f.j[0]}) - (j0 + gt_c));")
+                    self.emit(f"const int gt_hi = gt_row ? min({w}, nj + ({f.j[1]}) - (j0 + gt_c)) : 0;")
+                    self.emit(f"const unsigned gt_e = gt_hi > gt_lo ? (1u << gt_hi) - (1u << gt_lo) : 0u;")
+                    self.emit(
+                        f"{v}_f{q} = {self._vector_flag(b.meta, plan)} && gt_e == {(1 << w) - 1}u "
+                        f"? {1 << w}u : gt_e;"
+                    )
+        self.emit("auto gt_tfetch = [&](const int gt_f) {")
+        self.indent += 1
+        with self._block(f"if (gt_f < gt_wn + {ahead})"):
+            self.emit("const long long gt_k = gt_w0 + gt_f;")
+            for b, nr, nv, r0, c0 in copies:
+                v, size = b.meta.var, b.meta.dtype.itemsize
+                with self._block(""):
+                    self.emit(
+                        f"const unsigned gt_d = gt_sm + {b.offset}u + "
+                        f"(unsigned)gt_slot(gt_k, {b.ring}) * {b.plane * size}u;"
+                    )
+                    self.emit(f"const char* const gt_g = {v}_t + gt_clampk({v}_ok + gt_k, {v}_nk) * {v}_sk;")
+                    for q in range(-(-nr * nv // T)):
+                        self.emit(
+                            f"if ({v}_f{q} == {1 << w}u) "
+                            f"gt_cp_async{w * size}(gt_d + {v}_d{q}, gt_g + {v}_o{q});"
+                        )
+                        with self._block("else"):
+                            self._emit_patch_copy_elements(b, q, w)
+        self.emit("gt_cp_commit();")
+        self.indent -= 1
+        self.emit("};")
+        self.emit(f"for (int gt_f = {-back}; gt_f < {depth - 1}; ++gt_f) gt_tfetch(gt_f);")
+        return ahead, depth
+
+    def _emit_patch_copy_elements(self, b: _Buffer, q: int, w: int) -> None:
+        """Copy ``b``'s vector ``q`` of the thread element by element: those
+        of its elements whose bit ``<f>_f<q>`` sets, each element's copy
+        under its own predicate, so that a thread's copies are in flight
+        together (a 16-bit one through the thread's registers: every load,
+        then every store)."""
+        v, size, raw = b.meta.var, b.meta.dtype.itemsize, _raw(b.meta.dtype)
+        for e in range(w):
+            src = f"gt_g + {v}_o{q} + {e} * {v}_sj4"
+            if size in (4, 8):
+                self.emit(
+                    f"if ({v}_f{q} & {1 << e}u) "
+                    f"gt_cp_async{size}(gt_d + {v}_d{q} + {e * size}u, {src});"
+                )
+            else:
+                self.emit(f"const {raw} gt_x{e} = {v}_f{q} & {1 << e}u ? *(const {raw}*)({src}) : 0;")
+        if size not in (4, 8):
+            base = f"(gt_d - gt_sm - {b.offset}u + {v}_d{q}) / {size}u"
+            for e in range(w):
+                self.emit(f"if ({v}_f{q} & {1 << e}u) {v}_s[{base} + {e}] = gt_x{e};")
+
+    @staticmethod
+    def _valid_cond(fp: Extent, i: str, j: str) -> str:
+        """The point (``i``, ``j``) lies inside the valid points of a
+        footprint ``fp`` (from the domain's origin)."""
+        return (
+            f"{i} >= ({fp.i[0]}) && {i} < ni + ({fp.i[1]}) && "
+            f"{j} >= ({fp.j[0]}) && {j} < nj + ({fp.j[1]})"
+        )
+
+    @staticmethod
+    def _reg(v: str, src: str, row: int, col: int) -> str:
+        """The register of a patch's element (row, col from its corner) of
+        field ``v``, read from shared memory (``src`` "s") or device memory
+        ("g")."""
+        def n(x: int) -> str:
+            return f"m{-x}" if x < 0 else str(x)
+
+        return f"{v}_{src}{n(row)}_{n(col)}"
+
+    def _patch_source(self, it: _Item, node: gtir.FieldAccess) -> str:
+        """Where statement ``it`` reads ``node``: "s" a shared plane (a
+        temporary, or a ring read the ring serves), "g" device memory."""
+        b = self.buffers.get(node.name)
+        if b is not None and (b.kind == "shared" or (node.name, node.offset) in self.ring_reads):
+            return "s"
+        return "g"
+
+    def _emit_patch_item(self, it: _Item, plan: _PatchPlan) -> None:
+        """One statement over its patches: thread ``tid`` takes patches
+        ``tid``, ``tid + PL_THREADS``, ... of the statement's region (row
+        groups by columns of whole vectors), each at (``gt_r``, ``gt_c``)
+        from the tile's corner. A ``while`` runs point by point within the
+        patch, as the plain-pointer variant runs it; any other statement
+        loads every element its reads touch once into registers
+        (:meth:`_emit_patch_loads`), evaluates its expression at each point
+        from them, and stores the patch (:meth:`_emit_patch_stores`)."""
+        w, rows = plan.width, plan.rows
+        r0, r1, c0, c1 = plan.regions[id(it.stmt)]
+        nr, nc = (r1 - r0) // rows, (c1 - c0) // w
+        self.ring_reads = frozenset(
+            read
+            for b in self.buffers.values()
+            if b.kind == "input"
+            for read in b.serves.get(id(it.stmt), ())
+        )
+        with self._block(f"for (int gt_q = tid; gt_q < {nr * nc}; gt_q += {PL_THREADS})"):
+            self.emit(f"const int gt_r = gt_q / {nc} * {rows} + ({r0}), gt_c = gt_q % {nc} * {w} + ({c0});")
+            if isinstance(it.stmt, gtir.While):
+                self._emit_patch_points(it, plan)
+            else:
+                names = sorted({a.name for a in it.reads + it.writes})
+                for name in names:
+                    m, b = self._meta(name), self.buffers.get(name)
+                    if b is not None:
+                        self.emit(
+                            f"const int {m.var}_x = (gt_r - ({b.fp.i[0]})) * {b.cols}"
+                            f" + (gt_c - ({b.fp.j[0]}));"
+                        )
+                    if not m.is_temp and (
+                        it.writes_name(name)
+                        or any(r.name == name and self._patch_source(it, r) == "g" for r in it.reads)
+                    ):
+                        const = "const " if name in self.read_only else ""
+                        self.emit(
+                            f"{const}char* const {m.var}_b = {m.var}_k + "
+                            f"(gt_r * {m.var}_si4 + gt_c * {m.var}_sj4);"
+                        )
+                self._emit_patch_loads(it, plan)
+                self._emit_patch_values(it, plan)
+                self._emit_patch_stores(it, plan)
+        self.ring_reads = frozenset()
+
+    def _emit_patch_points(self, it: _Item, plan: _PatchPlan) -> None:
+        """A statement point by point within the patch (a ``while``): each
+        point of the statement's tile and extent, with the plain-pointer
+        variant's addressing."""
+        ext = it.ext
+        names = sorted({a.name for a in it.reads + it.writes})
+        for pi in range(plan.rows):
+            for pj in range(plan.width):
+                with self._block(""):
+                    self.emit(
+                        f"const int gt_di = gt_r + ({pi}), gt_dj = gt_c + ({pj}), "
+                        "i = i0 + gt_di, j = j0 + gt_dj;"
+                    )
+                    cond = self._extent_cond(ext) + " && " + self._tile_cond(ext, "gt_di", "gt_dj")
+                    with self._block(f"if ({cond})"):
+                        self.point_base = {}
+                        for name in names:
+                            m, b = self._meta(name), self.buffers.get(name)
+                            if b is not None:
+                                self.emit(
+                                    f"const int {m.var}_x = (gt_di - ({b.fp.i[0]})) * {b.cols}"
+                                    f" + (gt_dj - ({b.fp.j[0]}));"
+                                )
+                            if not m.is_temp and (
+                                b is None
+                                or it.writes_name(name)
+                                or any(
+                                    r.name == name and (name, r.offset) not in self.ring_reads
+                                    for r in it.reads
+                                )
+                            ):
+                                const = "const " if name in self.read_only else ""
+                                self.emit(
+                                    f"{const}char* const {m.var}_b = {m.var}_k + "
+                                    f"(gt_di * {m.var}_si4 + gt_dj * {m.var}_sj4);"
+                                )
+                                self.point_base[name] = f"{m.var}_b"
+                        self.item = it
+                        self._emit_stmt(it.stmt)
+                        self.item = None
+
+    @staticmethod
+    def _tile_cond(ext: Extent, di: str, dj: str) -> str:
+        """The point (``di``, ``dj`` from the tile's corner) lies in the
+        statement's tile widened by its extent."""
+        return (
+            f"{di} < {PL_TI + ext.i[1]} && {dj} >= ({ext.j[0]}) && {dj} < {PL_TJ + ext.j[1]}"
+        )
+
+    def _emit_patch_loads(self, it: _Item, plan: _PatchPlan) -> None:
+        """Every element the statement's reads touch at the patch's points,
+        once, into registers (:meth:`_reg`), row by row of each field. From
+        a shared plane: its whole vectors as vectors, the rest (a centre
+        row's neighbours) element by element. From device memory likewise
+        for a field on the tiles' vectors in an inner tile; else element by
+        element, outside an inner tile each guarded by the field's valid
+        points (0 beyond them, which no point of the statement's extent
+        reads)."""
+        w, rows = plan.width, plan.rows
+        need: dict = {}  # (name, source) -> {row: {column}}
+        for r in it.reads:
+            di, dj, _ = r.offset
+            cols = need.setdefault((r.name, self._patch_source(it, r)), {})
+            for pi in range(rows):
+                cols.setdefault(pi + di, set()).update(pj + dj for pj in range(w))
+        for (name, src), by_row in sorted(need.items()):
+            m, b = self._meta(name), self.buffers.get(name)
+            v, ct = m.var, _ctype(m.dtype)
+            if src == "s":
+                base, et = (f"{v}_l", _raw(m.dtype)) if b.kind == "input" else (f"{v}_s", ct)
+                for row, cols in sorted(by_row.items()):
+                    self._emit_row_loads(
+                        m, "s", row, cols, w, et, b.size,
+                        lambda c, row=row, cols=b.cols: f"{base} + {v}_x + ({row * cols + c})",
+                    )
+                continue
+            regs = [self._reg(v, "g", row, c) for row, cols in sorted(by_row.items()) for c in sorted(cols)]
+            self.emit(f"{ct} {', '.join(regs)};")
+            size = m.dtype.itemsize
+            scope = self._block("")
+            if _chunks(_raw(m.dtype), size, w)[0]:
+                with self._block(f"if ({self._vector_flag(m, plan)} && gt_inner)"):
+                    for row, cols in sorted(by_row.items()):
+                        self._emit_row_loads(
+                            m, "g", row, cols, w, _raw(m.dtype), size,
+                            lambda c, row=row: f"{v}_b + ({row} * {v}_si4 + {c * size})",
+                            declare=False,
+                        )
+                scope = self._block("else")
+            with scope:
+                self._emit_guarded_loads(it, m, by_row)
+
+    def _emit_guarded_loads(self, it: _Item, m: FieldMeta, by_row: dict) -> None:
+        """Registers (:meth:`_reg`, "g") of ``by_row`` (row -> columns from
+        the patch's corner) of API field ``m``, element by element from
+        device memory, each in an inner tile or where it lies inside the
+        field's valid points, and 0 beyond them."""
+        v, ct = m.var, _ctype(m.dtype)
+        fp = self._footprint(self._items([it.loop]), m.name)
+        for row, cols in sorted(by_row.items()):
+            for c in sorted(cols):
+                load = _load(m, f"{v}_b + ({row} * {v}_si4 + {c} * {v}_sj4)", const=m.name in self.read_only)
+                cond = self._valid_cond(fp, f"i0 + gt_r + ({row})", f"j0 + gt_c + ({c})")
+                self.emit(f"{self._reg(v, 'g', row, c)} = gt_inner || ({cond}) ? {load} : ({ct})0;")
+
+    def _emit_row_loads(
+        self, m: FieldMeta, src: str, row: int, cols: set, w: int, et: str, size: int, addr,
+        declare: bool = True,
+    ) -> None:
+        """Registers of ``cols`` (columns from the patch's corner) of one
+        row of ``m``, whose elements are C type ``et`` of ``size`` bytes
+        there: each whole vector among them (the patch's columns, and each
+        ``w`` beside them) by vector loads, the others one by one.
+        ``addr(c)``: column ``c``'s address (a pointer into a shared plane,
+        or a byte address in device memory)."""
+        ct = _ctype(m.dtype)
+        vt, per = _chunks(et, size, w)
+        half = _HALF_TYPES.get(_np_dtype(m.dtype)) if et == "unsigned short" else None
+        decl = f"const {ct} " if declare else ""
+        whole = set()
+        if vt:
+            for start in range(min(cols) // w * w, max(cols) + 1, w):
+                if set(range(start, start + w)) <= cols:
+                    whole.update(range(start, start + w))
+        for c in sorted(whole):
+            if c % per:
+                continue
+            q = self._reg(m.var, "q" + src, row, c)
+            self.emit(f"const {vt} {q} = *(const {vt}*)({addr(c)});")
+            for e in range(per):
+                if half:
+                    word = q if vt == "unsigned" else f"{q}.{'xyzw'[e // 2]}"
+                    value = f"{half[1]}({half[3]}((unsigned short)({word} >> {16 * (e % 2)})))"
+                else:
+                    value = f"{q}.{'xyzw'[e]}"
+                self.emit(f"{decl}{self._reg(m.var, src, row, c + e)} = {value};")
+        for c in sorted(cols - whole):
+            if src == "g":
+                value = _load(m, addr(c), const=m.name in self.read_only)
+            else:
+                value = f"*({addr(c)})"
+                if half:
+                    value = f"{half[1]}({half[3]}({value}))"
+            self.emit(f"{decl}{self._reg(m.var, src, row, c)} = {value};")
+
+    def _emit_patch_values(self, it: _Item, plan: _PatchPlan) -> None:
+        """The statement's value (``gt_v<row>_<col>``) and mask
+        (``gt_m<row>_<col>``) at each point of the patch, its reads the
+        registers of :meth:`_emit_patch_loads`."""
+        stmt = it.stmt
+        ct = _ctype(self._meta(stmt.target.name).dtype)
+        self.item = it
+        for pi in range(plan.rows):
+            for pj in range(plan.width):
+                self.patch_point = (pi, pj)
+                self.emit(f"const {ct} gt_v{pi}_{pj} = {self._expr(stmt.value)};")
+                if stmt.mask is not None:
+                    self.emit(f"const bool gt_m{pi}_{pj} = ({self._expr(stmt.mask)}) != 0;")
+        self.patch_point, self.item = None, None
+
+    def _emit_patch_stores(self, it: _Item, plan: _PatchPlan) -> None:
+        """The patch's values (``gt_v<row>_<col>``) to the target. A
+        temporary that this statement alone writes, unmasked and never
+        zero-filled, takes whole vectors: the points it computes beyond its
+        extent are points no read of the loop finds. An API field on the
+        tiles' vectors takes one vector store a row in an inner tile. Any
+        other store goes point by point, where the point lies in the
+        statement's extent (and its tile, for a temporary), and its mask
+        and regions."""
+        stmt, w, rows = it.stmt, plan.width, plan.rows
+        t = stmt.target
+        m, b = self._meta(t.name), self.buffers.get(t.name)
+        hmasks = getattr(stmt, "horizontal_masks", ())
+        conditional = stmt.mask is not None or bool(hmasks)
+        writers = sum(x.writes_name(t.name) for x in self._items([it.loop]))
+        ct = _ctype(m.dtype)
+
+        def rows_of_vectors(row_addr, et: str, size: int) -> None:
+            vt, per = _chunks(et, size, w)
+            half = _HALF_TYPES.get(_np_dtype(m.dtype)) if et == "unsigned short" else None
+            for pi in range(rows):
+                for c in range(0, w, per):
+                    vals = [f"gt_v{pi}_{c + e}" for e in range(per)]
+                    if half:
+                        pack = "gt_pack_h" if half[0] == "__half" else "gt_pack_bf"
+                        words = [f"{pack}({a}, {z})" for a, z in zip(vals[::2], vals[1::2])]
+                        value = words[0] if vt == "unsigned" else f"make_{vt}({', '.join(words)})"
+                    else:
+                        value = f"make_{vt}({', '.join(vals)})"
+                    self.emit(f"*({vt}*)({row_addr(pi, c)}) = {value};")
+
+        def point(pi: int, pj: int, store: str, tile: bool) -> None:
+            terms = [self._extent_cond(it.ext)]
+            if tile:
+                terms.append(self._tile_cond(it.ext, f"gt_r + {pi}", f"gt_c + {pj}"))
+            if stmt.mask is not None:
+                terms.append(f"gt_m{pi}_{pj}")
+            if hmasks:
+                terms.append(self._region_cond(hmasks))
+            with self._block(""):
+                self.emit(f"const int i = i0 + gt_r + ({pi}), j = j0 + gt_c + ({pj});")
+                self.emit(f"if ({' && '.join(terms)}) {store}")
+
+        if b is not None:  # a temporary's shared plane
+            def shared(pi: int, c: int) -> str:
+                return f"{m.var}_s + {m.var}_x + ({pi * b.cols + c})"
+
+            vt, _ = _chunks(ct, np.dtype(_compute(m.dtype)).itemsize, w)
+            if vt and not conditional and writers == 1 and not b.init:
+                rows_of_vectors(shared, ct, np.dtype(_compute(m.dtype)).itemsize)
+                return
+            for pi in range(rows):
+                for pj in range(w):
+                    point(pi, pj, f"{m.var}_s[{m.var}_x + ({pi * b.cols + pj})] = gt_v{pi}_{pj};", True)
+            return
+
+        size = m.dtype.itemsize
+        vt, _ = _chunks(_raw(m.dtype), size, w)
+        scope = self._block("")
+        if vt and not conditional:
+            with self._block(f"if ({self._vector_flag(m, plan)} && gt_inner)"):
+                rows_of_vectors(
+                    lambda pi, c: f"{m.var}_b + ({pi} * {m.var}_si4 + {c * size})", _raw(m.dtype), size
+                )
+            scope = self._block("else")
+        with scope:
+            for pi in range(rows):
+                for pj in range(w):
+                    self.point_base = {t.name: f"({m.var}_b + ({pi} * {m.var}_si4 + {pj} * {m.var}_sj4))"}
+                    point(pi, pj, self._global_store(t, f"gt_v{pi}_{pj}"), False)
+                    self.point_base = {}
 
     # -- the column kernel -----------------------------------------------------
 
@@ -3025,6 +3807,7 @@ class _Generator:
     def _plan_tile_ring(
         self, items: list[_Item], buffers: list[_Buffer], tile, threads: int, base: int,
         backward: bool = False, fused: bool = False, levels: int = TILE_RING_LEVELS,
+        half: bool = False,
     ) -> list[_Buffer]:
         """tiled, fused_plane and plane, ``_r`` variants: the input-plane ring, the
         tile counterpart of ``column``'s (:meth:`_plan_ring`), at the most
@@ -3045,9 +3828,10 @@ class _Generator:
         ringed in the order the walk first reads them while the ring stays
         within ``RING_BYTES_MAX`` and the block within the card's shared
         memory; the others' reads stay direct loads, as do a half
-        field's (``cp.async`` has no 2-byte copy)."""
+        field's (``cp.async`` has no 2-byte copy), unless ``half``: plane's
+        ``_r`` variant copies one as vectors."""
         for depth in range(levels, 1, -1):
-            ring = self._tile_ring_at(items, buffers, tile, base, depth, backward, fused)
+            ring = self._tile_ring_at(items, buffers, tile, base, depth, backward, fused, half)
             used = base + sum(b.bytes for b in ring) + BLOCK_RESERVED_BYTES
             if not ring or SM_SHARED_BYTES // used * threads >= TILE_RESIDENT_THREADS:
                 break
@@ -3059,7 +3843,7 @@ class _Generator:
 
     def _tile_ring_at(
         self, items: list[_Item], buffers: list[_Buffer], tile, base: int, depth: int,
-        backward: bool, fused: bool,
+        backward: bool, fused: bool, half: bool = False,
     ) -> list[_Buffer]:
         """:meth:`_plan_tile_ring`'s ring of ``depth`` levels."""
         held = {b.meta.name for b in buffers}
@@ -3082,7 +3866,7 @@ class _Generator:
                     or r.name in held
                     or m.axes != (True, True, True)
                     or m.data_dims
-                    or m.dtype.itemsize not in (4, 8)
+                    or not (m.dtype.itemsize in (4, 8) or (half and m.dtype in _HALF_TYPES))
                     or r.koffset is not None
                     or r.abs_k is not None
                     or r.data_index
@@ -3200,7 +3984,7 @@ class _Generator:
         if buffers:
             self.emit("extern __shared__ __align__(16) unsigned char gt_smem[];")
         for b in buffers:
-            ct = _ctype(b.meta.dtype)
+            ct = _raw(b.meta.dtype) if b.kind == "input" else _ctype(b.meta.dtype)
             self.emit(f"{ct}* const {b.meta.var}_s = ({ct}*)(gt_smem + {b.offset});")
 
     def _emit_unravel(self, m: FieldMeta, flat: str) -> None:
@@ -3294,19 +4078,23 @@ class _Generator:
         self.ring_reads = frozenset()
 
     def _emit_statements(
-        self, items: list[_Item], tile, threads: int, since: list, plane: Optional[tuple] = None
+        self, items: list[_Item], tile, threads: int, since: list, plane: Optional[tuple] = None,
+        patch: Optional[_PatchPlan] = None,
     ) -> list:
         """Statements in order, a barrier before each that :meth:`_hazard`
         says needs one; ``since``: the statements since the last barrier
         that surely ran. ``plane``: the plane kernel's block, whose points
-        :meth:`_emit_plane_item` maps. Returns those after the last
+        :meth:`_emit_plane_item` maps; ``patch``: its ``_r`` kernel's
+        patches (:meth:`_emit_patch_item`). Returns those after the last
         statement."""
         since = list(since)
         for it in items:
             if since and self._hazard(since, it, alias=not self.noalias):
                 self.emit("__syncthreads();")
                 since = []
-            if plane:
+            if patch:
+                self._emit_patch_item(it, patch)
+            elif plane:
                 self._emit_plane_item(it, plane)
             else:
                 self._emit_item(it, tile, threads)
@@ -3324,17 +4112,14 @@ class _Generator:
 
     def _emit_tile_ring_setup(
         self, ring: list[_Buffer], threads: int, w0: str, wn: str, backward: bool,
-        block: Optional[tuple[int, int]] = None,
     ) -> int:
         """The tile ring's shared address, ``gt_tfetch(f)`` (the whole block
         copies level ``f`` steps into the walk of every ringed plane with
         ``cp.async``, clamped as ``gt_clampk`` clamps a read, at the points
         of the footprint inside the widened domain; one commit group a
         level), and the prologue: the levels behind the walk its reads reach
-        and the first ``depth - 1``. ``block``: the plane kernel's threads
-        (along J, rows of I), which walk a plane's rows and take their
-        elements' addresses as 32-bit offsets from the plane's corner.
-        Returns (how far ahead the reads reach, the ring's depth)."""
+        and the first ``depth - 1``. Returns (how far ahead the reads
+        reach, the ring's depth)."""
         back, ahead = self._ring_span(ring, backward)
         depth = ring[0].ring - back
         self.emit("const unsigned gt_sm = (unsigned)__cvta_generic_to_shared(gt_smem);")
@@ -3350,9 +4135,6 @@ class _Generator:
                         f"const unsigned gt_d = gt_sm + {b.offset}u + "
                         f"(unsigned)gt_slot(gt_k, {b.ring}) * {b.plane * size}u;"
                     )
-                    if block:
-                        self._emit_plane_ring_copy(b, block)
-                        continue
                     self.emit(
                         f"const char* const gt_g = {v} + gt_clampk({v}_ok + gt_k, {v}_nk) * {v}_sk;"
                     )
@@ -3371,27 +4153,6 @@ class _Generator:
             f"for (int gt_f = {-back}; gt_f < {depth - 1}; ++gt_f) gt_tfetch(gt_f);"
         )
         return ahead, depth
-
-    def _emit_plane_ring_copy(self, b: _Buffer, block: tuple[int, int]) -> None:
-        """The plane kernel's copies of one ring plane, level ``gt_k``,
-        into ``gt_d``: its corner's address once, then each element at a
-        32-bit offset from it."""
-        bj, bi = block
-        v, size, (fi, fj) = b.meta.var, b.meta.dtype.itemsize, (b.fp.i, b.fp.j)
-        self.emit(
-            f"const char* const gt_g = {v} + gt_clampk({v}_ok + gt_k, {v}_nk) * {v}_sk"
-            f" + ({v}_oi + i0 + ({fi[0]})) * {v}_si + ({v}_oj + j0 + ({fj[0]})) * {v}_sj;"
-        )
-        for c0, cond in _column_passes(b.cols, bj):
-            with self._block(cond):
-                self.emit(f"const int gt_c = tx + {c0};")
-                with self._block(f"if (j0 + ({fj[0]}) + gt_c < nj + ({fj[1]}))"):
-                    with self._block(f"for (int gt_r = ty; gt_r < {b.rows}; gt_r += {bi})"):
-                        self.emit(
-                            f"if (i0 + ({fi[0]}) + gt_r < ni + ({fi[1]})) "
-                            f"gt_cp_async{size}(gt_d + (unsigned)(gt_r * {b.cols} + gt_c) * {size}u, "
-                            f"gt_g + (gt_r * {v}_si4 + gt_c * {v}_sj4));"
-                        )
 
     def _emit_level_start(self, ring: list[_Buffer], span: tuple[int, int], walk_pos: str) -> None:
         """The barrier that turns a level over: the level's planes have
@@ -3712,8 +4473,11 @@ class _Generator:
             return f"{v}_s[{e}]"
 
         if b.kind == "input":
-            served = (node.name, node.offset) in self.ring_reads
-            return at(f"gt_slot(k + ({dk}), {b.ring})") if served else None
+            if (node.name, node.offset) not in self.ring_reads:
+                return None
+            half = _HALF_TYPES.get(_np_dtype(m.dtype))  # a raw element (plane's _r)
+            e = at(f"gt_slot(k + ({dk}), {b.ring})")
+            return f"{half[1]}({half[3]}({e}))" if half else e
         if b.kind == "staged" or self.strategy in ("fused_plane", "plane"):
             return at(None)
         if dk == 0:
@@ -3850,6 +4614,12 @@ class _Generator:
         return m
 
     def _access(self, node: gtir.FieldAccess, *, k_override: str = "") -> str:
+        if self.patch_point is not None:  # plane's _r kernel: a register
+            pi, pj = self.patch_point
+            return self._reg(
+                self._meta(node.name).var, self._patch_source(self.item, node),
+                pi + node.offset[0], pj + node.offset[1],
+            )
         if node.name in self.held:
             held = self._held_access(node)
             if held is not None:

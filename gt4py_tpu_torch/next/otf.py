@@ -442,10 +442,10 @@ def _pool(device: torch.device, stream) -> _Pool:
 class Graph:
     """A captured CUDA graph, its pool, the tensors it reads that are not
     the caller's (kept alive with it) and the Hopper kernels each replay
-    launches, by wrapper, and the on-chip pairs among them (added to each
-    wrapper's counts at every replay)."""
+    launches, by wrapper, and the on-chip pairs and patched launches among
+    them (added to each wrapper's counts at every replay)."""
 
-    __slots__ = ("graph", "pool", "keeps", "launches", "on_chip")
+    __slots__ = ("graph", "pool", "keeps", "launches", "on_chip", "patched")
 
     def __init__(self, graph, pool: _Pool, keeps: list, launches):
         self.graph = graph
@@ -453,6 +453,7 @@ class Graph:
         self.keeps = keeps
         self.launches = tuple(launches.items())
         self.on_chip = tuple(launches.on_chip.items())
+        self.patched = tuple(launches.patched.items())
 
     @property
     def per_replay(self) -> int:
@@ -465,6 +466,8 @@ class Graph:
             wrapper.launches += n
         for wrapper, n in self.on_chip:
             wrapper.on_chip += n
+        for wrapper, n in self.patched:
+            wrapper.patched += n
 
     def retire(self) -> None:
         self.pool.leave()

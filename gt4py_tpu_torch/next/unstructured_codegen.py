@@ -103,6 +103,10 @@ DECLINES = (DECLINED_CONSTRUCT, DECLINED_BUILTIN, DECLINED_OFFSET, DECLINED_SKIP
 #: operators (variant keys) declined, by reason; a call whose table cannot
 #: be read (``DECLINED_CAPTURE``), by call
 declined: collections.Counter = collections.Counter()
+#: ``"neighbor"`` -> the calls the lowered kernel served since the counter
+#: was cleared (on CPU tensors they run its plain version; on a card each
+#: is one launch of ``cuda_backend.NEIGHBOR``, eager or replayed)
+calls_served: collections.Counter = collections.Counter()
 
 #: lanes a horizontal element takes where the outputs' K axis is contiguous
 K_LANES = 32
@@ -1222,6 +1226,7 @@ def try_call(op, args, kwargs, out, dom, providers, make: Optional[Callable] = N
             with span("gt4py.next.replay") as replay_span:
                 replay_span.set("launches", graph.per_replay)
                 graphs.replay_graph(graph)
+            calls_served["neighbor"] += 1
             return True
     cache = op.__dict__.setdefault("_neighbor_cache", {})
     vkey = variant_key(args, kwargs, out, dom, tables)
@@ -1244,6 +1249,7 @@ def try_call(op, args, kwargs, out, dom, providers, make: Optional[Callable] = N
         if device is not None:  # a card the lowering cannot launch on
             return False
         program.run_plain(values, outs, scalars, providers)
+        calls_served["neighbor"] += 1
         return True
     if _aliased(values, outs):
         declined[DECLINED_ALIAS] += 1
@@ -1253,11 +1259,13 @@ def try_call(op, args, kwargs, out, dom, providers, make: Optional[Callable] = N
         if refusal is not None:
             otf.refuse(refusal)
         launch()
+        calls_served["neighbor"] += 1
         return True
     with span("gt4py.next.launch") as launch_span:
         before = NEIGHBOR.launches
         graphs.run(key, device, keeps, launch)
         launch_span.set("launches", NEIGHBOR.launches - before)
+    calls_served["neighbor"] += 1
     return True
 
 

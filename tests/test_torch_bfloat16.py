@@ -17,6 +17,8 @@ only: the port cannot import JAX), bfloat16 hdiff against the JAX ``numpy``
 backend, and what the generated CUDA source does with bfloat16 fields.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -308,7 +310,8 @@ def test_bf16_sources_load_and_store_with_intrinsics(name, monkeypatch):
     """One bfloat16 stencil on each kernel: elements are loaded with
     ``__bfloat162float`` (through ``__ushort_as_bfloat16`` where an
     intrinsic loads the 16 bits) and stored with ``__float2bfloat16_rn``;
-    no bfloat16 field is ringed (``cp.async`` has no 2-byte copy)."""
+    no bfloat16 field is ringed (``cp.async`` has no 2-byte copy) but by
+    plane's register patches, in vectors of 2 elements."""
     definition, kernel, fuse = defs.HALF_STENCILS[name]
     monkeypatch.setenv("GT4PY_CUDA_FUSE_STAGES", "1" if fuse else "0")
     backend = gtscript.stencil(backend="cuda:hopper", definition=definition,
@@ -319,12 +322,15 @@ def test_bf16_sources_load_and_store_with_intrinsics(name, monkeypatch):
     assert "__bfloat162float(" in source and "__float2bfloat16_rn(" in source
     assert "__half" not in source
     assert any(m.dtype == bfloat16 for m in backend.module.slots)
-    # its float32 twin rings its inputs; in bfloat16 no field is ringed
+    # its float32 twin rings its inputs; in bfloat16 only plane's
+    # register patches ring a field, with whole vectors of 2 elements
     twin = gtscript.stencil(backend="cuda:hopper", definition=definition,
                             dtypes={"dt": np.float32})._backend
     assert twin.module.ring_bytes
-    assert backend.module.ring_bytes == {}
-    assert "gt_cp_async" not in source
+    patched = {"gt_plane_0_r"} if kernel == "plane" else set()
+    assert set(backend.module.ring_bytes) == patched
+    copies = set(re.findall(r"gt_cp_async(\d+)\(", source.split("struct GtParams")[1]))
+    assert copies == ({"4"} if patched else set())
 
 
 def test_bf16_temporaries_and_literals_are_float():

@@ -692,40 +692,61 @@ def test_plane_restrict_variant_rings_its_inputs(dtype):
     """hdiff: gt_plane_0_r prefetches in_field (read at four neighbours)
     and coeff (read at its own point: ringed, it measured faster than a
     direct load) with cp.async into a ring of planes over their
-    footprints, waits once a level for the level it reads, and reads them
-    from the ring; gt_plane_0 loads them directly. The launcher takes the ringed
-    variant only where the wrapper found no overlap."""
+    footprints, whole 16-byte vectors where the field lies on the tiles'
+    vectors and element by element where it does not, waits once a level
+    for the level it reads, and reads them from the level's slot of the
+    ring; gt_plane_0 loads them directly. The launcher takes the ringed
+    variant only where the wrapper found no overlap, on a grid shifted by
+    the word's shift."""
     gen, module = _plane_generator(defs.horizontal_diffusion_generic, dtypes={"dt": dtype})
     bodies = _bodies(module.source)
     ringed, plain = bodies["gt_plane_0_r"], bodies["gt_plane_0"]
     ring = gen.tile_rings[0]
+    assert ring is gen.patch_plans[0].ring
     assert {b.meta.name for b in ring} == {"in_field", "coeff"}
     depth = ring[0].ring
-    assert depth == cuda_codegen.PL_RING_LEVELS
+    # float64's planes at 3 levels would leave fewer than
+    # TILE_RESIDENT_THREADS threads resident on an SM: 2
+    assert depth == (cuda_codegen.PL_RING_LEVELS if dtype == np.float32 else 2)
     assert set(module.ring_bytes) == {"gt_plane_0_r"}
     assert module.ring_bytes["gt_plane_0_r"] == sum(b.bytes for b in ring)
     assert "gt_tfetch(" in ringed and "gt_tfetch(" not in plain
     assert f"gt_cp_wait<{depth - 2}>();" in ringed and "gt_cp_wait<" not in plain
-    assert f"gt_cp_async{np.dtype(dtype).itemsize}(" in ringed
+    size = np.dtype(dtype).itemsize
+    vector = gen.patch_plans[0].width * size  # a vector of the field: 8 or 16 bytes
+    assert f"gt_cp_async{vector}(gt_d + " in ringed
+    assert f"gt_cp_async{size}(gt_d + " in ringed  # off the vectors, or cut
     v = gen.fields["in_field"].var
-    assert f"{v}_s[gt_slot(k + (0), {depth}) * " in ringed
+    assert f"const {'float' if dtype == np.float32 else 'double'}* const {v}_l = {v}_s + " \
+        f"gt_slot(k, {depth}) * " in ringed
     launcher = module.source.split('extern "C" int gt_launch_0(')[1]
-    assert "if (noalias) gt_plane_0_r<<<grid, block, " in launcher
+    assert "if (noalias)" in launcher
+    assert "gt_plane_0_r<<<dim3((unsigned)((nj + ((noalias >> 1) & 7) + 63) / 64), " \
+        "grid.y, grid.z), dim3(256), " in launcher
+    assert "(noalias >> 1) & 7, (unsigned)noalias >> 4);" in launcher
     assert "else gt_plane_0<<<grid, block, " in launcher
 
 
 def test_plane_walks_levels_of_one_tile_a_block():
     """A block walks PL_TK levels of one PL_TI × PL_TJ tile, the last walk
-    cut at nk; threads along J, rows of I walked by a loop."""
+    cut at nk. In gt_plane_0 threads run along J and walk rows of I; in
+    gt_plane_0_r a thread takes the statement's patches, the tile's columns
+    shifted by the word's shift so that they start on the storage's
+    vectors."""
     _, module = _plane_generator(defs.horizontal_diffusion_generic)
     launcher = module.source.split('extern "C" int gt_launch_0(')[1]
     tk = cuda_codegen.PL_TK
     assert f"(unsigned)((nk + {tk - 1}) / {tk})" in launcher
     assert f"(unsigned)((nj + {cuda_codegen.PL_TJ - 1}) / {cuda_codegen.PL_TJ})" in launcher
-    for body in _bodies(module.source).values():
+    bodies = _bodies(module.source)
+    for body in bodies.values():
         assert f"const long long kb1 = kb0 + {tk} < nk ? kb0 + {tk} : nk;" in body
         assert body.count("for (long long k = kb0; k < kb1; ++k)") == 1
-        assert "for (int gt_r = ty; gt_r < " in body
+    assert "for (int gt_r = ty; gt_r < " in bodies["gt_plane_0"]
+    patched = bodies["gt_plane_0_r"]
+    assert f"j0 = blockIdx.x * {cuda_codegen.PL_TJ} - gt_s;" in patched
+    assert "for (int gt_r = ty;" not in patched
+    assert patched.count(f"for (int gt_q = tid; gt_q < ") == 2  # lap, out_field
 
 
 def test_plane_point_offsets_are_32_bit():
@@ -736,10 +757,16 @@ def test_plane_point_offsets_are_32_bit():
     v = gen.fields["in_field"].var
     for body in _bodies(module.source).values():
         assert f"const int {v}_si4 = (int){v}_si, {v}_sj4 = (int){v}_sj;" in body
-        assert "const int gt_di = gt_r + (" in body and "const int gt_dj = tx + (" in body
         assert "long long i =" not in body and "long long j =" not in body
-        assert " / " not in body.split("for (long long k = kb0")[1]
-    plain = _bodies(module.source)["gt_plane_0"]
+    plain, patched = _bodies(module.source)["gt_plane_0"], _bodies(module.source)["gt_plane_0_r"]
+    assert "const int gt_di = gt_r + (" in plain and "const int gt_dj = tx + (" in plain
+    assert " / " not in plain.split("for (long long k = kb0")[1]
+    # a patch's corner, once a patch: its index over a constant count of
+    # patches a row, and nothing else divided
+    level = patched.split("for (long long k = kb0")[1]
+    assert level.count(" / ") == level.count("const int gt_r = gt_q / ") == 2
+    out = gen.fields["out_field"].var
+    assert f"char* const {out}_b = {out}_k + (gt_r * {out}_si4 + gt_c * {out}_sj4);" in level
     assert f"{v}_k + (gt_di * {v}_si4 + gt_dj * {v}_sj4)" in plain
     assert f"{v}_b + (1) * {v}_si4" in plain and f" * {v}_si)" not in plain.split("kb1")[1]
 
@@ -776,6 +803,198 @@ def test_plane_fills_no_plane_its_first_write_covers():
         assert len(re.findall(r"_s\[q\] = \(double\)0;", second)) == 1
 
 
+# --- the plane kernel's register patches (gt_plane_<n>_r) ------------------------
+
+
+@pytest.mark.parametrize(
+    "name, dtype, width, rows, fields",
+    [
+        ("hdiff", np.float32, 2, 2, ("in_field", "out_field", "coeff")),
+        ("hdiff", np.float64, 2, 1, ("in_field", "out_field", "coeff")),
+        ("hdiff", np.float16, 2, 2, ("in_field", "out_field", "coeff")),
+        ("hdiff", "bfloat16", 2, 2, ("in_field", "out_field", "coeff")),
+        # int8 and bool move point by point; float64 sets the size
+        ("dtype_zoo", None, 2, 1, ("idx32", "big", "f32", "f64")),
+        ("land_mask", None, 2, 1, ("height",)),
+    ],
+)
+def test_patch_width_follows_the_widest_field(name, dtype, width, rows, fields):
+    """A patch is PL_PATCH_WIDTH J points by PL_PATCH_ROWS rows, at most 16
+    bytes of the loop's widest field with a vector path (float16 and
+    bfloat16, 4- and 8-byte types): 2 × 2 in float32 and the halves, 2 × 1
+    in float64; the mask's fields are those, in slot order."""
+    if name == "hdiff":
+        gen, module = _plane_generator(defs.horizontal_diffusion_generic, dtypes={"dt": dtype})
+    else:
+        entry = defs.REGISTRY[name]
+        gen, module = _plane_generator(
+            entry["definition"], dtypes=entry["dtypes"], externals=entry["externals"]
+        )
+    plan = gen.patch_plans[0]
+    assert (plan.width, plan.rows) == (width, rows)
+    assert tuple(m.name for m in plan.fields) == fields
+    layout = module.patches["gt_launch_0"]
+    assert layout.width == width and tuple(n for n, _ in layout.fields) == fields
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.float16])
+def test_patch_ring_windows_round_out_to_vectors(dtype):
+    """hdiff: lap runs over its extent rounded out to whole patches; the
+    ring copies in_field over its footprint (20 rows of columns -2 to 65)
+    rounded out to whole vectors, and its plane also spans the columns the
+    patches read beyond it; coeff, read at the tile's own points, is 16
+    rows of whole vectors."""
+    gen, module = _plane_generator(defs.horizontal_diffusion_generic, dtypes={"dt": dtype})
+    plan = gen.patch_plans[0]
+    w, size = plan.width, np.dtype(dtype).itemsize
+    lap_cols, in_cols, in_vectors = (-2, 66), (-4, 68), 34  # vectors of 2
+    lap = next(it for it in gen._items([0]) if it.writes_name("lap_field"))
+    assert plan.regions[id(lap.stmt)] == (-1, 17) + lap_cols
+    ring = {b.meta.name: b for b in plan.ring}
+    inp, coeff = ring["in_field"], ring["coeff"]
+    assert inp.fill == Extent(i=(-2, 2), j=(-2, 2)) and coeff.fill == Extent()
+    assert (inp.fp.j[0], cuda_codegen.PL_TJ + inp.fp.j[1]) == in_cols and inp.cols % w == 0
+    assert inp.rows == 20 and (coeff.rows, coeff.cols) == (16, 64)
+    patched = _bodies(module.source)["gt_plane_0_r"]
+    assert f"gt_q < {20 * in_vectors} && " in patched
+    assert f"gt_q < {16 * 64 // w} && " in patched
+    assert f"gt_cp_async{w * size}(gt_d + {inp.meta.var}_d0, gt_g + {inp.meta.var}_o0);" in patched
+    for b in plan.planes + plan.ring:  # every plane's rows start on a vector
+        assert b.fp.j[0] % w == 0 and b.cols % w == 0 and b.offset % 16 == 0
+    # which elements a copy moves is worked out once a block, not at each level
+    setup, fetch = patched.split("auto gt_tfetch", 1)
+    fetch = fetch.split("gt_cp_commit();", 1)[0]
+    assert "gt_lo" in setup and "gt_lo" not in fetch and "gt_q" not in fetch
+    assert f"if ({inp.meta.var}_f0 & 1u) " in fetch
+
+
+@pytest.mark.parametrize(
+    "width, itemsize, address, strides, shift",
+    [
+        (4, 4, 1040 * 3 + 8, (1040, 4, 1040 * 260), 2),  # the benchmark's storages
+        (4, 4, 4096 + 12, (1040, 4, 1040 * 260), 3),
+        (2, 8, 4096 + 8, (2080, 8, 2080 * 260), 1),
+        (8, 2, 4096 + 6, (528, 2, 528 * 260), 3),
+        (4, 4, 4096, (1044, 4, 1044 * 260), None),  # a row pitch of no whole vectors
+        (4, 4, 4096, (1040, 4, 1040 * 260 + 4), None),  # nor a level pitch
+        (4, 4, 4096, (1040, 320, 4), None),  # J is not the contiguous axis
+        (4, 4, 4098, (1040, 4, 1040 * 260), None),  # an element cut by its alignment
+        (1, 1, 4096, (64, 1, 64 * 64), None),  # no vector: a bool kernel
+    ],
+)
+def test_patch_shift_decides_vector_or_fallback(width, itemsize, address, strides, shift):
+    assert cuda_codegen.patch_shift(width, itemsize, address, strides) == shift
+
+
+def test_patch_word_marks_the_fields_on_the_tiles_vectors():
+    """The word: bit 0 no overlap, the shift of the first field with a
+    vector path, a bit for each field whose vectors start there too;
+    ``patched`` only where every field has its bit."""
+    layout = cuda_codegen.PatchLayout(4, (("a", 4), ("b", 4), ("c", 4)))
+    row, level = (1040, 4, 1040 * 260), 8192
+    at = {"a": (level + 8, row), "b": (2 * level + 8, row), "c": (3 * level + 8, row)}
+    word = layout.word(1, at)
+    assert word == 1 | 2 << 1 | 0b111 << cuda_codegen.PATCH_MASK_AT and layout.patched(word)
+    odd = dict(at, b=(2 * level + 8, (1044, 4, 1044 * 260)))
+    word = layout.word(1, odd)
+    assert word == 1 | 2 << 1 | 0b101 << cuda_codegen.PATCH_MASK_AT and not layout.patched(word)
+    other = dict(at, a=(level, (1044, 4, 1044 * 260)), c=(3 * level + 4, row))
+    word = layout.word(1, other)  # a falls back; b sets the shift; c starts elsewhere
+    assert word == 1 | 2 << 1 | 0b010 << cuda_codegen.PATCH_MASK_AT and not layout.patched(word)
+    assert layout.word(0, at) == 0 and not layout.patched(0)
+    assert not cuda_codegen.PatchLayout(1, ()).patched(1)
+
+
+def test_patch_word_sends_a_half_field_off_the_vectors_to_the_plain_kernel():
+    """A half field off the tiles' vectors makes the word 0, the launch the
+    plain-pointer kernel's (which reads it faster than the patches' element
+    path); a 4- or 8-byte field off them keeps the patches."""
+    layout = cuda_codegen.PatchLayout(2, (("a", 2), ("b", 2), ("c", 4)))
+    at = {"a": (4096 + 2, (520, 2, 520 * 260)), "b": (8192 + 2, (520, 2, 520 * 260)),
+          "c": (16384, (1040, 4, 1040 * 260))}  # c off the vectors: 4 bytes, kept
+    word = layout.word(1, at)
+    assert word == 1 | 1 << 1 | 0b011 << cuda_codegen.PATCH_MASK_AT and not layout.patched(word)
+    assert layout.word(1, dict(at, b=(8192 + 2, (522, 2, 522 * 260)))) == 0  # a row pitch of 261
+    assert layout.word(1, dict(at, b=(8192, (520, 2, 520 * 260)))) == 0  # vectors elsewhere
+    assert layout.word(1, {"a": at["a"], "c": at["c"]}) & 1  # b absent: nothing to read
+
+
+def test_prepared_launch_words_from_the_buffers():
+    """The prepared launch makes each launcher's word from its buffers'
+    addresses, strides and origins: hdiff on storages whose rows are whole
+    vectors takes every field's vector path; a coeff that is a view of a
+    wider buffer (a row pitch of no whole vectors) falls back alone."""
+    backend = _cpu_backend()  # float64: vectors of 2
+    names = [n for n, i in backend.analyzed.field_infos.items() if i is not None]
+    arrays = {n: storage.zeros((12, 12, 4), np.float64, backend="cuda:hopper", device="cpu").array
+              for n in names}
+    dom, orig = (8, 8, 4), {n: (2, 3, 0) for n in names}
+    launch = backend.prepared(arrays, dom, orig)
+    layout = backend.module.patches["gt_launch_0"]
+    word = launch.words["gt_launch_0"]
+    assert word >> 1 & 7 == (arrays[layout.fields[0][0]].data_ptr() // 8 + 3) % 2
+    assert launch.patched == {"gt_launch_0"}
+    wide = storage.zeros((12, 13, 4), np.float64, backend="cuda:hopper", device="cpu").array
+    launch = backend.prepared(dict(arrays, coeff=wide[:, :12]), dom, orig)
+    bit = [n for n, _ in layout.fields].index("coeff")
+    assert not launch.words["gt_launch_0"] >> cuda_codegen.PATCH_MASK_AT & 1 << bit
+    assert launch.patched == frozenset()
+
+
+def test_wrapper_counts_patched_launches():
+    """``patched`` counts, among ``launches``, the launches whose fields all
+    took their vector path, where they run: a recording (a capture) keeps
+    them apart, a field-view graph adds them at each replay, and an empty
+    grid counts neither."""
+    from gt4py_tpu_torch.next import otf
+
+    wrapper = cuda_backend.KernelWrapper("probe")
+    wrapper.launch(lambda *a: 0, (), patched=True)
+    wrapper.launch(lambda *a: 0, ())
+    wrapper.launch(lambda *a: cuda_codegen.NOTHING_LAUNCHED, (), patched=True)
+    assert (wrapper.launches, wrapper.patched) == (2, 1)
+    with cuda_backend.recording_launches() as counts:
+        wrapper.launch(lambda *a: 0, (), patched=True)
+    assert (wrapper.launches, wrapper.patched) == (2, 1)
+    assert (counts[wrapper], counts.patched[wrapper]) == (1, 1)
+
+    class FakeGraph:
+        def replay(self):
+            pass
+
+    graph = otf.Graph(FakeGraph(), None, [], counts)
+    graph.replay()
+    graph.replay()
+    assert (wrapper.launches, wrapper.patched) == (4, 3)
+
+
+def test_patch_stores_whole_vectors_only_where_no_read_can_tell():
+    """hdiff: lap, which one unmasked statement writes whole, is stored as
+    whole vectors; out_field as one vector a patch row in an inner tile of
+    a field on the tiles' vectors, else point by point within its extent. A
+    temporary written under a mask, an API field written in a region, and a
+    ``while`` go point by point."""
+    gen, module = _plane_generator(
+        defs.horizontal_diffusion_generic, dtypes={"dt": np.float32}, literal_float_precision=32
+    )
+    patched = _bodies(module.source)["gt_plane_0_r"]
+    lap, out = gen.fields["lap_field"].var, gen.fields["out_field"].var
+    assert f"*(float2*)({lap}_s + {lap}_x + (0)) = make_float2(gt_v0_0, gt_v0_1);" in patched
+    assert f"if ({out}_v && gt_inner) {{" in patched
+    assert f"*(float2*)({out}_b + (1 * {out}_si4 + 0)) = make_float2(gt_v1_0, gt_v1_1);" in patched
+    assert "if (i >= (0) && i < ni + (0) && j >= (0) && j < nj + (0)) " in patched
+    _, masked = _plane_generator(_masked_temporary)
+    body = _bodies(masked.source)["gt_plane_0_r"]
+    assert "*(double2*)(t" not in body and "&& gt_m0_1) t" in body
+    _, region = _plane_generator(defs.region_interaction)
+    assert "*(double2*)(" in _bodies(region.source)["gt_plane_0_r"]  # out = inp, unmasked
+    assert " && (i >= 0) && (i < 2)) (*(double*)(" in _bodies(region.source)["gt_plane_0_r"]
+    _, newton = _plane_generator(defs.newton_sqrt_while)
+    body = _bodies(newton.source)["gt_plane_0_r"]
+    assert "while (" in body and "const int gt_di = gt_r + (1), gt_dj = gt_c + (1)" not in body
+    assert "const int gt_di = gt_r + (0), gt_dj = gt_c + (1)" in body
+
+
 # --- float16: stored half, computed in float32 -------------------------------------
 
 
@@ -791,7 +1010,7 @@ def _half_module(name, monkeypatch):
 #: the conversion intrinsics
 _HALF_FORMS = re.compile(
     r"__half2float\(\*\(const __half\*\)|__half2float\(__ushort_as_half\(|"
-    r"\*\(__half\*\)\(|__float2half_rn\(|<cuda_fp16.h>"
+    r"\*\(__half\*\)\(|__half_as_ushort\(__float2half_rn\(|__float2half_rn\(|<cuda_fp16.h>"
 )
 
 
@@ -799,39 +1018,53 @@ _HALF_FORMS = re.compile(
 def test_half_sources_convert_with_intrinsics(name, monkeypatch):
     """Every float16 field is loaded with __half2float and stored with
     __float2half_rn; no __half value takes part in arithmetic, every value
-    is computed as float, and no 2-byte stream is copied with cp.async."""
+    is computed as float, and no 2-byte stream is copied with cp.async:
+    only plane's register patches ring half fields, in vectors of 2
+    elements, and copy a field's cut vectors through the thread's
+    registers."""
     module = _half_module(name, monkeypatch)
     source = module.source
     assert "__half2float(" in source and "__float2half_rn(" in source
     assert "__half" not in _HALF_FORMS.sub("", source)
     for kernel, body in _bodies(source).items():
         assert "double" not in body, kernel
-        # every field is half: nothing is ringed
-        assert not re.search(r"gt_cp_async\d+\(", body), kernel
-    assert not module.ring_bytes
+        copies = set(re.findall(r"gt_cp_async(\d+)\(", body))
+        assert copies == ({"4"} if kernel == "gt_plane_0_r" else set()), kernel
+    assert set(module.ring_bytes) == ({"gt_plane_0_r"} if module.strategy == "plane" else set())
 
 
 def test_half_temporaries_live_in_float():
     """hdiff in float16: lap (flx and fly are inlined into out's
     statement) is a float plane in shared memory, its bytes those of float
-    elements."""
+    elements, in both variants; the register patches ring the half fields
+    as their 16 bits, in planes of 2-byte elements."""
     gen, module = _plane_generator(defs.horizontal_diffusion_generic, dtypes={"dt": np.float16})
-    plan = gen.plane_plans[0]
-    assert {b.meta.name for b in plan} == {"lap_field"}
-    assert all(b.meta.dtype == np.float32 for b in plan)
-    for b in plan:
-        assert f"float* const {b.meta.var}_s = (float*)(gt_smem + {b.offset});" in module.source
-    assert not gen.tile_rings[0]  # float16 fields are loaded directly
-    assert "gt_plane_0_r" not in module.ring_bytes
+    for plan in (gen.plane_plans[0], gen.patch_plans[0].planes):
+        assert {b.meta.name for b in plan} == {"lap_field"}
+        assert all(b.meta.dtype == np.float32 for b in plan)
+        for b in plan:
+            assert f"float* const {b.meta.var}_s = (float*)(gt_smem + {b.offset});" in module.source
+    ring = gen.tile_rings[0]
+    assert {b.meta.name for b in ring} == {"in_field", "coeff"}
+    for b in ring:
+        assert b.size == 2 and b.bytes == -(-b.plane * b.ring * 2 // 16) * 16
+        assert f"unsigned short* const {b.meta.var}_s = (unsigned short*)(gt_smem + {b.offset});" \
+            in module.source
+    assert set(module.ring_bytes) == {"gt_plane_0_r"}
 
 
 def test_half_precision_gets_a_kernel():
-    """The float16 copy the card refused is served by plane: a half load
-    and a half store, nothing ringed."""
+    """The float16 copy the card refused is served by plane: in the plain
+    variant a half load and a half store; in the register patches the
+    input ringed in vectors of 2 halves, read as its 16 bits, and stored as
+    vectors of packed halves (or point by point off the vectors)."""
     module = _backend(_half_precision).module
-    assert module.strategy == "plane" and not module.ring_bytes
-    for body in _bodies(module.source).values():
-        assert "__float2half_rn(gt_v)" in body and "__half2float(*(const __half*)(" in body
+    assert module.strategy == "plane" and set(module.ring_bytes) == {"gt_plane_0_r"}
+    plain, patched = _bodies(module.source)["gt_plane_0"], _bodies(module.source)["gt_plane_0_r"]
+    assert "__float2half_rn(gt_v)" in plain and "__half2float(*(const __half*)(" in plain
+    assert "gt_cp_async4(" in patched and "__half2float(__ushort_as_half(" in patched
+    assert "= gt_pack_h(gt_v1_0, gt_v1_1);" in patched
+    assert "= __float2half_rn(gt_v1_1);" in patched
 
 
 def _half_math(a: F16, out: F16):
@@ -2577,6 +2810,123 @@ def test_plane_walk_twice_and_chained_on_card(name):
     assert out["cuda:hopper"][1] > 0
     for n, want in out["torch"][0].items():
         _assert_same(out["cuda:hopper"][0][n], want, n)
+
+
+def _patch_storages(host, dtypes, origin, pad=None):
+    """Card storages of ``host`` whose rows are whole 16-byte vectors (the J
+    size rounded up to 8 elements, the points beyond it never read), so that
+    the register patches take their vector path; ``pad``: fields made views
+    of a buffer of an odd number of elements along J instead (a row pitch of
+    no whole vectors: their per-point path)."""
+    out = {}
+    for n, v in host.items():
+        ni, nj = v.shape[:2]
+        wide = nj + 1 + nj % 2 if n in (pad or ()) else -(-nj // 8) * 8
+        full = np.zeros((ni, wide) + v.shape[2:], dtype=v.dtype)
+        full[:, :nj] = v
+        st = storage.from_array(full, backend="cuda:hopper", aligned_index=origin,
+                                dtype=dtypes.get(n))
+        out[n] = st.array[:, :nj]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, definition, dtypes, externals, scalars, min_k", PLANE_WALKS)
+def test_plane_patches_match_plain_on_card(name, definition, dtypes, externals, scalars, min_k):
+    """Every plane stencil's register patches on storages whose rows are
+    whole vectors, over 255 × 257 (a multiple of neither the tile nor a
+    patch) and 7 levels, against the plain version on the same card: every
+    launch counted as patched, every field and point equal."""
+    _need_card()
+    nk = max(min_k, 7)
+    shape, origin, domain = (261, 263, nk), (3, 3, 0), (255, 257, nk)
+    out = {}
+    for backend in ("cuda:hopper", "torch"):
+        st = gtscript.stencil(backend=backend, definition=definition, dtypes=dtypes,
+                              externals=externals, rebuild=True)
+        host = defs.make_inputs(st.field_info, shape, np.random.default_rng(14))
+        kinds = {n: st.field_info[n].dtype for n in host}
+        fields = _patch_storages(host, kinds, origin)
+        cuda_backend.PLANE.launches = cuda_backend.PLANE.patched = 0
+        st(**fields, **scalars, origin=origin, domain=domain)
+        torch.cuda.synchronize()
+        out[backend] = {n: np.asarray(v.cpu()) for n, v in fields.items()}
+        counts = (cuda_backend.PLANE.launches, cuda_backend.PLANE.patched)
+        if backend == "cuda:hopper":
+            assert counts[0] == len(st._backend.module.launchers) == counts[1], counts
+    for n, want in out["torch"].items():
+        _assert_same(out["cuda:hopper"][n], want, n)
+
+
+#: hdiff in the four types the card stores: their tolerance against the
+#: plain version (half: the kernel rounds once, the plain version at every
+#: operation)
+PATCH_TYPES = {"float32": 0.0, "float64": 0.0, "float16": defs.HALF_TOL,
+               "bfloat16": defs.BF16_TOL["hdiff"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("oj", range(2, 6))
+@pytest.mark.parametrize("dtype", sorted(PATCH_TYPES))
+def test_hdiff_patches_at_every_shift_on_card(dtype, oj):
+    """hdiff in float32, float64, float16 and bfloat16 with its domain
+    starting at J origins 2-5, so that the tiles' shift takes every value a
+    vector of 2 allows, twice, over 255 × 257 × 7: each launch patched, the
+    result the plain version's (the halves within their tolerance), a
+    chain of 5 too."""
+    _need_card()
+    dtypes = {"dt": torch.bfloat16 if dtype == "bfloat16" else np.dtype(dtype)}
+    origin, domain = (2, oj, 0), (255, 257, 7)
+    shape = (259, 257 + oj + 2, 7)
+    out = {}
+    for backend in ("cuda:hopper", "torch"):
+        st = gtscript.stencil(backend=backend, definition=defs.horizontal_diffusion_generic,
+                              dtypes=dtypes, rebuild=True)
+        host = defs.half_inputs(st.field_info, shape, np.random.default_rng(15))
+        fields = _patch_storages(host, {n: st.field_info[n].dtype for n in host}, origin)
+        cuda_backend.PLANE.launches = cuda_backend.PLANE.patched = 0
+        st(**fields, origin=origin, domain=domain)
+        st.chain(5, **fields, origin=origin, domain=domain)
+        torch.cuda.synchronize()
+        if backend == "cuda:hopper":
+            assert cuda_backend.PLANE.launches == cuda_backend.PLANE.patched == 6
+            (launch,) = set(st._backend._launches.values())
+            width = st._backend.module.patches["gt_launch_0"].width
+            assert launch.words["gt_launch_0"] >> 1 & 7 == oj % width  # rows start on vectors
+        out[backend] = {n: v.cpu().double().numpy() for n, v in fields.items()}
+    tol = PATCH_TYPES[dtype]
+    for n, want in out["torch"].items():
+        np.testing.assert_allclose(out["cuda:hopper"][n], want, rtol=tol or 1e-12, atol=tol, err_msg=n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64", "float16"])
+def test_plane_patches_fall_back_for_a_field_off_the_vectors_on_card(dtype):
+    """hdiff with coeff a view of a buffer of an odd number of elements
+    along J (a row pitch of no whole vectors): the launch is not counted as
+    patched, coeff moves element by element, the other fields by vectors
+    (float16: the launch runs the plain-pointer kernel), and the result is
+    the plain version's; with every field so, too."""
+    _need_card()
+    dtypes = {"dt": np.dtype(dtype)}
+    origin, domain = (2, 2, 0), (255, 257, 7)
+    for pad in ({"coeff"}, {"in_field", "out_field", "coeff"}):
+        out = {}
+        for backend in ("cuda:hopper", "torch"):
+            st = gtscript.stencil(backend=backend, definition=defs.horizontal_diffusion_generic,
+                                  dtypes=dtypes, rebuild=True)
+            host = defs.half_inputs(st.field_info, (259, 261, 7), np.random.default_rng(16))
+            fields = _patch_storages(host, {}, origin, pad=pad)
+            cuda_backend.PLANE.launches = cuda_backend.PLANE.patched = 0
+            st(**fields, origin=origin, domain=domain)
+            torch.cuda.synchronize()
+            if backend == "cuda:hopper":
+                assert (cuda_backend.PLANE.launches, cuda_backend.PLANE.patched) == (1, 0)
+            out[backend] = {n: v.cpu().double().numpy() for n, v in fields.items()}
+        tol = PATCH_TYPES[dtype]
+        for n, want in out["torch"].items():
+            np.testing.assert_allclose(out["cuda:hopper"][n], want, rtol=tol or 1e-12, atol=tol,
+                                       err_msg=f"{n} {sorted(pad)}")
 
 
 @pytest.mark.cuda

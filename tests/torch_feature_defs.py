@@ -76,7 +76,8 @@ CASES: dict = {}
 RAISES: dict = {}
 
 #: the kernel each case's ``cuda:hopper`` calls are bridged onto
-#: (``cartesian_bridge.calls_served``); every other case that raises
+#: (``cartesian_bridge.calls_served``), or lowered onto for ``"neighbor"``
+#: (``unstructured_codegen.calls_served``); every other case that raises
 #: nothing runs embedded there
 BRIDGED_ONTO = {
     "plane": (
@@ -108,6 +109,11 @@ BRIDGED_ONTO = {
     "column": (
         "compile_scan", "direct_scan_operator_call_embedded", "scan_with_named_tuple_carry",
         "solve_triag", "where_k_offset",
+    ),
+    "neighbor": (
+        "compile_for_two_offset_providers", "composed_unstructured_shift", "nested_reduction",
+        "reduction_with_common_expression", "tuple_return_unstructured",
+        "tuple_with_local_field_in_reduction_shifted",
     ),
 }
 
@@ -182,8 +188,8 @@ def graph_outcome(name: str) -> str:
 
 
 def bridged_kernels(name: str) -> set:
-    """The kernels case ``name``'s ``cuda:hopper`` run is bridged onto
-    (none: it runs embedded)."""
+    """The kernels case ``name``'s ``cuda:hopper`` run is bridged or
+    lowered onto (none: it runs embedded)."""
     return {kernel for kernel, names in BRIDGED_ONTO.items() if name in names}
 
 
