@@ -22,10 +22,10 @@ swap cycle of the kernels as a CUDA graph.
    ``chain(10)``, reads the counts: its kernel must have launched exactly
    1 + 10 × its launchers' count (a graph replay adds the launches it
    repeats), less one a call for each on-chip pair the shape takes (vadv on
-   ``column``: one launch a call, which ``COLUMN.on_chip`` must count; two
-   where the rule keeps the two kernels). Every one of the five kernels
-   must have launched on some path (the field view's ``neighbor`` kernel
-   launches in step 7d).
+   ``column``: one launch a call; two where the rule keeps the two
+   kernels), so a pair the shape should take and does not fails here.
+   Every one of the five kernels must have launched on some path (the
+   field view's ``neighbor`` kernel launches in step 7d).
 3. Holds every result against the plain version (the ``torch`` backend on the
    same card, same inputs; the half types on one application) and, on a
    small input, against the NumPy oracle. Then the graph chain: on every
@@ -438,7 +438,7 @@ def main(argv) -> int:
     for run in runs:
         case, fields = run["case"], run["main"]
         for wrapper in cuda_backend.WRAPPERS.values():
-            wrapper.launches = wrapper.on_chip = 0
+            wrapper.launches = 0
         info: dict = {}
         run["kern"](**fields, **run["scalars"], domain=domain, exec_info=info)
         if info["kernel_strategy"] != case["kernel"]:
@@ -449,11 +449,8 @@ def main(argv) -> int:
         torch.cuda.synchronize()
         counts = {k: w.launches for k, w in cuda_backend.WRAPPERS.items()}
         run["launches"] = counts[case["kernel"]]
-        on_chip = cuda_backend.COLUMN.on_chip
-        print(f"launches on the {case['name']} {run['dtype']} path: {counts}, "
-              f"{on_chip} of them on-chip pairs")
-        expected = launches_asked(run["kern"]._backend.module, 1 + CHAIN_STEPS, NK, case["name"],
-                                  on_chip)
+        print(f"launches on the {case['name']} {run['dtype']} path: {counts}")
+        expected = launches_asked(run["kern"]._backend.module, 1 + CHAIN_STEPS, NK)
         if run["launches"] != expected or sum(counts.values()) != expected:
             raise AssertionError(
                 f"{case['name']}: {counts}, not {expected} launches of {case['kernel']} "
@@ -1818,13 +1815,12 @@ def run_next_main_path(run, ndefs, cuda_backend, torch) -> None:
 
     args, kwargs, out = ndefs.inputs(run["case"]["op"], NI, NJ, NK, np.dtype(run["dtype"]), 7)
     for wrapper in cuda_backend.WRAPPERS.values():
-        wrapper.launches = wrapper.on_chip = 0
+        wrapper.launches = 0
     run["op"](*args, out=out, offset_provider=ndefs.PROV_K, **kwargs)
     torch.cuda.synchronize()
     counts = {k: w.launches for k, w in cuda_backend.WRAPPERS.items()}
     variant = bridged_variant(run["op"])
-    expected = launches_asked(variant.backend.module, 1, NK, next_tag(run),
-                              cuda_backend.COLUMN.on_chip)
+    expected = launches_asked(variant.backend.module, 1, NK)
     if variant is not run["variant"] or variant.backend.last_strategy != run["kernel"]:
         raise AssertionError(f"{next_tag(run)} {run['dtype']}: not served by the bridged "
                              f"{run['kernel']} variant ({variant.backend.last_strategy})")
@@ -2118,7 +2114,7 @@ def run_aot(name, ndefs, cuda_backend, bridge, torch, device="cuda", shape=(NI, 
     if job.compiled_stage is None or (on_card and job.compiled_stage.library is None):
         raise AssertionError(f"{name}: cuda:hopper:aot built no library ({job.unsupported})")
     for wrapper in cuda_backend.WRAPPERS.values():
-        wrapper.launches = wrapper.on_chip = 0
+        wrapper.launches = 0
     built, runs = bridge.variants_built, cuda_backend.nvcc_runs
     op(*args, out=out, offset_provider=ndefs.PROV_K, **kwargs)
     if on_card:
@@ -2126,8 +2122,7 @@ def run_aot(name, ndefs, cuda_backend, bridge, torch, device="cuda", shape=(NI, 
     builds = (bridge.variants_built - built, cuda_backend.nvcc_runs - runs)
     counts = {k: w.launches for k, w in cuda_backend.WRAPPERS.items() if w.launches}
     kernel = job.lowered_stage.strategy
-    expected = {kernel: launches_asked(job.lowered_stage.module, 1, shape[2], f"{name} aot",
-                                       cuda_backend.COLUMN.on_chip)} if on_card else {}
+    expected = {kernel: launches_asked(job.lowered_stage.module, 1, shape[2])} if on_card else {}
     if builds != (0, 0) or counts != expected:
         raise AssertionError(f"{name} aot: first call built {builds} (variants, nvcc), "
                              f"launched {counts}, not {expected}")
@@ -2458,19 +2453,12 @@ class Recorder:
         return getattr(self.target, name)
 
 
-def launches_asked(module, calls: int, nk: int, tag: str, on_chip=None) -> int:
+def launches_asked(module, calls: int, nk: int) -> int:
     """The kernel launches ``calls`` calls of ``module``'s stencil on ``nk``
     levels, on buffers that do not overlap, ask for: one a launcher, one
     fewer for each on-chip pair the rule takes at that shape, whose launch
-    serves two loops. ``on_chip``: what ``cuda_backend.COLUMN.on_chip``
-    counted over the calls on a card, which must be those pairs (None: no
-    card, nothing counted)."""
-    asked = calls * module.kernels_per_call(nk, True)
-    pairs = calls * len(module.launchers) - asked
-    if on_chip is not None and on_chip != pairs:
-        raise AssertionError(f"{tag}: {on_chip} on-chip pairs over {calls} calls at {nk} "
-                             f"levels, not {pairs}")
-    return asked
+    serves two loops (so a pair not taken launches one more)."""
+    return calls * module.kernels_per_call(nk, True)
 
 
 def launchers(obj) -> int:
@@ -2523,7 +2511,7 @@ def counted(work, cuda_backend, sync):
     """(``work()``'s value, the launches it made by kernel, its wall
     seconds to ``sync()``): the counts set to 0 just before, read just after."""
     for wrapper in cuda_backend.WRAPPERS.values():
-        wrapper.launches = wrapper.on_chip = 0
+        wrapper.launches = 0
     t0 = time.perf_counter()
     value = work()
     sync()
@@ -2837,8 +2825,7 @@ def run_distributed_case(c, mesh, storage, cuda_backend, np, torch, device="cuda
         torch.cuda.synchronize()
     out, counts, _ = counted(lambda: dist.apply(**fields, **scalars), cuda_backend,
                              torch.cuda.synchronize if device == "cuda" else (lambda: None))
-    asked = launches_asked(kern._backend.module, len(mesh.devices), domain[2], f"distributed {tag}",
-                           cuda_backend.COLUMN.on_chip if device == "cuda" else None)
+    asked = launches_asked(kern._backend.module, len(mesh.devices), domain[2])
     expect_launches(f"distributed {tag}", counts, {kernel: asked})
     if set(dist.last_strategy) != {kernel if device == "cuda" else "plain"}:
         raise AssertionError(f"distributed {tag}: shards served by {dist.last_strategy}")

@@ -311,12 +311,10 @@ def _check(kind: str, inputs: Sequence[torch.Tensor], params: tuple, out) -> tor
     return out
 
 
-def apply(kind: str, inputs: Sequence[torch.Tensor], params: tuple = (), out=None,
-          counted: bool = True) -> torch.Tensor:
+def apply(kind: str, inputs: Sequence[torch.Tensor], params: tuple = (), out=None) -> torch.Tensor:
     """One application of the probe ``kind`` (``params`` as :func:`variants`
     gives them) into ``out`` (a new tensor where None): its kernel on CUDA
-    tensors, launched on the current stream, ``counted`` on its wrapper (a
-    launch captured into a graph is counted at each replay instead); its
+    tensors, launched on the current stream and counted on its wrapper; its
     plain version on CPU tensors."""
     out = _check(kind, inputs, params, out)
     if out.device.type == "cpu":
@@ -325,8 +323,7 @@ def apply(kind: str, inputs: Sequence[torch.Tensor], params: tuple = (), out=Non
     with torch.cuda.device(out.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(out.device).cuda_stream)
         ptrs = [t.data_ptr() for t in (*inputs, out)]
-        WRAPPERS[kind].launch(_functions()[f"gt_{kind}"],
-                              (*params, *ptrs, ni, nj, nk, stream), counted)
+        WRAPPERS[kind].launch(_functions()[f"gt_{kind}"], (*params, *ptrs, ni, nj, nk, stream))
     return out
 
 
@@ -353,8 +350,7 @@ def l2_read_blocks(device) -> int:
     return SM_THREADS // define("CAL_THREADS") * sms
 
 
-def l2_read(x: torch.Tensor, out: torch.Tensor, passes: int = L2_READ_PASSES,
-            counted: bool = True) -> torch.Tensor:
+def l2_read(x: torch.Tensor, out: torch.Tensor, passes: int = L2_READ_PASSES) -> torch.Tensor:
     """The L2 yardstick on a contiguous, 16-byte aligned float32 CUDA
     tensor ``x`` of a multiple of 4 elements: ``passes`` passes, each
     warp's largest value into ``out`` (float32, one a warp of
@@ -370,8 +366,7 @@ def l2_read(x: torch.Tensor, out: torch.Tensor, passes: int = L2_READ_PASSES,
     with torch.cuda.device(x.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
         L2_READ.launch(_functions()["gt_l2_read"],
-                       (x.data_ptr(), x.numel() // 4, passes, out.data_ptr(), blocks, stream),
-                       counted)
+                       (x.data_ptr(), x.numel() // 4, passes, out.data_ptr(), blocks, stream))
     return out
 
 
@@ -418,9 +413,8 @@ class Chain:
     is the variant's PyTorch call (``LIBRARY``) in place of its kernel. On
     CUDA tensors the ``n`` applications are captured into one CUDA graph,
     after one outside the capture (a capture needs each kernel loaded);
-    :meth:`run` replays it and adds the kernels it launched to the probe's
-    wrapper. On CPU tensors :meth:`run` applies the plain version ``n``
-    times. Nothing is allocated inside the graph."""
+    :meth:`run` replays it. On CPU tensors :meth:`run` applies the plain
+    version ``n`` times. Nothing is allocated inside the graph."""
 
     def __init__(self, kind: str, n: int, inputs: Sequence[torch.Tensor], params: tuple = (),
                  library: bool = False):
@@ -435,23 +429,23 @@ class Chain:
         self.result = self.steps[-1][1] if n else self.buffers[len(fixed)]
         #: kernels launched by this chain
         self.launched = 0
-        self.graph, self.per_replay = None, 0
+        self.graph = None
         device = self.inputs[0].device
         if device.type != "cuda" or n == 0:
             return
-        self.launched += self._launch(self.steps[0], counted=True)
-        self.graph, self.per_replay = cuda_backend.capture_graph(device, [
-            functools.partial(self._launch, step, counted=False) for step in self.steps
+        self.launched += self._launch(self.steps[0])
+        self.graph = cuda_backend.capture_graph(device, [
+            functools.partial(self._launch, step) for step in self.steps
         ])
         self.reset()
 
-    def _launch(self, step, counted: bool) -> int:
+    def _launch(self, step) -> int:
         """One application; returns the probe kernels it launched."""
         ins, out = step
         if self.call is not None:
             self.call(ins, out)
             return 0
-        apply(self.kind, ins, self.params, out, counted)
+        apply(self.kind, ins, self.params, out)
         return 1
 
     def reset(self) -> None:
@@ -464,11 +458,9 @@ class Chain:
         """The ``n`` applications, from the buffers as they are."""
         if self.graph is None:
             for step in self.steps:
-                self._launch(step, counted=True)
+                self._launch(step)
         else:
-            self.graph.replay()
-            WRAPPERS[self.kind].launches += self.per_replay
-            self.launched += self.per_replay
+            self.launched += self.graph.replay()
         return self.result
 
 
@@ -530,14 +522,11 @@ def l2_read_rate(device="cuda", trials: int = FIT_TRIALS, seed: int = 0) -> dict
     if not torch.equal(out.amax(), x.amax()):
         raise AssertionError("l2_read: the warps' largest values are not the buffer's largest")
     n_lo, n_hi = FIT_CHAINS
-    graphs = {n: cuda_backend.capture_graph(device, [
-        functools.partial(l2_read, x, out, counted=False)] * n)[0] for n in (n_lo, n_hi)}
+    graphs = {n: cuda_backend.capture_graph(device, [functools.partial(l2_read, x, out)] * n)
+              for n in (n_lo, n_hi)}
 
     def make(n):
-        def replay():
-            graphs[n].replay()
-            L2_READ.launches += n
-        return replay, None
+        return graphs[n].replay, None
 
     timer = StepTimer()
     ms = timer.measure(make, "l2_read", n_lo, n_hi, trials, spin=(SPIN_CYCLES, SPIN_TRIES))

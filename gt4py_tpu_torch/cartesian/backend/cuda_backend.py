@@ -26,23 +26,25 @@ Dispatch:
 A call on CUDA tensors runs a :class:`PreparedLaunch`, packed once per
 buffers, layouts, domain and origins and found again by the runtime's call
 key (the warm path of pallas_backend.py:125-167); ``chain`` captures one
-swap cycle of them into a CUDA graph and replays it (:class:`ChainGraph`,
+swap cycle of them into a CUDA graph and replays it (:func:`capture_graph`,
 the counterpart of the jitted ``fori_loop`` of pallas_backend.py:232-378).
 
 Each skeleton has one :class:`KernelWrapper` (``PLANE``, ``FUSED_PLANE``,
 ``COLUMN``, ``FUSED_COLUMN``, ``TILED``; ``NEIGHBOR`` for the field view's
 unstructured kernels, built through the same cache) whose ``launches``
-counts the launches of its kernels, so a run can show that its main path
-went through them; ``COLUMN.on_chip`` counts those among them that ran a FORWARD and a
-BACKWARD loop in one launch (``cuda_codegen.OnChip``), and ``PLANE.patched``
-those whose fields all took the register patches' vector path
-(``cuda_codegen.PatchLayout``).
+counts the kernels of its skeleton that ran, so a run can show that its
+main path went through them. A launch is counted where its kernel runs: a
+launch made while :func:`capture_graph` captures runs only when the graph
+replays, so the capture records it and :meth:`Graph.replay` counts it, for
+every caller that captures (a chain, the field view's graphs, the probes).
+A launch counts once whatever variant it ran: a launcher that serves two
+loops in one launch (``column``'s on-chip pair) counts one, so the count
+against ``KernelModule.kernels_per_call`` shows whether the pair ran.
 """
 
 from __future__ import annotations
 
 import collections
-import contextlib
 import ctypes
 import functools
 import hashlib
@@ -98,58 +100,30 @@ class CudaBuildError(RuntimeError):
 nvcc_runs = 0
 
 
-#: the launches this thread records instead of counting (:func:`recording_launches`)
-_RECORDING = threading.local()
+class _Recording(threading.local):
+    #: the launches recorded, by wrapper, while this thread captures a CUDA
+    #: graph (:func:`capture_graph`); None outside a capture
+    counts: Optional[collections.Counter] = None
 
 
-class LaunchCounts(collections.Counter):
-    """Launches by wrapper, and the on-chip pairs (``on_chip``) and the
-    patched launches (``patched``) among them."""
-
-    def __init__(self):
-        super().__init__()
-        self.on_chip = collections.Counter()
-        self.patched = collections.Counter()
-
-
-@contextlib.contextmanager
-def recording_launches():
-    """Within the block (a CUDA graph's capture on this thread), a counted
-    launch adds to the yielded :class:`LaunchCounts`, by wrapper, not to the
-    wrapper's ``launches``, ``on_chip`` and ``patched``: the graph adds them
-    at each replay, where the kernels run."""
-    outer = getattr(_RECORDING, "counts", None)
-    _RECORDING.counts = counts = LaunchCounts()
-    try:
-        yield counts
-    finally:
-        _RECORDING.counts = outer
+_RECORDING = _Recording()
 
 
 class KernelWrapper:
-    """One hand-written kernel skeleton. ``launches`` counts its kernel
-    launches; it grows only where a kernel is launched. ``on_chip`` counts
-    the launches among them that served two loops at once (``column``'s
-    on-chip pair), ``patched`` those of ``plane``'s register patches in
-    which every field took its vector path."""
+    """One hand-written kernel skeleton. ``launches`` counts its kernels
+    that ran: a launch outside a capture when it is made, a captured one at
+    each replay of its graph (:meth:`Graph.replay`)."""
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
-        self.on_chip = 0
-        self.patched = 0
 
-    def launch(
-        self, fn, args, counted: bool = True, on_chip: bool = False, patched: bool = False
-    ) -> int:
+    def launch(self, fn, args) -> int:
         """Call one launcher: it launches one kernel (a cooperative one
         too), or none on an empty grid, or returns the CUDA error that
         refused the launch, which raises here. Returns the kernels
-        launched; ``counted``: add them to ``launches``, and to ``on_chip``
-        where the launcher serves a pair, to ``patched`` where it runs
-        patches on vectors alone (a launch captured into a CUDA graph is
-        counted at each replay instead: ``counted`` False, or recorded,
-        :func:`recording_launches`)."""
+        launched, counted in ``launches``, or within a capture recorded for
+        the graph's replays."""
         rc = fn(*args)
         if rc == NOTHING_LAUNCHED:
             return 0
@@ -157,16 +131,11 @@ class KernelWrapper:
             raise RuntimeError(
                 f"{self.name} kernel launch failed: CUDA error {rc}"
             )
-        if counted:
-            recording = getattr(_RECORDING, "counts", None)
-            if recording is None:
-                self.launches += 1
-                self.on_chip += on_chip
-                self.patched += patched
-            else:
-                recording[self] += 1
-                recording.on_chip[self] += on_chip
-                recording.patched[self] += patched
+        recording = _RECORDING.counts
+        if recording is None:
+            self.launches += 1
+        else:
+            recording[self] += 1
         return 1
 
 
@@ -456,17 +425,12 @@ class PreparedLaunch:
                 strides = tuple(self.strides[m.shape_off + d] for d in range(3))
                 layouts[m.name] = (t.data_ptr() + sum(int(x) * y for x, y in zip(o, strides)), strides)
         #: launcher -> its ``noalias`` argument (plane: the word of its
-        #: register patches, PatchLayout.word), and the launchers whose
-        #: fields all take the patches' vector path
+        #: register patches, PatchLayout.word)
         self.words = {
             launcher: mod.patches[launcher].word(self.noalias, layouts)
             if launcher in mod.patches else self.noalias
             for launcher in mod.launchers
         }
-        self.patched = frozenset(
-            launcher for launcher, layout in mod.patches.items()
-            if layout.patched(self.words[launcher])
-        )
         n_f = sum(1 for sc in mod.scalars if sc[1] == "f")
         self.fsc = (ctypes.c_double * max(n_f, 1))()
         self.isc = (_LL * max(len(mod.scalars) - n_f, 1))()
@@ -485,16 +449,13 @@ class PreparedLaunch:
         )
         #: launched at least once (a capture needs each kernel run before)
         self.ran = False
-        #: the on-chip pairs, and the patched launches, the last call launched
-        self.last_on_chip = 0
-        self.last_patched = 0
 
-    def __call__(self, arrays, scalars, counted: bool = True) -> int:
+    def __call__(self, arrays, scalars) -> int:
         """Launch once on ``arrays`` (the buffers this launch was prepared
-        for); returns the kernels launched. ``counted``: add them to the
-        kernel's wrapper (a graph capture counts at its replays instead)."""
+        for); returns the kernels launched."""
         # a launch outside a capture (which launches nothing) is a span
-        with (span("gt4py.backend.launch") if counted else NO_SPAN) as launch_span:
+        with (span("gt4py.backend.launch") if _RECORDING.counts is None else NO_SPAN) \
+                as launch_span:
             for name, kind, slot in self.scalar_slots:
                 value = scalars.get(name)
                 if value is None:
@@ -503,7 +464,7 @@ class PreparedLaunch:
                     self.fsc[slot] = float(value)
                 else:
                     self.isc[slot] = int(np.asarray(value))
-            launched = on_chip = patched = 0
+            launched = 0
             with torch.cuda.device(self.device):
                 stream = ctypes.c_void_p(torch.cuda.current_stream(self.device).cuda_stream)
                 args = (self.ptrs, self.shapes, self.strides, self.orig, self.fsc, self.isc,
@@ -514,93 +475,81 @@ class PreparedLaunch:
                     for snap, field in self.snapshots.get(name, ()):
                         snap.copy_(arrays[field])
                     extra = (self.flags.data_ptr(),) if cooperative else ()
-                    pair, vectors = name in self.on_chip, name in self.patched
-                    got = self.wrapper.launch(
-                        fn, args + (self.words[name],) + extra, counted, on_chip=pair,
-                        patched=vectors,
-                    )
-                    launched += got
-                    on_chip += got if pair else 0
-                    patched += got if vectors else 0
+                    launched += self.wrapper.launch(fn, args + (self.words[name],) + extra)
             launch_span.set("launches", launched)
-            launch_span.set("on_chip", on_chip)
-            launch_span.set("patched", patched)
         self.ran = True
-        self.last_on_chip = on_chip
-        self.last_patched = patched
         return launched
 
 
-def capture_graph(device, launches: list, pool=None, stream=None,
-                  on_chip=None) -> tuple[torch.cuda.CUDAGraph, int]:
+class Graph:
+    """A captured CUDA graph and the Hopper kernels its capture recorded, by
+    wrapper: a replay runs them, and :meth:`replay` is where they are
+    counted."""
+
+    __slots__ = ("graph", "launches")
+
+    def __init__(self, graph: torch.cuda.CUDAGraph, launches: collections.Counter):
+        self.graph = graph
+        self.launches = launches
+
+    @property
+    def per_replay(self) -> int:
+        """The Hopper kernels a replay launches."""
+        return sum(self.launches.values())
+
+    def replay(self, times: int = 1) -> int:
+        """Replay ``times`` times on the current stream, the kernels added
+        to their wrappers' ``launches``; returns the kernels launched."""
+        for _ in range(times):
+            self.graph.replay()
+        for wrapper, n in self.launches.items():
+            wrapper.launches += n * times
+        return self.per_replay * times
+
+
+def capture_graph(device, launches: list, pool=None, stream=None) -> Graph:
     """Capture ``launches``, closures called in order that each launch
     their work on the current stream (ctypes launches on that stream's
-    handle) and return the kernels they launched, into one CUDA graph on a
-    side stream of ``device`` (``stream``; None: a new one), its memory
-    from ``pool`` (a ``torch.cuda.graph_pool_handle()``; None: a pool of
-    its own). Graphs that share a pool share its free memory only where
-    they are captured on one side stream: the caching allocator keeps each
-    stream's blocks apart. Returns the graph and the kernels one replay
-    launches. A launch's own error propagates, not the capture's.
-    ``on_chip``: called after the launches, the on-chip pairs among them
-    (the capture span's ``on_chip``)."""
+    handle), into one CUDA graph on a side stream of ``device`` (``stream``;
+    None: a new one), its memory from ``pool`` (a
+    ``torch.cuda.graph_pool_handle()``; None: a pool of its own). Graphs
+    that share a pool share its free memory only where they are captured
+    on one side stream: the caching allocator keeps each stream's blocks
+    apart. The Hopper kernels launched are recorded, not counted: the
+    returned :class:`Graph` counts them at each replay. A launch's own
+    error propagates, not the capture's."""
     graph = torch.cuda.CUDAGraph()
     stream = torch.cuda.Stream(device) if stream is None else stream
     stream.wait_stream(torch.cuda.current_stream(device))
     captured = False
-    with span("gt4py.backend.capture") as capture_span, torch.cuda.device(device), \
-            torch.cuda.stream(stream):
-        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-        try:
-            per_replay = sum(launch() for launch in launches)
-            captured = True
-        finally:
+    recorded = collections.Counter()
+    outer, _RECORDING.counts = _RECORDING.counts, recorded
+    try:
+        with span("gt4py.backend.capture") as capture_span, torch.cuda.device(device), \
+                torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
-                graph.capture_end()
-            except RuntimeError:
-                if captured:
-                    raise  # else the launch's own error propagates
-        capture_span.set("launches", per_replay)
-        capture_span.set("on_chip", on_chip() if on_chip is not None else 0)
-    return graph, per_replay
-
-
-class ChainGraph:
-    """One swap cycle of a chain, its C prepared launches in order, captured
-    into one CUDA graph: the zeroing of filled temporaries, the snapshot
-    copies and the kernels, with the scalars baked into the kernels'
-    parameters at capture. A replay repeats the cycle on the current stream
-    and adds its launches, and its on-chip pairs and patched launches, to
-    the kernel's wrapper."""
-
-    def __init__(self, launches: list[PreparedLaunch], states: list[dict], scalars):
-        self.launches = launches  # the scratch the graph's kernels use
-        self.device = launches[0].device
-        self.wrapper = launches[0].wrapper
-        self.graph, self.per_replay = capture_graph(self.device, [
-            functools.partial(launch, state, scalars, counted=False)
-            for launch, state in zip(launches, states)
-        ], on_chip=lambda: sum(launch.last_on_chip for launch in launches))
-        self.on_chip = sum(launch.last_on_chip for launch in launches)
-        self.patched = sum(launch.last_patched for launch in launches)
-
-    def replay(self, times: int) -> None:
-        with span("gt4py.backend.replay") as replay_span, torch.cuda.device(self.device):
-            replay_span.set("replays", times)
-            replay_span.set("launches", self.per_replay * times)
-            replay_span.set("on_chip", self.on_chip * times)
-            replay_span.set("patched", self.patched * times)
-            for _ in range(times):
-                self.graph.replay()
-        self.wrapper.launches += self.per_replay * times
-        self.wrapper.on_chip += self.on_chip * times
-        self.wrapper.patched += self.patched * times
+                for launch in launches:
+                    launch()
+                captured = True
+            finally:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    if captured:
+                        raise  # else the launch's own error propagates
+            capture_span.set("launches", sum(recorded.values()))
+    finally:
+        _RECORDING.counts = outer
+    return Graph(graph, recorded)
 
 
 class Chain:
     """A chain's swap cycle on fixed buffers: its prepared launches, one per
-    buffer assignment, and the CUDA graphs captured of them, one per scalar
-    values."""
+    buffer assignment (the scratch the graphs' kernels use), and the CUDA
+    graphs captured of them, one per scalar values (:class:`Graph`: the
+    zeroing of filled temporaries, the snapshot copies and the kernels,
+    with the scalars baked into the kernels' parameters at capture)."""
 
     __slots__ = ("launches", "graphs")
 
@@ -677,7 +626,7 @@ class CudaHopperBackend(Backend):
     def run_steps(self, own, plan, scalars, domain, origins, n_steps: int, cache_key=None):
         """On a card: the swap cycle's :class:`Chain` (one prepared launch per
         buffer assignment); the first steps run them until each has launched
-        once, then the cycle is captured into a :class:`ChainGraph` (one per
+        once, then the cycle is captured into a :class:`Graph` (one per
         scalar values, which the capture bakes in), replayed ``(n - done) //
         C`` times, and the remaining steps run as prepared launches. The
         lagged sweeps' cooperative launch and its ``cudaMemsetAsync`` are
@@ -701,12 +650,18 @@ class CudaHopperBackend(Backend):
                         launches[step](states[step], scalars)
                         step += 1
                 if n_steps - step >= cycle:
-                    graph = ChainGraph(launches, states, scalars)
+                    graph = capture_graph(launches[0].device, [
+                        functools.partial(launch, state, scalars)
+                        for launch, state in zip(launches, states)
+                    ])
                     backend_span.set("captured", 1)
                     _bounded_put(chain.graphs, values, graph)
             if graph is not None:
                 replays = (n_steps - step) // cycle
-                graph.replay(replays)
+                with span("gt4py.backend.replay") as replay_span, \
+                        torch.cuda.device(launches[0].device):
+                    replay_span.set("replays", replays)
+                    replay_span.set("launches", graph.replay(replays))
                 step += replays * cycle
             for s in range(step, n_steps):
                 launches[s % cycle](states[s % cycle], scalars)

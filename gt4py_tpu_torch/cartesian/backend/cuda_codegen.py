@@ -59,8 +59,8 @@ temporaries stay inside one loop.
     it, their points beyond it masked. A field whose J stride is not its
     item size, whose row or level pitch is not whole vectors, or whose
     vectors start elsewhere moves element by element in the patches (the
-    wrapper decides from the buffers it observes and says so in the word;
-    ``PLANE.patched`` counts the launches where no field does); a half
+    wrapper decides from the buffers it observes and says so in the word,
+    which ``PatchLayout.patched`` reads); a half
     field so sends the launch to ``gt_plane_<n>``, which reads it faster
     (on 259×259 storages, an odd row pitch: float16 50 µs a step there
     against 64.5 in the patches; float32 82 against 37, float64 101

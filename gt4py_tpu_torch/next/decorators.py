@@ -506,27 +506,21 @@ class FieldOperator:
         replay of the CUDA graph of the call's variant key, captured at the
         key's second call from the pooled ``GraphExecutable`` and the
         write-back into ``out`` (its first call runs them eagerly,
-        ``otf.GraphCache.run``). On CPU tensors, inline within an
+        ``otf.serve``). On CPU tensors, inline within an
         enclosing capture, and where refused (counted): the definition
         eagerly, then the write-back."""
         dynamic = {k: v for k, v in kwargs.items() if k not in self.options.static_params}
-        key, device, refusal, keeps = otf.graph_key((args, kwargs, out, dom),
-                                                    current_offset_provider())
-        if device is not None and not otf.inline(device):
-            if not self.options.enable_jit:
-                refusal = otf.REFUSED_OPTIONS
-            if refusal is None:
-                graphs = _graphs(self, "field_operator")
-                if graphs.replay(key, device):
-                    return
-                ex = self._pool.lookup(args, kwargs, offset_provider)
-                if isinstance(ex, otf.GraphExecutable):
-                    graphs.run(key, device, keeps,
-                               lambda: _write_out(ex(*args, **dynamic), out, dom))
-                    return
-                refusal = otf.REFUSED_COMPILE_STEP
-            otf.refuse(refusal)
-        _write_out(self._eager(args, kwargs, dynamic, offset_provider), out, dom)
+
+        def work():
+            ex = self._pool.lookup(args, kwargs, offset_provider)
+            if isinstance(ex, otf.GraphExecutable):
+                return lambda: _write_out(ex(*args, **dynamic), out, dom)
+            return None
+
+        if not otf.serve(lambda: _graphs(self, "field_operator"), (args, kwargs, out, dom),
+                         current_offset_provider(), work,
+                         None if self.options.enable_jit else otf.REFUSED_OPTIONS):
+            _write_out(self._eager(args, kwargs, dynamic, offset_provider), out, dom)
 
     def __get__(self, obj, objtype=None):
         return self
@@ -675,19 +669,13 @@ class ScanOperator:
             )
             if out is None:
                 return apply()
-            if kind == "eager":
-                # the pooled jitted scan's counterpart (gt4py_tpu/next/
-                # decorators.py:711-741): the level loop and its write-back,
-                # one CUDA graph per variant key
-                key, device, refusal, keeps = otf.graph_key((args, kwargs, out, dom),
-                                                            current_offset_provider())
-                if device is not None and not otf.inline(device):
-                    if refusal is None:
-                        graphs = _graphs(self, "scan_operator")
-                        if not graphs.replay(key, device):
-                            graphs.run(key, device, keeps, lambda: _write_out(apply(), out, dom))
-                        return None
-                    otf.refuse(refusal)
+            # the pooled jitted scan's counterpart (gt4py_tpu/next/
+            # decorators.py:711-741): the level loop and its write-back,
+            # one CUDA graph per variant key
+            if kind == "eager" and otf.serve(
+                    lambda: _graphs(self, "scan_operator"), (args, kwargs, out, dom),
+                    current_offset_provider(), lambda: lambda: _write_out(apply(), out, dom)):
+                return None
             _write_out(apply(), out, dom)
         return None
 
@@ -988,17 +976,10 @@ class Program:
             return
         definition = exec_program(self)
         with offset_provider_context(offset_provider):
-            if backend_kind(self.backend) == "eager":
-                key, device, refusal, keeps = otf.graph_key((args, kwargs),
-                                                            current_offset_provider())
-                if device is not None and not otf.inline(device):
-                    if refusal is None:
-                        graphs = _graphs(self, "program")
-                        if not graphs.replay(key, device):
-                            graphs.run(key, device, keeps,
-                                       lambda: _run_inline(definition, args, kwargs))
-                        return
-                    otf.refuse(refusal)
+            if backend_kind(self.backend) == "eager" and otf.serve(
+                    lambda: _graphs(self, "program"), (args, kwargs), current_offset_provider(),
+                    lambda: functools.partial(_run_inline, definition, args, kwargs)):
+                return
             definition(*args, **kwargs)
 
     def __getstate__(self):

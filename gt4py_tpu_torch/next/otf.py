@@ -402,6 +402,35 @@ def refuse(reason: str) -> None:
     _count(graphs_refused, reason)
 
 
+def serve(graphs: Callable[[], "GraphCache"], trees: Any, provider: Optional[dict],
+          work: Callable[[], Optional[Callable[[], Any]]], refusal: Optional[str] = None) -> bool:
+    """Serve a ``torch`` call on ``trees`` (its arguments, ``out``,
+    ``domain=``) under ``provider`` by the CUDA graph of its variant key
+    (:func:`graph_key`) in ``graphs()`` (the caller's cache, made at first
+    use): the graph replayed, else ``work()``, the call's work, run or
+    captured (:meth:`GraphCache.run`). False where the caller runs the call
+    eagerly: no tensor on a card, inline (:func:`inline`), or refused and
+    counted (``refusal``, else the key's; :data:`REFUSED_COMPILE_STEP`
+    where ``work()`` is None)."""
+    key, device, why, keeps = graph_key(trees, provider)
+    if device is None or inline(device):
+        return False
+    refusal = refusal or why
+    if refusal is None:
+        cache = graphs()
+        graph = cache.find(key, device)
+        if graph is not None:
+            cache.replay(graph)
+            return True
+        body = work()
+        if body is not None:
+            cache.run(key, device, keeps, body)
+            return True
+        refusal = REFUSED_COMPILE_STEP
+    refuse(refusal)
+    return False
+
+
 def _stream(device: torch.device):
     return torch.cuda.current_stream(device)
 
@@ -440,34 +469,20 @@ def _pool(device: torch.device, stream) -> _Pool:
 
 
 class Graph:
-    """A captured CUDA graph, its pool, the tensors it reads that are not
-    the caller's (kept alive with it) and the Hopper kernels each replay
-    launches, by wrapper, and the on-chip pairs and patched launches among
-    them (added to each wrapper's counts at every replay)."""
+    """A captured CUDA graph (``cuda_backend.Graph``, which counts the
+    Hopper kernels of each replay), its pool and the tensors it reads that
+    are not the caller's (kept alive with it)."""
 
-    __slots__ = ("graph", "pool", "keeps", "launches", "on_chip", "patched")
+    __slots__ = ("captured", "pool", "keeps")
 
-    def __init__(self, graph, pool: _Pool, keeps: list, launches):
-        self.graph = graph
+    def __init__(self, captured, pool: _Pool, keeps: list):
+        self.captured = captured
         self.pool = pool
         self.keeps = keeps
-        self.launches = tuple(launches.items())
-        self.on_chip = tuple(launches.on_chip.items())
-        self.patched = tuple(launches.patched.items())
 
-    @property
-    def per_replay(self) -> int:
-        """The Hopper kernels a replay launches."""
-        return sum(n for _, n in self.launches)
-
-    def replay(self) -> None:
-        self.graph.replay()
-        for wrapper, n in self.launches:
-            wrapper.launches += n
-        for wrapper, n in self.on_chip:
-            wrapper.on_chip += n
-        for wrapper, n in self.patched:
-            wrapper.patched += n
+    def replay(self) -> int:
+        """One replay; returns the Hopper kernels it launched."""
+        return self.captured.replay()
 
     def retire(self) -> None:
         self.pool.leave()
@@ -475,27 +490,22 @@ class Graph:
 
 def capture(device: torch.device, stream, body: Callable[[], Any], keeps: list) -> Graph:
     """``body()`` captured into a CUDA graph in the pool of ``device`` and
-    ``stream`` (the stream it will replay on), as
-    ``cuda_backend.capture_graph`` captures: on the pool's side stream, with
+    ``stream`` (the stream it will replay on) by
+    ``cuda_backend.capture_graph``: on the pool's side stream, with
     ``capture_error_mode="thread_local"``, the body's own error raised.
-    The Hopper kernels it launches are counted at the graph's replays, not
-    here. A capture that fails raises; nothing falls back to the eager
-    path."""
-    from gt4py_tpu_torch.cartesian.backend.cuda_backend import capture_graph, recording_launches
+    A capture that fails raises; nothing falls back to the eager path."""
+    from gt4py_tpu_torch.cartesian.backend.cuda_backend import capture_graph
 
     _RETIRED.clear()
     pool = _pool(device, stream)
     try:
-        with recording_launches() as launches:
-            graph, _ = capture_graph(device, [lambda: body() or 0], pool=pool.handle,
-                                     stream=pool.side,
-                                     on_chip=lambda: sum(launches.on_chip.values()))
+        captured = capture_graph(device, [body], pool=pool.handle, stream=pool.side)
     except BaseException:
         if not pool.graphs:  # the failed graph, destroyed, took the pool with it
             _POOLS.pop(pool.key, None)
         raise
     pool.graphs += 1
-    return Graph(graph, pool, keeps, launches)
+    return Graph(captured, pool, keeps)
 
 
 def graph_pool_bytes() -> int:
@@ -543,36 +553,30 @@ class GraphCache:
             self._graphs.move_to_end(k)
         return graph
 
-    def replay_graph(self, graph: Graph) -> None:
-        graph.replay()
+    def replay(self, graph: Graph) -> int:
+        """One replay of ``graph`` (:meth:`find`'s), counted; returns the
+        Hopper kernels it launched."""
+        launched = graph.replay()
         _count(graphs_replayed, self.kind)
+        return launched
 
-    def replay(self, key: Any, device: torch.device) -> bool:
-        """Replay the graph of ``key`` on the current stream; False where
-        there is none (:meth:`run` serves the call)."""
-        graph = self.find(key, device)
-        if graph is None:
-            return False
-        self.replay_graph(graph)
-        return True
-
-    def run(self, key: Any, device: torch.device, keeps: list, body: Callable[[], Any]) -> None:
-        """A call of ``key`` that :meth:`replay` did not serve. At the key's
-        first call: ``body()`` eagerly on the current stream. At its second:
-        ``body`` captured (keeping ``keeps`` alive), then replayed once, the
-        call's result."""
+    def run(self, key: Any, device: torch.device, keeps: list, body: Callable[[], Any]) -> Any:
+        """A call of ``key`` that no graph served. At the key's first call:
+        ``body()`` eagerly on the current stream, its value returned. At
+        its second: ``body`` captured (keeping ``keeps`` alive), then
+        replayed once, the call's result; returns the Hopper kernels the
+        replay launched."""
         stream = _stream(device)
         k = (key, stream.cuda_stream)
         if self._graphs.get(k, _UNSEEN) is _UNSEEN:
-            body()
+            value = body()
             self._put(k, None)
             _count(graphs_first_calls, self.kind)
-            return
+            return value
         graph = capture(device, stream, body, keeps)
         _count(graphs_captured, self.kind)
         self._put(k, graph)
-        graph.replay()
-        _count(graphs_replayed, self.kind)
+        return self.replay(graph)
 
     def _put(self, k: Any, graph: Optional[Graph]) -> None:
         self._graphs[k] = graph

@@ -1205,7 +1205,6 @@ def try_call(op, args, kwargs, out, dom, providers, make: Optional[Callable] = N
     captures the launch and replays it; every later call is one replay
     (span ``gt4py.next.replay``). Within an enclosing capture the kernel
     is launched into it. On CPU tensors the plain version runs."""
-    from gt4py_tpu_torch.cartesian.backend.cuda_backend import NEIGHBOR
     from gt4py_tpu_torch.instrumentation.spans import span
     from gt4py_tpu_torch.next import otf
 
@@ -1216,6 +1215,7 @@ def try_call(op, args, kwargs, out, dom, providers, make: Optional[Callable] = N
     key, device, refusal, keeps = otf.graph_key((args, kwargs, out, dom), providers)
     on_card = device is not None and launches_on(device)
     graphs = None
+    # not otf.serve: the lowering may decline between the replay and the run
     if on_card and refusal is None and not otf.inline(device):
         graphs = _graphs(op)
         # an int64 card table rewritten in place keeps its address: the
@@ -1224,8 +1224,7 @@ def try_call(op, args, kwargs, out, dom, providers, make: Optional[Callable] = N
         graph = graphs.find(key, device)
         if graph is not None:
             with span("gt4py.next.replay") as replay_span:
-                replay_span.set("launches", graph.per_replay)
-                graphs.replay_graph(graph)
+                replay_span.set("launches", graphs.replay(graph))
             calls_served["neighbor"] += 1
             return True
     cache = op.__dict__.setdefault("_neighbor_cache", {})
@@ -1262,9 +1261,7 @@ def try_call(op, args, kwargs, out, dom, providers, make: Optional[Callable] = N
         calls_served["neighbor"] += 1
         return True
     with span("gt4py.next.launch") as launch_span:
-        before = NEIGHBOR.launches
-        graphs.run(key, device, keeps, launch)
-        launch_span.set("launches", NEIGHBOR.launches - before)
+        launch_span.set("launches", graphs.run(key, device, keeps, launch))
     calls_served["neighbor"] += 1
     return True
 

@@ -933,39 +933,12 @@ def test_prepared_launch_words_from_the_buffers():
     layout = backend.module.patches["gt_launch_0"]
     word = launch.words["gt_launch_0"]
     assert word >> 1 & 7 == (arrays[layout.fields[0][0]].data_ptr() // 8 + 3) % 2
-    assert launch.patched == {"gt_launch_0"}
+    assert layout.patched(word)
     wide = storage.zeros((12, 13, 4), np.float64, backend="cuda:hopper", device="cpu").array
     launch = backend.prepared(dict(arrays, coeff=wide[:, :12]), dom, orig)
     bit = [n for n, _ in layout.fields].index("coeff")
     assert not launch.words["gt_launch_0"] >> cuda_codegen.PATCH_MASK_AT & 1 << bit
-    assert launch.patched == frozenset()
-
-
-def test_wrapper_counts_patched_launches():
-    """``patched`` counts, among ``launches``, the launches whose fields all
-    took their vector path, where they run: a recording (a capture) keeps
-    them apart, a field-view graph adds them at each replay, and an empty
-    grid counts neither."""
-    from gt4py_tpu_torch.next import otf
-
-    wrapper = cuda_backend.KernelWrapper("probe")
-    wrapper.launch(lambda *a: 0, (), patched=True)
-    wrapper.launch(lambda *a: 0, ())
-    wrapper.launch(lambda *a: cuda_codegen.NOTHING_LAUNCHED, (), patched=True)
-    assert (wrapper.launches, wrapper.patched) == (2, 1)
-    with cuda_backend.recording_launches() as counts:
-        wrapper.launch(lambda *a: 0, (), patched=True)
-    assert (wrapper.launches, wrapper.patched) == (2, 1)
-    assert (counts[wrapper], counts.patched[wrapper]) == (1, 1)
-
-    class FakeGraph:
-        def replay(self):
-            pass
-
-    graph = otf.Graph(FakeGraph(), None, [], counts)
-    graph.replay()
-    graph.replay()
-    assert (wrapper.launches, wrapper.patched) == (4, 3)
+    assert not layout.patched(launch.words["gt_launch_0"])
 
 
 def test_patch_stores_whole_vectors_only_where_no_read_can_tell():
@@ -1709,32 +1682,6 @@ def test_prepared_launch_allocates_no_buffer_the_pair_keeps_on_chip(monkeypatch)
     assert launch.on_chip == frozenset() and launch.kernels == 2
 
 
-def test_wrapper_counts_on_chip_pairs():
-    """``on_chip`` counts the pair's launches among ``launches``, where they
-    run: a recording (a capture) keeps them apart, a field-view graph adds
-    them at each replay, and an empty grid counts neither."""
-    from gt4py_tpu_torch.next import otf
-
-    wrapper = cuda_backend.KernelWrapper("probe")
-    wrapper.launch(lambda *a: 0, (), on_chip=True)
-    wrapper.launch(lambda *a: 0, ())
-    wrapper.launch(lambda *a: cuda_codegen.NOTHING_LAUNCHED, (), on_chip=True)
-    assert (wrapper.launches, wrapper.on_chip) == (2, 1)
-    with cuda_backend.recording_launches() as counts:
-        wrapper.launch(lambda *a: 0, (), on_chip=True)
-    assert (wrapper.launches, wrapper.on_chip) == (2, 1)
-    assert (counts[wrapper], counts.on_chip[wrapper]) == (1, 1)
-
-    class FakeGraph:
-        def replay(self):
-            pass
-
-    graph = otf.Graph(FakeGraph(), None, [], counts)
-    graph.replay()
-    graph.replay()
-    assert (wrapper.launches, wrapper.on_chip) == (4, 3)
-
-
 def test_ring_nowhere_but_the_column_walks():
     """The column ring (``gt_fetch``) is in column and fused_column sources
     alone, and not in column loops that walk no level (PARALLEL); plane,
@@ -2189,13 +2136,38 @@ def test_build_error_names_the_compiler(tmp_path, monkeypatch):
         cuda_backend.load_library("/* empty */\n")
 
 
-def test_wrapper_counts_a_captured_launch_at_its_replays():
+def test_wrapper_counts_a_captured_launch_at_its_replays(monkeypatch):
     """A launch recorded into a CUDA graph is not counted when captured:
-    the launcher reports it, and each replay adds it."""
+    the launcher reports it, an empty grid reports none, and each replay
+    adds what was recorded (torch's graph and streams stood in for)."""
+    import contextlib
+
+    class Graph:
+        def capture_begin(self, pool=None, capture_error_mode=None):
+            pass
+
+        capture_end = replay = lambda self: None
+
+    class Stream:
+        cuda_stream = 1
+
+        def wait_stream(self, other):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device: Stream())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: Stream())
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "stream", lambda stream: contextlib.nullcontext())
     wrapper = cuda_backend.KernelWrapper("probe")
-    assert wrapper.launch(lambda *a: 0, (), counted=False) == 1
-    assert wrapper.launch(lambda *a: cuda_codegen.NOTHING_LAUNCHED, (), counted=False) == 0
-    assert wrapper.launches == 0
+    got = []
+    graph = cuda_backend.capture_graph("cuda", [
+        lambda: got.append(wrapper.launch(lambda *a: 0, ())),
+        lambda: got.append(wrapper.launch(lambda *a: cuda_codegen.NOTHING_LAUNCHED, ())),
+    ])
+    assert got == [1, 0] and wrapper.launches == 0 and graph.per_replay == 1
+    assert graph.replay(3) == 3 and wrapper.launches == 3
+    assert wrapper.launch(lambda *a: 0, ()) == 1 and wrapper.launches == 4
 
 
 def _cpu_backend(name="horizontal_diffusion"):
@@ -2491,11 +2463,10 @@ def _vadv_host(st, shape, seed):
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("shape", ["full", "ragged", "at_bound", "above_bound"])
 def test_on_chip_pair_equals_the_two_launches_on_card(dtype, shape, monkeypatch):
-    """vadv on the pair (one launch, counted as one and as ``on_chip``)
-    equals the two column kernels and the plain version to the bit: at
-    256×256×80, on a domain that fills no block (36×44×23), and at the
-    rule's bound and one level above it, where the launcher takes the two
-    kernels (no ``on_chip``)."""
+    """vadv on the pair (one launch, counted as one) equals the two column
+    kernels and the plain version to the bit: at 256×256×80, on a domain
+    that fills no block (36×44×23), and at the rule's bound and one level
+    above it, where the launcher takes the two kernels (two launches)."""
     _need_card()
     pair, two, plain = _vadv_pair_and_two(dtype, monkeypatch)
     oc = pair._backend.module.on_chip["gt_launch_0"]
@@ -2507,11 +2478,11 @@ def test_on_chip_pair_equals_the_two_launches_on_card(dtype, shape, monkeypatch)
     out = {}
     for tag, st in (("pair", pair), ("two", two), ("plain", plain)):
         fields = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
-        cuda_backend.COLUMN.launches = cuda_backend.COLUMN.on_chip = 0
+        cuda_backend.COLUMN.launches = 0
         st(**fields, dtr_stage=scalar, domain=(ni - 1, nj, nk))
         torch.cuda.synchronize()
-        counts = (cuda_backend.COLUMN.launches, cuda_backend.COLUMN.on_chip)
-        assert counts == {"pair": (1, 1) if served else (2, 0), "two": (2, 0), "plain": (0, 0)}[tag]
+        assert cuda_backend.COLUMN.launches == {"pair": 1 if served else 2, "two": 2,
+                                                "plain": 0}[tag]
         out[tag] = {n: np.asarray(v) for n, v in fields.items()}
     for n in host:
         for other in ("two", "plain"):
@@ -2523,9 +2494,9 @@ def test_on_chip_pair_equals_the_two_launches_on_card(dtype, shape, monkeypatch)
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_on_chip_pair_chain_as_a_graph_on_card(dtype, monkeypatch):
     """``chain(20)`` of vadv at 256×256×80 captured into a CUDA graph: 20
-    launches of the pair, each counted as ``on_chip``, by the replays and
-    their spans; the result equals 20 calls of the two column kernels to
-    the bit."""
+    launches of the pair, one a step, counted by the replays and their
+    spans; the result equals 20 calls of the two column kernels to the
+    bit."""
     from gt4py_tpu_torch.instrumentation import clear_spans, spans
 
     _need_card()
@@ -2534,20 +2505,19 @@ def test_on_chip_pair_chain_as_a_graph_on_card(dtype, monkeypatch):
     scalar = np.dtype(dtype).type(0.15)
     chained = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
     cur = {n: storage.from_array(v, backend="cuda:hopper") for n, v in host.items()}
-    cuda_backend.COLUMN.launches = cuda_backend.COLUMN.on_chip = 0
+    cuda_backend.COLUMN.launches = 0
     info = {}
     clear_spans()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         pair.chain(20, **chained, dtr_stage=scalar, domain=(255, 256, 80), exec_info=info)
         torch.cuda.synchronize()
     assert info["chain_mode"] == "graph"
-    assert (cuda_backend.COLUMN.launches, cuda_backend.COLUMN.on_chip) == (20, 20)
+    assert cuda_backend.COLUMN.launches == 20
     records = [r for r in spans() if r.name in ("gt4py.backend.replay", "gt4py.backend.launch",
                                                  "gt4py.backend.capture")]
     ran = [r for r in records if r.name != "gt4py.backend.capture"]
-    assert sum(r.attrs["on_chip"] for r in ran) == sum(r.attrs["launches"] for r in ran) == 20
-    assert all(r.attrs["on_chip"] == r.attrs["launches"] == 1 for r in records
-               if r.name == "gt4py.backend.capture")
+    assert sum(r.attrs["launches"] for r in ran) == 20
+    assert all(r.attrs["launches"] == 1 for r in records if r.name == "gt4py.backend.capture")
     for _ in range(20):
         two(**cur, dtr_stage=scalar, domain=(255, 256, 80))
     torch.cuda.synchronize()
@@ -2836,7 +2806,8 @@ def test_plane_patches_match_plain_on_card(name, definition, dtypes, externals, 
     """Every plane stencil's register patches on storages whose rows are
     whole vectors, over 255 × 257 (a multiple of neither the tile nor a
     patch) and 7 levels, against the plain version on the same card: every
-    launch counted as patched, every field and point equal."""
+    launch's word takes every field's vector path, every field and point
+    equal."""
     _need_card()
     nk = max(min_k, 7)
     shape, origin, domain = (261, 263, nk), (3, 3, 0), (255, 257, nk)
@@ -2847,13 +2818,15 @@ def test_plane_patches_match_plain_on_card(name, definition, dtypes, externals, 
         host = defs.make_inputs(st.field_info, shape, np.random.default_rng(14))
         kinds = {n: st.field_info[n].dtype for n in host}
         fields = _patch_storages(host, kinds, origin)
-        cuda_backend.PLANE.launches = cuda_backend.PLANE.patched = 0
+        cuda_backend.PLANE.launches = 0
         st(**fields, **scalars, origin=origin, domain=domain)
         torch.cuda.synchronize()
         out[backend] = {n: np.asarray(v.cpu()) for n, v in fields.items()}
-        counts = (cuda_backend.PLANE.launches, cuda_backend.PLANE.patched)
         if backend == "cuda:hopper":
-            assert counts[0] == len(st._backend.module.launchers) == counts[1], counts
+            module = st._backend.module
+            (launch,) = set(st._backend._launches.values())
+            patched = sum(layout.patched(launch.words[n]) for n, layout in module.patches.items())
+            assert cuda_backend.PLANE.launches == len(module.launchers) == patched, patched
     for n, want in out["torch"].items():
         _assert_same(out["cuda:hopper"][n], want, n)
 
@@ -2884,15 +2857,16 @@ def test_hdiff_patches_at_every_shift_on_card(dtype, oj):
                               dtypes=dtypes, rebuild=True)
         host = defs.half_inputs(st.field_info, shape, np.random.default_rng(15))
         fields = _patch_storages(host, {n: st.field_info[n].dtype for n in host}, origin)
-        cuda_backend.PLANE.launches = cuda_backend.PLANE.patched = 0
+        cuda_backend.PLANE.launches = 0
         st(**fields, origin=origin, domain=domain)
         st.chain(5, **fields, origin=origin, domain=domain)
         torch.cuda.synchronize()
         if backend == "cuda:hopper":
-            assert cuda_backend.PLANE.launches == cuda_backend.PLANE.patched == 6
+            assert cuda_backend.PLANE.launches == 6
             (launch,) = set(st._backend._launches.values())
-            width = st._backend.module.patches["gt_launch_0"].width
-            assert launch.words["gt_launch_0"] >> 1 & 7 == oj % width  # rows start on vectors
+            layout = st._backend.module.patches["gt_launch_0"]
+            assert layout.patched(launch.words["gt_launch_0"])
+            assert launch.words["gt_launch_0"] >> 1 & 7 == oj % layout.width  # rows start on vectors
         out[backend] = {n: v.cpu().double().numpy() for n, v in fields.items()}
     tol = PATCH_TYPES[dtype]
     for n, want in out["torch"].items():
@@ -2903,8 +2877,8 @@ def test_hdiff_patches_at_every_shift_on_card(dtype, oj):
 @pytest.mark.parametrize("dtype", ["float32", "float64", "float16"])
 def test_plane_patches_fall_back_for_a_field_off_the_vectors_on_card(dtype):
     """hdiff with coeff a view of a buffer of an odd number of elements
-    along J (a row pitch of no whole vectors): the launch is not counted as
-    patched, coeff moves element by element, the other fields by vectors
+    along J (a row pitch of no whole vectors): the launch's word leaves the
+    vector path to the others, coeff moves element by element, the other fields by vectors
     (float16: the launch runs the plain-pointer kernel), and the result is
     the plain version's; with every field so, too."""
     _need_card()
@@ -2917,11 +2891,14 @@ def test_plane_patches_fall_back_for_a_field_off_the_vectors_on_card(dtype):
                                   dtypes=dtypes, rebuild=True)
             host = defs.half_inputs(st.field_info, (259, 261, 7), np.random.default_rng(16))
             fields = _patch_storages(host, {}, origin, pad=pad)
-            cuda_backend.PLANE.launches = cuda_backend.PLANE.patched = 0
+            cuda_backend.PLANE.launches = 0
             st(**fields, origin=origin, domain=domain)
             torch.cuda.synchronize()
             if backend == "cuda:hopper":
-                assert (cuda_backend.PLANE.launches, cuda_backend.PLANE.patched) == (1, 0)
+                (launch,) = set(st._backend._launches.values())
+                layout = st._backend.module.patches["gt_launch_0"]
+                assert cuda_backend.PLANE.launches == 1
+                assert not layout.patched(launch.words["gt_launch_0"])
             out[backend] = {n: v.cpu().double().numpy() for n, v in fields.items()}
         tol = PATCH_TYPES[dtype]
         for n, want in out["torch"].items():

@@ -17,6 +17,8 @@ bit), its ``numpy`` backend and the JAX package's ``jax`` backend (rtol
 Tests marked ``cuda`` run the graphs on a card and skip without one.
 """
 
+import contextlib
+import functools
 import gc
 import weakref
 
@@ -424,11 +426,11 @@ def _pool_stand_ins(monkeypatch, fail=False) -> list:
     monkeypatch.setattr(torch.cuda, "Stream", lambda device: _FakeStream())
     captures = []
 
-    def capture_graph(device, launches, pool=None, stream=None, on_chip=None):
+    def capture_graph(device, launches, pool=None, stream=None):
         captures.append((pool, stream))
         if fail:
             raise RuntimeError("the body's own error")
-        return _PoolGraph(launches), 0
+        return _PoolGraph(launches)
 
     monkeypatch.setattr(cuda_backend, "capture_graph", capture_graph)
     monkeypatch.setattr(otf, "on_card", lambda device: True)
@@ -480,22 +482,131 @@ def test_a_failed_capture_raises(monkeypatch):
     assert otf._POOLS == {} and otf.graphs_captured == {} and len(op._graphs) == 0
 
 
-def test_a_replay_counts_the_kernels_its_capture_recorded():
-    """A Hopper kernel launched while a graph captures is recorded, not
-    counted; the graph adds it to its wrapper at every replay."""
+class _CapturedGraph:
+    """A stand-in for torch.cuda.CUDAGraph: a capture records nothing, a
+    replay runs nothing."""
+
+    def capture_begin(self, pool=None, capture_error_mode=None):
+        pass
+
+    def capture_end(self):
+        pass
+
+    def replay(self):
+        pass
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _captures_on_cpu(monkeypatch):
+    """``cuda_backend.capture_graph`` as it is, on CPU tensors: torch's
+    graph, streams, pools and device guard stood in for."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _CapturedGraph)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device: _FakeStream())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _FakeStream())
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "stream", lambda stream: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 1))
+    monkeypatch.setattr(otf, "_POOLS", {})
+
+
+def _chain_case(monkeypatch):
+    """hdiff's chain on the cartesian backend, its launchers stood in for.
+    Capture: ``run_steps`` of 2 steps launches the first, captures the
+    cycle (one step) and replays it once; a replay: one step more."""
+    from gt4py_tpu_torch.cartesian import gtscript
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+
+    from . import torch_stencil_defs as sdefs
+
+    backend = gtscript.stencil(backend="cuda:hopper", definition=sdefs.horizontal_diffusion,
+                               rebuild=True)._backend
+    backend._fns = [(lambda *a: 0, False, name) for name in backend.module.launchers]
+    monkeypatch.setattr(backend, "_on_card", lambda arrays: True)
+    own = {n: torch.zeros(12, 12, 4, dtype=torch.float64)
+           for n in ("in_field", "out_field", "coeff")}
+    plan = [{n: n for n in own}]
+
+    def run(n):
+        backend.run_steps(own, plan, {}, (8, 8, 4), {n: (2, 2, 0) for n in own}, n)
+        assert backend.last_chain_mode == "graph"
+
+    def capture():
+        run(2)
+        (chain,) = set(backend._chains.values())
+        (graph,) = chain.graphs.values()
+        return graph, len(backend.module.launchers), 1
+
+    return cuda_backend.PLANE, capture, run
+
+
+def _field_view_case(monkeypatch):
+    """A field-view graph of one key (``otf.GraphCache``). Capture: the
+    key's first call launches, its second captures and replays once; a
+    replay: a later call."""
     from gt4py_tpu_torch.cartesian.backend import cuda_backend
 
     wrapper = cuda_backend.KernelWrapper("stand-in")
-    with cuda_backend.recording_launches() as launches:
-        assert wrapper.launch(lambda: 0, ()) == 1
-        assert wrapper.launch(lambda: 0, (), counted=False) == 1
-    assert wrapper.launches == 0 and launches == {wrapper: 1}
-    graph = otf.Graph(_PoolGraph([]), None, [], launches)
-    for _ in range(3):
-        graph.replay()
-    assert wrapper.launches == 3
-    wrapper.launch(lambda: 0, ())
-    assert wrapper.launches == 4
+    cache, device = otf.GraphCache("field_operator"), torch.device("cuda", 0)
+
+    def capture():
+        for _ in range(2):
+            cache.run("key", device, [], functools.partial(wrapper.launch, lambda: 0, ()))
+        return cache.find("key", device).captured, 1, 1
+
+    def replay(n):
+        for _ in range(n):
+            cache.replay(cache.find("key", device))
+
+    return wrapper, capture, replay
+
+
+def _calibration_case(monkeypatch):
+    """P1's ``calibration.Chain`` of 3 launches. Capture: one launch outside
+    the capture, then the 3 captured; a replay: one ``run``."""
+    from gt4py_tpu_torch.cartesian.backend import calibration as cal
+
+    monkeypatch.setattr(cal, "_functions", lambda: {"gt_probe_walk": lambda *a: 0})
+    inputs = [t.as_subclass(_OnCard) for t in cal.make_inputs("probe_walk", "cpu", size=(2, 3, 8))]
+    chains = []
+
+    def capture():
+        chains.append(cal.Chain("probe_walk", 3, inputs, (0, 0)))
+        return chains[0].graph, 1, 0
+
+    def replay(n):
+        for _ in range(n):
+            chains[0].run()
+
+    return cal.PROBE_WALK, capture, replay
+
+
+@pytest.mark.parametrize("case", [_chain_case, _field_view_case, _calibration_case],
+                         ids=["chain", "field_view", "calibration"])
+def test_a_replay_counts_the_kernels_its_capture_recorded(case, monkeypatch):
+    """Whichever caller captures (a chain's swap cycle, a field-view graph,
+    a calibration chain), a Hopper kernel launched while the graph captures
+    is recorded, not counted, and ``cuda_backend.Graph.replay`` adds what
+    the capture recorded to its wrapper at every replay: after the capture
+    the wrapper holds the launches made outside it and those of the
+    replays made since, nothing more, and n replays add n × the recorded
+    launches."""
+    _captures_on_cpu(monkeypatch)
+    wrapper, capture, replay = case(monkeypatch)
+    before = wrapper.launches
+    graph, outside, replays = capture()
+    assert graph.per_replay >= 1 and dict(graph.launches) == {wrapper: graph.per_replay}
+    assert wrapper.launches == before + outside + replays * graph.per_replay
+    for n in (1, 4):
+        start = wrapper.launches
+        replay(n)
+        assert wrapper.launches == start + n * graph.per_replay
 
 
 def test_inline_while_a_capture_is_on(fake_card, monkeypatch):

@@ -365,13 +365,14 @@ def test_declines_are_known_reasons():
 
 
 class _FakeGraph:
-    per_replay = 1
+    """A stand-in for ``otf.Graph``: a replay runs the body, whose launch is
+    counted as it runs, and returns the kernels it launched."""
 
     def __init__(self, body):
         self.body = body
 
     def replay(self):
-        self.body()
+        return self.body()
 
     def retire(self):
         pass
