@@ -1578,8 +1578,8 @@ def kernel_name(mangled: str) -> str:
 
 
 def ptxas_report(source: str, cuda_backend) -> dict:
-    """kernel -> (registers, spill store bytes), from the ``-Xptxas -v``
-    lines of the build log beside the source."""
+    """kernel -> (registers, spill store bytes, spill load bytes), from the
+    ``-Xptxas -v`` lines of the build log beside the source."""
     import re
 
     log = cuda_backend._paths(source)[2] + ".log"
@@ -1589,12 +1589,16 @@ def ptxas_report(source: str, cuda_backend) -> dict:
             m = re.search(r"Compiling entry function '(_Z\w+)'", line)
             if m:
                 kernel = kernel_name(m.group(1))
-            m = re.search(r"(\d+) bytes spill stores", line)
-            if m and kernel:
-                out[kernel] = (out.get(kernel, (0, 0))[0], int(m.group(1)))
+            if not kernel:
+                continue
+            regs, stores, loads = out.get(kernel, (0, 0, 0))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                stores, loads = int(m.group(1)), int(m.group(2))
             m = re.search(r"Used (\d+) registers", line)
-            if m and kernel:
-                out[kernel] = (int(m.group(1)), out.get(kernel, (0, 0))[1])
+            if m:
+                regs = int(m.group(1))
+            out[kernel] = (regs, stores, loads)
     return out
 
 
@@ -1623,7 +1627,7 @@ def residency(source: str, cuda_backend, on_chip=None, nk: int = NK) -> dict:
     dynamic.update(re.findall(r"cudaLaunchCooperativeKernel\(\(const void\*\)(\w+),.*?gt_args, (\d+),", source))
     return {
         k: resident_blocks(r, threads.get(k, 256), static.get(k, 0) + int(dynamic.get(k, 0)))
-        for k, (r, _) in ptxas_report(source, cuda_backend).items()
+        for k, (r, *_) in ptxas_report(source, cuda_backend).items()
     }
 
 
@@ -1741,7 +1745,7 @@ def walk_report(run, cuda_backend) -> str:
            if "unringed_ms" in run else "")
         + "; ptxas " + ", ".join(
             f"{k} {r} registers {s} B spilled {blocks[k]} blocks an SM"
-            for k, (r, s) in sorted(ptxas.items())
+            for k, (r, s, _) in sorted(ptxas.items())
         )
     )
 
@@ -3489,7 +3493,7 @@ def probe_report(calibration, cuda_backend, tool) -> dict:
     out = {}
     for kind, params in calibration.variants():
         name = probe_kernel(kind, params)
-        registers, spill = ptxas[name]
+        registers, spill, _ = ptxas[name]
         entry = {"registers": registers, "spill": spill,
                  "blocks": resident_blocks(registers, threads, 0)}
         if name in sass:

@@ -2943,8 +2943,18 @@ class _Generator:
         copies the level ``f`` steps into the walk (clamped as ``gt_clampk``
         clamps a read, at the points of the statements reading the stream)
         and commits one group, and the prologue: the levels behind the walk
-        its reads reach, and the first ``RING_LEVELS - 1``."""
+        its reads reach, and the first ``RING_LEVELS - 1``. The walk's
+        sections run back to back (:meth:`_chained`), so it fetches its
+        levels in order, one a call: each stream's address (``gt_a<s>``) and
+        the slot (``gt_s``) step by one level a call, and only a level
+        outside some stream's field (below ``gt_klo`` or from ``gt_khi`` on),
+        which the walk's first and last fetches alone reach, computes the
+        clamped addresses, on a branch marked unlikely so that the compiler
+        keeps it off the levels' path (PERF.md: without the mark ptxas
+        selects between both addresses at every fetch, and the on-chip pair
+        loses 3 % in float64)."""
         first, last = vloop.sections[0].interval, vloop.sections[-1].interval
+        step = "-" if ring.backward else "+"
         if ring.backward:
             top = self._k_bound(first.end)
             self.emit(f"const long long gt_w0 = {top} - 1, gt_wn = {top} - {self._k_bound(last.start)};")
@@ -2953,7 +2963,12 @@ class _Generator:
             self.emit(
                 f"const long long gt_w0 = {bottom}, gt_wn = {self._k_bound(last.end)} - {bottom};"
             )
-        copies = []
+        fields = list(dict.fromkeys(st.meta.var for st in ring.streams))
+        self.emit(f"long long gt_klo = -{fields[0]}_ok, gt_khi = {fields[0]}_nk - {fields[0]}_ok;")
+        for v in fields[1:]:
+            self.emit(f"if (-{v}_ok > gt_klo) gt_klo = -{v}_ok;")
+            self.emit(f"if ({v}_nk - {v}_ok < gt_khi) gt_khi = {v}_nk - {v}_ok;")
+        here, clamped, copies = [], [], []
         for s, st in enumerate(ring.streams):
             m, v = st.meta, st.meta.var
             self.emit(f"const unsigned gt_q{s} = gt_sm + {st.offset}u + gt_tid * {st.pitch}u;")
@@ -2961,19 +2976,28 @@ class _Generator:
                 f"const char* const gt_g{s} = {v} + ({v}_oi + i + ({st.di})) * {v}_si"
                 f" + ({v}_oj + j + ({st.dj})) * {v}_sj;"
             )
-            copy = (
-                f"gt_cp_async{m.dtype.itemsize}(gt_q{s} + gt_s * {ring.slot_bytes}u, "
-                f"gt_g{s} + gt_clampk({v}_ok + gt_k, {v}_nk) * {v}_sk);"
-            )
+            first_k = f"gt_w0 {'+' if ring.backward else '-'} {ring.back}"
+            self.emit(f"const char* gt_a{s} = gt_g{s} + ({v}_ok + {first_k}) * {v}_sk;")
+            here.append(f"const char* gt_c{s} = gt_a{s};")
+            clamped.append(f"gt_c{s} = gt_g{s} + gt_clampk({v}_ok + gt_k, {v}_nk) * {v}_sk;")
+            copy = f"gt_cp_async{m.dtype.itemsize}(gt_q{s} + gt_s * {ring.slot_bytes}u, gt_c{s});"
             cond = self._extent_cond(st.ext, union)
             copies.append(copy if cond == "1" else f"if ({cond}) {copy}")
+        self.emit("unsigned gt_s = 0u;")
         self.emit("auto gt_fetch = [&](const int gt_f) {")
         self.indent += 1
         with self._block(f"if (gt_f < gt_wn + {ring.ahead})"):
-            self.emit(f"const long long gt_k = gt_w0 {'-' if ring.backward else '+'} gt_f;")
-            self.emit(f"const unsigned gt_s = (unsigned)(gt_f + {ring.back}) % {ring.slots}u;")
-            for c in copies:
-                self.emit(c)
+            self.emit(f"const long long gt_k = gt_w0 {step} gt_f;")
+            for line in here:
+                self.emit(line)
+            with self._block("if (__builtin_expect(gt_k < gt_klo || gt_k >= gt_khi, 0))"):
+                for line in clamped:
+                    self.emit(line)
+            for line in copies:
+                self.emit(line)
+        for s, st in enumerate(ring.streams):
+            self.emit(f"gt_a{s} {step}= {st.meta.var}_sk;")
+        self.emit(f"gt_s = gt_s == {ring.slots - 1}u ? 0u : gt_s + 1u;")
         self.emit("gt_cp_commit();")
         self.indent -= 1
         self.emit("};")

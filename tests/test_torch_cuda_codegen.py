@@ -1756,10 +1756,57 @@ def test_ring_copies_are_guarded_by_extent():
     copies = [line.strip() for line in body.splitlines() if "gt_cp_async8(" in line]
     wind = next(m.var for m in module.slots if m.name == "wind")
     inp = next(m.var for m in module.slots if m.name == "inp")
+    fields = dict(re.findall(r"const char\* const gt_g(\d+) = (\w+) \+", body))
+    field = lambda copy: fields[re.search(r"gt_cp_async8\(gt_q(\d+) ", copy).group(1)]  # noqa: E731
     guarded = [c for c in copies if c.startswith("if (i >= (0) && i < ni + (0)) gt_cp_async8(")]
     assert len(copies) == 3 and len(guarded) == 2
-    assert all(f"{wind}_sk" in c for c in guarded)
-    assert any(c.startswith("gt_cp_async8(") and f"{inp}_sk" in c for c in copies)
+    assert all(field(c) == wind for c in guarded)
+    assert any(c.startswith("gt_cp_async8(") and field(c) == inp for c in copies)
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+@pytest.mark.parametrize("name", ["vertical_advection_dycore", "tridiagonal_solver",
+                                  "narrow_offset_read"])
+def test_ring_copies_step_a_level_a_fetch(name, fuse, monkeypatch):
+    """Every ringed walk (``column``'s, ``fused_column``'s and the on-chip
+    pair's) copies each stream from an address that starts at the level of
+    its first fetch (``back`` levels behind the walk's first) and steps one
+    level a fetch, in the walk's direction, as ``gt_k`` does; the slot
+    starts at 0 and steps one a fetch, wrapping at the slots the reads
+    index. Only a level outside some stream's field (``gt_klo``, ``gt_khi``:
+    the tightest bounds of every field the walk streams) computes clamped
+    addresses, on a branch marked unlikely."""
+    monkeypatch.setenv("GT4PY_CUDA_FUSE_STAGES", "1" if fuse else "0")
+    module = _registry_backend(name).module
+    walked = set()
+    for kernel, body in _bodies(module.source).items():
+        for chunk in body.split("const long long gt_w0")[1:]:
+            chunk = chunk.split("const long long gt_w0")[0]
+            fetch = chunk.split("auto gt_fetch")[1].split("};")[0]
+            (start,) = re.findall(r"for \(int gt_f = (-?\d+); gt_f < \d+; \+\+gt_f\) gt_fetch", chunk)
+            back = -int(start)
+            (sign,) = re.findall(r"const long long gt_k = gt_w0 ([+-]) gt_f;", fetch)
+            behind = "-" if sign == "+" else "+"
+            streams = dict(re.findall(r"const char\* const gt_g(\d+) = (\w+) \+", chunk))
+            assert streams, kernel
+            for q, v in streams.items():
+                assert f"const char* gt_a{q} = gt_g{q} + ({v}_ok + gt_w0 {behind} {back}) * {v}_sk;" in chunk
+                assert fetch.count(f"gt_a{q} {sign}= {v}_sk;") == 1
+                assert re.search(rf"gt_cp_async\d\(gt_q{q} \+ gt_s \* \d+u, gt_c{q}\);", fetch)
+            fields = set(streams.values())
+            first = re.search(r"long long gt_klo = -(\w+)_ok, gt_khi = (\w+)_nk - \w+_ok;", chunk).groups()
+            assert first[0] == first[1] and first[0] in fields
+            for v in fields - {first[0]}:
+                assert f"if (-{v}_ok > gt_klo) gt_klo = -{v}_ok;" in chunk
+                assert f"if ({v}_nk - {v}_ok < gt_khi) gt_khi = {v}_nk - {v}_ok;" in chunk
+            edge = fetch.split("if (__builtin_expect(gt_k < gt_klo || gt_k >= gt_khi, 0)) {")[1]
+            edge = edge.split("}")[0]
+            assert fetch.count("gt_clampk(") == edge.count("gt_clampk(") == len(streams)
+            assert "unsigned gt_s = 0u;" in chunk
+            (last,) = re.findall(r"gt_s = gt_s == (\d+)u \? 0u : gt_s \+ 1u;", fetch)
+            assert set(re.findall(r"\(unsigned\)\(gt_p \+ \d+\) % (\d+)u", chunk)) == {str(int(last) + 1)}
+            walked.add(kernel)
+    assert walked == set(module.ring_bytes)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -1871,8 +1918,8 @@ def _walk_rings(body):
         }
         sizes = dict((q, int(n)) for n, q in re.findall(r"gt_cp_async(\d)\(gt_q(\d+) ", chunk))
         (slot_bytes,) = set(re.findall(r"\+ gt_s \* (\d+)u", chunk))
-        (slots,) = re.findall(r"const unsigned gt_s = \(unsigned\)\(gt_f \+ \d+\) % (\d+)u;", chunk)
-        walks.append((int(slots), int(slot_bytes), [(*streams[q], sizes[q]) for q in streams]))
+        (last,) = re.findall(r"gt_s = gt_s == (\d+)u \? 0u : gt_s \+ 1u;", chunk)
+        walks.append((int(last) + 1, int(slot_bytes), [(*streams[q], sizes[q]) for q in streams]))
     return walks
 
 
@@ -2523,6 +2570,35 @@ def test_on_chip_pair_chain_as_a_graph_on_card(dtype, monkeypatch):
     torch.cuda.synchronize()
     for n in host:
         assert _same_bits(chained[n].array, cur[n].array), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_on_chip_pair_spills_nothing_and_keeps_its_blocks_on_card(dtype):
+    """ptxas fits vadv's ringed kernels, the on-chip pair and the two
+    ``column`` kernels it replaces, without a byte of spill stores or
+    loads, and the pair's registers leave it the blocks an SM that its
+    shared memory gives at the benchmark's 80 levels (the rule's count: 4
+    of 64 columns in float32, 2 in float64)."""
+    import importlib.util
+    import os
+
+    _need_card()
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(__file__)), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    st = gtscript.stencil(backend="cuda:hopper", rebuild=True, **_vadv_options(dtype))
+    module = st._backend.module
+    oc = module.on_chip["gt_launch_0"]
+    cuda_backend.load_library(module.source)
+    report = smoke.ptxas_report(module.source, cuda_backend)
+    for kernel in (oc.kernel, "gt_column_0_r", "gt_column_1_r"):
+        registers, stores, loads = report[kernel]
+        assert (stores, loads) == (0, 0), (kernel, registers)
+    by_shared = cuda_codegen.SM_SHARED_BYTES // (oc.shared_bytes(80) + cuda_codegen.BLOCK_RESERVED_BYTES)
+    assert by_shared == {np.float32: 4, np.float64: 2}[dtype]
+    assert smoke.residency(module.source, cuda_backend, module.on_chip, 80)[oc.kernel] == by_shared
 
 
 @pytest.mark.cuda
