@@ -106,6 +106,14 @@ swap cycle of the kernels as a CUDA graph.
    backend and ``cuda:hopper`` (the generated gather-reduce kernel), each
    against the plain reference (perfbench/reference/fvm_pnabla.py), µs a
    call by CUDA events.
+   7e. ICON's diffusion of ``vn`` (perfbench/programs/icon_diffusion_vn.py) at
+   the benchmark's size, 1,720,320 edges x 80 levels in float64: one
+   ``diffusion_vn`` call through ``make_program("cuda:hopper")`` from launch
+   counts of 0 launches the ``neighbor`` kernel exactly five times and
+   nothing else, with no decline of the lowering and no call run eagerly;
+   all seven written fields equal the plain reference
+   (perfbench/reference/icon_diffusion_vn.py) to the bit; µs a step by
+   CUDA events.
 
 8. Oracle phases, on the card's host: the port's ``numpy`` backend
    (the exact oracle, NumPy on CPU tensors) holds every registry build of
@@ -236,6 +244,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import os
 import subprocess
@@ -457,7 +466,7 @@ def main(argv) -> int:
                 f"(one call and chain({CHAIN_STEPS}))"
             )
         served |= {k for k, n in counts.items() if n}
-    # the field view's unstructured kernels: step 7d's
+    # the field view's unstructured kernels: steps 7d and 7e
     missing = set(cuda_backend.WRAPPERS) - served - {cuda_backend.NEIGHBOR.name}
     if missing:
         raise AssertionError(f"kernels never launched on a main path: {sorted(missing)}")
@@ -734,6 +743,20 @@ def main(argv) -> int:
             print(f"  {pb['vertices']:8d} vertices x {pb['levels']} levels  {way:12s} "
                   f"{pb[way]['us']:10.2f} us  max rel err {pb[way]['rel_err']:.3e}  "
                   f"gt_neighbor launches {pb[way]['launches']}")
+
+    # -- 7e. ICON's diffusion of vn at the benchmark's size: five kernels, to the bit ----
+    torch.cuda.empty_cache()
+    icon = run_icon(*ICON, torch)
+    print(f"ICON diffusion of vn (perfbench's icon_diffusion_vn_1m_l80_f64: {icon['edges']} "
+          f"edges x {icon['levels']} levels, float64), one diffusion_vn call on cuda:hopper "
+          f"from launch counts of 0, on {smi}: kernels {icon['launches']}, declines "
+          f"{icon['declines']}, card calls run eagerly {icon['refused']}; == "
+          f"perfbench/reference/icon_diffusion_vn.py to the bit, max rel err "
+          + ", ".join(f"{r} {e:.3e}" for r, e in icon["rel_err"].items())
+          + f"; {icon['us']:.1f} us a step by CUDA events over 10 warm calls (replays) "
+          f"({icon['warm_launches']} launches)")
+    gc.collect()  # the step's fields and graphs
+    torch.cuda.empty_cache()
 
     # -- 8. the oracles on the host: debug, and numpy and cpu:c at full width ----------
     t0 = time.perf_counter()
@@ -2253,6 +2276,97 @@ def run_pnabla(n: int, nk: int, torch, device="cuda") -> dict:
             raise AssertionError(f"pnabla on {way}: {launched} launches of the neighbor kernel")
         out[way] = {"us": us, "rel_err": err, "launches": launched}
     return out
+
+
+#: step 7e's ICON diffusion of vn: the benchmark's torus and levels
+#: (perfbench/configs/icon_diffusion_vn_1m_l80_f64.json)
+ICON = (1024, 560, 80)
+
+
+def run_icon(nx: int, ny: int, nk: int, torch, device="cuda") -> dict:
+    """ICON's diffusion of ``vn`` (perfbench/programs/icon_diffusion_vn.py)
+    on the ``nx`` x ``ny`` torus of ``nk`` levels in float64: one
+    ``diffusion_vn`` call through ``make_program("cuda:hopper")`` from
+    launch counts of 0 must launch the ``neighbor`` kernel exactly five
+    times and nothing else, serve five calls by the lowering, and count no
+    decline of it (``unstructured_codegen.declined``) and no card call run
+    eagerly (``otf.graphs_refused``); each of the seven written fields must
+    equal the plain reference (perfbench/reference/icon_diffusion_vn.py) on
+    the same ``vn`` to the bit. Then, after two calls that capture and
+    replay the graphs, µs a step by CUDA events over 10 warm calls, each
+    five launches (``device="cpu"``: the lowering's plain path, no launch,
+    the host clock; a rehearsal)."""
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+    from gt4py_tpu_torch.next import otf
+    from gt4py_tpu_torch.next import unstructured_codegen as uc
+    from perfbench import spec
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    program = spec.load_module(root, "programs", "icon_diffusion_vn")
+    reference = spec.load_module(root, "reference", "icon_diffusion_vn")
+    config = spec.load_json(os.path.join(root, "perfbench", "configs",
+                                         "icon_diffusion_vn_1m_l80_f64.json"))
+    if (nx, ny, nk) != (config["mesh_nx"], config["mesh_ny"], config["levels"]):
+        config = program.small_config(config, nx, ny, nk)
+    fields = {r: torch.zeros(f["shape"], dtype=torch.float64, device=device)
+              for r, f in config["fields"].items()}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+    fields["vn"] = torch.rand(fields["vn"].shape, generator=gen, device=device,
+                              dtype=torch.float64)
+    vn0 = fields["vn"].clone()
+    kwargs, provider = program.operands(config, fields)
+    step = program.make_program("cuda:hopper")
+    on_card = device == "cuda"
+
+    def counts() -> tuple:
+        return (sum(uc.declined.values()), sum(otf.graphs_refused.values()),
+                uc.calls_served["neighbor"])
+
+    for wrapper in cuda_backend.WRAPPERS.values():
+        wrapper.launches = 0
+    before = counts()
+    step(**kwargs, offset_provider=provider)
+    if on_card:
+        torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in cuda_backend.WRAPPERS.items() if w.launches}
+    declines, refused, served = (b - a for a, b in zip(before, counts()))
+    if launches != ({cuda_backend.NEIGHBOR.name: 5} if on_card else {}) or declines \
+            or refused or served != 5:
+        raise AssertionError(f"ICON diffusion at {nx}x{ny}x{nk}: launches {launches}, "
+                             f"{declines} declines, {refused} calls run eagerly, {served} "
+                             f"calls served by the lowering, not 5")
+    want = reference.step({"vn": vn0}, config)
+    errs = {}
+    for role in program.WRITTEN:
+        got, ref = fields[role], want[role]
+        errs[role] = float((got - ref).abs().max() / ref.abs().max())
+        if not torch.equal(got, ref):
+            raise AssertionError(f"ICON diffusion at {nx}x{ny}x{nk}: {role} differs from the "
+                                 f"reference (max rel err {errs[role]:.3e})")
+    del want, vn0
+    for _ in range(2):  # the graphs' capture and first replay
+        step(**kwargs, offset_provider=provider)
+    calls = 10
+    before = cuda_backend.NEIGHBOR.launches
+    if on_card:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            step(**kwargs, offset_provider=provider)
+        end.record()
+        end.synchronize()
+        us = start.elapsed_time(end) / calls * 1e3
+    else:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            step(**kwargs, offset_provider=provider)
+        us = (time.perf_counter() - t0) / calls * 1e6
+    warm = cuda_backend.NEIGHBOR.launches - before
+    if warm != (5 * calls if on_card else 0):
+        raise AssertionError(f"ICON diffusion: {warm} launches in {calls} warm calls")
+    return {"edges": 3 * nx * ny, "levels": nk, "launches": launches, "declines": declines,
+            "refused": refused, "rel_err": errs, "us": us, "warm_launches": warm}
 
 
 # -- the oracle and profiler phases ----------------------------------------------

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 from typing import Any, Callable, Optional, Union
 
 import numpy as np
@@ -46,7 +47,7 @@ import torch.utils._pytree as pytree
 from gt4py_tpu_torch.core.definitions import promote_types
 from gt4py_tpu_torch.core.ndarray_utils import torch_dtype
 from gt4py_tpu_torch.next import otf
-from gt4py_tpu_torch.next.common import Dimension, Domain, NamedRange
+from gt4py_tpu_torch.next.common import Dimension, DimensionKind, Domain, NamedRange
 from gt4py_tpu_torch.next.embedded import (
     Bf16Array,
     Field,
@@ -111,6 +112,22 @@ def shares_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
     from gt4py_tpu_torch.cartesian.backend.cuda_backend import overlapping
 
     return a.device == b.device and bool(overlapping({"a": a, "b": b}))
+
+
+def _updates_in_place(args: tuple, kwargs: dict, out: Any) -> bool:
+    """Whether an out field's tensor starts where an argument's does (an
+    update in place, ``op(..., vn, out=vn)``) and no field spans two
+    horizontal dimensions (a cartesian operator's, which the bridge serves
+    first)."""
+    def tensors(xs):
+        return [f for f in xs if isinstance(f, Field) and isinstance(f.ndarray, torch.Tensor)]
+
+    outs = tensors(out if isinstance(out, tuple) else (out,))
+    starts = {o.ndarray.data_ptr() for o in outs}
+    ins = [a for a in tensors(itertools.chain(args, kwargs.values()))
+           if a.ndarray.data_ptr() in starts]
+    return bool(ins) and not any(
+        sum(d.kind == DimensionKind.HORIZONTAL for d in f.domain.dims) > 1 for f in ins + outs)
 
 
 def _write_out(result: Any, out: Any, domain: Optional[Domain]) -> None:
@@ -396,8 +413,6 @@ class FieldOperator:
         first call (reference AOT compile(), decorator.py:161). A LIST
         value for a declared static parameter enumerates variants — the
         cross product of all such lists is built. Returns self."""
-        import itertools
-
         from gt4py_tpu_torch.next.backend import backend_kind
 
         # out= and domain= are not arguments of the definition: a call keys
@@ -438,6 +453,7 @@ class FieldOperator:
             # (through the callee's own FOAST pipeline, so transforms
             # compose across nested operator calls).
             return exec_definition(self)(*args, **kwargs)
+        OPERATOR_CALLS[0] += 1
         if self.type_info is not None:
             from gt4py_tpu_torch.next.type_deduction import check_call_args, check_out_arg
 
@@ -469,17 +485,25 @@ class FieldOperator:
                     from gt4py_tpu_torch.next.backend import cartesian_backend
                     from gt4py_tpu_torch.next.cartesian_bridge import try_call
 
+                    # the generated gather-reduce kernel (next/unstructured_codegen.py)
+                    # takes what the bridge refuses for connectivities, and first
+                    # an update in place, which it writes without the copy of the
+                    # argument the bridge takes; the provider is the call's, or
+                    # the program's it is called in
+                    in_place = _updates_in_place(args, kwargs, out)
+                    provider = current_offset_provider()
+                    neighbor = functools.partial(
+                        unstructured_codegen.try_call, self, args, kwargs, out, dom, provider,
+                        None if kind == "pallas" else functools.partial(
+                            self._aot_neighbor, args, kwargs, out, provider))
+                    if in_place and neighbor():
+                        return
                     make = None if kind == "pallas" else functools.partial(
-                        self._aot_variant, args, kwargs, out, offset_provider)
+                        self._aot_variant, args, kwargs, out, provider)
                     if dom is None and try_call(self, args, kwargs, out, offset_provider,
                                                 cartesian_backend(self.backend), make):
                         return
-                    # what the bridge refuses for connectivities: the generated
-                    # gather-reduce kernel (next/unstructured_codegen.py)
-                    make = None if kind == "pallas" else functools.partial(
-                        self._aot_neighbor, args, kwargs, out, offset_provider)
-                    if unstructured_codegen.try_call(self, args, kwargs, out, dom,
-                                                     offset_provider, make):
+                    if not in_place and neighbor():
                         return
                     result = exec_definition(self)(*args, **kwargs)
                 elif kind == "eager":
@@ -641,6 +665,8 @@ class ScanOperator:
             )
         from gt4py_tpu_torch.next.backend import backend_kind
 
+        if out is not None:
+            OPERATOR_CALLS[0] += 1
         dom = _make_domain(domain)
         kind = backend_kind(self.backend)
         if out is not None and (kind == "numpy" or in_numpy_mode()):
@@ -975,7 +1001,7 @@ class Program:
             _write_back_bf16((args, kwargs), (np_args, np_kwargs))
             return
         definition = exec_program(self)
-        with offset_provider_context(offset_provider):
+        with offset_provider_context(offset_provider), _ProgramSpan(self, args, kwargs):
             if backend_kind(self.backend) == "eager" and otf.serve(
                     lambda: _graphs(self, "program"), (args, kwargs), current_offset_provider(),
                     lambda: functools.partial(_run_inline, definition, args, kwargs)):
@@ -987,6 +1013,61 @@ class Program:
         state.pop("_past_cache", None)  # generated functions do not pickle
         state.pop("_graphs", None)
         return state
+
+
+#: field-operator and scan-operator calls with ``out=`` made so far (a
+#: program's span counts those its call makes)
+OPERATOR_CALLS = [0]
+
+
+def _kernel_launches() -> int:
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+
+    return sum(w.launches for w in cuda_backend.WRAPPERS.values())
+
+
+class _ProgramSpan:
+    """The root span ``gt4py.next.program`` of a program's call on card
+    tensors, where a span records (``instrumentation.spans.span``): its
+    attributes ``operators`` (the operator calls the program made) and
+    ``launches`` (the port's kernels launched or replayed in it,
+    ``cuda_backend.WRAPPERS``). The operators' ``gt4py.next.call`` spans
+    nest under it. Nothing on CPU tensors or where no span records."""
+
+    __slots__ = ("span", "operators", "launches")
+
+    def __init__(self, prog: Program, args: tuple, kwargs: dict):
+        from gt4py_tpu_torch.instrumentation.spans import NO_SPAN, span
+
+        self.span = span("gt4py.next.program",
+                         source=getattr(prog.definition, "__name__", "program"))
+        if self.span is NO_SPAN or not _on_card((args, kwargs)):
+            self.span = None
+
+    def __enter__(self) -> "_ProgramSpan":
+        if self.span is not None:
+            self.span.__enter__()
+            self.operators, self.launches = OPERATOR_CALLS[0], _kernel_launches()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self.span is None:
+            return False
+        self.span.set("operators", OPERATOR_CALLS[0] - self.operators)
+        self.span.set("launches", _kernel_launches() - self.launches)
+        return self.span.__exit__(*exc)
+
+
+def _on_card(tree: Any) -> bool:
+    """Whether a Field in ``tree`` (tuples, lists, dicts) holds a tensor on a
+    card (``otf.on_card``)."""
+    if isinstance(tree, Field):
+        return isinstance(tree.ndarray, torch.Tensor) and otf.on_card(tree.ndarray.device)
+    if isinstance(tree, dict):
+        tree = tree.values()
+    elif not isinstance(tree, (tuple, list)):
+        return False
+    return any(_on_card(x) for x in tree)
 
 
 def _run_inline(definition: Callable, args: tuple, kwargs: dict) -> None:

@@ -4,6 +4,9 @@ Copied from gt4py_tpu/next/mesh_utils.py; imports renamed:
 
 - :func:`periodic_quad_mesh` — the periodic ``n x n`` quad mesh of the
   FVM-nabla workload (bench.py's unstructured rows).
+- :func:`periodic_triangle_mesh` — ICON's planar torus of equilateral
+  triangles with ICON's connectivity tables (the port's own: the ICON
+  diffusion benchmark's mesh).
 - :func:`spatial_renumbering` — row-major (optionally tiled) numbering
   from element coordinates.
 - :class:`Renumbering` — applies a permutation consistently to
@@ -31,6 +34,7 @@ from gt4py_tpu_torch.next.common import Connectivity, Dimension
 __all__ = [
     "Renumbering",
     "periodic_quad_mesh",
+    "periodic_triangle_mesh",
     "spatial_renumbering",
 ]
 
@@ -67,6 +71,62 @@ def periodic_quad_mesh(n: int):
     v2e[:, 3] = nv + vid(i, j - 1)
     signs = np.tile(np.asarray([1.0, -1.0, 1.0, -1.0]), (nv, 1))
     return e2v, v2e, signs
+
+def periodic_triangle_mesh(nx: int, ny: int) -> dict:
+    """ICON's planar torus (the port's own, periodic_triangle_mesh): a
+    periodic triangular mesh of ``nx * ny`` vertices, ``3 * nx * ny``
+    edges and ``2 * nx * ny`` cells, every vertex of degree 6, in
+    row-major numbering. Vertex ``(r, c)`` (row ``r < ny``, column
+    ``c < nx``, both wrapping) is ``r * nx + c``; it owns edges
+    ``3v + d``: ``d = 0`` to ``(r, c + 1)``, ``1`` to ``(r + 1, c)``, ``2``
+    to ``(r + 1, c - 1)`` (at 0, 60 and 120 degrees on the sheared
+    lattice); and cells ``2v`` (up: ``(r, c)``, ``(r, c + 1)``, ``(r + 1, c)``)
+    and ``2v + 1`` (down: ``(r, c + 1)``, ``(r + 1, c + 1)``, ``(r + 1, c)``).
+    Needs ``nx, ny >= 3``.
+    Returns int64 tables by ICON's offset names: ``E2V`` (an edge's ends),
+    ``E2C`` (its two cells), ``C2E`` (a cell's three edges), ``V2E`` (a
+    vertex's six edges, counter-clockwise from 0 degrees; no skip values
+    on a torus), ``E2C2V`` (the edge's two ends, then the vertex opposite
+    the edge in ``E2C[0]`` and in ``E2C[1]``, as in ICON) and ``E2ECV``
+    (``4e + i``: an edge's four slots of the edge-to-cell-vertex fields).
+    """
+    if nx < 3 or ny < 3:
+        raise ValueError(f"periodic_triangle_mesh needs nx, ny >= 3, got {nx} x {ny}")
+    nv = nx * ny
+    r, c = np.divmod(np.arange(nv, dtype=np.int64), nx)
+
+    def vid(rr, cc):
+        return (rr % ny) * nx + (cc % nx)
+
+    def up(rr, cc):
+        return 2 * vid(rr, cc)
+
+    def down(rr, cc):
+        return 2 * vid(rr, cc) + 1
+
+    ne = 3 * nv
+    e2v = np.empty((ne, 2), dtype=np.int64)
+    e2c = np.empty((ne, 2), dtype=np.int64)
+    e2c2v = np.empty((ne, 4), dtype=np.int64)
+    ends = (vid(r, c + 1), vid(r + 1, c), vid(r + 1, c - 1))
+    cells = ((up(r, c), down(r - 1, c)), (up(r, c), down(r, c - 1)),
+             (down(r, c - 1), up(r, c - 1)))
+    opposite = ((vid(r + 1, c), vid(r - 1, c + 1)), (vid(r, c + 1), vid(r + 1, c - 1)),
+                (vid(r + 1, c), vid(r, c - 1)))
+    for d in range(3):
+        e2v[d::3, 0] = vid(r, c)
+        e2v[d::3, 1] = ends[d]
+        e2c[d::3, 0], e2c[d::3, 1] = cells[d]
+        e2c2v[d::3, :2] = e2v[d::3]
+        e2c2v[d::3, 2], e2c2v[d::3, 3] = opposite[d]
+    c2e = np.empty((2 * nv, 3), dtype=np.int64)
+    c2e[0::2] = np.stack([3 * vid(r, c), 3 * vid(r, c) + 1, 3 * vid(r, c + 1) + 2], axis=1)
+    c2e[1::2] = np.stack([3 * vid(r, c + 1) + 1, 3 * vid(r + 1, c), 3 * vid(r, c + 1) + 2],
+                         axis=1)
+    v2e = np.stack([3 * vid(r, c), 3 * vid(r, c) + 1, 3 * vid(r, c) + 2, 3 * vid(r, c - 1),
+                    3 * vid(r - 1, c) + 1, 3 * vid(r - 1, c + 1) + 2], axis=1)
+    e2ecv = 4 * np.arange(ne, dtype=np.int64)[:, None] + np.arange(4, dtype=np.int64)
+    return {"E2V": e2v, "E2C": e2c, "C2E": c2e, "V2E": v2e, "E2C2V": e2c2v, "E2ECV": e2ecv}
 
 
 def spatial_renumbering(

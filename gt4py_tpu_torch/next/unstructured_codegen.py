@@ -3,7 +3,7 @@
 The ``cuda:hopper`` field-view backend's path for the operators that the
 cartesian bridge refuses because they shift through connectivities: the
 gather-reduce operators of unstructured-mesh models (the FVM nabla of
-gt4py's ``test_fvm_nabla.py``, ICON's edge and vertex sums). It replaces no
+gt4py's ``test_fvm_nabla.py``, ICON's diffusion of ``vn``). It replaces no
 TPU kernel: the JAX package runs these operators as XLA gathers, and the
 port ran them as embedded ``torch`` operations until this lowering.
 
@@ -15,13 +15,25 @@ horizontal dimension and one level of ``K``. The subset it takes:
 
 - arithmetic (``+ - * /``, unary ``-``) on fields over one horizontal
   dimension, with or without the vertical one, plus scalars and literals;
+  a field over ``K`` alone (ICON's vertical profiles) is a value of each
+  level, broadcast over the horizontal dimension;
+- ``sqrt`` (rounded to nearest), ``maximum`` and ``minimum`` (a NaN operand
+  gives NaN, as ``torch.maximum``/``torch.minimum``);
 - shifts through fixed-width connectivities, indexed (``pp(E2V[0])``) or
   whole (``zavgS(V2E)``, which adds the local dimension); an intermediate
   on the source domain (the FVM nabla's edge value ``zavg * S``) is
   recomputed inline at each neighbor and never written to memory;
 - ``neighbor_sum`` over the local dimension, a table entry equal to the
   connectivity's ``skip_value`` counting as absent;
-- nested field operators (inlined), tuple returns and tuple locals.
+- nested field operators (inlined), tuple returns and tuple locals;
+- an operator with no shift whose fields all lie over the output's
+  horizontal dimension (ICON's update of ``vn``);
+- an ``out`` that is an argument the operator reads only at the output's
+  own element, as the same view (``apply(..., vn, out=vn)``): each thread
+  reads the element before it writes it, through a plain pointer
+  (:meth:`NeighborProgram.aliased`). ``FieldOperator.__call__`` offers such
+  an update in place here before the cartesian bridge, which would copy the
+  argument first.
 
 Anything else is declined (:class:`Declined`), its reason counted in
 :data:`declined` by the constants ``DECLINED_*``; the call then runs
@@ -86,15 +98,17 @@ __all__ = ["Declined", "NeighborProgram", "declined", "lower", "try_call"]
 
 #: why an operator is declined (each counted in :data:`declined`)
 DECLINED_CONSTRUCT = "a construct outside the lowering's subset"
-DECLINED_BUILTIN = "a builtin other than neighbor_sum"
+DECLINED_BUILTIN = "a builtin other than neighbor_sum, sqrt, maximum and minimum"
 DECLINED_OFFSET = "an offset that is not a connectivity of fixed width"
 DECLINED_SKIP = "a skip value outside a neighbor reduction"
 DECLINED_DIMS = "more than one horizontal, vertical or local dimension"
 DECLINED_DTYPE = "a dtype other than one of float32 and float64"
 DECLINED_DOMAIN = "a domain= or a field not starting at index 0"
 DECLINED_OUT = "an out that does not match the returned fields"
-DECLINED_ALIAS = "an out field that shares memory with an argument"
-DECLINED_NO_CONNECTIVITY = "no shift through a connectivity"
+DECLINED_ALIAS = "an out field that shares memory with an argument read at other elements, " \
+    "or with another out"
+DECLINED_NO_CONNECTIVITY = "no shift through a connectivity, and a field over another " \
+    "horizontal dimension than the output's"
 DECLINED_CAPTURE = "a table rebound or rewritten while a CUDA graph captures"
 DECLINES = (DECLINED_CONSTRUCT, DECLINED_BUILTIN, DECLINED_OFFSET, DECLINED_SKIP, DECLINED_DIMS,
             DECLINED_DTYPE, DECLINED_DOMAIN, DECLINED_OUT, DECLINED_ALIAS,
@@ -142,7 +156,8 @@ class Declined(Exception):
 #   ("valid", conn, row, col)              raw != the table's skip value
 #   ("nbr", conn, row, col)                the entry, 0 where it is absent
 #   ("load", field, row, col, has_k)       a field's value (col: local slot)
-#   ("bin", op, a, b), ("neg", a)
+#   ("bin", op, a, b), ("neg", a)          op: + - * / max min
+#   ("fn", name, a)                        a math function (sqrt)
 #   ("sel", cond, a)                       a where cond, else 0
 #   ("sum", terms), ("and", conds)
 
@@ -158,6 +173,8 @@ def _varies_k(node, memo: dict) -> bool:
         out = _varies_k(node[2], memo) or _varies_k(node[3], memo)
     elif kind in ("neg",):
         out = _varies_k(node[1], memo)
+    elif kind == "fn":
+        out = _varies_k(node[2], memo)
     elif kind == "sel":
         out = _varies_k(node[2], memo)
     elif kind == "sum":
@@ -278,7 +295,10 @@ class _Lowering:
         hdims = [d for d in value.dims if d.kind == DimensionKind.HORIZONTAL]
         kdims = [d for d in value.dims if d.kind == DimensionKind.VERTICAL]
         ldims = [d for d in value.dims if d.kind == DimensionKind.LOCAL]
-        if len(hdims) != 1 or len(kdims) > 1 or len(ldims) > 1:
+        # a field over K alone is a value of each level, broadcast over the
+        # horizontal dimension (ICON's vertical profiles)
+        k_only = not hdims and len(kdims) == 1 and not ldims
+        if (len(hdims) != 1 and not k_only) or len(kdims) > 1 or len(ldims) > 1:
             raise Declined(DECLINED_DIMS, f"argument '{name}' over {value.dims}")
         if any(r.unit_range.start != 0 for r in value.domain.ranges):
             raise Declined(DECLINED_DOMAIN, f"argument '{name}' over {value.domain}")
@@ -293,7 +313,7 @@ class _Lowering:
             col = loc[local] if local is not None else None
             return ("load", slot, row, col, has_k)
 
-        return _Val(hdims[0], local, has_k, at, width=width)
+        return _Val(hdims[0] if hdims else None, local, has_k, at, width=width)
 
     def scalar_arg(self, name: str, value):
         if isinstance(value, (bool, np.bool_)) or not isinstance(value, (int, float, np.floating)):
@@ -393,37 +413,37 @@ class _Lowering:
         raise Declined(DECLINED_CONSTRUCT, "arithmetic on a value that is no field or number")
 
     def binary(self, op: str, a, b):
-        a, b = self.numeric(a), self.numeric(b)
-        if not isinstance(a, _Val) and not isinstance(b, _Val):
-            return ("bin", op, a, b)
-        va, vb = (a if isinstance(a, _Val) else None), (b if isinstance(b, _Val) else None)
-        hdims = {v.hdim for v in (va, vb) if v is not None}
-        locals_ = {v.local for v in (va, vb) if v is not None and v.local is not None}
-        if len(hdims) > 1 or len(locals_) > 1:
-            raise Declined(DECLINED_DIMS, f"{op} of fields over {sorted(d.value for d in hdims)}")
-        widths = {v.width for v in (va, vb) if v is not None and v.local is not None}
-        if len(widths) > 1:
-            raise Declined(DECLINED_DIMS, f"{op} over local dimensions of widths {widths}")
-
-        def node(v, row, loc):
-            return v.at(row, loc) if isinstance(v, _Val) else v
-
-        def at(row, loc):
-            return ("bin", op, node(a, row, loc), node(b, row, loc))
-
-        def conds(row, loc):
-            return tuple(c for v in (va, vb) if v is not None for c in v.conds(row, loc))
-
-        return _Val(hdims.pop(), locals_.pop() if locals_ else None,
-                    any(v.has_k for v in (va, vb) if v is not None), at, conds,
-                    widths.pop() if widths else None)
+        return self.combine(("bin", op), (a, b), op)
 
     def unary(self, value):
-        value = self.numeric(value)
-        if not isinstance(value, _Val):
-            return ("neg", value)
-        return _Val(value.hdim, value.local, value.has_k,
-                    lambda row, loc: ("neg", value.at(row, loc)), value.conds, value.width)
+        return self.combine(("neg",), (value,), "-")
+
+    def combine(self, head: tuple, operands: tuple, what: str):
+        """The node ``head + operands`` of numbers and field values: a field
+        value where any operand is one, over the operands' horizontal
+        dimension (a field over ``K`` alone takes the others') and local
+        dimension."""
+        operands = tuple(self.numeric(v) for v in operands)
+        vals = [v for v in operands if isinstance(v, _Val)]
+        if not vals:
+            return head + operands
+        hdims = {v.hdim for v in vals if v.hdim is not None}
+        locals_ = {v.local for v in vals if v.local is not None}
+        if len(hdims) > 1 or len(locals_) > 1:
+            raise Declined(DECLINED_DIMS,
+                           f"{what} of fields over {sorted(d.value for d in hdims)}")
+        widths = {v.width for v in vals if v.local is not None}
+        if len(widths) > 1:
+            raise Declined(DECLINED_DIMS, f"{what} over local dimensions of widths {widths}")
+
+        def at(row, loc):
+            return head + tuple(v.at(row, loc) if isinstance(v, _Val) else v for v in operands)
+
+        def conds(row, loc):
+            return tuple(c for v in vals for c in v.conds(row, loc))
+
+        return _Val(hdims.pop() if hdims else None, locals_.pop() if locals_ else None,
+                    any(v.has_k for v in vals), at, conds, widths.pop() if widths else None)
 
     def call(self, e, scope: dict, names: dict):
         from gt4py_tpu_torch.next import fbuiltins
@@ -447,6 +467,14 @@ class _Lowering:
             axis = kwargs["axis"]
             axis = axis[1] if isinstance(axis, tuple) and axis and axis[0] == "global" else None
             return self.reduce(args[0], axis)
+        head = next((h for f, h in ((fbuiltins.sqrt, ("fn", "sqrt")),
+                                    (fbuiltins.maximum, ("bin", "max")),
+                                    (fbuiltins.minimum, ("bin", "min"))) if target is f), None)
+        if head is not None:
+            args = tuple(self.expr(a, scope, names) for a in e.args)
+            if e.kwargs or len(args) != (1 if head[0] == "fn" else 2):
+                raise Declined(DECLINED_CONSTRUCT, f"'{target.__name__}''s arguments")
+            return self.combine(head, args, target.__name__)
         definition = getattr(target, "definition", None)
         if definition is not None and hasattr(target, "transform_options") \
                 and not hasattr(target, "axis"):
@@ -472,7 +500,7 @@ class _Lowering:
             raise Declined(DECLINED_OFFSET, f"{offset!r}")
         if fo.source == fo.target[0] or len(fo.target) != 2:
             raise Declined(DECLINED_OFFSET, f"'{fo.value}' is cartesian")
-        if value.hdim != fo.source:
+        if value.hdim not in (fo.source, None):
             raise Declined(DECLINED_DIMS, f"'{fo.value}' shifts a field over {value.hdim.value}")
         slot = self.conn_slot(fo.value, fo)
         spec = self.conns[slot]
@@ -520,7 +548,7 @@ class _Lowering:
 
 def _is_node(value) -> bool:
     return isinstance(value, tuple) and bool(value) and isinstance(value[0], str) \
-        and value[0] in ("const", "scalar", "bin", "neg")
+        and value[0] in ("const", "scalar", "bin", "neg", "fn")
 
 
 # --- the program ------------------------------------------------------------------
@@ -552,11 +580,33 @@ class NeighborProgram:
     table_strides: list = dataclasses.field(default_factory=list)
     #: the kernel's index type: ``int`` where every offset fits in 32 bits
     index: str = "long long"
+    #: the field slots read only at the output's own element
+    #: (:func:`_read_at_own_element`)
+    own_only: frozenset = frozenset()
+    #: (field slot, out index) pairs that share one buffer as the same view
+    #: (:meth:`aliased`): their pointers are not ``__restrict__``
+    aliases: tuple = ()
     #: the variant key it was lowered for (:func:`variant_key`)
     key: Any = None
     kernel: str = ""
     source: str = ""
     _fn: Any = dataclasses.field(default=None, repr=False)
+    _aliased: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def aliased(self, pairs: tuple) -> "NeighborProgram":
+        """This program where each (field slot, out index) of ``pairs`` is one
+        buffer, the same view: each slot is one of :attr:`own_only`, so a
+        thread writes the element only after reading it; the generated
+        kernel reads such a field through a plain pointer (no ``__ldg``,
+        no ``__restrict__``)."""
+        if not pairs:
+            return self
+        hit = self._aliased.get(pairs)
+        if hit is None:
+            hit = dataclasses.replace(self, aliases=pairs, _fn=None, _aliased={})
+            hit.source, hit.kernel = generate(hit)
+            self._aliased[pairs] = hit
+        return hit
 
     # -- binding a call -------------------------------------------------------------
 
@@ -572,9 +622,8 @@ class NeighborProgram:
         return ins, outs, tables
 
     def run_plain(self, values, outs, scalars, providers) -> None:
-        """The plain ``torch`` version: the DAG's nodes as tensor operations,
-        the sums over neighbors as a reduction of the stacked terms, as the
-        embedded ``neighbor_sum`` takes them."""
+        """The plain ``torch`` version: the DAG's nodes as tensor operations
+        in the kernel's order, the sums over neighbors added one by one."""
         device = outs[0].ndarray.device
         ins, out_t, tables = self.tensors(values, outs, providers, device)
         tdtype = _torch_dtype(self.dtype)
@@ -602,6 +651,9 @@ class NeighborProgram:
                     out = raw != skip
                 else:
                     out = torch.where(raw != skip, raw, torch.zeros_like(raw))
+            elif kind == "load" and not any(d.kind == DimensionKind.HORIZONTAL
+                                            for d in self.fields[node[1]].dims):
+                out = ins[node[1]][:self.nk].unsqueeze(0)  # a field over K alone
             elif kind == "load":
                 t = ins[node[1]][ev(node[2])]
                 if node[3] is not None:
@@ -609,10 +661,12 @@ class NeighborProgram:
                 out = t[:, :self.nk] if node[4] else t.unsqueeze(1)
             elif kind == "bin":
                 a, b = ev(node[2]), ev(node[3])
-                out = {"+": torch.add, "-": torch.sub, "*": torch.mul,
-                       "/": torch.div}[node[1]](a, b)
+                out = {"+": torch.add, "-": torch.sub, "*": torch.mul, "/": torch.div,
+                       "max": torch.maximum, "min": torch.minimum}[node[1]](a, b)
             elif kind == "neg":
                 out = torch.neg(ev(node[1]))
+            elif kind == "fn":
+                out = {"sqrt": torch.sqrt}[node[1]](ev(node[2]))
             elif kind == "sel":
                 cond = ev(node[1])
                 value = ev(node[2])
@@ -623,8 +677,10 @@ class NeighborProgram:
                 for c in node[1][1:]:
                     out = out & ev(c)
             elif kind == "sum":
-                terms = torch.broadcast_tensors(*(_as_rows(ev(t), self.nh) for t in node[1]))
-                out = torch.stack(terms, dim=1).sum(dim=1)
+                # the kernel's order: the neighbors added one by one
+                out = _as_rows(ev(node[1][0]), self.nh)
+                for t in node[1][1:]:
+                    out = out + _as_rows(ev(t), self.nh)
             else:
                 out = h
             memo[node] = out
@@ -770,8 +826,6 @@ def _assemble(name: str, lowering: _Lowering, result, outs: list) -> NeighborPro
     results = list(result) if isinstance(result, tuple) and not _is_node(result) else [result]
     if len(results) != len(outs):
         raise Declined(DECLINED_OUT, f"{len(results)} returned fields, {len(outs)} out fields")
-    if not lowering.conns:
-        raise Declined(DECLINED_NO_CONNECTIVITY)
     dims = tuple(outs[0].dims)
     hdims = [d for d in dims if d.kind == DimensionKind.HORIZONTAL]
     kdims = [d for d in dims if d.kind == DimensionKind.VERTICAL]
@@ -786,13 +840,17 @@ def _assemble(name: str, lowering: _Lowering, result, outs: list) -> NeighborPro
     if any(r.unit_range.start != 0 for r in domain.ranges):
         raise Declined(DECLINED_DOMAIN, f"out over {domain}")
     hdim, kdim = hdims[0], (kdims[0] if kdims else None)
+    if not lowering.conns and any(
+            d.kind == DimensionKind.HORIZONTAL and d != hdim
+            for spec in lowering.fields for d in spec.dims):
+        raise Declined(DECLINED_NO_CONNECTIVITY)
     nh = len(domain[hdim].unit_range)
     nk = len(domain[kdim].unit_range) if kdim is not None else 1
     nodes = []
     for r in results:
         if _is_node(r):
             raise Declined(DECLINED_OUT, "a returned scalar")
-        if not isinstance(r, _Val) or r.local is not None or r.hdim != hdim \
+        if not isinstance(r, _Val) or r.local is not None or r.hdim not in (hdim, None) \
                 or (r.has_k and kdim is None):
             raise Declined(DECLINED_OUT, "a returned value that is not a field over the out's "
                                          "dimensions")
@@ -818,9 +876,31 @@ def _assemble(name: str, lowering: _Lowering, result, outs: list) -> NeighborPro
         field_strides=[_strides(t, spec.dims) for t, spec in zip(ins, lowering.fields)],
         out_strides=[tuple(t.stride()) for t in out_t],
         table_strides=[(width, 1) for _, width in tables],
-        index="int" if max(reach) < 2**31 else "long long")
+        index="int" if max(reach) < 2**31 else "long long",
+        own_only=_read_at_own_element(nodes, len(lowering.fields)))
     program.source, program.kernel = generate(program)
     return program
+
+
+def _read_at_own_element(nodes: list, n_fields: int) -> frozenset:
+    """The field slots the program reads only at the output's own element
+    (row ``("h",)``, no local slot): an out that is such a field, as the
+    same view, is written only where its own thread has read it."""
+    others: set = set()
+    seen: set = set()
+
+    def walk(node):
+        if node in seen:
+            return
+        seen.add(node)
+        if node[0] == "load" and (node[2] != ("h",) or node[3] is not None):
+            others.add(node[1])
+        for c in _children(node):
+            walk(c)
+
+    for n in nodes:
+        walk(n)
+    return frozenset(range(n_fields)) - others
 
 
 def _children(node) -> list:
@@ -831,6 +911,8 @@ def _children(node) -> list:
         return [node[2], node[3]]
     if kind in ("neg",):
         return [node[1]]
+    if kind == "fn":
+        return [node[2]]
     if kind == "sel":
         return [node[1], node[2]]
     if kind in ("sum", "and"):
@@ -846,6 +928,8 @@ def _rebuild(node, new: list):
         return node[:2] + (new[0], new[1])
     if kind == "neg":
         return (kind, new[0])
+    if kind == "fn":
+        return node[:2] + (new[0],)
     if kind == "sel":
         return (kind, new[0], new[1])
     if kind in ("sum", "and"):
@@ -905,6 +989,30 @@ def _merge_equal_indices(nodes: list, lowering: _Lowering, hdim: Dimension, nh: 
 
 
 _BINARY = {"+": "+", "-": "-", "*": "*", "/": "/"}
+#: the kernel's functions of the DAG's ``max``, ``min`` and ``fn`` nodes:
+#: ``torch.maximum``/``torch.minimum`` (a NaN operand gives NaN, which bare
+#: ``fmax``/``fmin`` drop) and an IEEE sqrt rounded to nearest
+_FUNCTIONS = {"max": "gt_max", "min": "gt_min", "sqrt": "gt_sqrt"}
+#: each helper's definition, emitted where the kernel calls it
+_HELPERS = {
+    "gt_max": "__device__ __forceinline__ {t} gt_max({t} a, {t} b) {{ "
+              "return a != a ? a : (b != b ? b : {fmax}(a, b)); }}",
+    "gt_min": "__device__ __forceinline__ {t} gt_min({t} a, {t} b) {{ "
+              "return a != a ? a : (b != b ? b : {fmin}(a, b)); }}",
+    "gt_sqrt": "__device__ __forceinline__ {t} gt_sqrt({t} a) {{ return {sqrt_rn}(a); }}",
+    # a field the kernel also writes: a plain read, in program order
+    "gt_ld": "__device__ __forceinline__ {t} gt_ld(const {t}* p) {{ return *p; }}",
+}
+#: a load of a field in a generated line
+_LOAD = re.compile(r"\b(?:__ldg|gt_ld)\(")
+
+
+def _helpers(body: str, ctype: str) -> str:
+    """The definitions of the helpers ``body`` calls, for ``ctype``."""
+    names = {"fmax": "fmaxf", "fmin": "fminf", "sqrt_rn": "__fsqrt_rn"} if ctype == "float" \
+        else {"fmax": "fmax", "fmin": "fmin", "sqrt_rn": "__dsqrt_rn"}
+    used = [h for h in _HELPERS if re.search(rf"\b{h}\(", body)]
+    return "".join(_HELPERS[h].format(t=ctype, **names) + "\n" for h in used)
 
 
 def _term(index: str, stride: int) -> list:
@@ -919,6 +1027,11 @@ def generate(program: NeighborProgram) -> tuple[str, str]:
 
     ctype = "float" if program.dtype == np.dtype(np.float32) else "double"
     itype = program.index
+    # a field that is also an out (the same view) is read through a plain
+    # pointer: it is written in this kernel, so neither __ldg's read-only
+    # path nor __restrict__ holds for it
+    aliased_in = {slot for slot, _ in program.aliases}
+    aliased_out = {i for _, i in program.aliases}
     memo_k: dict = {}
     names: dict = {}
     counter = itertools.count()
@@ -959,22 +1072,30 @@ def generate(program: NeighborProgram) -> tuple[str, str]:
             terms = _term(emit(node[2]), sh)
             if node[3] is not None:
                 terms += _term(f"{node[3]}", sl)
+            load, restrict = ("gt_ld", "") if f in aliased_in else ("__ldg", " __restrict__")
             if node[4]:
                 # the row's pointer at the lane's first level, once an
                 # element; a trip adds its level's offset (``@K<stride>@``)
                 row = f"b{var[1:]}"
                 terms += _term("gt_lane", sk)
-                hoisted.append(f"const {ctype}* __restrict__ {row} = p.f{f} + "
+                hoisted.append(f"const {ctype}*{restrict} {row} = p.f{f} + "
                                f"{' + '.join(terms) or '0'};")
-                lines.append(f"const {ctype} {var} = __ldg({row} + @K{sk}@);")
+                lines.append(f"const {ctype} {var} = {load}({row} + @K{sk}@);")
             else:
-                lines.append(f"const {ctype} {var} = __ldg(p.f{f} + {' + '.join(terms) or '0'});")
+                lines.append(f"const {ctype} {var} = {load}(p.f{f} + "
+                             f"{' + '.join(terms) or '0'});")
         elif kind == "bin":
             a, b = emit(node[2]), emit(node[3])
-            lines.append(f"const {ctype} {var} = {a} {_BINARY[node[1]]} {b};")
+            if node[1] in _FUNCTIONS:
+                lines.append(f"const {ctype} {var} = {_FUNCTIONS[node[1]]}({a}, {b});")
+            else:
+                lines.append(f"const {ctype} {var} = {a} {_BINARY[node[1]]} {b};")
         elif kind == "neg":
             a = emit(node[1])
             lines.append(f"const {ctype} {var} = -{a};")
+        elif kind == "fn":
+            a = emit(node[2])
+            lines.append(f"const {ctype} {var} = {_FUNCTIONS[node[1]]}({a});")
         elif kind == "sel":
             cond, a = emit(node[1]), emit(node[2])
             lines.append(f"const {ctype} {var} = {cond} ? {a} : ({ctype})0;")
@@ -996,17 +1117,20 @@ def generate(program: NeighborProgram) -> tuple[str, str]:
         value = emit(node)
         oh, ok = program.out_strides[i]
         terms = _term("gt_h", oh) + _term("gt_lane", ok)
-        hoisted.append(f"{ctype}* __restrict__ s{i} = p.o{i} + {' + '.join(terms) or '0'};")
+        restrict = "" if i in aliased_out else " __restrict__"
+        hoisted.append(f"{ctype}*{restrict} s{i} = p.o{i} + {' + '.join(terms) or '0'};")
         stores.append(f"s{i}[@K{ok}@] = {value};")
-    members = [f"const {ctype}* __restrict__ f{i};" for i in range(len(program.fields))]
-    members += [f"{ctype}* __restrict__ o{i};" for i in range(len(program.outputs))]
+    members = [f"const {ctype}*{'' if i in aliased_in else ' __restrict__'} f{i};"
+               for i in range(len(program.fields))]
+    members += [f"{ctype}*{'' if i in aliased_out else ' __restrict__'} o{i};"
+                for i in range(len(program.outputs))]
     members += [f"const long long* __restrict__ c{i};" for i in range(len(program.conns))]
     lanes, nk, nh = program.lanes, program.nk, program.nh
     trips = -(-nk // lanes)
     ragged = trips * lanes != nk
     body = [f"    {line}" for line in hoisted]
-    loads = [line for line in looped if "__ldg(" in line]
-    rest = [line for line in looped if "__ldg(" not in line]
+    loads = [line for line in looped if _LOAD.search(line)]
+    rest = [line for line in looped if not _LOAD.search(line)]
 
     local = {m.group(1) for line in looped for m in [re.match(r"(?:const )?\w+ (t\d+) =", line)]
              if m}
@@ -1030,8 +1154,8 @@ def generate(program: NeighborProgram) -> tuple[str, str]:
             lines = [level(trip(line, j), lambda st, j=j: f"{j * lanes * st}") for line in loads]
             if ragged and j == trips - 1:
                 body.append(f"    const bool gt_in_{j} = gt_lane + {j * lanes} < {nk};")
-                lines = [re.sub(r"= (__ldg\(.*\));$", rf"= gt_in_{j} ? \1 : ({ctype})0;", line)
-                         for line in lines]
+                lines = [re.sub(r"= ((?:__ldg|gt_ld)\(.*\));$", rf"= gt_in_{j} ? \1 : ({ctype})0;",
+                                line) for line in lines]
             body += [f"    {line}" for line in lines]
         for j in range(trips):
             body.append(f"    if (gt_in_{j}) {{" if ragged and j == trips - 1 else "    {")
@@ -1072,7 +1196,7 @@ def generate(program: NeighborProgram) -> tuple[str, str]:
 // {n_ptr} buffers, {itype} offsets; {layout}, what does not vary along K
 // computed once an element, before the level trips.
 #include <cuda_runtime.h>
-
+{_helpers(body, ctype)}
 struct GtNbrParams {{
 {struct}
 }};
@@ -1171,12 +1295,30 @@ def _call_values(program: NeighborProgram, bound: inspect.BoundArguments) -> tup
     return values, [args[name] for name in program.scalars]
 
 
-def _aliased(values: list, outs: list) -> bool:
+def _aliases(program: NeighborProgram, values: list, outs: list) -> Optional[tuple]:
+    """The (field slot, out index) pairs whose buffers overlap, where each
+    is the same view and the field one the program reads only at the
+    output's own element (:attr:`NeighborProgram.own_only`); None where
+    any other overlap involves an out."""
     from gt4py_tpu_torch.cartesian.backend.cuda_backend import overlapping
 
     tensors = {f"in{i}": v.ndarray for i, v in enumerate(values)}
     tensors.update({f"out{i}": o.ndarray for i, o in enumerate(outs)})
-    return any(a.startswith("out") or b.startswith("out") for a, b in overlapping(tensors))
+    pairs = []
+    for a, b in overlapping(tensors):
+        if not (a.startswith("out") or b.startswith("out")):
+            continue
+        (f, o) = (a, b) if a.startswith("in") else (b, a)
+        if not f.startswith("in"):
+            return None  # two outs share memory
+        slot, i = int(f[2:]), int(o[3:])
+        t_in, t_out = tensors[f], tensors[o]
+        same = values[slot].dims == outs[i].dims and t_in.data_ptr() == t_out.data_ptr() \
+            and t_in.shape == t_out.shape and t_in.stride() == t_out.stride()
+        if not same or slot not in program.own_only:
+            return None
+        pairs.append((slot, i))
+    return tuple(sorted(pairs))
 
 
 def _graphs(op):
@@ -1250,10 +1392,11 @@ def try_call(op, args, kwargs, out, dom, providers, make: Optional[Callable] = N
         program.run_plain(values, outs, scalars, providers)
         calls_served["neighbor"] += 1
         return True
-    if _aliased(values, outs):
+    aliases = _aliases(program, values, outs)
+    if aliases is None:
         declined[DECLINED_ALIAS] += 1
         return False
-    launch = program.prepare(values, outs, scalars, providers, device)
+    launch = program.aliased(aliases).prepare(values, outs, scalars, providers, device)
     if graphs is None:
         if refusal is not None:
             otf.refuse(refusal)

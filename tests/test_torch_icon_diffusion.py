@@ -1,0 +1,524 @@
+"""ICON's Smagorinsky diffusion of the normal wind through the field view
+(perfbench/programs/icon_diffusion_vn.py) on ``cuda:hopper``: the generated
+gather-reduce kernel's ``sqrt``, ``maximum`` and ``minimum``, fields over
+``K`` alone, the pointwise update with ``vn`` read and written, and the
+torus mesh (``mesh_utils.periodic_triangle_mesh``).
+
+On the CPU, on a 12 x 8 torus of 5 levels in float64: the lowering's plain
+path against the plain reference (perfbench/reference/icon_diffusion_vn.py)
+to the bit, the ``torch`` backend and the JAX package's ``numpy`` field view
+running the same operators within 1e-12, the declines counted (none in the
+step, an alias read under a shift still), the generated sources, the mesh's
+invariants, the in-place update on a stand-in for the card, the step on
+``cuda:hopper:aot`` (the gathers lowered with the program's offset
+provider), and a cartesian update in place left to the bridge.
+"""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import gt4py_tpu_torch.next as gtx
+from gt4py_tpu_torch.cartesian.backend import cuda_backend
+from gt4py_tpu_torch.next import maximum, minimum, neighbor_sum, otf, sqrt
+from gt4py_tpu_torch.next import unstructured_codegen as uc
+from gt4py_tpu_torch.next.mesh_utils import periodic_triangle_mesh
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+from perfbench import spec  # noqa: E402
+
+PROGRAM = spec.load_module(REPO, "programs", "icon_diffusion_vn")
+REFERENCE = spec.load_module(REPO, "reference", "icon_diffusion_vn")
+Edge, Vertex, K = PROGRAM.Edge, PROGRAM.Vertex, PROGRAM.K
+E2C2VDim, V2EDim = PROGRAM.E2C2VDim, PROGRAM.V2EDim
+V2E, E2C2V = PROGRAM.V2E, PROGRAM.E2C2V
+OPERATORS = [op.definition.__name__ for op in PROGRAM.OPERATORS]
+
+
+def config(nx=12, ny=8, nk=5) -> dict:
+    full = spec.load_json(os.path.join(REPO, "perfbench", "configs",
+                                       "icon_diffusion_vn_1m_l80_f64.json"))
+    return PROGRAM.small_config(full, nx, ny, nk)
+
+
+def fields_of(cfg, seed=11) -> dict:
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    out = {r: torch.zeros(f["shape"], dtype=torch.float64) for r, f in cfg["fields"].items()}
+    out["vn"] = torch.rand(out["vn"].shape, generator=gen, dtype=torch.float64)
+    return out
+
+
+def step_on(backend, cfg, seed=11) -> tuple:
+    """(the written fields, their starting vn) after one ``diffusion_vn``
+    call on ``backend``."""
+    fields = fields_of(cfg, seed)
+    vn0 = fields["vn"].clone()
+    kwargs, provider = PROGRAM.operands(cfg, fields)
+    PROGRAM.make_program(backend)(**kwargs, offset_provider=provider)
+    return fields, vn0
+
+
+def rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+# --- the mesh -------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nx, ny", [(12, 8), (3, 3), (5, 7)])
+def test_torus_invariants(nx, ny):
+    """Counts; each vertex's six V2E edges contain it; E2C2V[0..1] are E2V;
+    E2C2V[2..3] the vertices opposite the edge in its E2C cells (C2E, read
+    back, holds the edge); E2ECV is 4e + i; every edge joins two distinct
+    vertices, and no two edges join the same pair."""
+    t = periodic_triangle_mesh(nx, ny)
+    nv, ne, nc = nx * ny, 3 * nx * ny, 2 * nx * ny
+    assert {k: v.shape for k, v in t.items()} == {
+        "E2V": (ne, 2), "E2C": (ne, 2), "C2E": (nc, 3), "V2E": (nv, 6), "E2C2V": (ne, 4),
+        "E2ECV": (ne, 4)}
+    assert all(v.dtype == np.int64 for v in t.values())
+    e2v, e2c, c2e, v2e, e2c2v = (t[k] for k in ("E2V", "E2C", "C2E", "V2E", "E2C2V"))
+    assert (e2v[v2e] == np.arange(nv)[:, None, None]).any(axis=2).all()
+    assert len(np.unique(v2e, axis=None)) == ne  # every edge in two vertices' rows
+    assert np.array_equal(e2c2v[:, :2], e2v)
+    c2v = [set(e2v[c2e[c]].ravel()) for c in range(nc)]
+    assert all(len(v) == 3 for v in c2v)
+    for e in range(ne):
+        for j in range(2):
+            cell = e2c[e, j]
+            assert e in c2e[cell]
+            (opposite,) = c2v[cell] - set(e2v[e])
+            assert e2c2v[e, 2 + j] == opposite
+    assert np.array_equal(t["E2ECV"], 4 * np.arange(ne)[:, None] + np.arange(4))
+    assert (e2v[:, 0] != e2v[:, 1]).all()
+    assert len({tuple(sorted(p)) for p in e2v.tolist()}) == ne
+
+
+def test_torus_needs_three_rows_and_columns():
+    with pytest.raises(ValueError):
+        periodic_triangle_mesh(2, 5)
+
+
+# --- the step against the reference --------------------------------------------------------
+
+
+def test_plain_path_equals_the_reference_to_the_bit():
+    cfg = config()
+    before = dict(uc.declined)
+    uc.calls_served.clear()
+    got, vn0 = step_on("cuda:hopper", cfg)
+    want = REFERENCE.step({"vn": vn0}, cfg)
+    for role in PROGRAM.WRITTEN:
+        assert torch.equal(got[role], want[role]), role
+    # every call lowered, none declined
+    assert uc.calls_served["neighbor"] == 5 and dict(uc.declined) == before
+
+
+def test_aot_lowers_the_gathers_with_the_programs_provider():
+    """On ``cuda:hopper:aot`` the stages lower each gather operator with the
+    offset provider of the program it is called in (the operators get none
+    of their own): four calls served by the lowering, none declined; the
+    update, which the stages trace for the bridge, runs there."""
+    cfg = config()
+    before = dict(uc.declined)
+    uc.calls_served.clear()
+    got, vn0 = step_on("cuda:hopper:aot", cfg)
+    want = REFERENCE.step({"vn": vn0}, cfg)
+    for role in PROGRAM.WRITTEN:
+        assert torch.equal(got[role], want[role]), role
+    assert uc.calls_served["neighbor"] == 4 and dict(uc.declined) == before
+
+
+def test_torch_backend_within_1e12_of_the_reference():
+    cfg = config()
+    got, vn0 = step_on("torch", cfg)
+    want = REFERENCE.step({"vn": vn0}, cfg)
+    for role in PROGRAM.WRITTEN:
+        assert rel_err(got[role], want[role]) <= 1e-12, role
+
+
+def _jax_twin(tmp_path):
+    """The program module's operators defined against the JAX package."""
+    import importlib.util
+
+    src = open(os.path.join(REPO, "perfbench", "programs", "icon_diffusion_vn.py")).read()
+    path = tmp_path / "icon_diffusion_vn_jax.py"
+    path.write_text(re.sub(r"\bgt4py_tpu_torch\b", "gt4py_tpu", src))
+    module_spec = importlib.util.spec_from_file_location("icon_diffusion_vn_jax", path)
+    module = importlib.util.module_from_spec(module_spec)
+    sys.modules[module_spec.name] = module  # the frontend reads the definitions' source
+    module_spec.loader.exec_module(module)
+    return module
+
+
+def test_jax_numpy_backend_within_1e12_of_the_port(tmp_path):
+    """The same five calls on the JAX package's ``numpy`` field view, from the
+    same vn, geometry and tables, against the port's ``cuda:hopper``."""
+    import gt4py_tpu.next as jgtx
+
+    twin = _jax_twin(tmp_path)
+    cfg = config()
+    fields = fields_of(cfg)
+    vn0 = fields["vn"].clone()
+    kwargs, provider = PROGRAM.operands(cfg, fields)
+    dims = {d.value: getattr(twin, n) for n, d in (
+        ("Edge", Edge), ("Vertex", Vertex), ("ECV", PROGRAM.ECV), ("K", K), ("V2EDim", V2EDim),
+        ("E2C2VDim", E2C2VDim))}
+
+    def twin_field(value):
+        if isinstance(value, float):
+            return value
+        return jgtx.as_field([dims[d.value] for d in value.dims], value.ndarray.numpy().copy())
+
+    j = {name: twin_field(value) for name, value in kwargs.items()}
+    j["vn"] = jgtx.as_field([twin.Edge, twin.K], vn0.numpy().copy())
+    jprov = {name: jgtx.as_connectivity([dims[d.value] for d in c.domain_dims],
+                                        dims[c.codomain.value], c.table.numpy())
+             for name, c in provider.items()}
+    rbf, nabla2, nabla4, apply = (op.with_backend("numpy") for op in twin.OPERATORS)
+    rbf(j["vn"], j["ptr_coeff_1"], j["ptr_coeff_2"], out=(j["u_vert"], j["v_vert"]),
+        offset_provider=jprov)
+    nabla2(*(j[n] for n in (
+        "diff_multfac_smag", "tangent_orientation", "inv_primal_edge_length",
+        "inv_vert_vert_length", "u_vert", "v_vert", "primal_normal_vert_x",
+        "primal_normal_vert_y", "dual_normal_vert_x", "dual_normal_vert_y", "vn", "smag_limit",
+        "smag_offset")), out=(j["kh_smag_e"], j["kh_smag_ec"], j["z_nabla2_e"]),
+        offset_provider=jprov)
+    rbf(j["z_nabla2_e"], j["ptr_coeff_1"], j["ptr_coeff_2"], out=(j["u_vert"], j["v_vert"]),
+        offset_provider=jprov)
+    nabla4(*(j[n] for n in ("u_vert", "v_vert", "primal_normal_vert_x", "primal_normal_vert_y",
+                            "z_nabla2_e", "inv_vert_vert_length", "inv_primal_edge_length")),
+           out=j["z_nabla4_e2"], offset_provider=jprov)
+    apply(*(j[n] for n in ("area_edge", "kh_smag_e", "z_nabla2_e", "z_nabla4_e2",
+                           "diff_multfac_vn", "nudgecoeff_e", "vn", "nudgezone_diff")),
+          out=j["vn"], offset_provider=jprov)
+    PROGRAM.make_program("cuda:hopper")(**kwargs, offset_provider=provider)
+    for role in PROGRAM.WRITTEN:
+        theirs = torch.from_numpy(np.array(j[role].asnumpy()))
+        assert rel_err(fields[role], theirs) <= 1e-12, role
+
+
+# --- the generated sources ----------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def lowered():
+    return dict(zip(OPERATORS, PROGRAM.lowered(config())))
+
+
+def test_every_operator_of_the_step_is_lowered(lowered):
+    assert [p.name for p in lowered.values()] == OPERATORS
+    assert all(p.kernel.startswith(f"gt_neighbor_{p.name}_") for p in lowered.values())
+    # the update reads every field at its own element: vn may be its out
+    apply = lowered["apply_nabla2_and_nabla4_to_vn"]
+    assert not apply.conns and apply.own_only == frozenset(range(len(apply.fields)))
+
+
+def test_sources_hold_max_min_sqrt_and_k_only_loads(lowered):
+    src = lowered["calculate_nabla2_and_smag_coefficients_for_vn"].source
+    # NaN-propagating max and min, as torch.maximum/torch.minimum, not bare fmax
+    assert "double gt_max(double a, double b) { return a != a ? a : (b != b ? b : fmax(a, b)); }" \
+        in src
+    assert "double gt_min(double a, double b) { return a != a ? a : (b != b ? b : fmin(a, b)); }" \
+        in src
+    assert "double gt_sqrt(double a) { return __dsqrt_rn(a); }" in src
+    assert src.count("gt_max(") == 2 and src.count("gt_min(") == 2 and src.count("gt_sqrt(") == 2
+    # diff_multfac_smag (f0) and smag_limit (f11) over K alone: a row pointer
+    # at the lane's level, no horizontal term
+    program = lowered["calculate_nabla2_and_smag_coefficients_for_vn"]
+    k_only = [i for i, f in enumerate(program.fields) if f.dims == (K,)]
+    assert [program.fields[i].param for i in k_only] == ["diff_multfac_smag", "smag_limit"]
+    for i in k_only:
+        assert re.search(rf"const double\* __restrict__ b\d+ = p\.f{i} \+ gt_lane;", src)
+        assert program.field_strides[i] == (0, 0, 1)
+    # the helpers only where called
+    assert "gt_sqrt" not in lowered["calculate_nabla4"].source
+    assert "gt_max" in lowered["apply_nabla2_and_nabla4_to_vn"].source
+
+
+def test_update_in_place_reads_vn_through_a_plain_pointer(lowered):
+    program = lowered["apply_nabla2_and_nabla4_to_vn"]
+    vn = [i for i, f in enumerate(program.fields) if f.param == "vn"][0]
+    aliased = program.aliased(((vn, 0),))
+    assert aliased is program.aliased(((vn, 0),)) and program.aliased(()) is program
+    assert aliased.kernel != program.kernel
+    assert f"const double* f{vn};" in aliased.source and "double* o0;" in aliased.source
+    assert f"gt_ld(p.f{vn} +" in aliased.source or re.search(r"gt_ld\(b\d+ \+", aliased.source)
+    assert "__ldg(" in aliased.source  # the other fields keep the read-only path
+    assert f"const double* __restrict__ f{vn};" in program.source
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="needs a host C++ compiler")
+@pytest.mark.parametrize("name", OPERATORS)
+def test_sources_compile_as_cxx(lowered, name, tmp_path):
+    """Each kernel's C++ (the update's aliased variant too) under a host
+    compiler, CUDA's names stubbed (nvcc runs only on the card's machine)."""
+    program = lowered[name]
+    sources = [program.source]
+    if name == "apply_nabla2_and_nabla4_to_vn":
+        sources.append(program.aliased(((6, 0),)).source)
+    stub = ("#include <cmath>\n"
+            "struct gt_dim3 { unsigned x; }; static gt_dim3 blockIdx, threadIdx;\n"
+            "#define __global__\n#define __device__\n#define __forceinline__ inline\n"
+            "#define __launch_bounds__(n)\n"
+            "template <class T> T __ldg(const T* p) { return *p; }\n"
+            "static double __dsqrt_rn(double a) { return std::sqrt(a); }\n"
+            "using std::fmax; using std::fmin;\n"
+            "typedef void* cudaStream_t; enum { cudaErrorInvalidConfiguration = 9 };\n"
+            "static int cudaGetLastError() { return 0; }\n")
+    for i, src in enumerate(sources):
+        src = re.sub(r"<<<[^>]*>>>", "", src.replace("#include <cuda_runtime.h>", stub))
+        path = tmp_path / f"kernel{i}.cpp"
+        path.write_text(src)
+        out = subprocess.run(["g++", "-std=c++17", "-fsyntax-only", "-Wall", "-Werror",
+                              "-Wno-unknown-pragmas", "-Wno-unused-function", str(path)],
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+
+
+# --- the builtins, K-only fields and declines on a small mesh ------------------------------
+
+
+@gtx.field_operator
+def _limited(a, lo, hi):
+    return minimum(maximum(lo, sqrt(a)), hi)
+
+
+@gtx.field_operator
+def _limited_at_first_end(v, lo, hi):
+    return minimum(maximum(lo, sqrt(v(E2C2V[0]))), hi)
+
+
+#: sqrt's, maximum's and minimum's operands: a NaN, a negative, zero and
+#: ordinary values at three vertices, and bounds over K, one a NaN
+_VALUES = [float("nan"), -1.0, 0.25, 4.0, 9.0, 0.0, 16.0, float("nan"), 1.0]
+_LO, _HI = [0.4, 0.1, float("nan")], [2.5, 3.5, 3.0]
+
+
+def _nan_case(device):
+    """(the operator's arguments, out, provider, torch's result): vertex
+    values read at each edge's first end (E2C2V[0]), so that the bridge
+    refuses the call and the generated kernel serves it."""
+    v = gtx.as_field([Vertex, K], np.asarray(_VALUES).reshape(3, 3), device=device)
+    lo = gtx.as_field([K], np.asarray(_LO), device=device)
+    hi = gtx.as_field([K], np.asarray(_HI), device=device)
+    table = np.asarray([[e % 3, 0, 0, 0] for e in range(6)], dtype=np.int64)
+    provider = {"E2C2V": gtx.as_connectivity([Edge, E2C2VDim], Vertex, table, device=device)}
+    out = gtx.zeros({Edge: 6, K: 3}, dtype=np.float64, device=device)
+    gathered = v.ndarray[torch.as_tensor(table[:, 0], device=v.ndarray.device)]
+    want = torch.minimum(torch.maximum(lo.ndarray[None, :], torch.sqrt(gathered)),
+                         hi.ndarray[None, :])
+    return (v, lo, hi), out, provider, want
+
+
+@pytest.mark.parametrize("backend", ["cuda:hopper", "numpy"])
+def test_builtins_propagate_nan_as_torch(backend):
+    """sqrt, maximum and minimum of a NaN, a negative and ordinary values,
+    with K-only bounds: the lowering's plain path equals torch's functions,
+    NaN included, as the ``numpy`` oracle does."""
+    args, out, provider, want = _nan_case("cpu")
+    before, served = dict(uc.declined), uc.calls_served["neighbor"]
+    with np.errstate(invalid="ignore"):  # the oracle's sqrt of -1
+        _limited_at_first_end.with_backend(backend)(*args, out=out, offset_provider=provider)
+    assert torch.equal(out.ndarray.isnan(), want.isnan())
+    assert torch.equal(out.ndarray.nan_to_num(-7.0), want.nan_to_num(-7.0))
+    assert dict(uc.declined) == before
+    assert uc.calls_served["neighbor"] == served + (backend == "cuda:hopper")
+
+
+@gtx.field_operator
+def _vertex_sum_over_edges(c):
+    return neighbor_sum(c, axis=V2EDim)
+
+
+def test_no_connectivity_and_another_horizontal_dimension_is_declined():
+    c = gtx.as_field([Vertex, V2EDim], np.ones((4, 6)), device="cpu")
+    out = gtx.zeros({Edge: 12}, dtype=np.float64, device="cpu")
+    before = uc.declined[uc.DECLINED_NO_CONNECTIVITY]
+    with pytest.raises(uc.Declined) as info:
+        uc.lower(_vertex_sum_over_edges, (c,), {}, out, {})
+    assert info.value.reason == uc.DECLINED_NO_CONNECTIVITY
+    assert uc.declined[uc.DECLINED_NO_CONNECTIVITY] == before + 1
+
+
+def test_a_field_over_no_dimension_is_still_declined():
+    a = gtx.as_field([Edge, K], np.arange(9.0).reshape(3, 3), device="cpu")
+    scalar_field = gtx.as_field([], np.asarray(2.0), device="cpu")
+    out = gtx.zeros({Edge: 3, K: 3}, dtype=np.float64, device="cpu")
+    with pytest.raises(uc.Declined) as info:
+        uc.lower(_limited, (a, scalar_field, scalar_field), {}, out, {})
+    assert info.value.reason == uc.DECLINED_DIMS
+
+
+# --- on a stand-in for the card -------------------------------------------------------------
+
+
+class _FakeGraph:
+    def __init__(self, body):
+        self.body = body
+
+    def replay(self):
+        return self.body()
+
+    def retire(self):
+        pass
+
+
+class _Stream:
+    cuda_stream = 1
+
+
+def install_fake_card(monkeypatch) -> list:
+    """Every device a card: the lowered kernel's launch stood in for by its
+    plain version (counted by ``NEIGHBOR``), a capture by its body. Returns
+    the programs launched, in order."""
+    launched = []
+
+    def fake_prepare(self, values, outs, scalars, providers, device):
+        def launch():
+            launched.append(self)
+            self.run_plain(values, outs, scalars, providers)
+            return cuda_backend.NEIGHBOR.launch(lambda: 0, ())
+        return launch
+
+    monkeypatch.setattr(uc, "launches_on", lambda device: True)
+    monkeypatch.setattr(otf, "on_card", lambda device: True)
+    monkeypatch.setattr(otf, "_stream", lambda device: _Stream())
+    monkeypatch.setattr(otf, "capture", lambda device, stream, body, keeps: _FakeGraph(body))
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    monkeypatch.setattr(uc.NeighborProgram, "prepare", fake_prepare)
+    return launched
+
+
+def test_step_on_a_card_stand_in_is_five_kernels_vn_in_place(monkeypatch):
+    """Three steps: each call a launch of its lowered kernel (the first
+    launches, the second captures, the third replays), the update's the
+    aliased variant; nothing declined, every result the reference's."""
+    launched = install_fake_card(monkeypatch)
+    cfg = config()
+    fields = fields_of(cfg)
+    kwargs, provider = PROGRAM.operands(cfg, fields)
+    program = PROGRAM.make_program("cuda:hopper")
+    before, launches = dict(uc.declined), cuda_backend.NEIGHBOR.launches
+    vn = fields["vn"].clone()
+    for _ in range(3):
+        want = REFERENCE.step({"vn": vn}, cfg)
+        program(**kwargs, offset_provider=provider)
+        for role in PROGRAM.WRITTEN:
+            assert torch.equal(fields[role], want[role]), role
+        vn = want["vn"]
+    assert dict(uc.declined) == before
+    assert cuda_backend.NEIGHBOR.launches == launches + 15
+    assert [p.name for p in launched[:5]] == [OPERATORS[i] for i in (0, 1, 0, 2, 3)]
+    assert [bool(p.aliases) for p in launched[:5]] == [False] * 4 + [True]
+
+
+@gtx.field_operator
+def _with_vertex_sums(e):
+    at_vertex = neighbor_sum(e(V2E), axis=V2EDim)
+    return e + at_vertex(E2C2V[0])
+
+
+def test_an_alias_read_under_a_shift_is_still_declined(monkeypatch):
+    """``out`` is the argument, read at the six edges of each edge's first
+    vertex: declined (counted by call), run embedded, and right."""
+    install_fake_card(monkeypatch)
+    t = periodic_triangle_mesh(4, 3)
+    provider = {
+        "V2E": gtx.as_connectivity([Vertex, V2EDim], Edge, t["V2E"], device="cpu"),
+        "E2C2V": gtx.as_connectivity([Edge, E2C2VDim], Vertex, t["E2C2V"], device="cpu"),
+    }
+    ne = 36
+    values = np.arange(ne * 3, dtype=np.float64).reshape(ne, 3)
+    e = gtx.as_field([Edge, K], values.copy(), device="cpu")
+    before = uc.declined[uc.DECLINED_ALIAS]
+    op = _with_vertex_sums.with_backend("cuda:hopper")
+    for calls in (1, 2):
+        op(e, out=e, offset_provider=provider)
+        assert uc.declined[uc.DECLINED_ALIAS] == before + calls
+        want = values + values[t["V2E"]].sum(axis=1)[t["E2C2V"][:, 0]]
+        np.testing.assert_allclose(e.asnumpy(), want, rtol=1e-15)
+        values = want
+
+
+@gtx.field_operator
+def _doubled(a):
+    return 2.0 * a
+
+
+def test_a_cartesian_update_in_place_goes_to_the_bridge_first():
+    """An operator over I, J and K writing its argument is not offered to
+    the lowering before the bridge (which serves it): nothing declined."""
+    from gt4py_tpu_torch.next import Dimension, DimensionKind
+    from gt4py_tpu_torch.next.decorators import _updates_in_place
+
+    dims = [Dimension("I"), Dimension("J"), Dimension("K", kind=DimensionKind.VERTICAL)]
+    a = gtx.as_field(dims, np.ones((4, 5, 3)), device="cpu")
+    e = gtx.as_field([Edge, K], np.ones((6, 3)), device="cpu")
+    assert not _updates_in_place((a,), {}, a) and _updates_in_place((e,), {}, e)
+    before = dict(uc.declined)
+    op = _doubled.with_backend("cuda:hopper")
+    for _ in range(3):
+        op(a, out=a, offset_provider={})
+    assert np.array_equal(a.asnumpy(), np.full((4, 5, 3), 8.0))
+    assert dict(uc.declined) == before
+
+
+# --- on the card (-m cuda) ------------------------------------------------------------------
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+
+
+def _card_fields(cfg, seed=11) -> dict:
+    return {r: t.to("cuda") for r, t in fields_of(cfg, seed).items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(12, 8, 5), (64, 40, 80), (7, 5, 33)])
+def test_step_equals_the_reference_to_the_bit_on_card(size):
+    """Three steps on the card: five launches each (the first step's
+    launches, the second's captures, the third's replays), every written
+    field equal to the reference's, computed on the card, to the bit."""
+    _need_card()
+    cfg = config(*size)
+    fields = _card_fields(cfg)
+    kwargs, provider = PROGRAM.operands(cfg, fields)
+    program = PROGRAM.make_program("cuda:hopper")
+    before, launches = dict(uc.declined), cuda_backend.NEIGHBOR.launches
+    vn = fields["vn"].clone()
+    for _ in range(3):
+        want = REFERENCE.step({"vn": vn}, cfg)
+        program(**kwargs, offset_provider=provider)
+        torch.cuda.synchronize()
+        for role in PROGRAM.WRITTEN:
+            assert torch.equal(fields[role], want[role]), role
+        vn = want["vn"]
+    assert cuda_backend.NEIGHBOR.launches == launches + 15
+    assert dict(uc.declined) == before
+
+
+@pytest.mark.cuda
+def test_builtins_propagate_nan_as_torch_on_card():
+    """The generated kernel's gt_sqrt, gt_max and gt_min against torch's
+    functions on the card, NaN included."""
+    _need_card()
+    args, out, provider, want = _nan_case("cuda")
+    launches = cuda_backend.NEIGHBOR.launches
+    _limited_at_first_end.with_backend("cuda:hopper")(*args, out=out, offset_provider=provider)
+    torch.cuda.synchronize()
+    assert cuda_backend.NEIGHBOR.launches == launches + 1
+    assert torch.equal(out.ndarray.isnan(), want.isnan())
+    assert torch.equal(out.ndarray.nan_to_num(-7.0), want.nan_to_num(-7.0))

@@ -226,3 +226,69 @@ def test_metrics_collector_is_a_span():
         metrics_mod.set_metrics_level(MetricCollectionLevel.DISABLED)
     assert [r.name for r in spans()] == ["test_prog.as_span"]
     assert metrics_mod.get_metric("test_prog", "as_span").count == 1
+
+
+# --- the port's program span (not in the reference) ----------------------------------
+
+
+def _icon_step(monkeypatch):
+    """ICON's diffusion step (perfbench/programs/icon_diffusion_vn.py) on a
+    12 x 8 torus of 5 levels, on a stand-in for the card (its kernels'
+    plain versions, counted as launches)."""
+    from .test_torch_icon_diffusion import PROGRAM, config, fields_of, install_fake_card
+
+    install_fake_card(monkeypatch)
+    cfg = config()
+    kwargs, provider = PROGRAM.operands(cfg, fields_of(cfg))
+    return PROGRAM, kwargs, provider
+
+
+def test_program_call_on_card_tensors_is_the_root_span(monkeypatch):
+    """A program's call on card tensors is one root span
+    ``gt4py.next.program`` with the operator calls it made and the kernels
+    they launched or replayed; each operator's ``gt4py.next.call`` span,
+    with its launch or replay, nests under it."""
+    program, kwargs, provider = _icon_step(monkeypatch)
+    step = program.make_program("cuda:hopper")
+    clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(3):
+            step(**kwargs, offset_provider=provider)
+    records = spans()
+    roots = [r for r in records if r.parent is None]
+    assert [r.name for r in roots] == ["gt4py.next.program"] * 3
+    assert all(r.attrs == {"operators": 5, "launches": 5} for r in roots)
+    for root in roots:
+        mine = [r for r in records if r.root == root.id and r.id != root.id]
+        calls = [r for r in mine if r.name == "gt4py.next.call"]
+        assert len(calls) == 5 and all(c.parent == root.id for c in calls)
+        work = [r for r in mine if r.name in ("gt4py.next.launch", "gt4py.next.replay")]
+        assert sum(r.attrs["launches"] for r in work) == 5
+        assert {r.parent for r in work} == {c.id for c in calls}
+    assert [r.name for r in records if r.root == roots[-1].id].count("gt4py.next.replay") == 5
+
+
+def test_program_span_only_on_card_tensors_while_recording(monkeypatch):
+    """No program span on CPU tensors or while no profile records; a field
+    operator called alone keeps ``gt4py.next.call`` as its root."""
+    from .test_torch_icon_diffusion import PROGRAM, config, fields_of
+
+    cfg = config()
+    kwargs, provider = PROGRAM.operands(cfg, fields_of(cfg))
+    step = PROGRAM.make_program("cuda:hopper")
+    clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        step(**kwargs, offset_provider=provider)
+    names = [r.name for r in spans()]
+    assert "gt4py.next.program" not in names and names.count("gt4py.next.call") == 5
+    program, kwargs, provider = _icon_step(monkeypatch)
+    clear_spans()
+    program.make_program("cuda:hopper")(**kwargs, offset_provider=provider)
+    assert [r.name for r in spans() if not r.name.startswith("gt4py.build.")] == []
+    rbf = program.OPERATORS[0].with_backend("cuda:hopper")
+    clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        rbf(kwargs["vn"], kwargs["ptr_coeff_1"], kwargs["ptr_coeff_2"],
+            out=(kwargs["u_vert"], kwargs["v_vert"]), offset_provider=provider)
+    roots = [r for r in spans() if r.parent is None and not r.name.startswith("gt4py.build.")]
+    assert [r.name for r in roots] == ["gt4py.next.call"]

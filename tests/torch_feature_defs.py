@@ -114,6 +114,8 @@ BRIDGED_ONTO = {
         "compile_for_two_offset_providers", "composed_unstructured_shift", "nested_reduction",
         "reduction_with_common_expression", "tuple_return_unstructured",
         "tuple_with_local_field_in_reduction_shifted",
+        # pointwise over one horizontal dimension, refused by the bridge
+        "tuple_unpacking", "unary_pos",
     ),
 }
 
