@@ -113,7 +113,9 @@ swap cycle of the kernels as a CUDA graph.
    nothing else, with no decline of the lowering and no call run eagerly;
    all seven written fields equal the plain reference
    (perfbench/reference/icon_diffusion_vn.py) to the bit; µs a step by
-   CUDA events.
+   CUDA events; each of its kernels' and the nabla's lanes an element,
+   registers, spills, shared memory and warps resident on an SM, from
+   ``ptxas``.
 
 8. Oracle phases, on the card's host: the port's ``numpy`` backend
    (the exact oracle, NumPy on CPU tensors) holds every registry build of
@@ -754,7 +756,16 @@ def main(argv) -> int:
           f"perfbench/reference/icon_diffusion_vn.py to the bit, max rel err "
           + ", ".join(f"{r} {e:.3e}" for r, e in icon["rel_err"].items())
           + f"; {icon['us']:.1f} us a step by CUDA events over 10 warm calls (replays) "
-          f"({icon['warm_launches']} launches)")
+          f"({icon['warm_launches']} launches); its kernels and the nabla's of step 7d, "
+          f"from ptxas:")
+    names = ["mo_intp_rbf_rbf_vec_interpol_vertex", "calculate_nabla2_and_smag_coefficients_for_vn",
+             "calculate_nabla4", "apply_nabla2_and_nabla4_to_vn", "pnabla"]
+    nh = dict.fromkeys(names, icon["edges"])
+    nh[names[0]], nh["pnabla"] = icon["edges"] // 3, pnablas[-1]["vertices"]
+    for kernel, (lanes, regs, spill, shared, warps) in sorted(
+            neighbor_kernels(names, nh, cuda_backend).items()):
+        print(f"  {kernel}: {lanes} lanes an element, {regs} registers, {spill} B spilled, "
+              f"{shared} B shared a block, {warps} warps an SM")
     gc.collect()  # the step's fields and graphs
     torch.cuda.empty_cache()
 
@@ -1652,6 +1663,36 @@ def residency(source: str, cuda_backend, on_chip=None, nk: int = NK) -> dict:
         k: resident_blocks(r, threads.get(k, 256), static.get(k, 0) + int(dynamic.get(k, 0)))
         for k, (r, *_) in ptxas_report(source, cuda_backend).items()
     }
+
+
+def neighbor_kernels(names, nh: dict, cuda_backend) -> dict:
+    """kernel -> (lanes an element, registers, spill bytes stored + loaded,
+    shared bytes a block, warps resident on an SM) of each generated
+    ``gt_neighbor_<name>_*`` kernel built so far, ``name`` one of ``names``,
+    over ``nh[name]`` elements (the build cache also holds the small sizes
+    of other steps)."""
+    import glob
+    import re
+
+    out = {}
+    for path in sorted(glob.glob(os.path.join(cuda_backend._cache_dir(), "gt_*.cu"))):
+        with open(path) as f:
+            source = f.read()
+        head = re.match(r"// (gt_neighbor_\w+):.*?: \w+, (\d+) elements", source, re.S)
+        if not head or not os.path.isfile(path + ".log"):
+            continue
+        kernel, elements = head.group(1), int(head.group(2))
+        name = next((n for n in names if kernel.startswith(f"gt_neighbor_{n}_")), None)
+        if name is None or elements != nh[name]:
+            continue
+        (registers, stores, loads), = ptxas_report(source, cuda_backend).values()
+        (blocks,) = residency(source, cuda_backend).values()
+        threads = int(re.search(r"__launch_bounds__\((\d+)\)", source).group(1))
+        shared = int(re.search(r"<<<[^\n]*?, (\d+), \(cudaStream_t\)stream>>>", source).group(1))
+        lanes = re.search(r"(\d+) lanes an element|(one warp) an element|(one thread)", source)
+        lanes = int(lanes.group(1)) if lanes.group(1) else 32 if lanes.group(2) else 1
+        out[kernel] = (lanes, registers, stores + loads, shared, blocks * threads // 32)
+    return out
 
 
 def resident_blocks(registers: int, threads: int, shared: int) -> int:

@@ -36,6 +36,8 @@ if REPO not in sys.path:
 
 from perfbench import spec  # noqa: E402
 
+from . import neighbor_host_emulation as host  # noqa: E402
+
 PROGRAM = spec.load_module(REPO, "programs", "icon_diffusion_vn")
 REFERENCE = spec.load_module(REPO, "reference", "icon_diffusion_vn")
 Edge, Vertex, K = PROGRAM.Edge, PROGRAM.Vertex, PROGRAM.K
@@ -286,6 +288,128 @@ def test_sources_compile_as_cxx(lowered, name, tmp_path):
         assert out.returncode == 0, out.stderr
 
 
+# --- lanes an element --------------------------------------------------------------------------
+#
+# Sources lowered on the 12 x 8 torus (288 edges, 96 vertices) at the levels
+# given; the update's in-place variant too. Where 32 lanes an element still
+# pad K the least (137 levels), every source is the one of the kernel
+# before 16 lanes, byte for byte (its SHA-1).
+
+UNCHANGED_SOURCES = {
+    "mo_intp_rbf_rbf_vec_interpol_vertex": "51acca0a7b04add4fb6b87d1f0750edaf7fd5d82",
+    "calculate_nabla2_and_smag_coefficients_for_vn": "9d18ffef1192b0c036e5d7c73fcc1e1d86dfecad",
+    "calculate_nabla4": "dafed81fe9ec51ec415d1561ddbc159ee96a09f9",
+    "apply_nabla2_and_nabla4_to_vn": "3db1c7038154011dafb9e6e87fd222e3806ac633",
+    "apply_nabla2_and_nabla4_to_vn/aliased": "713b54b78a47849d3e32f9ce7b45e9d83049fce9",
+}
+
+#: each operator's call in the step: (operator, its arguments' names, its
+#: outs' names)
+CALLS = [
+    (PROGRAM.OPERATORS[0], ("vn", "ptr_coeff_1", "ptr_coeff_2"), ("u_vert", "v_vert")),
+    (PROGRAM.OPERATORS[1], ("diff_multfac_smag", "tangent_orientation", "inv_primal_edge_length",
+                            "inv_vert_vert_length", "u_vert", "v_vert", "primal_normal_vert_x",
+                            "primal_normal_vert_y", "dual_normal_vert_x", "dual_normal_vert_y",
+                            "vn", "smag_limit", "smag_offset"),
+     ("kh_smag_e", "kh_smag_ec", "z_nabla2_e")),
+    (PROGRAM.OPERATORS[2], ("u_vert", "v_vert", "primal_normal_vert_x", "primal_normal_vert_y",
+                            "z_nabla2_e", "inv_vert_vert_length", "inv_primal_edge_length"),
+     ("z_nabla4_e2",)),
+    (PROGRAM.OPERATORS[3], ("area_edge", "kh_smag_e", "z_nabla2_e", "z_nabla4_e2",
+                            "diff_multfac_vn", "nudgecoeff_e", "vn", "nudgezone_diff"), ("vn",)),
+]
+
+
+def call_of(kwargs: dict, names: tuple, outs: tuple) -> tuple:
+    """(arguments, out) of a call of :data:`CALLS` on ``kwargs``."""
+    out = tuple(kwargs[n] for n in outs)
+    return tuple(kwargs[n] for n in names), out if len(out) > 1 else out[0]
+
+
+def lowered_at(nk: int, dtype: str = "float64") -> dict:
+    """name -> program of each operator of the step on the 12 x 8 torus at
+    ``nk`` levels in ``dtype``; the update's in-place variant under
+    ``<name>/aliased``."""
+    cfg = config(nk=nk)
+    fields = {r: t.to(getattr(torch, dtype)) for r, t in fields_of(cfg).items()}
+    kwargs, provider = PROGRAM.operands(cfg, fields)
+    programs = {}
+    for op, names, outs in CALLS:
+        args, out = call_of(kwargs, names, outs)
+        programs[op.definition.__name__] = uc.lower(op, args, {}, out, provider)
+    apply = programs["apply_nabla2_and_nabla4_to_vn"]
+    vn = [i for i, f in enumerate(apply.fields) if f.param == "vn"][0]
+    programs["apply_nabla2_and_nabla4_to_vn/aliased"] = apply.aliased(((vn, 0),))
+    return programs
+
+
+def test_80_levels_take_five_trips_of_16_lanes():
+    """At the benchmark's 80 levels every kernel of the step gives an
+    element 16 lanes, five whole trips (32 lanes: three, the last half
+    idle), no lane masked; the kernels keep their names."""
+    for name, program in lowered_at(80).items():
+        src = program.source
+        assert program.lanes == 16, name
+        assert program.kernel.startswith(f"gt_neighbor_{name.split('/')[0]}_")
+        assert "16 lanes an element along K" in src and "gt_in_" not in src
+        assert src.count("s0[") == 5 and "const int gt_h = gt_t / 16;" in src
+
+
+@pytest.mark.parametrize("name", sorted(UNCHANGED_SOURCES))
+def test_source_unchanged_where_32_lanes_pad_k_the_least(name):
+    """At 137 levels (five trips of 32; 16 lanes would need nine, rolled)
+    each kernel of the step, the update's in-place variant too, is the
+    plain one of 32 lanes, its source unchanged byte for byte."""
+    import hashlib
+
+    program = lowered_at(137)[name]
+    assert program.lanes == 32
+    assert hashlib.sha1(program.source.encode()).hexdigest() == UNCHANGED_SOURCES[name]
+
+
+def test_one_thread_an_element_where_k_is_outer():
+    """``vn`` over ``K`` then ``Edge`` (K outermost): one thread an
+    element, whatever the levels."""
+    cfg = config(nk=9)
+    fields = {r: t.t().contiguous().t() for r, t in fields_of(cfg).items()}
+    kwargs, provider = PROGRAM.operands(cfg, fields)
+    program = uc.lower(PROGRAM.OPERATORS[0], (kwargs["vn"], kwargs["ptr_coeff_1"],
+                                              kwargs["ptr_coeff_2"]), {},
+                       (kwargs["u_vert"], kwargs["v_vert"]), provider)
+    assert program.lanes == 1 and "one thread an element" in program.source
+
+
+@pytest.mark.skipif(not host.available(), reason="needs a host C++ compiler")
+@pytest.mark.parametrize("nk, dtype", [(2, "float64"), (33, "float64"), (80, "float64"),
+                                       (31, "float32"), (80, "float32")])
+def test_kernels_on_the_host_equal_the_32_lane_kernels(nk, dtype):
+    """Each operator's kernel run on the host (``neighbor_host_emulation``)
+    on a 7 x 5 torus (105 edges, 35 vertices: no multiple of a block's
+    elements) against the 32-lane kernel of the same DAG on the same
+    inputs, to the bit (the update in place: both from the same ``vn``)."""
+    import dataclasses
+
+    cfg = PROGRAM.small_config(config(), 7, 5, nk)
+    fields = {r: t.to(getattr(torch, dtype)) for r, t in fields_of(cfg).items()}
+    kwargs, provider = PROGRAM.operands(cfg, fields)
+    for op, names, out_names in CALLS:
+        args, out = call_of(kwargs, names, out_names)
+        program = uc.lower(op, args, {}, out, provider)
+        values, scalars = uc._call_values(program, uc.bind(op.definition, args, {}))
+        outs = [kwargs[n] for n in out_names]
+        twin = dataclasses.replace(program, lanes=32 if program.lanes > 1 else 1)
+        twin.source, twin.kernel = uc.generate(twin)
+        start = [o.ndarray.clone() for o in outs]
+        got = []
+        for p in (twin, program):
+            for o, s in zip(outs, start):
+                o.ndarray.copy_(s)
+            assert host.launch(p, values, outs, scalars, provider) == 0
+            got.append([o.ndarray.clone() for o in outs])
+        assert all(torch.equal(a, b) for a, b in zip(*got)), program.name
+        assert program.lanes == uc._lanes(nk)
+
+
 # --- the builtins, K-only fields and declines on a small mesh ------------------------------
 
 
@@ -522,3 +646,23 @@ def test_builtins_propagate_nan_as_torch_on_card():
     assert cuda_backend.NEIGHBOR.launches == launches + 1
     assert torch.equal(out.ndarray.isnan(), want.isnan())
     assert torch.equal(out.ndarray.nan_to_num(-7.0), want.nan_to_num(-7.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("nk", [1, 2, 31, 33, 80, 137])
+def test_operators_equal_the_plain_path_on_card(nk, dtype):
+    """Each operator of the step on a 7 x 5 torus (105 edges, 35 vertices)
+    on the card, in the step's order, against its plain version on the
+    same fields, to the bit (the update in place: its plain version from
+    ``vn`` before the kernel writes it); 32, 16 or 1 lanes an element as
+    ``_lanes`` picks, each call served by the lowering."""
+    from .test_torch_unstructured_codegen import _against_plain_on_card
+
+    _need_card()
+    cfg = PROGRAM.small_config(config(), 7, 5, nk)
+    fields = {r: t.to("cuda", getattr(torch, dtype)) for r, t in fields_of(cfg).items()}
+    kwargs, provider = PROGRAM.operands(cfg, fields)
+    for op, names, outs in CALLS:
+        lanes = _against_plain_on_card(op, *call_of(kwargs, names, outs), provider)
+        assert lanes == (uc._lanes(nk) if nk > 1 else 1)

@@ -28,6 +28,7 @@ from gt4py_tpu_torch.instrumentation.spans import clear_spans, spans
 from gt4py_tpu_torch.next import neighbor_sum, otf, where
 from gt4py_tpu_torch.next import unstructured_codegen as uc
 
+from . import neighbor_host_emulation as host
 from . import torch_next_defs as defs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -239,7 +240,8 @@ def test_generated_source_is_one_kernel_for_both_outputs():
     assert re.findall(r"^\s+(?:const )?\w+(?: \w+)?\* __restrict__ (\w+);", src, re.M) == \
         ["f0", "f1", "f2", "f3", "f4", "o0", "o1", "c0", "c1"]
     assert src.count(" = p.o0 + ") == 1 and src.count(" = p.o1 + ") == 1
-    assert src.count("s0[") == 1 and src.count("s1[") == 1  # 5 levels: one trip
+    # 5 levels: one trip of 16 lanes (32 would idle 27 of them)
+    assert program.lanes == 16 and src.count("s0[") == 1 and src.count("s1[") == 1
     # pp read at its own row and the far end of each of its 4 edges, inside
     # the K loop: the near end of every edge is the vertex itself on this
     # mesh, so those four reads are one, and their E2V reads are gone
@@ -247,7 +249,27 @@ def test_generated_source_is_one_kernel_for_both_outputs():
     assert src.count("__ldg(p.c0 +") == 4 and src.count("__ldg(p.c1 +") == 4
     # the loads before the arithmetic (the divisions' branches would fence them)
     assert src.rindex("__ldg(b") < re.search(r"= t\w+ / t\w+;", src).start()
-    assert program.lanes == uc.K_LANES  # K innermost: lanes along K
+    assert "16 lanes an element along K" in src and "gt_h = gt_t / 16;" in src
+
+
+@pytest.mark.parametrize("nk, lanes", [(2, 16), (5, 16), (16, 16), (31, 32), (32, 32), (33, 16),
+                                       (48, 16), (64, 32), (80, 16), (96, 32), (100, 16),
+                                       (128, 32), (137, 32), (256, 32), (300, 32)])
+def test_lanes_pad_k_the_least(nk, lanes):
+    """An element takes 32 lanes along K, or 16 where that pads K to fewer
+    levels in whole trips and leaves the trips unrolled (at most
+    MAX_TRIPS); 32 on a tie."""
+    assert uc._lanes(nk) == lanes
+
+
+def test_benchmark_nabla_keeps_32_lanes():
+    """At the benchmark's 137 levels 32 lanes pad K the least (five trips;
+    16 lanes would need nine, rolled): one warp an element, as before."""
+    cfg = config(nk=137)
+    args, out, provider = PROGRAM.operands(cfg, inputs(cfg))
+    program = uc.lower(PROGRAM.pnabla, args, {}, out, provider)
+    assert program.lanes == uc.K_LANES == 32
+    assert "one warp an element, its lanes along K" in program.source
 
 
 def test_generated_source_threads_along_the_horizontal_where_k_is_outer():
@@ -276,6 +298,92 @@ def test_generated_source_compiles_as_cxx(tmp_path):
                           "-Wno-unknown-pragmas", str(path)],
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def _k_inner_toy(dtype, skip: bool, levels: int):
+    """``_toy`` with ``K`` innermost in the edge field and the out (the
+    layout whose lanes run along ``K``), and E2V beside V2E."""
+    from gt4py_tpu_torch.next.embedded import Field
+
+    e2v, v2e = defs.toy_mesh_tables()
+    if skip:
+        v2e = defs.with_skips(v2e)
+    rng = np.random.default_rng(3)
+
+    def field(dims, values):
+        t = torch.from_numpy(values)
+        return Field(gtx.domain({d: (0, n) for d, n in zip(dims, t.shape)}), t)
+
+    provider = {
+        "V2E": gtx.as_connectivity([defs.Vertex, defs.V2EDim], defs.Edge, v2e, device="cpu",
+                                   skip_value=-1 if skip else None),
+        "E2V": gtx.as_connectivity([defs.Edge, defs.E2VDim], defs.Vertex, e2v, device="cpu"),
+    }
+    e = field([defs.Edge, defs.KDim], rng.random((18, levels)).astype(dtype))
+    return e, provider, field([defs.Vertex, defs.KDim], np.zeros((9, levels), dtype))
+
+
+E2V, V2E, V2EDim = defs.E2V, defs.V2E, defs.V2EDim
+
+
+@gtx.field_operator
+def _vertex_means_summed(v):
+    """At each vertex, the sum over its V2E edges of the mean of the edge's
+    two vertices' values."""
+    mean = 0.5 * (v(E2V[0]) + v(E2V[1]))
+    return neighbor_sum(mean(V2E), axis=V2EDim)
+
+
+def _against_32_lanes_on_the_host(program, values, outs, scalars, provider) -> list:
+    """``program``'s kernel and the 32-lane kernel of the same DAG run on the
+    host (``neighbor_host_emulation``) from NaN outs, equal to the bit;
+    returns the outputs."""
+    import dataclasses
+
+    twin = dataclasses.replace(program, lanes=32)
+    twin.source, twin.kernel = uc.generate(twin)
+    got = []
+    for p in (program, twin):
+        for o in outs:
+            o.ndarray.fill_(float("nan"))
+        assert host.launch(p, values, outs, scalars, provider) == 0
+        got.append([o.ndarray.clone() for o in outs])
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+    return got[0]
+
+
+@pytest.mark.skipif(not host.available(), reason="needs a host C++ compiler")
+@pytest.mark.parametrize("nk, dtype", [(2, "float32"), (33, "float64"), (80, "float32"),
+                                       (80, "float64"), (100, "float32")])
+def test_16_lane_kernel_on_the_host_equals_the_32_lane_kernel(nk, dtype):
+    """The nabla with 16 lanes an element, run on the host, on a 7 x 7 mesh
+    (49 vertices: no multiple of a block's elements) against the 32-lane
+    kernel and the plain ``torch`` version, to the bit."""
+    cfg = config(7, nk, dtype)
+    args, out, provider = PROGRAM.operands(cfg, inputs(cfg))
+    program = uc.lower(PROGRAM.pnabla, args, {}, out, provider)
+    assert program.lanes == 16
+    values, scalars = uc._call_values(program, uc.bind(PROGRAM.pnabla.definition, args, {}))
+    got = _against_32_lanes_on_the_host(program, values, list(out), scalars, provider)
+    program.run_plain(values, list(out), scalars, provider)
+    assert all(torch.equal(g, o.ndarray) for g, o in zip(got, out))
+
+
+@pytest.mark.skipif(not host.available(), reason="needs a host C++ compiler")
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("nk", [2, 33])
+def test_16_lanes_with_skip_values_on_the_host(nk, skip):
+    """E2V read through a V2E with every third entry missing, K innermost:
+    an absent edge's terms are 0 with 16 lanes as with 32 and in the plain
+    version, to the bit."""
+    e, provider, out = _k_inner_toy(np.float64, skip, nk)
+    v = gtx.as_field([defs.Vertex], np.random.default_rng(4).random(9), device="cpu")
+    program = uc.lower(_vertex_means_summed, (v,), {}, out, provider)
+    assert program.lanes == 16 and ("!= -1LL" in program.source) == skip
+    values, scalars = uc._call_values(program, uc.bind(_vertex_means_summed.definition, (v,), {}))
+    (got,) = _against_32_lanes_on_the_host(program, values, [out], scalars, provider)
+    program.run_plain(values, [out], scalars, provider)
+    assert torch.equal(got, out.ndarray)
 
 
 # --- declines ---------------------------------------------------------------------------
@@ -542,3 +650,57 @@ def test_table_rewritten_inside_a_capture_runs_embedded_on_card():
     cpu = _oracle(cfg, args, table)
     for role in ("pnabla_M", "pnabla_P"):
         assert rel_err(state[role].cpu(), cpu[role]) <= 1e-6, role
+
+
+def _against_plain_on_card(op, args, out, provider) -> int:
+    """One call of ``op`` on ``cuda:hopper`` against its lowered program's
+    plain version on the same card fields, computed first (an in-place
+    out reads its argument before the kernel writes it), to the bit, one
+    call served; returns the lanes an element."""
+    from gt4py_tpu_torch.next.embedded import Field
+
+    program = uc.lower(op, args, {}, out, provider)
+    values, scalars = uc._call_values(program, uc.bind(op.definition, args, {}))
+    outs = list(out) if isinstance(out, tuple) else [out]
+    want = [Field(o.domain, torch.full_like(o.ndarray, float("nan"))) for o in outs]
+    program.run_plain(values, want, scalars, provider)
+    served = uc.calls_served["neighbor"]
+    op.with_backend("cuda:hopper")(*args, out=out, offset_provider=provider)
+    torch.cuda.synchronize()
+    for o, w in zip(outs, want):
+        assert torch.equal(o.ndarray, w.ndarray), program.name
+    assert uc.calls_served["neighbor"] == served + 1
+    return program.lanes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("nk", [1, 2, 31, 33, 80, 137])
+def test_kernel_equals_the_plain_path_on_card(nk, dtype):
+    """The nabla on a 7 x 7 mesh (49 vertices: no multiple of a block's
+    elements) on the card, 32, 16 or 1 lanes an element as ``_lanes``
+    picks, against the plain version, to the bit."""
+    _need_card()
+    cfg = config(7, nk, dtype)
+    args, out, provider = PROGRAM.operands(cfg, inputs(cfg, "cuda"))
+    lanes = _against_plain_on_card(PROGRAM.pnabla, args, out, provider)
+    assert lanes == (uc._lanes(nk) if nk > 1 else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skip", [False, True])
+def test_16_lanes_with_skip_values_on_card(skip):
+    _need_card()
+    from gt4py_tpu_torch.next.embedded import Field
+
+    _, provider, out = _k_inner_toy(np.float64, skip, 33)
+    provider = {
+        "V2E": gtx.as_connectivity([defs.Vertex, defs.V2EDim], defs.Edge,
+                                   provider["V2E"].table.numpy(), device="cuda",
+                                   skip_value=-1 if skip else None),
+        "E2V": gtx.as_connectivity([defs.Edge, defs.E2VDim], defs.Vertex,
+                                   provider["E2V"].table.numpy(), device="cuda"),
+    }
+    out = Field(out.domain, out.ndarray.to("cuda"))
+    v = gtx.as_field([defs.Vertex], np.random.default_rng(4).random(9), device="cuda")
+    assert _against_plain_on_card(_vertex_means_summed, (v,), out, provider) == 16
