@@ -116,6 +116,15 @@ swap cycle of the kernels as a CUDA graph.
    CUDA events; each of its kernels' and the nabla's lanes an element,
    registers, spills, shared memory and warps resident on an SM, from
    ``ptxas``.
+   7f. The same step on ICON's icosahedral grid R03B06, the
+   icon-diffusion-vn-ico configuration's full size
+   (perfbench/programs/icon_diffusion_vn_ico.py: 737,280 cells, 1,105,920
+   edges, twelve pentagons with the skip value -1 in ``V2E``) at 80
+   levels in float64: exactly five
+   ``neighbor`` launches, two calls served masking the skip values
+   (``unstructured_codegen.calls_served["masked"]``), no decline, all seven
+   written fields equal to perfbench/reference/icon_diffusion_vn_ico.py to
+   the bit; correctness only.
 
 8. Oracle phases, on the card's host: the port's ``numpy`` backend
    (the exact oracle, NumPy on CPU tensors) holds every registry build of
@@ -767,6 +776,18 @@ def main(argv) -> int:
         print(f"  {kernel}: {lanes} lanes an element, {regs} registers, {spill} B spilled, "
               f"{shared} B shared a block, {warps} warps an SM")
     gc.collect()  # the step's fields and graphs
+    torch.cuda.empty_cache()
+
+    # -- 7f. ICON's diffusion of vn on the icosahedral grid: skip values, to the bit -----
+    ico = run_icon_ico(*ICON_ICO, torch)
+    print(f"ICON diffusion of vn on the icosahedral grid R{ICON_ICO[0]:02d}B{ICON_ICO[1]:02d} "
+          f"({ico['cells']} cells, {ico['edges']} edges x {ico['levels']} levels, float64, 12 "
+          f"pentagons masked in V2E), one diffusion_vn call on cuda:hopper from launch counts "
+          f"of 0, on {smi}: kernels {ico['launches']}, masked calls {ico['masked']}, declines "
+          f"{ico['declines']}, card calls run eagerly {ico['refused']}; == "
+          f"perfbench/reference/icon_diffusion_vn_ico.py to the bit, max rel err "
+          + ", ".join(f"{r} {e:.3e}" for r, e in ico["rel_err"].items()))
+    gc.collect()
     torch.cuda.empty_cache()
 
     # -- 8. the oracles on the host: debug, and numpy and cpu:c at full width ----------
@@ -2324,31 +2345,26 @@ def run_pnabla(n: int, nk: int, torch, device="cuda") -> dict:
 ICON = (1024, 560, 80)
 
 
-def run_icon(nx: int, ny: int, nk: int, torch, device="cuda") -> dict:
-    """ICON's diffusion of ``vn`` (perfbench/programs/icon_diffusion_vn.py)
-    on the ``nx`` x ``ny`` torus of ``nk`` levels in float64: one
-    ``diffusion_vn`` call through ``make_program("cuda:hopper")`` from
-    launch counts of 0 must launch the ``neighbor`` kernel exactly five
-    times and nothing else, serve five calls by the lowering, and count no
-    decline of it (``unstructured_codegen.declined``) and no card call run
-    eagerly (``otf.graphs_refused``); each of the seven written fields must
-    equal the plain reference (perfbench/reference/icon_diffusion_vn.py) on
-    the same ``vn`` to the bit. Then, after two calls that capture and
-    replay the graphs, µs a step by CUDA events over 10 warm calls, each
-    five launches (``device="cpu"``: the lowering's plain path, no launch,
-    the host clock; a rehearsal)."""
+def _icon_first_step(name: str, config: dict, torch, device: str) -> dict:
+    """One ``diffusion_vn`` call of the program module ``name``
+    (perfbench/programs/) on ``config`` in float64 through
+    ``make_program("cuda:hopper")`` from launch counts of 0: it must launch
+    the ``neighbor`` kernel exactly five times and nothing else, serve five
+    calls by the lowering, and count no decline of it
+    (``unstructured_codegen.declined``) and no card call run eagerly
+    (``otf.graphs_refused``); each of the seven written fields must equal
+    the plain reference (perfbench/reference/``name``.py) on the same ``vn``
+    to the bit (``device="cpu"``: the lowering's plain path, no launch; a
+    rehearsal). Returns the counts, the errors, and the step with its
+    operands for further calls."""
     from gt4py_tpu_torch.cartesian.backend import cuda_backend
     from gt4py_tpu_torch.next import otf
     from gt4py_tpu_torch.next import unstructured_codegen as uc
     from perfbench import spec
 
     root = os.path.dirname(os.path.abspath(__file__))
-    program = spec.load_module(root, "programs", "icon_diffusion_vn")
-    reference = spec.load_module(root, "reference", "icon_diffusion_vn")
-    config = spec.load_json(os.path.join(root, "perfbench", "configs",
-                                         "icon_diffusion_vn_1m_l80_f64.json"))
-    if (nx, ny, nk) != (config["mesh_nx"], config["mesh_ny"], config["levels"]):
-        config = program.small_config(config, nx, ny, nk)
+    program = spec.load_module(root, "programs", name)
+    reference = spec.load_module(root, "reference", name)
     fields = {r: torch.zeros(f["shape"], dtype=torch.float64, device=device)
               for r, f in config["fields"].items()}
     gen = torch.Generator(device=device)
@@ -2358,56 +2374,105 @@ def run_icon(nx: int, ny: int, nk: int, torch, device="cuda") -> dict:
     vn0 = fields["vn"].clone()
     kwargs, provider = program.operands(config, fields)
     step = program.make_program("cuda:hopper")
-    on_card = device == "cuda"
 
     def counts() -> tuple:
         return (sum(uc.declined.values()), sum(otf.graphs_refused.values()),
-                uc.calls_served["neighbor"])
+                uc.calls_served["neighbor"], uc.calls_served["masked"])
 
     for wrapper in cuda_backend.WRAPPERS.values():
         wrapper.launches = 0
     before = counts()
     step(**kwargs, offset_provider=provider)
-    if on_card:
+    if device == "cuda":
         torch.cuda.synchronize()
     launches = {k: w.launches for k, w in cuda_backend.WRAPPERS.items() if w.launches}
-    declines, refused, served = (b - a for a, b in zip(before, counts()))
-    if launches != ({cuda_backend.NEIGHBOR.name: 5} if on_card else {}) or declines \
+    declines, refused, served, masked = (b - a for a, b in zip(before, counts()))
+    where = f"{name} at {config['edges']} edges x {config['levels']} levels"
+    if launches != ({cuda_backend.NEIGHBOR.name: 5} if device == "cuda" else {}) or declines \
             or refused or served != 5:
-        raise AssertionError(f"ICON diffusion at {nx}x{ny}x{nk}: launches {launches}, "
-                             f"{declines} declines, {refused} calls run eagerly, {served} "
-                             f"calls served by the lowering, not 5")
+        raise AssertionError(f"{where}: launches {launches}, {declines} declines, {refused} "
+                             f"calls run eagerly, {served} calls served by the lowering, not 5")
     want = reference.step({"vn": vn0}, config)
     errs = {}
     for role in program.WRITTEN:
         got, ref = fields[role], want[role]
         errs[role] = float((got - ref).abs().max() / ref.abs().max())
         if not torch.equal(got, ref):
-            raise AssertionError(f"ICON diffusion at {nx}x{ny}x{nk}: {role} differs from the "
-                                 f"reference (max rel err {errs[role]:.3e})")
-    del want, vn0
+            raise AssertionError(f"{where}: {role} differs from the reference (max rel err "
+                                 f"{errs[role]:.3e})")
+    return {"edges": int(config["edges"]), "levels": int(config["levels"]), "launches": launches,
+            "declines": declines, "refused": refused, "masked": masked, "rel_err": errs,
+            "call": lambda: step(**kwargs, offset_provider=provider)}
+
+
+def run_icon(nx: int, ny: int, nk: int, torch, device="cuda") -> dict:
+    """ICON's diffusion of ``vn`` (perfbench/programs/icon_diffusion_vn.py)
+    on the ``nx`` x ``ny`` torus of ``nk`` levels in float64: one step
+    checked by :func:`_icon_first_step`; then, after two calls that capture
+    and replay the graphs, µs a step by CUDA events over 10 warm calls,
+    each five launches (``device="cpu"``: the host clock; a rehearsal)."""
+    from gt4py_tpu_torch.cartesian.backend import cuda_backend
+    from perfbench import spec
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    program = spec.load_module(root, "programs", "icon_diffusion_vn")
+    config = spec.load_json(os.path.join(root, "perfbench", "configs",
+                                         "icon_diffusion_vn_1m_l80_f64.json"))
+    if (nx, ny, nk) != (config["mesh_nx"], config["mesh_ny"], config["levels"]):
+        config = program.small_config(config, nx, ny, nk)
+    out = _icon_first_step("icon_diffusion_vn", config, torch, device)
+    step = out.pop("call")
+    on_card = device == "cuda"
     for _ in range(2):  # the graphs' capture and first replay
-        step(**kwargs, offset_provider=provider)
+        step()
     calls = 10
     before = cuda_backend.NEIGHBOR.launches
     if on_card:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(calls):
-            step(**kwargs, offset_provider=provider)
+            step()
         end.record()
         end.synchronize()
         us = start.elapsed_time(end) / calls * 1e3
     else:
         t0 = time.perf_counter()
         for _ in range(calls):
-            step(**kwargs, offset_provider=provider)
+            step()
         us = (time.perf_counter() - t0) / calls * 1e6
     warm = cuda_backend.NEIGHBOR.launches - before
     if warm != (5 * calls if on_card else 0):
         raise AssertionError(f"ICON diffusion: {warm} launches in {calls} warm calls")
-    return {"edges": 3 * nx * ny, "levels": nk, "launches": launches, "declines": declines,
-            "refused": refused, "rel_err": errs, "us": us, "warm_launches": warm}
+    return {**out, "us": us, "warm_launches": warm}
+
+
+#: step 7f's ICON diffusion of vn on the icosahedral grid: the benchmark's
+#: R03B06 (737,280 cells, 12 pentagons) at its 80 levels
+ICON_ICO = (3, 6, 80)
+
+
+def run_icon_ico(root: int, bisections: int, nk: int, torch, device="cuda") -> dict:
+    """ICON's diffusion of ``vn`` on the icosahedral grid R<root>B<bisections>
+    (perfbench/programs/icon_diffusion_vn_ico.py: ``V2E`` with the skip
+    value -1 at the twelve pentagons) at ``nk`` levels in float64: one step
+    checked by :func:`_icon_first_step`, and two of its five calls (the
+    radial-basis interpolation's) served masking the skip values
+    (``unstructured_codegen.calls_served["masked"]``). Correctness only."""
+    from perfbench import spec
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    program = spec.load_module(here, "programs", "icon_diffusion_vn_ico")
+    config = spec.load_json(os.path.join(here, "perfbench", "configs",
+                                         "icon_diffusion_vn_r3b6_l80_f64.json"))
+    if (root, bisections, nk) != (config["mesh_root"], config["mesh_bisections"],
+                                  config["levels"]):
+        config = program.small_config(config, root, bisections, nk)
+    out = _icon_first_step("icon_diffusion_vn_ico", config, torch, device)
+    del out["call"]
+    if out["masked"] != 2:
+        raise AssertionError(f"ICON diffusion on R{root:02d}B{bisections:02d}: {out['masked']} "
+                             f"calls served masked, not 2")
+    return {**out, "cells": int(config["cells"])}
 
 
 # -- the oracle and profiler phases ----------------------------------------------

@@ -1029,12 +1029,14 @@ def _kernel_launches() -> int:
 class _ProgramSpan:
     """The root span ``gt4py.next.program`` of a program's call on card
     tensors, where a span records (``instrumentation.spans.span``): its
-    attributes ``operators`` (the operator calls the program made) and
+    attributes ``operators`` (the operator calls the program made),
     ``launches`` (the port's kernels launched or replayed in it,
-    ``cuda_backend.WRAPPERS``). The operators' ``gt4py.next.call`` spans
-    nest under it. Nothing on CPU tensors or where no span records."""
+    ``cuda_backend.WRAPPERS``) and ``masked`` (its calls the generated
+    kernel served masking skip values, ``unstructured_codegen.calls_served``).
+    The operators' ``gt4py.next.call`` spans nest under it. Nothing on CPU
+    tensors or where no span records."""
 
-    __slots__ = ("span", "operators", "launches")
+    __slots__ = ("span", "operators", "launches", "masked")
 
     def __init__(self, prog: Program, args: tuple, kwargs: dict):
         from gt4py_tpu_torch.instrumentation.spans import NO_SPAN, span
@@ -1048,6 +1050,7 @@ class _ProgramSpan:
         if self.span is not None:
             self.span.__enter__()
             self.operators, self.launches = OPERATOR_CALLS[0], _kernel_launches()
+            self.masked = _masked_calls()
         return self
 
     def __exit__(self, *exc) -> bool:
@@ -1055,7 +1058,14 @@ class _ProgramSpan:
             return False
         self.span.set("operators", OPERATOR_CALLS[0] - self.operators)
         self.span.set("launches", _kernel_launches() - self.launches)
+        self.span.set("masked", _masked_calls() - self.masked)
         return self.span.__exit__(*exc)
+
+
+def _masked_calls() -> int:
+    from gt4py_tpu_torch.next.unstructured_codegen import calls_served
+
+    return calls_served["masked"]
 
 
 def _on_card(tree: Any) -> bool:

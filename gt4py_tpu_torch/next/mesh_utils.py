@@ -7,6 +7,10 @@ Copied from gt4py_tpu/next/mesh_utils.py; imports renamed:
 - :func:`periodic_triangle_mesh` — ICON's planar torus of equilateral
   triangles with ICON's connectivity tables (the port's own: the ICON
   diffusion benchmark's mesh).
+- :func:`icosahedral_mesh` — ICON's global icosahedral grid RnBk on the
+  unit sphere, twelve pentagons with a skip value in ``V2E``, numbered by
+  construction (the port's own: the ICON diffusion benchmark's global
+  grid).
 - :func:`spatial_renumbering` — row-major (optionally tiled) numbering
   from element coordinates.
 - :class:`Renumbering` — applies a permutation consistently to
@@ -33,6 +37,7 @@ from gt4py_tpu_torch.next.common import Connectivity, Dimension
 
 __all__ = [
     "Renumbering",
+    "icosahedral_mesh",
     "periodic_quad_mesh",
     "periodic_triangle_mesh",
     "spatial_renumbering",
@@ -127,6 +132,162 @@ def periodic_triangle_mesh(nx: int, ny: int) -> dict:
                     3 * vid(r - 1, c) + 1, 3 * vid(r - 1, c + 1) + 2], axis=1)
     e2ecv = 4 * np.arange(ne, dtype=np.int64)[:, None] + np.arange(4, dtype=np.int64)
     return {"E2V": e2v, "E2C": e2c, "C2E": c2e, "V2E": v2e, "E2C2V": e2c2v, "E2ECV": e2ecv}
+
+
+#: the icosahedron's corners, ``(0, ±1, ±φ)`` and its cyclic permutations, and
+#: its twenty faces, each counter-clockwise seen from outside
+_PHI = (1.0 + 5.0 ** 0.5) / 2.0
+_ICOSAHEDRON = np.asarray(
+    [(-1, _PHI, 0), (1, _PHI, 0), (-1, -_PHI, 0), (1, -_PHI, 0), (0, -1, _PHI), (0, 1, _PHI),
+     (0, -1, -_PHI), (0, 1, -_PHI), (_PHI, 0, -1), (_PHI, 0, 1), (-_PHI, 0, -1), (-_PHI, 0, 1)])
+_ICOSAHEDRON_FACES = (
+    (0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11), (1, 5, 9), (5, 11, 4),
+    (11, 10, 2), (10, 7, 6), (7, 1, 8), (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+    (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1))
+#: the skip value of ``V2E``'s sixth slot at the twelve pentagons, as in ICON4Py
+_SKIP = -1
+
+
+def _unit(xyz: np.ndarray) -> np.ndarray:
+    return xyz / np.linalg.norm(xyz, axis=-1, keepdims=True)
+
+
+def _root_division(root: int) -> tuple:
+    """(C2V, vertex coordinates) of the icosahedron's faces each split into
+    ``root**2`` triangles on its barycentric lattice, face by face; a
+    face's triangles row by row of its lattice, each row's up and down
+    triangles alternating. Points shared by faces are one vertex."""
+    corners = _unit(_ICOSAHEDRON)
+    index: dict = {}
+    xyz: list = []
+    cells = []
+
+    def vertex(face, i, j):
+        # the point's integer weights on the icosahedron's corners name it
+        weights = ((face[0], root - i - j), (face[1], i), (face[2], j))
+        key = tuple(sorted((v, w) for v, w in weights if w))
+        if key not in index:
+            index[key] = len(xyz)
+            xyz.append(sum(w * corners[v] for v, w in key) / root)
+        return index[key]
+
+    for face in _ICOSAHEDRON_FACES:
+        for j in range(root):
+            for i in range(root - j):
+                cells.append((vertex(face, i, j), vertex(face, i + 1, j), vertex(face, i, j + 1)))
+                if i < root - j - 1:
+                    cells.append((vertex(face, i + 1, j), vertex(face, i + 1, j + 1),
+                                  vertex(face, i, j + 1)))
+    return np.asarray(cells, dtype=np.int64), _unit(np.asarray(xyz))
+
+
+def _bisect(c2v: np.ndarray, xyz: np.ndarray) -> tuple:
+    """Each triangle ``(a, b, c)`` split into four at its sides' midpoints,
+    projected onto the sphere: ``(a, ab, ca)``, ``(ab, b, bc)``,
+    ``(ca, bc, c)``, ``(bc, ca, ab)``, numbered ``4 p`` to ``4 p + 3`` for
+    the parent ``p``."""
+    nv = len(xyz)
+    a, b, c = c2v.T
+    ends = np.stack([c2v, np.roll(c2v, -1, axis=1)], axis=2)
+    key = ends.min(axis=2) * nv + ends.max(axis=2)
+    sides, inverse = np.unique(key, return_inverse=True)
+    lo, hi = np.divmod(sides, nv)
+    xyz = np.concatenate([xyz, _unit(xyz[lo] + xyz[hi])])
+    ab, bc, ca = (nv + inverse.reshape(c2v.shape)).T
+    children = np.stack([np.stack(t, axis=1) for t in ((a, ab, ca), (ab, b, bc), (ca, bc, c),
+                                                       (bc, ca, ab))], axis=1)
+    return children.reshape(-1, 3), xyz
+
+
+def icosahedral_mesh(root: int, bisections: int) -> dict:
+    """ICON's global icosahedral grid RnBk (the port's own): the icosahedron
+    on the unit sphere, each face split into ``root**2`` triangles, then
+    bisected ``bisections`` times, new vertices projected onto the sphere
+    (Wan et al. 2013, GMD 6:735-763). ``20 r² 4^b`` cells, ``30 r² 4^b``
+    edges and ``10 r² 4^b + 2`` vertices, twelve of them (the icosahedron's
+    corners) of degree 5, the others of degree 6. R03B06: 737,280 cells.
+
+    Numbering (not row-major, and not ICON's grid generator's):
+    cells in the construction's order: the root triangles face by face in
+    lattice order, and each bisection numbers a parent's four children
+    consecutively (a quadtree order); vertices and edges by first
+    appearance, walking the cells in order, each cell's corners and sides
+    counter-clockwise (side ``k`` from corner ``k`` to ``k + 1``).
+
+    Returns int64 tables by ICON's offset names: ``C2V`` (a cell's corners,
+    counter-clockwise seen from outside), ``E2V`` (an edge's ends, in the
+    order its first cell walks them), ``E2C`` (that cell, then the other),
+    ``C2E`` (a cell's sides), ``V2E`` (a vertex's edges, counter-clockwise
+    seen from outside from its lowest-numbered edge; at the pentagons the
+    sixth slot is the skip value ``-1``), ``E2C2V`` (the edge's two ends,
+    then the vertex opposite it in ``E2C[0]`` and in ``E2C[1]``) and
+    ``E2ECV`` (``4e + i``); ``xyz`` (the vertices on the unit sphere) and
+    ``skip_values`` (``{"V2E": -1}``: the other tables have none).
+    Vectorised: R03B06 builds in about a second. Build span
+    ``gt4py.build.mesh``.
+    """
+    from gt4py_tpu_torch.instrumentation.spans import Span
+
+    if root < 1 or bisections < 0:
+        raise ValueError(f"icosahedral_mesh needs root >= 1 and bisections >= 0, got "
+                         f"R{root}B{bisections}")
+    with Span("gt4py.build.mesh", always=True, kind="icosahedral", root=root,
+              bisections=bisections) as mesh_span:
+        c2v, xyz = _root_division(root)
+        for _ in range(bisections):
+            c2v, xyz = _bisect(c2v, xyz)
+        nc, nv = len(c2v), len(xyz)
+        # vertices by first appearance
+        _, first = np.unique(c2v, return_index=True)
+        order = np.argsort(first, kind="stable")
+        rank = np.empty(nv, dtype=np.int64)
+        rank[order] = np.arange(nv)
+        c2v, xyz = rank[c2v], xyz[order]
+        # edges by first appearance; side k of a cell runs from corner k to k + 1
+        nxt = np.roll(c2v, -1, axis=1)
+        key = (np.minimum(c2v, nxt) * nv + np.maximum(c2v, nxt)).ravel()
+        _, first, inverse = np.unique(key, return_index=True, return_inverse=True)
+        ne = len(first)
+        order = np.argsort(first, kind="stable")
+        rank = np.empty(ne, dtype=np.int64)
+        rank[order] = np.arange(ne)
+        c2e = rank[inverse].reshape(nc, 3)
+        at = first[order]  # each edge's first (cell, side), flattened
+        second = np.ones(3 * nc, dtype=bool)
+        second[at] = False
+        later = np.nonzero(second)[0]
+        opposite = np.roll(c2v, 1, axis=1).ravel()  # corner k + 2: opposite side k
+        e2v = np.stack([c2v.ravel()[at], nxt.ravel()[at]], axis=1)
+        e2c = np.empty((ne, 2), dtype=np.int64)
+        e2c[:, 0] = at // 3
+        e2c[c2e.ravel()[later], 1] = later // 3
+        e2c2v = np.empty((ne, 4), dtype=np.int64)
+        e2c2v[:, :2] = e2v
+        e2c2v[:, 2] = opposite[at]
+        e2c2v[c2e.ravel()[later], 3] = opposite[later]
+        # around each vertex: in its cell (v, a, b), edge v-b follows v-a
+        # counter-clockwise; a half-edge is 2 e + (the vertex is its second end)
+        corner_v, from_e = c2v.ravel(), c2e.ravel()
+        to_e = np.roll(c2e, 1, axis=1).ravel()
+        follows = np.empty(2 * ne, dtype=np.int64)
+        follows[2 * from_e + (e2v[from_e, 0] != corner_v)] = to_e
+        degree = np.bincount(corner_v, minlength=nv)
+        start = np.full(nv, ne, dtype=np.int64)
+        np.minimum.at(start, corner_v, from_e)
+        v2e = np.empty((nv, 6), dtype=np.int64)
+        current, vertices = start, np.arange(nv)
+        for slot in range(6):
+            v2e[:, slot] = current
+            current = follows[2 * current + (e2v[current, 0] != vertices)]
+        v2e[degree == 5, 5] = _SKIP
+        e2ecv = 4 * np.arange(ne, dtype=np.int64)[:, None] + np.arange(4, dtype=np.int64)
+        mesh_span.set("cells", nc)
+        mesh_span.set("edges", ne)
+        mesh_span.set("vertices", nv)
+        mesh_span.set("pentagons", int((degree == 5).sum()))
+        mesh_span.set("skip_slots", int((v2e == _SKIP).sum()))
+    return {"C2V": c2v, "E2V": e2v, "E2C": e2c, "C2E": c2e, "V2E": v2e, "E2C2V": e2c2v,
+            "E2ECV": e2ecv, "xyz": xyz, "skip_values": {"V2E": _SKIP}}
 
 
 def spatial_renumbering(

@@ -122,7 +122,9 @@ DECLINES = (DECLINED_CONSTRUCT, DECLINED_BUILTIN, DECLINED_OFFSET, DECLINED_SKIP
 declined: collections.Counter = collections.Counter()
 #: ``"neighbor"`` -> the calls the lowered kernel served since the counter
 #: was cleared (on CPU tensors they run its plain version; on a card each
-#: is one launch of ``cuda_backend.NEIGHBOR``, eager or replayed)
+#: is one launch of ``cuda_backend.NEIGHBOR``, eager or replayed);
+#: ``"masked"`` -> those of them served by a variant whose neighbor sums
+#: mask a table's skip values (:attr:`NeighborProgram.masks`)
 calls_served: collections.Counter = collections.Counter()
 
 #: lanes a horizontal element takes where the outputs' K axis is contiguous,
@@ -597,6 +599,12 @@ class NeighborProgram:
     source: str = ""
     _fn: Any = dataclasses.field(default=None, repr=False)
     _aliased: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def masks(self) -> bool:
+        """Whether its neighbor sums mask skip values: a table with a skip
+        value is read only under a neighbor sum (``DECLINED_SKIP``)."""
+        return any(c.skip is not None for c in self.conns)
 
     def aliased(self, pairs: tuple) -> "NeighborProgram":
         """This program where each (field slot, out index) of ``pairs`` is one
@@ -1388,7 +1396,7 @@ def try_call(op, args, kwargs, out, dom, providers, make: Optional[Callable] = N
         if graph is not None:
             with span("gt4py.next.replay") as replay_span:
                 replay_span.set("launches", graphs.replay(graph))
-            calls_served["neighbor"] += 1
+            _served(tables in op.__dict__.get("_neighbor_masked", ()))
             return True
     cache = op.__dict__.setdefault("_neighbor_cache", {})
     vkey = variant_key(args, kwargs, out, dom, tables)
@@ -1411,7 +1419,7 @@ def try_call(op, args, kwargs, out, dom, providers, make: Optional[Callable] = N
         if device is not None:  # a card the lowering cannot launch on
             return False
         program.run_plain(values, outs, scalars, providers)
-        calls_served["neighbor"] += 1
+        _served(program.masks)
         return True
     aliases = _aliases(program, values, outs)
     if aliases is None:
@@ -1422,12 +1430,21 @@ def try_call(op, args, kwargs, out, dom, providers, make: Optional[Callable] = N
         if refusal is not None:
             otf.refuse(refusal)
         launch()
-        calls_served["neighbor"] += 1
+        _served(program.masks)
         return True
+    if program.masks:  # so are its graph's replays: whether it masks, its tables say
+        op.__dict__.setdefault("_neighbor_masked", set()).add(tables)
     with span("gt4py.next.launch") as launch_span:
         launch_span.set("launches", graphs.run(key, device, keeps, launch))
-    calls_served["neighbor"] += 1
+    _served(program.masks)
     return True
+
+
+def _served(masked: bool) -> None:
+    """Count a call the lowered kernel served (:data:`calls_served`)."""
+    calls_served["neighbor"] += 1
+    if masked:
+        calls_served["masked"] += 1
 
 
 _UNSEEN = object()

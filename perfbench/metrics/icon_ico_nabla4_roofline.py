@@ -1,0 +1,20 @@
+"""The generated kernel of the fourth-order Laplacian on the icosahedral
+grid (operator 3, ``calculate_nabla4``): its share of its memory roofline,
+in %: its compulsory bytes (icon_vn_roofline.nabla4_bytes) at the card's
+published peak, over its own device time a step (the trace's
+``device_ops`` entry of ``gt_neighbor_calculate_nabla4_...``). Read only
+for the program ``icon_diffusion_vn_ico`` and from a complete trace; None
+where no such kernel ran."""
+
+import os
+
+from perfbench.spec import load_module
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+KERNEL = "gt_neighbor_calculate_nabla4_"
+
+
+def read(run):
+    step = load_module(ROOT, "metrics", "icon_vn_roofline")
+    share = load_module(ROOT, "metrics", "icon_ico_roofline")
+    return share.kernel_share(run, KERNEL, step.nabla4_bytes)

@@ -154,8 +154,9 @@ PORT_COPIES = {
     "next/mesh_utils.py": (
         "# the port's tables are tensors", "# where the relabelled table stays",
         "# the port's fields hold tensors", "from gt4py_tpu_torch.core.ndarray_utils import",
-        # ICON's planar torus, the ICON diffusion benchmark's mesh
-        "periodic_triangle_mesh",
+        # ICON's planar torus and global icosahedral grid, the ICON diffusion
+        # benchmark's meshes
+        "periodic_triangle_mesh", "icosahedral_mesh",
     ),
 }
 #: functions of a copied module the port leaves out, with the reason

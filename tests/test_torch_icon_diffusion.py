@@ -666,3 +666,377 @@ def test_operators_equal_the_plain_path_on_card(nk, dtype):
     for op, names, outs in CALLS:
         lanes = _against_plain_on_card(op, *call_of(kwargs, names, outs), provider)
         assert lanes == (uc._lanes(nk) if nk > 1 else 1)
+
+
+# --- the global icosahedral grid (icon-diffusion-vn-ico) -------------------------------------
+#
+# ``mesh_utils.icosahedral_mesh`` and the step on it (perfbench/programs/
+# icon_diffusion_vn_ico.py): twelve pentagons with the skip value -1 in
+# V2E's sixth slot, the grid's own numbering, and the plain reference
+# (perfbench/reference/icon_diffusion_vn_ico.py) that derives its tables
+# from the triangulation alone.
+
+from gt4py_tpu_torch.next.mesh_utils import icosahedral_mesh  # noqa: E402
+
+ICO = spec.load_module(REPO, "programs", "icon_diffusion_vn_ico")
+ICO_REFERENCE = spec.load_module(REPO, "reference", "icon_diffusion_vn_ico")
+GRIDS = [(1, 0), (1, 1), (2, 1), (3, 1)]
+
+
+def ico_config(root=2, bisections=1, nk=3) -> dict:
+    full = spec.load_json(os.path.join(REPO, "perfbench", "configs",
+                                       "icon_diffusion_vn_r3b6_l80_f64.json"))
+    return ICO.small_config(full, root, bisections, nk)
+
+
+def ico_step_on(backend, cfg, seed=11) -> tuple:
+    fields = fields_of(cfg, seed)
+    vn0 = fields["vn"].clone()
+    kwargs, provider = ICO.operands(cfg, fields)
+    ICO.make_program(backend)(**kwargs, offset_provider=provider)
+    return fields, vn0
+
+
+@pytest.mark.parametrize("root, bisections", GRIDS)
+def test_icosahedral_counts_and_euler(root, bisections):
+    """20 r² 4^b cells, 30 r² 4^b edges, 10 r² 4^b + 2 vertices (V - E + F
+    = 2), every table int64 of ICON's widths, the vertices on the unit
+    sphere."""
+    t = icosahedral_mesh(root, bisections)
+    n = root * root * 4 ** bisections
+    nc, ne, nv = 20 * n, 30 * n, 10 * n + 2
+    assert nv - ne + nc == 2
+    assert {k: v.shape for k, v in t.items() if isinstance(v, np.ndarray)} == {
+        "C2V": (nc, 3), "E2V": (ne, 2), "E2C": (ne, 2), "C2E": (nc, 3), "V2E": (nv, 6),
+        "E2C2V": (ne, 4), "E2ECV": (ne, 4), "xyz": (nv, 3)}
+    assert all(t[k].dtype == np.int64 for k in ("C2V", "E2V", "E2C", "C2E", "V2E", "E2C2V"))
+    np.testing.assert_allclose(np.linalg.norm(t["xyz"], axis=1), 1.0, rtol=1e-14)
+    assert t["skip_values"] == {"V2E": -1}
+
+
+@pytest.mark.parametrize("root, bisections", GRIDS)
+def test_icosahedral_twelve_pentagons_skip_in_v2e(root, bisections):
+    """Exactly twelve vertices of degree 5, each with one -1, in V2E's sixth
+    slot; every other slot an edge of the vertex, no edge twice in a row,
+    and every edge in the rows of its two ends."""
+    t = icosahedral_mesh(root, bisections)
+    v2e, e2v = t["V2E"], t["E2V"]
+    degree = np.bincount(t["C2V"].ravel(), minlength=len(v2e))
+    assert sorted(set(degree.tolist())) == ([5] if bisections == 0 and root == 1 else [5, 6])
+    pentagons = np.nonzero(degree == 5)[0]
+    assert len(pentagons) == 12
+    assert np.array_equal(np.nonzero((v2e == -1).any(axis=1))[0], pentagons)
+    assert (v2e[:, :5] >= 0).all() and (v2e[pentagons, 5] == -1).all()
+    present = v2e >= 0
+    own = (e2v[np.where(present, v2e, 0)] == np.arange(len(v2e))[:, None, None]).any(axis=2)
+    assert own[present].all()
+    assert all(len(set(row[row >= 0])) == (row >= 0).sum() for row in v2e)
+    assert np.array_equal(np.bincount(v2e[present], minlength=len(e2v)), np.full(len(e2v), 2))
+
+
+@pytest.mark.parametrize("root, bisections", GRIDS)
+def test_icosahedral_edges_in_two_cells(root, bisections):
+    """Every edge in exactly two cells, C2E's sides read back; E2V its ends
+    as its first cell walks them; E2C2V its ends, then the corner opposite
+    it in E2C[0] and in E2C[1]; E2ECV 4e + i; no two edges join one pair."""
+    t = icosahedral_mesh(root, bisections)
+    c2v, c2e, e2v, e2c, e2c2v = (t[k] for k in ("C2V", "C2E", "E2V", "E2C", "E2C2V"))
+    ne = len(e2v)
+    assert np.array_equal(np.bincount(c2e.ravel(), minlength=ne), np.full(ne, 2))
+    assert (e2c[:, 0] != e2c[:, 1]).all()
+    assert np.array_equal(e2c2v[:, :2], e2v)
+    for j in range(2):
+        cells = e2c[:, j]
+        side = np.argmax(c2e[cells] == np.arange(ne)[:, None], axis=1)
+        assert (c2e[cells, side] == np.arange(ne)).all()
+        walked = np.stack([c2v[cells, side], c2v[cells, (side + 1) % 3]], axis=1)
+        assert np.array_equal(walked, e2v if j == 0 else e2v[:, ::-1])
+        assert np.array_equal(e2c2v[:, 2 + j], c2v[cells, (side + 2) % 3])
+    assert np.array_equal(t["E2ECV"], 4 * np.arange(ne)[:, None] + np.arange(4))
+    assert len({tuple(sorted(p)) for p in e2v.tolist()}) == ne
+
+
+@pytest.mark.parametrize("root, bisections", GRIDS)
+def test_icosahedral_v2e_counter_clockwise(root, bisections):
+    """Around each vertex, seen from outside the sphere, each edge of V2E
+    turns counter-clockwise to the next (the last back to the first), and
+    they go once round; each cell's corners counter-clockwise too."""
+    t = icosahedral_mesh(root, bisections)
+    xyz, v2e, e2v, c2v = t["xyz"], t["V2E"], t["E2V"], t["C2V"]
+    a, b, c = (xyz[c2v[:, k]] for k in range(3))
+    assert (np.einsum("ij,ij->i", np.cross(b - a, c - a), a + b + c) > 0).all()
+    nv = len(v2e)
+    degree = np.where(v2e[:, 5] == -1, 5, 6)
+    slots = np.arange(6)
+    to = np.where(v2e >= 0, v2e, v2e[:, :1])
+    other = np.where(e2v[to, 0] == np.arange(nv)[:, None], e2v[to, 1], e2v[to, 0])
+    d = xyz[other] - xyz[:, None, :]
+    d -= np.einsum("ijk,ik->ij", d, xyz)[:, :, None] * xyz[:, None, :]  # on the tangent plane
+    nxt = (slots[None, :] + 1) % degree[:, None]
+    turn = np.einsum("ijk,ik->ij", np.cross(d, d[np.arange(nv)[:, None], nxt]), xyz)
+    assert (turn[slots[None, :] < degree[:, None]] > 0).all()
+    # once round: the turns' angles on the tangent plane add up to 2 pi
+    cos = np.einsum("ijk,ijk->ij", d, d[np.arange(nv)[:, None], nxt]) / (
+        np.linalg.norm(d, axis=2) * np.linalg.norm(d[np.arange(nv)[:, None], nxt], axis=2))
+    angle = np.where(slots[None, :] < degree[:, None], np.arccos(np.clip(cos, -1, 1)), 0.0)
+    np.testing.assert_allclose(angle.sum(axis=1), 2 * np.pi, rtol=1e-9)
+
+
+@pytest.mark.parametrize("root, bisections", [(1, 1), (2, 1), (3, 1), (1, 2)])
+def test_icosahedral_children_numbered_consecutively(root, bisections):
+    """Cells 4p to 4p + 3 are the four children of the grid's cell p one
+    bisection coarser: their tips are its corners, and their centre its
+    sides' midpoints on the sphere."""
+    fine, coarse = icosahedral_mesh(root, bisections), icosahedral_mesh(root, bisections - 1)
+    parent = coarse["xyz"][coarse["C2V"]]  # (cells, corner, xyz)
+    child = fine["xyz"][fine["C2V"]].reshape(len(parent), 4, 3, 3)
+    for k in range(3):
+        np.testing.assert_allclose(child[:, k, k], parent[:, k], atol=1e-14)
+    mid = parent + np.roll(parent, -1, axis=1)
+    mid /= np.linalg.norm(mid, axis=2, keepdims=True)  # a b, b c, c a
+    np.testing.assert_allclose(child[:, 3], mid[:, [1, 2, 0]], atol=1e-14)
+
+
+@pytest.mark.parametrize("root, bisections", GRIDS)
+def test_icosahedral_numbering_by_first_appearance(root, bisections):
+    """Vertices and edges numbered in the order the cells, walked in order,
+    first name them; the order is not row-major: consecutive cells' lowest
+    vertices jump back."""
+    t = icosahedral_mesh(root, bisections)
+    for table in ("C2V", "C2E"):
+        _, first = np.unique(t[table].ravel(), return_index=True)
+        assert (np.diff(first) > 0).all(), table
+    lowest = t["C2V"].min(axis=1)
+    if len(lowest) > 20:
+        assert (np.diff(lowest) < 0).any()
+
+
+def test_icosahedral_r03b06_counts():
+    """The benchmark's grid: 737,280 cells, 1,105,920 edges, 368,642
+    vertices, twelve of them with a -1 in V2E."""
+    t = icosahedral_mesh(3, 6)
+    assert (len(t["C2V"]), len(t["E2V"]), len(t["V2E"])) == (737_280, 1_105_920, 368_642)
+    assert ((t["V2E"] == -1).sum(axis=1) == 1).sum() == 12 and (t["V2E"] == -1).sum() == 12
+
+
+def test_icosahedral_rejects_no_root():
+    with pytest.raises(ValueError):
+        icosahedral_mesh(0, 2)
+
+
+def test_mesh_span_and_its_attributes():
+    """A build span ``gt4py.build.mesh`` around ``icosahedral_mesh``, kept with no
+    profile, with the grid's kind, root, bisections and counts."""
+    from gt4py_tpu_torch.instrumentation import clear_spans, spans
+
+    clear_spans()
+    icosahedral_mesh(2, 1)
+    (rec,) = [r for r in spans() if r.name == "gt4py.build.mesh"]
+    assert rec.attrs == {"kind": "icosahedral", "root": 2, "bisections": 1, "cells": 320,
+                         "edges": 480, "vertices": 162, "pentagons": 12, "skip_slots": 12}
+    assert rec.parent is None and rec.end_ns > rec.start_ns
+
+
+@pytest.mark.parametrize("root, bisections", GRIDS + [(2, 3)])
+def test_reference_derives_the_grids_tables(root, bisections):
+    """The reference's V2E (with its skip slots), E2C2V and E2ECV, derived
+    from its own triangulation alone, equal ``icosahedral_mesh``'s."""
+    t = icosahedral_mesh(root, bisections)
+    derived = ICO_REFERENCE.derive(ICO_REFERENCE.triangulation(root, bisections))
+    for name in ("V2E", "E2C2V", "E2ECV"):
+        assert np.array_equal(derived[name].numpy(), t[name]), name
+
+
+@pytest.mark.parametrize("root, bisections", GRIDS + [(2, 3), (3, 2), (4, 1)])
+def test_reference_triangulation_equals_icosahedral_mesh(root, bisections):
+    """The reference's own triangulation (exact lattice points of the
+    icosahedron's surface, numbered by first appearance) is
+    ``icosahedral_mesh``'s ``C2V``, cell for cell and corner for corner."""
+    c2v = ICO_REFERENCE.triangulation(root, bisections)
+    assert np.array_equal(c2v.numpy(), icosahedral_mesh(root, bisections)["C2V"])
+
+
+def test_ico_plain_path_equals_the_reference_to_the_bit():
+    """R02B01 at 3 levels: the lowering's plain path (``cuda:hopper`` on CPU
+    tensors) equals the reference to the bit; five calls served, the two
+    of the interpolation masking V2E's skip values, none declined."""
+    cfg = ico_config()
+    before = dict(uc.declined)
+    uc.calls_served.clear()
+    got, vn0 = ico_step_on("cuda:hopper", cfg)
+    want = ICO_REFERENCE.step({"vn": vn0}, cfg)
+    for role in ICO.WRITTEN:
+        assert torch.equal(got[role], want[role]), role
+    assert dict(uc.calls_served) == {"neighbor": 5, "masked": 2}
+    assert dict(uc.declined) == before
+
+
+def test_ico_torch_backend_within_1e12_of_the_reference():
+    cfg = ico_config()
+    got, vn0 = ico_step_on("torch", cfg)
+    want = ICO_REFERENCE.step({"vn": vn0}, cfg)
+    for role in ICO.WRITTEN:
+        assert rel_err(got[role], want[role]) <= 1e-12, role
+
+
+def test_ico_a_skip_slot_summed_reads_far_from_the_reference():
+    """The planted fault: the pentagons' sixth slot summed (the skip value
+    replaced by an edge of the vertex's row) moves u_vert and v_vert at the
+    pentagons by far more than the benchmark's limit."""
+    cfg = ico_config()
+    fields = fields_of(cfg)
+    vn0 = fields["vn"].clone()
+    kwargs, provider = ICO.operands(cfg, fields)
+    table = provider["V2E"].table.clone()
+    rows = torch.nonzero(table[:, 5] == -1).squeeze(1)
+    table[rows, 5] = table[rows, 0]
+    provider["V2E"] = gtx.as_connectivity([ICO.Vertex, ICO.V2EDim], ICO.Edge, table,
+                                          device="cpu")
+    ICO.make_program("cuda:hopper")(**kwargs, offset_provider=provider)
+    want = ICO_REFERENCE.step({"vn": vn0}, cfg)
+    assert rel_err(fields["u_vert"], want["u_vert"]) > 1e-3
+
+
+def test_ico_jax_numpy_backend_within_1e12_of_the_port(tmp_path):
+    """The same five calls on the JAX package's ``numpy`` field view, on the
+    same skip-valued tables (V2E with skip_value -1), against the port's
+    ``cuda:hopper``."""
+    import gt4py_tpu.next as jgtx
+
+    twin = _jax_twin(tmp_path)
+    cfg = ico_config()
+    fields = fields_of(cfg)
+    vn0 = fields["vn"].clone()
+    kwargs, provider = ICO.operands(cfg, fields)
+    dims = {d.value: getattr(twin, n) for n, d in (
+        ("Edge", Edge), ("Vertex", Vertex), ("ECV", PROGRAM.ECV), ("K", K), ("V2EDim", V2EDim),
+        ("E2C2VDim", E2C2VDim))}
+
+    def twin_field(value):
+        if isinstance(value, float):
+            return value
+        return jgtx.as_field([dims[d.value] for d in value.dims], value.ndarray.numpy().copy())
+
+    j = {name: twin_field(value) for name, value in kwargs.items()}
+    j["vn"] = jgtx.as_field([twin.Edge, twin.K], vn0.numpy().copy())
+    jprov = {name: jgtx.as_connectivity([dims[d.value] for d in c.domain_dims],
+                                        dims[c.codomain.value], c.table.numpy(),
+                                        skip_value=c.skip_value)
+             for name, c in provider.items()}
+    assert jprov["V2E"].skip_value == -1 and jprov["E2C2V"].skip_value is None
+    ops = [o.with_backend("numpy") for o in twin.OPERATORS]
+    second_rbf = (("z_nabla2_e",) + ICO.CALLS[0][0][1:], ICO.CALLS[0][1])
+    for op, (names, outs) in zip([ops[0], ops[1], ops[0], ops[2], ops[3]],
+                                 [ICO.CALLS[0], ICO.CALLS[1], second_rbf, *ICO.CALLS[2:]]):
+        out = tuple(j[n] for n in outs)
+        op(*(j[n] for n in names), out=out if len(out) > 1 else out[0], offset_provider=jprov)
+    ICO.make_program("cuda:hopper")(**kwargs, offset_provider=provider)
+    for role in ICO.WRITTEN:
+        theirs = torch.from_numpy(np.array(j[role].asnumpy()))
+        assert rel_err(fields[role], theirs) <= 1e-12, role
+
+
+def test_ico_rbf_source_masks_the_skip_slots():
+    """The interpolation's kernel on the skip-valued V2E: each of the six
+    slots' validity tested once an element, before the level trips, the
+    index of an absent slot read as 0, its term a select of 0; the edge
+    operators' kernels, on E2C2V and E2ECV, mask nothing."""
+    programs = ICO.lowered(ico_config())
+    rbf = programs[0]
+    assert rbf.masks and not any(p.masks for p in programs[1:])
+    assert rbf.source.count("!= -1LL;") == 6
+    assert rbf.source.count("!= -1LL ? (int)") == 6
+    trips = -(-rbf.nk // rbf.lanes)
+    assert len(re.findall(r"= t\d+ \? t\d+_\d : \(double\)0;", rbf.source)) == 2 * 6 * trips
+    assert all("-1LL" not in p.source for p in programs[1:])
+
+
+@pytest.mark.skipif(not host.available(), reason="needs a host C++ compiler")
+@pytest.mark.parametrize("nk", [3, 80])
+def test_ico_kernels_on_the_host_equal_the_plain_path(nk):
+    """The interpolation's masked kernel run on the host
+    (``neighbor_host_emulation``) on R02B01 equals its plain version, and
+    its 32-lane twin, to the bit; the update too."""
+    import dataclasses
+
+    cfg = ico_config(2, 1, nk)
+    fields = fields_of(cfg)
+    kwargs, provider = ICO.operands(cfg, fields)
+    for index in (0, 3):
+        op, (names, out_names) = ICO.OPERATORS[index], ICO.CALLS[index]
+        args = tuple(kwargs[n] for n in names)
+        outs = [kwargs[n] for n in out_names]
+        program = uc.lower(op, args, {}, tuple(outs) if len(outs) > 1 else outs[0], provider)
+        values, scalars = uc._call_values(program, uc.bind(op.definition, args, {}))
+        twin = dataclasses.replace(program, lanes=32)
+        twin.source, twin.kernel = uc.generate(twin)
+        start = [o.ndarray.clone() for o in outs]
+        program.run_plain(values, outs, scalars, provider)
+        got = [[o.ndarray.clone() for o in outs]]
+        for p in (program, twin):
+            for o, s in zip(outs, start):
+                o.ndarray.copy_(s)
+            assert host.launch(p, values, outs, scalars, provider) == 0
+            got.append([o.ndarray.clone() for o in outs])
+        for other in got[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(got[0], other)), program.name
+
+
+def test_ico_build_lowers_on_r01b01_and_raises_without_the_grid(monkeypatch):
+    """``build`` lowers the four operators on R01B01 (12 pentagons among 42
+    vertices); a port without ``icosahedral_mesh`` fails it at once."""
+    from gt4py_tpu_torch.next import mesh_utils
+
+    full = spec.load_json(os.path.join(REPO, "perfbench", "configs",
+                                       "icon_diffusion_vn_r3b6_l80_f64.json"))
+    assert ICO.build(full) is not None
+    assert [p.nh for p in ICO.lowered(full)] == [42, 120, 120, 120]
+    monkeypatch.delattr(mesh_utils, "icosahedral_mesh")
+    with pytest.raises(RuntimeError, match="icosahedral"):
+        ICO.build(full)
+
+
+def test_ico_masked_calls_counted_on_a_card_stand_in(monkeypatch):
+    """Three steps on the stand-in for the card (a key's first call
+    launches, the second captures, the third replays): every step two
+    calls served masked; the program's root span holds ``masked`` 2 and
+    ``launches`` 5 for each call under a profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gt4py_tpu_torch.instrumentation import clear_spans, spans
+
+    install_fake_card(monkeypatch)
+    cfg = ico_config()
+    fields = fields_of(cfg)
+    kwargs, provider = ICO.operands(cfg, fields)
+    program = ICO.make_program("cuda:hopper")
+    vn = fields["vn"].clone()
+    uc.calls_served.clear()
+    clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(3):
+            want = ICO_REFERENCE.step({"vn": vn}, cfg)
+            program(**kwargs, offset_provider=provider)
+            for role in ICO.WRITTEN:
+                assert torch.equal(fields[role], want[role]), role
+            vn = want["vn"]
+    assert dict(uc.calls_served) == {"neighbor": 15, "masked": 6}
+    roots = [r for r in spans() if r.name == "gt4py.next.program"]
+    assert [(r.attrs["masked"], r.attrs["launches"]) for r in roots] == [(2, 5)] * 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid, cells", [((2, 4, 80), 20_480), ((3, 6, 80), 737_280)])
+def test_ico_step_equals_the_reference_to_the_bit_on_card(grid, cells):
+    """R02B04 (20,480 cells) and the benchmark's R03B06 (chip_smoke.py's
+    step 7f) at 80 levels on the card through ``make_program("cuda:hopper")``:
+    exactly five ``neighbor`` launches, two calls served masked, nothing
+    declined, every written field equal to the reference to the bit."""
+    _need_card()
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    out = chip_smoke.run_icon_ico(*grid, torch)
+    assert out["launches"] == {cuda_backend.NEIGHBOR.name: 5} and out["masked"] == 2
+    assert out["declines"] == out["refused"] == 0 and out["cells"] == cells
+    assert all(e == 0.0 for e in out["rel_err"].values())

@@ -245,9 +245,10 @@ def _icon_step(monkeypatch):
 
 def test_program_call_on_card_tensors_is_the_root_span(monkeypatch):
     """A program's call on card tensors is one root span
-    ``gt4py.next.program`` with the operator calls it made and the kernels
-    they launched or replayed; each operator's ``gt4py.next.call`` span,
-    with its launch or replay, nests under it."""
+    ``gt4py.next.program`` with the operator calls it made, the kernels
+    they launched or replayed and the calls served masking skip values
+    (none on the torus); each operator's ``gt4py.next.call`` span, with its
+    launch or replay, nests under it."""
     program, kwargs, provider = _icon_step(monkeypatch)
     step = program.make_program("cuda:hopper")
     clear_spans()
@@ -257,7 +258,7 @@ def test_program_call_on_card_tensors_is_the_root_span(monkeypatch):
     records = spans()
     roots = [r for r in records if r.parent is None]
     assert [r.name for r in roots] == ["gt4py.next.program"] * 3
-    assert all(r.attrs == {"operators": 5, "launches": 5} for r in roots)
+    assert all(r.attrs == {"operators": 5, "launches": 5, "masked": 0} for r in roots)
     for root in roots:
         mine = [r for r in records if r.root == root.id and r.id != root.id]
         calls = [r for r in mine if r.name == "gt4py.next.call"]

@@ -263,6 +263,39 @@ def test_import_leaves_jax_unloaded():
     assert out.stdout.strip() == ""
 
 
+#: the port's modules that hold or build a kernel: the plain references of
+#: perfbench/reference/ name none of them
+KERNEL_MODULES = ("cuda_backend", "cuda_codegen", "calibration", "unstructured_codegen",
+                  "cartesian_bridge", "c_backend", "c_codegen", "native", "otf")
+
+
+@pytest.mark.parametrize("name", ["icon_diffusion_vn_ico"])
+def test_plain_reference_imports_no_kernel_and_no_jax(name):
+    """The icosahedral grid's plain reference imports torch and the
+    benchmark's own loader (for the torus reference it builds on) alone: it
+    builds the grid itself, so no JAX, no gt4py_tpu and nothing of the
+    port, no kernel module least of all. Loading it and deriving its tables
+    leaves JAX and gt4py_tpu unloaded."""
+    path = os.path.join(REPO_ROOT, "perfbench", "reference", name + ".py")
+    imported = set(_imports_of(path))
+    assert not [m for m in imported if _top(m) in FORBIDDEN]
+    assert not [m for m in imported if _top(m) == "gt4py_tpu_torch"]
+    assert not [m for m in imported if m.split(".")[-1] in KERNEL_MODULES]
+    assert {_top(m) for m in imported} <= {"os", "torch", "perfbench"}
+    code = (
+        "import sys\n"
+        "from perfbench import spec\n"
+        f"ref = spec.load_module({REPO_ROOT!r}, 'reference', {name!r})\n"
+        "ref.tables({'mesh_root': 1, 'mesh_bisections': 1}, 'cpu')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'ml_dtypes', 'gt4py_tpu')]\n"
+        "print(','.join(sorted(bad)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == ""
+
+
 def test_layer_contract():
     violations = []
     for path in _modules():
